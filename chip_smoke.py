@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke run of diffwdf_tpu_torch's main path: batched diode-clipper serving.
+"""GPU smoke run of diffwdf_tpu_torch's main paths: batched diode-clipper
+serving, and in-circuit training of the clipper (engine="fused").
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -9,17 +10,38 @@ It builds the CUDA kernels from ``diffwdf_tpu_torch/ops/csrc`` and prints
 one line per phase:
 
   toolchain  the card (name, power limit), torch, CUDA and nvcc versions
-  build      nvcc compile of the kernel library, timed as set-up
-  kernels    each kernel against its plain PyTorch version on the card at
-             the served shape (8192 streams x 2048 samples), beside its budget
-  serve      the slice as a user drives it: zoo roots 4 (neural 2x16,
+  build      nvcc compile of the kernel library, timed as set-up, and the
+             registers and spills ptxas reports per kernel
+  kernels    each serving kernel against its plain PyTorch version on the
+             card at the served shape (8192 streams x 2048 samples), beside
+             its budget
+  serve      serving as a user drives it: zoo roots 4 (neural 2x16,
              pretrained) and 0 (analytic, quality "best") in the LPF clipper
              answer four consecutive (8192, 2048) request blocks with the
              capacitor state carried between them; the launch counters must
              rise, the output must be finite and equal one (8192, 8192) run
-  reference  kernels against the circuit's sequential Circuit.process on a
-             small input
-  timing     CUDA-event medians of kernel and plain version at (8192, 2048)
+  reference  serving kernels against the circuit's sequential
+             Circuit.process on a small input
+  timing     CUDA-event medians of serving kernel and plain version at
+             (8192, 2048)
+  kernels    the training forward and adjoint kernels against their plain
+             versions at the training shape (1337 chunks x 2048 samples),
+             pretrained 2x16, the train split's four source resistances
+  grad       the fused training op's loss and gradients against the scan
+             engine (autograd through Circuit.process) at (1024, 256): a
+             seeded random-init 2x16 at the JAX suite's budgets, and the
+             pretrained 2x16 per leaf against an f64 run of the scan engine
+  train      training as a user drives it (the train-clipper sequence):
+             synthesize the 18-second, five-resistance measurement set of
+             the 1U-2D diode pair at 48 kHz, load and chunk it, warm-start
+             the pretrained 1U-1D 2x16 root
+             and train only the root with train_clipper(engine="fused") for
+             a few epochs with validation; the loss must fall, the launch
+             counters must rise, and the trained root, saved and reloaded as
+             JSON, must serve a (8192, 2048) block through the serving kernel
+  timing     CUDA-event medians of the training kernels and their plain
+             versions, the parts of one fused training step (forward kernel,
+             loss, adjoint kernel, parameter VJP, Adam) and the whole step
 
 then a JSON line with every kernel's launches, error and times, the card's
 name and power limit, and finally ``{"ok": true, "device": {...}}``.  Any
@@ -31,17 +53,37 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
+import tempfile
 import time
+from pathlib import Path
 
 import torch
 
-from diffwdf_tpu_torch.models.diode_clipper import make_diode_clipper, make_root_from_zoo
+from diffwdf_tpu_torch.data.dataimport import load_diode_data
+from diffwdf_tpu_torch.data.synthetic import make_synthetic_dataset_dir
+from diffwdf_tpu_torch.models.diode_clipper import (
+    make_diode_clipper,
+    make_root_from_zoo,
+    make_training_clipper,
+    pretrained_model_path,
+)
+from diffwdf_tpu_torch.nn.serialization import load_model_json, save_model_json
 from diffwdf_tpu_torch.ops import _build
+from diffwdf_tpu_torch.ops import clipper_train as ct
 from diffwdf_tpu_torch.ops import fused_clipper as fc
 from diffwdf_tpu_torch.roots.diode import diode_1n4148_1u1d, diode_1n4148_1u2d
 from diffwdf_tpu_torch.roots.neural import NeuralDiodeRoot
+from diffwdf_tpu_torch.training.circuit_train import (
+    CircuitTrainConfig,
+    make_clipper_batches,
+    make_train_step,
+    train_clipper,
+)
+from diffwdf_tpu_torch.training.losses import esr, mse
+from diffwdf_tpu_torch.training.metrics import MetricsLogger
 
 FS = 96000.0
 B, T, BLOCKS = 8192, 2048, 4
@@ -51,6 +93,25 @@ SOURCE = "diffwdf_tpu_torch/ops/csrc/fused_clipper.cu"
 REPLACES = {
     "analytic": "diffwdf_tpu/ops/fused_clipper.py:168",
     "neural": "diffwdf_tpu/ops/fused_clipper.py:336",
+}
+
+# in-circuit training: the reference's measured-data workload (clipper_pot.py)
+# at the size of the train-clipper command's synthetic data set.  The
+# measurements are of the 1U-2D diode pair and the warm start is the 1U-1D
+# pretrained root: on its own 1U-1D data that root is already at Adam's noise
+# floor for lr 1e-4 (the loss rises after the first step), while adapting it
+# to the 1U-2D pair is a task whose loss falls from the first epoch.
+TRAIN_FS, TRAIN_CAP, TRAIN_SECONDS = 48000.0, 4.7e-9, 18.0
+TRAIN_DIODE = diode_1n4148_1u2d
+R_KOHMS = (10.0, 25.0, 45.2, 75.0, 99.0)  # 45.2k is the validation split
+CHUNK = 2048
+TRAIN_CHUNKS, VAL_CHUNKS = 1337, 335  # 4 (1) files x 686,400 samples, mixed-R chunks dropped
+EPOCHS = 10
+GRAD_B, GRAD_T = 1024, 256
+TRAIN_SOURCE = "diffwdf_tpu_torch/ops/csrc/clipper_train.cu"
+TRAIN_REPLACES = {
+    "train_fwd": "diffwdf_tpu/ops/fused_clipper.py:496",
+    "adjoint": "diffwdf_tpu/ops/clipper_train.py:84",
 }
 
 
@@ -117,37 +178,26 @@ def _cuda_ms(fn, runs: int, calls: int = 1) -> list:
     return times
 
 
-def main() -> None:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--seed", type=int, default=0, help="seed of the input signal")
-    args = parser.parse_args()
+def _timed(fn, runs: int = REPS):
+    """Median and spread of CUDA-event times of fn, one call per run, after
+    one warm-up call."""
+    _cuda_ms(fn, 1)
+    ms = _cuda_ms(fn, runs)
+    return statistics.median(ms), min(ms), max(ms)
 
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run needs a GPU")
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
-    torch.backends.cudnn.allow_tf32 = False
-    card = _card()
-    kind = torch.cuda.get_device_name(0)
 
-    # --- toolchain ---------------------------------------------------------
-    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[-1]
-    print(f"phase toolchain card={card!r} torch={torch.__version__} "
-          f"cuda={torch.version.cuda} nvcc={nvcc!r}", flush=True)
-
-    # --- build (set-up) ----------------------------------------------------
-    t0 = time.perf_counter()
-    _build.library()
-    build_s = time.perf_counter() - t0
+def _ptxas_lines() -> list:
+    """The compiler's per-kernel lines (entry function, registers, spills)."""
     log = _build.library_path().with_suffix(".log")
-    ptxas = [l.strip() for l in log.read_text().splitlines()
-             if "registers" in l or "spill" in l] if log.exists() else []
-    print(f"phase build seconds={build_s:.2f} lib={_build.library_path().name}", flush=True)
-    for line in ptxas:
-        print(f"  ptxas {line}", flush=True)
+    keep = ("Compiling entry function", "registers", "spill")
+    return [l.strip() for l in log.read_text().splitlines()
+            if any(k in l for k in keep)] if log.exists() else []
 
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+def serve_path(dev, card: str, seed: int) -> list:
+    """Batched serving: kernels, serve, reference and timing phases.
+    Returns the two serving kernels' records for the JSON line."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     signal = 2.0 * torch.randn(B, BLOCKS * T, generator=gen, device=dev)
     blocks = [signal[:, i * T:(i + 1) * T].contiguous() for i in range(BLOCKS)]
     z0 = torch.zeros(B, device=dev)
@@ -244,11 +294,285 @@ def main() -> None:
               f"plain_ms={pm:.4f} [{min(p_ms):.4f}, {max(p_ms):.4f}] "
               f"({B * T / pm / 1e3:.1f} Msamples/s) card={card!r}", flush=True)
 
-    print(json.dumps({"kernels": [
-        {"name": f"fused_clipper_{name}", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": max_err[name], "ms": times[name][0], "plain_ms": times[name][1]}
-        for name in ("neural", "analytic")]}), flush=True)
+    return [{"name": f"fused_clipper_{name}", "route": "cuda", "source": SOURCE,
+             "replaces": REPLACES[name], "launches": launches[name],
+             "max_abs_err": max_err[name], "ms": times[name][0], "plain_ms": times[name][1]}
+            for name in ("neural", "analytic")]
+
+
+def _pretrained_2x16(dev):
+    mlp, acts, _ = load_model_json(Path(__file__).resolve().parent
+                                   / pretrained_model_path(2, 16), device=dev)
+    return NeuralDiodeRoot.from_mlp("dp", mlp, acts)
+
+
+def _scaled_err(x: torch.Tensor, y: torch.Tensor) -> float:
+    return _max_err(x, y) / max(float(y.abs().max()), 1e-8)
+
+
+def train_path(dev, card: str, seed: int) -> list:
+    """In-circuit training: kernels, grad, train and timing phases.
+    Returns the two training kernels' records for the JSON line."""
+    root, frag = _pretrained_2x16(dev)
+    mlp = frag["dp"]
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = 2.0 * torch.randn(TRAIN_CHUNKS, CHUNK, generator=gen, device=dev)
+    z0 = torch.zeros(TRAIN_CHUNKS, device=dev)
+    r_train = torch.tensor([rk * 1e3 for rk in R_KOHMS if rk != 45.2], device=dev)
+    r_rows = r_train[torch.arange(TRAIN_CHUNKS, device=dev) * len(r_train) // TRAIN_CHUNKS]
+    shape = f"({TRAIN_CHUNKS}, {CHUNK})"
+    fwd_args = (x, z0, mlp, r_rows, TRAIN_CAP)
+
+    # --- kernels vs plain at the training shape -------------------------------
+    got = fc.fused_clipper_neural_train_fwd(*fwd_args, fs=TRAIN_FS)
+    want = fc.fused_clipper_neural_train_fwd_plain(*fwd_args, fs=TRAIN_FS)
+    torch.cuda.synchronize()
+    errs = [_max_err(g, w) for g, w in zip(got, want)]
+    max_err = {"train_fwd": max(errs)}
+    print(f"phase kernels train_fwd 2x16 pretrained shape={shape} "
+          f"max_abs_err out={errs[0]:.3e} z_final={errs[1]:.3e} a_seq={errs[2]:.3e} "
+          f"budget=2e-05", flush=True)
+    _check(all(bool(torch.isfinite(g).all()) for g in got) and max(errs) <= 2e-5,
+           "training forward kernel within 2e-5 of its plain version")
+    a_seq = want[2]
+    g_out = torch.randn(TRAIN_CHUNKS, CHUNK, generator=gen, device=dev) / (TRAIN_CHUNKS * CHUNK)
+    g_zf = torch.randn(TRAIN_CHUNKS, generator=gen, device=dev) / TRAIN_CHUNKS
+    adj_args = (a_seq, g_out, g_zf, r_rows, mlp, TRAIN_CAP)
+    got = ct.clipper_adjoint(*adj_args, fs=TRAIN_FS)
+    want = ct.clipper_adjoint_plain(*adj_args, fs=TRAIN_FS)
+    torch.cuda.synchronize()
+    scaled = [_scaled_err(g, w) for g, w in zip(got, want)]
+    max_err["adjoint"] = max(_max_err(g, w) for g, w in zip(got, want))
+    print(f"phase kernels adjoint 2x16 pretrained shape={shape} max_abs_err="
+          f"{max_err['adjoint']:.3e} scaled g_vin={scaled[0]:.3e} G={scaled[1]:.3e} "
+          f"g_z0={scaled[2]:.3e} budget=2e-05 (after dividing by scale)", flush=True)
+    _check(all(bool(torch.isfinite(g).all()) for g in got) and max(scaled) <= 2e-5,
+           "adjoint kernel within 2e-5 (scaled) of its plain version")
+
+    # --- grad: the fused op against the scan engine ---------------------------
+    ckt = make_training_clipper(root, TRAIN_FS, cap=TRAIN_CAP)
+    fused = ct.make_fused_clipper_train(root.activations, TRAIN_CAP, TRAIN_FS)
+    xg = x[:GRAD_B, :GRAD_T]
+    rg = r_train[torch.arange(GRAD_B, device=dev) * len(r_train) // GRAD_B]
+    zg = 0.1 * torch.randn(GRAD_B, generator=gen, device=dev)
+    yg = torch.tanh(0.5 * xg)
+
+    def scan(v, z, m):
+        p = {k: {f: t.to(v.dtype) for f, t in d.items()}
+             for k, d in ckt.init_params(dev).items() if k != "dp"}
+        out, st = ckt.process({**p, "dp": m}, {"C": {"z": z}}, {"Vs": {"v": v.T}},
+                              static_controls={"Vs": {"R": rg.to(v.dtype)}})
+        return out.T, st["C"]["z"]
+
+    def loss_and_grads(run, m, dtype=torch.float32):
+        leaves = [t.detach().clone().to(dtype).requires_grad_(True) for t in ct.mlp_leaves(m)]
+        v = xg.clone().to(dtype).requires_grad_(True)
+        z = zg.clone().to(dtype).requires_grad_(True)
+        out, zf = run(v, z, ct.mlp_tree(leaves))
+        o, t = out[:, 50:], yg.to(dtype)[:, 50:]
+        loss = mse(t, o) + esr(t, o) + 0.1 * torch.mean(zf ** 2)
+        loss.backward()
+        return loss.item(), [v.grad, z.grad] + [t.grad for t in leaves]
+
+    def leaf_errs(got, want):
+        return [_scaled_err(a.double(), b.double()) for a, b in zip(got, want)]
+
+    # the JAX suite's configuration (tests/test_clipper_train.py): a seeded
+    # random-init 2x16, held at its budgets
+    random_mlp = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=16).init_params(
+        dev, torch.Generator().manual_seed(seed + 3))["dp"]
+    lf, gf = loss_and_grads(lambda v, z, m: fused(v, z, m, rg), random_mlp)
+    ls, gs = loss_and_grads(scan, random_mlp)
+    loss_rel = abs(lf - ls) / abs(ls)
+    grad_err = max(leaf_errs(gf, gs))
+    print(f"phase grad random 2x16 fused vs scan engine shape=({GRAD_B}, {GRAD_T}) "
+          f"loss={lf:.8g} scan_loss={ls:.8g} loss_rel={loss_rel:.3e} budget=1e-05 "
+          f"grad_max_scaled_err={grad_err:.3e} budget=2e-05 leaves={len(gf)}", flush=True)
+    _check(loss_rel <= 1e-5 and grad_err <= 2e-5, "fused gradients within budget of scan")
+    # the pretrained 2x16, against an f64 run of the scan engine: per leaf
+    # (vin, z0, then kernel and bias of each layer), scaled by the leaf's
+    # largest |gradient|.  Here the f32 rounding of the dense layers and of
+    # tanh, amplified by the head bias's cancelling sum over every (b, t),
+    # puts even the f32 scan engine up to ~2e-4 of scale from f64, so each
+    # leaf of the fused op is held to twice the scan engine's distance
+    lf, gf = loss_and_grads(lambda v, z, m: fused(v, z, m, rg), mlp)
+    ls, gs = loss_and_grads(scan, mlp)
+    l64, g64 = loss_and_grads(scan, mlp, torch.float64)
+    fused_64, scan_64 = leaf_errs(gf, g64), leaf_errs(gs, g64)
+    print(f"phase grad pretrained 2x16 vs f64 scan shape=({GRAD_B}, {GRAD_T}) "
+          f"loss_rel fused={abs(lf - l64) / abs(l64):.3e} scan={abs(ls - l64) / abs(l64):.3e} "
+          f"fused_vs_f64={[float(f'{e:.2e}') for e in fused_64]} "
+          f"scan_vs_f64={[float(f'{e:.2e}') for e in scan_64]} "
+          f"fused_vs_scan={max(leaf_errs(gf, gs)):.3e} "
+          f"budget: fused_vs_f64 <= 2 x scan_vs_f64, leaf by leaf", flush=True)
+    _check(all(f <= 2 * s for f, s in zip(fused_64, scan_64)),
+           "fused gradients of the pretrained net, leaf by leaf, as close to f64 as the "
+           "f32 scan engine's")
+
+    # --- train: the slice as a user drives it ---------------------------------
+    with tempfile.TemporaryDirectory(prefix="diffwdf_smoke_") as tmp:
+        t0 = time.perf_counter()
+        make_synthetic_dataset_dir(tmp, TRAIN_DIODE, R_KOHMS, cap=TRAIN_CAP, fs=TRAIN_FS,
+                                   duration_s=TRAIN_SECONDS, device=dev)
+        synth_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train, val, fs = load_diode_data(TRAIN_DIODE, tmp)
+        tb = make_clipper_batches(train, CHUNK, drop_mixed_r=True, device=dev)
+        vb = make_clipper_batches(val, CHUNK, drop_mixed_r=True, device=dev)
+        load_s = time.perf_counter() - t0
+        n_train, n_val = tb["x"].shape[0], vb["x"].shape[0]
+        print(f"phase train setup diode={TRAIN_DIODE.name!r} synth_seconds={synth_s:.2f} "
+              f"load_seconds={load_s:.2f} fs={fs} train_samples={len(train['x'])} val_samples={len(val['x'])} "
+              f"train_chunks={n_train} val_chunks={n_val} (expect {TRAIN_CHUNKS}, "
+              f"{VAL_CHUNKS})", flush=True)
+        _check((n_train, n_val) == (TRAIN_CHUNKS, VAL_CHUNKS) and fs == TRAIN_FS
+               and "r0" in tb and "r0" in vb, "full-size data set, every chunk hoisted")
+
+        circuit = make_training_clipper(root, fs, cap=TRAIN_CAP)
+        params = {**circuit.init_params(dev), **frag}
+        cfg = CircuitTrainConfig(epochs=EPOCHS, batch_size=CHUNK, engine="fused", log_every=1)
+        logger = MetricsLogger(os.path.join(tmp, "train_clipper.jsonl"))
+
+        epoch_ends = []
+
+        def on_epoch(epoch, p, hist):
+            epoch_ends.append(time.perf_counter())
+            logger.log(epoch, samples=n_train * CHUNK, **{k: v[-1] for k, v in hist.items() if v})
+
+        counters = (fc.fused_clipper_neural_train_fwd, ct.clipper_adjoint,
+                    fc.fused_clipper_neural, fc.fused_clipper_analytic)
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        trained, hist = train_clipper(circuit, params, tb, vb, cfg,
+                                      trainable_filter=lambda p: p["dp"], on_epoch=on_epoch)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = {"train_fwd": counters[0].launches, "adjoint": counters[1].launches}
+        logger.close()
+        epoch_ms = [(b - a) * 1e3 for a, b in zip([t0] + epoch_ends, epoch_ends)]
+        losses = hist["loss"] + hist["val_loss"]
+        print(f"phase train engine=fused epochs={EPOCHS} chunks={n_train}x{CHUNK} "
+              f"seconds={train_s:.3f} epoch_wall_ms={[round(v, 1) for v in epoch_ms]} "
+              f"loss={[round(v, 8) for v in hist['loss']]} "
+              f"val_loss={[round(v, 8) for v in hist['val_loss']]} "
+              f"launches train_fwd={launches['train_fwd']} adjoint={launches['adjoint']} "
+              f"serve_kernels={counters[2].launches + counters[3].launches}", flush=True)
+        _check(bool(torch.isfinite(torch.tensor(losses)).all()), "every loss finite")
+        _check(hist["loss"][-1] < hist["loss"][0], "train loss falls")
+        _check(launches["train_fwd"] >= 2 * EPOCHS and launches["adjoint"] == EPOCHS,
+               "training kernels launched on the main path (train + validation)")
+
+        # the trained root back to serving: JSON out and in, then kernel B1
+        path = os.path.join(tmp, "circuit_trained.json")
+        save_model_json(trained["dp"], root.activations, path)
+        served_mlp, acts, _ = load_model_json(path, device=dev)
+        _check(acts == root.activations and all(torch.equal(a, b) for a, b in zip(
+            ct.mlp_leaves(served_mlp), ct.mlp_leaves(trained["dp"]))),
+            "trained root survives its JSON round trip")
+        vin = 2.0 * torch.randn(B, T, generator=gen, device=dev)
+        out, zf = fc.fused_clipper_neural(vin, torch.zeros(B, device=dev), served_mlp,
+                                          float(params["Vs"]["R"]), TRAIN_CAP, fs=TRAIN_FS)
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(out).all() and torch.isfinite(zf).all())
+        print(f"phase train serve_trained shape={tuple(out.shape)} finite={finite}", flush=True)
+        _check(finite and tuple(out.shape) == (B, T), "trained root serves a finite block")
+
+    # --- timing ----------------------------------------------------------------
+    samples = TRAIN_CHUNKS * CHUNK
+    times = {}
+    for name, kernel, plain in (
+        ("train_fwd", lambda: fc.fused_clipper_neural_train_fwd(*fwd_args, fs=TRAIN_FS),
+         lambda: fc.fused_clipper_neural_train_fwd_plain(*fwd_args, fs=TRAIN_FS)),
+        ("adjoint", lambda: ct.clipper_adjoint(*adj_args, fs=TRAIN_FS),
+         lambda: ct.clipper_adjoint_plain(*adj_args, fs=TRAIN_FS)),
+    ):
+        k, p = _timed(kernel), _timed(plain)
+        times[name] = (k[0], p[0])
+        print(f"phase timing {name} shape={shape} runs={REPS} kernel_ms={k[0]:.4f} "
+              f"[{k[1]:.4f}, {k[2]:.4f}] ({samples / k[0] / 1e3:.1f} Msamples/s) "
+              f"plain_ms={p[0]:.4f} [{p[1]:.4f}, {p[2]:.4f}] card={card!r}", flush=True)
+
+    # one fused training step of the trained params, part by part, on the
+    # real batches
+    cfg = CircuitTrainConfig(batch_size=CHUNK, engine="fused")
+    make_optimizer, train_step, _ = make_train_step(circuit, cfg, lambda p: p["dp"])
+    opt = make_optimizer(trained)
+    leaves, acts = ct.mlp_leaves(trained["dp"]), root.activations
+    xs, r0, ys = tb["x"], tb["r0"], tb["y"]
+    zs = torch.zeros(xs.shape[0], device=dev)
+    state = {}
+
+    def part_forward():
+        state["fwd"] = fc.fused_clipper_neural_train_fwd(xs, zs, trained["dp"], r0, TRAIN_CAP,
+                                                         fs=TRAIN_FS)
+
+    def part_loss():
+        o = state["fwd"][0].detach().requires_grad_(True)
+        t, oo = ys[:, cfg.skip_samples:], o[:, cfg.skip_samples:]
+        state["g_out"], = torch.autograd.grad(mse(t, oo) + esr(t, oo), o)
+
+    def part_adjoint():
+        state["adj"] = ct.clipper_adjoint(state["fwd"][2], state["g_out"], zs, r0, trained["dp"],
+                                          TRAIN_CAP, fs=TRAIN_FS)
+
+    def part_vjp():
+        _, log_r = fc.row_constants(r0, TRAIN_CAP, TRAIN_FS)
+        state["grads"] = ct.mlp_param_vjp(trained["dp"], acts, state["fwd"][2], log_r,
+                                          state["adj"][1])
+
+    def part_adam():
+        for t, g in zip(leaves, state["grads"]):
+            t.grad = g
+        opt.step()
+
+    parts = {}
+    for name, fn in (("forward_kernel", part_forward), ("loss", part_loss),
+                     ("adjoint_kernel", part_adjoint), ("param_vjp", part_vjp),
+                     ("adam", part_adam)):
+        parts[name] = _timed(fn)[0]
+    step = _timed(lambda: train_step(trained, opt, tb))
+    print(f"phase timing train_step shape={shape} runs={REPS} step_ms={step[0]:.4f} "
+          f"[{step[1]:.4f}, {step[2]:.4f}] ({samples / step[0] / 1e3:.3f} Msamples/s) "
+          + " ".join(f"{k}_ms={v:.4f}" for k, v in parts.items())
+          + f" parts_sum_ms={sum(parts.values()):.4f} card={card!r}", flush=True)
+
+    wrappers = {"train_fwd": "fused_clipper_neural_train_fwd", "adjoint": "clipper_adjoint"}
+    return [{"name": wrappers[name], "route": "cuda", "source": TRAIN_SOURCE,
+             "replaces": TRAIN_REPLACES[name], "launches": launches[name],
+             "max_abs_err": max_err[name], "ms": times[name][0], "plain_ms": times[name][1]}
+            for name in ("train_fwd", "adjoint")]
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seed", type=int, default=0, help="seed of the input signals")
+    args = parser.parse_args()
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run needs a GPU")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    card = _card()
+    kind = torch.cuda.get_device_name(0)
+
+    # --- toolchain ---------------------------------------------------------
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[-1]
+    print(f"phase toolchain card={card!r} torch={torch.__version__} "
+          f"cuda={torch.version.cuda} nvcc={nvcc!r}", flush=True)
+
+    # --- build (set-up) ----------------------------------------------------
+    t0 = time.perf_counter()
+    _build.library()
+    build_s = time.perf_counter() - t0
+    print(f"phase build seconds={build_s:.2f} lib={_build.library_path().name}", flush=True)
+    for line in _ptxas_lines():
+        print(f"  ptxas {line}", flush=True)
+
+    kernels = serve_path(dev, card, args.seed) + train_path(dev, card, args.seed)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,11 +1,13 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
 At first use, ``library()`` compiles every ``.cu`` file under ``csrc/`` with
-``nvcc`` into one shared library with a plain C interface and loads it with
+``nvcc`` (one compiler process per source, all started together), links the
+objects into one shared library with a plain C interface and loads it with
 ``ctypes``.  The library lands in ``diffwdf_tpu_torch/_build/`` (listed in
-``.gitignore``) under a name keyed by a hash of the sources and flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.  Nothing
-is compiled when the module is imported.
+``.gitignore``) under a name keyed by a hash of the sources, the headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt and
+an unchanged one is loaded as it is.  Nothing is compiled when the module is
+imported.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel, into the build log
 )
 
@@ -35,6 +37,10 @@ _SIGNATURES = {
         [_vp, _vp, _vp, _vp, _i, _i] + [_f] * 8 + [_i, _vp], ctypes.c_int),
     "fused_clipper_neural_launch": (
         [_vp, _vp, _vp, _vp, _i, _i, _vp, _i, _i, _f, _vp], ctypes.c_int),
+    "clipper_train_fwd_launch": (
+        [_vp] * 7 + [_i, _i, _vp, _i, _i, _vp], ctypes.c_int),
+    "clipper_adjoint_launch": (
+        [_vp] * 8 + [_i, _i, _vp, _i, _i, _vp], ctypes.c_int),
     "diffwdf_cuda_error_string": ([_i], ctypes.c_char_p),
 }
 
@@ -58,9 +64,9 @@ def _sources():
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC_DIR.glob("*.cuh")) + _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libdiffwdf_kernels_{h.hexdigest()[:16]}.so"
@@ -68,17 +74,33 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources unless a library for them already exists.
-    The compiler's output (with ``-Xptxas -v``) is kept beside it as ``.log``."""
+    The compilers' output (with ``-Xptxas -v``) is kept beside it as ``.log``."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(_sources(), objs)]
+    logs = [f"$ nvcc -c {src.name}\n{proc.communicate()[0]}"
+            for src, proc in zip(_sources(), procs)]
+    failed = [src.name for src, proc in zip(_sources(), procs) if proc.returncode != 0]
+    tmp = so.with_name(f"{tag}.tmp.so")
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(f"$ nvcc -shared\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    log = "\n".join(logs)
+    so.with_suffix(".log").write_text(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     return so
 

@@ -1,0 +1,202 @@
+"""Differentiable fused clipper: the training forward kernel and its adjoint.
+
+Forward recursion (per step and row; s = capacitor state, p = p1R of the
+row's source resistance):
+
+    b_temp_t = -p (s_t - v_t)
+    a_t      = s_t + b_temp_t
+    y_t      = MLP([a_t, log R])
+    s_{t+1}  = -y_t + b_temp_t
+    o_t      = (s_{t+1} + s_t) / 2
+
+Reverse mode: with m_t = dMLP/da at a_t, the state cotangent
+``lam_t = dL/ds_t`` satisfies the first-order linear recurrence
+
+    lam_t = c_t lam_{t+1} + 0.5 (1 + c_t) go_t,
+    c_t   = -(m_t (1 - p) + p),
+
+from lam_T = dL/ds_T.  ``clipper_adjoint`` walks it backwards in time and
+returns the input cotangent ``g_vin = p (1 - m) G``, the stream
+``G_t = lam_{t+1} + 0.5 go_t`` (the total cotangent of s_{t+1}) and
+``g_z0 = lam_0``; the only residual the forward stores is a_t.  The MLP
+parameters' cotangent is one batched VJP with dL/dy = -G over every (b, t)
+(``mlp_param_vjp``): PyTorch ops, as the JAX package leaves it to XLA.
+
+``make_fused_clipper_train`` wraps the two kernels in a
+``torch.autograd.Function``.  r_rows (measured pot data) and cap get no
+cotangent BY DESIGN: this engine serves the measured-data regime where R is
+data and C is frozen (the reference freezes both, ``clipper_pot.py``).
+
+A wrapper given CPU tensors runs its plain version; given CUDA tensors it
+launches its kernel from ``csrc/clipper_train.cu`` or raises.  Each wrapper
+counts its launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from ..roots.neural import MLPParams, mlp_apply
+from . import _build
+from .fused_clipper import (
+    _nxh_layers,
+    first_bias,
+    fused_clipper_neural_train_fwd,
+    row_constants,
+    train_weights,
+)
+
+
+def _check_adjoint_io(a_seq, g_out, g_zf, r_rows) -> None:
+    if a_seq.dim() != 2 or g_out.shape != a_seq.shape:
+        raise ValueError(f"a_seq and g_out must be one (B, T) shape, got "
+                         f"{tuple(a_seq.shape)} and {tuple(g_out.shape)}")
+    B = a_seq.shape[0]
+    if g_zf.shape != (B,) or r_rows.shape != (B,):
+        raise ValueError(f"g_zf and r_rows must be (B,) = ({B},), got "
+                         f"{tuple(g_zf.shape)} and {tuple(r_rows.shape)}")
+    if any(x.dtype != torch.float32 for x in (a_seq, g_out, g_zf)):
+        raise TypeError("a_seq, g_out and g_zf must be float32")
+    if any(x.device != a_seq.device for x in (g_out, g_zf, r_rows)):
+        raise ValueError(f"all streams must lie on {a_seq.device}, like a_seq")
+    if a_seq.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {a_seq.device}")
+
+
+def _mlp_tangent(a, w1a, c1, hidden, w3):
+    """m = dMLP/da at every element of a: the forward with its tangent in
+    closed form, dh = (1 - h^2) w1a, dg = (1 - g^2) (W^T dh), m = w3 . dh."""
+    h = torch.tanh(a[..., None] * w1a + c1)
+    dh = (1.0 - h * h) * w1a
+    for k, b in hidden:
+        h = torch.tanh(h @ k + b)
+        dh = (1.0 - h * h) * (dh @ k)
+    return dh @ w3
+
+
+def clipper_adjoint_plain(a_seq, g_out, g_zf, r_rows, mlp_params: MLPParams, cap, *,
+                          fs: float):
+    """Plain PyTorch version of the adjoint kernel: m_t for every (b, t) at
+    once, then the lam recurrence one step at a time backwards over the
+    batch.  Returns (g_vin (B, T), G (B, T), g_z0 (B,))."""
+    _check_adjoint_io(a_seq, g_out, g_zf, r_rows)
+    p1r, log_r = row_constants(r_rows, cap, fs)
+    _, W1, b1, hidden, w3, _ = _nxh_layers(mlp_params)
+    m = _mlp_tangent(a_seq, W1[0], first_bias(W1, b1, log_r)[:, None, :], hidden, w3)
+    p = p1r[:, None]
+    c = -(m * (1.0 - p) + p)
+    G = torch.empty_like(a_seq)
+    lam = g_zf
+    for t in reversed(range(a_seq.shape[1])):
+        go = g_out[:, t]
+        G[:, t] = lam + 0.5 * go
+        lam = c[:, t] * lam + 0.5 * (1.0 + c[:, t]) * go
+    return p * (1.0 - m) * G, G, lam
+
+
+def clipper_adjoint(a_seq, g_out, g_zf, r_rows, mlp_params: MLPParams, cap, *, fs: float):
+    """Reverse-time adjoint of ``fused_clipper_neural_train_fwd``.
+
+    a_seq: (B, T) root inputs the forward wrote; g_out: (B, T) cotangent of
+    out; g_zf: (B,) cotangent of z_final; r_rows: (B,) source resistances.
+    Returns (g_vin (B, T), G (B, T), g_z0 (B,)).
+    """
+    if a_seq.device.type == "cpu":
+        return clipper_adjoint_plain(a_seq, g_out, g_zf, r_rows, mlp_params, cap, fs=fs)
+    _check_adjoint_io(a_seq, g_out, g_zf, r_rows)
+    H, L, weights = train_weights(mlp_params, a_seq.device)
+    B, T = a_seq.shape
+    if B == 0:
+        return torch.empty_like(a_seq), torch.empty_like(a_seq), torch.empty_like(g_zf)
+    lib = _build.library()
+    with torch.cuda.device(a_seq.device):
+        p1r, log_r = row_constants(r_rows, cap, fs)
+        a_seq, g_out, g_zf = a_seq.contiguous(), g_out.contiguous(), g_zf.contiguous()
+        g_vin, G, g_z0 = torch.empty_like(a_seq), torch.empty_like(a_seq), torch.empty_like(g_zf)
+        stream = torch.cuda.current_stream(a_seq.device).cuda_stream
+        err = lib.clipper_adjoint_launch(
+            a_seq.data_ptr(), g_out.data_ptr(), g_zf.data_ptr(), p1r.data_ptr(),
+            log_r.data_ptr(), g_vin.data_ptr(), G.data_ptr(), g_z0.data_ptr(), B, T,
+            weights.data_ptr(), H, L, stream)
+    _build.check(err, "clipper_adjoint launch")
+    clipper_adjoint.launches += 1
+    return g_vin, G, g_z0
+
+
+clipper_adjoint.launches = 0
+
+
+def mlp_leaves(mlp_params: MLPParams):
+    """The MLP's tensors as a flat list: kernel0, bias0, kernel1, bias1, ..."""
+    return [x for layer in mlp_params["layers"] for x in (layer["kernel"], layer["bias"])]
+
+
+def mlp_tree(leaves) -> MLPParams:
+    """Inverse of ``mlp_leaves``."""
+    return {"layers": [{"kernel": k, "bias": b} for k, b in zip(leaves[::2], leaves[1::2])]}
+
+
+def mlp_param_vjp(mlp_params: MLPParams, activations: Sequence[str], a_seq, log_r, G):
+    """Cotangents of the MLP parameters: the VJP of y = MLP([a_seq, log_r])
+    over every (b, t) with dL/dy = -G.  Returns a list in the order kernel0,
+    bias0, kernel1, bias1, ..."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True) for x in mlp_leaves(mlp_params)]
+        x = torch.stack([a_seq, log_r[:, None].expand_as(a_seq)], dim=-1)
+        y = mlp_apply(mlp_tree(leaves), activations, x)[..., 0]
+        return list(torch.autograd.grad(y, leaves, grad_outputs=-G))
+
+
+class _FusedClipperTrain(torch.autograd.Function):
+    """(vin, z0, r_rows, cap, fs, activations, *mlp leaves) -> (out, z_final):
+    forward kernel B3, backward kernel B4 plus the parameter VJP."""
+
+    @staticmethod
+    def forward(ctx, vin, z0, r_rows, cap, fs, activations, *leaves):
+        out, zf, a_seq = fused_clipper_neural_train_fwd(vin, z0, mlp_tree(leaves), r_rows, cap,
+                                                        fs=fs)
+        ctx.save_for_backward(a_seq, r_rows, *leaves)
+        ctx.cap, ctx.fs, ctx.activations = cap, fs, activations
+        ctx.set_materialize_grads(False)
+        return out, zf
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_out, g_zf):
+        a_seq, r_rows, *leaves = ctx.saved_tensors
+        if g_out is None:
+            g_out = torch.zeros_like(a_seq)
+        if g_zf is None:
+            g_zf = a_seq.new_zeros(a_seq.shape[0])
+        mlp = mlp_tree(leaves)
+        g_vin, G, g_z0 = clipper_adjoint(a_seq, g_out, g_zf, r_rows, mlp, ctx.cap, fs=ctx.fs)
+        g_leaves = [None] * len(leaves)
+        if any(ctx.needs_input_grad[6:]):
+            _, log_r = row_constants(r_rows, ctx.cap, ctx.fs)
+            g_leaves = mlp_param_vjp(mlp, ctx.activations, a_seq, log_r, G)
+        return (g_vin, g_z0, None, None, None, None, *g_leaves)
+
+
+def make_fused_clipper_train(activations: Sequence[str], cap: float, fs: float):
+    """Build the differentiable fused clipper op for one (cap, fs) config.
+
+    Returns ``f(vin, z0, mlp_params, r_rows) -> (out, z_final)`` whose
+    forward is ``fused_clipper_neural_train_fwd`` and whose backward is
+    ``clipper_adjoint`` followed by ``mlp_param_vjp``.  Gradients reach vin,
+    z0 and the MLP parameters; r_rows gets none.  ``activations`` must be the
+    reference NxH family (all-tanh hidden, linear head): the kernels
+    hard-code tanh.  The op is once-differentiable.
+    """
+    activations = tuple(activations)
+    if not (all(a == "tanh" for a in activations[:-1]) and activations[-1] in ("", "linear")):
+        raise ValueError(f"fused kernel supports the all-tanh NxH family, got {activations}")
+    cap, fs = float(cap), float(fs)
+
+    def f(vin, z0, mlp_params: MLPParams, r_rows):
+        return _FusedClipperTrain.apply(vin, z0, r_rows, cap, fs, activations,
+                                        *mlp_leaves(mlp_params))
+
+    return f

@@ -42,6 +42,8 @@
 
 #include <cuda_runtime.h>
 
+#include "nxh_mlp.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -120,15 +122,15 @@ analytic_kernel(const float* __restrict__ vin, const float* __restrict__ z0,
 //   w3[H]   linear head
 //   b3      head bias
 //   then for each of the L hidden layers: W[H][H] ([in][out]), bias[H]
+// The MLP itself is nxh_forward of nxh_mlp.cuh, shared with the training
+// kernels of clipper_train.cu.
 template <int H>
 __global__ void __launch_bounds__(kThreads)
 neural_kernel(const float* __restrict__ vin, const float* __restrict__ z0,
               float* __restrict__ out, float* __restrict__ zf, int B, int T,
               const float* __restrict__ weights, int L, float p1R) {
   extern __shared__ float sw[];
-  const int n_weights = 3 * H + 1 + L * (H * H + H);
-  for (int i = threadIdx.x; i < n_weights; i += blockDim.x) sw[i] = weights[i];
-  __syncthreads();
+  stage_weights(sw, weights, 3 * H + 1 + L * (H * H + H));
 
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
@@ -144,27 +146,7 @@ neural_kernel(const float* __restrict__ vin, const float* __restrict__ z0,
   for (int t = 0; t < T; ++t) {
     const float b_temp = -p1R * (z - v[t]);
     const float a = z + b_temp;
-    float h[H];
-#pragma unroll
-    for (int j = 0; j < H; ++j) h[j] = tanhf(fmaf(a, w1a[j], c1[j]));
-    for (int l = 0; l < L; ++l) {
-      const float* W = hidden + l * (H * H + H);
-      const float* bias = W + H * H;
-      float g[H];
-#pragma unroll
-      for (int k = 0; k < H; ++k) {
-        float acc = bias[k];
-#pragma unroll
-        for (int i = 0; i < H; ++i) acc = fmaf(h[i], W[i * H + k], acc);
-        g[k] = tanhf(acc);
-      }
-#pragma unroll
-      for (int k = 0; k < H; ++k) h[k] = g[k];
-    }
-    float y = b3;
-#pragma unroll
-    for (int j = 0; j < H; ++j) y = fmaf(h[j], w3[j], y);
-    const float z_new = -y + b_temp;
+    const float z_new = -nxh_forward<H>(a, w1a, c1, hidden, L, w3, b3) + b_temp;
     o[t] = 0.5f * (z_new + z);
     z = z_new;
   }

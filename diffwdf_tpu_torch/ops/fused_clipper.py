@@ -14,15 +14,21 @@ Two roots, one wrapper each, with the JAX package's signatures:
 - ``fused_clipper_neural``: the "NxH" all-tanh MLP root with a linear head,
   H in {4, 8, 16} and any number L >= 1 of hidden H->H layers.
 
+and the training forward of the neural clipper,
+``fused_clipper_neural_train_fwd``: the source resistance is per row (the
+hoisted per-chunk pot of the training data), and the root's incident wave
+a_t is written out as the residual of the adjoint (``ops.clipper_train``).
+
 A wrapper given CPU tensors runs its plain version (``*_plain``: a loop over
 time, vectorised over B); given CUDA tensors it launches its kernel from
-``csrc/fused_clipper.cu`` or raises.  Each wrapper counts its kernel
+``csrc/fused_clipper.cu`` (``csrc/clipper_train.cu`` for the training
+forward) or raises.  Each wrapper counts its kernel
 launches in the plain integer ``<wrapper>.launches``.  The plain versions
 run on any device and are what the kernels are held against.
 
-Scalar constants (p1R, the diode-pair logs and reciprocals, log R) are
-computed once on the host in double precision and rounded to f32, so kernel
-and plain version see the same values.
+Constants (p1R, the diode-pair logs and reciprocals, log R; per row for
+training) are computed once in double precision and rounded to f32, so
+kernel and plain version see the same values.
 """
 
 from __future__ import annotations
@@ -158,10 +164,9 @@ fused_clipper_analytic.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _neural_weights(mlp_params: MLPParams, log_r: float):
-    """Split an NxH MLP into (H, w1a, c1, hidden, w3, b3), with the log-R
-    column of the first layer folded into its bias c1.  Raises on an
-    architecture the kernel does not take."""
+def _nxh_layers(mlp_params: MLPParams):
+    """Split an NxH MLP into (H, W1, b1, hidden, w3, b3), hidden a list of
+    (kernel, bias).  Raises on an architecture the kernels do not take."""
     layers = mlp_params["layers"]
     if len(layers) < 3:
         raise ValueError("fused neural kernel needs >= 1 hidden H->H layer")
@@ -177,19 +182,22 @@ def _neural_weights(mlp_params: MLPParams, log_r: float):
                 f"{tuple(layer['bias'].shape)}, the NxH family needs {ks} / {bs}")
         if layer["kernel"].dtype != torch.float32 or layer["bias"].dtype != torch.float32:
             raise TypeError(f"layer {i}: weights must be float32")
-    c1 = W1[1] * log_r + b1
     hidden = [(l["kernel"], l["bias"]) for l in layers[1:-1]]
-    return H, W1[0], c1, hidden, layers[-1]["kernel"][:, 0], layers[-1]["bias"]
+    return H, W1, b1, hidden, layers[-1]["kernel"][:, 0], layers[-1]["bias"]
 
 
-def fused_clipper_neural_plain(vin, z0, mlp_params: MLPParams, r_source, cap, *, fs: float):
-    """Plain PyTorch version of the neural kernel: the same folded weights
-    and per-sample math, one sample at a time over the whole batch."""
-    _check_io(vin, z0)
-    p1R, r_up = _lpf_adaptor(r_source, cap, fs)
-    p1R = _f32(p1R)
-    _, w1a, c1, hidden, w3, b3 = _neural_weights(mlp_params, _f32(math.log(r_up)))
-    out = torch.empty_like(vin)
+def _neural_weights(mlp_params: MLPParams, log_r: float):
+    """(H, w1a, c1, hidden, w3, b3) of an NxH MLP, with the log-R column of
+    the first layer folded into its bias c1."""
+    H, W1, b1, hidden, w3, b3 = _nxh_layers(mlp_params)
+    return H, W1[0], W1[1] * log_r + b1, hidden, w3, b3
+
+
+def _neural_recursion(vin, z0, p1R, w1a, c1, hidden, w3, b3):
+    """The clipper's sample loop with an NxH root, vectorised over B.
+    p1R is a scalar or (B,), c1 (H,) or (B, H).  Returns (out, z_final,
+    a_seq)."""
+    out, a_seq = torch.empty_like(vin), torch.empty_like(vin)
     z = z0
     for t in range(vin.shape[1]):
         b_temp = -p1R * (z - vin[:, t])
@@ -199,7 +207,18 @@ def fused_clipper_neural_plain(vin, z0, mlp_params: MLPParams, r_source, cap, *,
             h = torch.tanh(h @ k + b)
         z_new = -(h @ w3 + b3) + b_temp
         out[:, t] = 0.5 * (z_new + z)
+        a_seq[:, t] = a
         z = z_new
+    return out, z, a_seq
+
+
+def fused_clipper_neural_plain(vin, z0, mlp_params: MLPParams, r_source, cap, *, fs: float):
+    """Plain PyTorch version of the neural kernel: the same folded weights
+    and per-sample math, one sample at a time over the whole batch."""
+    _check_io(vin, z0)
+    p1R, r_up = _lpf_adaptor(r_source, cap, fs)
+    _, w1a, c1, hidden, w3, b3 = _neural_weights(mlp_params, _f32(math.log(r_up)))
+    out, z, _ = _neural_recursion(vin, z0, _f32(p1R), w1a, c1, hidden, w3, b3)
     return out, z
 
 
@@ -232,3 +251,88 @@ def fused_clipper_neural(vin, z0, mlp_params: MLPParams, r_source, cap, *, fs: f
 
 
 fused_clipper_neural.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Training forward: per-row source R, root input written out
+# ---------------------------------------------------------------------------
+
+
+def row_constants(r_rows: torch.Tensor, cap, fs: float):
+    """Per-row (p1R, log R_up) of the LPF clipper with source resistances
+    r_rows (B,): the parallel adaptor's scatter coefficient and the log of
+    its port impedance, computed in double and rounded to f32."""
+    r = r_rows.double()
+    g = 1.0 / r + 2.0 * float(cap) * fs
+    return ((1.0 / r) / g).float(), torch.log(1.0 / g).float()
+
+
+def first_bias(W1: torch.Tensor, b1: torch.Tensor, log_r: torch.Tensor) -> torch.Tensor:
+    """c1[b, h] = W1[1, h] log_r[b] + b1[h]: the first layer's bias with each
+    row's log R folded in, (B, H)."""
+    return log_r[:, None] * W1[1] + b1
+
+
+def _check_rows(r_rows: torch.Tensor, vin: torch.Tensor) -> None:
+    if r_rows.shape != (vin.shape[0],):
+        raise ValueError(f"r_rows must be (B,) = ({vin.shape[0]},), got {tuple(r_rows.shape)}")
+    if not r_rows.is_floating_point():
+        raise TypeError(f"r_rows must be floating point, got {r_rows.dtype}")
+    if r_rows.device != vin.device:
+        raise ValueError(f"vin on {vin.device} but r_rows on {r_rows.device}")
+
+
+def train_weights(mlp_params: MLPParams, device):
+    """(H, L, weights) for the training kernels: one contiguous f32 buffer
+    w1a[H], w1r[H], b1[H], w3[H], b3, then per hidden layer W[H][H] and
+    bias[H] (the layout of csrc/clipper_train.cu)."""
+    H, W1, b1, hidden, w3, b3 = _nxh_layers(mlp_params)
+    parts = [W1[0], W1[1], b1, w3, b3] + [x.reshape(-1) for layer in hidden for x in layer]
+    if any(p.device != device for p in parts):
+        raise ValueError(f"MLP weights must lie on {device}, like the streams")
+    return H, len(hidden), torch.cat([p.detach() for p in parts]).contiguous()
+
+
+def fused_clipper_neural_train_fwd_plain(vin, z0, mlp_params: MLPParams, r_rows, cap, *,
+                                         fs: float):
+    """Plain PyTorch version of the training forward kernel: the same per-row
+    constants and per-sample math, one sample at a time over the batch."""
+    _check_io(vin, z0)
+    _check_rows(r_rows, vin)
+    p1r, log_r = row_constants(r_rows, cap, fs)
+    _, W1, b1, hidden, w3, b3 = _nxh_layers(mlp_params)
+    return _neural_recursion(vin, z0, p1r, W1[0], first_bias(W1, b1, log_r), hidden, w3, b3)
+
+
+def fused_clipper_neural_train_fwd(vin, z0, mlp_params: MLPParams, r_rows, cap, *, fs: float):
+    """Training forward of the LPF clipper with an NxH neural root and a
+    per-row source resistance.
+
+    vin: (B, T) float32; z0: (B,); r_rows: (B,) source resistance of each
+    row.  Returns (out (B, T), z_final (B,), a_seq (B, T)), a_seq[b, t] the
+    root's incident wave at step t: the residual of the adjoint
+    (``ops.clipper_train``).  The differentiable op is
+    ``ops.clipper_train.make_fused_clipper_train``.
+    """
+    if vin.device.type == "cpu":
+        return fused_clipper_neural_train_fwd_plain(vin, z0, mlp_params, r_rows, cap, fs=fs)
+    _check_io(vin, z0)
+    _check_rows(r_rows, vin)
+    H, L, weights = train_weights(mlp_params, vin.device)
+    B, T = vin.shape
+    if B == 0:
+        return torch.empty_like(vin), torch.empty_like(z0), torch.empty_like(vin)
+    lib = _build.library()
+    with torch.cuda.device(vin.device):
+        p1r, log_r = row_constants(r_rows, cap, fs)
+        vin, z0, out, zf, stream = _launch_args(vin, z0)
+        a_seq = torch.empty_like(vin)
+        err = lib.clipper_train_fwd_launch(
+            vin.data_ptr(), z0.data_ptr(), p1r.data_ptr(), log_r.data_ptr(), out.data_ptr(),
+            a_seq.data_ptr(), zf.data_ptr(), B, T, weights.data_ptr(), H, L, stream)
+    _build.check(err, "fused_clipper_neural_train_fwd launch")
+    fused_clipper_neural_train_fwd.launches += 1
+    return out, zf, a_seq
+
+
+fused_clipper_neural_train_fwd.launches = 0

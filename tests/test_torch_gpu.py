@@ -6,15 +6,18 @@ imports nothing of JAX, so it also runs on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
 Budgets are the JAX suite's kernel-vs-scan budgets: analytic atol 5e-6,
-neural atol 2e-5.
+neural atol 2e-5 (the training forward too); the adjoint's streams and the
+training op's gradients 2e-5 after dividing by their largest magnitude.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from diffwdf_tpu_torch.models.diode_clipper import make_training_clipper
 from diffwdf_tpu_torch.roots.diode import diode_1n4148_1u1d, diode_1n4148_1u2d
 from diffwdf_tpu_torch.roots.neural import NeuralDiodeRoot
+from diffwdf_tpu_torch.ops import clipper_train as ct
 from diffwdf_tpu_torch.ops import fused_clipper as fc
 
 FS = 96000.0
@@ -29,6 +32,8 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     fc.fused_clipper_analytic.launches = 0
     fc.fused_clipper_neural.launches = 0
+    fc.fused_clipper_neural_train_fwd.launches = 0
+    ct.clipper_adjoint.launches = 0
     return torch.device("cuda")
 
 
@@ -98,3 +103,93 @@ def test_neural_kernel_rejects_weights_on_another_device(cuda):
     with pytest.raises(ValueError):
         fc.fused_clipper_neural(vin, z0, mlp, R_SRC, CAP, fs=FS)
     assert fc.fused_clipper_neural.launches == 0
+
+
+TRAIN_FS, TRAIN_CAP = 48000.0, 4.7e-9
+FAMILIES = [(1, 16), (2, 4), (2, 8), (2, 16), (4, 4), (4, 8)]
+
+
+def _train_inputs(device, n_layers, width, b, t, seed):
+    root = NeuralDiodeRoot(name="dp", n_layers=n_layers, layer_size=width)
+    mlp = root.init_params(device, torch.Generator().manual_seed(seed))["dp"]
+    vin, z0 = _inputs(device, b, t, seed)
+    r_rows = torch.from_numpy(np.geomspace(10e3, 99e3, b).astype(np.float32)).to(device)
+    return root, mlp, vin, z0, r_rows
+
+
+def _close_scaled(got, want, budget=2e-5):
+    scale = max(float(want.abs().max()), 1e-8)
+    _close(got / scale, want / scale, budget)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_layers,width", FAMILIES)
+def test_train_fwd_kernel_matches_plain(cuda, n_layers, width):
+    _, mlp, vin, z0, r_rows = _train_inputs(cuda, n_layers, width, 1000, 300, seed=width)
+    got = fc.fused_clipper_neural_train_fwd(vin, z0, mlp, r_rows, TRAIN_CAP, fs=TRAIN_FS)
+    want = fc.fused_clipper_neural_train_fwd_plain(vin, z0, mlp, r_rows, TRAIN_CAP, fs=TRAIN_FS)
+    torch.cuda.synchronize()
+    assert fc.fused_clipper_neural_train_fwd.launches == 1
+    for g, w in zip(got, want):
+        _close(g, w, 2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_layers,width", FAMILIES)
+def test_adjoint_kernel_matches_plain(cuda, n_layers, width):
+    _, mlp, vin, z0, r_rows = _train_inputs(cuda, n_layers, width, 1000, 300, seed=width + 1)
+    _, _, a_seq = fc.fused_clipper_neural_train_fwd_plain(vin, z0, mlp, r_rows, TRAIN_CAP,
+                                                         fs=TRAIN_FS)
+    g_out, g_zf = _inputs(cuda, 1000, 300, seed=width + 2)
+    got = ct.clipper_adjoint(a_seq, g_out, g_zf, r_rows, mlp, TRAIN_CAP, fs=TRAIN_FS)
+    want = ct.clipper_adjoint_plain(a_seq, g_out, g_zf, r_rows, mlp, TRAIN_CAP, fs=TRAIN_FS)
+    torch.cuda.synchronize()
+    assert ct.clipper_adjoint.launches == 1
+    for g, w in zip(got, want):
+        _close_scaled(g, w)
+
+
+@pytest.mark.gpu
+def test_fused_train_op_grads_match_scan_on_card(cuda):
+    root, mlp, vin, z0, r_rows = _train_inputs(cuda, 2, 16, 256, 256, seed=11)
+    ckt = make_training_clipper(root, TRAIN_FS, cap=TRAIN_CAP)
+    fused = ct.make_fused_clipper_train(root.activations, TRAIN_CAP, TRAIN_FS)
+    y = torch.tanh(0.5 * vin)
+
+    def scan(v, z, m):
+        out, st = ckt.process({**ckt.init_params(cuda), "dp": m}, {"C": {"z": z}},
+                              {"Vs": {"v": v.T}}, static_controls={"Vs": {"R": r_rows}})
+        return out.T, st["C"]["z"]
+
+    def grads(run):
+        leaves = [x.clone().requires_grad_(True) for x in ct.mlp_leaves(mlp)]
+        v, z = vin.clone().requires_grad_(True), z0.clone().requires_grad_(True)
+        out, zf = run(v, z, ct.mlp_tree(leaves))
+        loss = ((out[:, 32:] - y[:, 32:]) ** 2).mean() + 0.1 * (zf ** 2).mean()
+        loss.backward()
+        return loss.item(), [v.grad, z.grad] + [x.grad for x in leaves]
+
+    lf, gf = grads(lambda v, z, m: fused(v, z, m, r_rows))
+    ls, gs = grads(scan)
+    assert fc.fused_clipper_neural_train_fwd.launches == ct.clipper_adjoint.launches == 1
+    np.testing.assert_allclose(lf, ls, rtol=1e-5)
+    for g, w in zip(gf, gs):
+        _close_scaled(g, w)
+
+
+@pytest.mark.gpu
+def test_train_kernels_count_one_launch_per_call(cuda):
+    _, mlp, vin, z0, r_rows = _train_inputs(cuda, 2, 8, 130, 64, seed=4)
+    for n in (1, 2, 3):
+        _, _, a_seq = fc.fused_clipper_neural_train_fwd(vin, z0, mlp, r_rows, TRAIN_CAP,
+                                                       fs=TRAIN_FS)
+        ct.clipper_adjoint(a_seq, vin, z0, r_rows, mlp, TRAIN_CAP, fs=TRAIN_FS)
+        assert fc.fused_clipper_neural_train_fwd.launches == ct.clipper_adjoint.launches == n
+    torch.cuda.synchronize()
+    # the plain versions, and a refused architecture, launch nothing
+    fc.fused_clipper_neural_train_fwd_plain(vin, z0, mlp, r_rows, TRAIN_CAP, fs=TRAIN_FS)
+    bad = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=5).init_params(cuda)["dp"]
+    with pytest.raises(ValueError):
+        fc.fused_clipper_neural_train_fwd(vin, z0, bad, r_rows, TRAIN_CAP, fs=TRAIN_FS)
+    assert fc.fused_clipper_neural_train_fwd.launches == ct.clipper_adjoint.launches == 3
+    assert fc.fused_clipper_neural.launches == fc.fused_clipper_analytic.launches == 0

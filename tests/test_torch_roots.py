@@ -190,6 +190,11 @@ def test_port_imports_no_jax():
             "import diffwdf_tpu_torch\n"
             "import diffwdf_tpu_torch.ops.fused_clipper, diffwdf_tpu_torch.ops._build\n"
             "import diffwdf_tpu_torch.models.diode_clipper, diffwdf_tpu_torch.nn.convert\n"
+            "import diffwdf_tpu_torch.ops.clipper_train\n"
+            "import diffwdf_tpu_torch.data.dataimport, diffwdf_tpu_torch.data.synthetic\n"
+            "import diffwdf_tpu_torch.training.losses, diffwdf_tpu_torch.training.metrics\n"
+            "import diffwdf_tpu_torch.training.checkpoint\n"
+            "import diffwdf_tpu_torch.training.circuit_train\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'diffwdf_tpu'))\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
