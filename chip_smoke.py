@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of diffwdf_tpu_torch's main paths: batched diode-clipper
-serving, and in-circuit training of the clipper (engine="fused").
+serving, in-circuit training of the clipper (engine="fused"), and
+single-stream serving through the streaming processor (engine="deer" and
+"scan").
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -42,11 +44,30 @@ one line per phase:
   timing     CUDA-event medians of the training kernels and their plain
              versions, the parts of one fused training step (forward kernel,
              loss, adjoint kernel, parameter VJP, Adam) and the whole step
+  kernels deer  the single-stream DEER kernel against its plain version
+             and against the exact recursion (the analytic kernel at B=1)
+             at T = 2048 and 16384, for the "toms" (8 sweeps, 3 omega
+             iterations) and "approx" (4, 1) configurations, hard overdrive,
+             and the residual certificate at R = 180 Ohm
+  stream     single-stream serving as a plugin drives it: one second of a
+             seeded stereo strum at 96 kHz in 47 blocks of 2048 through
+             make_clipper_processor(engine="deer") and (engine="scan"),
+             with model hot-swaps, gain and cutoff changes; deer against
+             scan block for block, one kernel launch per served block, the
+             residual fallback at the cutoff that maps to 180 Ohm, a
+             1000-sample block, and the scan group with its neural member
+             against the same processor on the CPU
+  warmup     host wall ms of a cold first block, the first block after
+             warmup([2048]) and the steady median, per engine
+  timing deer  CUDA-event medians of the DEER kernel and its plain version,
+             the exact engine's kernels at B=1, process_block wall ms and
+             real-time factor per engine, and the device work of one
+             served block from a profiler trace
 
-then a JSON line with every kernel's launches, error and times, the card's
-name and power limit, and finally ``{"ok": true, "device": {...}}``.  Any
-failed check raises, so the script exits non-zero and prints no result; so
-does a machine without a CUDA device.
+then a JSON line with every kernel's launches, error, times and bound, the
+card's name and power limit, and finally ``{"ok": true, "device": {...}}``.
+Any failed check raises, so the script exits non-zero and prints no result;
+so does a machine without a CUDA device.
 """
 
 from __future__ import annotations
@@ -60,11 +81,13 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from diffwdf_tpu_torch.data.dataimport import load_diode_data
 from diffwdf_tpu_torch.data.synthetic import make_synthetic_dataset_dir
 from diffwdf_tpu_torch.models.diode_clipper import (
+    cutoff_to_resistance,
     make_diode_clipper,
     make_root_from_zoo,
     make_training_clipper,
@@ -74,8 +97,10 @@ from diffwdf_tpu_torch.nn.serialization import load_model_json, save_model_json
 from diffwdf_tpu_torch.ops import _build
 from diffwdf_tpu_torch.ops import clipper_train as ct
 from diffwdf_tpu_torch.ops import fused_clipper as fc
+from diffwdf_tpu_torch.ops import parallel_time_deer as pd
 from diffwdf_tpu_torch.roots.diode import diode_1n4148_1u1d, diode_1n4148_1u2d
 from diffwdf_tpu_torch.roots.neural import NeuralDiodeRoot
+from diffwdf_tpu_torch.runtime.stream import make_clipper_processor
 from diffwdf_tpu_torch.training.circuit_train import (
     CircuitTrainConfig,
     make_clipper_batches,
@@ -113,6 +138,73 @@ TRAIN_REPLACES = {
     "train_fwd": "diffwdf_tpu/ops/fused_clipper.py:496",
     "adjoint": "diffwdf_tpu/ops/clipper_train.py:84",
 }
+
+# single-stream serving: the plugin's real-time regime (one mono stream,
+# blocks of 2048, DiodeClipper.cpp's cutoff and gain parameters)
+DEER_T = (2048, 16384)
+DEER_CFG = {"toms": (8, 3), "approx": (4, 1)}  # (sweeps, omega iterations), stream.py:619
+DEER_BUDGET = {"toms": 1e-6, "approx": 5e-6}  # vs the exact recursion (the JAX suite's)
+STREAM_BLOCK, STREAM_BLOCKS = 2048, 47  # one second at 96 kHz, padded to whole blocks
+# (first block, model, gain dB, cutoff Hz) of each segment of the stream
+STREAM_SCHEDULE = ((0, "toms", 0.0, 4000.0), (8, "toms", 6.0, 4000.0),
+                   (16, "approx", 6.0, 4000.0), (24, "approx", 6.0, 8000.0),
+                   (32, "toms", 12.0, 2000.0), (40, "approx", 0.0, 2000.0))
+BAD_CUTOFF = 1.0 / (2.0 * np.pi * 180.0 * 2.2e-9)  # maps to R = 180 Ohm
+DEER_SOURCE = "diffwdf_tpu_torch/ops/csrc/parallel_time_deer.cu"
+DEER_REPLACES = "diffwdf_tpu/ops/parallel_time_deer.py:238"
+
+# the bound: the larger of the operations over the card's f32 peak (outside
+# the tensor cores) and the bytes over its memory rate (NVIDIA's data sheet,
+# H100 SXM).  Operations are counted from each kernel's source, one per f32
+# add, multiply, compare, select, division or transcendental call (expf,
+# logf, tanhf) and two per fused multiply-add; bytes count each input read
+# once and each output written once.
+PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
+
+
+def _bound(ops: float, nbytes: float):
+    """(bound_ms, bound_by) of work of ``ops`` operations and ``nbytes`` bytes."""
+    t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _omega_ops(iters: int) -> int:
+    # region guess (two compares, the longest branch 7) + per Newton step
+    # expf, two adds, a subtract, a division, an update + the final expf
+    return 10 + 6 * iters
+
+
+def _step_ops(iters: int) -> int:
+    """One analytic clipper step z' = f(z, v): b_temp, a, sign, six selects,
+    the two omega arguments and b_root around two omega solves."""
+    return 25 + 2 * _omega_ops(iters)
+
+
+def _analytic_ops(iters: int) -> int:
+    return _step_ops(iters) + 2  # + the output (z' + z) / 2
+
+
+def _neural_ops(h: int, n_hidden: int) -> int:
+    """One NxH clipper step: first layer (FMA + tanh), hidden layers (H x H
+    FMAs, bias, tanh), linear head, and the clipper's 8 around the root."""
+    return 3 * h + n_hidden * (2 * h * h + 2 * h) + 2 * h + 8
+
+
+def _adjoint_ops(h: int, n_hidden: int) -> int:
+    """One reverse step: the forward MLP at a_t, its closed-form tangent
+    (first layer 3H, hidden 2H^2 + 3H, head 2H) and the lambda recursion
+    with its outputs (13)."""
+    tangent = 3 * h + n_hidden * (2 * h * h + 3 * h) + 2 * h
+    return _neural_ops(h, n_hidden) - 7 + tangent + 13
+
+
+def _deer_ops(T: int, sweeps: int, relax: int, iters: int) -> int:
+    """The DEER kernel on T samples: the max|v| pass, relax_passes true
+    steps, per sweep a step with its Jacobian (14 more), the affine row
+    (3 + 2) and the fix-up with its clamp (4), the emit pass (a step and 5),
+    and per sweep the block scan over 1024 totals (~25 operations each)."""
+    f = _step_ops(iters)
+    return T * (2 + relax * f + sweeps * (f + 23) + f + 5) + sweeps * 1024 * 25
 
 
 def _card() -> str:
@@ -294,9 +386,13 @@ def serve_path(dev, card: str, seed: int) -> list:
               f"plain_ms={pm:.4f} [{min(p_ms):.4f}, {max(p_ms):.4f}] "
               f"({B * T / pm / 1e3:.1f} Msamples/s) card={card!r}", flush=True)
 
+    ops = {"neural": _neural_ops(16, 2) * B * T, "analytic": _analytic_ops(3) * B * T}
+    nbytes = 8 * B * T + 8 * B  # vin in, out out; z0 in, z_final out
     return [{"name": f"fused_clipper_{name}", "route": "cuda", "source": SOURCE,
              "replaces": REPLACES[name], "launches": launches[name],
-             "max_abs_err": max_err[name], "ms": times[name][0], "plain_ms": times[name][1]}
+             "max_abs_err": max_err[name], "ms": times[name][0], "plain_ms": times[name][1],
+             **dict(zip(("bound_ms", "bound_by"), _bound(ops[name], nbytes))),
+             "library_ms": None}
             for name in ("neural", "analytic")]
 
 
@@ -538,10 +634,285 @@ def train_path(dev, card: str, seed: int) -> list:
           + f" parts_sum_ms={sum(parts.values()):.4f} card={card!r}", flush=True)
 
     wrappers = {"train_fwd": "fused_clipper_neural_train_fwd", "adjoint": "clipper_adjoint"}
+    ops = {"train_fwd": _neural_ops(16, 2) * samples, "adjoint": _adjoint_ops(16, 2) * samples}
+    # train_fwd: vin in, out and a_seq out (z0, r in, z_final out per row);
+    # adjoint: a_seq and g_out in, g_vin and G out (g_zf, r in, g_z0 out)
+    nbytes = {"train_fwd": 12 * samples + 12 * TRAIN_CHUNKS,
+              "adjoint": 16 * samples + 12 * TRAIN_CHUNKS}
     return [{"name": wrappers[name], "route": "cuda", "source": TRAIN_SOURCE,
              "replaces": TRAIN_REPLACES[name], "launches": launches[name],
-             "max_abs_err": max_err[name], "ms": times[name][0], "plain_ms": times[name][1]}
+             "max_abs_err": max_err[name], "ms": times[name][0], "plain_ms": times[name][1],
+             **dict(zip(("bound_ms", "bound_by"), _bound(ops[name], nbytes[name]))),
+             "library_ms": None}
             for name in ("train_fwd", "adjoint")]
+
+
+def _strum(seed: int, n: int) -> np.ndarray:
+    """(2, n) test audio at FS: two strums of a six-string chord (decaying
+    harmonics, strings alternating between the channels, seeded onsets and
+    phases) plus a little noise, peak 0.5."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / FS
+    y = np.zeros((2, n))
+    for strum in (0.0, 0.5):
+        for i, f0 in enumerate((82.41, 110.0, 146.83, 196.0, 246.94, 329.63)):
+            on = strum + 0.012 * i + 0.004 * rng.random()
+            tt = np.clip(t - on, 0.0, None)
+            env = (t >= on) * np.exp(-tt / 0.4)
+            for h in range(1, 9):
+                y[i % 2] += env * np.sin(2 * np.pi * f0 * h * tt + 2 * np.pi * rng.random()) / h
+    y += 0.01 * rng.standard_normal(y.shape)
+    return (0.5 * y / np.abs(y).max()).astype(np.float32)
+
+
+def _segment(i: int):
+    """(model, gain dB, cutoff Hz) of stream block i."""
+    return next(s for s in reversed(STREAM_SCHEDULE) if s[0] <= i)[1:]
+
+
+def _launch_counts() -> dict:
+    """Launch counters of the kernels that serve a single-stream block."""
+    return {"B5": pd.fused_deer_clipper.launches, "B2": fc.fused_clipper_analytic.launches,
+            "B1": fc.fused_clipper_neural.launches}
+
+
+def _launches_of(fn) -> dict:
+    """Call fn(); the kernel launches it made, by kernel."""
+    before = _launch_counts()
+    fn()
+    return {k: v - before[k] for k, v in _launch_counts().items()}
+
+
+def _deer_case(vin, r_src, fs, sweeps, iters, relax=2):
+    """The DEER kernel on vin against its plain version and against the
+    exact recursion (the analytic kernel at B=1, same constants)."""
+    d = diode_1n4148_1u1d
+    args = (r_src, 2.2e-9, d.Is, d.Vt * d.nabla, d.N_up, d.N_down)
+    kw = dict(fs=fs, sweeps=sweeps, relax_passes=relax, quality_iters=iters)
+    out, zf, res = pd.fused_deer_clipper(vin, *args, **kw)
+    p_out, p_zf, p_res = pd.fused_deer_clipper_plain(vin, *args, **kw)
+    e_out, e_zf = fc.fused_clipper_analytic(vin[None], torch.zeros(1, device=vin.device), *args,
+                                            fs=fs, quality_iters=iters)
+    torch.cuda.synchronize()
+    _check(bool(torch.isfinite(out).all()) and out.shape == vin.shape, "DEER output finite, shaped")
+    return {"plain": max(_max_err(out, p_out), _max_err(zf, p_zf)),
+            "exact": max(_max_err(out, e_out[0]), _max_err(zf, e_zf[0])),
+            "plain_exact": max(_max_err(p_out, e_out[0]), _max_err(p_zf, e_zf[0])),
+            "res": float(res), "plain_res": float(p_res)}
+
+
+def stream_path(dev, card: str, seed: int) -> list:
+    """Single-stream serving: kernels deer, stream, warmup and timing deer
+    phases.  Returns the DEER kernel's record for the JSON line."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+
+    # --- kernels deer: B5 against plain and the exact recursion ---------------
+    plain_errs = []
+    for T in DEER_T:
+        vin = 2.0 * torch.randn(T, generator=gen, device=dev)
+        for name, (sweeps, iters) in DEER_CFG.items():
+            e = _deer_case(vin, 47e3, FS, sweeps, iters)
+            plain_errs.append(e["plain"])
+            converged = name == "toms" or T > 2048
+            print(f"phase kernels deer {name} sweeps={sweeps} iters={iters} T={T} "
+                  f"vs_plain={e['plain']:.3e} budget=1e-06 vs_exact={e['exact']:.3e} "
+                  + (f"budget={DEER_BUDGET[name]:.0e}" if converged else
+                     f"plain_vs_exact={e['plain_exact']:.3e} (4 sweeps at L=2 leave the "
+                     f"DEER algorithm unconverged: the kernel must reproduce the plain "
+                     f"version's distance, within 1e-06)")
+                  + f" residual={e['res']:.3e} plain_residual={e['plain_res']:.3e}", flush=True)
+            _check(e["plain"] <= 1e-6, f"DEER kernel {name} T={T} within 1e-6 of its plain version")
+            _check(e["exact"] <= DEER_BUDGET[name] if converged
+                   else abs(e["exact"] - e["plain_exact"]) <= 1e-6,
+                   f"DEER kernel {name} T={T} against the exact recursion")
+    # approx at the JAX suite's own operating point for its 5e-6 budget
+    # (tests/test_deer_circuit.py:200: 48 kHz, cutoff 4 kHz, amplitude 1.5)
+    vin = 1.5 * torch.randn(2048, generator=gen, device=dev)
+    e = _deer_case(vin, cutoff_to_resistance(4000.0, 2.2e-9), 48000.0, *DEER_CFG["approx"])
+    plain_errs.append(e["plain"])
+    print(f"phase kernels deer approx fs=48000 cutoff=4000 amplitude=1.5 T=2048 "
+          f"vs_plain={e['plain']:.3e} budget=1e-06 vs_exact={e['exact']:.3e} budget=5e-06 "
+          f"residual={e['res']:.3e}", flush=True)
+    _check(e["plain"] <= 1e-6 and e["exact"] <= 5e-6, "DEER approx at the JAX suite's point")
+    vin = 10.0 * torch.randn(16384, generator=gen, device=dev)
+    e = _deer_case(vin, 47e3, FS, 8, 3, relax=4)
+    print(f"phase kernels deer hard_overdrive amplitude=10 relax_passes=4 T=16384 "
+          f"vs_plain={e['plain']:.3e} vs_exact={e['exact']:.3e} budget=2e-06 "
+          f"residual={e['res']:.3e}", flush=True)
+    _check(e["plain"] <= 2e-6 and e["exact"] <= 2e-6, "DEER hard overdrive within 2e-6")
+    vin = 2.0 * torch.randn(2048, generator=gen, device=dev)
+    e = _deer_case(vin, 180.0, FS, 8, 3)
+    print(f"phase kernels deer r_source=180 T=2048 residual={e['res']:.3e} (must exceed 1e-02) "
+          f"plain_residual={e['plain_res']:.3e} vs_exact={e['exact']:.3e}", flush=True)
+    _check(e["res"] > 1e-2, "the residual certificate flags R = 180 Ohm")
+
+    # --- stream: the main path, counted ----------------------------------------
+    n = STREAM_BLOCKS * STREAM_BLOCK
+    audio = np.zeros((2, n), np.float32)
+    audio[:, :int(FS)] = _strum(seed, int(FS))
+    blocks = [audio[:, i * STREAM_BLOCK:(i + 1) * STREAM_BLOCK] for i in range(STREAM_BLOCKS)]
+    deer = make_clipper_processor(FS, models=("toms", "approx"), engine="deer", device=dev)
+    scan = make_clipper_processor(FS, engine="scan", device=dev)
+    pd.fused_deer_clipper.launches = 0
+    fc.fused_clipper_analytic.launches = fc.fused_clipper_neural.launches = 0
+    one = {"deer": {"B5": 1, "B2": 0, "B1": 0}, "scan": {"B5": 0, "B2": 1, "B1": 0}}
+    errs, residuals, wrong_launches, outs = [], [], [], {}
+    t0 = time.perf_counter()
+    for i, blk in enumerate(blocks):
+        model, gain_db, cutoff = _segment(i)
+        for name, proc in (("deer", deer), ("scan", scan)):
+            got = _launches_of(lambda: outs.__setitem__(name, proc.process_block(
+                blk, "clipper", model=model, gain_db=gain_db, cutoff_hz=cutoff)))
+            if got != one[name]:
+                wrong_launches.append((i, name, got))
+        errs.append(float(np.abs(outs["deer"] - outs["scan"]).max()))
+        residuals.append(deer.last_residual[model])
+        _check(outs["deer"].shape == (2, STREAM_BLOCK) and np.isfinite(outs["deer"]).all()
+               and np.array_equal(outs["deer"][0], outs["deer"][1]),
+               "served block finite, stereo, fanned out from mono")
+    stream_s = time.perf_counter() - t0
+    seg_err = {f"{m}/{g:g}dB/{c:g}Hz": max(errs[s:(STREAM_SCHEDULE[k + 1][0] if k + 1 <
+                                                 len(STREAM_SCHEDULE) else STREAM_BLOCKS)])
+               for k, (s, m, g, c) in enumerate(STREAM_SCHEDULE)}
+    print(f"phase stream deer+scan blocks={STREAM_BLOCKS}x{STREAM_BLOCK} stereo fs={FS:g} "
+          f"seconds={stream_s:.3f} deer_vs_scan max_abs_err={max(errs):.3e} budget=5e-06 "
+          f"by_segment={ {k: float(f'{v:.3e}') for k, v in seg_err.items()} } "
+          f"max_residual={max(residuals):.3e} launches={_launch_counts()} "
+          f"wrong_launch_blocks={wrong_launches}", flush=True)
+    _check(max(errs) <= 5e-6, "deer engine serves the scan engine's output, block for block")
+    _check(not wrong_launches, "every served block is exactly one kernel launch")
+    _check(deer.fallbacks == {}, "no fallback on the audio stream")
+
+    # the cutoff that maps to 180 Ohm: the residual flags the block and the
+    # exact engine serves it, from the same state as the scan processor's
+    deer.reset()
+    scan.reset()
+    noise = np.random.default_rng(seed + 21).standard_normal(STREAM_BLOCK).astype(np.float32) * 2
+    fb = {}
+    fb_launch = {name: _launches_of(lambda name=name, proc=proc: fb.__setitem__(
+        name, proc.process_block(noise, "clipper", model="toms", cutoff_hz=BAD_CUTOFF)))
+        for name, proc in (("deer", deer), ("scan", scan))}
+    fb_err = float(np.abs(fb["deer"] - fb["scan"]).max())
+    print(f"phase stream fallback cutoff={BAD_CUTOFF:.1f}Hz r_source="
+          f"{cutoff_to_resistance(BAD_CUTOFF, 2.2e-9):.1f} residual="
+          f"{deer.last_residual['toms']:.3e} fallback_tol={deer.fallback_tol:g} "
+          f"fallbacks={deer.fallbacks} served_vs_scan={fb_err:.3e} budget=1e-06 "
+          f"launches={fb_launch}", flush=True)
+    _check(deer.fallbacks == {"toms": 1, "clipper": 1}
+           and deer.last_residual["toms"] > deer.fallback_tol and fb_err <= 1e-6
+           and fb_launch == {"deer": {"B5": 1, "B2": 1, "B1": 0}, "scan": one["scan"]},
+           "residual-triggered fallback serves the exact block")
+    odd = blocks[3][:, :1000]
+    odd_launch = {name: _launches_of(lambda name=name, proc=proc: fb.__setitem__(
+        name, proc.process_block(odd, "clipper", model="approx", gain_db=3.0)))
+        for name, proc in (("deer", deer), ("scan", scan))}
+    odd_err = float(np.abs(fb["deer"] - fb["scan"]).max())
+    print(f"phase stream odd_block T=1000 residual={deer.last_residual['approx']} "
+          f"served_vs_scan={odd_err:.3e} budget=1e-06 launches={odd_launch}", flush=True)
+    _check(deer.last_residual["approx"] == 0.0 and odd_err <= 1e-6
+           and odd_launch == {"deer": one["scan"], "scan": one["scan"]},
+           "a 1000-sample block is served by the exact engine")
+
+    # the scan group with its neural member, hot-swapped, against the same
+    # processor on the CPU (the kernels' plain versions)
+    on_card, on_host = (make_clipper_processor(FS, engine="scan", device=d) for d in (dev, "cpu"))
+    swaps = ("toms", "toms", "neural_2x16", "neural_2x16", "neural_2x16", "neural_2x16",
+             "approx", "approx")
+    n_err, n_launch = [], {"B5": 0, "B2": 0, "B1": 0}
+    for i, model in enumerate(swaps):
+        kw = dict(model=model, gain_db=6.0, cutoff_hz=4000.0)
+        got = _launches_of(lambda: fb.__setitem__("card", on_card.process_block(
+            blocks[i], "clipper", **kw)))
+        n_launch = {k: n_launch[k] + v for k, v in got.items()}
+        _check(sum(got.values()) == 1 and got["B1" if model.startswith("neural") else "B2"] == 1,
+               f"one kernel launch serves {model}")
+        n_err.append(float(np.abs(fb["card"] - on_host.process_block(
+            blocks[i], "clipper", **kw)).max()))
+    print(f"phase stream scan_group card_vs_cpu models={swaps} max_abs_err={max(n_err):.3e} "
+          f"budget=2e-05 launches={n_launch}", flush=True)
+    _check(max(n_err) <= 2e-5, "the card's scan group serves what the CPU's does")
+    launches = _launch_counts()  # the main path's count
+    print(f"phase stream launches={launches}", flush=True)
+    _check(all(v > 0 for v in launches.values()), "every serving kernel launched on the path")
+
+    # --- warmup: cold first block, warmed first block, steady ------------------
+    x0 = blocks[1]
+    for engine, models in (("deer", ("toms", "approx")),
+                           ("scan", ("toms", "approx", "neural_2x16"))):
+        def serve(proc):
+            t0 = time.perf_counter()
+            proc.process_block(x0, "clipper", cutoff_hz=4000.0)
+            return (time.perf_counter() - t0) * 1e3
+
+        cold = serve(make_clipper_processor(FS, models=models, engine=engine, device=dev))
+        warm = make_clipper_processor(FS, models=models, engine=engine, device=dev)
+        info = warm.warmup([STREAM_BLOCK])
+        first = serve(warm)
+        steady = [serve(warm) for _ in range(30)]
+        variants = 2 if engine == "deer" else 1  # the exact fallback variant
+        print(f"phase warmup engine={engine} models={models} block={STREAM_BLOCK} "
+              f"cold_first_ms={cold:.3f} warmup_seconds={info['seconds']:.3f} "
+              f"n_compiled={info['n_compiled']} warmed_first_ms={first:.3f} "
+              f"steady_median_ms={statistics.median(steady):.3f} "
+              f"[{min(steady):.3f}, {max(steady):.3f}] card={card!r}", flush=True)
+        _check(info["n_compiled"] == len(models) * variants * 2, "warmup ran every variant")
+
+    # --- timing deer --------------------------------------------------------
+    d = diode_1n4148_1u1d
+    args = (47e3, 2.2e-9, d.Is, d.Vt * d.nabla, d.N_up, d.N_down)
+    mlp = scan.circuits["neural_2x16"][1]["dp"]
+    z1 = torch.zeros(1, device=dev)
+    times = {}
+    for T in DEER_T:
+        vin = 2.0 * torch.randn(T, generator=gen, device=dev)
+        _cuda_ms(lambda: pd.fused_deer_clipper(vin, *args, fs=FS), 1, 10)  # warm-up
+        k = _cuda_ms(lambda: pd.fused_deer_clipper(vin, *args, fs=FS), REPS, 10)
+        p = _timed(lambda: pd.fused_deer_clipper_plain(vin, *args, fs=FS))
+        b2 = _timed(lambda: fc.fused_clipper_analytic(vin[None], z1, *args, fs=FS))
+        b1 = _timed(lambda: fc.fused_clipper_neural(vin[None], z1, mlp, 47e3, 2.2e-9, fs=FS))
+        times[T] = (statistics.median(k), p[0])
+        print(f"phase timing deer T={T} runs={REPS} kernel_ms={statistics.median(k):.4f} "
+              f"[{min(k):.4f}, {max(k):.4f}] (10 launches per run) plain_ms={p[0]:.4f} "
+              f"[{p[1]:.4f}, {p[2]:.4f}] exact_engine B2_ms={b2[0]:.4f} B1_2x16_ms={b1[0]:.4f} "
+              f"(B=1) card={card!r}", flush=True)
+    block_audio_ms = STREAM_BLOCK / FS * 1e3
+    for engine, proc, model in (("deer", deer, "toms"), ("deer", deer, "approx"),
+                                ("scan", scan, "toms"), ("scan", scan, "neural_2x16")):
+        def serve():
+            proc.process_block(x0, "clipper", model=model, cutoff_hz=4000.0)
+
+        serve()
+        wall = []
+        for _ in range(30):
+            t0 = time.perf_counter()
+            serve()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(wall)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                serve()
+        dev_events = [ev for ev in prof.events()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA]
+        ours = [ev for ev in dev_events if any(
+            k in ev.name for k in ("deer_clipper_kernel", "analytic_kernel", "neural_kernel"))]
+        copies = [ev for ev in dev_events if "Memcpy" in ev.name or "Memset" in ev.name]
+        dev_us = sum(ev.time_range.elapsed_us() for ev in dev_events) / 10
+        print(f"phase timing stream engine={engine} model={model} block={STREAM_BLOCK} "
+              f"process_block_wall_ms={ms:.4f} [{min(wall):.4f}, {max(wall):.4f}] "
+              f"real_time_factor={block_audio_ms / ms:.2f} per block (profiled, 10 blocks): "
+              f"serving_kernel_launches={len(ours) / 10:g} other_device_ops="
+              f"{(len(dev_events) - len(ours) - len(copies)) / 10:g} copies={len(copies) / 10:g} "
+              f"device_us={dev_us:.1f} device_busy_share={dev_us / 1e3 / ms:.3f} "
+              f"card={card!r}", flush=True)
+
+    sweeps, iters = DEER_CFG["toms"]
+    bound = _bound(_deer_ops(STREAM_BLOCK, sweeps, 2, iters), 8 * STREAM_BLOCK + 12)
+    return [{"name": "fused_deer_clipper", "route": "cuda", "source": DEER_SOURCE,
+             "replaces": DEER_REPLACES, "launches": launches["B5"],
+             "max_abs_err": max(plain_errs), "ms": times[STREAM_BLOCK][0],
+             "plain_ms": times[STREAM_BLOCK][1], "bound_ms": bound[0], "bound_by": bound[1],
+             "library_ms": None}]
 
 
 def main() -> None:
@@ -571,7 +942,8 @@ def main() -> None:
     for line in _ptxas_lines():
         print(f"  ptxas {line}", flush=True)
 
-    kernels = serve_path(dev, card, args.seed) + train_path(dev, card, args.seed)
+    kernels = (serve_path(dev, card, args.seed) + train_path(dev, card, args.seed)
+               + stream_path(dev, card, args.seed))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -41,6 +41,8 @@ _SIGNATURES = {
         [_vp] * 7 + [_i, _i, _vp, _i, _i, _vp], ctypes.c_int),
     "clipper_adjoint_launch": (
         [_vp] * 8 + [_i, _i, _vp, _i, _i, _vp], ctypes.c_int),
+    "deer_clipper_launch": (
+        [_vp] * 6 + [_i] + [_f] * 8 + [_i] * 3 + [_vp], ctypes.c_int),
     "diffwdf_cuda_error_string": ([_i], ctypes.c_char_p),
 }
 

@@ -43,35 +43,11 @@
 #include <cuda_runtime.h>
 
 #include "nxh_mlp.cuh"
+#include "omega.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ float sign0(float a) {
-  return static_cast<float>((a > 0.f) - (a < 0.f));
-}
-
-// Real-line Wright omega: region-split guess for u = log(w), then Newton on
-// e^u + u = x.  Same math as roots/omega.py, but only the selected region's
-// guess is evaluated.
-__device__ __forceinline__ float omega(float x, int iters) {
-  float u;
-  if (x <= -1.f) {
-    u = x - expf(x);
-  } else if (x >= 2.f) {
-    const float lx = logf(x);
-    u = logf(x - lx + lx / x);
-  } else {
-    const float t = x - 1.f;
-    u = logf(1.f + 0.5f * t + 0.0625f * t * t);
-  }
-  for (int k = 0; k < iters; ++k) {
-    const float eu = expf(u);
-    u = u - (eu + u - x) / (eu + 1.f);
-  }
-  return expf(u);
-}
 
 struct AnalyticConsts {
   float p1R;     // G_source / (G_source + G_cap)

@@ -193,3 +193,95 @@ def test_train_kernels_count_one_launch_per_call(cuda):
         fc.fused_clipper_neural_train_fwd(vin, z0, bad, r_rows, TRAIN_CAP, fs=TRAIN_FS)
     assert fc.fused_clipper_neural_train_fwd.launches == ct.clipper_adjoint.launches == 3
     assert fc.fused_clipper_neural.launches == fc.fused_clipper_analytic.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# single-stream serving: the DEER kernel and the streaming processor
+# ---------------------------------------------------------------------------
+
+
+def _deer_args(r_src=R_SRC):
+    d = diode_1n4148_1u1d
+    return (r_src, CAP, d.Is, d.Vt * d.nabla, d.N_up, d.N_down)
+
+
+@pytest.fixture
+def deer_cuda(cuda):
+    from diffwdf_tpu_torch.ops import parallel_time_deer as pd
+
+    pd.fused_deer_clipper.launches = 0
+    return cuda, pd
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [2048, 16384])
+@pytest.mark.parametrize("sweeps,iters", [(8, 3), (4, 1)], ids=["toms", "approx"])
+def test_deer_kernel_matches_plain(deer_cuda, T, sweeps, iters):
+    dev, pd = deer_cuda
+    vin = torch.from_numpy(np.random.default_rng(T + iters).standard_normal(T)
+                           .astype(np.float32) * 2).to(dev)
+    kw = dict(fs=FS, z0=0.2, sweeps=sweeps, quality_iters=iters)
+    got = pd.fused_deer_clipper(vin, *_deer_args(), **kw)
+    want = pd.fused_deer_clipper_plain(vin, *_deer_args(), **kw)
+    torch.cuda.synchronize()
+    assert pd.fused_deer_clipper.launches == 1
+    assert got[0].shape == (T,) and got[1].shape == () and got[2].shape == ()
+    _close(got[0], want[0], 1e-6)
+    _close(got[1], want[1], 1e-6)
+    np.testing.assert_allclose(float(got[2]), float(want[2]), atol=1e-6, rtol=0.05)
+
+
+@pytest.mark.gpu
+def test_deer_kernel_chains_blocks_and_flags_180_ohm(deer_cuda):
+    dev, pd = deer_cuda
+    vin = torch.from_numpy(np.random.default_rng(7).standard_normal(2048)
+                           .astype(np.float32) * 2).to(dev)
+    full, _, _ = pd.fused_deer_clipper(vin, *_deer_args(), fs=FS)
+    a, za, _ = pd.fused_deer_clipper(vin[:1024], *_deer_args(), fs=FS)
+    b, _, _ = pd.fused_deer_clipper(vin[1024:], *_deer_args(), fs=FS, z0=za)  # state stays on the card
+    _, _, res = pd.fused_deer_clipper(vin, *_deer_args(180.0), fs=FS)
+    torch.cuda.synchronize()
+    _close(torch.cat([a, b]), full, 2e-6)
+    assert float(res) > 1e-2
+    with pytest.raises(ValueError):
+        pd.fused_deer_clipper(vin[:1000], *_deer_args(), fs=FS)
+    assert pd.fused_deer_clipper.launches == 4
+
+
+@pytest.mark.gpu
+def test_exact_engine_at_one_stream_matches_plain(cuda):
+    """B2 at B=1 (the exact engine of a served block) after the omega move
+    to omega.cuh: the plain version's values, and row 0 of a batched call."""
+    vin, z0 = _inputs(cuda, 64, 2048, seed=12)
+    args = _deer_args()
+    one, one_z = fc.fused_clipper_analytic(vin[:1], z0[:1], *args, fs=FS)
+    many, _ = fc.fused_clipper_analytic(vin, z0, *args, fs=FS)
+    want, want_z = fc.fused_clipper_analytic_plain(vin[:1], z0[:1], *args, fs=FS)
+    torch.cuda.synchronize()
+    assert torch.equal(one[0], many[0])
+    _close(one, want, 5e-6)
+    _close(one_z, want_z, 5e-6)
+
+
+@pytest.mark.gpu
+def test_stream_processor_on_card_deer_vs_scan(deer_cuda):
+    """Both engines serve one stream on the card: deer equals scan block for
+    block at 5e-6, and every served block is one kernel launch."""
+    from diffwdf_tpu_torch.runtime.stream import make_clipper_processor
+
+    dev, pd = deer_cuda
+    deer = make_clipper_processor(FS, models=("toms", "approx"), engine="deer", device=dev)
+    scan = make_clipper_processor(FS, engine="scan", device=dev)
+    x = (1.5 * np.random.default_rng(8).standard_normal((2, 3 * 2048))).astype(np.float32)
+    for i, model in enumerate(("toms", "approx", "toms")):
+        blk = x[:, i * 2048:(i + 1) * 2048]
+        kw = dict(model=model, gain_db=2.0 * i, cutoff_hz=3000.0 + 1000.0 * i)
+        b = deer.process_block(blk, "clipper", **kw)
+        assert (pd.fused_deer_clipper.launches, fc.fused_clipper_analytic.launches) == (i + 1, i)
+        a = scan.process_block(blk, "clipper", **kw)
+        assert (pd.fused_deer_clipper.launches, fc.fused_clipper_analytic.launches) == (i + 1, i + 1)
+        assert b.shape == (2, 2048) and np.isfinite(b).all()
+        np.testing.assert_allclose(b, a, atol=5e-6, rtol=0)
+        assert deer.last_residual[model] < 1e-5
+    scan.process_block(x[:, :2048], "clipper", model="neural_2x16")
+    assert fc.fused_clipper_neural.launches == 1
