@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """GPU smoke run of diffwdf_tpu_torch's main paths: batched diode-clipper
-serving, in-circuit training of the clipper (engine="fused"), and
-single-stream serving through the streaming processor (engine="deer" and
-"scan").
+serving, in-circuit training of the clipper (engine="fused"), single-stream
+serving through the streaming processor (engine="deer" and "scan"), and
+batched serving of the generic circuits (generated kernels) and the
+distilled clipper.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -63,6 +64,24 @@ one line per phase:
              the exact engine's kernels at B=1, process_block wall ms and
              real-time factor per engine, and the device work of one
              served block from a profiler trace
+  build circuits  the generated kernels of six circuits (Tube Screamer
+             analytic and pretrained 2x16, HPF clipper analytic and
+             HPF-trained 2x16, LPF clipper, RC lowpass), one nvcc each, all
+             started together: seconds cold and cached, ptxas registers and
+             spills, slots and operations per sample
+  kernels distilled  the 1N4148 root distilled at the clipper's port R (fit
+             error), the distilled clipper kernel against its plain version
+             and against the analytic kernel (ESR) at (8192, 2048)
+  kernels circuit  every generated kernel against its plain version at
+             (8192, 2048), the LPF clipper's also against the analytic kernel
+  serve circuit  serving as a user drives it: the Tube Screamer (analytic
+             and 2x16), the HPF 2x16 and the distilled clipper answer two
+             (8192, 2048) request blocks with the state carried; the launch
+             counters must rise and the blocks equal one run; the drive pot
+             from 0 to 1 moves the gain without an nvcc run
+  timing circuit  CUDA-event medians of the distilled and generated kernels,
+             the wrapper calls, the plain versions and the LPF clipper's own
+             kernels on the same streams
 
 then a JSON line with every kernel's launches, error, times and bound, the
 card's name and power limit, and finally ``{"ok": true, "device": {...}}``.
@@ -89,16 +108,22 @@ from diffwdf_tpu_torch.data.synthetic import make_synthetic_dataset_dir
 from diffwdf_tpu_torch.models.diode_clipper import (
     cutoff_to_resistance,
     make_diode_clipper,
+    make_hpf_diode_clipper,
+    make_hpf_root_from_zoo,
     make_root_from_zoo,
     make_training_clipper,
     pretrained_model_path,
 )
+from diffwdf_tpu_torch.models.simple_circuits import make_rc_lowpass
+from diffwdf_tpu_torch.models.tube_screamer import make_tube_screamer
 from diffwdf_tpu_torch.nn.serialization import load_model_json, save_model_json
 from diffwdf_tpu_torch.ops import _build
 from diffwdf_tpu_torch.ops import clipper_train as ct
+from diffwdf_tpu_torch.ops import fused_circuit as fcirc
 from diffwdf_tpu_torch.ops import fused_clipper as fc
 from diffwdf_tpu_torch.ops import parallel_time_deer as pd
-from diffwdf_tpu_torch.roots.diode import diode_1n4148_1u1d, diode_1n4148_1u2d
+from diffwdf_tpu_torch.roots.diode import DiodePairRoot, diode_1n4148_1u1d, diode_1n4148_1u2d
+from diffwdf_tpu_torch.roots.distilled import distill_root
 from diffwdf_tpu_torch.roots.neural import NeuralDiodeRoot
 from diffwdf_tpu_torch.runtime.stream import make_clipper_processor
 from diffwdf_tpu_torch.training.circuit_train import (
@@ -152,6 +177,18 @@ STREAM_SCHEDULE = ((0, "toms", 0.0, 4000.0), (8, "toms", 6.0, 4000.0),
 BAD_CUTOFF = 1.0 / (2.0 * np.pi * 180.0 * 2.2e-9)  # maps to R = 180 Ohm
 DEER_SOURCE = "diffwdf_tpu_torch/ops/csrc/parallel_time_deer.cu"
 DEER_REPLACES = "diffwdf_tpu/ops/parallel_time_deer.py:238"
+
+# batched serving of the generic circuits (the JAX bench's batch-serving
+# section after the headline, bench.py:364-453): the distilled clipper
+# through B6 and the Tube Screamer, the HPF clipper, the LPF clipper and the
+# RC lowpass through generated B7 kernels, at the serving shape with the
+# state carried over two request blocks
+CIRCUIT_BLOCKS = 2
+CHEB_SOURCE = "diffwdf_tpu_torch/ops/csrc/cheb.cu"
+CHEB_REPLACES = "diffwdf_tpu/ops/fused_clipper.py:674"
+CIRCUIT_SOURCE = "diffwdf_tpu_torch/ops/circuit_codegen.py"
+CIRCUIT_REPLACES = "diffwdf_tpu/ops/fused_circuit.py:325"
+R_SRC, CAP = 47.0e3, 2.2e-9
 
 # the bound: the larger of the operations over the card's f32 peak (outside
 # the tensor cores) and the bytes over its memory rate (NVIDIA's data sheet,
@@ -915,6 +952,250 @@ def stream_path(dev, card: str, seed: int) -> list:
              "library_ms": None}]
 
 
+def _circuits(dev) -> dict:
+    """name -> (circuit, params, input node, amplitude, MLP served through
+    the ``_neural`` entry or None): the circuits of the batch-serving path."""
+    root0, rp0 = make_root_from_zoo(0, device=dev)  # 1N4148 1U-1D, quality "best"
+    root4, rp4 = make_root_from_zoo(4, device=dev)  # pretrained 2x16
+    out = {}
+    for name, root, rp, mlp in (("ts", root0, rp0, None), ("ts_2x16", root4, rp4, rp4["dp"])):
+        ts = make_tube_screamer(root, FS, drive=0.5)
+        out[name] = (ts, {**ts.init_params(dev), **rp}, "Vin", 0.2, mlp)
+    for name, index in (("hpf", 0), ("hpf_2x16", 3)):
+        root, rp = make_hpf_root_from_zoo(index, device=dev)
+        hpf = make_hpf_diode_clipper(root, FS)
+        out[name] = (hpf, {**hpf.init_params(dev), **rp}, "Vs", 1.5, None)
+    lpf = make_diode_clipper(root0, FS, R_SRC, CAP)
+    out["lpf"] = (lpf, {**lpf.init_params(dev), **rp0}, "Vs", 1.5, None)
+    rc = make_rc_lowpass(FS)
+    out["rc"] = (rc, rc.init_params(dev), "Vs", 1.0, None)
+    return out
+
+
+def circuit_server(ckt, params, node, mlp):
+    """serve(vin, state, plain=False) -> (out, final state) of a circuit
+    through fused_circuit_process (or its ``_neural`` entry)."""
+    def serve(vin, state, plain=False):
+        if mlp is not None:
+            fn = (fcirc.fused_circuit_process_neural_plain if plain
+                  else fcirc.fused_circuit_process_neural)
+            return fn(ckt, params, mlp, vin, state, input_node=node)
+        fn = fcirc.fused_circuit_process_plain if plain else fcirc.fused_circuit_process
+        return fn(ckt, params, vin, state, input_node=node)
+
+    return serve
+
+
+def _state_err(got, want) -> float:
+    return max([_max_err(got[k][f], z) for k, d in want.items() for f, z in d.items()],
+               default=0.0)
+
+
+def circuit_path(dev, card: str, seed: int) -> list:
+    """Batched serving of the generic circuits: build, kernels distilled,
+    kernels circuit, serve circuits and timing circuit phases.  Returns the
+    records of B6 and B7 for the JSON line."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    circuits = _circuits(dev)
+    servers = {name: circuit_server(ckt, p, node, mlp)
+               for name, (ckt, p, node, _, mlp) in circuits.items()}
+    n = torch.arange(CIRCUIT_BLOCKS * T, device=dev, dtype=torch.float32)
+    tone = torch.sin(2 * np.pi * 1000.0 * n / FS)[None, :]
+    noise = torch.randn(B, CIRCUIT_BLOCKS * T, generator=gen, device=dev)
+    signals = {name: amp * tone + 0.1 * noise for name, (_, _, _, amp, _) in circuits.items()}
+    first = {name: sig[:, :T].contiguous() for name, sig in signals.items()}
+
+    def zero_state(ckt):
+        return {k: {f: torch.zeros(B, device=dev) for f in d}
+                for k, d in ckt.init_state("cpu").items()}
+
+    # --- build: one generated kernel per circuit, nvcc in parallel ----------
+    progs = {name: fcirc.prepare(ckt, p, dev, input_node=node, neural_mlp=mlp)[0]
+             for name, (ckt, p, node, _, mlp) in circuits.items()}
+    sources = [prog.source for prog in progs.values()]
+    builds = _build.build_generated.builds
+    t0 = time.perf_counter()
+    _build.build_generated(sources)
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _build.build_generated(sources)
+    cached_s = time.perf_counter() - t0
+    print(f"phase build circuits sources={len(set(sources))} nvcc_runs="
+          f"{_build.build_generated.builds - builds} cold_seconds={cold_s:.2f} "
+          f"cached_seconds={cached_s:.4f}", flush=True)
+    for name, prog in progs.items():
+        log = _build.generated_path(prog.source).with_suffix(".log").read_text().splitlines()
+        ptxas = [l.split(":", 1)[-1].strip() for l in log if "registers" in l or "spill" in l]
+        print(f"  ptxas {name} states={len(prog.state_order)} slots={prog.n_coeffs} "
+              f"ops_per_sample={prog.ops_per_sample} {' | '.join(ptxas)}", flush=True)
+
+    # --- kernels distilled: B6 against its plain version and against B2 -------
+    d = diode_1n4148_1u1d
+    aroot = DiodePairRoot(name="dp", diode=d, quality="best")
+    r_port = 1.0 / (1.0 / R_SRC + 2.0 * CAP * FS)  # bench.py:369-371
+    droot, fit_err = distill_root(aroot, aroot.init_params("cpu"), r_port)
+    vin = 2.0 * torch.randn(B, CIRCUIT_BLOCKS * T, generator=gen, device=dev)
+    cheb_blocks = [vin[:, i * T:(i + 1) * T].contiguous() for i in range(CIRCUIT_BLOCKS)]
+    z0 = torch.zeros(B, device=dev)
+    cheb_args = (droot, R_SRC, CAP)
+    got, got_z = fc.fused_clipper_cheb(cheb_blocks[0], z0, *cheb_args, fs=FS)
+    want, want_z = fc.fused_clipper_cheb_plain(cheb_blocks[0], z0, *cheb_args, fs=FS)
+    analytic_args = (R_SRC, CAP, d.Is, d.Vt * d.nabla, d.N_up, d.N_down)
+    y2, _ = fc.fused_clipper_analytic(cheb_blocks[0], z0, *analytic_args, fs=FS)
+    torch.cuda.synchronize()
+    cheb_err = max(_max_err(got, want), _max_err(got_z, want_z))
+    esr = float(((y2 - got) ** 2).sum() / (y2 ** 2).sum())
+    print(f"phase kernels distilled root=1N4148 1U-1D best r_port={r_port:.3f} "
+          f"degrees={tuple(len(c) - 1 for c in droot.coeffs)} fit_max_abs_err={fit_err:.3e} "
+          f"budget=1e-04 shape=({B}, {T}) vs_plain={cheb_err:.3e} budget=1e-05 "
+          f"esr_vs_analytic_kernel={esr:.3e} budget=1e-07", flush=True)
+    _check(fit_err < 1e-4, "distilled root within 1e-4 of the analytic root")
+    _check(bool(torch.isfinite(got).all()) and cheb_err <= 1e-5, "B6 within 1e-5 of plain")
+    _check(esr < 1e-7, "distilled clipper ESR below 1e-7 against B2")
+
+    # --- kernels circuit: B7 against its plain version -------------------------
+    circuit_err = {}
+    for name, serve in servers.items():
+        ckt = circuits[name][0]
+        got, got_state = serve(first[name], zero_state(ckt))
+        want, want_state = serve(first[name], zero_state(ckt), plain=True)
+        torch.cuda.synchronize()
+        circuit_err[name] = max(_max_err(got, want), _state_err(got_state, want_state))
+        line = (f"phase kernels circuit {name} shape=({B}, {T}) states={len(want_state)} "
+                f"vs_plain={circuit_err[name]:.3e} budget=2e-05")
+        if name == "lpf":  # the same circuit through B2
+            y2, z2 = fc.fused_clipper_analytic(first[name], z0, *analytic_args, fs=FS)
+            torch.cuda.synchronize()
+            b2_err = max(_max_err(got, y2), _max_err(got_state["C"]["z"], z2))
+            line += f" vs_analytic_kernel={b2_err:.3e} budget=2e-05"
+            _check(b2_err <= 2e-5, "B7 on the LPF clipper within 2e-5 of B2")
+        print(line, flush=True)
+        _check(bool(torch.isfinite(got).all()) and circuit_err[name] <= 2e-5,
+               f"B7 {name} within 2e-5 of its plain version")
+
+    # --- serve circuits: the main path, counted --------------------------------
+    served = ("ts", "ts_2x16", "hpf_2x16")
+    fc.fused_clipper_cheb.launches = 0
+    fcirc.fused_circuit_process.launches = 0
+    outs = {}
+    for name in served:
+        state, parts = zero_state(circuits[name][0]), []
+        for i in range(CIRCUIT_BLOCKS):
+            out, state = servers[name](signals[name][:, i * T:(i + 1) * T].contiguous(), state)
+            parts.append(out)
+        outs[name] = (torch.cat(parts, dim=1), state)
+    z, parts = z0, []
+    for blk in cheb_blocks:
+        out, z = fc.fused_clipper_cheb(blk, z, *cheb_args, fs=FS)
+        parts.append(out)
+    outs["distilled"] = (torch.cat(parts, dim=1), z)
+    torch.cuda.synchronize()
+    launches = {"B6": fc.fused_clipper_cheb.launches, "B7": fcirc.fused_circuit_process.launches}
+    for name in served + ("distilled",):
+        out, state = outs[name]
+        if name == "distilled":
+            whole, whole_z = fc.fused_clipper_cheb(vin, z0, *cheb_args, fs=FS)
+            carry = max(_max_err(out, whole), _max_err(state, whole_z))
+        else:
+            whole, whole_state = servers[name](signals[name], zero_state(circuits[name][0]))
+            carry = max(_max_err(out, whole), _state_err(state, whole_state))
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(out).all())
+        print(f"phase serve circuit {name} blocks={CIRCUIT_BLOCKS}x({B}, {T}) finite={finite} "
+              f"shape={tuple(out.shape)} carry_vs_one_run_max_abs={carry:.3e} budget=1e-06",
+              flush=True)
+        _check(finite and tuple(out.shape) == (B, CIRCUIT_BLOCKS * T), f"{name} output shaped")
+        _check(carry <= 1e-6, f"{name}: two blocks with carried state equal one run")
+    print(f"phase serve circuit launches={launches}", flush=True)
+    _check(launches["B6"] >= CIRCUIT_BLOCKS and launches["B7"] >= len(served) * CIRCUIT_BLOCKS,
+           "B6 and B7 launched on the main path")
+
+    # the drive pot: a new coefficient vector, no new build
+    ts, ts_params = circuits["ts"][0], circuits["ts"][1]
+    small = 0.02 * torch.sin(2 * np.pi * 440.0 * n[:T] / FS)[None, :].repeat(B, 1)
+    builds, gains = _build.build_generated.builds, []
+    for drive in (0.0, 1.0):
+        ts_d = make_tube_screamer(ts.root, FS, drive=drive)
+        out, _ = fcirc.fused_circuit_process(ts_d, {**ts_d.init_params(dev), "dp": ts_params["dp"]},
+                                             small, zero_state(ts_d))
+        torch.cuda.synchronize()
+        gains.append(float(out[:, T // 2:].abs().max() / small.abs().max()))
+    print(f"phase serve circuit drive 0.0->1.0 peak_gain={gains[0]:.3f}->{gains[1]:.3f} "
+          f"nvcc_runs={_build.build_generated.builds - builds}", flush=True)
+    _check(_build.build_generated.builds == builds, "a drive change does not rebuild")
+    _check(gains[1] > 2.0 * gains[0], "more drive, more gain")
+
+    # --- timing circuit -------------------------------------------------------
+    def launch_only(name):
+        """The generated kernel's launch alone, on arguments prepared once."""
+        ckt, p, node, _, mlp = circuits[name]
+        prog, vec, warr = fcirc.prepare(ckt, p, dev, input_node=node, neural_mlp=mlp)
+        z = torch.zeros(len(prog.state_order), B, device=dev)
+        return lambda: fcirc.launch(prog, vec, warr, first[name], z)
+
+    times = {}
+    cases = [("B6", lambda: fc.fused_clipper_cheb(cheb_blocks[0], z0, *cheb_args, fs=FS),
+              lambda: fc.fused_clipper_cheb_plain(cheb_blocks[0], z0, *cheb_args, fs=FS))]
+    for name in ("ts", "ts_2x16", "hpf_2x16", "lpf"):
+        ckt = circuits[name][0]
+        cases.append((f"B7 {name}", launch_only(name),
+                      lambda name=name, ckt=ckt: servers[name](first[name], zero_state(ckt),
+                                                               plain=True)))
+    for label, kernel, plain in cases:
+        _cuda_ms(kernel, 1, 2)  # warm-up
+        k = _cuda_ms(kernel, REPS, 10)
+        wrapper = ""
+        if label.startswith("B7"):  # the user's call: adaptation, vector, launch
+            name = label.split()[1]
+            state = zero_state(circuits[name][0])
+            w_ms = statistics.median(_cuda_ms(lambda: servers[name](first[name], state), 3, 10))
+            wrapper = f" wrapper_ms={w_ms:.4f} (10 calls per run)"
+        p_ms = _cuda_ms(plain, 1)[0] if label != "B7 lpf" else float("nan")
+        times[label] = (statistics.median(k), p_ms)
+        print(f"phase timing circuit {label} shape=({B}, {T}) runs={REPS} "
+              f"kernel_ms={statistics.median(k):.4f} [{min(k):.4f}, {max(k):.4f}] "
+              f"(10 launches per run){wrapper} plain_ms={p_ms:.4f} (one run) card={card!r}",
+              flush=True)
+    # the LPF clipper's own kernels on the same streams: B2 beside B7 on the
+    # analytic root, B1 (the pretrained 2x16) beside B7 on the TS 2x16
+    mlp = circuits["ts_2x16"][4]
+    refs = {"B2": lambda: fc.fused_clipper_analytic(first["lpf"], z0, *analytic_args, fs=FS),
+            "B1": lambda: fc.fused_clipper_neural(first["lpf"], z0, mlp, R_SRC, CAP, fs=FS)}
+    ref_ms = {}
+    for name, fn in refs.items():
+        _cuda_ms(fn, 1, 2)
+        ref_ms[name] = statistics.median(_cuda_ms(fn, REPS, 10))
+    print(f"phase timing circuit references shape=({B}, {T}) runs={REPS} "
+          f"B2_ms={ref_ms['B2']:.4f} B1_2x16_ms={ref_ms['B1']:.4f} (10 launches per run) "
+          f"B7_lpf_over_B2={times['B7 lpf'][0] / ref_ms['B2']:.3f} "
+          f"B7_ts_2x16_over_B1={times['B7 ts_2x16'][0] / ref_ms['B1']:.3f} card={card!r}",
+          flush=True)
+
+    # bounds: operations counted from the sources, bytes = in + out + state
+    # B6 per sample: the clipper's b_temp, a, z' and output (6) around the root
+    cheb_ops = (fc.cheb_root_ops(len(droot.coeffs), fc.cheb_parameters(droot)[1]) + 6) * B * T
+    bounds = {"B6": _bound(cheb_ops, 8 * B * T + 8 * B)}
+    for name in ("ts", "ts_2x16", "hpf_2x16", "lpf"):
+        prog = progs[name]
+        bounds[f"B7 {name}"] = _bound(prog.ops_per_sample * B * T,
+                                      8 * B * T + 8 * len(prog.state_order) * B)
+    for label, (bound_ms, by) in bounds.items():
+        print(f"phase timing circuit bound {label} kernel_ms={times[label][0]:.4f} "
+              f"bound_ms={bound_ms:.6f} ({by}) share={bound_ms / times[label][0]:.4f} "
+              f"launches_on_main_path={launches[label.split()[0]]} card={card!r}", flush=True)
+    return [
+        {"name": "fused_clipper_cheb", "route": "cuda", "source": CHEB_SOURCE,
+         "replaces": CHEB_REPLACES, "launches": launches["B6"], "max_abs_err": cheb_err,
+         "ms": times["B6"][0], "plain_ms": times["B6"][1],
+         **dict(zip(("bound_ms", "bound_by"), bounds["B6"])), "library_ms": None},
+        {"name": "fused_circuit_process", "route": "cuda", "source": CIRCUIT_SOURCE,
+         "replaces": CIRCUIT_REPLACES, "launches": launches["B7"],
+         "max_abs_err": max(circuit_err.values()), "ms": times["B7 ts"][0],
+         "plain_ms": times["B7 ts"][1],
+         **dict(zip(("bound_ms", "bound_by"), bounds["B7 ts"])), "library_ms": None},
+    ]
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of the input signals")
@@ -943,7 +1224,7 @@ def main() -> None:
         print(f"  ptxas {line}", flush=True)
 
     kernels = (serve_path(dev, card, args.seed) + train_path(dev, card, args.seed)
-               + stream_path(dev, card, args.seed))
+               + stream_path(dev, card, args.seed) + circuit_path(dev, card, args.seed))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,9 +3,13 @@
 The PyTorch port of ``diffwdf_tpu``, with the same module paths and public
 names: WDF elements, adaptors and circuits as pure functions over dicts of
 tensors, analytic Wright-omega and neural diode roots with JSON weight
-interchange, the diode-clipper model zoo, and hand-written CUDA kernels for
-batched clipper serving (``diffwdf_tpu_torch.ops.fused_clipper``).  It
-imports nothing of JAX.
+interchange, distilled Chebyshev roots, R-type adaptors, the diode-clipper
+model zoo, the Tube Screamer and the simple circuits, and hand-written CUDA
+kernels for batched clipper serving and training
+(``diffwdf_tpu_torch.ops.fused_clipper``, ``ops.clipper_train``),
+single-stream serving (``ops.parallel_time_deer``) and batched serving of
+any circuit through a kernel generated per circuit structure
+(``ops.fused_circuit``).  It imports nothing of JAX.
 """
 
 from .core.elements import (

@@ -43,6 +43,28 @@ def _scalar(value: float, device: Device) -> torch.Tensor:
     return torch.tensor(value, dtype=torch.float32, device=device)
 
 
+class Symbolic:
+    """Base of the symbolic scalars that trace a circuit's sample step into
+    source code (``ops.circuit_codegen``).  They support the arithmetic the
+    tree methods use; where an element would make a tensor, it passes a
+    symbol through instead."""
+
+    def zeros_like(self) -> "Symbolic":
+        raise NotImplementedError
+
+
+def _zeros_like(x):
+    """Zero in x's dtype and device (a symbol's own zero when tracing)."""
+    if isinstance(x, Symbolic):
+        return x.zeros_like()
+    return torch.zeros_like(torch.as_tensor(x))
+
+
+def _as_wave(x):
+    """x as a tensor (a symbol passes through when tracing)."""
+    return x if isinstance(x, Symbolic) else torch.as_tensor(x)
+
+
 class WDFNode:
     """Base class for all WDF tree nodes (elements and adaptors)."""
 
@@ -149,7 +171,7 @@ class Resistor(WDFNode):
     def reflected(self, coeffs, state, controls, waves):
         # zero in the port impedance's dtype and device, so an f64 oracle
         # run stays f64 end to end
-        return self._record_b(waves, torch.zeros_like(torch.as_tensor(coeffs[self.name]["R"])))
+        return self._record_b(waves, _zeros_like(coeffs[self.name]["R"]))
 
     def incident(self, coeffs, state, controls, waves, x):
         self._record_a(waves, x)
@@ -244,7 +266,7 @@ class ResistiveVoltageSource(WDFNode):
         return R
 
     def reflected(self, coeffs, state, controls, waves):
-        return self._record_b(waves, torch.as_tensor(controls[self.name]["v"]))
+        return self._record_b(waves, _as_wave(controls[self.name]["v"]))
 
     def incident(self, coeffs, state, controls, waves, x):
         self._record_a(waves, x)

@@ -183,3 +183,46 @@ def make_root_from_zoo(
         return NeuralDiodeRoot.from_mlp(name, mlp, acts)
     root = NeuralDiodeRoot(name=name, n_layers=n_layers, layer_size=width)
     return root, root.init_params(device, generator)
+
+
+#: The HPF circuit's 4 root choices: analytic TOMS / approx, the
+#: LPF-circuit-trained 2x16 run in the unseen HPF topology ("Extrapolated"),
+#: and a 2x16 trained in the HPF topology itself ("Trained").
+HPF_ZOO = (
+    ("analytic", "best"),              # 0: 1N4148 Ideal (TOMS)
+    ("analytic", "low"),               # 1: 1N4148 Approx
+    ("neural_lpf_trained", (2, 16)),   # 2: 2x16 Extrapolated
+    ("neural_hpf_trained", (2, 16)),   # 3: 2x16 Trained
+)
+
+#: checked-in weights of the two neural HPF choices, relative to the
+#: checkout's root
+HPF_MODEL_PATHS = {
+    "neural_lpf_trained": "runs/clipper_1u1d/1N4148_1U1D_2x16_circuit_trained.json",
+    "neural_hpf_trained": "runs/hpf_1u1d/1N4148_1U1D_2x16_hpf_trained.json",
+}
+
+
+def make_hpf_root_from_zoo(
+    index: int,
+    diode: DiodeConfig = diode_1n4148_1u1d,
+    json_path: Optional[str] = None,
+    name: str = "dp",
+    *,
+    device: Device,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[Root, dict]:
+    """Build HPF root choice #index.  Neural entries load ``json_path`` if
+    given, else the checked-in weights of HPF_MODEL_PATHS, else fall back to
+    random init from ``generator``.  Returns (root, params_fragment)."""
+    kind, spec = HPF_ZOO[index]
+    if kind == "analytic":
+        root = DiodePairRoot(name=name, diode=diode, quality=spec)
+        return root, root.init_params(device)
+    n_layers, width = spec
+    path = Path(json_path) if json_path else _checkout_path(HPF_MODEL_PATHS[kind])
+    if path.exists():
+        mlp, acts, _ = load_model_json(path, device=device)
+        return NeuralDiodeRoot.from_mlp(name, mlp, acts)
+    root = NeuralDiodeRoot(name=name, n_layers=n_layers, layer_size=width)
+    return root, root.init_params(device, generator)

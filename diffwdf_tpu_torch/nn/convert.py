@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..core.elements import Device
+from ..roots.distilled import PiecewiseChebRoot
 
 
 def params_from_jax(tree: Any, device: Device) -> Any:
@@ -27,3 +28,14 @@ def params_from_jax(tree: Any, device: Device) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax(v, device) for v in tree)
     return torch.as_tensor(np.array(tree), device=device)
+
+
+def cheb_root_from_jax(jax_root):
+    """The port's PiecewiseChebRoot with the name, range, breaks and
+    coefficients of a JAX package's distilled root (read as numpy)."""
+    return PiecewiseChebRoot(
+        name=jax_root.name,
+        a_max=float(jax_root.a_max),
+        breaks=tuple(float(b) for b in jax_root.breaks),
+        coeffs=tuple(np.array(c, dtype=np.float64) for c in jax_root.coeffs),
+    )

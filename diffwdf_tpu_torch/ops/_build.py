@@ -8,6 +8,13 @@ objects into one shared library with a plain C interface and loads it with
 (``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt and
 an unchanged one is loaded as it is.  Nothing is compiled when the module is
 imported.
+
+Generated sources (``ops.circuit_codegen``, one per circuit structure) take
+another path: ``generated_library(source)`` writes the source into the same
+directory, compiles it alone into its own library with the same flags (the
+headers of ``csrc/`` on the include path) and keys it by a hash of the
+source, the headers and the flags, so a circuit that only changes values
+never builds again.
 """
 
 from __future__ import annotations
@@ -43,6 +50,8 @@ _SIGNATURES = {
         [_vp] * 8 + [_i, _i, _vp, _i, _i, _vp], ctypes.c_int),
     "deer_clipper_launch": (
         [_vp] * 6 + [_i] + [_f] * 8 + [_i] * 3 + [_vp], ctypes.c_int),
+    "fused_clipper_cheb_launch": (
+        [_vp] * 4 + [_i, _i, _vp, _i, _i, _i, _f, _vp], ctypes.c_int),
     "diffwdf_cuda_error_string": ([_i], ctypes.c_char_p),
 }
 
@@ -118,8 +127,93 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def check(err: int, what: str) -> None:
-    """Raise if a launch function returned a CUDA error."""
+def check(err: int, what: str, error_string=None) -> None:
+    """Raise if a launch function returned a CUDA error.  ``error_string``
+    is the C function naming the error (default: the kernel library's)."""
     if err != 0:
-        msg = library().diffwdf_cuda_error_string(err).decode()
+        msg = (error_string or library().diffwdf_cuda_error_string)(err).decode()
         raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+# ---------------------------------------------------------------------------
+# Generated sources (ops/circuit_codegen.py): one library per source
+# ---------------------------------------------------------------------------
+
+#: C signatures of a generated circuit kernel library
+_GENERATED_SIGNATURES = {
+    "circuit_launch": ([_vp] * 4 + [_i, _i, _vp, _vp, _i, _vp], ctypes.c_int),
+    "circuit_error_string": ([_i], ctypes.c_char_p),
+}
+
+
+@functools.cache
+def _headers_digest() -> bytes:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for hdr in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
+    return h.digest()
+
+
+def generated_path(source: str) -> Path:
+    """Where the library of a generated source lives: keyed by a hash of the
+    source, the headers it may include (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256(_headers_digest())
+    h.update(source.encode())
+    return BUILD_DIR / f"libcircuit_{h.hexdigest()[:16]}.so"
+
+
+def build_generated(sources) -> list:
+    """Compile each generated source that has no library yet: one nvcc per
+    source, all started together.  The source is kept beside its library as
+    ``.cu`` and the compiler's output (``-Xptxas -v``) as ``.log``.  Every
+    nvcc started adds one to ``build_generated.builds``.  A failed nvcc
+    raises with its log.  Returns the library paths, in order."""
+    paths = [generated_path(s) for s in sources]
+    todo = {p: s for p, s in zip(paths, sources) if not p.exists()}
+    if not todo:
+        return paths
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for so, src in todo.items():
+        tag = f"{so.stem}.{os.getpid()}"
+        cu, tmp_cu = so.with_suffix(".cu"), BUILD_DIR / f"{tag}.tmp.cu"
+        tmp_cu.write_text(src)
+        os.replace(tmp_cu, cu)
+        tmp = BUILD_DIR / f"{tag}.tmp.so"
+        procs.append((so, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-shared", "-o", str(tmp), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        build_generated.builds += 1
+    failed = []
+    for so, tmp, proc in procs:
+        log = f"$ nvcc -shared {so.stem}.cu\n{proc.communicate()[0]}"
+        so.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(log)
+        else:
+            os.replace(tmp, so)  # atomic, as build()
+    if failed:
+        raise RuntimeError("nvcc failed on a generated circuit kernel:\n" + "\n".join(failed))
+    return paths
+
+
+build_generated.builds = 0
+
+_generated_libs: dict = {}
+
+
+def generated_library(source: str) -> ctypes.CDLL:
+    """The loaded library of a generated source, built first if needed."""
+    so = build_generated([source])[0]
+    lib = _generated_libs.get(so)
+    if lib is None:
+        lib = ctypes.CDLL(str(so))
+        for name, (argtypes, restype) in _GENERATED_SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _generated_libs[so] = lib
+    return lib

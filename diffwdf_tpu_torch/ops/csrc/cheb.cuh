@@ -1,0 +1,66 @@
+// Device code of the distilled piecewise-odd Chebyshev root, shared by the
+// distilled clipper kernel (cheb.cu, cheb_kernel) and the generated circuit
+// kernels (ops/circuit_codegen.py) that serve a PiecewiseChebRoot.
+//
+//   b = a - sign(a) h(|a|),  s = clip(|a|, 0, a_max),
+//   h = sum_k c_jk T_k(t_j),  t_j = clip((2 s - (hi_j + lo_j)) / (hi_j - lo_j), -1, 1)
+//
+// on the segment j the JAX kernel's evaluate-all-then-where selects: the last
+// one whose lower edge s reaches (NaN selects the last, as there).  Only that
+// segment is evaluated, by the Clenshaw recurrence in the JAX order
+// b1' = 2 t b1 - b2 + c_k, k = degree .. 1, then h = t b1 - b2 + c_0.
+//
+// Parameter layout (floats; built in double on the host, rounded to f32):
+//   a_max, then per segment lo_j, hi_j + lo_j, hi_j - lo_j,
+//   then per segment the coefficients c_j0 .. c_jD, zero-padded to a
+//   compiled degree D at or above the root's largest (ops/fused_clipper.py
+//   CHEB_DEGREES; cheb.cu instantiates each).
+// Every lane runs the same D steps whatever its segment: the padding's zero
+// coefficients keep b1 = b2 = 0 exactly until a segment's own degree, so the
+// result is the selected segment's.  D is a compile-time constant, so the
+// loop unrolls, never diverges, and its coefficient loads issue ahead of the
+// recurrence.
+//
+// No transcendentals; IEEE division.  __host__ __device__, so a generated
+// circuit step that calls it also compiles for the host.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxChebSegments = 8;
+
+__host__ __device__ __forceinline__ float cheb_sign(float a) {
+  return static_cast<float>((a > 0.f) - (a < 0.f));
+}
+
+__host__ __device__ __forceinline__ float cheb_clip(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+// b of the root at a; p the parameters above, n_seg segments padded to D.
+template <int D>
+__host__ __device__ __forceinline__ float cheb_root(float a, const float* p, int n_seg) {
+  const float s = cheb_clip(fabsf(a), 0.f, p[0]);
+  const float* seg = p + 1;
+  int j = 0;
+  for (int k = 1; k < n_seg; ++k) {
+    if (!(s < seg[3 * k])) j = k;
+  }
+  const float* c = p + 1 + 3 * n_seg + j * (D + 1);
+  const float t = cheb_clip((2.f * s - seg[3 * j + 1]) / seg[3 * j + 2], -1.f, 1.f);
+  const float t2 = 2.f * t;
+  float b1 = 0.f, b2 = 0.f;
+#pragma unroll
+  for (int k = D; k >= 1; --k) {
+    const float b0 = t2 * b1 - b2 + c[k];
+    b2 = b1;
+    b1 = b0;
+  }
+  const float h = t * b1 - b2 + c[0];
+  return a - cheb_sign(a) * h;
+}
+
+}  // namespace

@@ -7,12 +7,14 @@ from block to block.  Per sample and stream:
     b_temp = -p1R (z - v),  a = z + b_temp,  b = root(a),
     z' = b + b_temp,        out = (z' + z) / 2
 
-Two roots, one wrapper each, with the JAX package's signatures:
+Three roots, one wrapper each, with the JAX package's signatures:
 
 - ``fused_clipper_analytic``: asymmetric diode pair (Werner eqn 45) with the
   real-line Wright omega inline (quality = Newton iteration count);
 - ``fused_clipper_neural``: the "NxH" all-tanh MLP root with a linear head,
-  H in {4, 8, 16} and any number L >= 1 of hidden H->H layers.
+  H in {4, 8, 16} and any number L >= 1 of hidden H->H layers;
+- ``fused_clipper_cheb``: a distilled piecewise-Chebyshev root
+  (``roots.distilled``), no transcendentals (``csrc/cheb.cu``).
 
 and the training forward of the neural clipper,
 ``fused_clipper_neural_train_fwd``: the source resistance is per row (the
@@ -22,8 +24,8 @@ a_t is written out as the residual of the adjoint (``ops.clipper_train``).
 A wrapper given CPU tensors runs its plain version (``*_plain``: a loop over
 time, vectorised over B); given CUDA tensors it launches its kernel from
 ``csrc/fused_clipper.cu`` (``csrc/clipper_train.cu`` for the training
-forward) or raises.  Each wrapper counts its kernel
-launches in the plain integer ``<wrapper>.launches``.  The plain versions
+forward, ``csrc/cheb.cu`` for the distilled root) or raises.  Each wrapper
+counts its kernel launches in the plain integer ``<wrapper>.launches``.  The plain versions
 run on any device and are what the kernels are held against.
 
 Constants (p1R, the diode-pair logs and reciprocals, log R; per row for
@@ -34,11 +36,13 @@ kernel and plain version see the same values.
 from __future__ import annotations
 
 import math
+import weakref
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from ..roots.distilled import cheb_eval
 from ..roots.neural import MLPParams
 from ..roots.omega import wright_omega_u
 from . import _build
@@ -100,30 +104,36 @@ def _analytic_constants(r_source, cap, fs, Is, Vt_eff, n_up, n_down):
     ))
 
 
+def diode_pair_root(a, log_up, log_dn, inv_up, inv_dn, two_vt, n_up, n_dn, quality_iters):
+    """The asymmetric diode pair's reflected wave from its precomputed
+    constants (``_analytic_constants`` without p1R): the per-sample math of
+    the analytic kernels.  Constants are floats or 0-d tensors."""
+    lam = torch.sign(a)
+    pos = a >= 0
+    mu0 = torch.where(pos, n_dn, n_up)
+    mu1 = torch.where(pos, n_up, n_dn)
+    log0 = torch.where(pos, log_dn, log_up)
+    log1 = torch.where(pos, log_up, log_dn)
+    inv0 = torch.where(pos, inv_dn, inv_up)
+    inv1 = torch.where(pos, inv_up, inv_dn)
+    la = lam * a
+    w0 = torch.exp(wright_omega_u(log0 + la * inv0, quality_iters))
+    w1 = torch.exp(wright_omega_u(log1 - la * inv1, quality_iters))
+    return a - two_vt * lam * (mu0 * w0 - mu1 * w1)
+
+
 def fused_clipper_analytic_plain(vin, z0, r_source, cap, Is, Vt_eff, n_up, n_down,
                                  *, fs: float, quality_iters: int = 3):
     """Plain PyTorch version of the analytic kernel: the same constants and
     per-sample math, one sample at a time over the whole batch."""
     _check_io(vin, z0)
-    p1R, log_up, log_dn, inv_up, inv_dn, two_vt, n_up, n_dn = _analytic_constants(
-        r_source, cap, fs, Is, Vt_eff, n_up, n_down)
+    p1R, *consts = _analytic_constants(r_source, cap, fs, Is, Vt_eff, n_up, n_down)
     out = torch.empty_like(vin)
     z = z0
     for t in range(vin.shape[1]):
         b_temp = -p1R * (z - vin[:, t])
         a = z + b_temp
-        lam = torch.sign(a)
-        pos = a >= 0
-        mu0 = torch.where(pos, n_dn, n_up)
-        mu1 = torch.where(pos, n_up, n_dn)
-        log0 = torch.where(pos, log_dn, log_up)
-        log1 = torch.where(pos, log_up, log_dn)
-        inv0 = torch.where(pos, inv_dn, inv_up)
-        inv1 = torch.where(pos, inv_up, inv_dn)
-        la = lam * a
-        w0 = torch.exp(wright_omega_u(log0 + la * inv0, quality_iters))
-        w1 = torch.exp(wright_omega_u(log1 - la * inv1, quality_iters))
-        z_new = a - two_vt * lam * (mu0 * w0 - mu1 * w1) + b_temp
+        z_new = diode_pair_root(a, *consts, quality_iters) + b_temp
         out[:, t] = 0.5 * (z_new + z)
         z = z_new
     return out, z
@@ -193,6 +203,15 @@ def _neural_weights(mlp_params: MLPParams, log_r: float):
     return H, W1[0], W1[1] * log_r + b1, hidden, w3, b3
 
 
+def nxh_mlp(a, w1a, c1, hidden, w3, b3):
+    """y = MLP(a) of an NxH root with log R folded into c1 (the kernels'
+    ``nxh_forward``), over a batch a (B,)."""
+    h = torch.tanh(a[:, None] * w1a + c1)
+    for k, b in hidden:
+        h = torch.tanh(h @ k + b)
+    return h @ w3 + b3
+
+
 def _neural_recursion(vin, z0, p1R, w1a, c1, hidden, w3, b3):
     """The clipper's sample loop with an NxH root, vectorised over B.
     p1R is a scalar or (B,), c1 (H,) or (B, H).  Returns (out, z_final,
@@ -202,10 +221,7 @@ def _neural_recursion(vin, z0, p1R, w1a, c1, hidden, w3, b3):
     for t in range(vin.shape[1]):
         b_temp = -p1R * (z - vin[:, t])
         a = z + b_temp
-        h = torch.tanh(a[:, None] * w1a + c1)
-        for k, b in hidden:
-            h = torch.tanh(h @ k + b)
-        z_new = -(h @ w3 + b3) + b_temp
+        z_new = -nxh_mlp(a, w1a, c1, hidden, w3, b3) + b_temp
         out[:, t] = 0.5 * (z_new + z)
         a_seq[:, t] = a
         z = z_new
@@ -336,3 +352,108 @@ def fused_clipper_neural_train_fwd(vin, z0, mlp_params: MLPParams, r_rows, cap, 
 
 
 fused_clipper_neural_train_fwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Distilled (piecewise-Chebyshev) root kernel
+# ---------------------------------------------------------------------------
+
+#: most segments a distilled root may have (csrc/cheb.cuh kMaxChebSegments)
+MAX_CHEB_SEGMENTS = 8
+#: the degrees the Chebyshev kernel is compiled for (csrc/cheb.cu's
+#: dispatch); a root's coefficients are zero-padded to the next one
+CHEB_DEGREES = (8, 16, 24, 32, 48, 64)
+
+
+def cheb_parameters(root) -> Tuple[np.ndarray, int]:
+    """(parameters, padded degree) of a PiecewiseChebRoot in the layout of
+    csrc/cheb.cuh: a_max, then lo, hi + lo and hi - lo of each segment, then
+    each segment's coefficients zero-padded to the first of CHEB_DEGREES at
+    or above the largest degree, computed in double and rounded to f32."""
+    a_max = float(root.a_max)
+    edges = (0.0,) + tuple(float(b) for b in root.breaks) + (a_max,)
+    coeffs = [np.asarray(c, np.float64) for c in root.coeffs]
+    if not 1 <= len(coeffs) <= MAX_CHEB_SEGMENTS or len(edges) != len(coeffs) + 1:
+        raise ValueError(f"distilled root needs 1..{MAX_CHEB_SEGMENTS} segments and one break "
+                         f"between each two, got {len(coeffs)} segments, {len(root.breaks)} breaks")
+    top = max(len(c) for c in coeffs) - 1
+    degree = next((d for d in CHEB_DEGREES if d >= top), None)
+    if degree is None:
+        raise ValueError(f"distilled root of degree {top}: the kernels take up to "
+                         f"{CHEB_DEGREES[-1]}")
+    seg = [x for lo, hi in zip(edges[:-1], edges[1:]) for x in (lo, hi + lo, hi - lo)]
+    padded = [np.pad(c, (0, degree + 1 - len(c))) for c in coeffs]
+    params = np.concatenate([[a_max], seg] + padded).astype(np.float32)
+    return params, degree
+
+
+def cheb_root_ops(n_seg: int, degree: int) -> int:
+    """Operations of one cheb_root call (csrc/cheb.cuh) at a padded degree:
+    |a| and its clip 3, the segment compares, t with its clip 6, the Clenshaw
+    steps 3 each (every lane runs the padded degree), the last step 3, the
+    sign and b 5."""
+    return 17 + (n_seg - 1) + 3 * degree
+
+
+_cheb_on_device: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def cheb_arguments(root, device) -> Tuple[torch.Tensor, int]:
+    """``cheb_parameters`` of a distilled root as an f32 tensor on
+    ``device``, copied once per root and device (a distilled root is a
+    fixed deployment artifact), so a served block does not wait on a copy."""
+    per_root = _cheb_on_device.setdefault(root, {})
+    device = torch.device(device)
+    if device not in per_root:
+        params, degree = cheb_parameters(root)
+        per_root[device] = (torch.from_numpy(params).to(device), degree)
+    return per_root[device]
+
+
+def fused_clipper_cheb_plain(vin, z0, root, r_source, cap, *, fs: float):
+    """Plain PyTorch version of the distilled kernel: the JAX kernel's
+    evaluate-every-segment-then-select root (``roots.distilled.cheb_eval``),
+    one sample at a time over the whole batch."""
+    _check_io(vin, z0)
+    p1R = _f32(_lpf_adaptor(r_source, cap, fs)[0])
+    a_max, breaks = float(root.a_max), tuple(float(b) for b in root.breaks)
+    out = torch.empty_like(vin)
+    z = z0
+    for t in range(vin.shape[1]):
+        b_temp = -p1R * (z - vin[:, t])
+        a = z + b_temp
+        z_new = cheb_eval(a, a_max, breaks, root.coeffs) + b_temp
+        out[:, t] = 0.5 * (z_new + z)
+        z = z_new
+    return out, z
+
+
+def fused_clipper_cheb(vin, z0, root, r_source, cap, *, fs: float):
+    """Fused LPF diode clipper with a distilled PiecewiseChebRoot
+    (``roots.distilled``): no transcendentals, ~sum(degrees) FMAs per sample
+    on the selected segment.
+
+    vin: (B, T) float32; z0: (B,).  Returns (out (B, T), z_final (B,)).
+    The root's coefficients travel as one small argument, so another
+    distilled root is another argument, not another build.
+    """
+    if vin.device.type == "cpu":
+        return fused_clipper_cheb_plain(vin, z0, root, r_source, cap, fs=fs)
+    _check_io(vin, z0)
+    root_params, degree = cheb_arguments(root, vin.device)
+    p1R = _f32(_lpf_adaptor(r_source, cap, fs)[0])
+    B, T = vin.shape
+    if B == 0:
+        return torch.empty_like(vin), torch.empty_like(z0)
+    lib = _build.library()
+    with torch.cuda.device(vin.device):
+        vin, z0, out, zf, stream = _launch_args(vin, z0)
+        err = lib.fused_clipper_cheb_launch(
+            vin.data_ptr(), z0.data_ptr(), out.data_ptr(), zf.data_ptr(), B, T,
+            root_params.data_ptr(), root_params.numel(), len(root.coeffs), degree, p1R, stream)
+    _build.check(err, "fused_clipper_cheb launch")
+    fused_clipper_cheb.launches += 1
+    return out, zf
+
+
+fused_clipper_cheb.launches = 0

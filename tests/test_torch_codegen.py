@@ -1,0 +1,244 @@
+"""The CUDA source generator of the generic fused circuit, on the CPU.
+
+The generated per-sample step is a function of plain C, so the host C++
+compiler builds it here with a small stand-in for ``cuda_runtime.h`` that
+defines the CUDA qualifiers and rounding intrinsics away; a ctypes harness
+(``CircuitProgram.host_source``) drives it over B=8 streams of T=256 samples
+for the Tube Screamer (analytic and pretrained 2x16), the HPF clipper
+(analytic and HPF-trained 2x16), the LPF clipper with a distilled root and
+the RC lowpass, held against the plain version within the JAX suite's 2e-5.
+The tests also show that the source depends on the structure only (two
+drive settings, one source), that an unknown node or root class raises, and
+that the generated-build path caches by source and raises on a failed
+compile (with a stand-in compiler).
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from diffwdf_tpu_torch.core.circuit import Circuit, Root
+from diffwdf_tpu_torch.core.elements import Resistor, WDFNode
+from diffwdf_tpu_torch.models import diode_clipper as tdc
+from diffwdf_tpu_torch.models import simple_circuits as tsc
+from diffwdf_tpu_torch.models import tube_screamer as tts
+from diffwdf_tpu_torch.ops import _build
+from diffwdf_tpu_torch.ops import circuit_codegen as cg
+from diffwdf_tpu_torch.ops import fused_circuit as tfc
+from diffwdf_tpu_torch.roots.distilled import distill_root
+
+FS = 96000.0
+B, T = 8, 256
+
+CUDA_RUNTIME_STANDIN = """\
+#pragma once
+#include <math.h>
+#define __host__
+#define __device__
+#define __global__
+#define __forceinline__ inline
+struct standin_dim3 { unsigned x, y, z; };
+static standin_dim3 threadIdx, blockIdx, blockDim;
+static inline void __syncthreads() {}
+#define __fadd_rn(a, b) ((a) + (b))
+#define __fsub_rn(a, b) ((a) - (b))
+#define __fmul_rn(a, b) ((a) * (b))
+#define __fdiv_rn(a, b) ((a) / (b))
+"""
+
+
+@pytest.fixture(scope="module")
+def host_cxx(tmp_path_factory):
+    cxx = shutil.which("c++") or shutil.which("g++") or shutil.which("clang++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    inc = tmp_path_factory.mktemp("standin")
+    (inc / "cuda_runtime.h").write_text(CUDA_RUNTIME_STANDIN)
+    out = tmp_path_factory.mktemp("host_build")
+
+    def build(name: str, source: str) -> ctypes.CDLL:
+        src, so = out / f"{name}.cpp", out / f"{name}.so"
+        src.write_text(source)
+        proc = subprocess.run([cxx, "-O2", "-shared", "-fPIC", "-x", "c++", f"-I{inc}",
+                               f"-I{_build.CSRC_DIR}", "-o", str(so), str(src)],
+                              capture_output=True, text=True)
+        assert proc.returncode == 0, proc.stderr
+        lib = ctypes.CDLL(str(so))
+        lib.circuit_host_run.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p] * 2
+        return lib
+
+    return build
+
+
+def _vin(seed, amp):
+    rng = np.random.default_rng(seed)
+    n = np.arange(T)
+    x = amp * np.sin(2 * np.pi * 1000.0 * n / FS)[None, :] + 0.1 * rng.standard_normal((B, T))
+    return torch.from_numpy(x.astype(np.float32))
+
+
+def _case(name):
+    """(circuit, params, input node, amplitude)."""
+    if name.startswith("ts"):
+        root, rp = tdc.make_root_from_zoo(4 if name == "ts_2x16" else 0, device="cpu")
+        ckt = tts.make_tube_screamer(root, FS, drive=0.5)
+        return ckt, {**ckt.init_params("cpu"), **rp}, "Vin", 0.2
+    if name.startswith("hpf"):
+        root, rp = tdc.make_hpf_root_from_zoo(3 if name == "hpf_2x16" else 0, device="cpu")
+        ckt = tdc.make_hpf_diode_clipper(root, FS)
+        return ckt, {**ckt.init_params("cpu"), **rp}, "Vs", 1.5
+    if name == "distilled":  # the LPF clipper with the distilled 1N4148 root
+        root, rp = tdc.make_root_from_zoo(0, device="cpu")
+        droot, _ = distill_root(root, rp, 1.0 / (1.0 / 47.0e3 + 2.0 * 2.2e-9 * FS))
+        ckt = tdc.make_diode_clipper(droot, FS)
+        return ckt, ckt.init_params("cpu"), "Vs", 2.0
+    ckt = tsc.make_rc_lowpass(FS)
+    return ckt, ckt.init_params("cpu"), "Vs", 1.0
+
+
+def _state(ckt):
+    return {k: {f: torch.zeros(B) for f in d} for k, d in ckt.init_state("cpu").items()}
+
+
+@pytest.mark.parametrize("name", ["ts", "ts_2x16", "hpf", "hpf_2x16", "distilled", "rc"])
+def test_host_compiled_step_matches_plain(host_cxx, name):
+    ckt, params, node, amp = _case(name)
+    vin = _vin(len(name), amp)
+    want, want_state = tfc.fused_circuit_process_plain(ckt, params, vin, _state(ckt),
+                                                       input_node=node)
+    prog, vec, warr = tfc.prepare(ckt, params, "cpu", input_node=node)
+    lib = host_cxx(name, prog.host_source)
+    z0 = tfc._state_stack(prog, _state(ckt), vin)
+    out, zf = torch.empty_like(vin), torch.empty_like(z0)
+    w = warr if warr is not None else vec
+    lib.circuit_host_run(vin.data_ptr(), z0.data_ptr(), out.data_ptr(), zf.data_ptr(), B, T,
+                         vec.data_ptr(), w.data_ptr())
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=2e-5, rtol=0)
+    for k, (n, f) in enumerate(prog.state_order):
+        np.testing.assert_allclose(zf[k].numpy(), want_state[n][f].numpy(), atol=2e-5, rtol=0)
+
+
+def test_two_drives_give_one_source():
+    root, rp = tdc.make_root_from_zoo(0, device="cpu")
+    progs, vecs = [], []
+    for drive in (0.0, 1.0):
+        ckt = tts.make_tube_screamer(root, FS, drive=drive)
+        params = {**ckt.init_params("cpu"), **rp}
+        prog, vec, _ = tfc.prepare(ckt, params, "cpu", input_node="Vin")
+        progs.append(prog)
+        vecs.append(vec)
+    assert progs[0].source == progs[1].source
+    assert _build.generated_path(progs[0].source) == _build.generated_path(progs[1].source)
+    assert not torch.equal(vecs[0], vecs[1])  # the drive is an argument
+    assert str(tts.drive_to_r6(1.0)) not in progs[0].source
+    # a block-rate control moves the drive without a new source either
+    ckt = tts.make_tube_screamer(root, FS, drive=0.5)
+    params = {**ckt.init_params("cpu"), **rp}
+    for r6 in (tts.drive_to_r6(0.0), tts.drive_to_r6(1.0)):
+        static = {"R6": {"R": torch.tensor(r6)}}
+        prog, vec, _ = tfc.prepare(ckt, params, "cpu", input_node="Vin", static_controls=static)
+        progs.append(prog)
+    assert progs[2].source == progs[3].source
+
+
+def test_source_layout_and_operation_count():
+    ckt, params, node, _ = _case("rc")
+    prog, vec, warr = tfc.prepare(ckt, params, "cpu", input_node=node)
+    assert prog.state_order == (("C1", "z"),) and warr is None
+    # coeffs C1.R, I1.R, R1.R, S1.R, S1.p1R; params C1.C, R1.R
+    assert [".".join(p) for p, _ in prog.layout] == [
+        "coeffs.C1.R", "coeffs.I1.R", "coeffs.R1.R", "coeffs.S1.R", "coeffs.S1.p1R",
+        "params.C1.C", "params.R1.R"]
+    assert prog.n_coeffs == len(vec) == 7
+    assert "float circuit_step(" in prog.step_source and "circuit_kernel" in prog.source
+    assert "circuit_kernel" not in prog.host_source
+    # reflected: negations only (the resistor's 0 folds away); root -a + 2 v
+    # (2); incident p1R (x + z) and x + b1_down (3); the output (a + b) * 0.5
+    # (2): 7 operations, negations free
+    assert prog.ops_per_sample == 7, prog.step_source
+    ts, tparams, _, _ = _case("ts")
+    ts_prog, ts_vec, _ = tfc.prepare(ts, tparams, "cpu", input_node="Vin")
+    assert ts_prog.state_order == (("C2", "z"), ("C3", "z"), ("C4", "z"))
+    assert ("coeffs", "R", "S") in dict(ts_prog.layout)
+    assert dict(ts_prog.layout)[("coeffs", "R", "S")] == (4, 4)
+    assert ts_prog.n_coeffs == len(ts_vec) and "omega(" in ts_prog.step_source
+
+
+def test_symbols_fold_zeros_and_ones():
+    tr = cg._Trace()
+    x, c = cg.Sym(tr, "x"), cg.Sym(tr, "c[0]")
+    assert (0 + x) is x and (x - 0.0) is x and (x * 1.0) is x and (1 * x) is x
+    assert (x * 0).value == 0.0 and (x.zeros_like() * c).value == 0.0
+    assert tr.entries == []
+    y = 2.0 * x - c / 4.0
+    dead = x * c
+    assert tr.live(y.ref) == (["const float t0 = __fmul_rn(2.0f, x);",
+                               "const float t1 = __fdiv_rn(c[0], 4.0f);",
+                               "const float t2 = __fsub_rn(t0, t1);"], 3)
+    assert y.ref == "t2" and tr.live(dead.ref) == (["const float t3 = __fmul_rn(x, c[0]);"], 1)
+    assert (-tr.const(0.5)).ref == "(-0.5f)"
+    with pytest.raises(TypeError):
+        x + "a"
+
+
+class _Mystery(WDFNode):
+    name = "M"
+
+    def adapt(self, params, controls, coeffs, fs):
+        coeffs[self.name] = {"R": torch.tensor(1.0)}
+        return coeffs[self.name]["R"]
+
+
+class _MysteryRoot(Root):
+    name = "mystery"
+
+    def reflect(self, a, R, params, controls):
+        return a
+
+
+def test_unknown_node_or_root_raises():
+    ckt = Circuit(tree=_Mystery(), root=tdc.DiodePairRoot(name="dp"), fs=FS, outputs=("M",))
+    params = {"dp": ckt.root.init_params("cpu")["dp"]}
+    with pytest.raises(NotImplementedError, match="_Mystery"):
+        tfc.fused_circuit_process_plain(ckt, params, torch.zeros(2, 4), {}, input_node="Vs")
+    ckt = Circuit(tree=Resistor("R1"), root=_MysteryRoot(), fs=FS, outputs=("R1",))
+    with pytest.raises(NotImplementedError, match="_MysteryRoot"):
+        tfc.fused_circuit_process_plain(ckt, ckt.init_params("cpu"), torch.zeros(2, 4), {},
+                                        input_node="Vs")
+    ckt, params, node, _ = _case("rc")
+    two = Circuit(tree=ckt.tree, root=ckt.root, fs=FS, outputs=("C1", "R1"))
+    with pytest.raises(ValueError, match="one output probe"):
+        tfc.fused_circuit_process_plain(two, params, torch.zeros(2, 4), _state(two),
+                                        input_node=node)
+
+
+def test_generated_build_caches_by_source(tmp_path, monkeypatch):
+    """The build path with a stand-in compiler: one nvcc per new source,
+    none for a source already built, the .cu kept beside the library, and
+    a failed compile raising with its log."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\n"
+                    "for a; do last=$a; done\n"
+                    "if grep -q COMPILE_ERROR \"$last\"; then echo 'error: bad' >&2; exit 1; fi\n"
+                    "while [ $# -gt 0 ]; do if [ \"$1\" = -o ]; then out=$2; fi; shift; done\n"
+                    "echo 'ptxas info    : Used 40 registers'\n"
+                    "touch \"$out\"\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build.build_generated, "builds", 0)
+    paths = _build.build_generated(["// a\n", "// b\n", "// a\n"])
+    assert paths[0] == paths[2] != paths[1] and all(p.exists() for p in paths)
+    assert _build.build_generated.builds == 2
+    assert paths[0].with_suffix(".cu").read_text() == "// a\n"
+    assert "registers" in paths[0].with_suffix(".log").read_text()
+    _build.build_generated(["// b\n"])
+    assert _build.build_generated.builds == 2
+    with pytest.raises(RuntimeError, match="error: bad"):
+        _build.build_generated(["// COMPILE_ERROR\n"])
+    assert not _build.generated_path("// COMPILE_ERROR\n").exists()

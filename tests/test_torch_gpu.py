@@ -7,7 +7,9 @@ imports nothing of JAX, so it also runs on a machine that has only PyTorch:
 
 Budgets are the JAX suite's kernel-vs-scan budgets: analytic atol 5e-6,
 neural atol 2e-5 (the training forward too); the adjoint's streams and the
-training op's gradients 2e-5 after dividing by their largest magnitude.
+training op's gradients 2e-5 after dividing by their largest magnitude; the
+distilled clipper 1e-5, the generated circuit kernels 2e-5, and two half
+blocks against one block 1e-6.
 """
 
 import numpy as np
@@ -15,7 +17,7 @@ import pytest
 import torch
 
 from diffwdf_tpu_torch.models.diode_clipper import make_training_clipper
-from diffwdf_tpu_torch.roots.diode import diode_1n4148_1u1d, diode_1n4148_1u2d
+from diffwdf_tpu_torch.roots.diode import DiodePairRoot, diode_1n4148_1u1d, diode_1n4148_1u2d
 from diffwdf_tpu_torch.roots.neural import NeuralDiodeRoot
 from diffwdf_tpu_torch.ops import clipper_train as ct
 from diffwdf_tpu_torch.ops import fused_clipper as fc
@@ -285,3 +287,153 @@ def test_stream_processor_on_card_deer_vs_scan(deer_cuda):
         assert deer.last_residual[model] < 1e-5
     scan.process_block(x[:, :2048], "clipper", model="neural_2x16")
     assert fc.fused_clipper_neural.launches == 1
+
+
+# ---------------------------------------------------------------------------
+# the distilled clipper (B6) and the generated circuit kernels (B7)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def distilled_root():
+    from diffwdf_tpu_torch.roots.distilled import distill_root
+
+    root = DiodePairRoot(name="dp", diode=diode_1n4148_1u1d)
+    r_port = 1.0 / (1.0 / R_SRC + 2.0 * CAP * FS)
+    return distill_root(root, root.init_params("cpu"), r_port)[0]
+
+
+@pytest.fixture
+def circuit_cuda(cuda):
+    from diffwdf_tpu_torch.ops import fused_circuit as fcirc
+
+    fc.fused_clipper_cheb.launches = 0
+    fcirc.fused_circuit_process.launches = 0
+    return cuda, fcirc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("amp", [2.0, 12.0])
+def test_cheb_kernel_matches_plain(circuit_cuda, distilled_root, amp):
+    dev, _ = circuit_cuda
+    vin, z0 = _inputs(dev, 1000, 300, seed=int(amp))
+    vin = vin * (amp / 2.0)
+    got, got_z = fc.fused_clipper_cheb(vin, z0, distilled_root, R_SRC, CAP, fs=FS)
+    want, want_z = fc.fused_clipper_cheb_plain(vin, z0, distilled_root, R_SRC, CAP, fs=FS)
+    torch.cuda.synchronize()
+    assert fc.fused_clipper_cheb.launches == 1
+    _close(got, want, 1e-5)
+    _close(got_z, want_z, 1e-5)
+    h1, z1 = fc.fused_clipper_cheb(vin[:, :150], z0, distilled_root, R_SRC, CAP, fs=FS)
+    h2, z2 = fc.fused_clipper_cheb(vin[:, 150:], z1, distilled_root, R_SRC, CAP, fs=FS)
+    torch.cuda.synchronize()
+    _close(torch.cat([h1, h2], 1), got, 1e-6)
+    _close(z2, got_z, 1e-6)
+    assert fc.fused_clipper_cheb.launches == 3
+
+
+def _circuit_case(name, dev, distilled_root=None):
+    """(circuit, params, input node, amplitude, neural mlp or None)."""
+    from diffwdf_tpu_torch.models import diode_clipper as tdc
+    from diffwdf_tpu_torch.models.simple_circuits import make_rc_lowpass, make_voltage_divider
+    from diffwdf_tpu_torch.models.tube_screamer import make_tube_screamer
+
+    if name in ("ts", "ts_2x16"):
+        root, rp = tdc.make_root_from_zoo(4 if name == "ts_2x16" else 0, device=dev)
+        ckt = make_tube_screamer(root, FS, drive=0.5)
+        mlp = rp["dp"] if name == "ts_2x16" else None
+        return ckt, {**ckt.init_params(dev), **rp}, "Vin", 0.2, mlp
+    if name in ("hpf", "hpf_2x16"):
+        root, rp = tdc.make_hpf_root_from_zoo(3 if name == "hpf_2x16" else 0, device=dev)
+        ckt = tdc.make_hpf_diode_clipper(root, FS)
+        return ckt, {**ckt.init_params(dev), **rp}, "Vs", 1.5, None
+    if name in ("lpf", "lpf_distilled"):
+        root = distilled_root if name == "lpf_distilled" else DiodePairRoot(
+            name="dp", diode=diode_1n4148_1u1d)
+        ckt = tdc.make_diode_clipper(root, FS)
+        return ckt, {**ckt.init_params(dev), **root.init_params(dev)}, "Vs", 1.5, None
+    ckt = {"rc": make_rc_lowpass, "divider": make_voltage_divider}[name](FS)
+    return ckt, ckt.init_params(dev), "Vs", 1.0, None
+
+
+def _circuit_inputs(ckt, dev, b, t, amp, seed):
+    rng = np.random.default_rng(seed)
+    n = np.arange(t)
+    x = amp * np.sin(2 * np.pi * 1000.0 * n / FS)[None, :] + 0.1 * rng.standard_normal((b, t))
+    state = {k: {f: torch.from_numpy(rng.uniform(-0.1, 0.1, b).astype(np.float32)).to(dev)
+                 for f in d} for k, d in ckt.init_state("cpu").items()}
+    return torch.from_numpy(x.astype(np.float32)).to(dev), state
+
+
+def _run_circuit(fcirc, ckt, params, vin, state, node, mlp, plain=False):
+    if mlp is not None:
+        fn = (fcirc.fused_circuit_process_neural_plain if plain
+              else fcirc.fused_circuit_process_neural)
+        return fn(ckt, params, mlp, vin, state, input_node=node)
+    fn = fcirc.fused_circuit_process_plain if plain else fcirc.fused_circuit_process
+    return fn(ckt, params, vin, state, input_node=node)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["ts", "ts_2x16", "hpf", "hpf_2x16", "lpf", "lpf_distilled",
+                                  "rc", "divider"])
+def test_circuit_kernel_matches_plain(circuit_cuda, distilled_root, name):
+    dev, fcirc = circuit_cuda
+    ckt, params, node, amp, mlp = _circuit_case(name, dev, distilled_root)
+    vin, state = _circuit_inputs(ckt, dev, 1000, 300, amp, seed=len(name))  # ragged B and T
+    got, got_state = _run_circuit(fcirc, ckt, params, vin, state, node, mlp)
+    want, want_state = _run_circuit(fcirc, ckt, params, vin, state, node, mlp, plain=True)
+    torch.cuda.synchronize()
+    assert fcirc.fused_circuit_process.launches == 1
+    _close(got, want, 2e-5)
+    for k, d in want_state.items():
+        for f, z in d.items():
+            _close(got_state[k][f], z, 2e-5)
+
+
+@pytest.mark.gpu
+def test_circuit_kernel_lpf_matches_analytic_kernel(circuit_cuda):
+    """B7 on the LPF clipper against B2 on the same streams."""
+    dev, fcirc = circuit_cuda
+    ckt, params, node, _, _ = _circuit_case("lpf", dev)
+    vin, z0 = _inputs(dev, 1000, 300, seed=21)
+    got, got_state = fcirc.fused_circuit_process(ckt, params, vin, {"C": {"z": z0}},
+                                                 input_node=node)
+    d = diode_1n4148_1u1d
+    want, want_z = fc.fused_clipper_analytic(vin, z0, R_SRC, CAP, d.Is, d.Vt * d.nabla,
+                                             1.0, 1.0, fs=FS)
+    torch.cuda.synchronize()
+    _close(got, want, 2e-5)
+    _close(got_state["C"]["z"], want_z, 2e-5)
+
+
+@pytest.mark.gpu
+def test_circuit_kernel_carries_state_and_drive_does_not_rebuild(circuit_cuda):
+    from diffwdf_tpu_torch.models.tube_screamer import make_tube_screamer
+    from diffwdf_tpu_torch.ops import _build
+
+    dev, fcirc = circuit_cuda
+    ckt, params, node, amp, _ = _circuit_case("ts", dev)
+    vin, state = _circuit_inputs(ckt, dev, 300, 512, amp, seed=5)
+    full, full_state = fcirc.fused_circuit_process(ckt, params, vin, state)
+    h1, st = fcirc.fused_circuit_process(ckt, params, vin[:, :256], state)
+    h2, st2 = fcirc.fused_circuit_process(ckt, params, vin[:, 256:], st)
+    torch.cuda.synchronize()
+    _close(torch.cat([h1, h2], 1), full, 1e-6)
+    for k in full_state:
+        _close(st2[k]["z"], full_state[k]["z"], 1e-6)
+    # the drive pot moves the gain (tests/test_rtype.py's check, at 96 kHz)
+    builds = _build.build_generated.builds
+    n = torch.arange(1024, device=dev, dtype=torch.float32)
+    small = (0.02 * torch.sin(2 * np.pi * 440.0 * n / FS))[None, :].repeat(4, 1)
+    peaks = []
+    for drive in (0.0, 1.0):
+        ts = make_tube_screamer(ckt.root, FS, drive=drive)
+        zero = {k: {"z": torch.zeros(4, device=dev)} for k in full_state}
+        out, _ = fcirc.fused_circuit_process(ts, {**ts.init_params(dev), "dp": params["dp"]},
+                                             small, zero)
+        peaks.append(float(out[:, 512:].abs().max()))
+    torch.cuda.synchronize()
+    assert _build.build_generated.builds == builds
+    assert peaks[1] > 2.0 * peaks[0], peaks
+    assert fcirc.fused_circuit_process.launches == 5
