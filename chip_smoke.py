@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """GPU smoke run of diffwdf_tpu_torch's main paths: batched diode-clipper
 serving, in-circuit training of the clipper (engine="fused"), single-stream
-serving through the streaming processor (engine="deer" and "scan"), and
-batched serving of the generic circuits (generated kernels) and the
-distilled clipper.
+serving through the streaming processor (engine="deer" and "scan"), batched
+serving of the generic circuits (generated kernels) and the distilled
+clipper, and generic in-circuit training (engine="fused_generic": generated
+forward and adjoint kernels) of the Tube Screamer and the clippers.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -82,6 +83,29 @@ one line per phase:
   timing circuit  CUDA-event medians of the distilled and generated kernels,
              the wrapper calls, the plain versions and the LPF clipper's own
              kernels on the same streams
+  build generic  the generated forward and adjoint kernels of the generic
+             training path's four cases, one nvcc each, all started together:
+             ptxas registers and spills, operations per sample
+  kernels generic  at (1024, 2048), the JAX bench's shape: the generated
+             forward with its state trajectory and the generated adjoint
+             against their plain versions for the Tube Screamer with the
+             pretrained 2x16 (no pot, and a per-row drive pot R6), the HPF
+             clipper (analytic) and the training clipper with a per-sample
+             random-walk source R (random-init 2x16)
+  grad generic  the fused_generic op's gradients against the scan engine
+             (autograd through Circuit.process) at (1024, 256), leaf by leaf
+  train generic  training as a user drives it (scripts/train_ts.py): 16 s and
+             4 s of synthetic Tube Screamer measurements (1U-2D pair) at 48
+             kHz, drive 0.5, chunked into 375 and 93 chunks of 2048; the
+             pretrained 1U-1D 2x16 fine-tuned in the TS with train_clipper(engine="fused_generic")
+             for 10 epochs, the loss must fall; 2 steps with a per-row drive
+             pot (pot_node="R6"); joint_fit_clipper of C and a 1x4 root on the
+             training clipper with one R per row at (1024, 2048), C from 6.5 nF
+             toward the true 4.7 nF; launches counted
+  timing generic  CUDA-event medians of one fused_generic step of the TS
+             2x16 at (1024, 2048), part by part (forward with trajectory,
+             loss, adjoint, parameter pass, Adam), the whole step, and both
+             kernels alone beside their bounds; the adjoint also at (375, 2048)
 
 then a JSON line with every kernel's launches, error, times and bound, the
 card's name and power limit, and finally ``{"ok": true, "device": {...}}``.
@@ -104,7 +128,7 @@ import numpy as np
 import torch
 
 from diffwdf_tpu_torch.data.dataimport import load_diode_data
-from diffwdf_tpu_torch.data.synthetic import make_synthetic_dataset_dir
+from diffwdf_tpu_torch.data.synthetic import make_synthetic_dataset_dir, synth_ts_measurement
 from diffwdf_tpu_torch.models.diode_clipper import (
     cutoff_to_resistance,
     make_diode_clipper,
@@ -115,12 +139,14 @@ from diffwdf_tpu_torch.models.diode_clipper import (
     pretrained_model_path,
 )
 from diffwdf_tpu_torch.models.simple_circuits import make_rc_lowpass
-from diffwdf_tpu_torch.models.tube_screamer import make_tube_screamer
+from diffwdf_tpu_torch.models.tube_screamer import drive_to_r6, make_tube_screamer
 from diffwdf_tpu_torch.nn.serialization import load_model_json, save_model_json
 from diffwdf_tpu_torch.ops import _build
+from diffwdf_tpu_torch.ops import circuit_codegen as cg
 from diffwdf_tpu_torch.ops import clipper_train as ct
 from diffwdf_tpu_torch.ops import fused_circuit as fcirc
 from diffwdf_tpu_torch.ops import fused_clipper as fc
+from diffwdf_tpu_torch.ops import parallel_bptt as pb
 from diffwdf_tpu_torch.ops import parallel_time_deer as pd
 from diffwdf_tpu_torch.roots.diode import DiodePairRoot, diode_1n4148_1u1d, diode_1n4148_1u2d
 from diffwdf_tpu_torch.roots.distilled import distill_root
@@ -128,6 +154,7 @@ from diffwdf_tpu_torch.roots.neural import NeuralDiodeRoot
 from diffwdf_tpu_torch.runtime.stream import make_clipper_processor
 from diffwdf_tpu_torch.training.circuit_train import (
     CircuitTrainConfig,
+    joint_fit_clipper,
     make_clipper_batches,
     make_train_step,
     train_clipper,
@@ -189,6 +216,25 @@ CHEB_REPLACES = "diffwdf_tpu/ops/fused_clipper.py:674"
 CIRCUIT_SOURCE = "diffwdf_tpu_torch/ops/circuit_codegen.py"
 CIRCUIT_REPLACES = "diffwdf_tpu/ops/fused_circuit.py:325"
 R_SRC, CAP = 47.0e3, 2.2e-9
+
+# generic in-circuit training (engine="fused_generic"): scripts/train_ts.py's
+# workload (the Tube Screamer's pretrained 2x16 fine-tuned in its own
+# topology) and the JAX bench's generic-training shape (bench.py:521-640)
+GEN_FS, GEN_DRIVE = 48000.0, 0.5
+# the measurements are of the 1U-2D pair in the TS and the warm start is the
+# 1U-1D pretrained root, as in the clipper's train phase: on its own 1U-1D
+# TS data that root is at Adam's noise floor for lr 1e-4 (the loss rises
+# after the first step), while the 1U-2D pair is a task whose loss falls
+GEN_DIODE = diode_1n4148_1u2d
+GEN_TRAIN_S, GEN_VAL_S = 16.0, 4.0
+GEN_TRAIN_CHUNKS, GEN_VAL_CHUNKS = 375, 93
+GEN_EPOCHS, GEN_POT_STEPS, JOINT_EPOCHS = 10, 2, 12
+GEN_B, GEN_T = 1024, 2048
+GEN_GRAD_B, GEN_GRAD_T = 1024, 256
+GEN_CASES = ("ts_2x16", "ts_2x16_row", "hpf", "clipper_sample")
+GEN_BUDGET = {"ts_2x16": 1e-4, "ts_2x16_row": 3e-4, "hpf": 1e-4, "clipper_sample": 3e-4}
+GEN_GRAD_BUDGET = {"ts_2x16": 5e-4, "ts_2x16_row": 1e-3, "hpf": 1e-3, "clipper_sample": 1e-3}
+BPTT_REPLACES = "diffwdf_tpu/ops/parallel_bptt.py:350"
 
 # the bound: the larger of the operations over the card's f32 peak (outside
 # the tensor cores) and the bytes over its memory rate (NVIDIA's data sheet,
@@ -1129,9 +1175,9 @@ def circuit_path(dev, card: str, seed: int) -> list:
     def launch_only(name):
         """The generated kernel's launch alone, on arguments prepared once."""
         ckt, p, node, _, mlp = circuits[name]
-        prog, vec, warr = fcirc.prepare(ckt, p, dev, input_node=node, neural_mlp=mlp)
-        z = torch.zeros(len(prog.state_order), B, device=dev)
-        return lambda: fcirc.launch(prog, vec, warr, first[name], z)
+        prep = fcirc.prepare(ckt, p, dev, input_node=node, neural_mlp=mlp)
+        z = torch.zeros(len(prep.prog.state_order), B, device=dev)
+        return lambda: fcirc.launch(prep, first[name], z)
 
     times = {}
     cases = [("B6", lambda: fc.fused_clipper_cheb(cheb_blocks[0], z0, *cheb_args, fs=FS),
@@ -1196,6 +1242,419 @@ def circuit_path(dev, card: str, seed: int) -> list:
     ]
 
 
+def _gen_case(name: str, dev, b: int, t: int, pretrained: bool = True):
+    """(circuit, params, input node, MLP for the ``_neural`` entry or None,
+    pot (node, field) or None, pot values or None, input amplitude) of a
+    case of the generic training path at (b, t): the Tube Screamer with the
+    pretrained (or a seeded random-init) 2x16, with no pot or one drive per
+    row (R6 = 51k + drive 500k, drive uniform on [0, 1], seed 3,
+    bench.py:560-604); the HPF clipper with the analytic root; the training
+    clipper with a seeded random-init 2x16 and a random-walk source R per
+    sample (step 0.003, seed 5, bench.py:610-622)."""
+    if name.startswith("ts_2x16"):
+        if pretrained:
+            root, frag = _pretrained_2x16(dev)
+        else:
+            root = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=16)
+            frag = root.init_params(dev, torch.Generator().manual_seed(13))
+        ckt = make_tube_screamer(root, GEN_FS, drive=GEN_DRIVE)
+        params = {**ckt.init_params(dev), **frag}
+        if name == "ts_2x16":
+            return ckt, params, "Vin", frag["dp"], None, None, 0.5
+        r6 = drive_to_r6(np.random.default_rng(3).uniform(0.0, 1.0, b)).astype(np.float32)
+        return (ckt, params, "Vin", frag["dp"], ("R6", "R"), torch.from_numpy(r6).to(dev), 0.5)
+    if name == "hpf":
+        root, rp = make_hpf_root_from_zoo(0, device=dev)
+        ckt = make_hpf_diode_clipper(root, GEN_FS)
+        return ckt, {**ckt.init_params(dev), **rp}, "Vs", None, None, None, 1.0
+    root = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=16)
+    ckt = make_training_clipper(root, GEN_FS)
+    params = {**ckt.init_params(dev), **root.init_params(dev, torch.Generator().manual_seed(1))}
+    walk = np.cumsum(0.003 * np.random.default_rng(5).standard_normal((b, t)), axis=1)
+    r = torch.from_numpy(np.exp(np.log(45e3) + walk).astype(np.float32)).to(dev)
+    return ckt, params, "Vs", None, ("Vs", "R"), r, 1.0
+
+
+def _gen_forward(case, vin, plain: bool = False):
+    """(out, final state, trajectory) of the generated forward (or its plain
+    version) with the case's pot streams."""
+    ckt, params, node, mlp, pot, values, _ = case
+    kw = dict(input_node=node, return_state_seq=True,
+              row_controls={pot[0]: {pot[1]: values}} if pot else None)
+    if mlp is not None:
+        tree = {k: v for k, v in params.items() if k != "dp"}
+        fn = (fcirc.fused_circuit_process_neural_plain if plain
+              else fcirc.fused_circuit_process_neural)
+        return fn(ckt, tree, mlp, vin, _zero_state(ckt, vin), **kw)
+    fn = fcirc.fused_circuit_process_plain if plain else fcirc.fused_circuit_process
+    return fn(ckt, params, vin, _zero_state(ckt, vin), **kw)
+
+
+def _zero_state(ckt, vin):
+    return {k: {f: torch.zeros(vin.shape[0], device=vin.device) for f in d}
+            for k, d in ckt.init_state("cpu").items()}
+
+
+def _gen_backward(case, vin, g_out, seq, lam_T, plain: bool = False):
+    ckt, params, node, mlp, pot, values, _ = case
+    tree = {k: v for k, v in params.items() if k != "dp"} if mlp is not None else params
+    fn = pb.fused_backward_plain if plain else pb.fused_backward
+    return fn(ckt, tree, vin, g_out, seq, lam_T, input_node=node, neural_mlp=mlp,
+              row_controls={pot[0]: {pot[1]: values}} if pot else None)
+
+
+def _gen_prepare(case, dev, shape):
+    ckt, params, node, mlp, pot, values, _ = case
+    tree = {k: v for k, v in params.items() if k != "dp"} if mlp is not None else params
+    return fcirc.prepare(ckt, tree, dev, input_node=node, neural_mlp=mlp, shape=shape,
+                         row_controls={pot[0]: {pot[1]: values}} if pot else None)
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in _leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def _rel_err(x, y) -> float:
+    return float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+
+
+def _gen_grads(case, vin, y, fused: bool):
+    """({leaf: gradient}, g_vin) of mean((out - y)^2) through the
+    fused_generic op or through the scan engine (Circuit.process, the rows
+    as a trailing batch axis; a per-row pot as a static control, a
+    per-sample pot as a driven input)."""
+    ckt, params, node, mlp, pot, values, _ = case
+    leaves, rebuild = pb._flatten(params)
+    leaves = [x.detach().clone().requires_grad_(True) for x in leaves]
+    p = rebuild(leaves)
+    v = vin.clone().requires_grad_(True)
+    if fused:
+        f = pb.make_fused_circuit_train_generic(ckt, input_node=node,
+                                                row_fields=(pot,) if pot else ())
+        z0 = [torch.zeros(vin.shape[0], device=vin.device) for _ in cg.state_order(ckt)]
+        out = (f(p, v, z0, (values,)) if pot else f(p, v, z0))[0]
+    else:
+        inputs, static = {node: {"v": v.T}}, None
+        if pot is not None and values.dim() == 2:
+            inputs.setdefault(pot[0], {})[pot[1]] = values.T
+        elif pot is not None:
+            static = {pot[0]: {pot[1]: values}}
+        out = ckt.process(p, ckt.init_state(vin.device), inputs, static_controls=static)[0].T
+    ((out - y) ** 2).mean().backward()
+    return ({n: (x.grad if x.grad is not None else torch.zeros_like(x))
+             for n, x in zip(_leaf_names(params), leaves)}, v.grad)
+
+
+def _generated_ptxas(source: str) -> str:
+    log = _build.generated_path(source).with_suffix(".log").read_text().splitlines()
+    return " | ".join(l.split(":", 1)[-1].strip() for l in log if "registers" in l or "spill" in l)
+
+
+def generic_train_path(dev, card: str, seed: int) -> list:
+    """Generic in-circuit training: build generic, kernels generic, grad
+    generic, train generic and timing generic phases.  Returns the records
+    of B7 (training form) and B8 for the JSON line."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    shape = f"({GEN_B}, {GEN_T})"
+    cases = {name: _gen_case(name, dev, GEN_B, GEN_T) for name in GEN_CASES}
+    # the Tube Screamer's input at guitar level, as the serving path drives
+    # it (0.2 sin 1 kHz + 0.1 N(0, 1)); the clippers N(0, 1)
+    n = torch.arange(GEN_T, device=dev, dtype=torch.float32)
+    tone = torch.sin(2 * np.pi * 1000.0 * n / GEN_FS)[None, :]
+    inputs = {name: (0.2 * tone + 0.1 * torch.randn(GEN_B, GEN_T, generator=gen, device=dev)
+                     if name.startswith("ts") else
+                     torch.randn(GEN_B, GEN_T, generator=gen, device=dev))
+              for name in GEN_CASES}
+
+    # --- build generic: every generated source the path runs, in parallel -----
+    preps = {name: _gen_prepare(c, dev, (GEN_B, GEN_T)) for name, c in cases.items()}
+    adjs = {name: cg.adjoint_program(c[0], preps[name].prog) for name, c in cases.items()}
+    # the train phase's other circuits: the TS with the low-quality analytic
+    # root (its data), and the training clipper with one R per row, analytic
+    # (the joint fit's targets) and with a 1x4 root (the joint fit)
+    aroot = DiodePairRoot(name="dp", diode=GEN_DIODE, quality="low")
+    ts_low = make_tube_screamer(aroot, GEN_FS, drive=GEN_DRIVE)
+    extra = [fcirc.prepare(ts_low, {**ts_low.init_params(dev), **aroot.init_params(dev)}, dev,
+                           input_node="Vin").prog.source]
+    r_rows = {"Vs": {"R": torch.full((GEN_B,), 45e3, device=dev)}}
+    clip_a = make_training_clipper(DiodePairRoot(name="dp", diode=diode_1n4148_1u1d), GEN_FS)
+    extra.append(fcirc.prepare(clip_a, {**clip_a.init_params(dev), **clip_a.root.init_params(dev)},
+                               dev, input_node="Vs", row_controls=r_rows,
+                               shape=(GEN_B, GEN_T)).prog.source)
+    joint_root = NeuralDiodeRoot(name="dp", n_layers=1, layer_size=4)
+    clip_n = make_training_clipper(joint_root, GEN_FS)
+    joint_prog = fcirc.prepare(clip_n, {**clip_n.init_params(dev), **joint_root.init_params(dev)},
+                               dev, input_node="Vs", row_controls=r_rows,
+                               shape=(GEN_B, GEN_T)).prog
+    extra += [joint_prog.source, cg.adjoint_program(clip_n, joint_prog).source]
+    sources = ([p.prog.source for p in preps.values()] + [a.source for a in adjs.values()]
+               + extra)
+    builds = _build.build_generated.builds
+    t0 = time.perf_counter()
+    _build.build_generated(sources)
+    print(f"phase build generic sources={len(set(sources))} nvcc_runs="
+          f"{_build.build_generated.builds - builds} cold_seconds={time.perf_counter() - t0:.2f}",
+          flush=True)
+    for name in GEN_CASES:
+        prog, adj = preps[name].prog, adjs[name]
+        print(f"  ptxas {name} forward states={len(prog.state_order)} slots={prog.n_coeffs}/"
+              f"{prog.n_rows}/{prog.n_times} ops_per_sample={prog.ops_per_sample} "
+              f"{_generated_ptxas(prog.source)}", flush=True)
+        print(f"  ptxas {name} adjoint ops_per_sample={adj.ops_per_sample} "
+              f"{_generated_ptxas(adj.source)}", flush=True)
+
+    # --- kernels generic: B7 with its trajectory and B8 against plain ----------
+    fwd_err, bwd_err, plain_ms = {}, {}, {}
+    for name, case in cases.items():
+        vin = inputs[name]
+        got = _gen_forward(case, vin)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = _gen_forward(case, vin, plain=True)
+        torch.cuda.synchronize()
+        plain_fwd = (time.perf_counter() - t0) * 1e3
+        errs = [_max_err(got[0], want[0]), _state_err(got[1], want[1]),
+                max(_max_err(a, w) for a, w in zip(got[2], want[2]))]
+        fwd_err[name] = max(errs)
+        print(f"phase kernels generic {name} forward shape={shape} max_abs_err out={errs[0]:.3e} "
+              f"z_final={errs[1]:.3e} trajectory={errs[2]:.3e} budget=2e-05", flush=True)
+        _check(all(bool(torch.isfinite(x).all()) for x in [got[0], *got[2]])
+               and fwd_err[name] <= 2e-5, f"B7 {name} with trajectory within 2e-5 of plain")
+        g_out = torch.randn(GEN_B, GEN_T, generator=gen, device=dev) / (GEN_B * GEN_T)
+        lam_T = [torch.randn(GEN_B, generator=gen, device=dev) / GEN_B for _ in got[2]]
+        seq = [x.contiguous() for x in got[2]]
+        b_got = _gen_backward(case, vin, g_out, seq, lam_T)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b_want = _gen_backward(case, vin, g_out, seq, lam_T, plain=True)
+        torch.cuda.synchronize()
+        plain_ms[name] = (plain_fwd, (time.perf_counter() - t0) * 1e3)
+        rel = ([_rel_err(b_got[1], b_want[1])]
+               + [_rel_err(a, w) for a, w in zip(b_got[0], b_want[0])]
+               + [_rel_err(a, w) for a, w in zip(b_got[2], b_want[2])])
+        bwd_err[name] = max([_max_err(b_got[1], b_want[1])]
+                            + [_max_err(a, w) for a, w in zip(b_got[0] + b_got[2],
+                                                               b_want[0] + b_want[2])])
+        print(f"phase kernels generic {name} adjoint shape={shape} relative g_vin={rel[0]:.3e} "
+              f"lam={max(rel[1:1 + len(seq)]):.3e} g_z0={max(rel[1 + len(seq):]):.3e} "
+              f"max_abs_err={bwd_err[name]:.3e} budget={GEN_BUDGET[name]:g} (relative) "
+              f"plain_ms forward={plain_ms[name][0]:.1f} adjoint={plain_ms[name][1]:.1f} (host "
+              f"clock, one run)", flush=True)
+        _check(all(bool(torch.isfinite(x).all()) for x in [b_got[1], *b_got[0]])
+               and max(rel) < GEN_BUDGET[name], f"B8 {name} within budget of plain")
+
+    # --- grad generic: the fused_generic op against the scan engine ------------
+    gb, gt = GEN_GRAD_B, GEN_GRAD_T
+    for name in GEN_CASES:
+        case = _gen_case(name, dev, gb, gt, pretrained=False)
+        vin = case[6] * torch.randn(gb, gt, generator=gen, device=dev)
+        y = torch.randn(gb, gt, generator=gen, device=dev)
+        got, g_vin = _gen_grads(case, vin, y, fused=True)
+        want, w_vin = _gen_grads(case, vin, y, fused=False)
+        errs = {n: _rel_err(got[n], want[n]) for n in want}
+        worst = max(errs, key=errs.get)
+        line = (f"phase grad generic {name} fused_generic vs scan engine shape=({gb}, {gt}) "
+                f"leaves={len(errs)} worst={worst}:{errs[worst]:.3e} "
+                f"budget={GEN_GRAD_BUDGET[name]:g} g_vin={_rel_err(g_vin, w_vin):.3e}")
+        ok = errs[worst] < GEN_GRAD_BUDGET[name]
+        if name == "ts_2x16":  # tests/test_parallel_bptt.py:74-81
+            line += (f" dp.layers.0.kernel={errs['dp.layers.0.kernel']:.3e} budget=1e-04 "
+                     "g_vin budget=1e-04")
+            ok = ok and errs["dp.layers.0.kernel"] < 1e-4 and _rel_err(g_vin, w_vin) < 1e-4
+        print(line, flush=True)
+        _check(ok, f"fused_generic gradients of {name} within budget of the scan engine")
+
+    # --- train generic: the slice as a user drives it --------------------------
+    t0 = time.perf_counter()
+    vin_tr, vout_tr = synth_ts_measurement(GEN_DIODE, GEN_DRIVE, GEN_FS,
+                                           duration_s=GEN_TRAIN_S, seed=0, device=dev)
+    vin_va, vout_va = synth_ts_measurement(GEN_DIODE, GEN_DRIVE, GEN_FS,
+                                           duration_s=GEN_VAL_S, seed=7, device=dev)
+    tb = make_clipper_batches({"x": vin_tr, "y": vout_tr}, CHUNK, device=dev)
+    vb = make_clipper_batches({"x": vin_va, "y": vout_va}, CHUNK, device=dev)
+    synth_s = time.perf_counter() - t0
+    n_train, n_val = tb["x"].shape[0], vb["x"].shape[0]
+    print(f"phase train generic setup synth_ts_measurement diode={GEN_DIODE.name!r} "
+          f"drive={GEN_DRIVE} seconds={synth_s:.2f} "
+          f"train_chunks={n_train} val_chunks={n_val} (expect {GEN_TRAIN_CHUNKS}, "
+          f"{GEN_VAL_CHUNKS}) peak_out={float(tb['y'].abs().max()):.4f}", flush=True)
+    _check((n_train, n_val) == (GEN_TRAIN_CHUNKS, GEN_VAL_CHUNKS)
+           and bool(torch.isfinite(tb["y"]).all()), "full-size TS data set")
+    root, frag = _pretrained_2x16(dev)
+    circuit = make_tube_screamer(root, GEN_FS, drive=GEN_DRIVE)
+    params = {**circuit.init_params(dev), **frag}
+    cfg = CircuitTrainConfig(epochs=GEN_EPOCHS, batch_size=CHUNK, engine="fused_generic",
+                             log_every=1)
+    epoch_ends = []
+    fcirc.fused_circuit_process.launches = 0
+    pb.fused_backward.launches = 0
+    t0 = time.perf_counter()
+    trained, hist = train_clipper(circuit, params, tb, vb, cfg, trainable_filter=lambda p: p["dp"],
+                                  on_epoch=lambda e, p, h: epoch_ends.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    epoch_ms = [(b - a) * 1e3 for a, b in zip([t0] + epoch_ends, epoch_ends)]
+    train_launches = (fcirc.fused_circuit_process.launches, pb.fused_backward.launches)
+    print(f"phase train generic engine=fused_generic circuit=tube_screamer root=2x16 pretrained "
+          f"epochs={GEN_EPOCHS} chunks={n_train}x{CHUNK} seconds={train_s:.3f} "
+          f"epoch_wall_ms={[round(v, 1) for v in epoch_ms]} "
+          f"loss={[round(v, 8) for v in hist['loss']]} "
+          f"val_loss={[round(v, 8) for v in hist['val_loss']]} "
+          f"launches B7={train_launches[0]} B8={train_launches[1]}", flush=True)
+    _check(bool(np.isfinite(hist["loss"] + hist["val_loss"]).all()), "every loss finite")
+    _check(hist["loss"][-1] < hist["loss"][0], "TS train loss falls")
+    _check(train_launches == (2 * GEN_EPOCHS, GEN_EPOCHS),
+           "B7 once per step and validation, B8 once per step")
+
+    # the per-row drive pot (bench.py:560-604): two steps
+    r6 = drive_to_r6(np.random.default_rng(3).uniform(0.0, 1.0, n_train)).astype(np.float32)
+    pot_cfg = CircuitTrainConfig(batch_size=CHUNK, engine="fused_generic", pot_node="R6")
+    make_optimizer, pot_step, _ = make_train_step(circuit, pot_cfg, lambda p: p["dp"])
+    pot_params = {**params, "dp": ct.mlp_tree([x.detach().clone()
+                                              for x in ct.mlp_leaves(trained["dp"])])}
+    opt = make_optimizer(pot_params)
+    pot_losses = [float(pot_step(pot_params, opt, {**tb, "r0": torch.from_numpy(r6).to(dev)})[
+        "loss"]) for _ in range(GEN_POT_STEPS)]
+    print(f"phase train generic pot_node=R6 per row, drive uniform [0, 1] steps={GEN_POT_STEPS} "
+          f"loss={[round(v, 8) for v in pot_losses]}", flush=True)
+    _check(bool(np.isfinite(pot_losses).all()), "per-row drive pot losses finite")
+
+    # joint_fit_clipper: C and a 1x4 root on the training clipper, one R per
+    # row (tests/test_parallel_bptt.py:418-457 at the bench's shape)
+    rng = np.random.default_rng(seed + 31)
+    xj = torch.from_numpy((0.9 * rng.standard_normal((GEN_B, GEN_T))).astype(np.float32)).to(dev)
+    r0 = torch.from_numpy(np.exp(rng.uniform(np.log(36e3), np.log(73e3), GEN_B))
+                          .astype(np.float32)).to(dev)
+    yj, _ = fcirc.fused_circuit_process(
+        clip_a, {**clip_a.init_params(dev), **clip_a.root.init_params(dev)}, xj,
+        _zero_state(clip_a, xj), input_node="Vs", row_controls={"Vs": {"R": r0}})
+    jparams = {**clip_n.init_params(dev), **joint_root.init_params(dev)}
+    jparams["C"]["C"] = torch.tensor(6.5e-9, device=dev)
+    jcfg = CircuitTrainConfig(epochs=JOINT_EPOCHS, batch_size=GEN_T, engine="fused_generic")
+    t0 = time.perf_counter()
+    fitted, jhist = joint_fit_clipper(clip_n, jparams, {"x": xj, "y": yj, "r0": r0},
+                                      component_lrs={"C.C": 2e-10}, cfg=jcfg, mlp_lr=3e-3)
+    torch.cuda.synchronize()
+    c_fit = float(fitted["C"]["C"])
+    print(f"phase train generic joint_fit_clipper shape={shape} epochs={JOINT_EPOCHS} "
+          f"seconds={time.perf_counter() - t0:.3f} loss={jhist['loss'][0]:.6g}->"
+          f"{jhist['loss'][-1]:.6g} C={6.5e-9:.4e}->{c_fit:.4e} (true 4.7000e-09)", flush=True)
+    _check(jhist["loss"][-1] < jhist["loss"][0], "joint fit loss falls")
+    _check(abs(c_fit - 4.7e-9) < abs(6.5e-9 - 4.7e-9), "C moves toward 4.7 nF")
+    launches = {"B7": fcirc.fused_circuit_process.launches, "B8": pb.fused_backward.launches}
+    print(f"phase train generic launches={launches} (train {train_launches}, "
+          f"pot steps and joint fit after)", flush=True)
+    _check(launches["B8"] == GEN_EPOCHS + GEN_POT_STEPS + JOINT_EPOCHS,
+           "B8 once per training step on the main path")
+
+    # --- timing generic: one fused_generic step of the TS 2x16 ----------------
+    x = torch.randn(GEN_B, GEN_T, generator=gen, device=dev)
+    ys = torch.randn(GEN_B, GEN_T, generator=gen, device=dev)
+    batches = {"x": x, "y": ys}
+    tree = {k: v for k, v in trained.items() if k != "dp"}
+    mlp = trained["dp"]
+    state = {}
+
+    def part_forward():
+        state["fwd"] = fcirc.fused_circuit_process_neural(
+            circuit, tree, mlp, x, _zero_state(circuit, x), input_node="Vin",
+            return_state_seq=True)
+
+    def part_loss():
+        o = state["fwd"][0].detach().requires_grad_(True)
+        t, oo = ys[:, cfg.skip_samples:], o[:, cfg.skip_samples:]
+        state["g_out"], = torch.autograd.grad(mse(t, oo) + esr(t, oo), o)
+
+    def part_adjoint():
+        state["adj"] = pb.fused_backward(circuit, tree, x, state["g_out"], state["fwd"][2],
+                                         [torch.zeros(GEN_B, device=dev)] * 3, input_node="Vin",
+                                         neural_mlp=mlp)
+
+    def part_params():
+        state["grads"] = pb.parameter_cotangents(circuit, trained, x, state["fwd"][2],
+                                                 state["g_out"], state["adj"][0],
+                                                 input_node="Vin")
+
+    make_optimizer, step_fn, _ = make_train_step(circuit, cfg, lambda p: p["dp"])
+    opt = make_optimizer(trained)
+    leaves = pb._flatten(trained)[0]
+
+    def part_adam():
+        for t, g in zip(leaves, state["grads"]):
+            if t.requires_grad:
+                t.grad = g
+        opt.step()
+
+    parts = {}
+    for name, fn in (("forward_with_trajectory", part_forward), ("loss", part_loss),
+                     ("adjoint", part_adjoint), ("parameter_pass", part_params),
+                     ("adam", part_adam)):
+        parts[name] = _timed(fn)[0]
+    step = _timed(lambda: step_fn(trained, opt, batches))
+    samples = GEN_B * GEN_T
+    print(f"phase timing generic train_step circuit=tube_screamer 2x16 shape={shape} runs={REPS} "
+          f"step_ms={step[0]:.4f} [{step[1]:.4f}, {step[2]:.4f}] "
+          f"({samples / step[0] / 1e3:.3f} Msamples/s) "
+          + " ".join(f"{k}_ms={v:.4f}" for k, v in parts.items())
+          + f" parts_sum_ms={sum(parts.values()):.4f} card={card!r}", flush=True)
+
+    # both kernels alone, on arguments prepared once
+    ts_case = (circuit, trained, "Vin", mlp, None, None, 0.5)
+    prep = _gen_prepare(ts_case, dev, (GEN_B, GEN_T))
+    z0 = torch.zeros(3, GEN_B, device=dev)
+    _, _, zseq = fcirc.launch(prep, x, z0, with_seq=True)
+    g_out, lam_t = state["g_out"].contiguous(), torch.zeros(3, GEN_B, device=dev)
+    kernel_ms = {}
+    for label, fn in (
+        ("B7", lambda: fcirc.launch(prep, x, z0, with_seq=True)),
+        ("B8", lambda: pb.launch_adjoint(circuit, prep, x, g_out, zseq, lam_t)),
+        ("B8 375", lambda: pb.launch_adjoint(circuit, prep, x[:GEN_TRAIN_CHUNKS].contiguous(),
+                                             g_out[:GEN_TRAIN_CHUNKS].contiguous(),
+                                             zseq[:, :GEN_TRAIN_CHUNKS].contiguous(),
+                                             lam_t[:, :GEN_TRAIN_CHUNKS].contiguous())),
+    ):
+        _cuda_ms(fn, 1, 2)
+        k = _cuda_ms(fn, REPS, 10)
+        kernel_ms[label] = statistics.median(k)
+        rows = GEN_TRAIN_CHUNKS if label == "B8 375" else GEN_B
+        print(f"phase timing generic kernel {label} shape=({rows}, {GEN_T}) runs={REPS} "
+              f"kernel_ms={kernel_ms[label]:.4f} [{min(k):.4f}, {max(k):.4f}] "
+              f"(10 launches per run) card={card!r}", flush=True)
+    S = 3
+    adj = cg.adjoint_program(circuit, prep.prog)
+    # bytes: B7 reads vin and writes out and the S trajectories; B8 reads
+    # vin, obar and the trajectories (the TS streams no pot) and writes the S
+    # lam streams and g_vin; both read and write S values per row
+    bounds = {"B7": _bound(prep.prog.ops_per_sample * samples,
+                           (2 + S) * 4 * samples + 8 * S * GEN_B)}
+    for label, rows in (("B8", GEN_B), ("B8 375", GEN_TRAIN_CHUNKS)):
+        bounds[label] = _bound(adj.ops_per_sample * rows * GEN_T,
+                               (3 + 2 * S) * 4 * rows * GEN_T + 8 * S * rows)
+    for label in ("B7", "B8", "B8 375"):
+        plain = f"{plain_ms['ts_2x16'][0 if label == 'B7' else 1]:.1f}" if label != "B8 375" \
+            else "not run"
+        print(f"phase timing generic bound {label} kernel_ms={kernel_ms[label]:.4f} "
+              f"bound_ms={bounds[label][0]:.6f} ({bounds[label][1]}) "
+              f"share={bounds[label][0] / kernel_ms[label]:.4f} plain_ms={plain} "
+              f"launches_on_main_path={launches[label.split()[0]]} card={card!r}", flush=True)
+    return [
+        {"name": "fused_circuit_process (training form: pot streams, state trajectory)",
+         "route": "cuda", "source": CIRCUIT_SOURCE, "replaces": CIRCUIT_REPLACES,
+         "launches": launches["B7"], "max_abs_err": max(fwd_err.values()),
+         "ms": kernel_ms["B7"], "plain_ms": plain_ms["ts_2x16"][0],
+         **dict(zip(("bound_ms", "bound_by"), bounds["B7"])), "library_ms": None},
+        {"name": "fused_backward", "route": "cuda", "source": CIRCUIT_SOURCE,
+         "replaces": BPTT_REPLACES, "launches": launches["B8"],
+         "max_abs_err": max(bwd_err.values()), "ms": kernel_ms["B8"],
+         "plain_ms": plain_ms["ts_2x16"][1],
+         **dict(zip(("bound_ms", "bound_by"), bounds["B8"])), "library_ms": None},
+    ]
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of the input signals")
@@ -1224,7 +1683,8 @@ def main() -> None:
         print(f"  ptxas {line}", flush=True)
 
     kernels = (serve_path(dev, card, args.seed) + train_path(dev, card, args.seed)
-               + stream_path(dev, card, args.seed) + circuit_path(dev, card, args.seed))
+               + stream_path(dev, card, args.seed) + circuit_path(dev, card, args.seed)
+               + generic_train_path(dev, card, args.seed))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,9 +7,11 @@ interchange, distilled Chebyshev roots, R-type adaptors, the diode-clipper
 model zoo, the Tube Screamer and the simple circuits, and hand-written CUDA
 kernels for batched clipper serving and training
 (``diffwdf_tpu_torch.ops.fused_clipper``, ``ops.clipper_train``),
-single-stream serving (``ops.parallel_time_deer``) and batched serving of
+single-stream serving (``ops.parallel_time_deer``), batched serving of
 any circuit through a kernel generated per circuit structure
-(``ops.fused_circuit``).  It imports nothing of JAX.
+(``ops.fused_circuit``), and in-circuit training of any such circuit
+through a generated adjoint kernel (``ops.parallel_bptt``).  It imports
+nothing of JAX.
 """
 
 from .core.elements import (

@@ -13,9 +13,10 @@ Two roles:
    (TOMS-equivalent) root, and can be written in the exact CSV format the
    importer expects — keeping the whole measured-data pipeline executable
    end to end.  The LPF clipper runs through the fused analytic kernel
-   (``ops.fused_clipper.fused_clipper_analytic``), one stream per file: on a
-   CUDA device that is one launch, where a loop over the samples of an
-   18-second file would take minutes.
+   (``ops.fused_clipper.fused_clipper_analytic``) and the Tube Screamer
+   through its generated kernel (``ops.fused_circuit``), one stream per
+   file: on a CUDA device that is one launch, where a loop over the samples
+   of an 18-second file would take minutes.
 
 Every function takes the ``device`` it simulates on and returns numpy.
 """
@@ -143,6 +144,39 @@ def synth_hpf_measurement(
         out, _ = ckt.process(params, ckt.init_state(device),
                              {"Vs": {"v": torch.from_numpy(vin).to(device)}})
     return vin, out.cpu().numpy().astype(np.float32)
+
+
+def synth_ts_measurement(
+    diode: DiodeConfig,
+    drive: float = 0.5,
+    fs: float = 48000.0,
+    duration_s: float = 1.0,
+    seed: int = 0,
+    amp: float = 0.1,
+    *,
+    device: Device,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Simulate the Tube Screamer clipping stage (``TubeScreamer.h:24-74``)
+    with the fast-approx analytic diode root (the reference's own analytic
+    TS choice, ``TubeScreamer.h:73``, quality "low") on a guitar-level
+    multi-tone; returns (vin, vout).  Stands in for a measurement used to
+    circuit-train the TS "1N4148 2x16" neural model in its own topology.
+    The whole signal is one stream of the generated circuit kernel
+    (``ops.fused_circuit``)."""
+    from ..models.tube_screamer import make_tube_screamer
+    from ..ops.fused_circuit import fused_circuit_process
+
+    root = DiodePairRoot(name="dp", diode=diode, quality="low")
+    ckt = make_tube_screamer(root, fs, drive=drive)
+    params = {**ckt.init_params(device), **root.init_params(device)}
+
+    n = int(duration_s * fs)
+    vin = _stimulus(n, fs, duration_s, seed, amp, 60.0, 3000.0, 0.005)
+    state0 = {node: {field: torch.zeros(1, device=device) for field in fields}
+              for node, fields in ckt.init_state("cpu").items()}
+    out, _ = fused_circuit_process(ckt, params, torch.from_numpy(vin).to(device)[None], state0,
+                                   input_node="Vin")
+    return vin, out[0].cpu().numpy().astype(np.float32)
 
 
 def write_reference_csv(path, vin, vout, fs: float):

@@ -9,9 +9,10 @@ objects into one shared library with a plain C interface and loads it with
 an unchanged one is loaded as it is.  Nothing is compiled when the module is
 imported.
 
-Generated sources (``ops.circuit_codegen``, one per circuit structure) take
-another path: ``generated_library(source)`` writes the source into the same
-directory, compiles it alone into its own library with the same flags (the
+Generated sources (``ops.circuit_codegen``, a forward and an adjoint per
+circuit structure) take another path: ``generated_library(source)`` writes
+the source into the same directory, compiles it alone into its own library
+with the same flags (the
 headers of ``csrc/`` on the include path) and keys it by a hash of the
 source, the headers and the flags, so a circuit that only changes values
 never builds again.
@@ -139,9 +140,11 @@ def check(err: int, what: str, error_string=None) -> None:
 # Generated sources (ops/circuit_codegen.py): one library per source
 # ---------------------------------------------------------------------------
 
-#: C signatures of a generated circuit kernel library
+#: C signatures of the generated circuit kernel libraries (a forward source
+#: exports circuit_launch, an adjoint source circuit_adjoint_launch)
 _GENERATED_SIGNATURES = {
-    "circuit_launch": ([_vp] * 4 + [_i, _i, _vp, _vp, _i, _vp], ctypes.c_int),
+    "circuit_launch": ([_vp] * 5 + [_i, _i] + [_vp] * 4 + [_i, _vp], ctypes.c_int),
+    "circuit_adjoint_launch": ([_vp] * 7 + [_i, _i] + [_vp] * 4 + [_i, _vp], ctypes.c_int),
     "circuit_error_string": ([_i], ctypes.c_char_p),
 }
 
@@ -212,6 +215,8 @@ def generated_library(source: str) -> ctypes.CDLL:
     if lib is None:
         lib = ctypes.CDLL(str(so))
         for name, (argtypes, restype) in _GENERATED_SIGNATURES.items():
+            if not hasattr(lib, name):
+                continue
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = restype

@@ -1,50 +1,78 @@
-"""Generate the CUDA C++ source of one fused kernel for a WDF `Circuit`.
+"""Generate the CUDA C++ sources of the fused kernels of a WDF `Circuit`.
 
-The kernel runs a circuit's whole sample recursion for a batch of streams,
-one thread per stream (``ops.fused_circuit``).  Its per-sample step is
-generated by **tracing** the circuit's own pure step: the tree's
-``reflected`` / ``incident`` methods (``core``) run once on symbolic scalars
-(``Sym``) that write each operation as one line of C, so the scatter algebra
-has one source of truth, as the Pallas kernel has when it traces
-``circuit.step``.  Each traced operation is emitted as a round-to-nearest
-intrinsic (``__fmul_rn``, ``__fadd_rn``, ...), which nvcc never contracts
-into an FMA, so the tree's algebra rounds exactly as the plain version's
-separate torch operations do (the Tube Screamer's op-amp scatter amplifies
-any difference).  The root is not traced: each root kind has an emitter
-that calls its device code (``csrc/omega.cuh``, ``nxh_mlp.cuh``,
-``cheb.cuh``) and a plain PyTorch twin of the same math.
+Two kernels per circuit structure, one thread per stream each:
 
-What the source depends on: the tree's topology and node names, the root's
+- the **forward** (``CircuitProgram.source``, ``ops.fused_circuit``): the
+  circuit's whole sample recursion over a batch of streams, optionally
+  writing the pre-step state trajectory z_{t-1} (the residual of training);
+- the **adjoint** (``AdjointProgram.source``, ``ops.parallel_bptt``): the
+  reverse-time recursion lam_{t-1} = J_t^T lam_t + A_t^T obar_t of training,
+  walking t = T-1 ... 0 over the stored trajectory.
+
+The per-sample steps are generated by **tracing** the circuit's own pure
+step: the tree's ``reflected`` / ``incident`` methods (``core``) run once on
+symbolic scalars (``Sym``) that write each operation as one line of C, so
+the scatter algebra has one source of truth, as the Pallas kernels have when
+they trace ``circuit.step``.  Each traced operation is emitted as a
+round-to-nearest intrinsic (``__fmul_rn``, ``__fadd_rn``, ...), which nvcc
+never contracts into an FMA, so the tree's algebra rounds exactly as the
+plain version's separate torch operations do (the Tube Screamer's op-amp
+scatter amplifies any difference).  The root is not traced: each root kind
+has an emitter that calls its device code (``csrc/omega.cuh``,
+``nxh_mlp.cuh``, ``cheb.cuh``) and a plain PyTorch twin of the same math.
+
+The adjoint step is the forward-mode derivative of the same trace: the step
+runs again on dual symbols (``Dual``: a primal and one tangent per
+direction), with S + 1 directions (each state, then the input v), so every
+tangent line is again one uncontracted intrinsic.  Coefficients carry no
+tangent; the tree is linear in the waves, so the tangent lines are products
+with coefficient slots.  The root's derivative m = db/da is computed once
+per step at the primal a (the diode pair's derivative through
+``omega_slope``, the NxH MLP's by ``nxh_tangent``) and the S + 1 pulls of
+the root are db = m da.  The cotangents are then contracted with the carried
+lam and the output's cotangent: the kernel never forms J_t.
+
+What a source depends on: the tree's topology and node names, the root's
 kind and shape (the omega iteration count; the MLP's H and L; the Chebyshev
-degrees) and the shapes of the coefficients.  Never on a value: every
-component value reaches the kernel at launch, so moving a pot (the Tube
-Screamer's drive, R6) or any component is a new argument, not a new build.
+degrees) and the kinds and shapes of the coefficients.  Never on a value:
+every component value reaches the kernel at launch, so moving a pot (the
+Tube Screamer's drive, R6) or any component is a new argument, not a new
+build.
 
 Launch arguments, in fixed orders:
 
 - **State slots**: the circuit's state entries sorted by (node name, field),
   as ``(S, B)`` arrays; ``z[k]`` in the step.
-- **Coefficient vector** (f32, ``c[i]`` in the step): the leaves of the
-  adapted coeffs, then of the params (without the root's fragment), then of
-  the static controls, each dict in sorted key order; a scalar takes one
-  slot, a matrix of at most 64 entries (the R-type S) its entries row-major.
-  Then the root's own slots (the diode pair's seven constants).
+- **Coefficient vector** (f32, ``c[i]`` in the step): the scalar and matrix
+  leaves of the adapted coeffs, then of the params (without the root's
+  fragment), then of the static controls, each dict in sorted key order; a
+  scalar takes one slot, a matrix of at most 64 entries (the R-type S) its
+  entries row-major.  Then the root's own slots (the diode pair's seven
+  constants), unless they are per row.
+- **Row slots** (``(NR, B)`` f32, ``r[j]`` in the step, one register each):
+  the leaves that a per-row pot control (``row_controls`` of shape (B,))
+  made per row, in the same order, then the root's slots if the root's port
+  impedance is per row.
+- **Time slots** (``(NQ, B, T)`` f32, ``q[j]`` in the step): the leaves that
+  a per-sample pot control (shape (B, T)) made per sample, staged through
+  shared memory like the input and read per step.
 - **Root array** (f32, staged to shared memory, ``w`` in the step): the NxH
-  weights with log R folded into the first bias, or the Chebyshev segments
-  and coefficients.
+  weights (log R folded into the first bias when R is one value), or the
+  Chebyshev segments and coefficients.
 
 Supported node classes: ``Resistor``, ``Capacitor``, ``Inductor``,
 ``ResistiveVoltageSource``, ``ResistiveCurrentSource``, ``Series``,
 ``Parallel``, ``Inverter``, ``RTypeAdaptor``; roots: ``DiodePairRoot``,
-``NeuralDiodeRoot`` (all-tanh NxH, linear head), ``PiecewiseChebRoot``,
-``IdealVoltageSourceRoot``, ``OpenCircuitRoot``.  Anything else raises
-``NotImplementedError`` naming it.  One output probe.
+``NeuralDiodeRoot`` (all-tanh NxH, linear head), ``PiecewiseChebRoot``
+(forward only), ``IdealVoltageSourceRoot``, ``OpenCircuitRoot``.  Anything
+else raises ``NotImplementedError`` naming it.  One output probe.  A pot
+control must not reach a matrix coefficient (no pot inside an R-type
+adaptor): that raises ``ValueError``.
 
-The step is emitted as a ``__device__`` function of plain C
-(``CircuitProgram.step_source``; ``__device__`` because the root headers'
-functions are device functions), so the CPU tests compile it with the host
-compiler, the CUDA qualifiers defined away, and drive it through
-``CircuitProgram.host_source``.
+The steps are emitted as ``__device__`` functions of plain C
+(``step_source``; ``__device__`` because the root headers' functions are
+device functions), so the CPU tests compile them with the host compiler, the
+CUDA qualifiers defined away, and drive them through ``host_source``.
 """
 
 from __future__ import annotations
@@ -78,6 +106,7 @@ from .fused_clipper import (
     cheb_parameters,
     cheb_root_ops,
     diode_pair_root,
+    first_bias,
     nxh_mlp,
 )
 
@@ -86,6 +115,8 @@ NODE_CLASSES = (Resistor, Capacitor, Inductor, ResistiveVoltageSource, Resistive
                 Series, Parallel, Inverter, RTypeAdaptor)
 #: matrix coefficients up to 8x8 take slots (the R-type S)
 MAX_MATRIX = 64
+#: slot kinds of a per-row and a per-sample coefficient in a layout
+ROW, TIME = ("row",), ("time",)
 
 
 # ---------------------------------------------------------------------------
@@ -111,14 +142,25 @@ class _Trace:
         self.entries: List[Tuple[Optional[str], str, int]] = []  # (name, line, ops)
         self._n = 0
 
-    def let(self, expr: str, ops: int, prefix: str = "t") -> "Sym":
+    def _name(self, prefix: str) -> str:
         name = f"{prefix}{self._n}"
         self._n += 1
-        self.entries.append((name, f"const float {name} = {expr};", ops))
+        return name
+
+    def let(self, expr: str, ops: int, prefix: str = "t", ctype: str = "float") -> "Sym":
+        name = self._name(prefix)
+        self.entries.append((name, f"const {ctype} {name} = {expr};", ops))
         return Sym(self, name)
 
+    def decl(self, statement: str, ops: int, prefix: str) -> str:
+        """A statement that declares its own name (``statement`` formatted
+        with ``name``), e.g. an array a root fills; dropped when unread."""
+        name = self._name(prefix)
+        self.entries.append((name, statement.format(name=name), ops))
+        return name
+
     def raw(self, line: str) -> None:
-        """A line kept as it is (a comment, a root's own statement)."""
+        """A line kept as it is (a comment)."""
         self.entries.append((None, line, 0))
 
     def const(self, v) -> "Sym":
@@ -127,7 +169,7 @@ class _Trace:
     def live(self, uses: str) -> Tuple[List[str], int]:
         """The lines the code ``uses`` needs, in order, and their operation
         count: a named line whose value nothing reads (a wave sent into a
-        source or resistor) is dropped."""
+        source or resistor, a primal no tangent reads) is dropped."""
         needed = set(_WORD.findall(uses))
         kept = []
         for name, line, ops in reversed(self.entries):
@@ -142,7 +184,8 @@ class Sym(Symbolic):
     """A float of the step: a C expression (a slot, a temporary or a
     literal).  Arithmetic emits one line per operation, as an uncontracted
     round-to-nearest intrinsic; additions of 0 and multiplications by 0 or 1
-    fold away (exact for finite values)."""
+    fold away (exact for finite values).  An operation with a ``Dual`` is
+    the dual's."""
 
     def __init__(self, trace: _Trace, ref: str, value: Optional[float] = None):
         self.trace, self.ref, self.value = trace, ref, value
@@ -150,36 +193,44 @@ class Sym(Symbolic):
     def zeros_like(self) -> "Sym":
         return self.trace.const(0.0)
 
-    def _sym(self, other) -> "Sym":
+    def _sym(self, other) -> Optional["Sym"]:
         if isinstance(other, Sym):
             return other
+        if isinstance(other, Dual):
+            return None
         if isinstance(other, (int, float, np.floating)) and not isinstance(other, bool):
             return self.trace.const(other)
         raise TypeError(f"cannot trace an operation with {type(other).__name__}")
 
+    def _op(self, o, op: str, reflected: bool = False):
+        o = self._sym(o)
+        if o is None:
+            return NotImplemented
+        return _binary(o, self, op) if reflected else _binary(self, o, op)
+
     def __add__(self, o):
-        return _binary(self, self._sym(o), "+")
+        return self._op(o, "+")
 
     def __radd__(self, o):
-        return _binary(self._sym(o), self, "+")
+        return self._op(o, "+", True)
 
     def __sub__(self, o):
-        return _binary(self, self._sym(o), "-")
+        return self._op(o, "-")
 
     def __rsub__(self, o):
-        return _binary(self._sym(o), self, "-")
+        return self._op(o, "-", True)
 
     def __mul__(self, o):
-        return _binary(self, self._sym(o), "*")
+        return self._op(o, "*")
 
     def __rmul__(self, o):
-        return _binary(self._sym(o), self, "*")
+        return self._op(o, "*", True)
 
     def __truediv__(self, o):
-        return _binary(self, self._sym(o), "/")
+        return self._op(o, "/")
 
     def __rtruediv__(self, o):
-        return _binary(self._sym(o), self, "/")
+        return self._op(o, "/", True)
 
     def __neg__(self):
         if self.value is not None:
@@ -212,6 +263,76 @@ def _binary(x: Sym, y: Sym, op: str) -> Sym:
     return tr.let(f"{_INTRINSIC[op]}({x.ref}, {y.ref})", 1)
 
 
+def _tadd(x: Optional[Sym], y: Optional[Sym]) -> Optional[Sym]:
+    """x + y of two tangents, None standing for an exact zero."""
+    if x is None:
+        return y
+    return x if y is None else x + y
+
+
+def _tsub(x: Optional[Sym], y: Optional[Sym]) -> Optional[Sym]:
+    if y is None:
+        return x
+    return -y if x is None else x - y
+
+
+def _tmul(x: Optional[Sym], y: Sym) -> Optional[Sym]:
+    return None if x is None else x * y
+
+
+class Dual(Symbolic):
+    """A float of the step with its tangents along the adjoint's directions:
+    ``p`` the primal ``Sym``, ``d`` one ``Sym`` per direction (None for an
+    exact zero).  The product and quotient rules emit the tangent lines."""
+
+    def __init__(self, p: Sym, d: Sequence[Optional[Sym]]):
+        self.p, self.d = p, tuple(d)
+
+    def zeros_like(self) -> Sym:
+        return self.p.trace.const(0.0)
+
+    def _lift(self, o) -> "Dual":
+        if isinstance(o, Dual):
+            return o
+        if isinstance(o, Sym):
+            return Dual(o, (None,) * len(self.d))
+        return Dual(self.p._sym(o), (None,) * len(self.d))
+
+    def __add__(self, o):
+        o = self._lift(o)
+        return Dual(self.p + o.p, map(_tadd, self.d, o.d))
+
+    def __radd__(self, o):
+        return self._lift(o) + self
+
+    def __sub__(self, o):
+        o = self._lift(o)
+        return Dual(self.p - o.p, map(_tsub, self.d, o.d))
+
+    def __rsub__(self, o):
+        return self._lift(o) - self
+
+    def __mul__(self, o):
+        o = self._lift(o)
+        return Dual(self.p * o.p, (_tadd(_tmul(dx, o.p), _tmul(dy, self.p))
+                                   for dx, dy in zip(self.d, o.d)))
+
+    def __rmul__(self, o):
+        return self._lift(o) * self
+
+    def __truediv__(self, o):
+        o = self._lift(o)
+        q = self.p / o.p
+        return Dual(q, (None if dx is None and dy is None else _tsub(dx, _tmul(dy, q)) / o.p
+                        for dx, dy in zip(self.d, o.d)))
+
+    def __rtruediv__(self, o):
+        return self._lift(o) / self
+
+    def __neg__(self):
+        return Dual(-self.p, (None if t is None else -t for t in self.d))
+
+
 class Matrix:
     """A small matrix of scalars (symbols or 0-d tensors) with the ``S[i, j]``
     indexing the adaptors use."""
@@ -236,16 +357,28 @@ def _leaves(tree, prefix=()) -> List[Tuple[Tuple[str, ...], Any]]:
     return [(prefix, tree)]
 
 
-def _shape(leaf) -> Tuple[int, ...]:
+def _shape(leaf, batch: int = 0, time: int = 0) -> Tuple:
+    """The slot kind of a leaf: () a scalar, (r, c) a matrix, ``ROW`` a
+    per-row (batch,) value and ``TIME`` a per-sample (batch, time) value;
+    the last two only when pot controls are given (``batch`` > 0)."""
     shape = tuple(torch.as_tensor(leaf).shape)
     n = int(np.prod(shape)) if shape else 1
     if n == 1:
         return ()
+    if batch and shape == (batch,):
+        return ROW
+    if batch and time and shape == (batch, time):
+        return TIME
     if len(shape) == 2 and n <= MAX_MATRIX:
         return shape
+    if batch:
+        raise ValueError(
+            f"fused_circuit: unsupported coefficient shape {shape}: per-row and per-sample "
+            "pot controls must not reach matrix-valued coefficients (keep the pot outside "
+            "R-type adaptors or bake the adaptor's scattering matrix)")
     raise ValueError(
         f"fused_circuit: unsupported coefficient shape {shape}: scalars and matrices of at "
-        f"most {MAX_MATRIX} entries only (per-row and per-sample pot streams are ROADMAP B8)")
+        f"most {MAX_MATRIX} entries, or per-row and per-sample pot streams (row_controls)")
 
 
 def _nest(items) -> dict:
@@ -261,9 +394,15 @@ def _nest(items) -> dict:
 
 def _bundle(circuit: Circuit, coeffs, params, static_controls):
     """The (coeffs, params without the root's fragment, static controls)
-    triple whose leaves fill the coefficient vector."""
+    triple whose leaves fill the slots."""
     tree_params = {k: v for k, v in params.items() if k != circuit.root.name}
     return {"coeffs": coeffs, "params": tree_params, "static": static_controls or {}}
+
+
+def state_order(circuit: Circuit) -> Tuple[Tuple[str, str], ...]:
+    """The circuit's state entries as (node, field), sorted: the kernels'
+    state slot order."""
+    return tuple((node, field) for (node, field), _ in _leaves(circuit.init_state("cpu")))
 
 
 # ---------------------------------------------------------------------------
@@ -272,12 +411,28 @@ def _bundle(circuit: Circuit, coeffs, params, static_controls):
 
 
 class _RootEmitter:
-    """How a root kind enters the step: header, slots, root array, C lines,
-    operation count, and the plain PyTorch twin of the same math."""
+    """How a root kind enters the steps: header, slots, root array, C lines
+    of b and of its derivative m = db/da, and the plain PyTorch twin.
+
+    ``r_kind`` is the kind of the root's port impedance R_up: "scalar", "row"
+    (a per-row pot reaches the top of the tree) or "time" (a per-sample pot).
+    The root's ``n_slots`` slots are per row for a row R_up and in the
+    coefficient vector otherwise; ``n_keep`` floats per thread (``p``) come
+    from ``prologue`` lines run once per stream."""
 
     headers: Tuple[str, ...] = ()
     n_slots = 0
-    ops = 0
+    n_keep = 0
+    traced = False
+    #: the kernels' __launch_bounds__.  Every generated kernel is bound by one
+    #: stream's chain of dependent operations, so a second resident block
+    #: per SM buys nothing; with the block size alone ptxas may still trade
+    #: registers for one, which is harmless for the light roots (measured
+    #: faster with it) and spilled the MLP root (see _NeuralEmitter)
+    launch_bounds = "kTileRows"
+
+    def __init__(self, r_kind: str = "scalar"):
+        self.r_kind = r_kind
 
     def key(self) -> tuple:
         return (type(self).__name__,)
@@ -288,7 +443,14 @@ class _RootEmitter:
     def array(self, r_up, params, device) -> Optional[torch.Tensor]:
         return None
 
-    def emit(self, tr: _Trace, a: Sym, r_up: Sym, slots: List[Sym], controls, params) -> Sym:
+    def prologue(self, slots: List[Sym]) -> List[str]:
+        return []
+
+    def emit(self, tr: _Trace, a, r_up: Sym, slots: List[Sym], controls, params):
+        raise NotImplementedError
+
+    def emit_slope(self, tr: _Trace, a: Sym, r_up: Sym, slots: List[Sym], controls,
+                   params) -> Sym:
         raise NotImplementedError
 
     def plain(self, a, r_up, slots, array, controls, params):
@@ -297,9 +459,13 @@ class _RootEmitter:
 
 class _TracedRoot(_RootEmitter):
     """A root whose ``reflect`` is arithmetic on its inputs
-    (IdealVoltageSourceRoot, OpenCircuitRoot): traced like the tree."""
+    (IdealVoltageSourceRoot, OpenCircuitRoot): traced like the tree, on
+    duals in the adjoint."""
 
-    def __init__(self, root):
+    traced = True
+
+    def __init__(self, root, r_kind: str = "scalar"):
+        super().__init__(r_kind)
         self.root = root
 
     def key(self):
@@ -314,66 +480,109 @@ class _TracedRoot(_RootEmitter):
 
 class _DiodePairEmitter(_RootEmitter):
     """Asymmetric diode pair (Werner eqn 45) with the real-line omega of
-    omega.cuh; slots: log(R Is / (n_up Vt)), log(R Is / (n_down Vt)),
-    1 / (n_up Vt), 1 / (n_down Vt), 2 Vt, n_up, n_down (Vt = nabla Vt),
-    computed in double from the adapted R and rounded to f32.  The lines
-    around omega round as ``diode_pair_root`` does (uncontracted)."""
+    omega.cuh.  Slots, computed in double from the adapted R and rounded to
+    f32 (per row for a per-row R): log(R Is / (n_up Vt)),
+    log(R Is / (n_down Vt)), 1 / (n_up Vt), 1 / (n_down Vt), 2 Vt, n_up,
+    n_down (Vt = nabla Vt).  For a per-sample R the two logs are taken in
+    the step, in f32 and in the order of ``diode_pair_reflected``
+    (R Is / Vt, then / n, then log), and the slots are Is, Vt and the last
+    five.  The lines around omega round as ``diode_pair_root`` does
+    (uncontracted)."""
 
     headers = ("omega.cuh",)
     n_slots = 7
 
-    def __init__(self, root: DiodePairRoot):
+    def __init__(self, root: DiodePairRoot, r_kind: str = "scalar"):
+        super().__init__(r_kind)
         self.name, self.iters = root.name, int(root.iters)
-        # sign 3, compare 1, six selects, |a| 1, two omega arguments 4,
-        # b = a - 2Vt lam (mu0 w0 - mu1 w1) 6; omega: region guess 10 and
-        # 6 per Newton step (counted from omega.cuh)
-        self.ops = 21 + 2 * (10 + 6 * self.iters)
+        self.omega_ops = 10 + 6 * self.iters  # region guess 10, 6 per Newton step
 
     def key(self):
         return ("DiodePairRoot", self.iters)
 
     def slots(self, r_up, params):
-        p = {k: torch.as_tensor(v).double() for k, v in params[self.name].items()}
-        r = torch.as_tensor(r_up).double().to(p["Is"].device)
+        p = {k: torch.as_tensor(v).detach().double() for k, v in params[self.name].items()}
         vte = p["nabla"] * p["Vt"]
         n_up, n_dn = p["N_up"], p["N_down"]
-        return [torch.log(r * p["Is"] / (n_up * vte)), torch.log(r * p["Is"] / (n_dn * vte)),
-                1.0 / (n_up * vte), 1.0 / (n_dn * vte), 2.0 * vte, n_up, n_dn]
+        common = [1.0 / (n_up * vte), 1.0 / (n_dn * vte), 2.0 * vte, n_up, n_dn]
+        if self.r_kind == "time":
+            return [p["Is"], vte] + common
+        r = torch.as_tensor(r_up).detach().double().to(p["Is"].device)
+        out = [torch.log(r * p["Is"] / (n_up * vte)), torch.log(r * p["Is"] / (n_dn * vte))]
+        return [torch.broadcast_to(x, r.shape) for x in out + common]
+
+    def _logs(self, tr, r_up, slots):
+        if self.r_kind != "time":
+            return slots[0], slots[1]
+        i_s, vte, _, _, _, n_up, n_dn = (s.ref for s in slots)
+        riv = tr.let(f"__fdiv_rn(__fmul_rn({r_up.ref}, {i_s}), {vte})", 2, "d")
+        return (tr.let(f"logf(__fdiv_rn({riv.ref}, {n_up}))", 2, "d"),
+                tr.let(f"logf(__fdiv_rn({riv.ref}, {n_dn}))", 2, "d"))
+
+    def _core(self, tr, a, r_up, slots):
+        """The branch selects and the two omega values at a: a dict of the
+        symbols b and m are built from."""
+        log_up, log_dn = (s.ref for s in self._logs(tr, r_up, slots))
+        inv_up, inv_dn, two_vt, n_up, n_dn = (s.ref for s in slots[2:])
+        x = a.ref
+        s = {"two_vt": two_vt}
+        s["lam"] = tr.let(f"sign0({x})", 3, "d").ref
+        pos = tr.let(f"{x} >= 0.f", 1, "d", "bool").ref
+        for name, (when_pos, when_neg) in (("mu0", (n_dn, n_up)), ("mu1", (n_up, n_dn)),
+                                           ("log0", (log_dn, log_up)), ("log1", (log_up, log_dn)),
+                                           ("inv0", (inv_dn, inv_up)), ("inv1", (inv_up, inv_dn))):
+            s[name] = tr.let(f"{pos} ? {when_pos} : {when_neg}", 1, "d").ref
+        la = tr.let(f"__fmul_rn({s['lam']}, {x})", 1, "d").ref
+        s["w0"] = tr.let(f"omega(__fadd_rn({s['log0']}, __fmul_rn({la}, {s['inv0']})), "
+                         f"{self.iters})", 2 + self.omega_ops, "d").ref
+        s["w1"] = tr.let(f"omega(__fsub_rn({s['log1']}, __fmul_rn({la}, {s['inv1']})), "
+                         f"{self.iters})", 2 + self.omega_ops, "d").ref
+        return s
 
     def emit(self, tr, a, r_up, slots, controls, params):
-        log_up, log_dn, inv_up, inv_dn, two_vt, n_up, n_dn = (s.ref for s in slots)
-        x = a.ref
-        for line in [
-            f"// root: asymmetric diode pair, omega.cuh with {self.iters} Newton iterations",
-            f"const float d_lam = sign0({x});",
-            f"const bool d_pos = {x} >= 0.f;",
-            f"const float d_mu0 = d_pos ? {n_dn} : {n_up};",
-            f"const float d_mu1 = d_pos ? {n_up} : {n_dn};",
-            f"const float d_log0 = d_pos ? {log_dn} : {log_up};",
-            f"const float d_log1 = d_pos ? {log_up} : {log_dn};",
-            f"const float d_inv0 = d_pos ? {inv_dn} : {inv_up};",
-            f"const float d_inv1 = d_pos ? {inv_up} : {inv_dn};",
-            f"const float d_la = __fmul_rn(d_lam, {x});",
-            f"const float d_w0 = omega(__fadd_rn(d_log0, __fmul_rn(d_la, d_inv0)), {self.iters});",
-            f"const float d_w1 = omega(__fsub_rn(d_log1, __fmul_rn(d_la, d_inv1)), {self.iters});",
-            f"const float d_mw = __fsub_rn(__fmul_rn(d_mu0, d_w0), __fmul_rn(d_mu1, d_w1));",
-        ]:
-            tr.raw(line)
-        return tr.let(f"__fsub_rn({x}, __fmul_rn(__fmul_rn({two_vt}, d_lam), d_mw))", self.ops,
-                      "root")
+        tr.raw(f"// root: asymmetric diode pair, omega.cuh with {self.iters} Newton iterations")
+        s = self._core(tr, a, r_up, slots)
+        return tr.let(f"__fsub_rn({a.ref}, __fmul_rn(__fmul_rn({s['two_vt']}, {s['lam']}), "
+                      f"__fsub_rn(__fmul_rn({s['mu0']}, {s['w0']}), "
+                      f"__fmul_rn({s['mu1']}, {s['w1']}))))", 6, "root")
+
+    def emit_slope(self, tr, a, r_up, slots, controls, params):
+        # db/da = 1 - 2 Vt lam (mu0 w0' lam inv0 + mu1 w1' lam inv1), w' the
+        # implicit derivative of omega (omega_slope), JAX's custom jvp
+        tr.raw("// root slope: d/da of the diode pair, omega' = 1 / (1 + 1/omega)")
+        s = self._core(tr, a, r_up, slots)
+        terms = [tr.let(f"__fmul_rn(__fmul_rn({s[mu]}, __fmul_rn({s['lam']}, {s[inv]})), "
+                        f"omega_slope({s[w]}))", 6, "d").ref
+                 for mu, inv, w in (("mu0", "inv0", "w0"), ("mu1", "inv1", "w1"))]
+        return tr.let(f"__fsub_rn(1.f, __fmul_rn(__fmul_rn({s['two_vt']}, {s['lam']}), "
+                      f"__fadd_rn({terms[0]}, {terms[1]})))", 4, "slope")
 
     def plain(self, a, r_up, slots, array, controls, params):
+        if self.r_kind == "time":
+            i_s, vte, inv_up, inv_dn, two_vt, n_up, n_dn = slots
+            riv = r_up * i_s / vte
+            slots = [torch.log(riv / n_up), torch.log(riv / n_dn), inv_up, inv_dn, two_vt,
+                     n_up, n_dn]
         return diode_pair_root(a, *slots, self.iters)
 
 
 class _NeuralEmitter(_RootEmitter):
     """NxH all-tanh MLP with a linear head, b = -MLP([a, log R]), through
-    nxh_mlp.cuh; root array: w1a[H], c1[H] (log R folded in), w3[H], b3,
-    then per hidden layer W[H][H] and bias[H] (fused_clipper.cu's layout)."""
+    nxh_mlp.cuh.  Root array for one R: w1a[H], c1[H] (log R folded in),
+    w3[H], b3, then per hidden layer W[H][H] and bias[H] (fused_clipper.cu's
+    layout); for a per-row or per-sample R: w1a[H], w1r[H], b1[H], w3[H],
+    b3, then the hidden layers (clipper_train.cu's layout), with c1 built by
+    ``nxh_first_bias`` once per stream from the row's log R (a row slot,
+    taken in double) or per step from logf of the streamed R."""
 
     headers = ("nxh_mlp.cuh",)
+    #: one block per SM: with the block size alone ptxas put the Tube
+    #: Screamer 2x16 at 96 registers and spilled the MLP's activations
+    launch_bounds = "kTileRows, 1"
 
-    def __init__(self, name: str, mlp_params, activations: Sequence[str]):
+    def __init__(self, name: str, mlp_params, activations: Sequence[str],
+                 r_kind: str = "scalar"):
+        super().__init__(r_kind)
         acts = tuple(activations)
         if acts and (set(acts[:-1]) != {"tanh"} or acts[-1] not in ("", "linear")):
             raise ValueError(
@@ -382,41 +591,90 @@ class _NeuralEmitter(_RootEmitter):
         self.mlp = mlp_params
         self.H, _, _, hidden, _, _ = _nxh_layers(mlp_params)
         self.L = len(hidden)
+        H, L = self.H, self.L
         # first layer FMA + tanh, hidden H x H FMAs + bias + tanh, head FMAs
-        self.ops = 3 * self.H + self.L * (2 * self.H * self.H + 2 * self.H) + 2 * self.H
+        self.ops = 3 * H + L * (2 * H * H + 2 * H) + 2 * H
+        # the forward again, the first layer's dh (3H), per hidden layer the
+        # tangent FMAs and dg (2H^2 + 3H), the head's 2H (nxh_tangent)
+        self.slope_ops = self.ops - 2 * H + 3 * H + L * (2 * H * H + 3 * H) + 2 * H
+        self.n_slots = 1 if r_kind == "row" else 0
+        self.n_keep = H if r_kind == "row" else 0
+        # offsets into the root array: c1 (or w1r), the head, b3, hidden
+        self._head, self._hidden = (2 * H, 3 * H + 1) if r_kind == "scalar" else (3 * H, 4 * H + 1)
 
     def key(self):
         return ("NeuralDiodeRoot", self.H, self.L)
 
-    def _weights(self, r_up):
+    def _layers(self):
+        """The weights as the kernel gets them: values, out of any graph."""
         H, W1, b1, hidden, w3, b3 = _nxh_layers(self.mlp)
-        log_r = torch.log(torch.as_tensor(r_up).double()).float().to(W1.device)
-        return W1[0], W1[1] * log_r + b1, hidden, w3, b3
+        return (W1.detach(), b1.detach(), [(k.detach(), b.detach()) for k, b in hidden],
+                w3.detach(), b3.detach())
+
+    def slots(self, r_up, params):
+        if self.r_kind != "row":
+            return []
+        return [torch.log(torch.as_tensor(r_up).detach().double())]
 
     def array(self, r_up, params, device):
-        w1a, c1, hidden, w3, b3 = self._weights(r_up)
-        parts = [w1a, c1, w3, b3] + [x.reshape(-1) for layer in hidden for x in layer]
+        W1, b1, hidden, w3, b3 = self._layers()
+        if self.r_kind == "scalar":
+            log_r = torch.log(torch.as_tensor(r_up).detach().double()).float().to(W1.device)
+            parts = [W1[0], W1[1] * log_r + b1, w3, b3]
+        else:
+            parts = [W1[0], W1[1], b1, w3, b3]
+        parts += [x.reshape(-1) for layer in hidden for x in layer]
         return torch.cat([p.detach().to(device, torch.float32) for p in parts])
+
+    def prologue(self, slots):
+        if self.r_kind != "row":
+            return []
+        H = self.H
+        return [f"nxh_first_bias<{H}>(w + {H}, w + {2 * H}, {slots[0].ref}, "
+                f"*reinterpret_cast<float(*)[{H}]>(p));"]
+
+    def _c1(self, tr, r_up) -> str:
+        H = self.H
+        if self.r_kind == "scalar":
+            return f"w + {H}"
+        if self.r_kind == "row":
+            return "p"
+        return tr.decl(f"float {{name}}[{H}]; nxh_first_bias<{H}>(w + {H}, w + {2 * H}, "
+                       f"logf({r_up.ref}), {{name}});", 2 * H + 1, "c1_")
 
     def emit(self, tr, a, r_up, slots, controls, params):
         H = self.H
         tr.raw(f"// root: NxH MLP, H = {H}, {self.L} hidden layers (nxh_mlp.cuh)")
-        return tr.let(f"-nxh_forward<{H}>({a.ref}, w, w + {H}, w + {3 * H + 1}, {self.L}, "
-                      f"w + {2 * H}, w[{3 * H}])", self.ops, "root")
+        c1 = self._c1(tr, r_up)
+        return tr.let(f"-nxh_forward<{H}>({a.ref}, w, {c1}, w + {self._hidden}, {self.L}, "
+                      f"w + {self._head}, w[{self._head + H}])", self.ops, "root")
+
+    def emit_slope(self, tr, a, r_up, slots, controls, params):
+        H = self.H
+        tr.raw(f"// root slope: -dMLP/da by nxh_tangent, H = {H}, {self.L} hidden layers")
+        c1 = self._c1(tr, r_up)
+        return tr.let(f"-nxh_tangent<{H}>({a.ref}, w, {c1}, w + {self._hidden}, {self.L}, "
+                      f"w + {self._head})", self.slope_ops, "slope")
 
     def plain(self, a, r_up, slots, array, controls, params):
-        w1a, c1, hidden, w3, b3 = self._weights(r_up)
-        return -nxh_mlp(a, w1a, c1, hidden, w3, b3)
+        W1, b1, hidden, w3, b3 = self._layers()
+        if self.r_kind == "scalar":
+            log_r = torch.log(torch.as_tensor(r_up).double()).float().to(W1.device)
+            c1 = W1[1] * log_r + b1
+        else:
+            c1 = first_bias(W1, b1, slots[0] if self.r_kind == "row" else torch.log(r_up))
+        return -nxh_mlp(a, W1[0], c1, hidden, w3, b3)
 
 
 class _ChebEmitter(_RootEmitter):
     """Distilled piecewise-odd Chebyshev root through cheb.cuh; root array:
     cheb_parameters' layout; the segment count and padded degree go into the
-    source."""
+    source.  Forward only: no training workload differentiates it."""
 
     headers = ("cheb.cuh",)
 
-    def __init__(self, root: PiecewiseChebRoot):
+    def __init__(self, root: PiecewiseChebRoot, r_kind: str = "scalar"):
+        super().__init__(r_kind)
         self.root = root
         _, self.padded = cheb_parameters(root)
         self.degrees = tuple(len(c) - 1 for c in root.coeffs)
@@ -434,25 +692,32 @@ class _ChebEmitter(_RootEmitter):
         return tr.let(f"cheb_root<{self.padded}>({a.ref}, w, {len(self.degrees)})", self.ops,
                       "root")
 
+    def emit_slope(self, tr, a, r_up, slots, controls, params):
+        raise NotImplementedError(
+            "fused_circuit adjoint: the distilled PiecewiseChebRoot has no tangent emitter "
+            "(ROADMAP.md queue A); train the analytic or neural root and distill it after")
+
     def plain(self, a, r_up, slots, array, controls, params):
         root = self.root
         return cheb_eval(a, float(root.a_max), tuple(float(b) for b in root.breaks), root.coeffs)
 
 
-def root_emitter(circuit: Circuit, params, neural_mlp=None) -> _RootEmitter:
+def root_emitter(circuit: Circuit, params, neural_mlp=None, r_kind: str = "scalar"
+                 ) -> _RootEmitter:
     """The emitter of the circuit's root (an NxH MLP replaces it when
-    ``neural_mlp`` is given, as ``fused_circuit_process_neural`` does)."""
+    ``neural_mlp`` is given, as ``fused_circuit_process_neural`` does) for a
+    port impedance of kind ``r_kind``."""
     root = circuit.root
     if neural_mlp is not None:
-        return _NeuralEmitter(root.name, neural_mlp, getattr(root, "activations", ()))
+        return _NeuralEmitter(root.name, neural_mlp, getattr(root, "activations", ()), r_kind)
     if type(root) is DiodePairRoot:
-        return _DiodePairEmitter(root)
+        return _DiodePairEmitter(root, r_kind)
     if type(root) is NeuralDiodeRoot:
-        return _NeuralEmitter(root.name, params[root.name], root.activations)
+        return _NeuralEmitter(root.name, params[root.name], root.activations, r_kind)
     if type(root) is PiecewiseChebRoot:
-        return _ChebEmitter(root)
+        return _ChebEmitter(root, r_kind)
     if type(root) in (IdealVoltageSourceRoot, OpenCircuitRoot):
-        return _TracedRoot(root)
+        return _TracedRoot(root, r_kind)
     raise NotImplementedError(
         f"fused_circuit: no kernel rule for root {root.name!r} of class {type(root).__name__}")
 
@@ -489,34 +754,61 @@ def _describe(node) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class CircuitProgram:
-    """The generated kernel of one circuit structure and its launch layout."""
+    """The generated forward kernel of one circuit structure and its launch
+    layout."""
 
     source: str            # the whole .cu: step, kernel, launch function
-    step_source: str       # includes and the per-sample step
+    step_source: str       # includes, the prologue and the per-sample step
     host_source: str       # step_source and a host loop (tests)
     state_order: Tuple[Tuple[str, str], ...]
-    layout: Tuple[Tuple[Tuple[str, ...], Tuple[int, ...]], ...]
-    n_coeffs: int          # slots, the root's included
+    layout: Tuple[Tuple[Tuple[str, ...], Tuple], ...]
+    input_node: str
+    n_coeffs: int          # coefficient vector slots, the root's included
+    n_rows: int            # row slots, the root's included
+    n_times: int           # time slots
     ops_per_sample: int    # counted from the emitted step
     emitter: Any
 
-    def coefficients(self, circuit: Circuit, coeffs, params, static_controls, device):
-        """The f32 coefficient vector on ``device``."""
-        leaves = _leaves(_bundle(circuit, coeffs, params, static_controls))
-        parts = [torch.as_tensor(v).reshape(-1).to(device, torch.float32) for _, v in leaves]
-        r_up = coeffs[circuit.tree.name]["R"]
-        parts += [torch.as_tensor(s).reshape(1).to(device, torch.float32)
-                  for s in self.emitter.slots(r_up, params)]
-        return torch.cat(parts) if parts else torch.zeros(1, device=device)
+    def arguments(self, circuit: Circuit, coeffs, params, static_controls, device):
+        """(coefficient vector (NC,), row slots (NR, B), time slots
+        (NQ, B, T)) as f32 on ``device``; empty where there are none."""
+        vec, rows, times = [], [], []
+        for (_, kind), (_, v) in zip(self.layout,
+                                     _leaves(_bundle(circuit, coeffs, params, static_controls))):
+            t = torch.as_tensor(v).detach().to(device, torch.float32)
+            if kind == ROW:
+                rows.append(t)
+            elif kind == TIME:
+                times.append(t)
+            else:
+                vec.append(t.reshape(-1))
+        slots = [torch.as_tensor(s).detach().to(device, torch.float32)
+                 for s in self.emitter.slots(coeffs[circuit.tree.name]["R"], params)]
+        if self.emitter.r_kind == "row":
+            rows += slots
+        else:
+            vec += [s.reshape(1) for s in slots]
+        empty = torch.zeros(0, device=device)
+        return (torch.cat(vec) if vec else empty,
+                torch.stack(rows).contiguous() if rows else empty,
+                torch.stack(times).contiguous() if times else empty)
 
-    def unflatten(self, vec: torch.Tensor):
+    def unflatten(self, vec: torch.Tensor, rows: torch.Tensor, times: torch.Tensor,
+                  t: Optional[int] = None):
         """(coeffs, params, static controls, root slots) rebuilt from the
-        vector as 0-d tensors and ``Matrix`` entries: the values the kernel
+        arguments as 0-d tensors, (B,) rows, time streams ((B,) at step
+        ``t``, (B, T) without) and ``Matrix`` entries: the values the kernel
         gets."""
-        items, i = [], 0
-        for path, shape in self.layout:
-            if shape:
-                r, c = shape
+        items, i, j, k = [], 0, 0, 0
+        for path, kind in self.layout:
+            if kind == ROW:
+                items.append((path, rows[j]))
+                j += 1
+            elif kind == TIME:
+                items.append((path, times[k] if t is None else times[k][:, t]))
+                k += 1
+            elif kind:
+                r, c = kind
                 items.append((path, Matrix([[vec[i + a * c + b] for b in range(c)]
                                             for a in range(r)])))
                 i += r * c
@@ -524,131 +816,237 @@ class CircuitProgram:
                 items.append((path, vec[i]))
                 i += 1
         tree = _nest(items)
-        slots = [vec[i + k] for k in range(self.emitter.n_slots)]
-        return (tree.get("coeffs", {}), tree.get("params", {}), tree.get("static", {}), slots)
+        n = self.emitter.n_slots
+        slots = ([rows[j + s] for s in range(n)] if self.emitter.r_kind == "row"
+                 else [vec[i + s] for s in range(n)])
+        return tree.get("coeffs", {}), tree.get("params", {}), tree.get("static", {}), slots
 
 
-def _layout(circuit, coeffs, params, static_controls):
-    return tuple((path, _shape(v)) for path, v in
+@dataclasses.dataclass(frozen=True)
+class AdjointProgram:
+    """The generated adjoint kernel of one circuit structure (the layout is
+    its forward program's)."""
+
+    source: str            # the whole .cu: step, kernel, launch function
+    host_source: str       # the step and a host loop (tests)
+    ops_per_sample: int    # counted from the emitted adjoint step
+
+
+def _layout(circuit, coeffs, params, static_controls, batch=0, time=0):
+    return tuple((path, _shape(v, batch, time)) for path, v in
                  _leaves(_bundle(circuit, coeffs, params, static_controls)))
 
 
-def generate(circuit: Circuit, coeffs, params, static_controls, input_node: str,
-             emitter: _RootEmitter) -> CircuitProgram:
-    """Trace ``circuit``'s step into a CircuitProgram.  ``coeffs`` (the
-    adapted coefficients), ``params`` and ``static_controls`` give the slot
-    layout by their shapes; their values are not read."""
-    _check_tree(circuit.tree)
-    if len(circuit.outputs) != 1:
-        raise ValueError(f"fused_circuit: one output probe, got {tuple(circuit.outputs)}")
-    layout = _layout(circuit, coeffs, params, static_controls)
-    state_order = tuple((node, field) for (node, field), _ in
-                        _leaves(circuit.init_state("cpu")))
-
-    tr = _Trace()
-    items, slot, slot_names = [], 0, []
-    for path, shape in layout:
+def _symbols(tr: _Trace, layout, emitter: _RootEmitter):
+    """The step's symbols of the slots: ((coeffs, params, static) trees,
+    root slots, slot descriptions, (NC, NR, NQ))."""
+    items, names = [], []
+    c = r = q = 0
+    for path, kind in layout:
         name = ".".join(path)
-        if shape:
-            r, c = shape
-            items.append((path, Matrix([[Sym(tr, f"c[{slot + a * c + b}]") for b in range(c)]
-                                        for a in range(r)])))
-            slot_names.append(f"c[{slot}..{slot + r * c - 1}] {name} ({r}x{c}, row-major)")
-            slot += r * c
+        if kind == ROW:
+            items.append((path, Sym(tr, f"r[{r}]")))
+            names.append(f"r[{r}] {name} (per row)")
+            r += 1
+        elif kind == TIME:
+            items.append((path, Sym(tr, f"q[{q}]")))
+            names.append(f"q[{q}] {name} (per sample)")
+            q += 1
+        elif kind:
+            rr, cc = kind
+            items.append((path, Matrix([[Sym(tr, f"c[{c + a * cc + b}]") for b in range(cc)]
+                                        for a in range(rr)])))
+            names.append(f"c[{c}..{c + rr * cc - 1}] {name} ({rr}x{cc}, row-major)")
+            c += rr * cc
         else:
-            items.append((path, Sym(tr, f"c[{slot}]")))
-            slot_names.append(f"c[{slot}] {name}")
-            slot += 1
-    root_slots = [Sym(tr, f"c[{slot + k}]") for k in range(emitter.n_slots)]
-    if emitter.n_slots:
-        slot_names.append(f"c[{slot}..{slot + emitter.n_slots - 1}] root constants")
+            items.append((path, Sym(tr, f"c[{c}]")))
+            names.append(f"c[{c}] {name}")
+            c += 1
+    n = emitter.n_slots
+    if emitter.r_kind == "row":
+        root_slots = [Sym(tr, f"r[{r + k}]") for k in range(n)]
+        if n:
+            names.append(f"r[{r}..{r + n - 1}] root constants (per row)")
+        r += n
+    else:
+        root_slots = [Sym(tr, f"c[{c + k}]") for k in range(n)]
+        if n:
+            names.append(f"c[{c}..{c + n - 1}] root constants")
+        c += n
     tree = _nest(items)
-    coeffs_s, params_s, static_s = (tree.get(k, {}) for k in ("coeffs", "params", "static"))
+    trees = tuple(tree.get(k, {}) for k in ("coeffs", "params", "static"))
+    return trees, root_slots, names, (c, r, q)
 
-    state = _nest([((node, field), Sym(tr, f"s{k}")) for k, (node, field) in
-                   enumerate(state_order)])
-    controls = {k: dict(v) for k, v in static_s.items()}
-    controls.setdefault(input_node, {})["v"] = Sym(tr, "v")
-    new_state, out = step(
-        circuit, coeffs_s, state, controls,
-        lambda a, r_up, ctl: emitter.emit(tr, a, r_up, root_slots, ctl, params_s))
-    out = out if isinstance(out, Sym) else tr.const(float(out))
-    n_state = len(state_order)
-    n_coeffs = slot + emitter.n_slots
-    writes = [f"z[{k}] = {new_state[node][field].ref};"
-              for k, (node, field) in enumerate(state_order)]
-    reads = [f"const float s{k} = z[{k}];" for k in range(n_state)]
-    lines, ops = tr.live(" ".join(writes + [out.ref]))
 
+def _controls(static_s, input_node, v):
+    controls = {k: dict(x) for k, x in static_s.items()}
+    controls.setdefault(input_node, {})["v"] = v
+    return controls
+
+
+def _used(kind: str, text: str) -> List[int]:
+    """The indices of ``kind[...]`` slots that ``text`` reads."""
+    return sorted({int(m) for m in re.findall(rf"\b{kind}\[(\d+)\]", text)})
+
+
+def _prelude(circuit, emitter, input_node, state_order_, slot_names, counts, n_keep,
+             prologue, what: str, ops: int) -> str:
+    n_state = len(state_order_)
+    nc, nr, nq = counts
     headers = "".join(f'#include "{h}"\n' for h in emitter.headers)
-    body = "\n".join("  " + line for line in reads + lines + writes)
     comment = "\n".join(
         [f"// Tree: {_describe(circuit.tree)}; root {type(circuit.root).__name__} "
-         f"{emitter.key()[1:]}; output V({circuit.outputs[0]}); input {input_node}.v",
+         f"{emitter.key()[1:]} (R_up {emitter.r_kind}); output V({circuit.outputs[0]}); "
+         f"input {input_node}.v",
          "// State slots: " + ", ".join(f"z[{k}] {n}.{f}" for k, (n, f) in
-                                        enumerate(state_order)),
-         f"// Coefficient slots ({n_coeffs}):"]
+                                        enumerate(state_order_)),
+         f"// Slots ({nc} coefficients, {nr} per row, {nq} per sample):"]
         + [f"//   {s}" for s in slot_names]
-        + [f"// Operations per sample (counted from this step): {ops}"])
-    step_source = f"""\
-// Generated by diffwdf_tpu_torch.ops.circuit_codegen: the fused sample step
+        + [f"// Operations per sample (counted from the {what} step): {ops}"])
+    body = "\n".join("  " + line for line in prologue)
+    replaces = {"forward": "diffwdf_tpu/ops/fused_circuit.py, fused_circuit_process",
+                "adjoint": "diffwdf_tpu/ops/parallel_bptt.py, _fused_backward_kernel"}[what]
+    return f"""\
+// Generated by diffwdf_tpu_torch.ops.circuit_codegen: the fused {what} step
 // of one circuit structure.  Replaces the kernel body the Pallas TPU kernel
-// of diffwdf_tpu/ops/fused_circuit.py (fused_circuit_process) traces.
+// traces ({replaces}).
 {comment}
 #include <cuda_runtime.h>
+#include <math.h>
 
 {headers}
 #define CIRCUIT_NS {n_state}
-#define CIRCUIT_NC {n_coeffs}
+#define CIRCUIT_NC {nc}
+#define CIRCUIT_NR {nr}
+#define CIRCUIT_NQ {nq}
 
 namespace {{
 
-// One sample: v the input, z[CIRCUIT_NS] the state (updated in place),
-// c[CIRCUIT_NC] the coefficient slots, w the root array.  Returns the output.
-// Plain C: with the CUDA qualifiers defined away it compiles for the host.
-__device__ __forceinline__ float circuit_step(float v, float* z, const float* c,
-                                              const float* w) {{
+// Once per stream: the root's per-stream values p[{max(n_keep, 1)}] from the
+// coefficient slots c, the row slots r and the root array w.
+__device__ __forceinline__ void circuit_prologue(const float* c, const float* r,
+                                                 const float* w, float* p) {{
   (void)c;
+  (void)r;
   (void)w;
+  (void)p;
+{body}
+}}
+"""
+
+
+# ---------------------------------------------------------------------------
+# The forward program
+# ---------------------------------------------------------------------------
+
+
+def generate(circuit: Circuit, layout, input_node: str, emitter: _RootEmitter
+             ) -> CircuitProgram:
+    """Trace ``circuit``'s step into a CircuitProgram for a slot ``layout``
+    (``_layout``: the kinds and shapes of the adapted coefficients, params
+    and static controls)."""
+    _check_tree(circuit.tree)
+    if len(circuit.outputs) != 1:
+        raise ValueError(f"fused_circuit: one output probe, got {tuple(circuit.outputs)}")
+    order = state_order(circuit)
+    tr = _Trace()
+    (coeffs_s, params_s, static_s), root_slots, slot_names, counts = _symbols(tr, layout, emitter)
+    nc, nr, nq = counts
+    state = _nest([((node, field), Sym(tr, f"s{k}")) for k, (node, field) in enumerate(order)])
+    new_state, out = step(
+        circuit, coeffs_s, state, _controls(static_s, input_node, Sym(tr, "v")),
+        lambda a, r_up, ctl: emitter.emit(tr, a, r_up, root_slots, ctl, params_s))
+    out = out if isinstance(out, Sym) else tr.const(float(out))
+    n_state = len(order)
+    writes = [f"z[{k}] = {new_state[node][field].ref};" for k, (node, field) in enumerate(order)]
+    reads = [f"const float s{k} = z[{k}];" for k in range(n_state)]
+    lines, ops = tr.live(" ".join(writes + [out.ref]))
+    body = "\n".join("  " + line for line in reads + lines + writes)
+    prelude = _prelude(circuit, emitter, input_node, order, slot_names, counts, emitter.n_keep,
+                       emitter.prologue(root_slots), "forward", ops)
+    step_source = prelude + f"""
+// One sample: v the input, z[CIRCUIT_NS] the state (updated in place), the
+// slots c, r and q (this step's per-sample values), the root array w and
+// the prologue's p.  Returns the output.  Plain C: with the CUDA qualifiers
+// defined away it compiles for the host.
+__device__ __forceinline__ float circuit_step(float v, float* z, const float* c, const float* r,
+                                              const float* q, const float* w, const float* p) {{
+  (void)c;
+  (void)r;
+  (void)q;
+  (void)w;
+  (void)p;
 {body}
   return {out.ref};
 }}
 
 }}  // namespace
 """
-    zn, cn = max(n_state, 1), max(n_coeffs, 1)
+    zn, cn, rn, qn, pn = (max(x, 1) for x in (n_state, nc, nr, nq, emitter.n_keep))
+    used_q = _used("q", body)
+    q_loads = "".join(f"\n      tile_load(tiles[{1 + i}], times + static_cast<size_t>({j}) * B * "
+                      f"T, B, T, b0, t0, tc);" for i, j in enumerate(used_q))
+    q_reads = "".join(f"\n        q[{j}] = tiles[{1 + i}][threadIdx.x][k];"
+                      for i, j in enumerate(used_q))
+    seq0 = 1 + len(used_q)
     kernel = f"""
 #include "tile.cuh"
 
 // One thread per stream over all T samples: the state and the coefficient
-// slots in registers, the root array in shared memory, (B, T) staged through
-// shared memory in (128, 32) tiles for whole-line loads and stores.  Exact
-// f32: no fast-math flags or intrinsics.
+// and row slots in registers, the root array in shared memory, (B, T)
+// streams (the input, the per-sample slots this step reads, the output and
+// the optional state trajectory) staged through shared memory in (128, 32)
+// tiles for whole-line loads and stores.  Exact f32: no fast-math flags or
+// intrinsics.  Launch bounds: {emitter.launch_bounds} (the root emitter's
+// choice; see _RootEmitter.launch_bounds).
 namespace {{
 
-__global__ void __launch_bounds__(kTileRows)
+constexpr int kTimeTiles = {len(used_q)};  // per-sample slot streams the step reads
+
+template <bool kSeq>
+__global__ void __launch_bounds__({emitter.launch_bounds})
 circuit_kernel(const float* __restrict__ vin, const float* __restrict__ z0,
-               float* __restrict__ out, float* __restrict__ zf, int B, int T,
-               const float* __restrict__ coef, const float* __restrict__ warr, int n_warr) {{
-  extern __shared__ float sw[];
-  __shared__ Tile tile;
-  for (int i = threadIdx.x; i < n_warr; i += blockDim.x) sw[i] = warr[i];
+               float* __restrict__ out, float* __restrict__ zf, float* __restrict__ seq, int B,
+               int T, const float* __restrict__ coef, const float* __restrict__ rows,
+               const float* __restrict__ times, const float* __restrict__ warr, int n_warr) {{
+  extern __shared__ float smem[];
+  for (int i = threadIdx.x; i < n_warr; i += blockDim.x) smem[i] = warr[i];
+  __syncthreads();
+  const float* sw = smem;
+  Tile* tiles = reinterpret_cast<Tile*>(smem + ((n_warr + 3) & ~3));
+  (void)times;
+  (void)seq;
   float c[{cn}];
 #pragma unroll
   for (int i = 0; i < CIRCUIT_NC; ++i) c[i] = coef[i];
   const int b0 = blockIdx.x * kTileRows;
   const int b = b0 + threadIdx.x;
   const bool live = b < B;
+  float r[{rn}];
+#pragma unroll
+  for (int j = 0; j < CIRCUIT_NR; ++j) r[j] = live ? rows[static_cast<size_t>(j) * B + b] : 0.f;
+  float p[{pn}];
+  circuit_prologue(c, r, sw, p);
   float z[{zn}];
 #pragma unroll
   for (int k = 0; k < CIRCUIT_NS; ++k) z[k] = live ? z0[static_cast<size_t>(k) * B + b] : 0.f;
   for (int t0 = 0; t0 < T; t0 += kTileCols) {{
     const int tc = min(kTileCols, T - t0);
-    tile_load(tile, vin, B, T, b0, t0, tc);  // its barrier also covers sw
+    tile_load(tiles[0], vin, B, T, b0, t0, tc);{q_loads}
     for (int k = 0; k < tc; ++k) {{
-      tile[threadIdx.x][k] = circuit_step(tile[threadIdx.x][k], z, c, sw);
+      float q[{qn}];{q_reads}
+      if (kSeq) {{
+#pragma unroll
+        for (int s = 0; s < CIRCUIT_NS; ++s) tiles[{seq0} + s][threadIdx.x][k] = z[s];
+      }}
+      tiles[0][threadIdx.x][k] = circuit_step(tiles[0][threadIdx.x][k], z, c, r, q, sw, p);
     }}
-    tile_store(tile, out, B, T, b0, t0, tc);
+    tile_store(tiles[0], out, B, T, b0, t0, tc);
+    if (kSeq) {{
+      for (int s = 0; s < CIRCUIT_NS; ++s) {{
+        tile_store(tiles[{seq0} + s], seq + static_cast<size_t>(s) * B * T, B, T, b0, t0, tc);
+      }}
+    }}
   }}
   if (live) {{
 #pragma unroll
@@ -660,17 +1058,22 @@ circuit_kernel(const float* __restrict__ vin, const float* __restrict__ z0,
 
 extern "C" {{
 
-int circuit_launch(const float* vin, const float* z0, float* out, float* zf, int B, int T,
-                   const float* coef, const float* warr, int n_warr, void* stream) {{
-  const size_t smem = sizeof(float) * static_cast<size_t>(n_warr);
-  if (smem + sizeof(Tile) > 48 * 1024) {{
+// seq: (S, B, T) pre-step states, or null for none.
+int circuit_launch(const float* vin, const float* z0, float* out, float* zf, float* seq, int B,
+                   int T, const float* coef, const float* rows, const float* times,
+                   const float* warr, int n_warr, void* stream) {{
+  const int n_tiles = 1 + kTimeTiles + (seq != nullptr ? CIRCUIT_NS : 0);
+  const size_t smem = sizeof(float) * static_cast<size_t>((n_warr + 3) & ~3) +
+                      sizeof(Tile) * static_cast<size_t>(n_tiles);
+  auto kernel = seq != nullptr ? circuit_kernel<true> : circuit_kernel<false>;
+  if (smem > 48 * 1024) {{
     const cudaError_t e = cudaFuncSetAttribute(
-        circuit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }}
   const int blocks = (B + kTileRows - 1) / kTileRows;
-  circuit_kernel<<<blocks, kTileRows, smem, static_cast<cudaStream_t>(stream)>>>(
-      vin, z0, out, zf, B, T, coef, warr, n_warr);
+  kernel<<<blocks, kTileRows, smem, static_cast<cudaStream_t>(stream)>>>(
+      vin, z0, out, zf, seq, B, T, coef, rows, times, warr, n_warr);
   return static_cast<int>(cudaGetLastError());
 }}
 
@@ -681,40 +1084,285 @@ const char* circuit_error_string(int err) {{
 }}  // extern "C"
 """
     host = f"""
-// Host loop over streams and samples (CPU tests of the step).
+// Host loop over streams and samples (CPU tests of the step); seq may be null.
 extern "C" void circuit_host_run(const float* vin, const float* z0, float* out, float* zf,
-                                 int B, int T, const float* c, const float* w) {{
-  for (int b = 0; b < B; ++b) {{
-    float z[{zn}];
-    for (int k = 0; k < CIRCUIT_NS; ++k) z[k] = z0[static_cast<long>(k) * B + b];
-    for (int t = 0; t < T; ++t) {{
-      out[static_cast<long>(b) * T + t] = circuit_step(vin[static_cast<long>(b) * T + t], z, c, w);
+                                 float* seq, int B, int T, const float* c, const float* rows,
+                                 const float* times, const float* w) {{
+  for (long b = 0; b < B; ++b) {{
+    float r[{rn}], p[{pn}], z[{zn}];
+    for (int j = 0; j < CIRCUIT_NR; ++j) r[j] = rows[j * B + b];
+    circuit_prologue(c, r, w, p);
+    for (int k = 0; k < CIRCUIT_NS; ++k) z[k] = z0[k * B + b];
+    for (long t = 0; t < T; ++t) {{
+      float q[{qn}];
+      for (int j = 0; j < CIRCUIT_NQ; ++j) q[j] = times[(j * B + b) * T + t];
+      if (seq) for (int k = 0; k < CIRCUIT_NS; ++k) seq[(k * B + b) * T + t] = z[k];
+      out[b * T + t] = circuit_step(vin[b * T + t], z, c, r, q, w, p);
     }}
-    for (int k = 0; k < CIRCUIT_NS; ++k) zf[static_cast<long>(k) * B + b] = z[k];
+    for (int k = 0; k < CIRCUIT_NS; ++k) zf[k * B + b] = z[k];
   }}
 }}
 """
     return CircuitProgram(
         source=step_source + kernel, step_source=step_source, host_source=step_source + host,
-        state_order=state_order, layout=layout, n_coeffs=n_coeffs, ops_per_sample=ops,
-        emitter=emitter)
+        state_order=order, layout=layout, input_node=input_node, n_coeffs=nc, n_rows=nr,
+        n_times=nq, ops_per_sample=ops, emitter=emitter)
+
+
+# ---------------------------------------------------------------------------
+# The adjoint program
+# ---------------------------------------------------------------------------
+
+
+def _dual(x, n: int) -> Dual:
+    if isinstance(x, Dual):
+        return x
+    return Dual(x, (None,) * n)
+
+
+def generate_adjoint(circuit: Circuit, prog: CircuitProgram) -> AdjointProgram:
+    """The adjoint step and kernel of ``prog``'s circuit structure: per
+    step, from v_t, obar_t, z_{t-1} and the carried lam = lam_t,
+    g_vin_t = (dF/dv)^T (lam, obar) and lam_{t-1} = (dF/dz)^T (lam, obar),
+    by S + 1 tangents of the traced step."""
+    emitter = prog.emitter
+    order = prog.state_order
+    S, n_dir = len(order), len(order) + 1
+    tr = _Trace()
+    (coeffs_s, params_s, static_s), root_slots, slot_names, counts = _symbols(
+        tr, prog.layout, emitter)
+    nc, nr, nq = counts
+    one = tr.const(1.0)
+
+    def basis(k):
+        return tuple(one if i == k else None for i in range(n_dir))
+
+    state = _nest([((node, field), Dual(Sym(tr, f"s{k}"), basis(k)))
+                   for k, (node, field) in enumerate(order)])
+    v = Dual(Sym(tr, "v"), basis(S))
+
+    def root_fn(a, r_up, ctl):
+        if emitter.traced:
+            return emitter.emit(tr, a, r_up, root_slots, ctl, params_s)
+        a = _dual(a, n_dir)
+        n = len(tr.entries)
+        b = emitter.emit(tr, a.p, r_up, root_slots, ctl, params_s)  # dropped: no tangent reads it
+        tr.entries[n:] = [e for e in tr.entries[n:] if e[0] is not None]  # and its comment
+        m = emitter.emit_slope(tr, a.p, r_up, root_slots, ctl, params_s)
+        return Dual(b, (_tmul(d, m) for d in a.d))
+
+    new_state, out = step(circuit, coeffs_s, state, _controls(static_s, prog.input_node, v),
+                          root_fn)
+    out = _dual(out if isinstance(out, Symbolic) else tr.const(float(out)), n_dir)
+    new = [_dual(new_state[node][field], n_dir) for node, field in order]
+    lam = [Sym(tr, f"l{k}") for k in range(S)]
+    go = Sym(tr, "go")
+
+    def pull(k):
+        """sum_i dF_i/d(direction k) lam_i + dF_o/d(direction k) obar."""
+        acc = None
+        for z_new, l in zip(new, lam):
+            acc = _tadd(acc, _tmul(z_new.d[k], l))
+        return _tadd(acc, _tmul(out.d[k], go)) or tr.const(0.0)
+
+    lam_new = [pull(k) for k in range(S)]
+    g_vin = pull(S)
+    writes = [f"lam[{k}] = {lam_new[k].ref};" for k in range(S)]
+    lines, ops = tr.live(" ".join(writes + [g_vin.ref]))
+    used = set(_WORD.findall(" ".join(lines + writes + [g_vin.ref])))
+    reads = ([f"const float s{k} = z[{k}];" for k in range(S) if f"s{k}" in used]
+             + [f"const float l{k} = lam[{k}];" for k in range(S) if f"l{k}" in used])
+    body = "\n".join("  " + line for line in reads + lines + writes)
+    prelude = _prelude(circuit, emitter, prog.input_node, order, slot_names, counts,
+                       emitter.n_keep, emitter.prologue(root_slots), "adjoint", ops)
+    step_source = prelude + f"""
+// One reverse step at sample t: v = v_t, go = the output's cotangent obar_t,
+// z[CIRCUIT_NS] = z_(t-1) the pre-step state, lam[CIRCUIT_NS] = lam_t on
+// entry and lam_(t-1) on return; the slots as the forward step's.  Returns
+// the input's cotangent g_vin_t.  Plain C, as the forward step.
+__device__ __forceinline__ float circuit_adjoint_step(float v, float go, const float* z,
+                                                      float* lam, const float* c,
+                                                      const float* r, const float* q,
+                                                      const float* w, const float* p) {{
+  (void)v;
+  (void)go;
+  (void)z;
+  (void)lam;
+  (void)c;
+  (void)r;
+  (void)q;
+  (void)w;
+  (void)p;
+{body}
+  return {g_vin.ref};
+}}
+
+}}  // namespace
+"""
+    zn, cn, rn, qn, pn = (max(x, 1) for x in (S, nc, nr, nq, emitter.n_keep))
+    used_q = _used("q", body)
+    q0 = 2 + S
+    q_loads = "".join(f"\n    tile_load(tiles[{q0 + i}], times + static_cast<size_t>({j}) * B * T, "
+                      f"B, T, b0, t0, tc);" for i, j in enumerate(used_q))
+    q_reads = "".join(f"\n      q[{j}] = tiles[{q0 + i}][threadIdx.x][k];"
+                      for i, j in enumerate(used_q))
+    kernel = f"""
+#include "tile.cuh"
+
+// One thread per stream walking t = T-1 ... 0: lam (S floats), the
+// coefficient and row slots in registers, the root array in shared memory.
+// The (B, T) streams go through shared-memory tiles in reverse tile order:
+// tile 0 holds v and takes g_vin in place, tile 1 obar, tiles 2 .. 2+S-1
+// the trajectory z_(t-1) and take lam_t in place (written before the
+// update), then the per-sample slots the step reads.  Exact f32.  Launch
+// bounds as the forward kernel's: {emitter.launch_bounds}.
+namespace {{
+
+constexpr int kTiles = 2 + CIRCUIT_NS + {len(used_q)};
+
+__global__ void __launch_bounds__({emitter.launch_bounds})
+circuit_adjoint_kernel(const float* __restrict__ vin, const float* __restrict__ gout,
+                       const float* __restrict__ zseq, const float* __restrict__ lam_t,
+                       float* __restrict__ lam_seq, float* __restrict__ gvin,
+                       float* __restrict__ gz0, int B, int T, const float* __restrict__ coef,
+                       const float* __restrict__ rows, const float* __restrict__ times,
+                       const float* __restrict__ warr, int n_warr) {{
+  extern __shared__ float smem[];
+  for (int i = threadIdx.x; i < n_warr; i += blockDim.x) smem[i] = warr[i];
+  __syncthreads();
+  const float* sw = smem;
+  Tile* tiles = reinterpret_cast<Tile*>(smem + ((n_warr + 3) & ~3));
+  (void)times;
+  float c[{cn}];
+#pragma unroll
+  for (int i = 0; i < CIRCUIT_NC; ++i) c[i] = coef[i];
+  const int b0 = blockIdx.x * kTileRows;
+  const int b = b0 + threadIdx.x;
+  const bool live = b < B;
+  float r[{rn}];
+#pragma unroll
+  for (int j = 0; j < CIRCUIT_NR; ++j) r[j] = live ? rows[static_cast<size_t>(j) * B + b] : 0.f;
+  float p[{pn}];
+  circuit_prologue(c, r, sw, p);
+  float lam[{zn}];
+#pragma unroll
+  for (int s = 0; s < CIRCUIT_NS; ++s) lam[s] = live ? lam_t[static_cast<size_t>(s) * B + b] : 0.f;
+  for (int t0 = ((T - 1) / kTileCols) * kTileCols; t0 >= 0; t0 -= kTileCols) {{
+    const int tc = min(kTileCols, T - t0);  // the last tile may be partial
+    tile_load(tiles[0], vin, B, T, b0, t0, tc);
+    tile_load(tiles[1], gout, B, T, b0, t0, tc);
+    for (int s = 0; s < CIRCUIT_NS; ++s) {{
+      tile_load(tiles[2 + s], zseq + static_cast<size_t>(s) * B * T, B, T, b0, t0, tc);
+    }}{q_loads}
+    for (int k = tc - 1; k >= 0; --k) {{
+      float z[{zn}];
+#pragma unroll
+      for (int s = 0; s < CIRCUIT_NS; ++s) {{
+        z[s] = tiles[2 + s][threadIdx.x][k];
+        tiles[2 + s][threadIdx.x][k] = lam[s];  // lam_t, before the update
+      }}
+      float q[{qn}];{q_reads}
+      tiles[0][threadIdx.x][k] = circuit_adjoint_step(
+          tiles[0][threadIdx.x][k], tiles[1][threadIdx.x][k], z, lam, c, r, q, sw, p);
+    }}
+    tile_store(tiles[0], gvin, B, T, b0, t0, tc);
+    for (int s = 0; s < CIRCUIT_NS; ++s) {{
+      tile_store(tiles[2 + s], lam_seq + static_cast<size_t>(s) * B * T, B, T, b0, t0, tc);
+    }}
+  }}
+  if (live) {{
+#pragma unroll
+    for (int s = 0; s < CIRCUIT_NS; ++s) gz0[static_cast<size_t>(s) * B + b] = lam[s];
+  }}
+}}
+
+}}  // namespace
+
+extern "C" {{
+
+int circuit_adjoint_launch(const float* vin, const float* gout, const float* zseq,
+                           const float* lam_t, float* lam_seq, float* gvin, float* gz0, int B,
+                           int T, const float* coef, const float* rows, const float* times,
+                           const float* warr, int n_warr, void* stream) {{
+  const size_t smem = sizeof(float) * static_cast<size_t>((n_warr + 3) & ~3) +
+                      sizeof(Tile) * static_cast<size_t>(kTiles);
+  if (smem > 48 * 1024) {{
+    const cudaError_t e = cudaFuncSetAttribute(
+        circuit_adjoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }}
+  const int blocks = (B + kTileRows - 1) / kTileRows;
+  circuit_adjoint_kernel<<<blocks, kTileRows, smem, static_cast<cudaStream_t>(stream)>>>(
+      vin, gout, zseq, lam_t, lam_seq, gvin, gz0, B, T, coef, rows, times, warr, n_warr);
+  return static_cast<int>(cudaGetLastError());
+}}
+
+const char* circuit_error_string(int err) {{
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}}
+
+}}  // extern "C"
+"""
+    host = f"""
+// Host loop over streams, t = T-1 ... 0 (CPU tests of the adjoint step).
+extern "C" void circuit_adjoint_host_run(const float* vin, const float* gout, const float* zseq,
+                                         const float* lam_t, float* lam_seq, float* gvin,
+                                         float* gz0, int B, int T, const float* c,
+                                         const float* rows, const float* times, const float* w) {{
+  for (long b = 0; b < B; ++b) {{
+    float r[{rn}], p[{pn}], lam[{zn}];
+    for (int j = 0; j < CIRCUIT_NR; ++j) r[j] = rows[j * B + b];
+    circuit_prologue(c, r, w, p);
+    for (int s = 0; s < CIRCUIT_NS; ++s) lam[s] = lam_t[s * B + b];
+    for (long t = T - 1; t >= 0; --t) {{
+      float z[{zn}], q[{qn}];
+      for (int s = 0; s < CIRCUIT_NS; ++s) {{
+        z[s] = zseq[(s * B + b) * T + t];
+        lam_seq[(s * B + b) * T + t] = lam[s];
+      }}
+      for (int j = 0; j < CIRCUIT_NQ; ++j) q[j] = times[(j * B + b) * T + t];
+      gvin[b * T + t] = circuit_adjoint_step(vin[b * T + t], gout[b * T + t], z, lam, c, r, q,
+                                             w, p);
+    }}
+    for (int s = 0; s < CIRCUIT_NS; ++s) gz0[s * B + b] = lam[s];
+  }}
+}}
+"""
+    return AdjointProgram(source=step_source + kernel, host_source=step_source + host,
+                          ops_per_sample=ops)
 
 
 #: circuit -> {(input node, slot layout, root key): program}; held weakly, so
 #: a circuit's programs go with it
 _programs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+#: circuit -> {forward source: adjoint program}
+_adjoints: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def program(circuit: Circuit, coeffs, params, static_controls, input_node: str,
-            neural_mlp=None) -> CircuitProgram:
-    """The (cached) program of a circuit structure: keyed by the circuit
-    object, the input node, the slot layout and the root's kind and shape."""
-    emitter = root_emitter(circuit, params, neural_mlp)
-    layout = _layout(circuit, coeffs, params, static_controls)
+            neural_mlp=None, batch: int = 0, time: int = 0) -> CircuitProgram:
+    """The (cached) forward program of a circuit structure: keyed by the
+    circuit object, the input node, the slot layout (the kinds and shapes of
+    ``coeffs``, ``params`` and ``static_controls``; (batch,) and
+    (batch, time) leaves are row and time slots when ``batch`` > 0) and the
+    root's kind and shape."""
+    layout = _layout(circuit, coeffs, params, static_controls, batch, time)
+    r_kind = {ROW: "row", TIME: "time"}.get(dict(layout)[("coeffs", circuit.tree.name, "R")],
+                                            "scalar")
+    emitter = root_emitter(circuit, params, neural_mlp, r_kind)
     per_circuit = _programs.setdefault(circuit, {})
     key = (input_node, layout, emitter.key())
     prog = per_circuit.get(key)
     if prog is None:
-        prog = per_circuit[key] = generate(circuit, coeffs, params, static_controls, input_node,
-                                           emitter)
+        prog = per_circuit[key] = generate(circuit, layout, input_node, emitter)
     return dataclasses.replace(prog, emitter=emitter)
+
+
+def adjoint_program(circuit: Circuit, prog: CircuitProgram) -> AdjointProgram:
+    """The (cached) adjoint program of ``prog``'s circuit structure."""
+    per_circuit = _adjoints.setdefault(circuit, {})
+    adj = per_circuit.get(prog.source)
+    if adj is None:
+        adj = per_circuit[prog.source] = generate_adjoint(circuit, prog)
+    return adj

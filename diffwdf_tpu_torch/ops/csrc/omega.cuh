@@ -40,4 +40,12 @@ __device__ __forceinline__ float omega(float x, int iters) {
   return expf(u);
 }
 
+// d omega / dx at w = omega(x): the implicit derivative of w + log w = x,
+// w / (1 + w), written 1 / (1 + 1/w) so that it cannot overflow at the top
+// of the f32 range (the custom jvp of the JAX package's wright_omega).  The
+// generated adjoint kernels differentiate the diode pair with it.
+__device__ __forceinline__ float omega_slope(float w) {
+  return 1.f / (1.f + 1.f / w);
+}
+
 }  // namespace

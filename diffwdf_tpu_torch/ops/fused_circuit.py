@@ -1,31 +1,35 @@
-"""Generic fused circuit: any adapted WDF `Circuit` served by one generated
+"""Generic fused circuit: any adapted WDF `Circuit` run by one generated
 CUDA kernel, and its plain PyTorch version.
 
 ``ops.circuit_codegen`` traces the circuit's sample step into C and wraps it
 in a kernel that gives each stream one thread, the state and coefficients in
 registers (B7 in ROADMAP); ``ops._build`` compiles one library per generated
 source and keeps it, keyed by a hash of the source, so a new component value
-or drive setting is a new argument, never a new build.  This serves the Tube
-Screamer (4-port R-type stage, three states), the HPF clipper and the simple
-circuits, with analytic, NxH neural, distilled or ideal-source roots.
+or drive setting is a new argument, never a new build.  This serves and
+trains the Tube Screamer (4-port R-type stage, three states), the HPF
+clipper, the clippers and the simple circuits, with analytic, NxH neural,
+distilled or ideal-source roots.
 
 A wrapper given CPU tensors runs its plain version: the adaptation pass
 hoisted out of the loop, then the circuit's step (the tree's own
 ``reflected`` / ``incident``, the root's plain twin) one sample at a time
-over the batch, on the same f32 coefficient vector the kernel gets.  Given
-CUDA tensors it launches the generated kernel or raises.  Kernel launches
-are counted in ``fused_circuit_process.launches`` (the ``_neural`` entry
+over the batch, on the same f32 slot values the kernel gets.  Given CUDA
+tensors it launches the generated kernel or raises.  Kernel launches are
+counted in ``fused_circuit_process.launches`` (the ``_neural`` entry
 launches through it).
 
-Impedance-affecting controls are block-rate (``static_controls``).  Per-row
-and per-sample pot streams (``row_controls``) and the pre-step state
-trajectory (``return_state_seq``) belong to the generic training path and
-raise ``NotImplementedError`` (ROADMAP B8).
+Impedance-affecting controls are block-rate (``static_controls``), per row
+or per sample (``row_controls``, {node: {field: (B,) | (B, T)}}: the
+measured pot of the training data, one R per chunk or one per sample).
+The adaptation runs batched outside the kernel; the coefficients a pot
+reaches become per-row registers or per-sample streams staged like the
+input.  ``return_state_seq`` also returns the pre-step state trajectory
+z_{t-1}, the residual of the generic training adjoint (``ops.parallel_bptt``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
@@ -35,35 +39,58 @@ from .circuit_codegen import CircuitProgram, program, step
 Controls = Optional[Dict[str, Dict[str, Any]]]
 
 
-def _check_deferred(row_controls, return_state_seq) -> None:
-    if row_controls:
-        raise NotImplementedError(
-            "fused_circuit_process: per-row and per-sample pot streams (row_controls) come "
-            "with the generic training kernel, ROADMAP B8")
-    if return_state_seq:
-        raise NotImplementedError(
-            "fused_circuit_process: the state trajectory (return_state_seq) comes with the "
-            "generic training kernel, ROADMAP B8")
+class Prepared(NamedTuple):
+    """The launch arguments of one call (see :func:`prepare`)."""
+
+    prog: CircuitProgram
+    vec: torch.Tensor              # coefficient slots (NC,)
+    warr: Optional[torch.Tensor]   # root array, or None
+    rows: torch.Tensor             # row slots (NR, B), empty for none
+    times: torch.Tensor            # time slots (NQ, B, T), empty for none
 
 
-def _check_io(vin: torch.Tensor) -> None:
+def _merge_controls(static_controls, row_controls):
+    """Deep-merge {node: {field: val}} dicts (row values win)."""
+    out = {k: dict(v) for k, v in (static_controls or {}).items()}
+    for node, fields in (row_controls or {}).items():
+        out.setdefault(node, {})
+        out[node].update(fields)
+    return out
+
+
+def _check_io(vin: torch.Tensor, row_controls: Controls = None) -> None:
     if vin.dim() != 2 or vin.dtype != torch.float32:
         raise ValueError(f"vin must be (B, T) float32, got {tuple(vin.shape)} {vin.dtype}")
     if vin.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {vin.device}")
+    B, T = vin.shape
+    for node, fields in (row_controls or {}).items():
+        for field, x in fields.items():
+            if (not isinstance(x, torch.Tensor) or tuple(x.shape) not in ((B,), (B, T))
+                    or not x.is_floating_point() or x.device != vin.device):
+                raise ValueError(
+                    f"row control {node}.{field} must be a ({B},) or ({B}, {T}) float tensor "
+                    f"on {vin.device}, got {getattr(x, 'shape', type(x).__name__)}")
 
 
 def prepare(circuit, params, device, *, input_node: str = "Vin",
-            static_controls: Controls = None, neural_mlp=None):
-    """(program, coefficient vector, root array or None) of one call on
-    ``device``: the adaptation pass runs once, on the params' device.
-    ``neural_mlp`` serves the circuit with that NxH MLP as its root."""
+            static_controls: Controls = None, row_controls: Controls = None,
+            neural_mlp=None, shape=None) -> Prepared:
+    """The program and launch arguments of one call on ``device``: the
+    adaptation pass runs once, on the params' device.  ``row_controls``
+    need the call's (B, T) as ``shape``.  ``neural_mlp`` runs the circuit
+    with that NxH MLP as its root."""
     static = static_controls or {}
-    coeffs = circuit.adapt(params, static)
-    prog = program(circuit, coeffs, params, static, input_node, neural_mlp)
-    vec = prog.coefficients(circuit, coeffs, params, static, device)
+    batch, time = 0, 0
+    if row_controls:
+        if shape is None:
+            raise ValueError("prepare: row_controls need the call's shape (B, T)")
+        batch, time = shape
+    coeffs = circuit.adapt(params, _merge_controls(static, row_controls))
+    prog = program(circuit, coeffs, params, static, input_node, neural_mlp, batch, time)
+    vec, rows, times = prog.arguments(circuit, coeffs, params, static, device)
     warr = prog.emitter.array(coeffs[circuit.tree.name]["R"], params, device)
-    return prog, vec, warr
+    return Prepared(prog, vec, warr, rows, times)
 
 
 def _state_stack(prog: CircuitProgram, state0, vin) -> torch.Tensor:
@@ -88,56 +115,92 @@ def _state_dict(prog: CircuitProgram, leaves) -> Dict[str, Dict[str, Any]]:
     return out
 
 
-def _run_plain(circuit, params, vin, state0, input_node, static_controls, neural_mlp):
-    prog, vec, warr = prepare(circuit, params, vin.device, input_node=input_node,
-                              static_controls=static_controls, neural_mlp=neural_mlp)
-    coeffs_k, params_k, static_k, slots = prog.unflatten(vec)
-    r_up = coeffs_k[circuit.tree.name]["R"]
+def plain_step(circuit, prep: Prepared):
+    """The kernel's step in PyTorch ops on the prepared slot values:
+    ``run(z, v, t) -> (new z, out)`` with z a list of S (B,) tensors in the
+    program's state order and t the sample index (for the per-sample
+    slots).  Differentiable in z and v (``ops.parallel_bptt``'s plain
+    adjoint pulls its VJP)."""
+    prog = prep.prog
+    fixed = None if prep.times.numel() else prog.unflatten(prep.vec, prep.rows, prep.times)
 
-    def root_fn(a, r, controls):
-        return prog.emitter.plain(a, r_up, slots, warr, controls, params_k)
+    def run(z, v, t):
+        coeffs_k, params_k, static_k, slots = (
+            fixed if fixed is not None else prog.unflatten(prep.vec, prep.rows, prep.times, t))
+        r_up = coeffs_k[circuit.tree.name]["R"]
 
-    z = list(_state_stack(prog, state0, vin))
-    out = torch.empty_like(vin)
-    for t in range(vin.shape[1]):
-        controls = {k: dict(v) for k, v in static_k.items()}
-        controls.setdefault(input_node, {})["v"] = vin[:, t]
+        def root_fn(a, r, controls):
+            return prog.emitter.plain(a, r_up, slots, prep.warr, controls, params_k)
+
+        controls = {k: dict(x) for k, x in static_k.items()}
+        controls.setdefault(prog.input_node, {})["v"] = v
         new_state, y = step(circuit, coeffs_k, _state_dict(prog, z), controls, root_fn)
+        return [new_state[node][field] for node, field in prog.state_order], y
+
+    return run
+
+
+def _run_plain(circuit, params, vin, state0, input_node, static_controls, row_controls,
+               neural_mlp, want_seq):
+    prep = prepare(circuit, params, vin.device, input_node=input_node,
+                   static_controls=static_controls, row_controls=row_controls,
+                   neural_mlp=neural_mlp, shape=tuple(vin.shape))
+    run = plain_step(circuit, prep)
+    z = list(_state_stack(prep.prog, state0, vin))
+    out = torch.empty_like(vin)
+    seq = [torch.empty_like(vin) for _ in z] if want_seq else None
+    for t in range(vin.shape[1]):
+        for k in range(len(seq or ())):
+            seq[k][:, t] = z[k]
+        z, y = run(z, vin[:, t], t)
         out[:, t] = y
-        z = [new_state[node][field] for node, field in prog.state_order]
-    return out, _state_dict(prog, z)
+    return out, _state_dict(prep.prog, z), seq
 
 
-def launch(prog: CircuitProgram, vec, warr, vin, z0):
-    """Launch the generated kernel of ``prog`` on prepared arguments (see
+def launch(prep: Prepared, vin, z0, with_seq: bool = False):
+    """Launch the generated kernel on prepared arguments (see
     :func:`prepare`): vin (B, T) and z0 (S, B) f32 on one card.  Returns
-    (out (B, T), z_final (S, B)).  Counts in ``fused_circuit_process.launches``."""
-    lib = _build.generated_library(prog.source)
+    (out (B, T), z_final (S, B), the trajectory (S, B, T) or None).  Counts
+    in ``fused_circuit_process.launches``."""
+    lib = _build.generated_library(prep.prog.source)
     B, T = vin.shape
+    dummy = prep.vec  # a valid pointer where an argument is empty
     with torch.cuda.device(vin.device):
         vin = vin.contiguous()
         out, zf = torch.empty_like(vin), torch.empty_like(z0)
-        w = warr if warr is not None else vec  # a valid pointer; n_warr = 0
+        seq = torch.empty((z0.shape[0], B, T), device=vin.device) if with_seq else None
+        w = prep.warr if prep.warr is not None else dummy
         err = lib.circuit_launch(
-            vin.data_ptr(), z0.data_ptr(), out.data_ptr(), zf.data_ptr(), B, T,
-            vec.data_ptr(), w.data_ptr(), 0 if warr is None else warr.numel(),
+            vin.data_ptr(), z0.data_ptr(), out.data_ptr(), zf.data_ptr(),
+            seq.data_ptr() if seq is not None and seq.numel() else None, B, T,
+            prep.vec.data_ptr(), (prep.rows if prep.rows.numel() else dummy).data_ptr(),
+            (prep.times if prep.times.numel() else dummy).data_ptr(), w.data_ptr(),
+            0 if prep.warr is None else prep.warr.numel(),
             torch.cuda.current_stream(vin.device).cuda_stream)
     _build.check(err, "fused_circuit_process launch", lib.circuit_error_string)
     fused_circuit_process.launches += 1
-    return out, zf
+    return out, zf, seq
 
 
-def _run(circuit, params, vin, state0, input_node, static_controls, neural_mlp):
+def _run(circuit, params, vin, state0, input_node, static_controls, row_controls, neural_mlp,
+         want_seq):
     """The plain version for CPU tensors, the generated kernel for CUDA ones."""
+    _check_io(vin, row_controls)
     if vin.device.type == "cpu":
-        return _run_plain(circuit, params, vin, state0, input_node, static_controls, neural_mlp)
-    prog, vec, warr = prepare(circuit, params, vin.device, input_node=input_node,
-                              static_controls=static_controls, neural_mlp=neural_mlp)
-    z0 = _state_stack(prog, state0, vin)
-    if vin.shape[0] == 0:
-        return torch.empty_like(vin), _state_dict(prog, list(z0))
-    out, zf = launch(prog, vec, warr, vin, z0)
-    return out, _state_dict(prog, list(zf))
+        out, state, seq = _run_plain(circuit, params, vin, state0, input_node, static_controls,
+                                     row_controls, neural_mlp, want_seq)
+    else:
+        prep = prepare(circuit, params, vin.device, input_node=input_node,
+                       static_controls=static_controls, row_controls=row_controls,
+                       neural_mlp=neural_mlp, shape=tuple(vin.shape))
+        z0 = _state_stack(prep.prog, state0, vin)
+        if vin.shape[0] == 0:
+            out, zf = torch.empty_like(vin), z0
+            seq = torch.empty((z0.shape[0],) + tuple(vin.shape), device=vin.device)
+        else:
+            out, zf, seq = launch(prep, vin, z0, want_seq)
+        state, seq = _state_dict(prep.prog, list(zf)), list(seq) if want_seq else None
+    return (out, state, seq) if want_seq else (out, state)
 
 
 def fused_circuit_process_plain(circuit, params, vin, state0, *, input_node: str = "Vin",
@@ -145,10 +208,11 @@ def fused_circuit_process_plain(circuit, params, vin, state0, *, input_node: str
                                 return_state_seq: bool = False):
     """Plain PyTorch version of the generated kernel: hoisted adaptation,
     then the circuit's step one sample at a time over the batch, on the
-    kernel's f32 coefficient values.  Returns (out (B, T), final state)."""
-    _check_deferred(row_controls, return_state_seq)
-    _check_io(vin)
-    return _run_plain(circuit, params, vin, state0, input_node, static_controls, None)
+    kernel's f32 slot values.  Returns as :func:`fused_circuit_process`."""
+    _check_io(vin, row_controls)
+    out, state, seq = _run_plain(circuit, params, vin, state0, input_node, static_controls,
+                                 row_controls, None, return_state_seq)
+    return (out, state, seq) if return_state_seq else (out, state)
 
 
 def fused_circuit_process(circuit, params, vin, state0, *, input_node: str = "Vin",
@@ -157,13 +221,15 @@ def fused_circuit_process(circuit, params, vin, state0, *, input_node: str = "Vi
     """Run ``circuit`` over ``vin`` (B, T) f32 in one generated kernel.
 
     state0: the circuit's state dict with each leaf of shape (B,).  Returns
-    (out (B, T), final state dict).  Matches ``circuit.process`` with hoisted
-    adaptation; impedance-affecting values go in ``params`` or
-    ``static_controls``.
+    (out (B, T), final state dict), and with ``return_state_seq`` also the
+    pre-step state trajectory: S (B, T) tensors, z_{t-1} of every step t, in
+    the sorted (node, field) order of the state.  Matches
+    ``circuit.process`` with hoisted adaptation; impedance-affecting values
+    go in ``params``, ``static_controls`` or, per row or per sample,
+    ``row_controls`` ((B,) or (B, T) tensors on vin's device).
     """
-    _check_deferred(row_controls, return_state_seq)
-    _check_io(vin)
-    return _run(circuit, params, vin, state0, input_node, static_controls, None)
+    return _run(circuit, params, vin, state0, input_node, static_controls, row_controls, None,
+                return_state_seq)
 
 
 fused_circuit_process.launches = 0
@@ -174,9 +240,10 @@ def fused_circuit_process_neural_plain(circuit, params, mlp_params, vin, state0,
                                        row_controls: Controls = None,
                                        return_state_seq: bool = False):
     """Plain PyTorch version of :func:`fused_circuit_process_neural`."""
-    _check_deferred(row_controls, return_state_seq)
-    _check_io(vin)
-    return _run_plain(circuit, params, vin, state0, input_node, static_controls, mlp_params)
+    _check_io(vin, row_controls)
+    out, state, seq = _run_plain(circuit, params, vin, state0, input_node, static_controls,
+                                 row_controls, mlp_params, return_state_seq)
+    return (out, state, seq) if return_state_seq else (out, state)
 
 
 def fused_circuit_process_neural(circuit, params, mlp_params, vin, state0, *,
@@ -186,8 +253,8 @@ def fused_circuit_process_neural(circuit, params, mlp_params, vin, state0, *,
     b = -MLP([a, log R]) with the MLP ``mlp_params`` (all-tanh hidden layers,
     linear head; anything else raises ``ValueError``), e.g. the Tube
     Screamer's 2x16 model choice.  The weights travel as the kernel's root
-    array, with log R folded into the first bias; the circuit's own root
-    params are not read."""
-    _check_deferred(row_controls, return_state_seq)
-    _check_io(vin)
-    return _run(circuit, params, vin, state0, input_node, static_controls, mlp_params)
+    array, with log R folded into the first bias (built per stream or per
+    step when a pot reaches R); the circuit's own root params are not read.
+    Arguments and results as :func:`fused_circuit_process`."""
+    return _run(circuit, params, vin, state0, input_node, static_controls, row_controls,
+                mlp_params, return_state_seq)

@@ -44,7 +44,7 @@ import torch
 
 from ..roots.distilled import cheb_eval
 from ..roots.neural import MLPParams
-from ..roots.omega import wright_omega_u
+from ..roots.omega import wright_omega
 from . import _build
 
 #: hidden widths the neural kernel is compiled for (the pretrained zoo's)
@@ -107,7 +107,9 @@ def _analytic_constants(r_source, cap, fs, Is, Vt_eff, n_up, n_down):
 def diode_pair_root(a, log_up, log_dn, inv_up, inv_dn, two_vt, n_up, n_dn, quality_iters):
     """The asymmetric diode pair's reflected wave from its precomputed
     constants (``_analytic_constants`` without p1R): the per-sample math of
-    the analytic kernels.  Constants are floats or 0-d tensors."""
+    the analytic kernels.  Constants are floats or tensors that broadcast
+    with a.  Autograd differentiates omega implicitly (``wright_omega``),
+    as the JAX package's custom jvp does."""
     lam = torch.sign(a)
     pos = a >= 0
     mu0 = torch.where(pos, n_dn, n_up)
@@ -117,8 +119,8 @@ def diode_pair_root(a, log_up, log_dn, inv_up, inv_dn, two_vt, n_up, n_dn, quali
     inv0 = torch.where(pos, inv_dn, inv_up)
     inv1 = torch.where(pos, inv_up, inv_dn)
     la = lam * a
-    w0 = torch.exp(wright_omega_u(log0 + la * inv0, quality_iters))
-    w1 = torch.exp(wright_omega_u(log1 - la * inv1, quality_iters))
+    w0 = wright_omega(log0 + la * inv0, quality_iters)
+    w1 = wright_omega(log1 - la * inv1, quality_iters)
     return a - two_vt * lam * (mu0 * w0 - mu1 * w1)
 
 

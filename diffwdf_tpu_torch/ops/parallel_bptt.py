@@ -1,0 +1,356 @@
+"""Generic differentiable fused engine: generated CUDA forward and adjoint.
+
+``ops.clipper_train`` hand-derives the LPF clipper's scalar adjoint; this
+module does the same for ANY adapted WDF `Circuit` the generator takes
+(multi-state trees, R-type adaptors, analytic or neural roots), so the Tube
+Screamer and HPF training workloads and the joint physics+neural fit leave
+the sequential autograd of the scan engine.
+
+Writing one step as (z_t, o_t) = F(z_{t-1}, v_t, theta):
+
+- **Forward**: the generated forward kernel (``ops.fused_circuit``, B7) runs
+  the recursion and also writes the pre-step state trajectory z_{t-1}, the
+  only residual the backward needs.
+- **Adjoint** (B8, :func:`fused_backward`): the state cotangent
+  lam_t = dL/dz_t obeys the reverse recursion
+
+      lam_{t-1} = J_t^T lam_t + A_t^T obar_t,        lam_T = zbar_f,
+
+  with J_t = dF_z/dz and A_t = dF_o/dz at the stored trajectory.  One
+  generated kernel (``circuit_codegen.generate_adjoint``) gives each stream a
+  thread that walks t = T-1 ... 0, the S + 1 tangents of the traced step
+  (S states, then v) contracted with (lam_t, obar_t) in registers.  It
+  writes lam_t for every step (before the update), g_vin and g_z0 = lam_0.
+- **Parameters**: one autograd pass of the scalar
+
+      g(theta) = sum_{b,t} <F(z_{t-1}, v_t, theta), (lam_t, obar_t)>
+
+  through ``circuit.adapt`` and the batched step over the whole (B, T)
+  trajectory (``_batched_step``), so component values (R, C), diode physics
+  and the neural root all receive exact cotangents.  It stays PyTorch ops.
+
+Impedance-affecting drives may be batch-constant (``static_controls``), per
+row or per sample (``row_fields``: the measured pot of the training data);
+their values get zero cotangents.  Restrictions, as in the JAX package: one
+output probe, and no pot inside an R-type adaptor.
+
+A CPU tensor runs the plain versions: B7's, and :func:`fused_backward_plain`,
+a reverse loop over t that pulls the VJP of one plain step by autograd at
+z_{t-1}: an oracle independent of the kernel's forward-mode pulls.  Kernel
+launches of B8 are counted in ``fused_backward.launches``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from ..roots.neural import NeuralDiodeRoot
+from . import _build
+from .circuit_codegen import adjoint_program, state_order
+from .fused_circuit import (
+    Controls,
+    _check_io,
+    _merge_controls,
+    fused_circuit_process,
+    fused_circuit_process_neural,
+    plain_step,
+    prepare,
+)
+
+def _batched_step(circuit, coeffs, params, static_controls, input_node):
+    """The circuit step as a pure tensor function: (state leaves list, v) ->
+    (new state leaves list, out), broadcasting over any leading shape (the
+    scatter algebra and the roots are elementwise or batched torch ops).
+    State leaves in the sorted (node, field) order."""
+    order = state_order(circuit)
+
+    def step(st_vec, v):
+        st: Dict[str, Dict[str, Any]] = {}
+        for (node, field), z in zip(order, st_vec):
+            st.setdefault(node, {})[field] = z
+        controls = {k: dict(vv) for k, vv in (static_controls or {}).items()}
+        controls.setdefault(input_node, {})["v"] = v
+        waves: Dict[str, Any] = {}
+        a_root = circuit.tree.reflected(coeffs, st, controls, waves)
+        r_up = coeffs[circuit.tree.name]["R"]
+        b_root = circuit.root.reflect(a_root, r_up, params, controls)
+        new_entries = circuit.tree.incident(coeffs, st, controls, waves, b_root)
+        new_state = {**st, **new_entries}
+        waves[circuit.root.name] = (a_root, b_root)
+        return [new_state[node][field] for node, field in order], circuit.probe(waves)
+
+    return step
+
+
+def _check_backward(vin, g_out, z_prev, lam_T, S: int, row_controls) -> None:
+    _check_io(vin, row_controls)
+    B = vin.shape[0]
+    if g_out.shape != vin.shape or len(z_prev) != S or len(lam_T) != S:
+        raise ValueError(f"fused_backward: g_out {tuple(vin.shape)}, {S} trajectories and {S} "
+                         f"final cotangents, got {tuple(g_out.shape)}, {len(z_prev)}, "
+                         f"{len(lam_T)}")
+    for x in [g_out, *z_prev, *lam_T]:
+        if x.dtype != torch.float32 or x.device != vin.device:
+            raise ValueError(f"fused_backward: every stream must be float32 on {vin.device}")
+    if any(z.shape != vin.shape for z in z_prev) or any(l.shape != (B,) for l in lam_T):
+        raise ValueError(f"fused_backward: trajectories {tuple(vin.shape)}, cotangents ({B},)")
+
+
+def fused_backward_plain(circuit, params, vin, g_out, z_prev, lam_T, *, input_node: str = "Vs",
+                         static_controls: Controls = None, row_controls: Controls = None,
+                         neural_mlp=None):
+    """Plain PyTorch version of :func:`fused_backward`: for t = T-1 ... 0,
+    ``torch.autograd.grad`` of one plain step (the kernel's slot values and
+    root twin, ``fused_circuit.plain_step``) at (z_{t-1}, v_t) with the
+    cotangents (lam_t, obar_t).  Returns as :func:`fused_backward`."""
+    prep = prepare(circuit, params, vin.device, input_node=input_node,
+                   static_controls=static_controls, row_controls=row_controls,
+                   neural_mlp=neural_mlp, shape=tuple(vin.shape))
+    S = len(prep.prog.state_order)
+    _check_backward(vin, g_out, z_prev, lam_T, S, row_controls)
+    run = plain_step(circuit, prep)
+    B, T = vin.shape
+    lam = [l.detach() for l in lam_T]
+    lam_step = [torch.empty_like(vin) for _ in range(S)]
+    g_vin = torch.empty_like(vin)
+    for t in range(T - 1, -1, -1):
+        for k in range(S):
+            lam_step[k][:, t] = lam[k]
+        with torch.enable_grad():
+            z = [z_prev[k][:, t].detach().requires_grad_(True) for k in range(S)]
+            v = vin[:, t].detach().requires_grad_(True)
+            new, out = run(z, v, t)
+            pairs = [(y, c) for y, c in zip(new + [out], lam + [g_out[:, t]]) if y.requires_grad]
+            grads = (torch.autograd.grad([y for y, _ in pairs], z + [v], [c for _, c in pairs],
+                                         allow_unused=True) if pairs else (None,) * (S + 1))
+        zero = torch.zeros(B, dtype=vin.dtype, device=vin.device)
+        lam = [g if g is not None else zero for g in grads[:S]]
+        g_vin[:, t] = grads[S] if grads[S] is not None else zero
+    return lam_step, g_vin, lam
+
+
+def fused_backward(circuit, params, vin, g_out, z_prev, lam_T, *, input_node: str = "Vs",
+                   static_controls: Controls = None, row_controls: Controls = None,
+                   neural_mlp=None):
+    """The generic adjoint of the circuit recurrence in one generated kernel.
+
+    vin, g_out (the output's cotangent): (B, T) f32; z_prev: the pre-step
+    state trajectory, S (B, T) tensors in the sorted (node, field) state
+    order (``fused_circuit_process(..., return_state_seq=True)``); lam_T:
+    the final state's cotangents, S (B,) tensors.  params, the controls and
+    ``neural_mlp`` as the forward was given them.  Returns (lam_step: S
+    (B, T) tensors, lam_step[k][:, t] = lam_t, the cotangent of the state
+    step t wrote; g_vin (B, T); g_z0: S (B,) tensors).  CPU tensors run
+    :func:`fused_backward_plain`; CUDA tensors launch the kernel or raise.
+    """
+    if vin.device.type == "cpu":
+        return fused_backward_plain(circuit, params, vin, g_out, z_prev, lam_T,
+                                    input_node=input_node, static_controls=static_controls,
+                                    row_controls=row_controls, neural_mlp=neural_mlp)
+    prep = prepare(circuit, params, vin.device, input_node=input_node,
+                   static_controls=static_controls, row_controls=row_controls,
+                   neural_mlp=neural_mlp, shape=tuple(vin.shape))
+    S = len(prep.prog.state_order)
+    _check_backward(vin, g_out, z_prev, lam_T, S, row_controls)
+    B, T = vin.shape
+    zseq = (torch.stack(list(z_prev)) if S else vin.new_empty((0, B, T))).contiguous()
+    lam_t = (torch.stack(list(lam_T)) if S else vin.new_empty((0, B))).contiguous()
+    if B == 0 or T == 0:
+        return list(torch.empty_like(zseq)), torch.empty_like(vin), list(lam_t.clone())
+    lam_seq, g_vin, g_z0 = launch_adjoint(circuit, prep, vin, g_out, zseq, lam_t)
+    return list(lam_seq), g_vin, list(g_z0)
+
+
+def launch_adjoint(circuit, prep, vin, g_out, zseq, lam_t):
+    """Launch the generated adjoint kernel of ``prep``'s program (see
+    ``fused_circuit.prepare``) on one card: vin and g_out (B, T), zseq
+    (S, B, T) and lam_t (S, B) f32, B and T > 0.  Returns (lam_seq (S, B, T),
+    g_vin (B, T), g_z0 (S, B)).  Counts in ``fused_backward.launches``."""
+    lib = _build.generated_library(adjoint_program(circuit, prep.prog).source)
+    B, T = vin.shape
+    S = zseq.shape[0]
+    dummy = prep.vec  # a valid pointer where an argument is empty
+    with torch.cuda.device(vin.device):
+        vin, g_out = vin.contiguous(), g_out.contiguous()
+        lam_seq, g_vin = torch.empty_like(zseq), torch.empty_like(vin)
+        g_z0 = torch.empty_like(lam_t)
+        w = prep.warr if prep.warr is not None else dummy
+        err = lib.circuit_adjoint_launch(
+            vin.data_ptr(), g_out.data_ptr(), (zseq if S else dummy).data_ptr(),
+            (lam_t if S else dummy).data_ptr(), (lam_seq if S else dummy).data_ptr(),
+            g_vin.data_ptr(), (g_z0 if S else dummy).data_ptr(), B, T, prep.vec.data_ptr(),
+            (prep.rows if prep.rows.numel() else dummy).data_ptr(),
+            (prep.times if prep.times.numel() else dummy).data_ptr(), w.data_ptr(),
+            0 if prep.warr is None else prep.warr.numel(),
+            torch.cuda.current_stream(vin.device).cuda_stream)
+    _build.check(err, "fused_backward launch", lib.circuit_error_string)
+    fused_backward.launches += 1
+    return lam_seq, g_vin, g_z0
+
+
+fused_backward.launches = 0
+
+
+def parameter_cotangents(circuit, params, vin, z_prev, g_out, lam_step, *,
+                         input_node: str = "Vs", static_controls: Controls = None,
+                         row_controls: Controls = None) -> List[Optional[torch.Tensor]]:
+    """The cotangents of every leaf of ``params`` (in ``_flatten`` order,
+    None for a leaf the step does not read): autograd of
+    sum_{b,t} <F(z_{t-1}, v_t, theta), (lam_t, obar_t)> through the
+    adaptation and the batched step over the whole (B, T) trajectory, with
+    lam_step and g_out from the adjoint.  Per-row pot values enter as (B, 1)
+    so their coefficients broadcast over time."""
+    leaves, rebuild = _flatten(params)
+    with torch.enable_grad():
+        p_leaves = [x.detach().requires_grad_(True) for x in leaves]
+        p = rebuild(p_leaves)
+        rc = {node: {field: (x[:, None] if x.dim() == 1 else x) for field, x in d.items()}
+              for node, d in (row_controls or {}).items()}
+        coeffs = circuit.adapt(p, _merge_controls(static_controls, rc))
+        z_new, o = _batched_step(circuit, coeffs, p, static_controls, input_node)(
+            list(z_prev), vin)
+        acc = (o * g_out).sum()
+        for zk, lk in zip(z_new, lam_step):
+            acc = acc + (zk * lk).sum()
+        return list(torch.autograd.grad(acc, p_leaves, allow_unused=True))
+
+
+def _flatten(tree) -> Tuple[List[torch.Tensor], Callable]:
+    """(leaves, rebuild) of a params tree of dicts (keys in sorted order) and
+    lists; ``rebuild(new_leaves)`` gives the same tree around new leaves."""
+    leaves: List[torch.Tensor] = []
+
+    def spec(x):
+        if isinstance(x, dict):
+            return ("dict", [(k, spec(x[k])) for k in sorted(x)])
+        if isinstance(x, (list, tuple)):
+            return ("list", [spec(v) for v in x])
+        leaves.append(x)
+        return None
+
+    structure = spec(tree)
+
+    def build(it, s):
+        if s is None:
+            return next(it)
+        kind, items = s
+        if kind == "dict":
+            return {k: build(it, v) for k, v in items}
+        return [build(it, v) for v in items]
+
+    return leaves, lambda new: build(iter(new), structure)
+
+
+def make_fused_circuit_train_generic(
+    circuit,
+    *,
+    input_node: str = "Vs",
+    static_controls: Controls = None,
+    row_fields: tuple = (),
+):
+    """Build the differentiable fused engine for ``circuit``.
+
+    Returns ``f(params, vin, z0_leaves) -> (out, zf_leaves)``, or with
+    ``row_fields`` ``f(params, vin, z0_leaves, row_vals)``: ``vin`` (B, T)
+    f32 (any B), ``z0_leaves`` a list of S (B,) tensors in the sorted
+    (node, field) state order.  Gradients flow to every leaf of ``params``
+    (tree components, diode physics, MLP weights), to ``vin`` and to
+    ``z0_leaves``.  Semantics match ``circuit.process`` with hoisted
+    adaptation.
+
+    row_fields: (node, field) pairs naming per-row or per-sample impedance
+    controls, the reference's measured-pot training semantics
+    (``clipper_pot.py:113-124``): one tensor each in ``row_vals``, (B,) for
+    one value per row, (B, T) for one per sample; they get zero cotangents.
+    """
+    if len(circuit.outputs) != 1:
+        raise ValueError("parallel-BPTT engine assumes one scalar output probe")
+    neural = isinstance(circuit.root, NeuralDiodeRoot)
+    root_name = circuit.root.name
+    order = state_order(circuit)
+    S = len(order)
+
+    def row_controls(row_vals):
+        rc: Dict[str, Dict[str, Any]] = {}
+        for (node, field), val in zip(row_fields, row_vals):
+            rc.setdefault(node, {})[field] = val
+        return rc
+
+    def forward_kernel(params, vin, z0_leaves, row_vals, want_seq):
+        state0: Dict[str, Dict[str, Any]] = {}
+        for (node, field), z in zip(order, z0_leaves):
+            state0.setdefault(node, {})[field] = z
+        kw = dict(input_node=input_node, static_controls=static_controls,
+                  row_controls=row_controls(row_vals) or None, return_state_seq=want_seq)
+        if neural:
+            tree_params = {k: v for k, v in params.items() if k != root_name}
+            res = fused_circuit_process_neural(circuit, tree_params, params[root_name], vin,
+                                               state0, **kw)
+        else:
+            res = fused_circuit_process(circuit, params, vin, state0, **kw)
+        zf = [res[1][node][field] for node, field in order]
+        return res[0], zf, (res[2] if want_seq else None)
+
+    class _FusedGeneric(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, rebuild, want_seq, vin, n_row, *rest):
+            z0, row_vals, leaves = rest[:S], rest[S:S + n_row], rest[S + n_row:]
+            params = rebuild(list(leaves))
+            out, zf, seqs = forward_kernel(params, vin, z0, row_vals, want_seq)
+            if want_seq:
+                ctx.save_for_backward(vin, *seqs, *row_vals, *leaves)
+                ctx.rebuild, ctx.n_row = rebuild, n_row
+            return (out, *zf)
+
+        @staticmethod
+        def backward(ctx, g_out, *g_zf):
+            vin, *rest = ctx.saved_tensors
+            n_row = ctx.n_row
+            seqs, row_vals, leaves = rest[:S], rest[S:S + n_row], rest[S + n_row:]
+            params = ctx.rebuild(list(leaves))
+            B = vin.shape[0]
+            g_out = torch.zeros_like(vin) if g_out is None else g_out.contiguous()
+            lam_T = [torch.zeros(B, dtype=vin.dtype, device=vin.device) if g is None
+                     else g.contiguous() for g in g_zf]
+            if neural:
+                k_params = {k: v for k, v in params.items() if k != root_name}
+                mlp = params[root_name]
+            else:
+                k_params, mlp = params, None
+            lam_step, g_vin, g_z0 = fused_backward(
+                circuit, k_params, vin, g_out, list(seqs), lam_T, input_node=input_node,
+                static_controls=static_controls, row_controls=row_controls(row_vals) or None,
+                neural_mlp=mlp)
+            g_params = parameter_cotangents(
+                circuit, ctx.rebuild(list(leaves)), vin, seqs, g_out, lam_step,
+                input_node=input_node, static_controls=static_controls,
+                row_controls=row_controls(row_vals))
+            return (None, None, g_vin, None, *g_z0, *(torch.zeros_like(r) for r in row_vals),
+                    *g_params)
+
+    def apply(params, vin, z0_leaves, row_vals):
+        if len(z0_leaves) != S:
+            raise ValueError(f"expected {S} initial state leaves {order}, got {len(z0_leaves)}")
+        leaves, rebuild = _flatten(params)
+        # the trajectory is kept only where a backward can follow
+        want_seq = torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad for x in [vin, *z0_leaves, *leaves])
+        outs = _FusedGeneric.apply(rebuild, want_seq, vin, len(row_vals), *z0_leaves, *row_vals,
+                                   *leaves)
+        return outs[0], list(outs[1:])
+
+    if row_fields:
+
+        def f(params, vin, z0_leaves, row_vals):
+            if len(row_vals) != len(row_fields):
+                raise ValueError(f"expected {len(row_fields)} row_vals for {row_fields}")
+            return apply(params, vin, z0_leaves, tuple(row_vals))
+
+    else:
+
+        def f(params, vin, z0_leaves):
+            return apply(params, vin, z0_leaves, ())
+
+    return f

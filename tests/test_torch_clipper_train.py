@@ -27,6 +27,7 @@ from diffwdf_tpu.ops.fused_clipper import fused_clipper_neural_train_fwd as jax_
 from diffwdf_tpu.training import circuit_train as jct
 from diffwdf_tpu.training.losses import esr as jesr, mse as jmse
 from diffwdf_tpu_torch.models.diode_clipper import make_training_clipper
+from diffwdf_tpu_torch.models.tube_screamer import drive_to_r6, make_tube_screamer
 from diffwdf_tpu_torch.nn.convert import params_from_jax
 from diffwdf_tpu_torch.ops import clipper_train as tct
 from diffwdf_tpu_torch.ops import fused_clipper as tfc
@@ -272,12 +273,17 @@ def test_train_clipper_validation_and_adam_match_jax():
 def test_engine_selection_and_fused_requirements():
     root = tw.NeuralDiodeRoot(name="dp", n_layers=1, layer_size=8)
     ckt = make_training_clipper(root, 8000.0, cap=CAP)
-    with pytest.raises(NotImplementedError, match="B7/B8"):
-        tcirc.make_forward_fn(ckt, tcirc.CircuitTrainConfig(engine="fused_generic"))
+    params = {**ckt.init_params("cpu"), **root.init_params("cpu")}
+    # the generic engine runs (its own tests: tests/test_torch_generic_training.py)
+    generic = tcirc.make_forward_fn(ckt, tcirc.CircuitTrainConfig(engine="fused_generic"))
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 16)).astype(np.float32))
+    np.testing.assert_allclose(
+        generic(params, {"x": x}).numpy(),
+        tcirc.make_forward_fn(ckt, tcirc.CircuitTrainConfig(engine="scan"))(
+            params, {"x": x}).numpy(), atol=2e-5, rtol=0)
     with pytest.raises(ValueError):
         tcirc.make_forward_fn(ckt, tcirc.CircuitTrainConfig(engine="xla"))
     forward = tcirc.make_forward_fn(ckt, tcirc.CircuitTrainConfig(engine="fused"))
-    params = {**ckt.init_params("cpu"), **root.init_params("cpu")}
     x = torch.zeros(2, 16)
     with pytest.raises(ValueError, match="r0"):
         forward(params, {"x": x, "r": torch.full((2, 16), 1e4)})
@@ -294,13 +300,30 @@ def test_engine_selection_and_fused_requirements():
     ("scan", {"pot_field": "C"}, NotImplementedError),
     ("fused", {"pot_field": "C"}, NotImplementedError),
     ("fused", {"pot_node": "C"}, ValueError),
+    ("fused_generic", {"pot_node": "R6"}, None),
 ])
 def test_pot_options_an_engine_cannot_drive_raise(engine, pot, error):
-    """A pot option the engine would ignore is refused, not run as the default."""
+    """A pot option the engine would ignore is refused, not run as the
+    default; fused_generic drives any node and field, as in JAX."""
     root = tw.NeuralDiodeRoot(name="dp", n_layers=1, layer_size=8)
     ckt = make_training_clipper(root, 8000.0, cap=CAP)
-    with pytest.raises(error):
+    if error is None:
         tcirc.make_forward_fn(ckt, tcirc.CircuitTrainConfig(engine=engine, **pot))
+        ts = make_tube_screamer(root, 8000.0)
+        forward = tcirc.make_forward_fn(ts, tcirc.CircuitTrainConfig(engine=engine, **pot))
+        params = {**ts.init_params("cpu"), **root.init_params("cpu")}
+        x = torch.zeros(2, 8)
+        # R6 per row: each row's output as the circuit built at that drive
+        r6 = torch.tensor([drive_to_r6(0.1), drive_to_r6(0.9)])
+        out = forward(params, {"x": x + 0.1, "r0": r6})
+        for row, drive in enumerate((0.1, 0.9)):
+            ts_d = make_tube_screamer(root, 8000.0, drive=drive)
+            want = tcirc.make_forward_fn(ts_d, tcirc.CircuitTrainConfig(engine="scan"))(
+                {**ts_d.init_params("cpu"), **root.init_params("cpu")}, {"x": x[:1] + 0.1})
+            np.testing.assert_allclose(out[row].detach().numpy(), want[0].numpy(), atol=2e-5)
+    else:
+        with pytest.raises(error):
+            tcirc.make_forward_fn(ckt, tcirc.CircuitTrainConfig(engine=engine, **pot))
     tcirc.make_forward_fn(ckt, tcirc.CircuitTrainConfig(engine=engine, pot_node="Vs"))
 
 

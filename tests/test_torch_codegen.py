@@ -1,16 +1,22 @@
 """The CUDA source generator of the generic fused circuit, on the CPU.
 
-The generated per-sample step is a function of plain C, so the host C++
-compiler builds it here with a small stand-in for ``cuda_runtime.h`` that
+The generated per-sample steps are functions of plain C, so the host C++
+compiler builds them here with a small stand-in for ``cuda_runtime.h`` that
 defines the CUDA qualifiers and rounding intrinsics away; a ctypes harness
-(``CircuitProgram.host_source``) drives it over B=8 streams of T=256 samples
-for the Tube Screamer (analytic and pretrained 2x16), the HPF clipper
-(analytic and HPF-trained 2x16), the LPF clipper with a distilled root and
-the RC lowpass, held against the plain version within the JAX suite's 2e-5.
-The tests also show that the source depends on the structure only (two
-drive settings, one source), that an unknown node or root class raises, and
-that the generated-build path caches by source and raises on a failed
-compile (with a stand-in compiler).
+(``host_source``) drives them.  The forward step runs over B=8 streams of
+T=256 samples for the Tube Screamer (analytic and pretrained 2x16), the HPF
+clipper (analytic and HPF-trained 2x16), the LPF clipper with a distilled
+root and the RC lowpass, held against the plain version within the JAX
+suite's 2e-5, and with per-row and per-sample pots, writing the state
+trajectory.  The adjoint step runs t = T-1 ... 0 over the plain forward's
+trajectory for the Tube Screamer (analytic and random-init 2x8), the HPF
+clipper and the training clipper with a per-sample pot, held against
+``fused_backward_plain`` (autograd of the plain step) within the JAX suite's
+relative budgets.  The tests also show that the source depends on the
+structure only (two drive settings, one source; a scalar and a per-row R6,
+two), that an unknown node or root class raises, that a root with no tangent
+emitter raises naming ROADMAP, and that the generated-build path caches by
+source and raises on a failed compile (with a stand-in compiler).
 """
 
 import ctypes
@@ -29,7 +35,10 @@ from diffwdf_tpu_torch.models import tube_screamer as tts
 from diffwdf_tpu_torch.ops import _build
 from diffwdf_tpu_torch.ops import circuit_codegen as cg
 from diffwdf_tpu_torch.ops import fused_circuit as tfc
+from diffwdf_tpu_torch.ops import parallel_bptt as pb
+from diffwdf_tpu_torch.roots.diode import diode_1n4148_1u1d
 from diffwdf_tpu_torch.roots.distilled import distill_root
+from diffwdf_tpu_torch.roots.neural import NeuralDiodeRoot
 
 FS = 96000.0
 B, T = 8, 256
@@ -68,8 +77,11 @@ def host_cxx(tmp_path_factory):
                               capture_output=True, text=True)
         assert proc.returncode == 0, proc.stderr
         lib = ctypes.CDLL(str(so))
-        lib.circuit_host_run.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
-            ctypes.c_void_p] * 2
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        if hasattr(lib, "circuit_host_run"):
+            lib.circuit_host_run.argtypes = [vp] * 5 + [i] * 2 + [vp] * 4
+        if hasattr(lib, "circuit_adjoint_host_run"):
+            lib.circuit_adjoint_host_run.argtypes = [vp] * 7 + [i] * 2 + [vp] * 4
         return lib
 
     return build
@@ -101,8 +113,26 @@ def _case(name):
     return ckt, ckt.init_params("cpu"), "Vs", 1.0
 
 
-def _state(ckt):
-    return {k: {f: torch.zeros(B) for f in d} for k, d in ckt.init_state("cpu").items()}
+def _state(ckt, b=B):
+    return {k: {f: torch.zeros(b) for f in d} for k, d in ckt.init_state("cpu").items()}
+
+
+def _ptr(x, fallback):
+    return (x if x is not None and x.numel() else fallback).data_ptr()
+
+
+def _host_forward(lib, prep, vin, state, with_seq=True):
+    """(out, z_final (S, B), trajectory (S, B, T)) of the host-compiled
+    forward step over ``vin``."""
+    b, t = vin.shape
+    z0 = tfc._state_stack(prep.prog, state, vin)
+    out, zf = torch.empty_like(vin), torch.empty_like(z0)
+    seq = torch.empty((z0.shape[0], b, t))
+    lib.circuit_host_run(vin.data_ptr(), z0.data_ptr(), out.data_ptr(), zf.data_ptr(),
+                         seq.data_ptr() if with_seq else None, b, t, prep.vec.data_ptr(),
+                         _ptr(prep.rows, prep.vec), _ptr(prep.times, prep.vec),
+                         _ptr(prep.warr, prep.vec))
+    return out, zf, seq
 
 
 @pytest.mark.parametrize("name", ["ts", "ts_2x16", "hpf", "hpf_2x16", "distilled", "rc"])
@@ -111,16 +141,129 @@ def test_host_compiled_step_matches_plain(host_cxx, name):
     vin = _vin(len(name), amp)
     want, want_state = tfc.fused_circuit_process_plain(ckt, params, vin, _state(ckt),
                                                        input_node=node)
-    prog, vec, warr = tfc.prepare(ckt, params, "cpu", input_node=node)
-    lib = host_cxx(name, prog.host_source)
-    z0 = tfc._state_stack(prog, _state(ckt), vin)
-    out, zf = torch.empty_like(vin), torch.empty_like(z0)
-    w = warr if warr is not None else vec
-    lib.circuit_host_run(vin.data_ptr(), z0.data_ptr(), out.data_ptr(), zf.data_ptr(), B, T,
-                         vec.data_ptr(), w.data_ptr())
+    prep = tfc.prepare(ckt, params, "cpu", input_node=node)
+    out, zf, _ = _host_forward(host_cxx(name, prep.prog.host_source), prep, vin, _state(ckt))
     np.testing.assert_allclose(out.numpy(), want.numpy(), atol=2e-5, rtol=0)
-    for k, (n, f) in enumerate(prog.state_order):
+    for k, (n, f) in enumerate(prep.prog.state_order):
         np.testing.assert_allclose(zf[k].numpy(), want_state[n][f].numpy(), atol=2e-5, rtol=0)
+
+
+def _pot_case(name):
+    """(circuit, params, input node, amplitude, row controls (B,) or (B, T))."""
+    rng = np.random.default_rng(len(name))
+    if name == "ts_row":  # a per-row drive pot on the Tube Screamer, 2x8 root
+        root = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=8)
+        ckt = tts.make_tube_screamer(root, FS, drive=0.5)
+        r6 = tts.drive_to_r6(rng.uniform(0.0, 1.0, B)).astype(np.float32)
+        return (ckt, {**ckt.init_params("cpu"), **root.init_params("cpu")}, "Vin", 0.3,
+                {"R6": {"R": torch.from_numpy(r6)}})
+    if name == "ts_sample":  # a per-sample drive pot, analytic root
+        root = tdc.DiodePairRoot(name="dp", diode=diode_1n4148_1u1d)
+        ckt = tts.make_tube_screamer(root, FS, drive=0.5)
+        drive = np.clip(0.5 + np.cumsum(0.01 * rng.standard_normal((B, T)), axis=1), 0.0, 1.0)
+        return (ckt, {**ckt.init_params("cpu"), **root.init_params("cpu")}, "Vin", 0.3,
+                {"R6": {"R": torch.from_numpy(tts.drive_to_r6(drive).astype(np.float32))}})
+    # the training clipper with a random-walk source R per sample
+    root = tdc.DiodePairRoot(name="dp", diode=diode_1n4148_1u1d)
+    ckt = tdc.make_training_clipper(root, FS)
+    r = np.exp(np.log(45e3) + np.cumsum(0.02 * rng.standard_normal((B, T)), axis=1))
+    return (ckt, {**ckt.init_params("cpu"), **root.init_params("cpu")}, "Vs", 1.5,
+            {"Vs": {"R": torch.from_numpy(r.astype(np.float32))}})
+
+
+@pytest.mark.parametrize("name", ["ts_row", "ts_sample", "clipper_sample"])
+def test_host_compiled_step_with_pots_matches_plain(host_cxx, name):
+    """Per-row and per-sample pot slots, and the trajectory output."""
+    ckt, params, node, amp, rows = _pot_case(name)
+    vin = _vin(len(name) + 1, amp)
+    want, want_state, want_seq = tfc.fused_circuit_process_plain(
+        ckt, params, vin, _state(ckt), input_node=node, row_controls=rows,
+        return_state_seq=True)
+    prep = tfc.prepare(ckt, params, "cpu", input_node=node, row_controls=rows, shape=(B, T))
+    assert prep.prog.n_rows + prep.prog.n_times > 0
+    out, zf, seq = _host_forward(host_cxx(name, prep.prog.host_source), prep, vin, _state(ckt))
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=2e-5, rtol=0)
+    for k, (n, f) in enumerate(prep.prog.state_order):
+        np.testing.assert_allclose(zf[k].numpy(), want_state[n][f].numpy(), atol=2e-5, rtol=0)
+        np.testing.assert_allclose(seq[k].numpy(), want_seq[k].numpy(), atol=2e-5, rtol=0)
+    np.testing.assert_array_equal(want_seq[0][:, 0].numpy(), 0.0)  # z_{-1} = z0
+
+
+def _adjoint_case(name):
+    if name in ("ts_row", "ts_sample", "clipper_sample"):
+        return _pot_case(name)
+    if name == "ts_2x8":
+        root = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=8)
+        ckt = tts.make_tube_screamer(root, FS, drive=0.5)
+        return ckt, {**ckt.init_params("cpu"), **root.init_params("cpu")}, "Vin", 0.3, None
+    ckt, params, node, amp = _case(name)
+    return ckt, params, node, amp, None
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / max(float(want.abs().max()), 1e-12))
+
+
+@pytest.mark.parametrize("name", ["ts", "ts_2x8", "hpf", "ts_row", "clipper_sample"])
+def test_host_compiled_adjoint_matches_plain(host_cxx, name):
+    """The generated adjoint step (S + 1 forward-mode tangents) against the
+    autograd VJP of the plain step, over the plain forward's trajectory."""
+    ckt, params, node, amp, rows = _adjoint_case(name)
+    vin = _vin(len(name) + 2, amp)
+    _, _, seq = tfc.fused_circuit_process_plain(ckt, params, vin, _state(ckt), input_node=node,
+                                                row_controls=rows, return_state_seq=True)
+    rng = np.random.default_rng(5)
+    g_out = torch.from_numpy(rng.standard_normal((B, T)).astype(np.float32))
+    lam_T = [torch.from_numpy(rng.standard_normal(B).astype(np.float32)) for _ in seq]
+    want = pb.fused_backward_plain(ckt, params, vin, g_out, seq, lam_T, input_node=node,
+                                   row_controls=rows)
+    prep = tfc.prepare(ckt, params, "cpu", input_node=node, row_controls=rows, shape=(B, T))
+    adj = cg.adjoint_program(ckt, prep.prog)
+    assert adj.ops_per_sample > 0 and "circuit_adjoint_kernel" in adj.source
+    lib = host_cxx(name + "_adjoint", adj.host_source)
+    S = len(seq)
+    lam_seq, g_vin, g_z0 = torch.empty((S, B, T)), torch.empty_like(vin), torch.empty((S, B))
+    zseq, lam_t = torch.stack(seq), torch.stack(lam_T)  # held while the host loop runs
+    lib.circuit_adjoint_host_run(vin.data_ptr(), g_out.data_ptr(), zseq.data_ptr(),
+                                 lam_t.data_ptr(), lam_seq.data_ptr(),
+                                 g_vin.data_ptr(), g_z0.data_ptr(), B, T, prep.vec.data_ptr(),
+                                 _ptr(prep.rows, prep.vec), _ptr(prep.times, prep.vec),
+                                 _ptr(prep.warr, prep.vec))
+    budget = 3e-4 if rows else 1e-4  # tests/test_parallel_bptt.py:303,537
+    assert _rel(g_vin, want[1]) < budget
+    for k in range(S):
+        assert _rel(lam_seq[k], want[0][k]) < budget, k
+        assert _rel(g_z0[k], want[2][k]) < budget, k
+
+
+def test_root_without_tangent_and_pot_in_rtype_raise():
+    root, rp = tdc.make_root_from_zoo(0, device="cpu")
+    droot, _ = distill_root(root, rp, 1.0 / (1.0 / 47.0e3 + 2.0 * 2.2e-9 * FS))
+    ckt = tdc.make_diode_clipper(droot, FS)
+    prep = tfc.prepare(ckt, ckt.init_params("cpu"), "cpu", input_node="Vs")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cg.adjoint_program(ckt, prep.prog)
+    # a per-row value reaching a matrix coefficient (an R-type's S) is refused
+    with pytest.raises(ValueError, match="matrix-valued"):
+        cg._shape(torch.zeros(4, 4, 4), batch=4, time=16)
+    assert cg._shape(torch.zeros(4), batch=4, time=16) == cg.ROW
+    assert cg._shape(torch.zeros(4, 16), batch=4, time=16) == cg.TIME
+    assert cg._shape(torch.zeros(4, 4)) == (4, 4)
+
+
+def test_dual_symbols_emit_product_and_quotient_rules():
+    tr = cg._Trace()
+    one = tr.const(1.0)
+    x = cg.Dual(cg.Sym(tr, "x"), (one, None))
+    c = cg.Sym(tr, "c[0]")
+    y = c * x + 2.0  # tangent: c along the first direction, none along the second
+    assert y.d[0] is c and y.d[1] is None
+    q = x / c
+    lines, _ = tr.live(q.d[0].ref)
+    assert lines[-1].endswith("= __fdiv_rn(1.0f, c[0]);")  # (dx - q dc) / c, dc = 0
+    z = x * x  # 2 x dx
+    lines, ops = tr.live(z.d[0].ref)
+    assert ops == 1 and lines[-1].endswith("__fadd_rn(x, x);")
 
 
 def test_two_drives_give_one_source():
@@ -129,9 +272,9 @@ def test_two_drives_give_one_source():
     for drive in (0.0, 1.0):
         ckt = tts.make_tube_screamer(root, FS, drive=drive)
         params = {**ckt.init_params("cpu"), **rp}
-        prog, vec, _ = tfc.prepare(ckt, params, "cpu", input_node="Vin")
-        progs.append(prog)
-        vecs.append(vec)
+        prep = tfc.prepare(ckt, params, "cpu", input_node="Vin")
+        progs.append(prep.prog)
+        vecs.append(prep.vec)
     assert progs[0].source == progs[1].source
     assert _build.generated_path(progs[0].source) == _build.generated_path(progs[1].source)
     assert not torch.equal(vecs[0], vecs[1])  # the drive is an argument
@@ -141,15 +284,22 @@ def test_two_drives_give_one_source():
     params = {**ckt.init_params("cpu"), **rp}
     for r6 in (tts.drive_to_r6(0.0), tts.drive_to_r6(1.0)):
         static = {"R6": {"R": torch.tensor(r6)}}
-        prog, vec, _ = tfc.prepare(ckt, params, "cpu", input_node="Vin", static_controls=static)
-        progs.append(prog)
+        progs.append(tfc.prepare(ckt, params, "cpu", input_node="Vin",
+                                 static_controls=static).prog)
     assert progs[2].source == progs[3].source
+    # a per-row drive is another source, and two per-row drives are one
+    for r6 in (tts.drive_to_r6(0.0), tts.drive_to_r6(1.0)):
+        rows = {"R6": {"R": torch.full((4,), r6)}}
+        progs.append(tfc.prepare(ckt, params, "cpu", input_node="Vin", row_controls=rows,
+                                 shape=(4, 16)).prog)
+    assert progs[4].source == progs[5].source != progs[2].source
 
 
 def test_source_layout_and_operation_count():
     ckt, params, node, _ = _case("rc")
-    prog, vec, warr = tfc.prepare(ckt, params, "cpu", input_node=node)
+    prog, vec, warr, rows, times = tfc.prepare(ckt, params, "cpu", input_node=node)
     assert prog.state_order == (("C1", "z"),) and warr is None
+    assert rows.numel() == times.numel() == 0
     # coeffs C1.R, I1.R, R1.R, S1.R, S1.p1R; params C1.C, R1.R
     assert [".".join(p) for p, _ in prog.layout] == [
         "coeffs.C1.R", "coeffs.I1.R", "coeffs.R1.R", "coeffs.S1.R", "coeffs.S1.p1R",
@@ -162,7 +312,7 @@ def test_source_layout_and_operation_count():
     # (2): 7 operations, negations free
     assert prog.ops_per_sample == 7, prog.step_source
     ts, tparams, _, _ = _case("ts")
-    ts_prog, ts_vec, _ = tfc.prepare(ts, tparams, "cpu", input_node="Vin")
+    ts_prog, ts_vec = tfc.prepare(ts, tparams, "cpu", input_node="Vin")[:2]
     assert ts_prog.state_order == (("C2", "z"), ("C3", "z"), ("C4", "z"))
     assert ("coeffs", "R", "S") in dict(ts_prog.layout)
     assert dict(ts_prog.layout)[("coeffs", "R", "S")] == (4, 4)

@@ -7,7 +7,8 @@ cross with ``params_from_jax``, a distilled root with
 ``cheb_root_from_jax``, neural roots as the same JAX-initialised or
 checked-in weights.  The JAX side is ``fused_circuit_process`` (or
 ``_neural``) in interpret mode, as tests/test_fused_circuit.py runs it, at
-B=1024 (its tile) and T=256.  Budgets: the JAX suite's 2e-5 kernel-vs-scan
+B=1024 (its tile) and T=256, and with per-row and per-sample pots and the
+state trajectory at T=24.  Budgets: the JAX suite's 2e-5 kernel-vs-scan
 (``tests/test_fused_circuit.py:55-118``) on the output and the final state;
 two half blocks against one block 1e-6 (``:100``).  The generated CUDA
 kernel runs only on a card (tests/test_torch_gpu.py); its step is compiled
@@ -199,19 +200,46 @@ def test_wrapper_runs_plain_on_cpu():
 
 @pytest.mark.parametrize("entry", ["kernel", "plain", "neural", "neural_plain"])
 def test_deferred_arguments_raise(entry):
+    """The arguments of the training path: pot streams (``row_controls``)
+    and the pre-step state trajectory (``return_state_seq``) through every
+    entry match JAX's ``fused_circuit_process_neural`` in interpret mode.
+    The training clipper with a random-init 2x4 root; one source R per row
+    through the root-class entries, one per sample through ``_neural``."""
+    b, t = 1024, 24
+    jroot = JaxNeuralDiodeRoot(name="dp", n_layers=2, layer_size=4)
+    mlp = jroot.init_params(jax.random.PRNGKey(5))["dp"]
+    jckt = jdc.make_training_clipper(jroot, FS)
     root = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=4)
-    ckt = tdc.make_diode_clipper(root, FS)
-    mlp = root.init_params("cpu")["dp"]
-    params = {**ckt.init_params("cpu"), "dp": mlp}
-    vin, state = torch.zeros(4, 8), _port_state(ckt, 4)
+    ckt = tdc.make_training_clipper(root, FS)
+    rng = np.random.default_rng(9)
+    if "neural" in entry:
+        r = np.exp(np.log(45e3) + np.cumsum(0.02 * rng.standard_normal((b, t)), axis=1))
+    else:
+        r = np.exp(rng.uniform(np.log(36e3), np.log(73e3), b))
+    r = r.astype(np.float32)
+    vin = _vin(11, 1.5, b=b, t=t)
+    jparams = jckt.init_params()
+    want, want_state, want_seq = jfc.fused_circuit_process_neural(
+        jckt, jparams, mlp, jnp.asarray(vin), {"C": {"z": jnp.zeros(b)}}, input_node="Vs",
+        row_controls={"Vs": {"R": jnp.asarray(r)}}, interpret=True, return_state_seq=True)
+    tmlp = _to_port(mlp)
+    tparams = {**_to_port(jparams), "dp": tmlp}
     fn = {"kernel": tfc.fused_circuit_process, "plain": tfc.fused_circuit_process_plain,
           "neural": tfc.fused_circuit_process_neural,
           "neural_plain": tfc.fused_circuit_process_neural_plain}[entry]
-    args = (ckt, params, vin, state) if "neural" not in entry else (ckt, params, mlp, vin, state)
-    with pytest.raises(NotImplementedError, match="B8"):
-        fn(*args, input_node="Vs", row_controls={"Vs": {"R": torch.full((4,), 4.7e4)}})
-    with pytest.raises(NotImplementedError, match="B8"):
-        fn(*args, input_node="Vs", return_state_seq=True)
+    args = ((ckt, tparams, torch.from_numpy(vin)) if "neural" not in entry
+            else (ckt, _to_port(jparams), tmlp, torch.from_numpy(vin)))
+    got, got_state, got_seq = fn(*args, {"C": {"z": torch.zeros(b)}}, input_node="Vs",
+                                 row_controls={"Vs": {"R": torch.from_numpy(r)}},
+                                 return_state_seq=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(got_state["C"]["z"].numpy(), np.asarray(want_state["C"]["z"]),
+                               atol=2e-5, rtol=0)
+    assert len(got_seq) == len(want_seq) == 1
+    np.testing.assert_allclose(got_seq[0].numpy(), np.asarray(want_seq[0]), atol=2e-5, rtol=0)
+    with pytest.raises(ValueError, match="row control"):
+        fn(*args, {"C": {"z": torch.zeros(b)}}, input_node="Vs",
+           row_controls={"Vs": {"R": torch.ones(b + 1)}})
 
 
 @pytest.mark.parametrize("entry", ["root", "neural"])

@@ -8,8 +8,11 @@ imports nothing of JAX, so it also runs on a machine that has only PyTorch:
 Budgets are the JAX suite's kernel-vs-scan budgets: analytic atol 5e-6,
 neural atol 2e-5 (the training forward too); the adjoint's streams and the
 training op's gradients 2e-5 after dividing by their largest magnitude; the
-distilled clipper 1e-5, the generated circuit kernels 2e-5, and two half
-blocks against one block 1e-6.
+distilled clipper 1e-5, the generated circuit kernels 2e-5 (with pot
+streams and the state trajectory too), and two half blocks against one
+block 1e-6; the generated adjoint relative 1e-4 with no pot and 3e-4 with
+pots, and the generic training op's gradients against the scan engine
+relative 5e-4 per leaf (tests/test_parallel_bptt.py).
 """
 
 import numpy as np
@@ -437,3 +440,137 @@ def test_circuit_kernel_carries_state_and_drive_does_not_rebuild(circuit_cuda):
     assert _build.build_generated.builds == builds
     assert peaks[1] > 2.0 * peaks[0], peaks
     assert fcirc.fused_circuit_process.launches == 5
+
+
+def _train_case(name, dev, b, t):
+    """(circuit, params, input node, MLP for the ``_neural`` entry or None,
+    row controls or None) of the generic training path's kernel cases."""
+    from diffwdf_tpu_torch.models import diode_clipper as tdc
+    from diffwdf_tpu_torch.models.tube_screamer import drive_to_r6, make_tube_screamer
+
+    rng = np.random.default_rng(len(name))
+    if name.startswith("ts_2x16"):
+        root, rp = tdc.make_root_from_zoo(4, device=dev)  # the pretrained 2x16
+        ckt = make_tube_screamer(root, 48000.0, drive=0.5)
+        rows = None
+        if name == "ts_2x16_row":  # the drive pot per row (bench.py:560-604)
+            r6 = drive_to_r6(rng.uniform(0.0, 1.0, b)).astype(np.float32)
+            rows = {"R6": {"R": torch.from_numpy(r6).to(dev)}}
+        return ckt, {**ckt.init_params(dev), **rp}, "Vin", rp["dp"], rows
+    if name == "hpf":
+        root, rp = tdc.make_hpf_root_from_zoo(0, device=dev)
+        ckt = tdc.make_hpf_diode_clipper(root, 48000.0)
+        return ckt, {**ckt.init_params(dev), **rp}, "Vs", None, None
+    # the training clipper, random-init 2x16, a random-walk R per sample
+    # (bench.py:610-622)
+    root = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=16)
+    ckt = make_training_clipper(root, 48000.0)
+    r = np.exp(np.log(45e3) + np.cumsum(0.003 * rng.standard_normal((b, t)), axis=1))
+    rows = {"Vs": {"R": torch.from_numpy(r.astype(np.float32)).to(dev)}}
+    return ckt, {**ckt.init_params(dev), **root.init_params(dev)}, "Vs", None, rows
+
+
+def _trajectory(fcirc, ckt, params, node, mlp, rows, vin, state, plain=False):
+    kw = dict(input_node=node, row_controls=rows, return_state_seq=True)
+    if mlp is not None:
+        tree = {k: v for k, v in params.items() if k != "dp"}
+        fn = (fcirc.fused_circuit_process_neural_plain if plain
+              else fcirc.fused_circuit_process_neural)
+        return fn(ckt, tree, mlp, vin, state, **kw)
+    fn = fcirc.fused_circuit_process_plain if plain else fcirc.fused_circuit_process
+    return fn(ckt, params, vin, state, **kw)
+
+
+TRAIN_CASES = ["ts_2x16", "ts_2x16_row", "hpf", "clipper_sample"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", TRAIN_CASES)
+def test_circuit_kernel_trajectory_matches_plain(circuit_cuda, name):
+    """B7 with pot streams and the state trajectory, ragged B and T."""
+    dev, fcirc = circuit_cuda
+    b, t = 300, 100
+    ckt, params, node, mlp, rows = _train_case(name, dev, b, t)
+    vin, state = _circuit_inputs(ckt, dev, b, t, 0.5, seed=len(name))
+    got = _trajectory(fcirc, ckt, params, node, mlp, rows, vin, state)
+    want = _trajectory(fcirc, ckt, params, node, mlp, rows, vin, state, plain=True)
+    torch.cuda.synchronize()
+    assert fcirc.fused_circuit_process.launches == 1
+    _close(got[0], want[0], 2e-5)
+    for k, d in want[1].items():
+        for f, z in d.items():
+            _close(got[1][k][f], z, 2e-5)
+    assert len(got[2]) == len(want[2]) > 0
+    for a, w in zip(got[2], want[2]):
+        _close(a, w, 2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", TRAIN_CASES)
+def test_adjoint_circuit_kernel_matches_plain(circuit_cuda, name):
+    """B8 against the autograd VJP of the plain step over the kernel's own
+    trajectory; T = 100 ends in a partial tile, walked first."""
+    from diffwdf_tpu_torch.ops import parallel_bptt as pb
+
+    dev, fcirc = circuit_cuda
+    b, t = 300, 100
+    ckt, params, node, mlp, rows = _train_case(name, dev, b, t)
+    vin, state = _circuit_inputs(ckt, dev, b, t, 0.5, seed=len(name) + 1)
+    _, _, seq = _trajectory(fcirc, ckt, params, node, mlp, rows, vin, state)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    g_out = torch.randn(b, t, generator=gen, device=dev)
+    lam_T = [torch.randn(b, generator=gen, device=dev) for _ in seq]
+    tree = {k: v for k, v in params.items() if k != "dp"} if mlp is not None else params
+    kw = dict(input_node=node, row_controls=rows, neural_mlp=mlp)
+    pb.fused_backward.launches = 0
+    got = pb.fused_backward(ckt, tree, vin, g_out, seq, lam_T, **kw)
+    want = pb.fused_backward_plain(ckt, tree, vin, g_out, seq, lam_T, **kw)
+    torch.cuda.synchronize()
+    assert pb.fused_backward.launches == 1
+    budget = 3e-4 if rows else 1e-4  # tests/test_parallel_bptt.py:303,415,537
+
+    def rel(x, y):
+        return float((x - y).abs().max() / y.abs().max().clamp_min(1e-12))
+
+    assert rel(got[1], want[1]) < budget
+    for k in range(len(seq)):
+        assert rel(got[0][k], want[0][k]) < budget, k
+        assert rel(got[2][k], want[2][k]) < budget, k
+
+
+@pytest.mark.gpu
+def test_fused_generic_op_grads_match_scan_on_card(circuit_cuda):
+    """The differentiable op (B7 + B8 + the parameter pass) against autograd
+    through Circuit.process on the card: TS with a random-init 2x8 root."""
+    from diffwdf_tpu_torch.models.tube_screamer import make_tube_screamer
+    from diffwdf_tpu_torch.ops import parallel_bptt as pb
+
+    dev, fcirc = circuit_cuda
+    b, t = 256, 64
+    root = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=8)
+    ckt = make_tube_screamer(root, 48000.0)
+    rng = np.random.default_rng(0)
+    vin = torch.from_numpy((0.5 * rng.standard_normal((b, t))).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.standard_normal((b, t)).astype(np.float32)).to(dev)
+
+    def grads(run):
+        params = {**ckt.init_params(dev), **root.init_params(dev)}
+        leaves, _ = pb._flatten(params)
+        for x in leaves:
+            x.requires_grad_(True)
+        v = vin.clone().requires_grad_(True)
+        ((run(params, v) - y) ** 2).mean().backward()
+        return [x.grad for x in leaves] + [v.grad]
+
+    f = pb.make_fused_circuit_train_generic(ckt, input_node="Vin")
+    z0 = [torch.zeros(b, device=dev) for _ in range(3)]
+    pb.fused_backward.launches = 0
+    got = grads(lambda p, v: f(p, v, z0)[0])
+    want = grads(lambda p, v: ckt.process(p, ckt.init_state(dev), {"Vin": {"v": v.T}})[0].T)
+    torch.cuda.synchronize()
+    assert fcirc.fused_circuit_process.launches == 1 and pb.fused_backward.launches == 1
+    for g, w in zip(got, want):
+        if g is None or w is None:  # a leaf the step does not read (the source's R)
+            assert g is None and w is None
+            continue
+        assert float((g - w).abs().max() / w.abs().max().clamp_min(1e-12)) < 5e-4
