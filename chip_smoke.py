@@ -3,8 +3,10 @@
 serving, in-circuit training of the clipper (engine="fused"), single-stream
 serving through the streaming processor (engine="deer" and "scan"), batched
 serving of the generic circuits (generated kernels) and the distilled
-clipper, and generic in-circuit training (engine="fused_generic": generated
-forward and adjoint kernels) of the Tube Screamer and the clippers.
+clipper, generic in-circuit training (engine="fused_generic": generated
+forward and adjoint kernels) of the Tube Screamer and the clippers, and
+single-stream serving of the plugin's circuit set and the HPF clipper
+(engine="deer": the generated DEER kernel).
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -106,6 +108,32 @@ one line per phase:
              2x16 at (1024, 2048), part by part (forward with trajectory,
              loss, adjoint, parameter pass, Adam), the whole step, and both
              kernels alone beside their bounds; the adjoint also at (375, 2048)
+  build deer  the generated DEER kernels (B9) of eleven circuits (the Tube
+             Screamer analytic best and low and 2x16, the HPF clipper
+             analytic best and low and 2x16, the LPF clipper with the five
+             1U-1D neural sizes) and their exact recursions (B7), one nvcc
+             each, all started together: seconds cold and cached, ptxas
+             registers and spills, operations per sample
+  kernels deer circuit  each B9 against its plain version and the exact
+             recursion (B7 at B=1) at T = 2048 and 16384, at the JAX suite's
+             budgets, with as many sweeps run; the adaptive HPF's early exit
+             at JAX's count; the residual flagging a hard-overdrive block; a
+             drive change with no nvcc run
+  stream plugin  single-stream serving as a plugin drives it: the same strum
+             through make_plugin_processor(engine="deer") and (engine="scan"),
+             hot-swapping all 14 members with cutoff, drive and gain changes,
+             deer against scan block for block, one launch per served block
+             (a block the residual flags: one more, the exact engine's), a
+             1000-sample block on B7; the HPF processor's four members and the
+             clipper processor's neural member, deer against scan; warmup
+             builds every member's kernels first
+  timing deer circuit  CUDA-event medians of B9's launch alone (arguments
+             and outputs prepared once) for the TS at T = 2048 and at the JAX
+             bench's T = 16384 with 10 sweeps and 4 relaxations, the TS 2x16,
+             the HPF at 48 fixed and adaptive sweeps and the 2x16 clipper,
+             beside their bounds and plain versions, and
+             process_block wall ms, real-time factor and a profile of one
+             block per group and engine
 
 then a JSON line with every kernel's launches, error, times and bound, the
 card's name and power limit, and finally ``{"ok": true, "device": {...}}``.
@@ -144,6 +172,7 @@ from diffwdf_tpu_torch.nn.serialization import load_model_json, save_model_json
 from diffwdf_tpu_torch.ops import _build
 from diffwdf_tpu_torch.ops import circuit_codegen as cg
 from diffwdf_tpu_torch.ops import clipper_train as ct
+from diffwdf_tpu_torch.ops import deer_circuit as dc
 from diffwdf_tpu_torch.ops import fused_circuit as fcirc
 from diffwdf_tpu_torch.ops import fused_clipper as fc
 from diffwdf_tpu_torch.ops import parallel_bptt as pb
@@ -151,7 +180,12 @@ from diffwdf_tpu_torch.ops import parallel_time_deer as pd
 from diffwdf_tpu_torch.roots.diode import DiodePairRoot, diode_1n4148_1u1d, diode_1n4148_1u2d
 from diffwdf_tpu_torch.roots.distilled import distill_root
 from diffwdf_tpu_torch.roots.neural import NeuralDiodeRoot
-from diffwdf_tpu_torch.runtime.stream import make_clipper_processor
+from diffwdf_tpu_torch.runtime.stream import (
+    HPF_DEER,
+    make_clipper_processor,
+    make_hpf_processor,
+    make_plugin_processor,
+)
 from diffwdf_tpu_torch.training.circuit_train import (
     CircuitTrainConfig,
     joint_fit_clipper,
@@ -165,6 +199,7 @@ from diffwdf_tpu_torch.training.metrics import MetricsLogger
 FS = 96000.0
 B, T, BLOCKS = 8192, 2048, 4
 REPS = 10  # timed runs per version, after warm-up
+WALL_REPS = 30  # served blocks per host-wall timing
 BUDGET = {"analytic": 5e-6, "neural": 2e-5}  # the JAX suite's kernel-vs-scan budgets
 SOURCE = "diffwdf_tpu_torch/ops/csrc/fused_clipper.cu"
 REPLACES = {
@@ -235,6 +270,33 @@ GEN_CASES = ("ts_2x16", "ts_2x16_row", "hpf", "clipper_sample")
 GEN_BUDGET = {"ts_2x16": 1e-4, "ts_2x16_row": 3e-4, "hpf": 1e-4, "clipper_sample": 3e-4}
 GEN_GRAD_BUDGET = {"ts_2x16": 5e-4, "ts_2x16_row": 1e-3, "hpf": 1e-3, "clipper_sample": 1e-3}
 BPTT_REPLACES = "diffwdf_tpu/ops/parallel_bptt.py:350"
+
+# single-stream serving of the circuits the clipper's DEER kernel cannot
+# serve (diffwdf_tpu/runtime/stream.py:643-959): the Tube Screamer, the HPF
+# clipper and the neural clippers through the generic DEER kernel (B9), in
+# the plugin's circuit set, the HPF processor and the clipper processor
+DC_CASES = ("ts", "ts_low", "ts_2x16", "hpf", "hpf_low", "hpf_2x16",
+            "clip_2x4", "clip_2x8", "clip_2x16", "clip_4x4", "clip_4x8")
+DC_T = (2048, 16384)
+DC_BUDGET = {"ts": 1e-4, "hpf": 3e-4, "clip": 5e-6}  # vs the exact recursion (the JAX suite's)
+#: B9 against its plain version on a block that the sweeps do not converge:
+#: the same algorithm on the same trajectory, the order of the scan's
+#: roundings apart (JAX and the port's plain version: 2.3e-5 on such a TS
+#: block, tests/test_torch_deer_circuit.py::test_flagged_block_diverges_as_in_jax)
+DC_UNCONVERGED_BUDGET = 1e-3
+DC_REPLACES = {"circuit": "diffwdf_tpu/ops/deer_circuit.py:56",
+               "neural": "diffwdf_tpu/ops/deer_circuit.py:431"}
+#: numpy seeds of the HPF's kernel inputs (see _dc_input)
+HPF_SEED = {2048: 202, 16384: 210}
+PLUGIN_BUDGET, HPF_BUDGET, NEURAL_BUDGET = 2e-4, 5e-4, 1e-5  # deer vs scan, block for block
+PLUGIN_MEMBERS = tuple([("clipper", i) for i in range(7)]
+                       + [("multi_diode_clipper", i) for i in range(5)]
+                       + [("tube_screamer", 0), ("tube_screamer", 1)])
+#: the plugin stream's blocks (index: member) whose DEER residual exceeds
+#: the fallback tolerance at --seed 0, each by over 500x: the strum's
+#: attack through the 2x4 and 4x4 clippers and the Tube Screamer 2x16
+PLUGIN_FLAGGED_SEED0 = {6: "clipper/2", 15: "clipper/5", 41: "tube_screamer/1",
+                        43: "tube_screamer/1", 44: "tube_screamer/1"}
 
 # the bound: the larger of the operations over the card's f32 peak (outside
 # the tensor cores) and the bytes over its memory rate (NVIDIA's data sheet,
@@ -931,7 +993,7 @@ def stream_path(dev, card: str, seed: int) -> list:
         warm = make_clipper_processor(FS, models=models, engine=engine, device=dev)
         info = warm.warmup([STREAM_BLOCK])
         first = serve(warm)
-        steady = [serve(warm) for _ in range(30)]
+        steady = [serve(warm) for _ in range(WALL_REPS)]
         variants = 2 if engine == "deer" else 1  # the exact fallback variant
         print(f"phase warmup engine={engine} models={models} block={STREAM_BLOCK} "
               f"cold_first_ms={cold:.3f} warmup_seconds={info['seconds']:.3f} "
@@ -966,7 +1028,7 @@ def stream_path(dev, card: str, seed: int) -> list:
 
         serve()
         wall = []
-        for _ in range(30):
+        for _ in range(WALL_REPS):
             t0 = time.perf_counter()
             serve()
             wall.append((time.perf_counter() - t0) * 1e3)
@@ -1655,6 +1717,446 @@ def generic_train_path(dev, card: str, seed: int) -> list:
     ]
 
 
+def _dc_case(name: str, dev):
+    """(circuit, params, input node, neural root?, solver keywords, fs) of a
+    case of the generic DEER path: the Tube Screamer (drive 0.5) with the
+    best and low analytic roots and the pretrained 2x16, the HPF clipper
+    with the same three (the HPF-trained 2x16) under the HPF processor's
+    damped adaptive settings, and the LPF clipper at 48 kHz with the five
+    1U-1D neural sizes of the plugin's zoo (entries 2-6)."""
+    kind = name.split("_")[0]
+    if kind == "ts":
+        index = {"ts": 0, "ts_low": 1, "ts_2x16": 4}[name]
+        root, rp = make_root_from_zoo(index, device=dev)
+        ckt = make_tube_screamer(root, FS, drive=0.5)
+        return ckt, {**ckt.init_params(dev), **rp}, "Vin", index == 4, {}, FS
+    if kind == "hpf":
+        index = {"hpf": 0, "hpf_low": 1, "hpf_2x16": 3}[name]
+        root, rp = make_hpf_root_from_zoo(index, device=dev)
+        ckt = make_hpf_diode_clipper(root, FS)
+        return ckt, {**ckt.init_params(dev), **rp}, "Vs", index == 3, dict(HPF_DEER), FS
+    index = {"clip_2x4": 2, "clip_2x8": 3, "clip_2x16": 4, "clip_4x4": 5, "clip_4x8": 6}[name]
+    root, rp = make_root_from_zoo(index, device=dev)
+    ckt = make_diode_clipper(root, 48000.0)
+    return ckt, {**ckt.init_params(dev), **rp}, "Vs", True, {}, 48000.0
+
+
+def _dc_input(name: str, T: int, seed: int, dev) -> torch.Tensor:
+    """The case's input: the Tube Screamer at guitar level (0.2 sin 1 kHz +
+    0.1 N(0, 1), as the circuit path drives it), the HPF clipper 0.5 N(0, 1),
+    the clippers 2 N(0, 1) (the JAX suite's neural operating point).  The
+    HPF's noise has fixed seeds (HPF_SEED): its adaptive loop compares the
+    largest update with adapt_tol, and on these blocks the update at each
+    exit test is at least twice or at most half the tolerance, so that the
+    sweeps run do not hang on rounding."""
+    kind = name.split("_")[0]
+    rng = np.random.default_rng(HPF_SEED[T] if kind == "hpf" else seed)
+    if kind == "ts":
+        x = 0.2 * np.sin(2 * np.pi * 1000.0 * np.arange(T) / FS) + 0.1 * rng.standard_normal(T)
+    else:
+        x = (0.5 if kind == "hpf" else 2.0) * rng.standard_normal(T)
+    return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+def _dc_solve(case, vin, plain: bool = False, **kw):
+    """B9 (or its plain version) on one case: (out, state, residual, sweeps run)."""
+    ckt, params, node, neural, skw, _ = case
+    if neural:
+        fn = dc.fused_deer_neural_plain if plain else dc.fused_deer_neural
+    else:
+        fn = dc.fused_deer_circuit_plain if plain else dc.fused_deer_circuit
+    return fn(ckt, params, vin, input_node=node, return_info=True, **{**skw, **kw})
+
+
+def _dc_exact(case, vin):
+    """The exact recursion of a case: B7 at B=1 (out (T,), final state)."""
+    ckt, params, node = case[:3]
+    out, st = fcirc.fused_circuit_process(ckt, params, vin[None], _zero_state(ckt, vin[None]),
+                                          input_node=node)
+    return out[0], {k: {f: z[0] for f, z in d.items()} for k, d in st.items()}
+
+
+def _dc_ops(deer, T: int, sweeps: int, relax: int, damping: float, adapt_tol: float) -> int:
+    """Operations of one B9 solve of T samples, counted from the generated
+    code as this call runs it: relax_passes run the forward step
+    (step_ops), the emit pass the forward step and the residual (2 S); a
+    sweep runs per row the DEER step (ops_per_sample), the affine map
+    c = f - J z (2 S^2), the composition onto the block's prefix
+    (S^2 (2S - 1) + 2 S^2) and the fix-up: apply (2 S^2) and clamp (2 S),
+    the damping (3 S) only when damping != 1, the update (2 S) only when
+    adapt_tol > 0.  Per sweep and time block: the thread's chain, the start
+    state (2 S^2) and the application; per sweep the CTA scan: 129
+    compositions in each warp's shuffles, those of warp 0 over the warp
+    totals that reach a warp, and one for each thread after warp 0."""
+    S, nb, nt = deer.n_state, cg.DEER_BLOCKS, cg.DEER_THREADS
+    compose = S * S * (2 * S - 1) + 2 * S * S
+    row = (deer.ops_per_sample + 2 * S * S + compose + 2 * S * S + 2 * S
+           + (3 * S if damping != 1.0 else 0) + (2 * S if adapt_tol > 0 else 0))
+    warps = nt // 32
+    scan = warps * 129 + sum(max(0, warps - d) for d in (1, 2, 4, 8, 16)) + nt - 32
+    per_sweep = T * row + nb * (2 * compose + 2 * S * S) + scan * compose
+    return T * ((relax + 1) * deer.step_ops + 2 * S) + sweeps * per_sweep
+
+
+def _plugin_block(i: int):
+    """(group, model, gain dB, block params) of plugin stream block i: three
+    blocks per member, every member of every group in turn, then the Tube
+    Screamer 2x16 to the end; cutoff and drive change every block."""
+    group, model = PLUGIN_MEMBERS[min(i // 3, len(PLUGIN_MEMBERS) - 1)]
+    gain = (0.0, 3.0, 6.0)[(i // 3) % 3]
+    if group == "tube_screamer":
+        return group, model, gain, {"drive": (0.2, 0.5, 0.8)[i % 3]}
+    return group, model, gain, {"cutoff_hz": (2000.0, 4000.0, 8000.0)[i % 3]}
+
+
+def _all_launches() -> dict:
+    """Launch counters of every kernel that serves a single-stream block."""
+    return {"B9": dc.fused_deer_circuit.launches, "B9n": dc.fused_deer_neural.launches,
+            "B5": pd.fused_deer_clipper.launches, "B7": fcirc.fused_circuit_process.launches,
+            "B2": fc.fused_clipper_analytic.launches, "B1": fc.fused_clipper_neural.launches}
+
+
+def _counted(fn) -> dict:
+    """Call fn(); the kernel launches it made, by kernel (nonzero only)."""
+    before = _all_launches()
+    fn()
+    return {k: v - before[k] for k, v in _all_launches().items() if v != before[k]}
+
+
+def deer_circuit_path(dev, card: str, seed: int) -> list:
+    """Single-stream serving of the generic circuits: build deer, kernels
+    deer circuit, stream plugin and timing deer circuit phases.  Returns the
+    records of B9 (both entries) for the JSON line."""
+    cases = {name: _dc_case(name, dev) for name in DC_CASES}
+
+    # --- build deer: one nvcc per generated DEER source, all together ---------
+    progs = {name: fcirc.prepare(c[0], c[1], dev, input_node=c[2]).prog
+             for name, c in cases.items()}
+    deers = {name: cg.deer_program(cases[name][0], prog) for name, prog in progs.items()}
+    # the DEER sources, and the exact recursion's (B7) that the phase holds
+    # them against
+    sources = [d.source for d in deers.values()] + [prog.source for prog in progs.values()]
+    builds = _build.build_generated.builds
+    t0 = time.perf_counter()
+    _build.build_generated(sources)
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _build.build_generated(sources)
+    cached_s = time.perf_counter() - t0
+    print(f"phase build deer sources={len(set(sources))} (B9 {len(deers)}, B7 {len(progs)}) "
+          f"nvcc_runs="
+          f"{_build.build_generated.builds - builds} cold_seconds={cold_s:.2f} "
+          f"cached_seconds={cached_s:.4f}", flush=True)
+    for name, d in deers.items():
+        print(f"  ptxas deer {name} states={d.n_state} deer_step_ops={d.ops_per_sample} "
+              f"forward_step_ops={d.step_ops} {_generated_ptxas(d.source)}", flush=True)
+
+    # --- kernels deer circuit: B9 against plain and the exact recursion --------
+    builds = _build.build_generated.builds
+    plain_errs = {"circuit": [], "neural": []}
+    unconverged = []
+    k = 0
+    for name, case in cases.items():
+        kind = name.split("_")[0]
+        for T in DC_T:
+            k += 1
+            vin = _dc_input(name, T, seed + 100 + k, dev)
+            out, st, res, n = _dc_solve(case, vin)
+            p_out, p_st, p_res, p_n = _dc_solve(case, vin, plain=True)
+            e_out, e_st = _dc_exact(case, vin)
+            torch.cuda.synchronize()
+            vs_plain = max(_max_err(out, p_out), _state_err(st, p_st))
+            vs_exact = max(_max_err(out, e_out), _state_err(st, e_st))
+            plain_exact = max(_max_err(p_out, e_out), _state_err(p_st, e_st))
+            res, p_res, n, p_n = (float(x) for x in (res, p_res, n, p_n))
+            budget = DC_BUDGET[kind]
+            converged = p_res < 1e-3
+            plain_errs["neural" if case[3] else "circuit"].append(vs_plain)
+            print(f"phase kernels deer circuit {name} T={T} sweeps_run={n:g} plain_sweeps_run="
+                  f"{p_n:g} vs_plain={vs_plain:.3e} vs_exact={vs_exact:.3e} plain_vs_exact="
+                  f"{plain_exact:.3e} budget={budget:g} residual={res:.3e} plain_residual="
+                  f"{p_res:.3e} converged={converged}", flush=True)
+            _check(bool(torch.isfinite(out).all()) and out.shape == vin.shape,
+                   f"B9 {name} T={T} output finite, shaped")
+            _check(n == p_n, f"B9 {name} T={T} runs as many sweeps as its plain version")
+            if converged:
+                _check(vs_plain <= budget and vs_exact <= budget and res < 1e-3,
+                       f"B9 {name} T={T} within {budget:g} of plain and of the exact recursion")
+            else:  # same algorithm: the same trajectory, flagged in both versions
+                unconverged.append(f"{name}/{T}")
+                _check(vs_plain <= DC_UNCONVERGED_BUDGET and res > 1e-3,
+                       f"B9 {name} T={T} within {DC_UNCONVERGED_BUDGET:g} of plain, flagged "
+                       "by its residual as plain is")
+    print(f"phase kernels deer circuit cases={k} unconverged(plain residual >= 1e-3)="
+          f"{unconverged}", flush=True)
+    # adaptive: the HPF exits early, at the granularity of 4, after the JAX
+    # kernel's count on the same block (tests/test_torch_deer_circuit.py:
+    # numpy seed 2, 0.5 N(0, 1): the update drops from 4e-5 to 2.5e-6 at 20)
+    hpf = cases["hpf"]
+    quiet = torch.from_numpy((0.5 * np.random.default_rng(2).standard_normal(2048))
+                             .astype(np.float32)).to(dev)
+    _, _, res, n = _dc_solve(hpf, quiet)
+    _, _, p_res, p_n = _dc_solve(hpf, quiet, plain=True)
+    n, p_n = float(n), float(p_n)
+    print(f"phase kernels deer circuit hpf adaptive numpy_seed=2 amplitude=0.5 T=2048 "
+          f"sweeps_run={n:g} plain_sweeps_run={p_n:g} (JAX kernel: 20) cap=48", flush=True)
+    _check(n == p_n == 20, "the adaptive HPF exits early as its plain version and JAX's")
+    # hard overdrive: the Tube Screamer on 4 N(0, 1), 8 sweeps
+    vin = 4.0 * torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(2048)
+                                 .astype(np.float32)).to(dev)
+    out, st, res, _ = _dc_solve(cases["ts"], vin)
+    p_out, p_st, p_res, _ = _dc_solve(cases["ts"], vin, plain=True)
+    e_out, _ = _dc_exact(cases["ts"], vin)
+    err = _max_err(out, e_out)
+    vs_plain = max(_max_err(out, p_out), _state_err(st, p_st))
+    print(f"phase kernels deer circuit ts hard_overdrive amplitude=4 T=2048 residual="
+          f"{float(res):.3e} plain_residual={float(p_res):.3e} (must exceed the fallback "
+          f"tolerance 1e-03) vs_exact={err:.3e} vs_plain={vs_plain:.3e} "
+          f"budget={DC_UNCONVERGED_BUDGET:g}", flush=True)
+    _check(float(res) > 1e-3 and float(p_res) > 1e-3 and float(res) > err / 100,
+           "the residual certificate flags a hard-overdrive block")
+    _check(vs_plain <= DC_UNCONVERGED_BUDGET, "B9 holds to its plain version on a flagged block")
+    # a drive change: a new slot value, no nvcc (a 440 Hz tone at 0.02, as
+    # the circuit path's drive check)
+    ts, ts_params = cases["ts"][:2]
+    tone = 0.02 * torch.sin(2 * np.pi * 440.0 * torch.arange(2048, device=dev) / FS)
+    dc.fused_deer_circuit(ts, ts_params, tone, static_controls={"R6": {"R": drive_to_r6(0.5)}})
+    drive_builds, gains = _build.build_generated.builds, []
+    for drive in (0.0, 1.0):
+        out = dc.fused_deer_circuit(ts, ts_params, tone,
+                                    static_controls={"R6": {"R": drive_to_r6(drive)}})[0]
+        gains.append(float(out[1024:].abs().max() / tone.abs().max()))
+    print(f"phase kernels deer circuit ts drive 0.0->1.0 peak_gain={gains[0]:.3f}->{gains[1]:.3f} "
+          f"nvcc_runs={_build.build_generated.builds - drive_builds} (kernels phase nvcc_runs="
+          f"{drive_builds - builds}: the static-control source)", flush=True)
+    _check(_build.build_generated.builds == drive_builds, "a drive change runs no nvcc")
+    _check(drive_builds - builds == 1, "the kernels phase ran only built kernels")
+    _check(gains[1] > 2.0 * gains[0], "more drive, more gain")
+
+    # --- stream plugin: the main path, counted ---------------------------------
+    n_samples = STREAM_BLOCKS * STREAM_BLOCK
+    audio = np.zeros((2, n_samples), np.float32)
+    audio[:, :int(FS)] = _strum(seed, int(FS))
+    blocks = [audio[:, i * STREAM_BLOCK:(i + 1) * STREAM_BLOCK] for i in range(STREAM_BLOCKS)]
+    procs = {"plugin": {e: make_plugin_processor(FS, engine=e, device=dev)
+                        for e in ("deer", "scan")},
+             "hpf": {e: make_hpf_processor(FS, engine=e, device=dev) for e in ("deer", "scan")},
+             "clipper": {e: make_clipper_processor(FS, engine=e, device=dev)
+                         for e in ("deer", "scan")}}
+    builds = _build.build_generated.builds
+    t0 = time.perf_counter()
+    warm = {(k, e): p.warmup([STREAM_BLOCK]) for k, d in procs.items() for e, p in d.items()}
+    print(f"phase stream plugin warmup seconds={time.perf_counter() - t0:.2f} nvcc_runs="
+          f"{_build.build_generated.builds - builds} n_compiled="
+          f"{ {f'{k}/{e}': w['n_compiled'] for (k, e), w in warm.items()} }", flush=True)
+    builds = _build.build_generated.builds
+    for c in (dc.fused_deer_circuit, dc.fused_deer_neural, pd.fused_deer_clipper,
+              fcirc.fused_circuit_process, fc.fused_clipper_analytic, fc.fused_clipper_neural):
+        c.launches = 0
+    deer, scan = procs["plugin"]["deer"], procs["plugin"]["scan"]
+    scan_of = {(g, m): ({"B2": 1} if g == "clipper" and m < 2 else
+                        {"B7": 1} if g == "tube_screamer" else {"B1": 1})
+               for g, m in PLUGIN_MEMBERS}
+    deer_of = {(g, m): ({"B5": 1} if g == "clipper" and m < 2 else
+                        {"B9": 1} if (g, m) == ("tube_screamer", 0) else {"B9n": 1})
+               for g, m in PLUGIN_MEMBERS}
+    errs, wrong, outs, residuals, flagged = {}, [], {}, {}, []
+    t0 = time.perf_counter()
+    for i, blk in enumerate(blocks):
+        group, model, gain, knobs = _plugin_block(i)
+        key = f"{group}/{model}"
+        fallbacks = deer.fallbacks.get(key, 0)
+        got = {name: _counted(lambda name=name, proc=proc: outs.__setitem__(
+            name, proc.process_block(blk, group, model=model, gain_db=gain, **knobs)))
+            for name, proc in (("deer", deer), ("scan", scan))}
+        # a block whose residual the kernel flags is served again by the
+        # exact engine from the same state (the JAX processor's contract):
+        # its one DEER launch, then the exact engine's one
+        want = dict(deer_of[(group, model)])
+        if deer.fallbacks.get(key, 0) > fallbacks:
+            flagged.append((i, key, float(f"{deer.last_residual[key]:.3e}")))
+            want.update(scan_of[(group, model)])
+        if got != {"deer": want, "scan": scan_of[(group, model)]}:
+            wrong.append((i, got))
+        errs[key] = max(errs.get(key, 0.0), float(np.abs(outs["deer"] - outs["scan"]).max()))
+        residuals[key] = max(residuals.get(key, 0.0), deer.last_residual[key])
+        _check(outs["deer"].shape == (2, STREAM_BLOCK) and np.isfinite(outs["deer"]).all()
+               and np.array_equal(outs["deer"][0], outs["deer"][1]),
+               "served block finite, stereo, fanned out from mono")
+    stream_s = time.perf_counter() - t0
+    print(f"phase stream plugin deer+scan blocks={STREAM_BLOCKS}x{STREAM_BLOCK} stereo fs={FS:g} "
+          f"members={len(errs)} seconds={stream_s:.3f} deer_vs_scan max_abs_err="
+          f"{max(errs.values()):.3e} budget={PLUGIN_BUDGET:g} by_member="
+          f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } max_residual_by_member="
+          f"{ {k: float(f'{v:.3e}') for k, v in residuals.items()} } flagged_blocks(block, "
+          f"member, residual)={flagged} wrong_launch_blocks={wrong}", flush=True)
+    _check(len(errs) == len(PLUGIN_MEMBERS), "every plugin member served")
+    _check(max(errs.values()) <= PLUGIN_BUDGET, "plugin deer serves the scan's output")
+    _check(not wrong, "every served block is one kernel launch (a flagged block: one more, the "
+                      "exact engine's)")
+    _check(sum(v for k, v in deer.fallbacks.items() if "/" in k) == len(flagged)
+           <= len(PLUGIN_FLAGGED_SEED0), "the exact engine serves only the flagged blocks, a few")
+    if seed == 0:
+        _check({i: key for i, key, _ in flagged} == PLUGIN_FLAGGED_SEED0,
+               "the flagged blocks are the strum's attack through the known members")
+    odd = blocks[5][:, :1000]
+    odd_launch = {name: _counted(lambda name=name, proc=proc: outs.__setitem__(
+        name, proc.process_block(odd, "tube_screamer", model=0, gain_db=3.0)))
+        for name, proc in (("deer", deer), ("scan", scan))}
+    print(f"phase stream plugin odd_block T=1000 tube_screamer/0 residual="
+          f"{deer.last_residual['tube_screamer/0']} launches={odd_launch}", flush=True)
+    _check(deer.last_residual["tube_screamer/0"] == 0.0
+           and odd_launch == {"deer": {"B7": 1}, "scan": {"B7": 1}},
+           "a 1000-sample block is served by B7 at B=1")
+    # the HPF processor's four members, two blocks each
+    hd, hs = procs["hpf"]["deer"], procs["hpf"]["scan"]
+    h_err, h_launch = {}, []
+    for i, member in enumerate(("toms", "approx", "extrapolated", "trained")):
+        for j in range(2):
+            blk = blocks[2 * i + j + 1]
+            got = {name: _counted(lambda name=name, proc=proc: outs.__setitem__(
+                name, proc.process_block(blk, "hpf", model=member, gain_db=3.0,
+                                         cutoff_hz=(200.0, 800.0)[j])))
+                   for name, proc in (("deer", hd), ("scan", hs))}
+            h_launch.append(got == {"deer": {"B9n" if i > 1 else "B9": 1}, "scan": {"B7": 1}})
+            h_err[member] = max(h_err.get(member, 0.0),
+                                float(np.abs(outs["deer"] - outs["scan"]).max()))
+    print(f"phase stream hpf deer_vs_scan by_member="
+          f"{ {k: float(f'{v:.3e}') for k, v in h_err.items()} } budget={HPF_BUDGET:g} "
+          f"residuals={ {k: float(f'{v:.3e}') for k, v in hd.last_residual.items()} } "
+          f"fallbacks={hd.fallbacks} one_launch_per_block={all(h_launch)}", flush=True)
+    _check(max(h_err.values()) <= HPF_BUDGET and all(h_launch) and hd.fallbacks == {},
+           "the HPF processor's deer engine serves the scan's output in one launch")
+    # the clipper processor's neural member under deer
+    nd, ns = procs["clipper"]["deer"], procs["clipper"]["scan"]
+    n_err = []
+    for j in range(3):
+        blk = blocks[j + 2]
+        got = {name: _counted(lambda name=name, proc=proc: outs.__setitem__(
+            name, proc.process_block(blk, "clipper", model="neural_2x16", gain_db=6.0,
+                                     cutoff_hz=3000.0)))
+               for name, proc in (("deer", nd), ("scan", ns))}
+        _check(got == {"deer": {"B9n": 1}, "scan": {"B1": 1}}, "one launch serves neural_2x16")
+        n_err.append(float(np.abs(outs["deer"] - outs["scan"]).max()))
+    print(f"phase stream clipper neural_2x16 deer_vs_scan={max(n_err):.3e} "
+          f"budget={NEURAL_BUDGET:g} residual={nd.last_residual['neural_2x16']:.3e} "
+          f"fallbacks={nd.fallbacks}", flush=True)
+    _check(max(n_err) <= NEURAL_BUDGET and nd.fallbacks == {}
+           and nd.last_residual["neural_2x16"] < 1e-4, "the neural clipper under deer")
+    launches = _all_launches()  # the main path's count
+    print(f"phase stream plugin launches={launches} nvcc_runs="
+          f"{_build.build_generated.builds - builds}", flush=True)
+    _check(all(v > 0 for v in launches.values()), "every single-stream kernel launched")
+    _check(_build.build_generated.builds == builds, "no served block ran nvcc after warmup")
+
+    # --- timing deer circuit ----------------------------------------------------
+    def launch_only(case, vin, **kw):
+        """B9's launch alone, on arguments and outputs prepared once."""
+        ckt, params, node, neural, skw, _ = case
+        skw = {**skw, **kw}
+        mlp = params[ckt.root.name] if neural else None
+        prep = fcirc.prepare(ckt, params, dev, input_node=node, neural_mlp=mlp)
+        s0 = dc._state_vector(prep, ckt, None, vin)
+        return dc.launcher(ckt, prep, vin, s0, vin.shape[0] // dc.NB, skw.get("sweeps", 8),
+                           skw.get("relax_passes", 2), skw.get("damping", 1.0),
+                           skw.get("adapt_tol", 0.0),
+                           dc.fused_deer_neural if neural else dc.fused_deer_circuit)
+
+    timing = {}
+    bench = torch.from_numpy((2.0 * np.random.default_rng(seed + 9).standard_normal(16384))
+                             .astype(np.float32)).to(dev)  # bench.py:647-651, 723-726
+    rows = [("ts", "ts", _dc_input("ts", 2048, seed + 4, dev), {}),
+            ("ts bench", "ts", bench, {"sweeps": 10, "relax_passes": 4}),
+            ("ts_2x16", "ts_2x16", _dc_input("ts", 2048, seed + 4, dev), {}),
+            ("hpf fixed", "hpf", _dc_input("hpf", 16384, seed + 5, dev), {"adapt_tol": 0.0}),
+            ("hpf adaptive", "hpf", _dc_input("hpf", 16384, seed + 5, dev), {}),
+            ("clip_2x16", "clip_2x16", _dc_input("clip", 2048, seed + 6, dev), {})]
+    for label, name, vin, kw in rows:
+        case = cases[name]
+        fn = launch_only(case, vin, **kw)
+        _cuda_ms(fn, 1, 2)  # warm-up
+        kms = _cuda_ms(fn, REPS, 10)
+        t0 = time.perf_counter()
+        _, _, p_res, p_n = _dc_solve(case, vin, plain=True, **kw)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        _, _, res, n = _dc_solve(case, vin, **kw)
+        res, n = float(res), float(n)
+        skw = {**case[4], **kw}
+        d = deers[name]
+        T = vin.shape[0]
+        ops = _dc_ops(d, T, int(n), skw.get("relax_passes", 2), skw.get("damping", 1.0),
+                      skw.get("adapt_tol", 0.0))
+        bound = _bound(ops, 8 * T + 8 * d.n_state + 8)
+        timing[label] = (statistics.median(kms), p_ms, bound)
+        print(f"phase timing deer circuit {label} T={T} sweeps_run={n:g} runs={REPS} "
+              f"kernel_ms={statistics.median(kms):.4f} [{min(kms):.4f}, {max(kms):.4f}] "
+              f"(10 launches per run) plain_ms={p_ms:.1f} (host clock, one run) residual="
+              f"{res:.3e} ops={ops} bound_ms={bound[0]:.6f} ({bound[1]}) "
+              f"share={bound[0] / statistics.median(kms):.5f} card={card!r}", flush=True)
+    block_audio_ms = STREAM_BLOCK / FS * 1e3
+    x0 = blocks[1]
+    served = [("plugin", e, g, m, kw) for e in ("deer", "scan")
+              for g, m, kw in (("clipper", 0, {"cutoff_hz": 4000.0}),
+                               ("clipper", 4, {"cutoff_hz": 4000.0}),
+                               ("multi_diode_clipper", 0, {"cutoff_hz": 4000.0}),
+                               ("tube_screamer", 0, {"drive": 0.5}),
+                               ("tube_screamer", 1, {"drive": 0.5}))]
+    served += [("hpf", e, "hpf", m, {"cutoff_hz": 4000.0}) for e in ("deer", "scan")
+               for m in ("toms", "trained")]
+    served += [("clipper", e, "clipper", "neural_2x16", {"cutoff_hz": 4000.0})
+               for e in ("deer", "scan")]
+    for proc_name, engine, group, model, kw in served:
+        proc = procs[proc_name][engine]
+        member = model if isinstance(model, str) else f"{group}/{model}"
+
+        def serve():
+            proc.process_block(x0, group, model=model, **kw)
+
+        serve()
+        fallbacks = proc.fallbacks.get(member, 0)
+        wall = []
+        for _ in range(WALL_REPS):
+            t0 = time.perf_counter()
+            serve()
+            wall.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(wall)
+        fell = proc.fallbacks.get(member, 0) - fallbacks
+        # where a block's time goes: the device's share, and the host's
+        # largest self-time operations
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                serve()
+        dev_events = [ev for ev in prof.events()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA]
+        dev_us = sum(ev.time_range.elapsed_us() for ev in dev_events) / 10
+        kernel_us = sum(ev.time_range.elapsed_us() for ev in dev_events if any(
+            k in ev.name for k in ("deer_kernel", "circuit_kernel", "deer_clipper_kernel",
+                                   "analytic_kernel", "neural_kernel"))) / 10
+        host = sorted((ev for ev in prof.key_averages() if ev.self_cpu_time_total > 0),
+                      key=lambda ev: -ev.self_cpu_time_total)[:3]
+        print(f"phase timing stream {proc_name} engine={engine} {member} "
+              f"block={STREAM_BLOCK} process_block_wall_ms={ms:.4f} [{min(wall):.4f}, "
+              f"{max(wall):.4f}] real_time_factor={block_audio_ms / ms:.2f} fallbacks="
+              f"{fell}/{WALL_REPS} residual={proc.last_residual[member]:.3e} per block (profiled, "
+              f"10 blocks): device_ops={len(dev_events) / 10:g} device_us={dev_us:.1f} "
+              f"serving_kernels_us={kernel_us:.1f} "
+              f"device_busy_share={dev_us / 1e3 / ms:.3f} host_top_self_us="
+              f"{ {ev.key: round(ev.self_cpu_time_total / 10, 1) for ev in host} } "
+              f"card={card!r}", flush=True)
+    records = []
+    for entry, label in (("circuit", "ts bench"), ("neural", "clip_2x16")):
+        kms, p_ms, bound = timing[label]
+        records.append({
+            "name": f"fused_deer_{entry}", "route": "cuda", "source": CIRCUIT_SOURCE,
+            "replaces": DC_REPLACES[entry],
+            "launches": launches["B9" if entry == "circuit" else "B9n"],
+            "max_abs_err": max(plain_errs[entry]), "ms": kms, "plain_ms": p_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None})
+    return records
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of the input signals")
@@ -1684,7 +2186,8 @@ def main() -> None:
 
     kernels = (serve_path(dev, card, args.seed) + train_path(dev, card, args.seed)
                + stream_path(dev, card, args.seed) + circuit_path(dev, card, args.seed)
-               + generic_train_path(dev, card, args.seed))
+               + generic_train_path(dev, card, args.seed)
+               + deer_circuit_path(dev, card, args.seed))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

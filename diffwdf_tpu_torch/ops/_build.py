@@ -9,8 +9,8 @@ objects into one shared library with a plain C interface and loads it with
 an unchanged one is loaded as it is.  Nothing is compiled when the module is
 imported.
 
-Generated sources (``ops.circuit_codegen``, a forward and an adjoint per
-circuit structure) take another path: ``generated_library(source)`` writes
+Generated sources (``ops.circuit_codegen``, a forward, an adjoint and a DEER
+solve per circuit structure) take another path: ``generated_library(source)`` writes
 the source into the same directory, compiles it alone into its own library
 with the same flags (the
 headers of ``csrc/`` on the include path) and keys it by a hash of the
@@ -141,10 +141,13 @@ def check(err: int, what: str, error_string=None) -> None:
 # ---------------------------------------------------------------------------
 
 #: C signatures of the generated circuit kernel libraries (a forward source
-#: exports circuit_launch, an adjoint source circuit_adjoint_launch)
+#: exports circuit_launch, an adjoint source circuit_adjoint_launch, a DEER
+#: source circuit_deer_launch)
 _GENERATED_SIGNATURES = {
     "circuit_launch": ([_vp] * 5 + [_i, _i] + [_vp] * 4 + [_i, _vp], ctypes.c_int),
     "circuit_adjoint_launch": ([_vp] * 7 + [_i, _i] + [_vp] * 4 + [_i, _vp], ctypes.c_int),
+    "circuit_deer_launch": ([_vp] * 6 + [_i] + [_vp] * 2 + [_i] * 4 + [_f] * 2 + [_i, _vp],
+                            ctypes.c_int),
     "circuit_error_string": ([_i], ctypes.c_char_p),
 }
 

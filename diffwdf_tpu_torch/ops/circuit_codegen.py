@@ -1,13 +1,18 @@
 """Generate the CUDA C++ sources of the fused kernels of a WDF `Circuit`.
 
-Two kernels per circuit structure, one thread per stream each:
+Three kernels per circuit structure:
 
 - the **forward** (``CircuitProgram.source``, ``ops.fused_circuit``): the
-  circuit's whole sample recursion over a batch of streams, optionally
-  writing the pre-step state trajectory z_{t-1} (the residual of training);
+  circuit's whole sample recursion over a batch of streams, one thread per
+  stream, optionally writing the pre-step state trajectory z_{t-1} (the
+  residual of training);
 - the **adjoint** (``AdjointProgram.source``, ``ops.parallel_bptt``): the
   reverse-time recursion lam_{t-1} = J_t^T lam_t + A_t^T obar_t of training,
-  walking t = T-1 ... 0 over the stored trajectory.
+  walking t = T-1 ... 0 over the stored trajectory, one thread per stream;
+- the **DEER solve** (``DeerProgram.source``, ``ops.deer_circuit``): one
+  stream's recursion solved parallel in time by Newton sweeps over the
+  whole trajectory, one CTA, its step writing f and the S x S state
+  Jacobian from S forward-mode tangents (``generate_deer``).
 
 The per-sample steps are generated by **tracing** the circuit's own pure
 step: the tree's ``reflected`` / ``incident`` methods (``core``) run once on
@@ -30,7 +35,10 @@ with coefficient slots.  The root's derivative m = db/da is computed once
 per step at the primal a (the diode pair's derivative through
 ``omega_slope``, the NxH MLP's by ``nxh_tangent``) and the S + 1 pulls of
 the root are db = m da.  The cotangents are then contracted with the carried
-lam and the output's cotangent: the kernel never forms J_t.
+lam and the output's cotangent: the kernel never forms J_t.  The DEER step
+is the same trace with the S state directions only, its primal f and its
+tangents J written out; there the root's value and slope come from one
+pass (``emit_value_slope``: one omega pair, or ``nxh_forward_tangent``).
 
 What a source depends on: the tree's topology and node names, the root's
 kind and shape (the omega iteration count; the MLP's H and L; the Chebyshev
@@ -453,6 +461,12 @@ class _RootEmitter:
                    params) -> Sym:
         raise NotImplementedError
 
+    def emit_value_slope(self, tr: _Trace, a: Sym, r_up: Sym, slots: List[Sym], controls,
+                         params) -> Tuple[Sym, Sym]:
+        """(b, m = db/da) at a from one evaluation, for a step that needs
+        both (the DEER step)."""
+        raise NotImplementedError
+
     def plain(self, a, r_up, slots, array, controls, params):
         raise NotImplementedError
 
@@ -547,15 +561,26 @@ class _DiodePairEmitter(_RootEmitter):
                       f"__fmul_rn({s['mu1']}, {s['w1']}))))", 6, "root")
 
     def emit_slope(self, tr, a, r_up, slots, controls, params):
+        tr.raw("// root slope: d/da of the diode pair, omega' = 1 / (1 + 1/omega)")
+        return self._slope(tr, self._core(tr, a, r_up, slots))
+
+    def _slope(self, tr, s):
         # db/da = 1 - 2 Vt lam (mu0 w0' lam inv0 + mu1 w1' lam inv1), w' the
         # implicit derivative of omega (omega_slope), JAX's custom jvp
-        tr.raw("// root slope: d/da of the diode pair, omega' = 1 / (1 + 1/omega)")
-        s = self._core(tr, a, r_up, slots)
         terms = [tr.let(f"__fmul_rn(__fmul_rn({s[mu]}, __fmul_rn({s['lam']}, {s[inv]})), "
                         f"omega_slope({s[w]}))", 6, "d").ref
                  for mu, inv, w in (("mu0", "inv0", "w0"), ("mu1", "inv1", "w1"))]
         return tr.let(f"__fsub_rn(1.f, __fmul_rn(__fmul_rn({s['two_vt']}, {s['lam']}), "
                       f"__fadd_rn({terms[0]}, {terms[1]})))", 4, "slope")
+
+    def emit_value_slope(self, tr, a, r_up, slots, controls, params):
+        tr.raw(f"// root: asymmetric diode pair and its slope, omega.cuh with {self.iters} "
+               "Newton iterations, one omega pair for both")
+        s = self._core(tr, a, r_up, slots)
+        b = tr.let(f"__fsub_rn({a.ref}, __fmul_rn(__fmul_rn({s['two_vt']}, {s['lam']}), "
+                   f"__fsub_rn(__fmul_rn({s['mu0']}, {s['w0']}), "
+                   f"__fmul_rn({s['mu1']}, {s['w1']}))))", 6, "root")
+        return b, self._slope(tr, s)
 
     def plain(self, a, r_up, slots, array, controls, params):
         if self.r_kind == "time":
@@ -656,6 +681,18 @@ class _NeuralEmitter(_RootEmitter):
         return tr.let(f"-nxh_tangent<{H}>({a.ref}, w, {c1}, w + {self._hidden}, {self.L}, "
                       f"w + {self._head})", self.slope_ops, "slope")
 
+    def emit_value_slope(self, tr, a, r_up, slots, controls, params):
+        H = self.H
+        tr.raw(f"// root and slope: -MLP and -dMLP/da in one pass by nxh_forward_tangent, "
+               f"H = {H}, {self.L} hidden layers")
+        c1 = self._c1(tr, r_up)
+        # one statement fills both: [0] = b, [1] = m
+        pair = tr.decl(f"float {{name}}[2]; {{name}}[0] = -nxh_forward_tangent<{H}>("
+                       f"{a.ref}, w, {c1}, w + {self._hidden}, {self.L}, w + {self._head}, "
+                       f"w[{self._head + H}], {{name}}[1]); {{name}}[1] = -{{name}}[1];",
+                       self.slope_ops + 2 * H, "mlp")
+        return tr.let(f"{pair}[0]", 0, "root"), tr.let(f"{pair}[1]", 0, "slope")
+
     def plain(self, a, r_up, slots, array, controls, params):
         W1, b1, hidden, w3, b3 = self._layers()
         if self.r_kind == "scalar":
@@ -696,6 +733,11 @@ class _ChebEmitter(_RootEmitter):
         raise NotImplementedError(
             "fused_circuit adjoint: the distilled PiecewiseChebRoot has no tangent emitter "
             "(ROADMAP.md queue A); train the analytic or neural root and distill it after")
+
+    def emit_value_slope(self, tr, a, r_up, slots, controls, params):
+        raise NotImplementedError(
+            "fused_deer_circuit: the distilled PiecewiseChebRoot has no slope emitter, so its "
+            "DEER Jacobian cannot be generated; serve the distilled root with the scan engine")
 
     def plain(self, a, r_up, slots, array, controls, params):
         root = self.root
@@ -1333,11 +1375,388 @@ extern "C" void circuit_adjoint_host_run(const float* vin, const float* gout, co
                           ops_per_sample=ops)
 
 
+# ---------------------------------------------------------------------------
+# The DEER program (single-stream parallel-in-time solve)
+# ---------------------------------------------------------------------------
+
+#: the DEER kernel's time partition (the JAX kernel's 8 x 128 blocks) and its
+#: one CTA: each thread owns DEER_BLOCKS // DEER_THREADS consecutive blocks
+DEER_BLOCKS, DEER_THREADS = 1024, 256
+
+
+@dataclasses.dataclass(frozen=True)
+class DeerProgram:
+    """The generated DEER kernel of one circuit structure (scalar slots
+    only; the layout is its forward program's)."""
+
+    source: str            # the whole .cu: both steps, the kernel, the launch function
+    host_source: str       # the forward and DEER steps and a host loop of the DEER step (tests)
+    n_state: int
+    ops_per_sample: int    # the DEER step (f and J), counted from the emitted code
+    step_ops: int          # the forward step (relaxation and emit passes)
+
+    def scratch_floats(self, T: int) -> int:
+        """Global scratch of one solve: the input, the trajectory and the
+        within-block prefixes (S^2 + S), T floats each."""
+        S = self.n_state
+        return (1 + S + S * S + S) * T
+
+
+def generate_deer(circuit: Circuit, prog: CircuitProgram) -> DeerProgram:
+    """The DEER step and kernel of ``prog``'s circuit structure: per step,
+    from v_t and z_{t-1}, f = F(z_{t-1}, v_t) and its state Jacobian
+    J = dF/dz (S x S, row-major) by S forward-mode tangents of the traced
+    step (the states only; the first tangent pass's primal is f, as in the
+    JAX kernel).  The relaxation and emit passes run the forward program's
+    ``circuit_step``."""
+    emitter = prog.emitter
+    if prog.n_rows or prog.n_times or emitter.r_kind != "scalar":
+        raise ValueError("fused_deer_circuit serves one stream: scalar coefficient slots only "
+                         "(pots are block-rate static controls, not per-row or per-sample)")
+    order = prog.state_order
+    S = len(order)
+    if S == 0:
+        raise ValueError("fused_deer_circuit: a stateless circuit needs no parallel-in-time solve")
+    tr = _Trace()
+    (coeffs_s, params_s, static_s), root_slots, _, _ = _symbols(tr, prog.layout, emitter)
+    one = tr.const(1.0)
+    state = _nest([((node, field), Dual(Sym(tr, f"s{k}"), tuple(one if i == k else None
+                                                                 for i in range(S))))
+                   for k, (node, field) in enumerate(order)])
+
+    def root_fn(a, r_up, ctl):
+        if emitter.traced:
+            return emitter.emit(tr, a, r_up, root_slots, ctl, params_s)
+        a = _dual(a, S)
+        b, m = emitter.emit_value_slope(tr, a.p, r_up, root_slots, ctl, params_s)
+        return Dual(b, (_tmul(d, m) for d in a.d))
+
+    new_state, out = step(circuit, coeffs_s, state,
+                          _controls(static_s, prog.input_node, Sym(tr, "v")), root_fn)
+    out = out.p if isinstance(out, Dual) else out
+    out = out if isinstance(out, Sym) else tr.const(float(out))
+    new = [_dual(new_state[node][field], S) for node, field in order]
+    writes = [f"f[{i}] = {new[i].p.ref};" for i in range(S)]
+    writes += [f"J[{i * S + k}] = {new[i].d[k].ref if new[i].d[k] is not None else '0.f'};"
+               for i in range(S) for k in range(S)]
+    _, ops = tr.live(" ".join(writes))  # what a sweep needs: the output is not counted
+    lines, _ = tr.live(" ".join(writes + [out.ref]))
+    used = set(_WORD.findall(" ".join(lines + writes + [out.ref])))
+    reads = [f"const float s{k} = z[{k}];" for k in range(S) if f"s{k}" in used]
+    body = "\n".join("  " + line for line in reads + lines + writes)
+    deer_step = f"""
+// Generated by diffwdf_tpu_torch.ops.circuit_codegen: the DEER step of the
+// structure above, traced on dual symbols with {S} tangents (one per state).
+// Operations per sample (counted from the emitted f and J lines): {ops}
+namespace {{
+
+// One linearisation: v = v_t, z[CIRCUIT_NS] = z_(t-1); writes f = F(z, v)
+// and J[i * CIRCUIT_NS + k] = dF_i / dz_k, returns the output.  Plain C, as
+// circuit_step.
+__device__ __forceinline__ float circuit_deer_step(float v, const float* z, float* f, float* J,
+                                                   const float* c, const float* w,
+                                                   const float* p) {{
+  (void)v;
+  (void)z;
+  (void)c;
+  (void)w;
+  (void)p;
+{body}
+  return {out.ref};
+}}
+
+}}  // namespace
+"""
+    kernel = f"""
+#include "deer_scan.cuh"
+
+// The whole single-stream DEER solve of one block of T = 1024 L samples in
+// one launch of one CTA.  Replaces the Pallas TPU kernel
+// diffwdf_tpu/ops/deer_circuit.py, fused_deer_circuit / fused_deer_neural.
+//
+// Time is cut into {DEER_BLOCKS} contiguous blocks of L samples (the JAX
+// kernel's partition, which decides what a relaxation and a sweep compute);
+// each of the {DEER_THREADS} threads owns {DEER_BLOCKS // DEER_THREADS} consecutive blocks, so
+// that a thread may hold up to 255 registers (__launch_bounds__({DEER_THREADS}, 1)):
+// the Tube Screamer's steps need well over the 64 that 1024 threads would
+// leave.  The kernel runs
+//   - relax_passes nonlinear block relaxations: every block re-runs the
+//     recursion (circuit_step) from the previous iterate's block start;
+//   - Newton sweeps: each block composes its rows' affine maps (J_t, c_t =
+//     f - J_t z_(t-1), from circuit_deer_step at the current guess) into
+//     within-block prefixes, each thread composes its blocks' totals, the CTA
+//     scans the thread totals (deer_scan.cuh), and each block applies its
+//     prefixes to its start state; the iterate is clamped to
+//     +-100 (max|v| + 1), then damped, z <- z_old + d (z_new - z_old).  With
+//     tol >= 0 (adapt_tol) the loop stops once the largest update of the
+//     last sweep of a trip of `unroll` sweeps falls below tol;
+//   - an emit pass: the probe output at the converged trajectory, the
+//     residual max|f(z_(t-1)) - z_t| (a convergence certificate), the final
+//     state and the sweeps run.
+// The input, the trajectory and the prefixes live in global scratch (T
+// floats each, (1 + 2 S + S^2) T in all, resident in L2) laid out
+// [r][j][t] for row r of block j of thread t, so that a row is one coalesced
+// access across the CTA.  __syncthreads() separates every read of a
+// neighbouring block's last z from the pass that rewrites z.  The
+// coefficient slots and the root array sit in shared memory.
+//
+// What bounds it: one SM's instruction rate and each thread's chain of
+// (blocks per thread) x L dependent steps per pass; the bytes (the input in,
+// the output out) are a few microseconds' worth at most.
+namespace {{
+
+constexpr int kBlocks = {DEER_BLOCKS};
+constexpr int kThreads = {DEER_THREADS};
+constexpr int kPer = kBlocks / kThreads;  // consecutive time blocks per thread
+constexpr int S = CIRCUIT_NS;
+using Map = DeerAffine<S>;
+
+__global__ void __launch_bounds__(kThreads, 1)
+deer_kernel(const float* __restrict__ vin, const float* __restrict__ z0, float* __restrict__ out,
+            float* __restrict__ zf, float* __restrict__ info, float* __restrict__ scratch, int L,
+            const float* __restrict__ coef, const float* __restrict__ warr, int n_warr,
+            int sweeps, int relax_passes, int unroll, float damping, float tol, int track) {{
+  extern __shared__ float smem[];
+  __shared__ Map s_tot[32];
+  __shared__ float s_red[32];
+  const int t = threadIdx.x;
+  float* s_coef = smem;
+  float* s_w = smem + ((CIRCUIT_NC + 3) & ~3);
+  for (int i = t; i < CIRCUIT_NC; i += kThreads) s_coef[i] = coef[i];
+  for (int i = t; i < n_warr; i += kThreads) s_w[i] = warr[i];
+  __syncthreads();
+  const float* c = s_coef;
+  const float* w = s_w;
+  float r_none[1] = {{0.f}}, q_none[1] = {{0.f}}, p[{max(emitter.n_keep, 1)}];
+  circuit_prologue(c, r_none, w, p);
+
+  const size_t T = static_cast<size_t>(L) * kBlocks;
+  // element (r, j) of this thread in a [r][j][t] array
+  auto at = [&](int r, int j) {{ return (static_cast<size_t>(r) * kPer + j) * kThreads + t; }};
+  float* V = scratch;
+  float* Z = scratch + T;                  // Z + k T: state k of the trajectory guess
+  float* JP = scratch + (1 + S) * T;       // JP + (i S + k) T: within-block prefix J
+  float* CP = scratch + (1 + S + S * S) * T;  // CP + i T: within-block prefix c
+  float s0[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) s0[k] = z0[k];
+  // the guess at the sample before block j's first: block j-1's last, the
+  // previous thread's last block's for j = 0, the initial state for block 0
+  auto block_start = [&](int j, float* z) {{
+    const size_t last = static_cast<size_t>(L - 1) * kPer + kPer - 1;  // (L - 1, kPer - 1)
+    const size_t i = j > 0 ? at(L - 1, j - 1) : last * kThreads + t - (t > 0);
+    if (j == 0 && t == 0) {{
+#pragma unroll
+      for (int k = 0; k < S; ++k) z[k] = s0[k];
+    }} else {{
+#pragma unroll
+      for (int k = 0; k < S; ++k) z[k] = Z[k * T + i];
+    }}
+  }};
+
+  // stage the input, zero the guess; a loose divergence backstop: generic
+  // circuits (op-amp stages) carry states far beyond the input range
+  float vmax = 0.f;
+  for (int j = 0; j < kPer; ++j) {{
+    const size_t b = static_cast<size_t>(t) * kPer + j;
+    for (int r = 0; r < L; ++r) {{
+      const float x = vin[b * L + r];
+      V[at(r, j)] = x;
+#pragma unroll
+      for (int k = 0; k < S; ++k) Z[k * T + at(r, j)] = 0.f;
+      vmax = deer_nanmax(vmax, fabsf(x));
+    }}
+  }}
+  const float v_bound = __fmul_rn(100.f, __fadd_rn(deer_block_max(vmax, s_red), 1.f));
+
+  for (int pass = 0; pass < relax_passes; ++pass) {{
+    float first[S];
+    block_start(0, first);  // the previous thread's block, read before any rewrite
+    __syncthreads();
+    // last block first: block j - 1's last row is still the old iterate
+#pragma unroll 1
+    for (int j = kPer - 1; j >= 0; --j) {{
+      float z[S];
+      if (j > 0) {{
+        block_start(j, z);
+      }} else {{
+#pragma unroll
+        for (int k = 0; k < S; ++k) z[k] = first[k];
+      }}
+      for (int r = 0; r < L; ++r) {{
+        circuit_step(V[at(r, j)], z, c, r_none, q_none, w, p);
+#pragma unroll
+        for (int k = 0; k < S; ++k) Z[k * T + at(r, j)] = z[k];
+      }}
+    }}
+    __syncthreads();  // the new iterate is visible to the neighbours
+  }}
+
+  // one Newton sweep; returns the CTA's largest state update when asked
+  auto sweep = [&](bool reduce) {{
+    Map total = deer_identity<S>();  // this thread's blocks, composed
+#pragma unroll 1
+    for (int j = 0; j < kPer; ++j) {{
+      float prev[S];
+      block_start(j, prev);  // z is not rewritten before the scan's barriers
+      Map acc = deer_identity<S>();
+      for (int r = 0; r < L; ++r) {{
+        const size_t i = at(r, j);
+        Map row;
+        float f[S];
+        circuit_deer_step(V[i], prev, f, row.J, c, w, p);
+#pragma unroll
+        for (int a = 0; a < S; ++a) {{
+          float jz = __fmul_rn(row.J[a * S], prev[0]);
+#pragma unroll
+          for (int k = 1; k < S; ++k) jz = __fadd_rn(jz, __fmul_rn(row.J[a * S + k], prev[k]));
+          row.c[a] = __fsub_rn(f[a], jz);
+        }}
+        acc = deer_compose(acc, row);
+#pragma unroll
+        for (int m = 0; m < S * S; ++m) JP[m * T + i] = acc.J[m];
+#pragma unroll
+        for (int a = 0; a < S; ++a) {{
+          CP[a * T + i] = acc.c[a];
+          prev[a] = Z[a * T + i];  // row r + 1 linearises at the guess z_r
+        }}
+      }}
+      total = deer_compose(total, acc);
+    }}
+    Map ex = deer_block_exclusive_scan(total, s_tot);  // the blocks before this thread's
+    float dmax = 0.f;
+#pragma unroll 1
+    for (int j = 0; j < kPer; ++j) {{
+      float zs[S];
+      deer_apply(ex, s0, zs);  // block j's start state
+      for (int r = 0; r < L; ++r) {{
+        const size_t i = at(r, j);
+#pragma unroll
+        for (int a = 0; a < S; ++a) {{
+          float zn = __fmul_rn(JP[a * S * T + i], zs[0]);
+#pragma unroll
+          for (int k = 1; k < S; ++k) zn = __fadd_rn(zn, __fmul_rn(JP[(a * S + k) * T + i], zs[k]));
+          zn = __fadd_rn(zn, CP[a * T + i]);
+          zn = zn < -v_bound ? -v_bound : (zn > v_bound ? v_bound : zn);  // NaN stays
+          const float zo = Z[a * T + i];
+          if (damping != 1.f) zn = __fadd_rn(zo, __fmul_rn(damping, __fsub_rn(zn, zo)));
+          if (track) dmax = deer_nanmax(dmax, fabsf(__fsub_rn(zn, zo)));
+          Z[a * T + i] = zn;
+        }}
+      }}
+      Map block;  // block j's total: its last prefix
+#pragma unroll
+      for (int m = 0; m < S * S; ++m) block.J[m] = JP[m * T + at(L - 1, j)];
+#pragma unroll
+      for (int a = 0; a < S; ++a) block.c[a] = CP[a * T + at(L - 1, j)];
+      ex = deer_compose(ex, block);
+    }}
+    __syncthreads();  // the new iterate is visible to the neighbours
+    return reduce ? deer_block_max(dmax, s_red) : 0.f;
+  }};
+
+  // trips of `unroll` sweeps; with track the last sweep's largest update is
+  // the exit test, so the sweeps run are a multiple of unroll
+  const float limit = track ? tol : -1.f;
+  int done = 0;
+  float delta = INFINITY;
+  while (done < sweeps && delta >= limit) {{
+    for (int q = 0; q < unroll; ++q) {{
+      const float d = sweep(track && q == unroll - 1);
+      if (q == unroll - 1) delta = d;
+    }}
+    done += unroll;
+  }}
+  done = min(done, sweeps);
+
+  float res = 0.f;
+#pragma unroll 1
+  for (int j = 0; j < kPer; ++j) {{
+    float prev[S];
+    block_start(j, prev);
+    for (int r = 0; r < L; ++r) {{
+      const size_t i = at(r, j);
+      float z[S];
+#pragma unroll
+      for (int k = 0; k < S; ++k) z[k] = prev[k];
+      const float y = circuit_step(V[i], z, c, r_none, q_none, w, p);
+#pragma unroll
+      for (int k = 0; k < S; ++k) {{
+        prev[k] = Z[k * T + i];
+        res = deer_nanmax(res, fabsf(__fsub_rn(z[k], prev[k])));
+      }}
+      out[(static_cast<size_t>(t) * kPer + j) * L + r] = y;
+    }}
+  }}
+  res = deer_block_max(res, s_red);
+  if (t == kThreads - 1) {{
+#pragma unroll
+    for (int k = 0; k < S; ++k) zf[k] = Z[k * T + at(L - 1, kPer - 1)];
+  }}
+  if (t == 0) {{
+    info[0] = res;
+    info[1] = static_cast<float>(done);
+  }}
+}}
+
+}}  // namespace
+
+extern "C" {{
+
+// One solve on `stream`: vin (T,), z0 (S,), out (T,), zf (S,), info (2,) =
+// (residual, sweeps run), scratch ({1 + 2 * S + S * S} T floats); T = 1024 L.
+int circuit_deer_launch(const float* vin, const float* z0, float* out, float* zf, float* info,
+                        float* scratch, int L, const float* coef, const float* warr, int n_warr,
+                        int sweeps, int relax_passes, int unroll, float damping, float tol,
+                        int track, void* stream) {{
+  if (L < 1 || sweeps < 0 || relax_passes < 0 || unroll < 1 || n_warr < 0) {{
+    return static_cast<int>(cudaErrorInvalidValue);
+  }}
+  const size_t smem = sizeof(float) * (static_cast<size_t>((CIRCUIT_NC + 3) & ~3) + n_warr);
+  if (smem > 48 * 1024) {{
+    const cudaError_t e = cudaFuncSetAttribute(
+        deer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }}
+  deer_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      vin, z0, out, zf, info, scratch, L, coef, warr, n_warr, sweeps, relax_passes, unroll,
+      damping, tol, track);
+  return static_cast<int>(cudaGetLastError());
+}}
+
+const char* circuit_error_string(int err) {{
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}}
+
+}}  // extern "C"
+"""
+    host = f"""
+// Host loop of the DEER step over n linearisation points (CPU tests):
+// z (S, n), v (n,) in; f (S, n), J (S * S, n), out (n,) out.
+extern "C" void circuit_deer_host_run(const float* z, const float* v, float* f, float* J,
+                                      float* out, int n, const float* c, const float* w) {{
+  for (long b = 0; b < n; ++b) {{
+    float r[1] = {{0.f}}, p[{max(emitter.n_keep, 1)}], zb[{S}], fb[{S}], Jb[{S * S}];
+    circuit_prologue(c, r, w, p);
+    for (int k = 0; k < {S}; ++k) zb[k] = z[k * n + b];
+    out[b] = circuit_deer_step(v[b], zb, fb, Jb, c, w, p);
+    for (int k = 0; k < {S}; ++k) f[k * n + b] = fb[k];
+    for (int m = 0; m < {S * S}; ++m) J[m * n + b] = Jb[m];
+  }}
+}}
+"""
+    return DeerProgram(source=prog.step_source + deer_step + kernel,
+                       host_source=prog.step_source + deer_step + host, n_state=S,
+                       ops_per_sample=ops, step_ops=prog.ops_per_sample)
+
+
 #: circuit -> {(input node, slot layout, root key): program}; held weakly, so
 #: a circuit's programs go with it
 _programs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 #: circuit -> {forward source: adjoint program}
 _adjoints: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+#: circuit -> {forward source: DEER program}
+_deers: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def program(circuit: Circuit, coeffs, params, static_controls, input_node: str,
@@ -1366,3 +1785,12 @@ def adjoint_program(circuit: Circuit, prog: CircuitProgram) -> AdjointProgram:
     if adj is None:
         adj = per_circuit[prog.source] = generate_adjoint(circuit, prog)
     return adj
+
+
+def deer_program(circuit: Circuit, prog: CircuitProgram) -> DeerProgram:
+    """The (cached) DEER program of ``prog``'s circuit structure."""
+    per_circuit = _deers.setdefault(circuit, {})
+    deer = per_circuit.get(prog.source)
+    if deer is None:
+        deer = per_circuit[prog.source] = generate_deer(circuit, prog)
+    return deer

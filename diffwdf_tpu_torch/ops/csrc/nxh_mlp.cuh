@@ -60,13 +60,16 @@ __device__ __forceinline__ float nxh_forward(float a, const float* w1a, const C1
   return y;
 }
 
-// m = dMLP/da at a: the forward with its tangent carried in closed form,
+// y = MLP(a) and m = dMLP/da in one pass: the forward with its tangent
+// carried in closed form,
 //   dh = (1 - h^2) w1a,  dg = (1 - g^2) (W^T dh),  m = w3 . dh
 // (the jvp of tanh).  The activations h are computed exactly as in
 // nxh_forward; the tangent doubles a hidden layer's FMAs and adds no tanhf.
+// The DEER kernels take both (b for the step map, m for its Jacobian).
 template <int H, typename C1>
-__device__ __forceinline__ float nxh_tangent(float a, const float* w1a, const C1& c1,
-                                             const float* hidden, int L, const float* w3) {
+__device__ __forceinline__ float nxh_forward_tangent(float a, const float* w1a, const C1& c1,
+                                                     const float* hidden, int L, const float* w3,
+                                                     float b3, float& m) {
   float h[H], dh[H];
 #pragma unroll
   for (int j = 0; j < H; ++j) {
@@ -95,9 +98,23 @@ __device__ __forceinline__ float nxh_tangent(float a, const float* w1a, const C1
       dh[k] = dg[k];
     }
   }
-  float m = 0.f;
+  float y = b3, dy = 0.f;
 #pragma unroll
-  for (int j = 0; j < H; ++j) m = fmaf(dh[j], w3[j], m);
+  for (int j = 0; j < H; ++j) {
+    y = fmaf(h[j], w3[j], y);
+    dy = fmaf(dh[j], w3[j], dy);
+  }
+  m = dy;
+  return y;
+}
+
+// m = dMLP/da at a alone (the adjoints): nxh_forward_tangent's tangent, its
+// head's output unused and dropped by the compiler.
+template <int H, typename C1>
+__device__ __forceinline__ float nxh_tangent(float a, const float* w1a, const C1& c1,
+                                             const float* hidden, int L, const float* w3) {
+  float m;
+  nxh_forward_tangent<H>(a, w1a, c1, hidden, L, w3, 0.f, m);
   return m;
 }
 

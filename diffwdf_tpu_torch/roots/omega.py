@@ -7,9 +7,11 @@ positive, so we solve  w + log(w) = x  directly on the real line:
   +inf);
 - Newton iterations on u = log(w)  (solve e^u + u = x), which is globally
   convergent (e^u + u is convex increasing) and needs no branch-cut handling;
-- gradients via the closed-form implicit derivative  dw/dx = w / (1 + w)
-  (a ``torch.autograd.Function``), NOT by differentiating through the
-  iterations.
+- derivatives via the closed-form implicit derivative  dw/dx = w / (1 + w)
+  (a ``torch.autograd.Function`` with ``backward`` for reverse mode and
+  ``jvp`` for forward mode, as the JAX package's ``custom_jvp``), NOT by
+  differentiating through the iterations.  Forward mode is what the plain
+  DEER solver (``ops.deer_circuit``) takes its state Jacobians with.
 
 Works in float32 and float64 (CPU oracle tests).  The complex-plane
 evaluator of the JAX package is off every audio path and is not ported.
@@ -51,10 +53,13 @@ def _newton_u(x, u, iters):
 
 class _WrightOmega(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, iters):
-        w = torch.exp(_newton_u(x, _initial_log_guess(x), iters))
-        ctx.save_for_backward(w)
-        return w
+    def forward(x, iters):
+        return torch.exp(_newton_u(x, _initial_log_guess(x), iters))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
+        ctx.save_for_forward(output)
 
     @staticmethod
     def backward(ctx, grad):
@@ -63,6 +68,11 @@ class _WrightOmega(torch.autograd.Function):
         # written as 1 / (1 + 1/w) so it cannot overflow at the top of the
         # f32 range (w ~ 3e38 makes 1 + w infinite) and limits to 0 as w -> 0
         return grad / (1.0 + 1.0 / w), None
+
+    @staticmethod
+    def jvp(ctx, dx, _diters):
+        (w,) = ctx.saved_tensors
+        return dx / (1.0 + 1.0 / w)  # the same implicit derivative, pushed forward
 
 
 def wright_omega(x, iters: int = 3):

@@ -205,6 +205,12 @@ class StreamingProcessor:
     override serves (and the residual fallback).  A circuit without one is
     served by ``Circuit.process``, a host loop over the samples.
 
+    An override or exact runner that launches generated kernels
+    (``ops.circuit_codegen``) names their sources in its attribute
+    ``sources(params, static_controls, device) -> [source, ...]``;
+    ``warmup`` builds them all first, one nvcc per source, all started
+    together.
+
     fallback_tol: always-correct serving guard.  An override emits a
     residual certificate; if it exceeds this tolerance the block is
     recomputed with the exact engine (from the same block-input state): the
@@ -512,7 +518,9 @@ class StreamingProcessor:
         block_sizes: iterable of block lengths.
         circuits: served names (groups and/or circuit names; default = all
         surfaces).  Group names expand to every member, so every hot-swap
-        target is warmed.
+        target is warmed.  On the card, the members' generated kernels
+        (``_kernel_sources``) are built first, in parallel, so that no
+        served block runs nvcc.
         block_params: optional {served_name: {kwarg: value}} exercised
         through the circuit's param map; by default the registered schema's
         float defaults are used (so the warmed call matches real
@@ -545,10 +553,8 @@ class StreamingProcessor:
                     kw[s.api] = s.default
             return kw if set(kw) == args else None
 
-        compiled = []
+        plan = []  # (served, member, control variants)
         for served, member in members:
-            _, params = self.circuits[member]
-            state = self._state[self._state_key.get(member, member)]
             mapper = self.param_maps.get(member) or self.param_maps.get(served)
             ctl_variants = [{}]
             kw = (block_params or {}).get(served)
@@ -556,6 +562,21 @@ class StreamingProcessor:
                 kw = _default_block_params(served)
             if kw and mapper is not None:
                 ctl_variants.append(mapper(**kw))
+            plan.append((served, member, ctl_variants))
+        if self.device.type == "cuda":
+            # every generated kernel the warmed blocks launch, one nvcc per
+            # source, all started together (a source depends on the
+            # structure and the control variant, never on a value)
+            from ..ops import _build
+
+            sources = [src for _, member, ctls in plan for ctl in ctls
+                       for src in self._kernel_sources(member, ctl)]
+            _build.build_generated(list(dict.fromkeys(sources)))
+
+        compiled = []
+        for served, member, ctl_variants in plan:
+            _, params = self.circuits[member]
+            state = self._state[self._state_key.get(member, member)]
             variants = [True]
             if (member in self.process_overrides
                     and self.fallback_tol is not None):
@@ -575,6 +596,14 @@ class StreamingProcessor:
             "seconds": time.perf_counter() - t0,
             "keys": compiled,
         }
+
+    def _kernel_sources(self, member: str, static_controls) -> list:
+        """The generated kernel sources that ``member``'s runners launch
+        under ``static_controls``: the exact engine's, then the override's."""
+        params = self.circuits[member][1]
+        return [src for run in (self.exact_runners.get(member), self.process_overrides.get(member))
+                if hasattr(run, "sources")
+                for src in run.sources(params, static_controls, self.device)]
 
     def reset(self):
         for name, (ckt, _) in self.circuits.items():
@@ -600,6 +629,21 @@ def _diode_pair_args(params, static_controls, root_name: str = "dp"):
     return r, cap, Is, float(np.float32(vt) * np.float32(nabla)), n_up, n_dn
 
 
+def _kernel_nxh(root) -> bool:
+    """Whether ``root`` is an NxH neural root the kernels compute: all
+    hidden layers tanh, a linear head, at least one hidden H->H layer, H in
+    NEURAL_WIDTHS."""
+    from ..ops.fused_clipper import NEURAL_WIDTHS
+    from ..roots.neural import NeuralDiodeRoot
+
+    if not isinstance(root, NeuralDiodeRoot):
+        return False
+    acts = tuple(root.activations)
+    return (root.n_layers >= 1 and root.layer_size in NEURAL_WIDTHS
+            and len(acts) == root.n_layers + 2 and set(acts[:-1]) == {"tanh"}
+            and acts[-1] in ("", "linear"))
+
+
 def _lpf_exact_runner(ckt: Circuit) -> Optional[Callable]:
     """The exact engine of an LPF clipper as one kernel launch at B=1, or
     None where no kernel computes its root.
@@ -607,16 +651,14 @@ def _lpf_exact_runner(ckt: Circuit) -> Optional[Callable]:
     The batched clipper kernels compute exactly the sequential recursion of
     ``Circuit.process``: ``fused_clipper_analytic`` for a ``DiodePairRoot``
     (with its quality's omega iteration count), ``fused_clipper_neural`` for
-    a ``NeuralDiodeRoot`` of the NxH family (all hidden layers tanh, a linear
-    head, at least one hidden H->H layer, H in NEURAL_WIDTHS).  Any other
+    a ``NeuralDiodeRoot`` of the NxH family (``_kernel_nxh``).  Any other
     root, e.g. a JSON model with relu layers, gets None and is served by
     ``Circuit.process``, a host loop of a few dozen torch ops per sample.
     The runner takes (params, state, inputs, static_controls) and returns
     (out, state); a static "R" of "Vs" overrides the params' source R.
     """
-    from ..ops.fused_clipper import NEURAL_WIDTHS, fused_clipper_analytic, fused_clipper_neural
+    from ..ops.fused_clipper import fused_clipper_analytic, fused_clipper_neural
     from ..roots.diode import DiodePairRoot
-    from ..roots.neural import NeuralDiodeRoot
 
     root = ckt.root
     if isinstance(root, DiodePairRoot):
@@ -628,10 +670,7 @@ def _lpf_exact_runner(ckt: Circuit) -> Optional[Callable]:
             return out[0], {"C": {"z": zf[0]}}
 
         return run
-    acts = tuple(root.activations) if isinstance(root, NeuralDiodeRoot) else ()
-    if (isinstance(root, NeuralDiodeRoot) and root.n_layers >= 1
-            and root.layer_size in NEURAL_WIDTHS and len(acts) == root.n_layers + 2
-            and set(acts[:-1]) == {"tanh"} and acts[-1] in ("", "linear")):
+    if _kernel_nxh(root):
         def run(params, state, inputs, static_controls):
             r = (static_controls or {}).get("Vs", {}).get("R", params["Vs"]["R"])
             r, cap = _host_floats(r, params["C"]["C"])
@@ -642,6 +681,89 @@ def _lpf_exact_runner(ckt: Circuit) -> Optional[Callable]:
 
         return run
     return None
+
+
+def _generic_exact_runner(ckt: Circuit, node: str) -> Optional[Callable]:
+    """The exact engine of any circuit the generated kernels take (the Tube
+    Screamer, the HPF clipper): one launch of ``fused_circuit_process``
+    (B7) at B=1, the block's static controls as slot values; or None for a
+    root B7 does not take (an NxH root outside ``_kernel_nxh``), which
+    ``Circuit.process`` serves.  It serves the scan engine, the blocks whose
+    length is no multiple of 1024 and the residual fallbacks of the DEER
+    engine.  Takes and returns as ``_lpf_exact_runner``; ``node`` is the
+    input node.  ``run.sources`` names its generated kernel."""
+    from ..ops.fused_circuit import fused_circuit_process, prepare
+    from ..roots.neural import NeuralDiodeRoot
+
+    if isinstance(ckt.root, NeuralDiodeRoot) and not _kernel_nxh(ckt.root):
+        return None
+
+    def run(params, state, inputs, static_controls):
+        z0 = {k: {f: z.reshape(1) for f, z in d.items()} for k, d in state.items()}
+        out, zf = fused_circuit_process(ckt, params, inputs[node]["v"][None], z0,
+                                        input_node=node, static_controls=static_controls)
+        return out[0], {k: {f: z[0] for f, z in d.items()} for k, d in zf.items()}
+
+    def sources(params, static_controls, device):
+        return [prepare(ckt, params, device, input_node=node,
+                        static_controls=static_controls).prog.source]
+
+    run.sources = sources
+    return run
+
+
+def _deer_runner(ckt: Circuit, node: str, exact_run: Optional[Callable], **solver_kw) -> Callable:
+    """The DEER engine of a circuit (B9): ``fused_deer_neural`` for an NxH
+    root, else ``fused_deer_circuit``, with ``solver_kw`` (sweeps,
+    relax_passes, damping, adapt_tol); a block whose length is no multiple
+    of 1024 goes to ``exact_run`` (``Circuit.process`` where that is None).
+    Returns (out, state, residual).  ``run.sources`` names its generated
+    kernel."""
+    from ..ops.circuit_codegen import deer_program
+    from ..ops.deer_circuit import NB, fused_deer_circuit, fused_deer_neural
+    from ..ops.fused_circuit import prepare
+    from ..roots.neural import NeuralDiodeRoot
+
+    solver = fused_deer_neural if isinstance(ckt.root, NeuralDiodeRoot) else fused_deer_circuit
+
+    def run(params, state, inputs, static_controls):
+        v = inputs[node]["v"]
+        if v.shape[0] % NB:
+            if exact_run is None:
+                return ckt.process(params, state, inputs, static_controls=static_controls)
+            return exact_run(params, state, inputs, static_controls)
+        return solver(ckt, params, v, input_node=node, static_controls=static_controls,
+                      state0=state, **solver_kw)
+
+    def sources(params, static_controls, device):
+        prog = prepare(ckt, params, device, input_node=node,
+                       static_controls=static_controls).prog
+        return [deer_program(ckt, prog).source]
+
+    run.sources = sources
+    return run
+
+
+def _clipper_deer_runner(exact_run: Callable, fs: float, sweeps: int, qiters: int) -> Callable:
+    """The LPF clipper's own DEER kernel (B5) for a diode-pair member, with
+    (sweeps, omega iterations); other block lengths go to ``exact_run``."""
+    from ..ops.parallel_time_deer import NB, fused_deer_clipper
+
+    def run(params, state, inputs, static_controls):
+        v = inputs["Vs"]["v"]
+        if v.shape[0] % NB:  # block length the kernel does not take
+            return exact_run(params, state, inputs, static_controls)
+        out, zf, res = fused_deer_clipper(
+            v, *_diode_pair_args(params, static_controls), fs=fs, z0=state["C"]["z"],
+            sweeps=sweeps, quality_iters=qiters)
+        return out, {"C": {"z": zf}}, res
+
+    return run
+
+
+def _check_engine(engine: str) -> None:
+    if engine not in ("scan", "deer"):
+        raise ValueError(f"engine must be 'scan' or 'deer', got {engine!r}")
 
 
 def make_clipper_processor(
@@ -659,31 +781,22 @@ def make_clipper_processor(
 
     engine="scan" serves every member with its exact engine: one launch of
     the batched clipper kernel at B=1 (``_lpf_exact_runner``).
-    engine="deer" serves the analytic members ("toms"/"approx") through the
-    parallel-in-time kernel (``ops.parallel_time_deer``: the whole block
-    solved in one launch) whenever the block length is a multiple of 1024;
-    other block lengths, and blocks whose residual exceeds the processor's
-    ``fallback_tol``, get the exact engine.  A neural member under DEER
-    needs the generic S-state solver (ROADMAP B9), which is not ported yet:
-    it raises NotImplementedError.
+    engine="deer" serves every member parallel in time whenever the block
+    length is a multiple of 1024: the analytic members ("toms"/"approx")
+    through the clipper's DEER kernel (``ops.parallel_time_deer``), a neural
+    member through the generic one (``ops.deer_circuit.fused_deer_neural``,
+    8 sweeps, 2 relaxations), each the whole block in one launch; other
+    block lengths, and blocks whose residual exceeds the processor's
+    ``fallback_tol``, get the exact engine.
 
     device: where the processor serves (the card by default; tests pass
     "cpu", where every kernel wrapper runs its plain version).
     """
     from ..models.diode_clipper import (
         cutoff_to_resistance, make_diode_clipper, make_neural_root_or_default)
-    from ..ops.parallel_time_deer import NB, fused_deer_clipper
     from ..roots.diode import DiodePairRoot, diode_1n4148_1u1d
 
-    if engine not in ("scan", "deer"):
-        raise ValueError(f"engine must be 'scan' or 'deer', got {engine!r}")
-    neural = [m for m in models if m.startswith("neural")]
-    if engine == "deer" and neural:
-        raise NotImplementedError(
-            f"engine='deer' with the neural member(s) {neural}: serving a neural root "
-            "parallel-in-time needs the generic S-state DEER kernel fused_deer_circuit / "
-            "fused_deer_neural (ROADMAP B9), not ported yet; use engine='scan' or the "
-            "analytic members ('toms', 'approx')")
+    _check_engine(engine)
     device = torch.device(device)
     cap = 2.2e-9
     r = cutoff_to_resistance(cutoff_hz, cap)
@@ -718,21 +831,11 @@ def make_clipper_processor(
         # match the exact engine's quality knob so switching engines never
         # changes the model ("approx" = chowdsp-style 1-iter omega)
         cfg_of = {"toms": (8, 3), "approx": (4, 1)}
-
-        def make_deer(exact_run, sweeps, qiters):
-            def run(params, state, inputs, static_controls):
-                v = inputs["Vs"]["v"]
-                if v.shape[0] % NB:  # block length the kernel does not take
-                    return exact_run(params, state, inputs, static_controls)
-                out, zf, res = fused_deer_clipper(
-                    v, *_diode_pair_args(params, static_controls), fs=fs, z0=state["C"]["z"],
-                    sweeps=sweeps, quality_iters=qiters)
-                return out, {"C": {"z": zf}}, res
-
-            return run
-
-        for m in circuits:
-            overrides[m] = make_deer(exact[m], *cfg_of[m])
+        for m, (ckt, _) in circuits.items():
+            if m in cfg_of:
+                overrides[m] = _clipper_deer_runner(exact[m], fs, *cfg_of[m])
+            else:
+                overrides[m] = _deer_runner(ckt, "Vs", exact.get(m))
 
     specs = clipper_param_specs(choices=tuple(circuits))
     names = list(circuits) + ["clipper"]
@@ -741,6 +844,210 @@ def make_clipper_processor(
         param_schemas={m: specs for m in names},
         process_overrides=overrides,
         groups={"clipper": tuple(circuits)},
+        exact_runners=exact,
+        device=device,
+    )
+
+
+#: the HPF clipper's DEER settings: its series capacitor is a marginal slow
+#: mode that needs damped Newton; 48 is the cap of the adaptive loop, which
+#: stops once a sweep moves the trajectory by less than 1e-5 (the JAX
+#: package's make_hpf_processor)
+HPF_DEER = dict(sweeps=48, damping=0.5, adapt_tol=1e-5)
+
+
+def make_hpf_processor(
+    fs: float,
+    cutoff_hz: float = 4000.0,
+    lpf_trained_json: Optional[str] = None,
+    hpf_trained_json: Optional[str] = None,
+    engine: str = "scan",
+    *,
+    device="cuda",
+) -> StreamingProcessor:
+    """The HPF clipper circuit under its 4 root choices
+    (``HPFDiodeClipper.cpp:29-30,60-66``): TOMS, approx, the LPF-trained
+    2x16 run in the unseen topology ("extrapolated"), and the HPF-trained
+    2x16 ("trained").  Cutoff maps to the load resistor R = 1/(2 pi f C)
+    with C fixed at 2.2 nF.
+
+    engine="scan" serves every member with its exact engine, the generated
+    kernel at B=1 (``_generic_exact_runner``); engine="deer" through the
+    generic DEER kernel (``HPF_DEER``: damped, adaptive, at most 48 sweeps)
+    for blocks of a multiple of 1024 samples, the exact engine otherwise and
+    on a residual fallback."""
+    from ..models.diode_clipper import (
+        cutoff_to_resistance, make_hpf_diode_clipper, make_hpf_root_from_zoo)
+
+    _check_engine(engine)
+    device = torch.device(device)
+    cap = 2.2e-9
+    r_load = cutoff_to_resistance(cutoff_hz, cap)
+    names = ("toms", "approx", "extrapolated", "trained")
+    json_for = {"extrapolated": lpf_trained_json, "trained": hpf_trained_json}
+    circuits = {}
+    for i, name in enumerate(names):
+        root, frag = make_hpf_root_from_zoo(i, json_path=json_for.get(name), device=device)
+        ckt = make_hpf_diode_clipper(root, fs, r_load=r_load, cap=cap)
+        circuits[name] = (ckt, {**ckt.init_params(device), **frag})
+
+    def hpf_map(cutoff_hz):
+        return {"R": {"R": cutoff_to_resistance(cutoff_hz, cap)}}
+
+    exact = {n: run for n, (ckt, _) in circuits.items()
+             if (run := _generic_exact_runner(ckt, "Vs")) is not None}
+    overrides = {}
+    if engine == "deer":
+        overrides = {n: _deer_runner(ckt, "Vs", exact.get(n), **HPF_DEER)
+                     for n, (ckt, _) in circuits.items()}
+
+    specs = hpf_param_specs()
+    all_names = list(circuits) + ["hpf"]
+    return StreamingProcessor(
+        circuits, fs, param_maps={n: hpf_map for n in all_names},
+        param_schemas={n: specs for n in all_names},
+        process_overrides=overrides,
+        groups={"hpf": tuple(circuits)},
+        exact_runners=exact,
+        device=device,
+    )
+
+
+def make_plugin_processor(
+    fs: float,
+    cutoff_hz: float = 4000.0,
+    drive: float = 0.5,
+    mlp_json: Optional[str] = None,
+    clipper_zoo: Optional[int] = None,
+    clipper_json: Optional[str] = None,
+    engine: str = "scan",
+    *,
+    device="cuda",
+) -> StreamingProcessor:
+    """The full reference-plugin circuit set (``DifferentiableWDFPlugin.h:41-43``):
+    diode clipper, multi-diode clipper, and Tube Screamer, as model GROUPS:
+    every advertised "model" choice is registered and hot-swappable at block
+    rate with state continuity, the reference's root hot-swap
+    (``DiodeClipperWDF.cpp:32-41``, ``MultiDiodeClipper.cpp:48``,
+    ``CircuitModelGUI.cpp:55-66``):
+
+    - "clipper": all 7 DiodeClipper roots (zoo entries 0-6: TOMS, approx,
+      five 1U-1D neural sizes), members "clipper/0".."clipper/6";
+    - "multi_diode_clipper": the 5 multi-diode 2x16 nets (zoo 7-11);
+    - "tube_screamer": approx analytic + 2x16 neural
+      (``TubeScreamer.h:73-74``).
+
+    ``clipper_zoo`` picks the DEFAULT model choice by GLOBAL zoo index
+    (0-11): 0-6 set the clipper group's default, 7-11 the multi-diode
+    group's (``MultiDiodeClipper.cpp:48``); ``clipper_json`` overrides the
+    selected entry's neural weights; ``mlp_json`` overrides the Tube
+    Screamer's neural-model weights.  Neural entries default to the
+    checked-in pretrained zoo (ZOO_MODEL_PATHS).
+
+    engine="scan" serves every member with its exact engine: the clipper
+    kernels at B=1 for the clippers, the generated kernel at B=1 for the
+    Tube Screamer.  engine="deer" serves every member parallel in time for
+    blocks of a multiple of 1024 samples: zoo 0 and 1 through the clipper's
+    DEER kernel with (8, 3) and (4, 1) (sweeps, omega iterations), the
+    neural clipper and multi-diode members and both Tube Screamer members
+    through the generic one (8 sweeps, 2 relaxations); other block lengths
+    and residual fallbacks get the exact engine.
+    """
+    from ..models.diode_clipper import (
+        cutoff_to_resistance, make_diode_clipper, make_neural_root_or_default,
+        make_root_from_zoo)
+    from ..models.tube_screamer import drive_to_r6, make_tube_screamer
+    from ..roots.diode import DiodePairRoot, diode_1n4148_1u1d
+
+    _check_engine(engine)
+    device = torch.device(device)
+    cap = 2.2e-9
+    r = cutoff_to_resistance(cutoff_hz, cap)
+    circuits, param_maps, groups = {}, {}, {}
+
+    zoo = clipper_zoo if clipper_zoo is not None else 0
+    if not 0 <= zoo < 12:
+        raise ValueError(f"clipper_zoo must be a zoo index 0-11, got {zoo}")
+    default_clipper = zoo if zoo < 7 else 0
+    default_md = zoo - 7 if zoo >= 7 else 0
+
+    # clipper group: the full 7-root zoo, one circuit per root on the shared
+    # Vs(R) || C tree (state {"C": {"z"}} carried across model switches);
+    # multi-diode group: zoo entries 7-11 (``MultiDiodeClipper.cpp:48``
+    # offsets the model index by +7 into the same WDF)
+    members = {"clipper": [], "multi_diode_clipper": []}
+    for i in range(12):
+        root, frag = make_root_from_zoo(i, json_path=clipper_json if i == zoo else None,
+                                        device=device)
+        ckt_i = make_diode_clipper(root, fs, r_source=r, cap=cap)
+        group, k = ("clipper", i) if i < 7 else ("multi_diode_clipper", i - 7)
+        name = f"{group}/{k}"
+        circuits[name] = (ckt_i, {**ckt_i.init_params(device), **frag})
+        members[group].append(name)
+    clipper_members, md_members = members["clipper"], members["multi_diode_clipper"]
+    groups["clipper"], groups["multi_diode_clipper"] = tuple(clipper_members), tuple(md_members)
+
+    def clipper_map(cutoff_hz):
+        return {"Vs": {"R": cutoff_to_resistance(cutoff_hz, cap)}}
+
+    for n in clipper_members + md_members + ["clipper", "multi_diode_clipper"]:
+        param_maps[n] = clipper_map
+
+    # tube screamer group: approx analytic root (the reference's
+    # wdft::DiodePairT choice) + the 2x16 neural root
+    ts_root0 = DiodePairRoot(name="dp", diode=diode_1n4148_1u1d, quality="low")
+    ts0 = make_tube_screamer(ts_root0, fs, drive=drive)
+    circuits["tube_screamer/0"] = (ts0, {**ts0.init_params(device),
+                                         **ts_root0.init_params(device)})
+    ts_root1, ts_frag1 = make_neural_root_or_default("dp", 2, 16, json_path=mlp_json,
+                                                     device=device)
+    ts1 = make_tube_screamer(ts_root1, fs, drive=drive)
+    circuits["tube_screamer/1"] = (ts1, {**ts1.init_params(device), **ts_frag1})
+    ts_members = ("tube_screamer/0", "tube_screamer/1")
+    groups["tube_screamer"] = ts_members
+
+    def ts_map(drive):
+        return {"R6": {"R": drive_to_r6(drive)}}
+
+    for n in ts_members + ("tube_screamer",):
+        param_maps[n] = ts_map
+
+    exact = {n: run for n in clipper_members + md_members
+             if (run := _lpf_exact_runner(circuits[n][0])) is not None}
+    exact.update({n: run for n in ts_members
+                  if (run := _generic_exact_runner(circuits[n][0], "Vin")) is not None})
+    overrides = {}
+    if engine == "deer":
+        # (sweeps, omega iters) of zoo 0 and 1 mirror make_clipper_processor's
+        # so that the engine switch never changes the model
+        cfg_of = {0: (8, 3), 1: (4, 1)}
+        for i, name in enumerate(clipper_members + md_members):
+            ckt = circuits[name][0]
+            if i in cfg_of:
+                overrides[name] = _clipper_deer_runner(exact[name], fs, *cfg_of[i])
+            else:
+                overrides[name] = _deer_runner(ckt, "Vs", exact.get(name))
+        for name in ts_members:
+            overrides[name] = _deer_runner(circuits[name][0], "Vin", exact.get(name))
+
+    def with_default(specs, choice):
+        return tuple(dataclasses.replace(s, default_choice=choice) if s.name == "model" else s
+                     for s in specs)
+
+    cl_specs = with_default(clipper_param_specs(), default_clipper)
+    md_specs = with_default(multi_diode_param_specs(), default_md)
+    ts_specs = tube_screamer_param_specs()
+    schemas = {"clipper": cl_specs, "multi_diode_clipper": md_specs,
+               "tube_screamer": ts_specs}
+    schemas.update({m: cl_specs for m in clipper_members})
+    schemas.update({m: md_specs for m in md_members})
+    schemas.update({m: ts_specs for m in ts_members})
+
+    return StreamingProcessor(
+        circuits, fs, param_maps=param_maps,
+        param_schemas=schemas,
+        process_overrides=overrides,
+        groups=groups,
         exact_runners=exact,
         device=device,
     )

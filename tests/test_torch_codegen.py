@@ -26,6 +26,7 @@ import subprocess
 import numpy as np
 import pytest
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from diffwdf_tpu_torch.core.circuit import Circuit, Root
 from diffwdf_tpu_torch.core.elements import Resistor, WDFNode
@@ -234,6 +235,83 @@ def test_host_compiled_adjoint_matches_plain(host_cxx, name):
     for k in range(S):
         assert _rel(lam_seq[k], want[0][k]) < budget, k
         assert _rel(g_z0[k], want[2][k]) < budget, k
+
+
+def _plain_f_and_jacobian(ckt, prep, z, v):
+    """f = F(z, v) and J[i][k] = dF_i/dz_k of the plain step at the points
+    z (S lists of (n,)) by S forward-mode passes."""
+    run = tfc.plain_step(ckt, prep)
+    f, cols = None, []
+    with fwAD.dual_level():
+        for k in range(len(z)):
+            dual = [fwAD.make_dual(x, torch.full_like(x, float(i == k))) for i, x in enumerate(z)]
+            new, _ = run(dual, v, 0)
+            parts = [fwAD.unpack_dual(x.expand_as(v)) for x in new]
+            f = f or [p.primal.detach().clone() for p in parts]
+            cols.append([torch.zeros_like(v) if p.tangent is None else p.tangent.clone()
+                         for p in parts])
+    return f, [[cols[k][i] for k in range(len(z))] for i in range(len(z))]
+
+
+@pytest.mark.parametrize("name", ["ts", "ts_2x16", "hpf"])
+def test_host_compiled_deer_step_matches_plain_jacobian(host_cxx, name):
+    """The generated DEER step (S forward-mode tangents of the traced step)
+    writes f and the S x S Jacobian of the plain step, at the operating
+    points of a plain forward run, perturbed."""
+    ckt, params, node, amp = _case(name)
+    vin = _vin(len(name) + 3, amp)
+    _, _, seq = tfc.fused_circuit_process_plain(ckt, params, vin, _state(ckt), input_node=node,
+                                                return_state_seq=True)
+    rng = np.random.default_rng(11)
+    z = [x.reshape(-1) + torch.from_numpy(0.01 * rng.standard_normal(B * T).astype(np.float32))
+         for x in seq]
+    v = vin.reshape(-1)
+    prep = tfc.prepare(ckt, params, "cpu", input_node=node)
+    deer = cg.deer_program(ckt, prep.prog)
+    S = deer.n_state
+    assert S == len(seq) and deer.ops_per_sample > 0 and "deer_kernel" in deer.source
+    assert "deer_kernel" not in deer.host_source and '#include "deer_scan.cuh"' in deer.source
+    assert deer is cg.deer_program(ckt, prep.prog)  # cached by structure
+    lib = host_cxx(name + "_deer", deer.host_source)
+    vp = ctypes.c_void_p
+    lib.circuit_deer_host_run.argtypes = [vp] * 5 + [ctypes.c_int] + [vp] * 2
+    n = v.numel()
+    zs = torch.stack(z).contiguous()
+    f, J, out = torch.empty(S, n), torch.empty(S * S, n), torch.empty(n)
+    lib.circuit_deer_host_run(zs.data_ptr(), v.data_ptr(), f.data_ptr(), J.data_ptr(),
+                              out.data_ptr(), n, prep.vec.data_ptr(), _ptr(prep.warr, prep.vec))
+    want_f, want_J = _plain_f_and_jacobian(ckt, prep, z, v)
+    for i in range(S):
+        np.testing.assert_allclose(f[i].numpy(), want_f[i].numpy(), atol=2e-5, rtol=0)
+        for k in range(S):
+            assert _rel(J[i * S + k], want_J[i][k]) < 1e-4, (i, k)
+    # the output is the forward step's
+    run = tfc.plain_step(ckt, prep)
+    _, y = run(z, v, 0)
+    np.testing.assert_allclose(out.numpy(), y.numpy(), atol=2e-5, rtol=0)
+
+
+def test_wright_omega_jvp_matches_jax_custom_jvp():
+    """Forward mode through omega: the implicit derivative dx / (1 + 1/w),
+    as the JAX package's custom_jvp (what the plain DEER Jacobian uses)."""
+    import jax
+    import jax.numpy as jnp
+
+    from diffwdf_tpu.roots import omega as jomega
+    from diffwdf_tpu_torch.roots.omega import wright_omega
+
+    x = np.linspace(-30.0, 60.0, 513).astype(np.float32)
+    dx = np.random.default_rng(0).standard_normal(x.shape).astype(np.float32)
+    w_j, dw_j = jax.jvp(lambda t: jomega.wright_omega(t, 3), (jnp.asarray(x),),
+                        (jnp.asarray(dx),))
+    with fwAD.dual_level():
+        out = fwAD.unpack_dual(wright_omega(fwAD.make_dual(torch.from_numpy(x),
+                                                           torch.from_numpy(dx)), 3))
+    np.testing.assert_allclose(out.primal.numpy(), np.asarray(w_j), rtol=5e-6, atol=0)
+    np.testing.assert_allclose(out.tangent.numpy(), np.asarray(dw_j), rtol=5e-6, atol=1e-30)
+    w, dw = torch.func.jvp(lambda t: wright_omega(t, 3), (torch.from_numpy(x),),
+                           (torch.from_numpy(dx),))
+    np.testing.assert_array_equal(dw.numpy(), out.tangent.numpy())
 
 
 def test_root_without_tangent_and_pot_in_rtype_raise():

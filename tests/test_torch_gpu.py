@@ -12,7 +12,9 @@ distilled clipper 1e-5, the generated circuit kernels 2e-5 (with pot
 streams and the state trajectory too), and two half blocks against one
 block 1e-6; the generated adjoint relative 1e-4 with no pot and 3e-4 with
 pots, and the generic training op's gradients against the scan engine
-relative 5e-4 per leaf (tests/test_parallel_bptt.py).
+relative 5e-4 per leaf (tests/test_parallel_bptt.py); the generated DEER
+kernel against its plain version and the exact recursion, Tube Screamer
+1e-4, HPF clipper 3e-4, neural clipper 5e-6 (tests/test_deer_circuit.py).
 """
 
 import numpy as np
@@ -574,3 +576,82 @@ def test_fused_generic_op_grads_match_scan_on_card(circuit_cuda):
             assert g is None and w is None
             continue
         assert float((g - w).abs().max() / w.abs().max().clamp_min(1e-12)) < 5e-4
+
+
+# ---------------------------------------------------------------------------
+# The generated DEER kernel (ops.deer_circuit): the JAX suite's budgets
+# against the exact recursion (tests/test_deer_circuit.py), kernel against
+# plain within the same budget
+# ---------------------------------------------------------------------------
+
+# (name, zoo index, budget): the Tube Screamer (analytic "best", 1e-4), the
+# HPF clipper (analytic, damped adaptive, 3e-4), the LPF clipper's 2x8 root
+# at 48 kHz (5e-6)
+DEER_CASES = [("ts", 0, 1e-4), ("hpf", 0, 3e-4), ("clip_2x8", 3, 5e-6)]
+
+
+def _deer_case(name, index, dev):
+    from diffwdf_tpu_torch.models.diode_clipper import (
+        make_diode_clipper, make_hpf_diode_clipper, make_hpf_root_from_zoo, make_root_from_zoo)
+    from diffwdf_tpu_torch.models.tube_screamer import make_tube_screamer
+
+    # seeded blocks on which the plain solve converges (at 8 sweeps the Tube
+    # Screamer's residual stays above 1e-3 on some guitar-level noise, in
+    # the JAX kernel too; chip_smoke.py's kernels phase uses these seeds)
+    rng = np.random.default_rng({"ts": 101, "clip_2x8": 115}.get(name, 0))
+    if name == "ts":
+        root, rp = make_root_from_zoo(index, device=dev)
+        ckt, node, kw = make_tube_screamer(root, FS), "Vin", {}
+        x = (0.2 * np.sin(2 * np.pi * 1000.0 * np.arange(2048) / FS)
+             + 0.1 * rng.standard_normal(2048))
+    elif name == "hpf":
+        root, rp = make_hpf_root_from_zoo(index, device=dev)
+        ckt, node = make_hpf_diode_clipper(root, FS), "Vs"
+        kw = dict(sweeps=48, damping=0.5, adapt_tol=1e-5)
+        x = 0.5 * np.random.default_rng(202).standard_normal(2048)  # a clear adaptive exit
+    else:
+        root, rp = make_root_from_zoo(index, device=dev)
+        ckt, node, kw = make_diode_clipper(root, 48000.0), "Vs", {}
+        x = 2.0 * rng.standard_normal(2048)
+    vin = torch.from_numpy(x.astype(np.float32)).to(dev)
+    return ckt, {**ckt.init_params(dev), **rp}, node, kw, vin
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,index,budget", DEER_CASES, ids=[c[0] for c in DEER_CASES])
+def test_deer_circuit_kernel_matches_plain_and_exact(circuit_cuda, name, index, budget):
+    from diffwdf_tpu_torch.ops import deer_circuit as dc
+
+    dev, fcirc = circuit_cuda
+    dc.fused_deer_circuit.launches = dc.fused_deer_neural.launches = 0
+    ckt, params, node, kw, vin = _deer_case(name, index, dev)
+    neural = isinstance(ckt.root, NeuralDiodeRoot)
+    fn, plain = ((dc.fused_deer_neural, dc.fused_deer_neural_plain) if neural
+                 else (dc.fused_deer_circuit, dc.fused_deer_circuit_plain))
+    out, st, res, n = fn(ckt, params, vin, input_node=node, return_info=True, **kw)
+    p_out, p_st, p_res, p_n = plain(ckt, params, vin, input_node=node, return_info=True, **kw)
+    z0 = {k: {f: torch.zeros(1, device=dev) for f in d} for k, d in ckt.init_state("cpu").items()}
+    e_out, _ = fcirc.fused_circuit_process(ckt, params, vin[None], z0, input_node=node)
+    torch.cuda.synchronize()
+    assert (dc.fused_deer_neural if neural else dc.fused_deer_circuit).launches == 1
+    assert float(n) == float(p_n) and float(res) < 1e-3
+    _close(out, p_out, budget)
+    _close(out, e_out[0], budget)
+    for k, d in p_st.items():
+        for f, z in d.items():
+            assert abs(float(st[k][f]) - float(z)) <= budget
+
+
+@pytest.mark.gpu
+def test_deer_circuit_kernel_rejects_and_keeps_cpu_plain(circuit_cuda):
+    from diffwdf_tpu_torch.ops import deer_circuit as dc
+
+    dev, _ = circuit_cuda
+    ckt, params, node, kw, vin = _deer_case("ts", 0, dev)
+    with pytest.raises(ValueError, match="multiple of 1024"):
+        dc.fused_deer_circuit(ckt, params, vin[:1000], input_node=node)
+    dc.fused_deer_circuit.launches = 0
+    cpu = {k: ({f: x.cpu() for f, x in v.items()} if isinstance(v, dict) else v)
+           for k, v in params.items()}
+    out, _, _ = dc.fused_deer_circuit(ckt, cpu, vin.cpu(), input_node=node)
+    assert out.device.type == "cpu" and dc.fused_deer_circuit.launches == 0

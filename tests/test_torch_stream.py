@@ -301,11 +301,30 @@ def test_warmup_keys_match_jax_and_leave_state(engine, models, sizes):
 
 
 def test_deer_with_neural_member_raises():
-    with pytest.raises(NotImplementedError, match="B9"):
-        tstream.make_clipper_processor(FS, engine="deer", device="cpu")
-    with pytest.raises(NotImplementedError, match="B9"):
-        tstream.make_clipper_processor(FS, models=("toms", "neural_2x16"), engine="deer",
-                                       device="cpu")
+    """Only an unknown engine raises now: the neural member under
+    engine="deer" is served by the generic DEER solve (fused_deer_neural,
+    8 sweeps), within 1e-5 of the scan engine over two carried blocks with
+    a gain and a cutoff (tests/test_deer_circuit.py:382), with no fallback
+    and a residual below 1e-4.  The default set builds under deer."""
+    fs = 48000.0
+    x = _signal(13, 4096, 1.5)
+    deer = tstream.make_clipper_processor(fs, models=("neural_2x16",), engine="deer",
+                                          device="cpu")
+    scan = tstream.make_clipper_processor(fs, models=("neural_2x16",), device="cpu")
+    jscan = jax_make_processor(fs, models=("neural_2x16",))
+    for blk in (0, 1):
+        xb = x[blk * 2048:(blk + 1) * 2048]
+        kw = dict(gain_db=6.0, cutoff_hz=3000.0)
+        b = deer.process_block(xb, "neural_2x16", **kw)
+        np.testing.assert_allclose(b, scan.process_block(xb, "neural_2x16", **kw), atol=1e-5,
+                                   rtol=0, err_msg=f"block {blk}")
+        np.testing.assert_allclose(b, jscan.process_block(xb, "neural_2x16", **kw), atol=1e-5,
+                                   rtol=0, err_msg=f"block {blk}")
+    assert deer.fallbacks.get("neural_2x16", 0) == 0
+    assert 0.0 <= deer.last_residual["neural_2x16"] < 1e-4
+    full = tstream.make_clipper_processor(FS, engine="deer", device="cpu")
+    assert set(full.process_overrides) == {"toms", "approx", "neural_2x16"}
+    assert [m for m in full.circuits if full._kernel_sources(m, {})] == ["neural_2x16"]
     with pytest.raises(ValueError):
         tstream.make_clipper_processor(FS, engine="xla", device="cpu")
 
