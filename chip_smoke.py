@@ -69,14 +69,19 @@ one line per phase:
              served block from a profiler trace
   build circuits  the generated kernels of six circuits (Tube Screamer
              analytic and pretrained 2x16, HPF clipper analytic and
-             HPF-trained 2x16, LPF clipper, RC lowpass), one nvcc each, all
-             started together: seconds cold and cached, ptxas registers and
-             spills, slots and operations per sample
+             HPF-trained 2x16, LPF clipper, RC lowpass) and the K sweep's
+             builds of the two 2x16 roots (every K that divides H), one
+             nvcc each, all started together: seconds cold and cached,
+             ptxas registers and
+             spills per kernel (none allowed in the lane-cooperative ones),
+             slots and operations per sample
   kernels distilled  the 1N4148 root distilled at the clipper's port R (fit
              error), the distilled clipper kernel against its plain version
              and against the analytic kernel (ESR) at (8192, 2048)
   kernels circuit  every generated kernel against its plain version at
-             (8192, 2048), the LPF clipper's also against the analytic kernel
+             (8192, 2048), the LPF clipper's also against the analytic kernel,
+             the NxH roots' lane-cooperative form also against the
+             one-thread kernel (the same bits)
   serve circuit  serving as a user drives it: the Tube Screamer (analytic
              and 2x16), the HPF 2x16 and the distilled clipper answer two
              (8192, 2048) request blocks with the state carried; the launch
@@ -84,16 +89,25 @@ one line per phase:
              from 0 to 1 moves the gain without an nvcc run
   timing circuit  CUDA-event medians of the distilled and generated kernels,
              the wrapper calls, the plain versions and the LPF clipper's own
-             kernels on the same streams
+             kernels on the same streams; the lanes per stream K of the NxH
+             roots' kernel (1, the one-thread kernel, 4, 8, 16; the sweep's
+             build) for the TS 2x16 and the HPF 2x16 at B = 8192, 4096,
+             2048 and 1024, T = 2048
   build generic  the generated forward and adjoint kernels of the generic
-             training path's four cases, one nvcc each, all started together:
-             ptxas registers and spills, operations per sample
+             training path's four cases and the train phase's circuits, and
+             the sweep's build of the training form, one nvcc each, all
+             started together:
+             ptxas registers and spills per kernel (none allowed in the lane
+             form and the adjoint's two passes), operations per sample of
+             each pass, the adjoint's scratch
   kernels generic  at (1024, 2048), the JAX bench's shape: the generated
              forward with its state trajectory and the generated adjoint
              against their plain versions for the Tube Screamer with the
              pretrained 2x16 (no pot, and a per-row drive pot R6), the HPF
              clipper (analytic) and the training clipper with a per-sample
-             random-walk source R (random-init 2x16)
+             random-walk source R (random-init 2x16); the lane form against
+             the one-thread kernel and the adjoint's two passes against the
+             one-pass kernel (the same bits)
   grad generic  the fused_generic op's gradients against the scan engine
              (autograd through Circuit.process) at (1024, 256), leaf by leaf
   train generic  training as a user drives it (scripts/train_ts.py): 16 s and
@@ -106,8 +120,11 @@ one line per phase:
              toward the true 4.7 nF; launches counted
   timing generic  CUDA-event medians of one fused_generic step of the TS
              2x16 at (1024, 2048), part by part (forward with trajectory,
-             loss, adjoint, parameter pass, Adam), the whole step, and both
-             kernels alone beside their bounds; the adjoint also at (375, 2048)
+             loss, adjoint, parameter pass, Adam) and whole, with the kernels
+             before their redesign (one-thread forward, one-pass adjoint) and
+             after, in turns; both kernels alone beside their bounds and
+             their earlier forms, the adjoint's two passes apart and at
+             (375, 2048), the training form's lanes per stream, the scratch
   build deer  the generated DEER kernels (B9) of eleven circuits (the Tube
              Screamer analytic best and low and 2x16, the HPF clipper
              analytic best and low and 2x16, the LPF clipper with the five
@@ -144,8 +161,10 @@ so does a machine without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import tempfile
@@ -1120,7 +1139,10 @@ def circuit_path(dev, card: str, seed: int) -> list:
     # --- build: one generated kernel per circuit, nvcc in parallel ----------
     progs = {name: fcirc.prepare(ckt, p, dev, input_node=node, neural_mlp=mlp)[0]
              for name, (ckt, p, node, _, mlp) in circuits.items()}
-    sources = [prog.source for prog in progs.values()]
+    # the K sweep's builds of the NxH roots: every K that divides H
+    sweeps = {name: cg.sweep_program(circuits[name][0], progs[name])
+              for name in ("ts_2x16", "hpf_2x16")}
+    sources = [prog.source for prog in progs.values()] + [p.source for p in sweeps.values()]
     builds = _build.build_generated.builds
     t0 = time.perf_counter()
     _build.build_generated(sources)
@@ -1132,10 +1154,14 @@ def circuit_path(dev, card: str, seed: int) -> list:
           f"{_build.build_generated.builds - builds} cold_seconds={cold_s:.2f} "
           f"cached_seconds={cached_s:.4f}", flush=True)
     for name, prog in progs.items():
-        log = _build.generated_path(prog.source).with_suffix(".log").read_text().splitlines()
-        ptxas = [l.split(":", 1)[-1].strip() for l in log if "registers" in l or "spill" in l]
         print(f"  ptxas {name} states={len(prog.state_order)} slots={prog.n_coeffs} "
-              f"ops_per_sample={prog.ops_per_sample} {' | '.join(ptxas)}", flush=True)
+              f"ops_per_sample={prog.ops_per_sample} lanes={prog.lanes} "
+              f"{_generated_ptxas(prog.source)}", flush=True)
+        _check_no_spills(prog.source, f"the forward of {name}")
+    for name, prog in sweeps.items():
+        print(f"  ptxas {name} sweep lanes={prog.lanes} {_generated_ptxas(prog.source)}",
+              flush=True)
+        _check_no_spills(prog.source, f"the sweep's forward of {name}")
 
     # --- kernels distilled: B6 against its plain version and against B2 -------
     d = diode_1n4148_1u1d
@@ -1177,6 +1203,16 @@ def circuit_path(dev, card: str, seed: int) -> list:
             b2_err = max(_max_err(got, y2), _max_err(got_state["C"]["z"], z2))
             line += f" vs_analytic_kernel={b2_err:.3e} budget=2e-05"
             _check(b2_err <= 2e-5, "B7 on the LPF clipper within 2e-5 of B2")
+        prep = fcirc.prepare(ckt, circuits[name][1], dev, input_node=circuits[name][2],
+                             neural_mlp=circuits[name][4])
+        if prep.prog.lanes != (1,):  # an NxH root: the lane form, and the one-thread kernel
+            z = torch.zeros(len(prep.prog.state_order), B, device=dev)
+            lanes = fcirc.lanes_for(prep.prog, B)
+            one = fcirc.launch(prep, first[name], z, lanes=1)
+            torch.cuda.synchronize()
+            same = torch.equal(got, one[0])
+            line += f" lanes={lanes} equals_one_thread_kernel={same}"
+            _check(same, f"B7 {name}: the lane form has the one-thread kernel's bits")
         print(line, flush=True)
         _check(bool(torch.isfinite(got).all()) and circuit_err[name] <= 2e-5,
                f"B7 {name} within 2e-5 of its plain version")
@@ -1264,6 +1300,28 @@ def circuit_path(dev, card: str, seed: int) -> list:
               f"kernel_ms={statistics.median(k):.4f} [{min(k):.4f}, {max(k):.4f}] "
               f"(10 launches per run){wrapper} plain_ms={p_ms:.4f} (one run) card={card!r}",
               flush=True)
+    # the lanes per stream of the NxH roots' lane form (B7), on the sweep's
+    # build, at the serving shape, the generic training batch and two
+    # batches between them (where lanes_for switches K), no trajectory;
+    # lanes = 1 is the one-thread kernel
+    for name in ("ts_2x16", "hpf_2x16"):
+        ckt, p, node, _, mlp = circuits[name]
+        prep = fcirc.prepare(ckt, p, dev, input_node=node, neural_mlp=mlp)
+        prep = prep._replace(prog=sweeps[name])
+        for rows in (B, 4096, 2048, GEN_B):
+            x = first[name][:rows].contiguous()
+            z = torch.zeros(len(prep.prog.state_order), rows, device=dev)
+            sweep = {}
+            for lanes in prep.prog.lanes:
+                fn = (lambda lanes=lanes: fcirc.launch(prep, x, z, lanes=lanes))
+                _cuda_ms(fn, 1, 2)
+                sweep[lanes] = statistics.median(_cuda_ms(fn, REPS, 10))
+            best = min(sweep, key=sweep.get)
+            print(f"phase timing circuit lanes {name} shape=({rows}, {T}) runs={REPS} "
+                  + " ".join(f"K={k}:{v:.4f}" for k, v in sweep.items())
+                  + f" ms (10 launches per run) fastest=K{best} "
+                  f"chosen=K{fcirc.lanes_for(prep.prog, rows)} card={card!r}", flush=True)
+
     # the LPF clipper's own kernels on the same streams: B2 beside B7 on the
     # analytic root, B1 (the pretrained 2x16) beside B7 on the TS 2x16
     mlp = circuits["ts_2x16"][4]
@@ -1411,9 +1469,90 @@ def _gen_grads(case, vin, y, fused: bool):
              for n, x in zip(_leaf_names(params), leaves)}, v.grad)
 
 
+def _ptxas_kernels(source: str) -> dict:
+    """{kernel<template args>: (registers, spill store bytes, spill load
+    bytes)} from the ``-Xptxas -v`` log of a generated source."""
+    out, name = {}, None
+    for line in _build.generated_path(source).with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            k = re.search(r"\d+(circuit_\w*?kernel)", mangled)
+            args = re.findall(r"L[bi](\d+)E", mangled[k.end():].split("Ev", 1)[0]) if k else []
+            name = (k.group(1) if k else mangled) + (f"<{','.join(args)}>" if args else "")
+            out[name] = [0, 0, 0]
+        elif name and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes spill (stores|loads)", line)
+            out[name][1:] = [int(n) for n, _ in nums][:2]
+        elif name and "registers" in line:
+            out[name][0] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def _generated_ptxas(source: str) -> str:
-    log = _build.generated_path(source).with_suffix(".log").read_text().splitlines()
-    return " | ".join(l.split(":", 1)[-1].strip() for l in log if "registers" in l or "spill" in l)
+    return " | ".join(f"{k}: {r} registers, {ss}/{sl} bytes spilled (stores/loads)"
+                      for k, (r, ss, sl) in _ptxas_kernels(source).items())
+
+
+@contextlib.contextmanager
+def _old_kernels(active: bool):
+    """With ``active``, the generic engine's wrappers run the kernels as
+    they were before their redesign: B7 one thread per stream (lanes = 1),
+    B8 the one-pass kernel.  For the before-and-after timing only."""
+    if not active:
+        yield
+        return
+    lanes_for, launch_adjoint = fcirc.lanes_for, pb.launch_adjoint
+    fcirc.lanes_for = lambda prog, b: 1
+    pb.launch_adjoint = pb.launch_adjoint_onepass
+    try:
+        yield
+    finally:
+        fcirc.lanes_for, pb.launch_adjoint = lanes_for, launch_adjoint
+
+
+def _scratch_bytes(adj, B: int, T: int) -> str:
+    """B8's scratch at (B, T) as its wrapper allocates it: bytes, stream
+    group of pass 2 and time chunk."""
+    tc = adj.chunk(B, T)
+    return f"{4 * adj.scratch_floats(B, tc)} (group {adj.GROUP}, chunk {tc})"
+
+
+def _adjoint_passes(circuit, prep, vin, g_out, zseq, lam_t):
+    """(pass 1, pass 2): launch-only calls of B8's two kernels over all T on
+    a scratch allocated once, so that each is timed alone."""
+    adj = cg.adjoint_program(circuit, prep.prog)
+    lib = _build.generated_library(adj.source)
+    B, T = vin.shape
+    _check(adj.chunk(B, T) == T, "one chunk at the timed shape")
+    jac = torch.empty(adj.scratch_floats(B, T), device=vin.device)
+    lam_seq, g_vin, g_z0 = torch.empty_like(zseq), torch.empty_like(vin), torch.empty_like(lam_t)
+    rows = prep.rows if prep.rows.numel() else prep.vec
+    times = prep.times if prep.times.numel() else prep.vec
+    n_w = 0 if prep.warr is None else prep.warr.numel()
+    w = prep.warr if prep.warr is not None else prep.vec
+
+    def pass1():
+        _build.check(lib.circuit_jacobian_launch(
+            vin.data_ptr(), g_out.data_ptr(), zseq.data_ptr(), jac.data_ptr(), B, T, 0, T,
+            prep.vec.data_ptr(), rows.data_ptr(), times.data_ptr(), w.data_ptr(), n_w,
+            torch.cuda.current_stream().cuda_stream), "pass 1", lib.circuit_error_string)
+
+    def pass2():
+        _build.check(lib.circuit_recursion_launch(
+            jac.data_ptr(), lam_t.data_ptr(), g_z0.data_ptr(), lam_seq.data_ptr(),
+            g_vin.data_ptr(), B, T, 0, T, torch.cuda.current_stream().cuda_stream), "pass 2",
+            lib.circuit_error_string)
+
+    return pass1, pass2
+
+
+def _check_no_spills(source: str, what: str) -> None:
+    """The redesigned kernels (lane forward, the adjoint's two passes) must
+    not spill."""
+    new = {k: v for k, v in _ptxas_kernels(source).items()
+           if k.startswith(("circuit_lanes_kernel", "circuit_jacobian", "circuit_recursion"))}
+    _check(all(ss == sl == 0 for _, ss, sl in new.values()), f"no spills in {what}: {new}")
 
 
 def generic_train_path(dev, card: str, seed: int) -> list:
@@ -1453,6 +1592,9 @@ def generic_train_path(dev, card: str, seed: int) -> list:
                                dev, input_node="Vs", row_controls=r_rows,
                                shape=(GEN_B, GEN_T)).prog
     extra += [joint_prog.source, cg.adjoint_program(clip_n, joint_prog).source]
+    # the K sweep's build of the training form (every K that divides H)
+    ts_sweep = cg.sweep_program(cases["ts_2x16"][0], preps["ts_2x16"].prog)
+    extra.append(ts_sweep.source)
     sources = ([p.prog.source for p in preps.values()] + [a.source for a in adjs.values()]
                + extra)
     builds = _build.build_generated.builds
@@ -1465,9 +1607,13 @@ def generic_train_path(dev, card: str, seed: int) -> list:
         prog, adj = preps[name].prog, adjs[name]
         print(f"  ptxas {name} forward states={len(prog.state_order)} slots={prog.n_coeffs}/"
               f"{prog.n_rows}/{prog.n_times} ops_per_sample={prog.ops_per_sample} "
-              f"{_generated_ptxas(prog.source)}", flush=True)
-        print(f"  ptxas {name} adjoint ops_per_sample={adj.ops_per_sample} "
+              f"lanes={prog.lanes} {_generated_ptxas(prog.source)}", flush=True)
+        print(f"  ptxas {name} adjoint ops_per_sample={adj.ops_per_sample} (pass 1 "
+              f"{adj.jacobian_ops}, pass 2 {adj.recursion_ops}) entries={adj.n_entries} "
+              f"scratch_bytes={_scratch_bytes(adj, GEN_B, GEN_T)} "
               f"{_generated_ptxas(adj.source)}", flush=True)
+        _check_no_spills(prog.source, f"the forward of {name}")
+        _check_no_spills(adj.source, f"the adjoint of {name}")
 
     # --- kernels generic: B7 with its trajectory and B8 against plain ----------
     fwd_err, bwd_err, plain_ms = {}, {}, {}
@@ -1482,10 +1628,19 @@ def generic_train_path(dev, card: str, seed: int) -> list:
         errs = [_max_err(got[0], want[0]), _state_err(got[1], want[1]),
                 max(_max_err(a, w) for a, w in zip(got[2], want[2]))]
         fwd_err[name] = max(errs)
-        print(f"phase kernels generic {name} forward shape={shape} max_abs_err out={errs[0]:.3e} "
-              f"z_final={errs[1]:.3e} trajectory={errs[2]:.3e} budget=2e-05", flush=True)
+        prep = preps[name]
+        lanes = fcirc.lanes_for(prep.prog, GEN_B)
+        same = True
+        if lanes != 1:  # the lane form has the one-thread kernel's bits
+            one = fcirc.launch(prep, vin, fcirc._state_stack(prep.prog, _zero_state(case[0], vin),
+                                                             vin), True, lanes=1)
+            same = torch.equal(got[0], one[0]) and torch.equal(torch.stack(got[2]), one[2])
+        print(f"phase kernels generic {name} forward shape={shape} lanes={lanes} "
+              f"max_abs_err out={errs[0]:.3e} z_final={errs[1]:.3e} trajectory={errs[2]:.3e} "
+              f"budget=2e-05 equals_one_thread_kernel={same}", flush=True)
         _check(all(bool(torch.isfinite(x).all()) for x in [got[0], *got[2]])
                and fwd_err[name] <= 2e-5, f"B7 {name} with trajectory within 2e-5 of plain")
+        _check(same, f"B7 {name}: the lane form has the one-thread kernel's bits")
         g_out = torch.randn(GEN_B, GEN_T, generator=gen, device=dev) / (GEN_B * GEN_T)
         lam_T = [torch.randn(GEN_B, generator=gen, device=dev) / GEN_B for _ in got[2]]
         seq = [x.contiguous() for x in got[2]]
@@ -1508,6 +1663,15 @@ def generic_train_path(dev, card: str, seed: int) -> list:
               f"clock, one run)", flush=True)
         _check(all(bool(torch.isfinite(x).all()) for x in [b_got[1], *b_got[0]])
                and max(rel) < GEN_BUDGET[name], f"B8 {name} within budget of plain")
+        # the two passes against the one-pass kernel (today's arithmetic)
+        one = pb.launch_adjoint_onepass(case[0], prep, vin, g_out, torch.stack(seq),
+                                        torch.stack(lam_T))
+        torch.cuda.synchronize()
+        two = (torch.stack(b_got[0]), b_got[1], torch.stack(b_got[2]))
+        diff = max(_max_err(a, w) for a, w in zip(two, one))
+        print(f"phase kernels generic {name} adjoint two passes vs one-pass kernel shape={shape} "
+              f"max_abs_diff={diff:.3e} bitwise={all(map(torch.equal, two, one))}", flush=True)
+        _check(all(map(torch.equal, two, one)), f"B8 {name}: the two passes give the one-pass bits")
 
     # --- grad generic: the fused_generic op against the scan engine ------------
     gb, gt = GEN_GRAD_B, GEN_GRAD_T
@@ -1651,18 +1815,29 @@ def generic_train_path(dev, card: str, seed: int) -> list:
                 t.grad = g
         opt.step()
 
-    parts = {}
-    for name, fn in (("forward_with_trajectory", part_forward), ("loss", part_loss),
-                     ("adjoint", part_adjoint), ("parameter_pass", part_params),
-                     ("adam", part_adam)):
-        parts[name] = _timed(fn)[0]
-    step = _timed(lambda: step_fn(trained, opt, batches))
+    def step_parts():
+        parts = {}
+        for name, fn in (("forward_with_trajectory", part_forward), ("loss", part_loss),
+                         ("adjoint", part_adjoint), ("parameter_pass", part_params),
+                         ("adam", part_adam)):
+            parts[name] = _timed(fn)[0]
+        return parts, _timed(lambda: step_fn(trained, opt, batches))
+
+    # the step before and after the redesign, in turns (before, after,
+    # before, after): "before" runs today's kernels through the same
+    # wrappers, the one-thread forward (lanes = 1) and the one-pass adjoint
     samples = GEN_B * GEN_T
-    print(f"phase timing generic train_step circuit=tube_screamer 2x16 shape={shape} runs={REPS} "
-          f"step_ms={step[0]:.4f} [{step[1]:.4f}, {step[2]:.4f}] "
-          f"({samples / step[0] / 1e3:.3f} Msamples/s) "
-          + " ".join(f"{k}_ms={v:.4f}" for k, v in parts.items())
-          + f" parts_sum_ms={sum(parts.values()):.4f} card={card!r}", flush=True)
+    runs = {"before": [], "after": []}
+    for label in ("before", "after", "before", "after"):
+        with _old_kernels(label == "before"):
+            runs[label].append(step_parts())
+    for label, (parts, step) in [(k, v[-1]) for k, v in runs.items()]:
+        first = runs[label][0][1][0]
+        print(f"phase timing generic train_step kernels={label} circuit=tube_screamer 2x16 "
+              f"shape={shape} runs={REPS} step_ms={step[0]:.4f} [{step[1]:.4f}, {step[2]:.4f}] "
+              f"(first turn {first:.4f}) ({samples / step[0] / 1e3:.3f} Msamples/s) "
+              + " ".join(f"{k}_ms={v:.4f}" for k, v in parts.items())
+              + f" parts_sum_ms={sum(parts.values()):.4f} card={card!r}", flush=True)
 
     # both kernels alone, on arguments prepared once
     ts_case = (circuit, trained, "Vin", mlp, None, None, 0.5)
@@ -1670,39 +1845,62 @@ def generic_train_path(dev, card: str, seed: int) -> list:
     z0 = torch.zeros(3, GEN_B, device=dev)
     _, _, zseq = fcirc.launch(prep, x, z0, with_seq=True)
     g_out, lam_t = state["g_out"].contiguous(), torch.zeros(3, GEN_B, device=dev)
+    rows375 = GEN_TRAIN_CHUNKS
+    x375, g375 = x[:rows375].contiguous(), g_out[:rows375].contiguous()
+    z375, l375 = zseq[:, :rows375].contiguous(), lam_t[:, :rows375].contiguous()
+    pass1, pass2 = _adjoint_passes(circuit, prep, x, g_out, zseq, lam_t)
     kernel_ms = {}
     for label, fn in (
         ("B7", lambda: fcirc.launch(prep, x, z0, with_seq=True)),
+        ("B7 one-thread", lambda: fcirc.launch(prep, x, z0, with_seq=True, lanes=1)),
         ("B8", lambda: pb.launch_adjoint(circuit, prep, x, g_out, zseq, lam_t)),
-        ("B8 375", lambda: pb.launch_adjoint(circuit, prep, x[:GEN_TRAIN_CHUNKS].contiguous(),
-                                             g_out[:GEN_TRAIN_CHUNKS].contiguous(),
-                                             zseq[:, :GEN_TRAIN_CHUNKS].contiguous(),
-                                             lam_t[:, :GEN_TRAIN_CHUNKS].contiguous())),
+        ("B8 pass 1", pass1),
+        ("B8 pass 2", pass2),
+        ("B8 one-pass", lambda: pb.launch_adjoint_onepass(circuit, prep, x, g_out, zseq, lam_t)),
+        ("B8 375", lambda: pb.launch_adjoint(circuit, prep, x375, g375, z375, l375)),
+        ("B8 375 one-pass", lambda: pb.launch_adjoint_onepass(circuit, prep, x375, g375, z375,
+                                                              l375)),
     ):
         _cuda_ms(fn, 1, 2)
         k = _cuda_ms(fn, REPS, 10)
         kernel_ms[label] = statistics.median(k)
-        rows = GEN_TRAIN_CHUNKS if label == "B8 375" else GEN_B
+        rows = rows375 if "375" in label else GEN_B
         print(f"phase timing generic kernel {label} shape=({rows}, {GEN_T}) runs={REPS} "
               f"kernel_ms={kernel_ms[label]:.4f} [{min(k):.4f}, {max(k):.4f}] "
               f"(10 launches per run) card={card!r}", flush=True)
+    sweep = {}
+    sprep = prep._replace(prog=cg.sweep_program(circuit, prep.prog))
+    for lanes in sprep.prog.lanes:  # the training form's lanes per stream
+        fn = (lambda lanes=lanes: fcirc.launch(sprep, x, z0, with_seq=True, lanes=lanes))
+        _cuda_ms(fn, 1, 2)
+        sweep[lanes] = statistics.median(_cuda_ms(fn, REPS, 10))
+    print(f"phase timing generic lanes B7 training form shape={shape} runs={REPS} "
+          + " ".join(f"K={k}:{v:.4f}" for k, v in sweep.items())
+          + f" ms fastest=K{min(sweep, key=sweep.get)} chosen=K{fcirc.lanes_for(prep.prog, GEN_B)} "
+          f"card={card!r}", flush=True)
     S = 3
     adj = cg.adjoint_program(circuit, prep.prog)
+    print(f"phase timing generic scratch B8 entries={adj.n_entries} bytes="
+          f"{_scratch_bytes(adj, GEN_B, GEN_T)} {shape}, "
+          f"{_scratch_bytes(adj, rows375, GEN_T)} ({rows375}, {GEN_T}); cap "
+          f"{adj.SCRATCH_CAP_BYTES}", flush=True)
     # bytes: B7 reads vin and writes out and the S trajectories; B8 reads
     # vin, obar and the trajectories (the TS streams no pot) and writes the S
     # lam streams and g_vin; both read and write S values per row
     bounds = {"B7": _bound(prep.prog.ops_per_sample * samples,
                            (2 + S) * 4 * samples + 8 * S * GEN_B)}
-    for label, rows in (("B8", GEN_B), ("B8 375", GEN_TRAIN_CHUNKS)):
+    for label, rows in (("B8", GEN_B), ("B8 375", rows375)):
         bounds[label] = _bound(adj.ops_per_sample * rows * GEN_T,
                                (3 + 2 * S) * 4 * rows * GEN_T + 8 * S * rows)
-    for label in ("B7", "B8", "B8 375"):
+    for label, before in (("B7", "B7 one-thread"), ("B8", "B8 one-pass"),
+                          ("B8 375", "B8 375 one-pass")):
         plain = f"{plain_ms['ts_2x16'][0 if label == 'B7' else 1]:.1f}" if label != "B8 375" \
             else "not run"
         print(f"phase timing generic bound {label} kernel_ms={kernel_ms[label]:.4f} "
-              f"bound_ms={bounds[label][0]:.6f} ({bounds[label][1]}) "
-              f"share={bounds[label][0] / kernel_ms[label]:.4f} plain_ms={plain} "
-              f"launches_on_main_path={launches[label.split()[0]]} card={card!r}", flush=True)
+              f"before_ms={kernel_ms[before]:.4f} bound_ms={bounds[label][0]:.6f} "
+              f"({bounds[label][1]}) share={bounds[label][0] / kernel_ms[label]:.4f} "
+              f"plain_ms={plain} launches_on_main_path={launches[label.split()[0]]} "
+              f"card={card!r}", flush=True)
     return [
         {"name": "fused_circuit_process (training form: pot streams, state trajectory)",
          "route": "cuda", "source": CIRCUIT_SOURCE, "replaces": CIRCUIT_REPLACES,
@@ -2132,8 +2330,9 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
                       if ev.device_type == torch.autograd.DeviceType.CUDA]
         dev_us = sum(ev.time_range.elapsed_us() for ev in dev_events) / 10
         kernel_us = sum(ev.time_range.elapsed_us() for ev in dev_events if any(
-            k in ev.name for k in ("deer_kernel", "circuit_kernel", "deer_clipper_kernel",
-                                   "analytic_kernel", "neural_kernel"))) / 10
+            k in ev.name for k in ("deer_kernel", "circuit_kernel", "circuit_lanes_kernel",
+                                   "deer_clipper_kernel", "analytic_kernel",
+                                   "neural_kernel"))) / 10
         host = sorted((ev for ev in prof.key_averages() if ev.self_cpu_time_total > 0),
                       key=lambda ev: -ev.self_cpu_time_total)[:3]
         print(f"phase timing stream {proc_name} engine={engine} {member} "

@@ -141,11 +141,14 @@ def check(err: int, what: str, error_string=None) -> None:
 # ---------------------------------------------------------------------------
 
 #: C signatures of the generated circuit kernel libraries (a forward source
-#: exports circuit_launch, an adjoint source circuit_adjoint_launch, a DEER
-#: source circuit_deer_launch)
+#: exports circuit_launch, an adjoint source its two passes and the one-pass
+#: reference, a DEER source circuit_deer_launch)
 _GENERATED_SIGNATURES = {
-    "circuit_launch": ([_vp] * 5 + [_i, _i] + [_vp] * 4 + [_i, _vp], ctypes.c_int),
-    "circuit_adjoint_launch": ([_vp] * 7 + [_i, _i] + [_vp] * 4 + [_i, _vp], ctypes.c_int),
+    "circuit_launch": ([_vp] * 5 + [_i, _i] + [_vp] * 4 + [_i] * 3 + [_vp], ctypes.c_int),
+    "circuit_jacobian_launch": ([_vp] * 4 + [_i] * 4 + [_vp] * 4 + [_i, _vp], ctypes.c_int),
+    "circuit_recursion_launch": ([_vp] * 5 + [_i] * 4 + [_vp], ctypes.c_int),
+    "circuit_adjoint_onepass_launch": ([_vp] * 7 + [_i, _i] + [_vp] * 4 + [_i, _vp],
+                                       ctypes.c_int),
     "circuit_deer_launch": ([_vp] * 6 + [_i] + [_vp] * 2 + [_i] * 4 + [_f] * 2 + [_i, _vp],
                             ctypes.c_int),
     "circuit_error_string": ([_i], ctypes.c_char_p),
@@ -208,20 +211,21 @@ def build_generated(sources) -> list:
 
 build_generated.builds = 0
 
+#: source -> its loaded library: a launch finds its library without hashing
+#: the source (tens of kilobytes) again
 _generated_libs: dict = {}
 
 
 def generated_library(source: str) -> ctypes.CDLL:
     """The loaded library of a generated source, built first if needed."""
-    so = build_generated([source])[0]
-    lib = _generated_libs.get(so)
+    lib = _generated_libs.get(source)
     if lib is None:
-        lib = ctypes.CDLL(str(so))
+        lib = ctypes.CDLL(str(build_generated([source])[0]))
         for name, (argtypes, restype) in _GENERATED_SIGNATURES.items():
             if not hasattr(lib, name):
                 continue
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = restype
-        _generated_libs[so] = lib
+        _generated_libs[source] = lib
     return lib

@@ -4,11 +4,15 @@ Three kernels per circuit structure:
 
 - the **forward** (``CircuitProgram.source``, ``ops.fused_circuit``): the
   circuit's whole sample recursion over a batch of streams, one thread per
-  stream, optionally writing the pre-step state trajectory z_{t-1} (the
-  residual of training);
+  stream or, for an NxH neural root, a group of K lanes per stream (the
+  tree on every lane, the MLP split across them: ``_lanes_parts``),
+  optionally writing the pre-step state trajectory z_{t-1} (the residual of
+  training);
 - the **adjoint** (``AdjointProgram.source``, ``ops.parallel_bptt``): the
-  reverse-time recursion lam_{t-1} = J_t^T lam_t + A_t^T obar_t of training,
-  walking t = T-1 ... 0 over the stored trajectory, one thread per stream;
+  reverse-time recursion lam_{t-1} = J_t^T lam_t + A_t^T obar_t of training
+  over the stored trajectory, in two passes: the step's tangents at every
+  (b, t) in parallel into a scratch, then one thread per stream walking
+  t = T-1 ... 0 through them (``generate_adjoint``);
 - the **DEER solve** (``DeerProgram.source``, ``ops.deer_circuit``): one
   stream's recursion solved parallel in time by Newton sweeps over the
   whole trajectory, one CTA, its step writing f and the S x S state
@@ -35,7 +39,9 @@ with coefficient slots.  The root's derivative m = db/da is computed once
 per step at the primal a (the diode pair's derivative through
 ``omega_slope``, the NxH MLP's by ``nxh_tangent``) and the S + 1 pulls of
 the root are db = m da.  The cotangents are then contracted with the carried
-lam and the output's cotangent: the kernel never forms J_t.  The DEER step
+lam and the output's cotangent; pass 1 writes the tangents that are not
+exact constants, pass 2 contracts them in the one-pass step's order, so the
+two give its bits.  The DEER step
 is the same trace with the S state directions only, its primal f and its
 tangents J written out; there the root's value and slope come from one
 pass (``emit_value_slope``: one omega pair, or ``nxh_forward_tangent``).
@@ -125,6 +131,17 @@ NODE_CLASSES = (Resistor, Capacitor, Inductor, ResistiveVoltageSource, Resistive
 MAX_MATRIX = 64
 #: slot kinds of a per-row and a per-sample coefficient in a layout
 ROW, TIME = ("row",), ("time",)
+#: the group sizes K (lanes per stream) a lane-cooperative forward of an NxH
+#: root can take, where they divide H (``_NeuralEmitter.lane_counts``)
+LANES = (4, 8, 16)
+#: the most lanes per stream ``fused_circuit.lanes_for`` gives B streams: the
+#: target of the first row whose bound B does not exceed.  Measured on an
+#: H100 (chip_smoke.py's K sweep, T = 2,048; PERF.md): the Tube Screamer 2x16
+#: and the HPF 2x16 run fastest at K = 16 at B = 1,024, K = 16 and 8 tie
+#: (within 2%) at 2,048, K = 8 wins at 4,096 and 8,192 (K = 4 reads its
+#: weights from shared memory, K = 16 repeats the tree and the shuffles on
+#: too many lanes)
+LANE_TARGETS = ((2048, 16), (None, 8))
 
 
 # ---------------------------------------------------------------------------
@@ -593,12 +610,15 @@ class _DiodePairEmitter(_RootEmitter):
 
 class _NeuralEmitter(_RootEmitter):
     """NxH all-tanh MLP with a linear head, b = -MLP([a, log R]), through
-    nxh_mlp.cuh.  Root array for one R: w1a[H], c1[H] (log R folded in),
-    w3[H], b3, then per hidden layer W[H][H] and bias[H] (fused_clipper.cu's
-    layout); for a per-row or per-sample R: w1a[H], w1r[H], b1[H], w3[H],
-    b3, then the hidden layers (clipper_train.cu's layout), with c1 built by
+    nxh_mlp.cuh (and nxh_lanes.cuh in the lane-cooperative forward).  Root
+    array for one R: w1a[H], c1[H] (log R folded in), w3[H], b3, then per
+    hidden layer W[H][H] and bias[H] (fused_clipper.cu's layout); for a
+    per-row or per-sample R: w1a[H], w1r[H], b1[H], w3[H], b3, then the
+    hidden layers (clipper_train.cu's layout), with c1 built by
     ``nxh_first_bias`` once per stream from the row's log R (a row slot,
-    taken in double) or per step from logf of the streamed R."""
+    taken in double) or per step from logf of the streamed R.  Zeros after
+    b3 start the hidden layers at a multiple of 4 floats, so that the lane
+    form reads every block in 16-byte words."""
 
     headers = ("nxh_mlp.cuh",)
     #: one block per SM: with the block size alone ptxas put the Tube
@@ -625,7 +645,8 @@ class _NeuralEmitter(_RootEmitter):
         self.n_slots = 1 if r_kind == "row" else 0
         self.n_keep = H if r_kind == "row" else 0
         # offsets into the root array: c1 (or w1r), the head, b3, hidden
-        self._head, self._hidden = (2 * H, 3 * H + 1) if r_kind == "scalar" else (3 * H, 4 * H + 1)
+        self._head = 2 * H if r_kind == "scalar" else 3 * H
+        self._hidden = (self._head + H + 1 + 3) // 4 * 4
 
     def key(self):
         return ("NeuralDiodeRoot", self.H, self.L)
@@ -648,6 +669,7 @@ class _NeuralEmitter(_RootEmitter):
             parts = [W1[0], W1[1] * log_r + b1, w3, b3]
         else:
             parts = [W1[0], W1[1], b1, w3, b3]
+        parts.append(torch.zeros(self._hidden - self._head - self.H - 1, device=W1.device))
         parts += [x.reshape(-1) for layer in hidden for x in layer]
         return torch.cat([p.detach().to(device, torch.float32) for p in parts])
 
@@ -658,17 +680,59 @@ class _NeuralEmitter(_RootEmitter):
         return [f"nxh_first_bias<{H}>(w + {H}, w + {2 * H}, {slots[0].ref}, "
                 f"*reinterpret_cast<float(*)[{H}]>(p));"]
 
-    def _c1(self, tr, r_up) -> str:
+    def lane_counts(self, every: bool = False) -> Tuple[int, ...]:
+        """The group sizes K of the lane-cooperative forward kernel built for
+        this root (``nxh_lanes.cuh``): of the K in LANES that divide H, the
+        largest at most each target of LANE_TARGETS (those that
+        ``fused_circuit.lanes_for`` can pick), or with ``every`` all of them
+        (the K sweep); none where no K divides H (the one-thread kernel
+        serves such a root alone)."""
+        ks = [k for k in LANES if self.H % k == 0]
+        if not every:
+            ks = {max(k for k in ks if k <= target) for _, target in LANE_TARGETS
+                  if any(k <= target for k in ks)}
+        return tuple(sorted(ks))
+
+    def lane_weights(self) -> Tuple[str, str]:
+        """(the C++ type of a lane's weights in the lane form, given K; the
+        statement that loads them for lane ``rank`` from the root array
+        ``w``): registers where N H L + H <= 96 (nxh_lanes.cuh)."""
+        H, L = self.H, self.L
+        return (f"NxhLaneWeights<{H}, K, {L}, ({H} / K) * {H} * {L} + {H} <= 96>",
+                f"lw.load(w + {self._hidden}, w + {self._head}, rank);")
+
+    def prologue_lanes(self, slots) -> List[str]:
+        """The lane form's prologue: each lane's N = H / K entries of c1."""
+        if self.r_kind != "row":
+            return []
+        H = self.H
+        return [f"nxh_first_bias_lanes<{H}, K>(w + {H}, w + {2 * H}, {slots[0].ref}, rank, p);"]
+
+    def _c1(self, tr, r_up, lanes: bool = False) -> str:
         H = self.H
         if self.r_kind == "scalar":
             return f"w + {H}"
         if self.r_kind == "row":
             return "p"
+        if lanes:
+            return tr.decl(f"float {{name}}[{H} / K]; nxh_first_bias_lanes<{H}, K>(w + {H}, "
+                           f"w + {2 * H}, logf({r_up.ref}), rank, {{name}});", 2 * H + 1, "c1_")
         return tr.decl(f"float {{name}}[{H}]; nxh_first_bias<{H}>(w + {H}, w + {2 * H}, "
                        f"logf({r_up.ref}), {{name}});", 2 * H + 1, "c1_")
 
-    def emit(self, tr, a, r_up, slots, controls, params):
+    def emit(self, tr, a, r_up, slots, controls, params, lanes: bool = False):
+        """b at a; with ``lanes`` the lane form (``nxh_forward_lanes`` on the
+        group of K lanes of the kernel's template, ``rank`` the lane's place
+        in it), which only the lane-cooperative forward kernel emits."""
         H = self.H
+        if lanes:
+            tr.raw(f"// root: NxH MLP on K lanes, H = {H}, {self.L} hidden layers "
+                   "(nxh_lanes.cuh)")
+            c1 = self._c1(tr, r_up, lanes=True)
+            local = "false" if self.r_kind == "scalar" else "true"
+            return tr.let(f"-nxh_forward_lanes<{H}, K, {self.L}, {local}>({a.ref}, w, {c1}, "
+                          f"w + {self._hidden}, w + {self._head}, w[{self._head + H}], rank, "
+                          "lw)", self.ops, "root")
         tr.raw(f"// root: NxH MLP, H = {H}, {self.L} hidden layers (nxh_mlp.cuh)")
         c1 = self._c1(tr, r_up)
         return tr.let(f"-nxh_forward<{H}>({a.ref}, w, {c1}, w + {self._hidden}, {self.L}, "
@@ -810,6 +874,11 @@ class CircuitProgram:
     n_times: int           # time slots
     ops_per_sample: int    # counted from the emitted step
     emitter: Any
+    #: the lanes per stream ``circuit_launch`` takes: 1 (one thread per
+    #: stream, every root) and, for an NxH root, the group sizes K of the
+    #: lane-cooperative kernel
+    lanes: Tuple[int, ...] = (1,)
+    lanes_source: str = ""  # the lane form's prologue and step (NxH roots; device only)
 
     def arguments(self, circuit: Circuit, coeffs, params, static_controls, device):
         """(coefficient vector (NC,), row slots (NR, B), time slots
@@ -869,9 +938,41 @@ class AdjointProgram:
     """The generated adjoint kernel of one circuit structure (the layout is
     its forward program's)."""
 
-    source: str            # the whole .cu: step, kernel, launch function
-    host_source: str       # the step and a host loop (tests)
-    ops_per_sample: int    # counted from the emitted adjoint step
+    source: str            # the whole .cu: steps, kernels, launch functions
+    host_source: str       # the steps and host loops (tests)
+    ops_per_sample: int    # counted from the emitted one-pass adjoint step
+    jacobian_ops: int      # pass 1 a sample (the tangents), counted from its step
+    recursion_ops: int     # pass 2 a sample (the contraction)
+    n_entries: int         # floats a sample in the scratch between the passes
+    n_state: int
+
+    #: the scratch cap of one adjoint call: longer inputs run in time chunks
+    SCRATCH_CAP_BYTES = 256 * 2 ** 20
+    #: streams a block of pass 2 walks.  Pass 2 is paced by each SM's pull of
+    #: its group's entries, so few streams are better spread thin: B = 1,024
+    #: gives 128 blocks of 8 on 132 SMs
+    GROUP = 8
+
+    @staticmethod
+    def padded(n_entries: int) -> int:
+        """Floats a sample in the scratch: the entries padded to a multiple
+        of 4 (16-byte words), at least 4."""
+        return max(4, (n_entries + 3) // 4 * 4)
+
+    def chunk(self, B: int, T: int) -> int:
+        """Samples per time chunk: all T where the scratch of (B, T) stays
+        under ``SCRATCH_CAP_BYTES``, else the longest multiple of 32 that
+        does (at least 32)."""
+        per_sample = 4 * self.scratch_floats(B, 1)
+        if per_sample * T <= self.SCRATCH_CAP_BYTES:
+            return T
+        return max(32, self.SCRATCH_CAP_BYTES // per_sample // 32 * 32)
+
+    def scratch_floats(self, B: int, tc: int) -> int:
+        """The scratch of one chunk of tc samples: ``padded(n_entries)``
+        floats a sample over ceil(B / GROUP) groups of GROUP streams."""
+        g = self.GROUP
+        return self.padded(self.n_entries) * (-(-B // g) * g) * tc
 
 
 def _layout(circuit, coeffs, params, static_controls, batch=0, time=0):
@@ -982,28 +1083,42 @@ __device__ __forceinline__ void circuit_prologue(const float* c, const float* r,
 # ---------------------------------------------------------------------------
 
 
-def generate(circuit: Circuit, layout, input_node: str, emitter: _RootEmitter
-             ) -> CircuitProgram:
+def _trace_forward(circuit: Circuit, layout, input_node: str, emitter: _RootEmitter,
+                   lanes: bool = False):
+    """The forward step's symbols and lines: (body lines, output ref,
+    operations, root slots, slot descriptions, slot counts).  With ``lanes``
+    the root is the NxH root's lane form."""
+    order = state_order(circuit)
+    tr = _Trace()
+    (coeffs_s, params_s, static_s), root_slots, slot_names, counts = _symbols(tr, layout, emitter)
+    state = _nest([((node, field), Sym(tr, f"s{k}")) for k, (node, field) in enumerate(order)])
+    kw = {"lanes": True} if lanes else {}
+    new_state, out = step(
+        circuit, coeffs_s, state, _controls(static_s, input_node, Sym(tr, "v")),
+        lambda a, r_up, ctl: emitter.emit(tr, a, r_up, root_slots, ctl, params_s, **kw))
+    out = out if isinstance(out, Sym) else tr.const(float(out))
+    writes = [f"z[{k}] = {new_state[node][field].ref};" for k, (node, field) in enumerate(order)]
+    reads = [f"const float s{k} = z[{k}];" for k in range(len(order))]
+    lines, ops = tr.live(" ".join(writes + [out.ref]))
+    body = "\n".join("  " + line for line in reads + lines + writes)
+    return body, out.ref, ops, root_slots, slot_names, counts
+
+
+def generate(circuit: Circuit, layout, input_node: str, emitter: _RootEmitter,
+             every_lane: bool = False) -> CircuitProgram:
     """Trace ``circuit``'s step into a CircuitProgram for a slot ``layout``
     (``_layout``: the kinds and shapes of the adapted coefficients, params
-    and static controls)."""
+    and static controls).  An NxH root's lane form is built for the K that
+    ``fused_circuit.lanes_for`` can pick, with ``every_lane`` for every K
+    that divides H (``_NeuralEmitter.lane_counts``)."""
     _check_tree(circuit.tree)
     if len(circuit.outputs) != 1:
         raise ValueError(f"fused_circuit: one output probe, got {tuple(circuit.outputs)}")
     order = state_order(circuit)
-    tr = _Trace()
-    (coeffs_s, params_s, static_s), root_slots, slot_names, counts = _symbols(tr, layout, emitter)
+    body, out_ref, ops, root_slots, slot_names, counts = _trace_forward(
+        circuit, layout, input_node, emitter)
     nc, nr, nq = counts
-    state = _nest([((node, field), Sym(tr, f"s{k}")) for k, (node, field) in enumerate(order)])
-    new_state, out = step(
-        circuit, coeffs_s, state, _controls(static_s, input_node, Sym(tr, "v")),
-        lambda a, r_up, ctl: emitter.emit(tr, a, r_up, root_slots, ctl, params_s))
-    out = out if isinstance(out, Sym) else tr.const(float(out))
     n_state = len(order)
-    writes = [f"z[{k}] = {new_state[node][field].ref};" for k, (node, field) in enumerate(order)]
-    reads = [f"const float s{k} = z[{k}];" for k in range(n_state)]
-    lines, ops = tr.live(" ".join(writes + [out.ref]))
-    body = "\n".join("  " + line for line in reads + lines + writes)
     prelude = _prelude(circuit, emitter, input_node, order, slot_names, counts, emitter.n_keep,
                        emitter.prologue(root_slots), "forward", ops)
     step_source = prelude + f"""
@@ -1019,7 +1134,7 @@ __device__ __forceinline__ float circuit_step(float v, float* z, const float* c,
   (void)w;
   (void)p;
 {body}
-  return {out.ref};
+  return {out_ref};
 }}
 
 }}  // namespace
@@ -1031,16 +1146,25 @@ __device__ __forceinline__ float circuit_step(float v, float* z, const float* c,
     q_reads = "".join(f"\n        q[{j}] = tiles[{1 + i}][threadIdx.x][k];"
                       for i, j in enumerate(used_q))
     seq0 = 1 + len(used_q)
+    lane_counts = (emitter.lane_counts(every_lane) if isinstance(emitter, _NeuralEmitter)
+                   else ())
+    lanes_source = lanes_kernel = ""
+    if lane_counts:
+        lanes_source, lanes_kernel = _lanes_parts(circuit, layout, input_node, emitter, body,
+                                                  lane_counts, (zn, cn, rn, qn, pn))
+    lane_cases = "".join(
+        f"\n    case {k}:\n      kernel = with_seq ? circuit_lanes_kernel<true, {k}> : "
+        f"circuit_lanes_kernel<false, {k}>;\n      break;" for k in lane_counts)
     kernel = f"""
 #include "tile.cuh"
-
-// One thread per stream over all T samples: the state and the coefficient
-// and row slots in registers, the root array in shared memory, (B, T)
-// streams (the input, the per-sample slots this step reads, the output and
-// the optional state trajectory) staged through shared memory in (128, 32)
-// tiles for whole-line loads and stores.  Exact f32: no fast-math flags or
-// intrinsics.  Launch bounds: {emitter.launch_bounds} (the root emitter's
-// choice; see _RootEmitter.launch_bounds).
+{lanes_kernel}
+// One thread per stream over all T samples (lanes = 1): the state and the
+// coefficient and row slots in registers, the root array in shared memory,
+// (B, T) streams (the input, the per-sample slots this step reads, the
+// output and the optional state trajectory) staged through shared memory in
+// (128, 32) tiles for whole-line loads and stores.  Exact f32: no fast-math
+// flags or intrinsics.  Launch bounds: {emitter.launch_bounds} (the root
+// emitter's choice; see _RootEmitter.launch_bounds).
 namespace {{
 
 constexpr int kTimeTiles = {len(used_q)};  // per-sample slot streams the step reads
@@ -1050,7 +1174,8 @@ __global__ void __launch_bounds__({emitter.launch_bounds})
 circuit_kernel(const float* __restrict__ vin, const float* __restrict__ z0,
                float* __restrict__ out, float* __restrict__ zf, float* __restrict__ seq, int B,
                int T, const float* __restrict__ coef, const float* __restrict__ rows,
-               const float* __restrict__ times, const float* __restrict__ warr, int n_warr) {{
+               const float* __restrict__ times, const float* __restrict__ warr, int n_warr,
+               int writer) {{
   extern __shared__ float smem[];
   for (int i = threadIdx.x; i < n_warr; i += blockDim.x) smem[i] = warr[i];
   __syncthreads();
@@ -1058,6 +1183,7 @@ circuit_kernel(const float* __restrict__ vin, const float* __restrict__ z0,
   Tile* tiles = reinterpret_cast<Tile*>(smem + ((n_warr + 3) & ~3));
   (void)times;
   (void)seq;
+  (void)writer;
   float c[{cn}];
 #pragma unroll
   for (int i = 0; i < CIRCUIT_NC; ++i) c[i] = coef[i];
@@ -1100,22 +1226,35 @@ circuit_kernel(const float* __restrict__ vin, const float* __restrict__ z0,
 
 extern "C" {{
 
-// seq: (S, B, T) pre-step states, or null for none.
+// seq: (S, B, T) pre-step states, or null for none.  lanes: the lanes per
+// stream, 1 or a group size K of the lane-cooperative kernel (none: 1 only);
+// writer: the lane of a group that writes, 0 <= writer < lanes.
 int circuit_launch(const float* vin, const float* z0, float* out, float* zf, float* seq, int B,
                    int T, const float* coef, const float* rows, const float* times,
-                   const float* warr, int n_warr, void* stream) {{
-  const int n_tiles = 1 + kTimeTiles + (seq != nullptr ? CIRCUIT_NS : 0);
+                   const float* warr, int n_warr, int lanes, int writer, void* stream) {{
+  if (writer < 0 || writer >= lanes) return static_cast<int>(cudaErrorInvalidValue);
+  const bool with_seq = seq != nullptr;
+  const int n_tiles = 1 + kTimeTiles + (with_seq ? CIRCUIT_NS : 0);
+  decltype(&circuit_kernel<false>) kernel = nullptr;
+  switch (lanes) {{
+    case 1:
+      kernel = with_seq ? circuit_kernel<true> : circuit_kernel<false>;
+      break;{lane_cases}
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }}
+  const int rows_per_block = kTileRows / lanes;  // streams per block
   const size_t smem = sizeof(float) * static_cast<size_t>((n_warr + 3) & ~3) +
-                      sizeof(Tile) * static_cast<size_t>(n_tiles);
-  auto kernel = seq != nullptr ? circuit_kernel<true> : circuit_kernel<false>;
+                      sizeof(float) * static_cast<size_t>(rows_per_block) * (kTileCols + 1) *
+                          static_cast<size_t>(n_tiles);
   if (smem > 48 * 1024) {{
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }}
-  const int blocks = (B + kTileRows - 1) / kTileRows;
+  const int blocks = (B + rows_per_block - 1) / rows_per_block;
   kernel<<<blocks, kTileRows, smem, static_cast<cudaStream_t>(stream)>>>(
-      vin, z0, out, zf, seq, B, T, coef, rows, times, warr, n_warr);
+      vin, z0, out, zf, seq, B, T, coef, rows, times, warr, n_warr, writer);
   return static_cast<int>(cudaGetLastError());
 }}
 
@@ -1146,9 +1285,157 @@ extern "C" void circuit_host_run(const float* vin, const float* z0, float* out, 
 }}
 """
     return CircuitProgram(
-        source=step_source + kernel, step_source=step_source, host_source=step_source + host,
-        state_order=order, layout=layout, input_node=input_node, n_coeffs=nc, n_rows=nr,
-        n_times=nq, ops_per_sample=ops, emitter=emitter)
+        source=step_source + lanes_source + kernel, step_source=step_source,
+        host_source=step_source + host, state_order=order, layout=layout, input_node=input_node,
+        n_coeffs=nc, n_rows=nr, n_times=nq, ops_per_sample=ops, emitter=emitter,
+        lanes=(1,) + lane_counts, lanes_source=lanes_source)
+
+
+def _lanes_parts(circuit, layout, input_node, emitter, body, lane_counts, sizes):
+    """(the lane form's prologue and step, its kernel) for an NxH root: the
+    step traced again with the root's lane form; the tree's lines are the
+    one-thread step's (checked)."""
+    zn, cn, rn, qn, pn = sizes
+    lbody, lout, _, root_slots, _, _ = _trace_forward(circuit, layout, input_node, emitter,
+                                                      lanes=True)
+    tree = [line for line in body.splitlines() if "nxh_" not in line and "// root" not in line]
+    if tree != [line for line in lbody.splitlines()
+                if "nxh_" not in line and "// root" not in line]:
+        raise AssertionError("the lane form's tree differs from the one-thread step's")
+    prologue = "\n".join("  " + line for line in emitter.prologue_lanes(root_slots))
+    weights_type, weights_load = emitter.lane_weights()
+    source = f"""
+// The lane form of the step (lane-cooperative kernel below; device only):
+// the same tree lines on every lane of a group of K, the MLP split across
+// the group (nxh_lanes.cuh); rank is the lane's place in its group.
+#include "nxh_lanes.cuh"
+
+namespace {{
+
+// a lane's weights of the root (registers or none; nxh_lanes.cuh)
+template <int K>
+using CircuitLaneWeights = {weights_type};
+
+template <int K>
+__device__ __forceinline__ void circuit_prologue_lanes(const float* c, const float* r,
+                                                       const float* w, float* p, int rank) {{
+  (void)c;
+  (void)r;
+  (void)w;
+  (void)p;
+  (void)rank;
+{prologue}
+}}
+
+template <int K>
+__device__ __forceinline__ float circuit_step_lanes(float v, float* z, const float* c,
+                                                    const float* r, const float* q,
+                                                    const float* w, const float* p, int rank,
+                                                    const CircuitLaneWeights<K>& lw) {{
+  (void)c;
+  (void)r;
+  (void)q;
+  (void)w;
+  (void)p;
+{lbody}
+  return {lout};
+}}
+
+}}  // namespace
+"""
+    used_q = _used("q", lbody)
+    q_loads = "".join(f"\n      rows_load<R>(tiles[{1 + i}], times + static_cast<size_t>({j}) * B "
+                      f"* T, B, T, b0, t0, tc);" for i, j in enumerate(used_q))
+    q_reads = "".join(f"\n        q[{j}] = tiles[{1 + i}][row][k];" for i, j in enumerate(used_q))
+    seq0 = 1 + len(used_q)
+    kernel = f"""
+// Lane-cooperative kernel of an NxH root (lanes = K in {{{", ".join(map(str, lane_counts))}}}):
+// a group of K consecutive lanes serves one stream, so a block of 128
+// threads holds R = 128 / K streams.  What bounds the one-thread kernel on
+// this card: each stream is one thread's chain of ~1,200 dependent
+// operations a sample, 1,168 of them the MLP's (8 blocks of 4 warps at
+// B = 1,024 on 132 SMs, the other SMs idle).  Here every lane of a group
+// runs the tree on the same values and ends each step with the same bits
+// (nxh_lanes.cuh), so the state is replicated, not exchanged; the MLP's
+// neurons are split across the group and its chain a sample falls from
+// H^2 L to ~H (L + 1) FMAs and shuffles.  What bounds this kernel: at few
+// streams (K = 16) that shorter chain, sample after sample; at many, the
+// issue rate, since every lane repeats the tree and gathers the H
+// activations of each layer (the launch then takes K = 8;
+// ops/fused_circuit.py, lanes_for).  One lane of a group (`writer`, 0 but
+// for the tests) writes the output, the final state and the trajectory,
+// through (R, 32) tiles that the block stores as whole lines.  Launch
+// bounds (128, 1): no register cap, so no spill.
+namespace {{
+
+template <bool kSeq, int K>
+__global__ void __launch_bounds__(kTileRows, 1)
+circuit_lanes_kernel(const float* __restrict__ vin, const float* __restrict__ z0,
+                     float* __restrict__ out, float* __restrict__ zf, float* __restrict__ seq,
+                     int B, int T, const float* __restrict__ coef,
+                     const float* __restrict__ rows, const float* __restrict__ times,
+                     const float* __restrict__ warr, int n_warr, int writer) {{
+  constexpr int R = kTileRows / K;  // streams per block
+  extern __shared__ float4 lanes_smem[];  // 16-byte aligned: the root array's blocks
+  float* smem = reinterpret_cast<float*>(lanes_smem);
+  for (int i = threadIdx.x; i < n_warr; i += blockDim.x) smem[i] = warr[i];
+  __syncthreads();
+  const float* sw = smem;
+  RowTile<R>* tiles = reinterpret_cast<RowTile<R>*>(smem + ((n_warr + 3) & ~3));
+  (void)times;
+  (void)seq;
+  float c[{cn}];
+#pragma unroll
+  for (int i = 0; i < CIRCUIT_NC; ++i) c[i] = coef[i];
+  const int rank = threadIdx.x % K;  // the lane's place in its stream's group
+  const int row = threadIdx.x / K;
+  const bool lead = rank == writer;  // the lane that writes the group's streams (0; the
+                                     // tests run every lane as the writer)
+  const int b0 = blockIdx.x * R;
+  const int b = b0 + row;
+  const bool live = b < B;
+  float r[{rn}];
+#pragma unroll
+  for (int j = 0; j < CIRCUIT_NR; ++j) r[j] = live ? rows[static_cast<size_t>(j) * B + b] : 0.f;
+  float p[{pn}];
+  circuit_prologue_lanes<K>(c, r, sw, p, rank);
+  CircuitLaneWeights<K> lw;
+  {{
+    const float* w = sw;
+    {weights_load}
+  }}
+  float z[{zn}];
+#pragma unroll
+  for (int k = 0; k < CIRCUIT_NS; ++k) z[k] = live ? z0[static_cast<size_t>(k) * B + b] : 0.f;
+  for (int t0 = 0; t0 < T; t0 += kTileCols) {{
+    const int tc = min(kTileCols, T - t0);
+    rows_load<R>(tiles[0], vin, B, T, b0, t0, tc);{q_loads}
+    for (int k = 0; k < tc; ++k) {{
+      float q[{qn}];{q_reads}
+      if (kSeq && lead) {{
+#pragma unroll
+        for (int s = 0; s < CIRCUIT_NS; ++s) tiles[{seq0} + s][row][k] = z[s];
+      }}
+      const float y = circuit_step_lanes<K>(tiles[0][row][k], z, c, r, q, sw, p, rank, lw);
+      __syncwarp();  // every lane of the group has read v_t
+      if (lead) tiles[0][row][k] = y;
+    }}
+    rows_store<R>(tiles[0], out, B, T, b0, t0, tc);
+    if (kSeq) {{
+      for (int s = 0; s < CIRCUIT_NS; ++s) {{
+        rows_store<R>(tiles[{seq0} + s], seq + static_cast<size_t>(s) * B * T, B, T, b0, t0, tc);
+      }}
+    }}
+  }}
+  if (live && lead) {{
+#pragma unroll
+    for (int k = 0; k < CIRCUIT_NS; ++k) zf[static_cast<size_t>(k) * B + b] = z[k];
+  }}
+}}
+
+}}  // namespace
+"""
+    return source, kernel
 
 
 # ---------------------------------------------------------------------------
@@ -1162,11 +1449,37 @@ def _dual(x, n: int) -> Dual:
     return Dual(x, (None,) * n)
 
 
+def _scan_shape(n_entries: int, n_state: int) -> Tuple[int, int]:
+    """(steps per pipeline slab of a group's entries, stages in the ring) of
+    the recursion kernel: a ring of about 128 KB of shared memory beside the
+    (S + 1) output tiles, at least two stages, at most 16; a slab is 32
+    steps (fewer for very wide states), a divisor of the 32 columns of an
+    output tile."""
+    g = AdjointProgram.GROUP
+    step_bytes = g * AdjointProgram.padded(n_entries) * 4
+    slab = 32
+    tiles = (n_state + 1) * g * 33 * 4
+    while slab > 1 and 2 * slab * step_bytes + tiles > 200 * 1024:
+        slab //= 2
+    stages = max(2, min(16, (128 * 1024) // (slab * step_bytes)))
+    return slab, stages
+
+
 def generate_adjoint(circuit: Circuit, prog: CircuitProgram) -> AdjointProgram:
-    """The adjoint step and kernel of ``prog``'s circuit structure: per
-    step, from v_t, obar_t, z_{t-1} and the carried lam = lam_t,
-    g_vin_t = (dF/dv)^T (lam, obar) and lam_{t-1} = (dF/dz)^T (lam, obar),
-    by S + 1 tangents of the traced step."""
+    """The adjoint of ``prog``'s circuit structure: per step, from v_t,
+    obar_t, z_{t-1} and the carried lam = lam_t, g_vin_t = (dF/dv)^T (lam,
+    obar) and lam_{t-1} = (dF/dz)^T (lam, obar), by S + 1 tangents of the
+    traced step.
+
+    The device runs it in two passes.  The tangents depend on the trajectory
+    alone, so the **Jacobian step** (every (b, t) independent) writes the
+    tangents new[i].d[k] and the products out.d[k] obar_t that are not exact
+    constants ("entries", E <= (S + 1)^2 floats a sample); the
+    **recursion step** then contracts them with lam in ``pull``'s order and
+    rounding.  The one-pass ``circuit_adjoint_step`` (today's arithmetic,
+    tangents and contraction in one step) stays in the host source as the
+    reference of the two, and in the device source as a reference kernel
+    for the card's tests (``circuit_adjoint_onepass_launch``)."""
     emitter = prog.emitter
     order = prog.state_order
     S, n_dir = len(order), len(order) + 1
@@ -1215,13 +1528,64 @@ def generate_adjoint(circuit: Circuit, prog: CircuitProgram) -> AdjointProgram:
     reads = ([f"const float s{k} = z[{k}];" for k in range(S) if f"s{k}" in used]
              + [f"const float l{k} = lam[{k}];" for k in range(S) if f"l{k}" in used])
     body = "\n".join("  " + line for line in reads + lines + writes)
+
+    # --- the two passes: the entries pull reads, then pull on them ----------
+    stored: List[str] = []
+
+    def entry(x: Optional[Sym]):
+        """None (an exact zero), ("const", value) or ("J", index): a
+        non-constant symbol is stored once, whatever reads it."""
+        if x is None:
+            return None
+        if x.value is not None:
+            return ("const", x.value)
+        if x.ref not in stored:
+            stored.append(x.ref)
+        return ("J", stored.index(x.ref))
+
+    cols = [[entry(z_new.d[k]) for z_new in new] + [entry(_tmul(out.d[k], go))]
+            for k in range(n_dir)]
+    n_entries = len(stored)
+    e4 = AdjointProgram.padded(n_entries)
+    j_writes = [f"J[{m}] = {ref};" for m, ref in enumerate(stored)]
+    j_lines, j_ops = tr.live(" ".join(j_writes))
+    j_used = set(_WORD.findall(" ".join(j_lines + j_writes)))
+    j_reads = [f"const float s{k} = z[{k}];" for k in range(S) if f"s{k}" in j_used]
+    j_body = "\n".join("  " + line for line in j_reads + j_lines + j_writes)
+
+    tr2 = _Trace()
+    lam2 = [Sym(tr2, f"l{k}") for k in range(S)]
+
+    def sym2(e):
+        if e is None:
+            return None
+        return tr2.const(e[1]) if e[0] == "const" else Sym(tr2, f"J[{e[1]}]")
+
+    def pull2(k):
+        """pull(k) on the stored entries: the same operations in the same
+        order, so the same bits."""
+        acc = None
+        for i in range(S):
+            acc = _tadd(acc, _tmul(sym2(cols[k][i]), lam2[i]))
+        return _tadd(acc, sym2(cols[k][S])) or tr2.const(0.0)
+
+    lam_new2 = [pull2(k) for k in range(S)]
+    g_vin2 = pull2(S)
+    r_writes = [f"lam[{k}] = {lam_new2[k].ref};" for k in range(S)]
+    r_lines, r_ops = tr2.live(" ".join(r_writes + [g_vin2.ref]))
+    r_used = set(_WORD.findall(" ".join(r_lines + r_writes + [g_vin2.ref])))
+    r_reads = [f"const float l{k} = lam[{k}];" for k in range(S) if f"l{k}" in r_used]
+    r_body = "\n".join("  " + line for line in r_reads + r_lines + r_writes)
+    slab, stages = _scan_shape(n_entries, S)
+
     prelude = _prelude(circuit, emitter, prog.input_node, order, slot_names, counts,
                        emitter.n_keep, emitter.prologue(root_slots), "adjoint", ops)
     step_source = prelude + f"""
 // One reverse step at sample t: v = v_t, go = the output's cotangent obar_t,
 // z[CIRCUIT_NS] = z_(t-1) the pre-step state, lam[CIRCUIT_NS] = lam_t on
 // entry and lam_(t-1) on return; the slots as the forward step's.  Returns
-// the input's cotangent g_vin_t.  Plain C, as the forward step.
+// the input's cotangent g_vin_t.  Plain C, as the forward step.  The
+// reference of the two passes below (and the kernel of the one-pass form).
 __device__ __forceinline__ float circuit_adjoint_step(float v, float go, const float* z,
                                                       float* lam, const float* c,
                                                       const float* r, const float* q,
@@ -1239,6 +1603,49 @@ __device__ __forceinline__ float circuit_adjoint_step(float v, float go, const f
   return {g_vin.ref};
 }}
 
+#define CIRCUIT_NE {n_entries}
+#define CIRCUIT_NE4 {e4}  // floats a sample in the scratch: CIRCUIT_NE padded to 4 (at least 4)
+#define CIRCUIT_GROUP {AdjointProgram.GROUP}  // streams a block of pass 2 walks
+
+// Pass 1 at sample t: the CIRCUIT_NE entries J[m] that the recursion step
+// reads (the tangents of the step and the output's tangents times go that
+// are not exact constants).  Operations: {j_ops}.
+__device__ __forceinline__ void circuit_jacobian_step(float v, float go, const float* z,
+                                                      float* J, const float* c,
+                                                      const float* r, const float* q,
+                                                      const float* w, const float* p) {{
+  (void)v;
+  (void)go;
+  (void)z;
+  (void)J;
+  (void)c;
+  (void)r;
+  (void)q;
+  (void)w;
+  (void)p;
+{j_body}
+}}
+
+// Pass 2 at sample t: lam = lam_t on entry, lam_(t-1) on return; returns
+// g_vin_t.  circuit_adjoint_step's contraction on the stored entries, in its
+// order and rounding.  Operations: {r_ops}.
+__device__ __forceinline__ float circuit_recursion_step(const float* J, float* lam) {{
+  (void)J;
+  (void)lam;
+{r_body}
+  return {g_vin2.ref};
+}}
+
+// Where entry m of sample (b, t) of a chunk of tc samples lives in the
+// scratch: [b / g][t][b % g][m] for stream groups of g = CIRCUIT_GROUP, so
+// that a group's steps are contiguous for pass 2 (whole slabs in one bulk
+// copy) and each stream's entries of a step are 16-byte words (pass 1
+// stores them as such, pass 2 loads them as such).
+__host__ __device__ __forceinline__ size_t circuit_jac_index(int b, int t, int m, int tc) {{
+  constexpr int g = CIRCUIT_GROUP;
+  return ((static_cast<size_t>(b / g) * tc + t) * g + b % g) * CIRCUIT_NE4 + m;
+}}
+
 }}  // namespace
 """
     zn, cn, rn, qn, pn = (max(x, 1) for x in (S, nc, nr, nq, emitter.n_keep))
@@ -1248,18 +1655,227 @@ __device__ __forceinline__ float circuit_adjoint_step(float v, float go, const f
                       f"B, T, b0, t0, tc);" for i, j in enumerate(used_q))
     q_reads = "".join(f"\n      q[{j}] = tiles[{q0 + i}][threadIdx.x][k];"
                       for i, j in enumerate(used_q))
+    jq_used = _used("q", j_body)
+    jq_loads = "".join(f"\n  tile_load(tiles[{q0 + i}], times + static_cast<size_t>({j}) * B * T, "
+                       f"B, T, b0, t0 + s0, n);" for i, j in enumerate(jq_used))
+    jq_reads = "".join(f"\n    q[{j}] = tiles[{q0 + i}][threadIdx.x][k];"
+                       for i, j in enumerate(jq_used))
     kernel = f"""
+#include "bulk_copy.cuh"
 #include "tile.cuh"
 
-// One thread per stream walking t = T-1 ... 0: lam (S floats), the
-// coefficient and row slots in registers, the root array in shared memory.
-// The (B, T) streams go through shared-memory tiles in reverse tile order:
-// tile 0 holds v and takes g_vin in place, tile 1 obar, tiles 2 .. 2+S-1
-// the trajectory z_(t-1) and take lam_t in place (written before the
-// update), then the per-sample slots the step reads.  Exact f32.  Launch
-// bounds as the forward kernel's: {emitter.launch_bounds}.
+// The adjoint on the card: pass 1 (circuit_jacobian_kernel) and pass 2
+// (circuit_recursion_kernel) over one chunk of time [t0, t0 + tc), chained
+// by the wrapper (ops/parallel_bptt.py, launch_adjoint) from the last chunk
+// to the first.  Replaces the Pallas TPU kernel
+// diffwdf_tpu/ops/parallel_bptt.py, _fused_backward_kernel.
+//
+// What bounded the one-pass form (one thread per stream walking all T
+// steps, the S + 1 tangents of the step and the contraction per step): one
+// stream's chain of ~2,450 dependent operations a sample (the NxH root's
+// slope), 8 blocks at B = 1,024 on 132 SMs.  But the tangents depend on the
+// trajectory alone, not on lam: only the contraction is a chain.  So pass 1
+// gives every (b, t) sample its own thread and fills the card (bound by the
+// card's f32 issue rate: the tanh-heavy tangent of the MLP); pass 2 is the
+// chain, S^2 + S multiply-adds a step on CIRCUIT_NE stored floats, bound by
+// how fast the SMs that walk it pull the scratch.
+//
+// Scratch: CIRCUIT_NE4 = {e4} floats a sample (CIRCUIT_NE = {n_entries} entries
+// padded), ceil(B / g) g tc samples in all (g = CIRCUIT_GROUP; 134 MB for
+// the Tube Screamer at (1024, 2048)), laid out by circuit_jac_index; the
+// wrapper allocates it and cuts time into chunks under its cap.
+// Exact f32, uncontracted as the step's lines are: the two
+// passes give the one-pass step's bits.
 namespace {{
 
+constexpr int kE4 = CIRCUIT_NE4;
+constexpr int kGroup = CIRCUIT_GROUP;
+constexpr int kSlab = {slab};          // steps per pipeline stage of pass 2
+constexpr int kStages = {stages};        // stages in the ring (kStages - 1 in flight)
+constexpr int kSlabFloats = kSlab * kGroup * kE4;  // one stage
+
+// Pass 1: block (x, y) takes streams 128 x .. 128 x + 127 over chunk samples
+// 32 y .. 32 y + 31: v, obar, the trajectory and the per-sample slots come
+// in as (128, 32) tiles (whole lines), each thread runs the Jacobian step
+// of its stream for the 32 samples (its row prologue once) and writes the
+// entries as 16-byte words.  Lanes past B in the last group of kGroup
+// compute on zeros and are written, never read out.
+__global__ void __launch_bounds__({emitter.launch_bounds})
+circuit_jacobian_kernel(const float* __restrict__ vin, const float* __restrict__ gout,
+                        const float* __restrict__ zseq, float* __restrict__ jac, int B, int T,
+                        int t0, int tc, const float* __restrict__ coef,
+                        const float* __restrict__ rows, const float* __restrict__ times,
+                        const float* __restrict__ warr, int n_warr) {{
+  extern __shared__ float smem[];
+  for (int i = threadIdx.x; i < n_warr; i += blockDim.x) smem[i] = warr[i];
+  __syncthreads();
+  const float* sw = smem;
+  Tile* tiles = reinterpret_cast<Tile*>(smem + ((n_warr + 3) & ~3));
+  (void)times;
+  float c[{cn}];
+#pragma unroll
+  for (int i = 0; i < CIRCUIT_NC; ++i) c[i] = coef[i];
+  const int b0 = blockIdx.x * kTileRows;
+  const int b = b0 + threadIdx.x;
+  const bool live = b < B;
+  const bool padded = b < (B + kGroup - 1) / kGroup * kGroup;  // inside the scratch
+  float r[{rn}];
+#pragma unroll
+  for (int j = 0; j < CIRCUIT_NR; ++j) r[j] = live ? rows[static_cast<size_t>(j) * B + b] : 0.f;
+  float p[{pn}];
+  circuit_prologue(c, r, sw, p);
+  const int s0 = blockIdx.y * kTileCols;
+  const int n = min(kTileCols, tc - s0);
+  tile_load(tiles[0], vin, B, T, b0, t0 + s0, n);
+  tile_load(tiles[1], gout, B, T, b0, t0 + s0, n);
+  for (int s = 0; s < CIRCUIT_NS; ++s) {{
+    tile_load(tiles[2 + s], zseq + static_cast<size_t>(s) * B * T, B, T, b0, t0 + s0, n);
+  }}{jq_loads}
+  for (int k = 0; k < n; ++k) {{
+    float z[{zn}];
+#pragma unroll
+    for (int s = 0; s < CIRCUIT_NS; ++s) z[s] = tiles[2 + s][threadIdx.x][k];
+    float q[{qn}];{jq_reads}
+    float J[kE4];
+#pragma unroll
+    for (int m = CIRCUIT_NE; m < kE4; ++m) J[m] = 0.f;
+    circuit_jacobian_step(tiles[0][threadIdx.x][k], tiles[1][threadIdx.x][k], z, J, c, r, q, sw,
+                          p);
+    if (padded) {{
+      float4* dst = reinterpret_cast<float4*>(jac + circuit_jac_index(b, s0 + k, 0, tc));
+#pragma unroll
+      for (int i = 0; i < kE4 / 4; ++i) {{
+        dst[i] = make_float4(J[4 * i], J[4 * i + 1], J[4 * i + 2], J[4 * i + 3]);
+      }}
+    }}
+  }}
+}}
+
+// Pass 2: one warp per group of kGroup streams (a block each, so that the
+// groups spread over the SMs: 128 blocks at B = 1,024), walking the chunk
+// from its last sample to its first.  One warp's chain of S^2 + S
+// multiply-adds a step is short; the pace is set by how fast one SM pulls
+// its group's entries (kGroup E floats a step).  So the entries stream into
+// a ring of kStages stages in shared memory by bulk copies (the Tensor
+// Memory Accelerator: one lane issues a whole slab of kSlab steps,
+// contiguous in the scratch, and an mbarrier counts its bytes), kStages - 1
+// slabs in flight; each active lane reads its stream's entries of a step as
+// 16-byte words.  lam_t (before the update) and g_vin go out through
+// (kGroup, 32) tiles as whole lines (16-byte stores where T allows).
+// lam_in and lam_out may alias: each thread reads its own stream's lam
+// first and writes it last.
+__global__ void __launch_bounds__(32, 1)
+circuit_recursion_kernel(const float* __restrict__ jac, const float* lam_in, float* lam_out,
+                         float* __restrict__ lam_seq, float* __restrict__ gvin, int B, int T,
+                         int t0, int tc) {{
+  extern __shared__ float4 smem4[];
+  __shared__ unsigned long long full[kStages];  // one mbarrier a stage
+  float* ring = reinterpret_cast<float*>(smem4);
+  float (*otile)[kGroup][kTileCols + 1] =
+      reinterpret_cast<float (*)[kGroup][kTileCols + 1]>(ring + kStages * kSlabFloats);
+  const int lane = threadIdx.x;
+  const bool active = lane < kGroup;
+  const int b = blockIdx.x * kGroup + lane;
+  const bool live = active && b < B;
+  const float* src = jac + static_cast<size_t>(blockIdx.x) * tc * kGroup * kE4;
+  float lam[{zn}];
+#pragma unroll
+  for (int s = 0; s < CIRCUIT_NS; ++s) lam[s] = live ? lam_in[static_cast<size_t>(s) * B + b] : 0.f;
+  if (lane == 0) {{
+    for (int i = 0; i < kStages; ++i) mbar_init(&full[i], 1);
+    mbar_fence_init();
+  }}
+  __syncwarp();
+  const int n_slabs = (tc + kSlab - 1) / kSlab;
+  // the u-th slab walked (slab n_slabs - 1 - u) into stage u % kStages
+  auto issue = [&](int u) {{
+    if (lane == 0 && u < n_slabs && CIRCUIT_NE > 0) {{
+      const int j = n_slabs - 1 - u;
+      const int n = min(kSlab, tc - j * kSlab);
+      const unsigned bytes = static_cast<unsigned>(n) * kGroup * kE4 * sizeof(float);
+      mbar_expect_tx(&full[u % kStages], bytes);
+      bulk_copy(ring + (u % kStages) * kSlabFloats, src + static_cast<size_t>(j) * kSlabFloats,
+                bytes, &full[u % kStages]);
+    }}
+  }};
+  // one step: this lane's entries of it at e, its column in the output tiles
+  auto step = [&](const float* e, int col) {{
+    float J[kE4];
+#pragma unroll
+    for (int i = 0; i < kE4 / 4; ++i) {{
+      const float4 x = reinterpret_cast<const float4*>(e)[i];
+      J[4 * i] = x.x;
+      J[4 * i + 1] = x.y;
+      J[4 * i + 2] = x.z;
+      J[4 * i + 3] = x.w;
+    }}
+#pragma unroll
+    for (int s = 0; s < CIRCUIT_NS; ++s) otile[s][lane][col] = lam[s];  // lam_t
+    otile[CIRCUIT_NS][lane][col] = circuit_recursion_step(J, lam);
+  }};
+  const bool vec_out = T % 4 == 0;  // 16-byte stores of whole tiles
+  for (int u = 0; u < kStages - 1; ++u) issue(u);
+  for (int u = 0; u < n_slabs; ++u) {{
+    issue(u + kStages - 1);  // into the stage that slab u - 1 left
+    if (CIRCUIT_NE > 0) mbar_wait(&full[u % kStages], (u / kStages) & 1);  // slab u has landed
+    const int j = n_slabs - 1 - u;
+    const float* mine = ring + (u % kStages) * kSlabFloats + lane * kE4;
+    const int n = min(kSlab, tc - j * kSlab);
+    if (active) {{
+      for (int k = n - 1; k >= 0; --k) step(mine + k * kGroup * kE4, (j * kSlab + k) % kTileCols);
+    }}
+    __syncwarp();
+    // flush each output tile whose first column this slab wrote
+    for (int tb = (j * kSlab + kTileCols - 1) / kTileCols * kTileCols; tb < j * kSlab + n;
+         tb += kTileCols) {{
+      const int nb = min(kTileCols, tc - tb);
+      if (vec_out && nb == kTileCols) {{
+        for (int i = lane; i < kGroup * kTileCols / 4; i += 32) {{
+          const int rr = i / (kTileCols / 4), cc = 4 * (i % (kTileCols / 4));
+          const int bb = blockIdx.x * kGroup + rr;
+          if (bb < B) {{
+            const size_t at = static_cast<size_t>(bb) * T + t0 + tb + cc;
+#pragma unroll
+            for (int s = 0; s <= CIRCUIT_NS; ++s) {{
+              float* dst = s < CIRCUIT_NS ? lam_seq + static_cast<size_t>(s) * B * T + at
+                                          : gvin + at;
+              *reinterpret_cast<float4*>(dst) = make_float4(otile[s][rr][cc], otile[s][rr][cc + 1],
+                                                            otile[s][rr][cc + 2],
+                                                            otile[s][rr][cc + 3]);
+            }}
+          }}
+        }}
+      }} else {{
+        for (int i = lane; i < kGroup * kTileCols; i += 32) {{
+          const int rr = i / kTileCols, cc = i % kTileCols;
+          const int bb = blockIdx.x * kGroup + rr;
+          if (bb < B && cc < nb) {{
+            const size_t at = static_cast<size_t>(bb) * T + t0 + tb + cc;
+#pragma unroll
+            for (int s = 0; s < CIRCUIT_NS; ++s) {{
+              lam_seq[static_cast<size_t>(s) * B * T + at] = otile[s][rr][cc];
+            }}
+            gvin[at] = otile[CIRCUIT_NS][rr][cc];
+          }}
+        }}
+      }}
+    }}
+    __syncwarp();  // stage u % kStages and the tiles are free again
+  }}
+  if (live) {{
+#pragma unroll
+    for (int s = 0; s < CIRCUIT_NS; ++s) lam_out[static_cast<size_t>(s) * B + b] = lam[s];
+  }}
+}}
+
+// The one-pass form (today's arithmetic in one kernel; the card's tests and
+// chip_smoke.py hold the two passes against it, the wrapper never calls it):
+// one thread per stream walking t = T-1 ... 0, lam (S floats), the
+// coefficient and row slots in registers, the root array in shared memory;
+// the (B, T) streams through shared-memory tiles in reverse tile order: tile
+// 0 holds v and takes g_vin in place, tile 1 obar, tiles 2 .. 2+S-1 the
+// trajectory z_(t-1) and take lam_t in place (written before the update),
+// then the per-sample slots the step reads.  Exact f32.
 constexpr int kTiles = 2 + CIRCUIT_NS + {len(used_q)};
 
 __global__ void __launch_bounds__({emitter.launch_bounds})
@@ -1318,22 +1934,59 @@ circuit_adjoint_kernel(const float* __restrict__ vin, const float* __restrict__ 
   }}
 }}
 
+cudaError_t allow_smem(const void* kernel, size_t smem) {{
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}}
+
 }}  // namespace
 
 extern "C" {{
 
-int circuit_adjoint_launch(const float* vin, const float* gout, const float* zseq,
-                           const float* lam_t, float* lam_seq, float* gvin, float* gz0, int B,
-                           int T, const float* coef, const float* rows, const float* times,
-                           const float* warr, int n_warr, void* stream) {{
+// Pass 1 over samples [t0, t0 + tc) of the (B, T) streams into jac
+// (circuit_jac_index with tc).
+int circuit_jacobian_launch(const float* vin, const float* gout, const float* zseq, float* jac,
+                            int B, int T, int t0, int tc, const float* coef,
+                            const float* rows, const float* times, const float* warr,
+                            int n_warr, void* stream) {{
+  const size_t smem = sizeof(float) * static_cast<size_t>((n_warr + 3) & ~3) +
+                      sizeof(Tile) * static_cast<size_t>(2 + CIRCUIT_NS + {len(jq_used)});
+  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(circuit_jacobian_kernel), smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((B + kTileRows - 1) / kTileRows, (tc + kTileCols - 1) / kTileCols);
+  circuit_jacobian_kernel<<<grid, kTileRows, smem, static_cast<cudaStream_t>(stream)>>>(
+      vin, gout, zseq, jac, B, T, t0, tc, coef, rows, times, warr, n_warr);
+  return static_cast<int>(cudaGetLastError());
+}}
+
+// Pass 2 over samples t0 + tc - 1 ... t0: lam_in (S, B) = lam at t0 + tc,
+// lam_out (S, B) = lam at t0 (may be lam_in); writes lam_seq (S, B, T) and
+// g_vin (B, T) there.
+int circuit_recursion_launch(const float* jac, const float* lam_in, float* lam_out,
+                             float* lam_seq, float* gvin, int B, int T, int t0, int tc,
+                             void* stream) {{
+  const size_t smem = sizeof(float) * (static_cast<size_t>(kStages) * kSlabFloats +
+                                       static_cast<size_t>(CIRCUIT_NS + 1) * kGroup *
+                                           (kTileCols + 1));
+  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(circuit_recursion_kernel), smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  circuit_recursion_kernel<<<(B + kGroup - 1) / kGroup, 32, smem,
+                             static_cast<cudaStream_t>(stream)>>>(jac, lam_in, lam_out, lam_seq,
+                                                                  gvin, B, T, t0, tc);
+  return static_cast<int>(cudaGetLastError());
+}}
+
+// The one-pass form over all T (reference only).
+int circuit_adjoint_onepass_launch(const float* vin, const float* gout, const float* zseq,
+                                   const float* lam_t, float* lam_seq, float* gvin, float* gz0,
+                                   int B, int T, const float* coef, const float* rows,
+                                   const float* times, const float* warr, int n_warr,
+                                   void* stream) {{
   const size_t smem = sizeof(float) * static_cast<size_t>((n_warr + 3) & ~3) +
                       sizeof(Tile) * static_cast<size_t>(kTiles);
-  if (smem > 48 * 1024) {{
-    const cudaError_t e = cudaFuncSetAttribute(
-        circuit_adjoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }}
+  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(circuit_adjoint_kernel), smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int blocks = (B + kTileRows - 1) / kTileRows;
   circuit_adjoint_kernel<<<blocks, kTileRows, smem, static_cast<cudaStream_t>(stream)>>>(
       vin, gout, zseq, lam_t, lam_seq, gvin, gz0, B, T, coef, rows, times, warr, n_warr);
@@ -1370,9 +2023,48 @@ extern "C" void circuit_adjoint_host_run(const float* vin, const float* gout, co
     for (int s = 0; s < CIRCUIT_NS; ++s) gz0[s * B + b] = lam[s];
   }}
 }}
+
+// The two passes on the host over samples [t0, t0 + tc) (CPU tests): pass 1
+// into jac (circuit_jac_index, ceil(B / g) g tc CIRCUIT_NE4 floats for
+// g = CIRCUIT_GROUP), then pass 2 from lam_in to lam_out, as the kernels do.
+extern "C" void circuit_jacobian_host_run(const float* vin, const float* gout,
+                                          const float* zseq, float* jac, int B, int T, int t0,
+                                          int tc, const float* c, const float* rows,
+                                          const float* times, const float* w) {{
+  for (long b = 0; b < B; ++b) {{
+    float r[{rn}], p[{pn}];
+    for (int j = 0; j < CIRCUIT_NR; ++j) r[j] = rows[j * B + b];
+    circuit_prologue(c, r, w, p);
+    for (int k = 0; k < tc; ++k) {{
+      const long t = t0 + k;
+      float z[{zn}], q[{qn}], J[{e4}];
+      for (int s = 0; s < CIRCUIT_NS; ++s) z[s] = zseq[(s * B + b) * T + t];
+      for (int j = 0; j < CIRCUIT_NQ; ++j) q[j] = times[(j * B + b) * T + t];
+      circuit_jacobian_step(vin[b * T + t], gout[b * T + t], z, J, c, r, q, w, p);
+      for (int m = 0; m < CIRCUIT_NE; ++m) jac[circuit_jac_index(b, k, m, tc)] = J[m];
+    }}
+  }}
+}}
+
+extern "C" void circuit_recursion_host_run(const float* jac, const float* lam_in, float* lam_out,
+                                           float* lam_seq, float* gvin, int B, int T, int t0,
+                                           int tc) {{
+  for (long b = 0; b < B; ++b) {{
+    float lam[{zn}], J[{e4}];
+    for (int s = 0; s < CIRCUIT_NS; ++s) lam[s] = lam_in[s * B + b];
+    for (int k = tc - 1; k >= 0; --k) {{
+      const long t = t0 + k;
+      for (int m = 0; m < CIRCUIT_NE; ++m) J[m] = jac[circuit_jac_index(b, k, m, tc)];
+      for (int s = 0; s < CIRCUIT_NS; ++s) lam_seq[(s * B + b) * T + t] = lam[s];
+      gvin[b * T + t] = circuit_recursion_step(J, lam);
+    }}
+    for (int s = 0; s < CIRCUIT_NS; ++s) lam_out[s * B + b] = lam[s];
+  }}
+}}
 """
     return AdjointProgram(source=step_source + kernel, host_source=step_source + host,
-                          ops_per_sample=ops)
+                          ops_per_sample=ops, jacobian_ops=j_ops, recursion_ops=r_ops,
+                          n_entries=n_entries, n_state=S)
 
 
 # ---------------------------------------------------------------------------
@@ -1776,6 +2468,13 @@ def program(circuit: Circuit, coeffs, params, static_controls, input_node: str,
     if prog is None:
         prog = per_circuit[key] = generate(circuit, layout, input_node, emitter)
     return dataclasses.replace(prog, emitter=emitter)
+
+
+def sweep_program(circuit: Circuit, prog: CircuitProgram) -> CircuitProgram:
+    """``prog`` with its lane form built for every K of LANES that divides
+    H, not only the K that ``fused_circuit.lanes_for`` picks: a source of
+    its own for the K sweep of chip_smoke.py and the card tests."""
+    return generate(circuit, prog.layout, prog.input_node, prog.emitter, every_lane=True)
 
 
 def adjoint_program(circuit: Circuit, prog: CircuitProgram) -> AdjointProgram:

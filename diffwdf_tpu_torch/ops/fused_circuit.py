@@ -3,12 +3,14 @@ CUDA kernel, and its plain PyTorch version.
 
 ``ops.circuit_codegen`` traces the circuit's sample step into C and wraps it
 in a kernel that gives each stream one thread, the state and coefficients in
-registers (B7 in ROADMAP); ``ops._build`` compiles one library per generated
-source and keeps it, keyed by a hash of the source, so a new component value
-or drive setting is a new argument, never a new build.  This serves and
-trains the Tube Screamer (4-port R-type stage, three states), the HPF
-clipper, the clippers and the simple circuits, with analytic, NxH neural,
-distilled or ideal-source roots.
+registers (B7 in ROADMAP), or, for an NxH neural root, a group of K lanes
+that runs the tree on every lane and splits the MLP across the group
+(:func:`lanes_for` picks K from the batch); ``ops._build`` compiles one
+library per generated source and keeps it, keyed by a hash of the source,
+so a new component value or drive setting is a new argument, never a new
+build.  This serves and trains the Tube Screamer (4-port R-type stage,
+three states), the HPF clipper, the clippers and the simple circuits, with
+analytic, NxH neural, distilled or ideal-source roots.
 
 A wrapper given CPU tensors runs its plain version: the adaptation pass
 hoisted out of the loop, then the circuit's step (the tree's own
@@ -34,7 +36,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from . import _build
-from .circuit_codegen import CircuitProgram, program, step
+from .circuit_codegen import LANE_TARGETS, CircuitProgram, program, step
 
 Controls = Optional[Dict[str, Dict[str, Any]]]
 
@@ -157,13 +159,31 @@ def _run_plain(circuit, params, vin, state0, input_node, static_controls, row_co
     return out, _state_dict(prep.prog, z), seq
 
 
-def launch(prep: Prepared, vin, z0, with_seq: bool = False):
+def lanes_for(prog: CircuitProgram, B: int) -> int:
+    """The lanes per stream ``launch`` uses for B streams: the largest of
+    the program's group sizes (``CircuitProgram.lanes``, 1 the one-thread
+    kernel) at most the batch's target in ``circuit_codegen.LANE_TARGETS``.
+    For an NxH root, few streams leave most of the card idle, so each gets
+    many lanes, and many streams fill it, where the tree that every lane
+    repeats and the shuffles would make a large group issue-bound."""
+    target = next(k for bound, k in LANE_TARGETS if bound is None or B <= bound)
+    return max(k for k in prog.lanes if k <= target)
+
+
+def launch(prep: Prepared, vin, z0, with_seq: bool = False, lanes: Optional[int] = None,
+           writer: int = 0):
     """Launch the generated kernel on prepared arguments (see
-    :func:`prepare`): vin (B, T) and z0 (S, B) f32 on one card.  Returns
-    (out (B, T), z_final (S, B), the trajectory (S, B, T) or None).  Counts
-    in ``fused_circuit_process.launches``."""
+    :func:`prepare`): vin (B, T) and z0 (S, B) f32 on one card; ``lanes``
+    the lanes per stream, one of ``prep.prog.lanes`` (default
+    :func:`lanes_for`; 1 is the one-thread kernel); ``writer`` the lane of
+    a group that writes the results (the tests run each).  Returns (out
+    (B, T), z_final (S, B), the trajectory (S, B, T) or None).  Counts in
+    ``fused_circuit_process.launches``."""
     lib = _build.generated_library(prep.prog.source)
     B, T = vin.shape
+    lanes = lanes_for(prep.prog, B) if lanes is None else lanes
+    if lanes not in prep.prog.lanes:
+        raise ValueError(f"fused_circuit: lanes={lanes}, this kernel takes {prep.prog.lanes}")
     dummy = prep.vec  # a valid pointer where an argument is empty
     with torch.cuda.device(vin.device):
         vin = vin.contiguous()
@@ -175,7 +195,7 @@ def launch(prep: Prepared, vin, z0, with_seq: bool = False):
             seq.data_ptr() if seq is not None and seq.numel() else None, B, T,
             prep.vec.data_ptr(), (prep.rows if prep.rows.numel() else dummy).data_ptr(),
             (prep.times if prep.times.numel() else dummy).data_ptr(), w.data_ptr(),
-            0 if prep.warr is None else prep.warr.numel(),
+            0 if prep.warr is None else prep.warr.numel(), lanes, writer,
             torch.cuda.current_stream(vin.device).cuda_stream)
     _build.check(err, "fused_circuit_process launch", lib.circuit_error_string)
     fused_circuit_process.launches += 1

@@ -16,11 +16,14 @@ Writing one step as (z_t, o_t) = F(z_{t-1}, v_t, theta):
 
       lam_{t-1} = J_t^T lam_t + A_t^T obar_t,        lam_T = zbar_f,
 
-  with J_t = dF_z/dz and A_t = dF_o/dz at the stored trajectory.  One
-  generated kernel (``circuit_codegen.generate_adjoint``) gives each stream a
-  thread that walks t = T-1 ... 0, the S + 1 tangents of the traced step
-  (S states, then v) contracted with (lam_t, obar_t) in registers.  It
-  writes lam_t for every step (before the update), g_vin and g_z0 = lam_0.
+  with J_t = dF_z/dz and A_t = dF_o/dz at the stored trajectory.  The
+  generated adjoint (``circuit_codegen.generate_adjoint``) runs it as two
+  kernels: J_t and A_t obar_t depend on the trajectory alone, so pass 1
+  evaluates the S + 1 tangents of the traced step (S states, then v) for
+  every (b, t) sample in parallel into a scratch; pass 2 gives each stream
+  a thread that walks t = T-1 ... 0 contracting them with lam_t, in the
+  order and rounding of the one-pass step.  It writes lam_t for every step
+  (before the update), g_vin and g_z0 = lam_0.
 - **Parameters**: one autograd pass of the scalar
 
       g(theta) = sum_{b,t} <F(z_{t-1}, v_t, theta), (lam_t, obar_t)>
@@ -36,8 +39,9 @@ output probe, and no pot inside an R-type adaptor.
 
 A CPU tensor runs the plain versions: B7's, and :func:`fused_backward_plain`,
 a reverse loop over t that pulls the VJP of one plain step by autograd at
-z_{t-1}: an oracle independent of the kernel's forward-mode pulls.  Kernel
-launches of B8 are counted in ``fused_backward.launches``.
+z_{t-1}: an oracle independent of the kernel's forward-mode pulls.  Calls
+of B8 are counted in ``fused_backward.launches``: one call is two kernel
+launches (pass 1 and pass 2) per time chunk, one chunk up to the scratch cap.
 """
 
 from __future__ import annotations
@@ -164,20 +168,68 @@ def fused_backward(circuit, params, vin, g_out, z_prev, lam_T, *, input_node: st
 
 
 def launch_adjoint(circuit, prep, vin, g_out, zseq, lam_t):
-    """Launch the generated adjoint kernel of ``prep``'s program (see
+    """Launch the generated adjoint of ``prep``'s program (see
     ``fused_circuit.prepare``) on one card: vin and g_out (B, T), zseq
     (S, B, T) and lam_t (S, B) f32, B and T > 0.  Returns (lam_seq (S, B, T),
-    g_vin (B, T), g_z0 (S, B)).  Counts in ``fused_backward.launches``."""
-    lib = _build.generated_library(adjoint_program(circuit, prep.prog).source)
+    g_vin (B, T), g_z0 (S, B)).
+
+    One call is two kernels per time chunk: pass 1
+    (``circuit_jacobian_launch``, every (b, t) sample in parallel) writes the
+    adjoint's entries into a scratch of ``n_entries`` floats a sample that
+    this wrapper allocates, laid out for groups of ``AdjointProgram.GROUP``
+    streams, pass 2 (``circuit_recursion_launch``) walks it back in time, a
+    group a block.
+    Time runs in chunks from the last to the first when the
+    scratch of (B, T) would pass ``AdjointProgram.SCRATCH_CAP_BYTES``.  It
+    counts one in ``fused_backward.launches`` per call."""
+    adj = adjoint_program(circuit, prep.prog)
+    lib = _build.generated_library(adj.source)
     B, T = vin.shape
     S = zseq.shape[0]
     dummy = prep.vec  # a valid pointer where an argument is empty
+    tc = adj.chunk(B, T)
+    with torch.cuda.device(vin.device):
+        stream = torch.cuda.current_stream(vin.device).cuda_stream
+        vin, g_out = vin.contiguous(), g_out.contiguous()
+        lam_seq, g_vin = torch.empty_like(zseq), torch.empty_like(vin)
+        g_z0 = torch.empty_like(lam_t)
+        jac = torch.empty(adj.scratch_floats(B, tc), device=vin.device)
+        w = prep.warr if prep.warr is not None else dummy
+        rows = prep.rows if prep.rows.numel() else dummy
+        times = prep.times if prep.times.numel() else dummy
+        z_ptr = (zseq if S else dummy).data_ptr()
+        lam_in = lam_t if S else dummy
+        for t0 in range(((T - 1) // tc) * tc, -1, -tc):
+            n = min(tc, T - t0)
+            err = lib.circuit_jacobian_launch(
+                vin.data_ptr(), g_out.data_ptr(), z_ptr, jac.data_ptr(), B, T, t0, n,
+                prep.vec.data_ptr(), rows.data_ptr(), times.data_ptr(), w.data_ptr(),
+                0 if prep.warr is None else prep.warr.numel(), stream)
+            _build.check(err, "fused_backward launch (pass 1)", lib.circuit_error_string)
+            err = lib.circuit_recursion_launch(
+                jac.data_ptr(), lam_in.data_ptr(), (g_z0 if S else dummy).data_ptr(),
+                (lam_seq if S else dummy).data_ptr(), g_vin.data_ptr(), B, T, t0, n, stream)
+            _build.check(err, "fused_backward launch (pass 2)", lib.circuit_error_string)
+            lam_in = g_z0 if S else dummy
+    fused_backward.launches += 1
+    return lam_seq, g_vin, g_z0
+
+
+def launch_adjoint_onepass(circuit, prep, vin, g_out, zseq, lam_t):
+    """The one-pass adjoint kernel (one thread per stream, the tangents and
+    the contraction in one step): the reference that the card's tests and
+    ``chip_smoke.py`` hold the two passes against; never on the training
+    path, and not counted.  Arguments and results as :func:`launch_adjoint`."""
+    lib = _build.generated_library(adjoint_program(circuit, prep.prog).source)
+    B, T = vin.shape
+    S = zseq.shape[0]
+    dummy = prep.vec
     with torch.cuda.device(vin.device):
         vin, g_out = vin.contiguous(), g_out.contiguous()
         lam_seq, g_vin = torch.empty_like(zseq), torch.empty_like(vin)
         g_z0 = torch.empty_like(lam_t)
         w = prep.warr if prep.warr is not None else dummy
-        err = lib.circuit_adjoint_launch(
+        err = lib.circuit_adjoint_onepass_launch(
             vin.data_ptr(), g_out.data_ptr(), (zseq if S else dummy).data_ptr(),
             (lam_t if S else dummy).data_ptr(), (lam_seq if S else dummy).data_ptr(),
             g_vin.data_ptr(), (g_z0 if S else dummy).data_ptr(), B, T, prep.vec.data_ptr(),
@@ -185,8 +237,7 @@ def launch_adjoint(circuit, prep, vin, g_out, zseq, lam_t):
             (prep.times if prep.times.numel() else dummy).data_ptr(), w.data_ptr(),
             0 if prep.warr is None else prep.warr.numel(),
             torch.cuda.current_stream(vin.device).cuda_stream)
-    _build.check(err, "fused_backward launch", lib.circuit_error_string)
-    fused_backward.launches += 1
+    _build.check(err, "one-pass adjoint launch", lib.circuit_error_string)
     return lam_seq, g_vin, g_z0
 
 

@@ -12,7 +12,14 @@ trajectory.  The adjoint step runs t = T-1 ... 0 over the plain forward's
 trajectory for the Tube Screamer (analytic and random-init 2x8), the HPF
 clipper and the training clipper with a per-sample pot, held against
 ``fused_backward_plain`` (autograd of the plain step) within the JAX suite's
-relative budgets.  The tests also show that the source depends on the
+relative budgets; its two passes as the card runs them (pass 1 into the
+kernels' scratch layout, pass 2 walking it back, whole and in time chunks)
+give the one-pass step's bits for the Tube Screamer (analytic, 2x16, 2x8,
+with and without per-row and per-sample pots), the HPF and the LPF
+clippers.  The NxH root's lane form (csrc/nxh_lanes.cuh, and the generated
+lane step for every r_kind at every K, and for roots of width 4, 8 and 16
+at the K built for each) runs on K host threads per stream, its shuffles
+through a stand-in, and every lane gives the one-thread step's bits.  The tests also show that the source depends on the
 structure only (two drive settings, one source; a scalar and a per-row R6,
 two), that an unknown node or root class raises, that a root with no tangent
 emitter raises naming ROADMAP, and that the generated-build path caches by
@@ -22,6 +29,7 @@ source and raises on a failed compile (with a stand-in compiler).
 import ctypes
 import shutil
 import subprocess
+import types
 
 import numpy as np
 import pytest
@@ -83,6 +91,78 @@ def host_cxx(tmp_path_factory):
             lib.circuit_host_run.argtypes = [vp] * 5 + [i] * 2 + [vp] * 4
         if hasattr(lib, "circuit_adjoint_host_run"):
             lib.circuit_adjoint_host_run.argtypes = [vp] * 7 + [i] * 2 + [vp] * 4
+        if hasattr(lib, "circuit_jacobian_host_run"):
+            lib.circuit_jacobian_host_run.argtypes = [vp] * 4 + [i] * 4 + [vp] * 4
+            lib.circuit_recursion_host_run.argtypes = [vp] * 5 + [i] * 4
+        if hasattr(lib, "circuit_lanes_host_run"):
+            lib.circuit_lanes_host_run.argtypes = [i] + [vp] * 5 + [i] * 2 + [vp] * 4
+        return lib
+
+    return build
+
+
+# A group of K lanes on the host: one thread per lane, __shfl_sync through a
+# shared array between two barriers (the lane form of the NxH root,
+# csrc/nxh_lanes.cuh, runs unchanged).
+LANE_SHUFFLE_STANDIN = """
+#include <pthread.h>
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) float2 { float x, y; };
+struct standin_group { float x[32]; pthread_barrier_t bar; };
+static thread_local standin_group* standin_current;
+static thread_local int standin_rank;
+static inline float __shfl_sync(unsigned, float v, int src, int width) {
+  standin_current->x[standin_rank] = v;
+  pthread_barrier_wait(&standin_current->bar);
+  const float got = standin_current->x[(standin_rank / width) * width + src];
+  pthread_barrier_wait(&standin_current->bar);
+  return got;
+}
+"""
+
+# Run fn(rank) on K threads that form one group of lanes.
+LANE_GROUP_HARNESS = """
+#include <cuda_runtime.h>
+#include <thread>
+#include <vector>
+template <class F>
+static void standin_run_group(int K, F fn) {
+  standin_group group;
+  pthread_barrier_init(&group.bar, nullptr, K);
+  std::vector<std::thread> lanes;
+  for (int rank = 0; rank < K; ++rank) {
+    lanes.emplace_back([&group, &fn, rank] {
+      standin_current = &group;
+      standin_rank = rank;
+      fn(rank);
+    });
+  }
+  for (auto& lane : lanes) lane.join();
+  pthread_barrier_destroy(&group.bar);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_lanes_cxx(tmp_path_factory, host_cxx):
+    """host_cxx with the lane stand-in: ``__shfl_sync`` between the threads
+    of a group (``LANE_SHUFFLE_STANDIN``)."""
+    cxx = shutil.which("c++") or shutil.which("g++") or shutil.which("clang++")
+    inc = tmp_path_factory.mktemp("standin_lanes")
+    (inc / "cuda_runtime.h").write_text(CUDA_RUNTIME_STANDIN + LANE_SHUFFLE_STANDIN)
+    out = tmp_path_factory.mktemp("host_lanes_build")
+
+    def build(name: str, source: str) -> ctypes.CDLL:
+        src, so = out / f"{name}.cpp", out / f"{name}.so"
+        src.write_text(source)
+        proc = subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-pthread", "-x",
+                               "c++", f"-I{inc}", f"-I{_build.CSRC_DIR}", "-o", str(so),
+                               str(src)], capture_output=True, text=True)
+        assert proc.returncode == 0, proc.stderr
+        lib = ctypes.CDLL(str(so))
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        if hasattr(lib, "circuit_lanes_host_run"):
+            lib.circuit_lanes_host_run.argtypes = [i] + [vp] * 5 + [i] * 2 + [vp] * 4
         return lib
 
     return build
@@ -235,6 +315,310 @@ def test_host_compiled_adjoint_matches_plain(host_cxx, name):
     for k in range(S):
         assert _rel(lam_seq[k], want[0][k]) < budget, k
         assert _rel(g_z0[k], want[2][k]) < budget, k
+
+
+def _two_pass_case(name):
+    """_adjoint_case's cases, the pretrained Tube Screamer 2x16 with a drive
+    pot per row and per sample, and the LPF clipper (analytic root)."""
+    if name in ("ts_2x16_row", "ts_2x16_sample"):
+        ckt, params, node, amp = _case("ts_2x16")
+        rng = np.random.default_rng(len(name))
+        if name == "ts_2x16_row":
+            drive = rng.uniform(0.0, 1.0, B)
+        else:
+            drive = np.clip(0.5 + np.cumsum(0.01 * rng.standard_normal((B, T)), axis=1), 0.0, 1.0)
+        r6 = torch.from_numpy(tts.drive_to_r6(drive).astype(np.float32))
+        return ckt, params, node, amp, {"R6": {"R": r6}}
+    if name == "lpf":
+        root = tdc.DiodePairRoot(name="dp", diode=diode_1n4148_1u1d)
+        ckt = tdc.make_diode_clipper(root, FS)
+        return ckt, {**ckt.init_params("cpu"), **root.init_params("cpu")}, "Vs", 1.5, None
+    return _adjoint_case(name)
+
+
+def _host_two_pass(lib, adj, prep, vin, g_out, zseq, lam_t, tc):
+    """(lam_seq, g_vin, g_z0) of the host-compiled pass 1 and pass 2 over
+    time chunks of tc samples, last chunk first, in the kernels' scratch
+    layout, as launch_adjoint runs them."""
+    b, t = vin.shape
+    S = zseq.shape[0]
+    lam_seq, g_vin, g_z0 = torch.empty((S, b, t)), torch.empty_like(vin), torch.empty((S, b))
+    lam_in = lam_t
+    for t0 in range(((t - 1) // tc) * tc, -1, -tc):
+        n = min(tc, t - t0)
+        jac = torch.full((adj.scratch_floats(b, n),), float("nan"))
+        lib.circuit_jacobian_host_run(vin.data_ptr(), g_out.data_ptr(), zseq.data_ptr(),
+                                      jac.data_ptr(), b, t, t0, n, prep.vec.data_ptr(),
+                                      _ptr(prep.rows, prep.vec), _ptr(prep.times, prep.vec),
+                                      _ptr(prep.warr, prep.vec))
+        lib.circuit_recursion_host_run(jac.data_ptr(), lam_in.data_ptr(), g_z0.data_ptr(),
+                                       lam_seq.data_ptr(), g_vin.data_ptr(), b, t, t0, n)
+        lam_in = g_z0
+    return lam_seq, g_vin, g_z0
+
+
+TWO_PASS_CASES = ["ts", "ts_2x16", "ts_2x16_row", "ts_2x16_sample", "ts_row", "ts_sample", "hpf",
+                  "lpf", "clipper_sample"]
+
+
+@pytest.mark.parametrize("name", TWO_PASS_CASES)
+def test_host_compiled_two_pass_adjoint_equals_one_pass(host_cxx, name):
+    """The device's two passes compiled for the host (pass 1 into the
+    scratch layout of the kernels, pass 2 walking it back; all of T in one
+    chunk, and three time chunks of 96, 96 and 64 samples) give the
+    one-pass adjoint step's bits, and hold the JAX suite's relative budgets
+    against
+    fused_backward_plain (tests/test_parallel_bptt.py:303,537)."""
+    ckt, params, node, amp, rows = _two_pass_case(name)
+    vin = _vin(len(name) + 4, amp)
+    _, _, seq = tfc.fused_circuit_process_plain(ckt, params, vin, _state(ckt), input_node=node,
+                                                row_controls=rows, return_state_seq=True)
+    rng = np.random.default_rng(17)
+    g_out = torch.from_numpy(rng.standard_normal((B, T)).astype(np.float32))
+    lam_T = [torch.from_numpy(rng.standard_normal(B).astype(np.float32)) for _ in seq]
+    prep = tfc.prepare(ckt, params, "cpu", input_node=node, row_controls=rows, shape=(B, T))
+    adj = cg.adjoint_program(ckt, prep.prog)
+    S = len(seq)
+    assert adj.n_state == S and 0 < adj.n_entries <= (S + 1) ** 2
+    assert "circuit_jacobian_kernel" in adj.source and "circuit_recursion_kernel" in adj.source
+    assert adj.jacobian_ops + adj.recursion_ops >= adj.ops_per_sample
+    lib = host_cxx(name + "_two_pass", adj.host_source)
+    zseq, lam_t = torch.stack(seq).contiguous(), torch.stack(lam_T).contiguous()
+    one = (torch.empty((S, B, T)), torch.empty_like(vin), torch.empty((S, B)))
+    lib.circuit_adjoint_host_run(vin.data_ptr(), g_out.data_ptr(), zseq.data_ptr(),
+                                 lam_t.data_ptr(), one[0].data_ptr(), one[1].data_ptr(),
+                                 one[2].data_ptr(), B, T, prep.vec.data_ptr(),
+                                 _ptr(prep.rows, prep.vec), _ptr(prep.times, prep.vec),
+                                 _ptr(prep.warr, prep.vec))
+    for tc in (T, 96):
+        two = _host_two_pass(lib, adj, prep, vin, g_out, zseq, lam_t, tc)
+        for got, want in zip(two, one):
+            assert torch.equal(got, want), (tc, float((got - want).abs().max()))
+    want = pb.fused_backward_plain(ckt, params, vin, g_out, seq, lam_T, input_node=node,
+                                   row_controls=rows)
+    budget = 3e-4 if rows else 1e-4
+    assert _rel(two[1], want[1]) < budget
+    for k in range(S):
+        assert _rel(two[0][k], want[0][k]) < budget, k
+        assert _rel(two[2][k], want[2][k]) < budget, k
+
+
+def test_adjoint_scratch_chunks_under_the_cap():
+    """The scratch of (B, T) is E floats a sample over the stream groups of
+    8 of pass 2; past the cap, time runs in chunks of a multiple of 32
+    samples."""
+    ckt, params, node, _ = _case("ts_2x16")
+    adj = cg.adjoint_program(ckt, tfc.prepare(ckt, params, "cpu", input_node=node).prog)
+    assert adj.n_entries == 16  # (S + 1)^2 for the Tube Screamer: no tangent is constant
+    assert 4 * adj.scratch_floats(1024, 2048) == 134_217_728  # 134 MB at the bench shape
+    assert adj.chunk(1024, 2048) == 2048 and adj.chunk(375, 2048) == 2048
+    tc = adj.chunk(8192, 2048)
+    assert tc % 32 == 0 and tc < 2048
+    assert 4 * adj.scratch_floats(8192, tc) <= adj.SCRATCH_CAP_BYTES
+    assert adj.GROUP == 8 and "#define CIRCUIT_GROUP 8" in adj.source
+    assert adj.scratch_floats(33, 10) == 16 * 40 * 10  # five groups of 8 streams
+    assert adj.scratch_floats(375, 1) == 16 * 376 and adj.scratch_floats(1, 3) == 16 * 8 * 3
+
+
+# nxh_forward (one thread) against nxh_forward_lanes on K host threads:
+# every lane's y, and the bits of nxh_forward, from random weights
+LANE_MLP_HARNESS = """
+#include "nxh_mlp.cuh"
+#include "nxh_lanes.cuh"
+extern "C" void lane_mlp_run(const float* a, int n, const float* w, float* one, float* lanes,
+                             float* lanes_local, float log_r) {{
+  // w: w1a[H], w1r[H], b1[H], w3[H], b3, zeros to a multiple of 4, the hidden layers
+  constexpr int H = {H}, K = {K}, L = {L};
+  const float* hidden = w + (4 * H + 4) / 4 * 4;
+  alignas(16) float c1[H];
+  nxh_first_bias<H>(w + H, w + 2 * H, log_r, c1);
+  for (int i = 0; i < n; ++i) one[i] = nxh_forward<H>(a[i], w, c1, hidden, L, w + 3 * H, w[4 * H]);
+  standin_run_group(K, [&](int rank) {{
+    float local[H / K];
+    nxh_first_bias_lanes<H, K>(w + H, w + 2 * H, log_r, rank, local);
+    NxhLaneWeights<H, K, L, true> regs;
+    NxhLaneWeights<H, K, L, false> none;
+    regs.load(hidden, w + 3 * H, rank);
+    none.load(hidden, w + 3 * H, rank);
+    for (int i = 0; i < n; ++i) {{
+      lanes[rank * n + i] = nxh_forward_lanes<H, K, L, false>(a[i], w, c1, hidden, w + 3 * H,
+                                                              w[4 * H], rank, none);
+      lanes_local[rank * n + i] = nxh_forward_lanes<H, K, L, true>(a[i], w, local, hidden,
+                                                                   w + 3 * H, w[4 * H], rank,
+                                                                   regs);
+    }}
+  }});
+}}
+"""
+
+
+@pytest.mark.parametrize("H,L,K", [(16, 2, 4), (16, 2, 8), (16, 2, 16), (8, 2, 4), (8, 2, 8),
+                                   (4, 1, 4), (16, 0, 16), (4, 3, 4)])
+def test_lane_mlp_matches_nxh_forward_on_host(host_lanes_cxx, H, L, K):
+    """nxh_forward_lanes on a group of K lanes (host threads, the shuffles
+    through the stand-in): every lane returns the same bits, those of the
+    one-thread nxh_forward, with c1 shared (folded log R) and the weights
+    read from the root array, and with c1 per lane (nxh_first_bias_lanes)
+    and the weights held in registers."""
+    lib = host_lanes_cxx(f"lane_mlp_{H}_{L}_{K}",
+                         LANE_GROUP_HARNESS + LANE_MLP_HARNESS.format(H=H, K=K, L=L))
+    vp = ctypes.c_void_p
+    lib.lane_mlp_run.argtypes = [vp, ctypes.c_int] + [vp] * 4 + [ctypes.c_float]
+    rng = np.random.default_rng(H * 100 + L * 10 + K)
+    n = 64
+    a = torch.from_numpy(rng.uniform(-3.0, 3.0, n).astype(np.float32))
+    w = (rng.standard_normal((4 * H + 4) // 4 * 4 + L * (H * H + H)) / np.sqrt(H))
+    w[4 * H + 1:(4 * H + 4) // 4 * 4] = 0.0
+    w = torch.from_numpy(w.astype(np.float32))
+    one, lanes, local = torch.empty(n), torch.empty(K, n), torch.empty(K, n)
+    lib.lane_mlp_run(a.data_ptr(), n, w.data_ptr(), one.data_ptr(), lanes.data_ptr(),
+                     local.data_ptr(), ctypes.c_float(np.log(47e3)))
+    assert bool(torch.isfinite(one).all()) and float(one.abs().max()) > 0.0
+    for k in range(K):
+        assert torch.equal(lanes[k], one), k
+        assert torch.equal(local[k], one), k
+
+
+# The generated lane step (circuit_step_lanes) on K host threads per stream:
+# every lane keeps its own copy of the state, output and trajectory
+LANE_STEP_HARNESS = """
+template <int K>
+static void lanes_run(const float* vin, const float* z0, float* out, float* zf, float* seq,
+                      int B, int T, const float* c, const float* rows, const float* times,
+                      const float* w) {{
+  // out (K, B, T), zf (K, S, B), seq (K, S, B, T): lane by lane
+  constexpr int S = CIRCUIT_NS;
+  for (int b = 0; b < B; ++b) {{
+    standin_run_group(K, [&](int rank) {{
+      float r[CIRCUIT_NR + 1], p[64], z[S + 1];
+      for (int j = 0; j < CIRCUIT_NR; ++j) r[j] = rows[j * B + b];
+      circuit_prologue_lanes<K>(c, r, w, p, rank);
+      CircuitLaneWeights<K> lw;
+      {load}
+      for (int k = 0; k < S; ++k) z[k] = z0[k * B + b];
+      for (long t = 0; t < T; ++t) {{
+        float q[CIRCUIT_NQ + 1];
+        for (int j = 0; j < CIRCUIT_NQ; ++j) q[j] = times[(j * B + b) * T + t];
+        for (int k = 0; k < S; ++k) seq[((static_cast<long>(rank) * S + k) * B + b) * T + t] = z[k];
+        out[(static_cast<long>(rank) * B + b) * T + t] =
+            circuit_step_lanes<K>(vin[b * T + t], z, c, r, q, w, p, rank, lw);
+      }}
+      for (int k = 0; k < S; ++k) zf[(rank * S + k) * B + b] = z[k];
+    }});
+  }}
+}}
+
+extern "C" void circuit_lanes_host_run(int K, const float* vin, const float* z0, float* out,
+                                       float* zf, float* seq, int B, int T, const float* c,
+                                       const float* rows, const float* times, const float* w) {{
+  switch (K) {{{cases}
+  }}
+}}
+"""
+
+
+@pytest.mark.parametrize("name", ["ts_2x16", "ts_2x16_row", "ts_2x16_sample", "clipper_2x16"])
+def test_host_lane_step_matches_one_thread_step(host_cxx, host_lanes_cxx, name):
+    """The forward's lane form for every r_kind (the folded R, a per-row and
+    a per-sample R reaching the root), at every K of the sweep's build:
+    on K host threads per stream every lane ends every step with the same
+    state and output bits, those of the one-thread step (circuit_host_run),
+    trajectory included."""
+    if name == "clipper_2x16":  # the training clipper, random-init 2x16, R per sample
+        root = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=16)
+        ckt = tdc.make_training_clipper(root, FS)
+        params, node, amp = {**ckt.init_params("cpu"), **root.init_params("cpu")}, "Vs", 1.5
+        walk = np.cumsum(0.02 * np.random.default_rng(9).standard_normal((B, T)), axis=1)
+        rows = {"Vs": {"R": torch.from_numpy(np.exp(np.log(45e3) + walk).astype(np.float32))}}
+    else:
+        ckt, params, node, amp, rows = _two_pass_case(name)
+    b, t = 3, 64
+    vin = _vin(len(name) + 5, amp)[:b, :t].contiguous()
+    rows = None if rows is None else {n: {f: x[:b, :t].contiguous() if x.dim() == 2 else x[:b]
+                                          for f, x in d.items()} for n, d in rows.items()}
+    prep = tfc.prepare(ckt, params, "cpu", input_node=node, row_controls=rows, shape=(b, t))
+    assert prep.prog.lanes == (1, 8, 16)  # the K that lanes_for picks for H = 16
+    prog = cg.sweep_program(ckt, prep.prog)
+    r_kind = {"ts_2x16": "scalar", "ts_2x16_row": "row"}.get(name, "time")
+    assert prog.emitter.r_kind == r_kind and prog.lanes == (1, 4, 8, 16)
+    assert "circuit_lanes_kernel" in prog.source and "nxh_forward_lanes" in prog.lanes_source
+    assert "nxh_forward_lanes" not in prog.step_source  # B9 and the adjoint: nxh_mlp.cuh
+    want = _host_forward(host_cxx(name + "_one_thread", prog.host_source), prep, vin,
+                         _state(ckt, b))
+    cases = "".join(f"\n    case {k}:\n      lanes_run<{k}>(vin, z0, out, zf, seq, B, T, c, rows, "
+                    f"times, w);\n      break;" for k in prog.lanes[1:])
+    lib = host_lanes_cxx(name + "_lanes", prog.step_source + prog.lanes_source
+                         + LANE_GROUP_HARNESS
+                         + LANE_STEP_HARNESS.format(cases=cases,
+                                                    load=prog.emitter.lane_weights()[1]))
+    S = len(prog.state_order)
+    z0 = tfc._state_stack(prog, _state(ckt, b), vin)
+    for K in prog.lanes[1:]:
+        out, zf, seq = torch.empty(K, b, t), torch.empty(K, S, b), torch.empty(K, S, b, t)
+        lib.circuit_lanes_host_run(K, vin.data_ptr(), z0.data_ptr(), out.data_ptr(),
+                                   zf.data_ptr(), seq.data_ptr(), b, t, prep.vec.data_ptr(),
+                                   _ptr(prep.rows, prep.vec), _ptr(prep.times, prep.vec),
+                                   _ptr(prep.warr, prep.vec))
+        for rank in range(K):
+            assert torch.equal(out[rank], want[0]), (K, rank)
+            assert torch.equal(zf[rank], want[1]), (K, rank)
+            assert torch.equal(seq[rank], want[2]), (K, rank)
+
+
+@pytest.mark.parametrize("H", [4, 8, 16])
+def test_lane_kernels_follow_the_root_width(host_cxx, host_lanes_cxx, H):
+    """An NxH root's forward is built with the lane form for the K that
+    lanes_for can pick at its width (the sweep's build: every K of LANES
+    that divides H), each K one case of the launch's switch.  The one-thread
+    step is within 2e-5 of the plain version, and on K host threads per
+    stream each lane of every built K has its bits."""
+    root = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=H)
+    ckt = tts.make_tube_screamer(root, FS, drive=0.5)
+    params = {**ckt.init_params("cpu"), **root.init_params("cpu")}
+    b, t = 3, 64
+    vin = _vin(H, 0.3)[:b, :t].contiguous()
+    prep = tfc.prepare(ckt, params, "cpu", input_node="Vin")
+    prog = prep.prog
+    lanes = {4: (1, 4), 8: (1, 8), 16: (1, 8, 16)}[H]
+    assert prog.lanes == lanes
+    assert cg.sweep_program(ckt, prog).lanes == (1,) + tuple(k for k in cg.LANES if H % k == 0)
+    assert [tfc.lanes_for(prog, n) for n in (1, 2048, 2049, 8192)] == (
+        [16, 16, 8, 8] if H == 16 else [H] * 4)
+    for k in prog.lanes:
+        assert prog.source.count(f"case {k}:") == 1, k
+    want, _, want_seq = tfc.fused_circuit_process_plain(
+        ckt, params, vin, _state(ckt, b), input_node="Vin", return_state_seq=True)
+    one = _host_forward(host_cxx(f"ts_2x{H}_one_thread", prog.host_source), prep, vin,
+                        _state(ckt, b))
+    np.testing.assert_allclose(one[0].numpy(), want.numpy(), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(one[2].numpy(), torch.stack(want_seq).numpy(), atol=2e-5, rtol=0)
+    cases = "".join(f"\n    case {k}:\n      lanes_run<{k}>(vin, z0, out, zf, seq, B, T, c, rows, "
+                    f"times, w);\n      break;" for k in prog.lanes[1:])
+    lib = host_lanes_cxx(f"ts_2x{H}_lanes", prog.step_source + prog.lanes_source
+                         + LANE_GROUP_HARNESS
+                         + LANE_STEP_HARNESS.format(cases=cases,
+                                                    load=prog.emitter.lane_weights()[1]))
+    S = len(prog.state_order)
+    z0 = tfc._state_stack(prog, _state(ckt, b), vin)
+    for K in prog.lanes[1:]:
+        out, zf, seq = torch.empty(K, b, t), torch.empty(K, S, b), torch.empty(K, S, b, t)
+        lib.circuit_lanes_host_run(K, vin.data_ptr(), z0.data_ptr(), out.data_ptr(),
+                                   zf.data_ptr(), seq.data_ptr(), b, t, prep.vec.data_ptr(),
+                                   prep.vec.data_ptr(), prep.vec.data_ptr(),
+                                   prep.warr.data_ptr())
+        for rank in range(K):
+            assert torch.equal(out[rank], one[0]) and torch.equal(zf[rank], one[1]), (K, rank)
+            assert torch.equal(seq[rank], one[2]), (K, rank)
+
+
+def test_lane_counts_of_widths_no_k_divides():
+    """A width that no K of LANES divides gets no lane form (the one-thread
+    kernel alone, lanes = (1,)); a width that only 4 divides gets K = 4."""
+    for H, want in ((3, ()), (6, ()), (2, ()), (12, (4,)), (32, (8, 16))):
+        emitter = types.SimpleNamespace(H=H)
+        assert cg._NeuralEmitter.lane_counts(emitter) == want, H
+        every = cg._NeuralEmitter.lane_counts(emitter, every=True)
+        assert every == tuple(k for k in cg.LANES if H % k == 0), H
 
 
 def _plain_f_and_jacobian(ckt, prep, z, v):

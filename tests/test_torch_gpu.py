@@ -12,7 +12,12 @@ distilled clipper 1e-5, the generated circuit kernels 2e-5 (with pot
 streams and the state trajectory too), and two half blocks against one
 block 1e-6; the generated adjoint relative 1e-4 with no pot and 3e-4 with
 pots, and the generic training op's gradients against the scan engine
-relative 5e-4 per leaf (tests/test_parallel_bptt.py); the generated DEER
+relative 5e-4 per leaf (tests/test_parallel_bptt.py); the lane-cooperative
+forward of an NxH root 2e-5 against plain and the one-thread kernel's bits,
+every lane of a group the same bits; the two-pass adjoint the one-pass
+kernel's bits and the adjoint's budgets against plain; a short
+fused_generic run's loss history rtol 5e-4 of the same run through the
+plain versions (tests/test_parallel_bptt.py:579); the generated DEER
 kernel against its plain version and the exact recursion, Tube Screamer
 1e-4, HPF clipper 3e-4, neural clipper 5e-6 (tests/test_deer_circuit.py).
 """
@@ -458,6 +463,10 @@ def _train_case(name, dev, b, t):
         if name == "ts_2x16_row":  # the drive pot per row (bench.py:560-604)
             r6 = drive_to_r6(rng.uniform(0.0, 1.0, b)).astype(np.float32)
             rows = {"R6": {"R": torch.from_numpy(r6).to(dev)}}
+        if name == "ts_2x16_sample":  # the drive pot per sample, a random walk
+            walk = np.cumsum(0.01 * rng.standard_normal((b, t)), axis=1)
+            r6 = drive_to_r6(np.clip(0.5 + walk, 0.0, 1.0)).astype(np.float32)
+            rows = {"R6": {"R": torch.from_numpy(r6).to(dev)}}
         return ckt, {**ckt.init_params(dev), **rp}, "Vin", rp["dp"], rows
     if name == "hpf":
         root, rp = tdc.make_hpf_root_from_zoo(0, device=dev)
@@ -576,6 +585,195 @@ def test_fused_generic_op_grads_match_scan_on_card(circuit_cuda):
             assert g is None and w is None
             continue
         assert float((g - w).abs().max() / w.abs().max().clamp_min(1e-12)) < 5e-4
+
+
+# ---------------------------------------------------------------------------
+# The redesigned B7 and B8: the lane-cooperative forward of an NxH root and
+# the two-pass adjoint (pass 1 over every (b, t), pass 2 the recursion)
+# ---------------------------------------------------------------------------
+
+# every r_kind of the NxH root: the folded R (TS, no pot), per row (drive pot
+# per row) and per sample (drive pot per sample; the training clipper's R)
+LANE_CASES = ["ts_2x16", "ts_2x16_row", "ts_2x16_sample", "clipper_sample"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [4, 8, 16])
+@pytest.mark.parametrize("name", LANE_CASES)
+def test_lane_kernel_matches_plain_and_one_thread_kernel(circuit_cuda, name, lanes):
+    """B7's lane form at K lanes per stream, with and without the state
+    trajectory, ragged B = 300 (not a multiple of the 8, 16 or 32 streams of
+    a block) and T = 100: within 2e-5 of the plain version, and the bits of
+    the one-thread kernel (lanes = 1), which runs the same MLP order.  The
+    sweep's build (every K that divides H) gives K = 4, which lanes_for
+    never picks for H = 16."""
+    from diffwdf_tpu_torch.ops import circuit_codegen as cg
+
+    dev, fcirc = circuit_cuda
+    b, t = 300, 100
+    ckt, params, node, mlp, rows = _train_case(name, dev, b, t)
+    vin, state = _circuit_inputs(ckt, dev, b, t, 0.5, seed=len(name) + lanes)
+    want = _trajectory(fcirc, ckt, params, node, mlp, rows, vin, state, plain=True)
+    tree = {k: v for k, v in params.items() if k != "dp"} if mlp is not None else params
+    prep = fcirc.prepare(ckt, tree, dev, input_node=node, neural_mlp=mlp, row_controls=rows,
+                         shape=(b, t))
+    assert prep.prog.emitter.r_kind == {"ts_2x16": "scalar", "ts_2x16_row": "row"}.get(
+        name, "time")
+    assert prep.prog.lanes == (1, 8, 16)
+    prep = prep._replace(prog=cg.sweep_program(ckt, prep.prog))
+    assert prep.prog.lanes == (1, 4, 8, 16)
+    z0 = fcirc._state_stack(prep.prog, state, vin)
+    for with_seq in (False, True):
+        got = fcirc.launch(prep, vin, z0, with_seq, lanes=lanes)
+        one = fcirc.launch(prep, vin, z0, with_seq, lanes=1)
+        torch.cuda.synchronize()
+        _close(got[0], want[0], 2e-5)
+        _close(got[1], torch.stack([want[1][n][f] for n, f in prep.prog.state_order]), 2e-5)
+        assert torch.equal(got[0], one[0]) and torch.equal(got[1], one[1])
+        if with_seq:
+            for k, w in enumerate(want[2]):
+                _close(got[2][k], w, 2e-5)
+            assert torch.equal(got[2], one[2])
+    assert fcirc.fused_circuit_process.launches == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["ts_2x16", "ts_2x16_sample"])
+def test_lane_kernel_lanes_of_a_group_agree(circuit_cuda, name):
+    """Every lane of a group ends every step with the same bits: the output,
+    final state and trajectory written by each lane of the group in turn
+    (the kernel's writer) are bit-identical, at K = 4 and 16 (the sweep's
+    build)."""
+    from diffwdf_tpu_torch.ops import circuit_codegen as cg
+
+    dev, fcirc = circuit_cuda
+    b, t = 300, 100
+    ckt, params, node, mlp, rows = _train_case(name, dev, b, t)
+    vin, state = _circuit_inputs(ckt, dev, b, t, 0.5, seed=3)
+    prep = fcirc.prepare(ckt, {k: v for k, v in params.items() if k != "dp"}, dev,
+                         input_node=node, neural_mlp=mlp, row_controls=rows, shape=(b, t))
+    prep = prep._replace(prog=cg.sweep_program(ckt, prep.prog))
+    z0 = fcirc._state_stack(prep.prog, state, vin)
+    for lanes in (4, 16):
+        first = fcirc.launch(prep, vin, z0, True, lanes=lanes, writer=0)
+        for writer in range(1, lanes):
+            got = fcirc.launch(prep, vin, z0, True, lanes=lanes, writer=writer)
+            for x, y in zip(got, first):
+                assert torch.equal(x, y), (lanes, writer)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fcirc.launch(prep, vin, z0, True, lanes=4, writer=4)
+    with pytest.raises(ValueError, match="lanes"):
+        fcirc.launch(prep, vin, z0, True, lanes=32)
+
+
+@pytest.mark.gpu
+def test_wrapper_picks_lanes_by_batch(circuit_cuda):
+    """fused_circuit_process on an NxH root goes through the lane kernel at
+    the K that lanes_for gives the batch; an analytic root keeps lanes = 1."""
+    dev, fcirc = circuit_cuda
+    ckt, params, node, amp, mlp = _circuit_case("ts_2x16", dev)
+    prog = fcirc.prepare(ckt, params, dev, input_node=node, neural_mlp=mlp).prog
+    assert prog.lanes == (1, 8, 16)
+    assert [fcirc.lanes_for(prog, b) for b in (1, 1024, 2048, 4096, 8192)] == [16, 16, 16, 8, 8]
+    ckt_a, params_a, node_a, _, _ = _circuit_case("ts", dev)
+    assert fcirc.prepare(ckt_a, params_a, dev, input_node=node_a).prog.lanes == (1,)
+    vin, state = _circuit_inputs(ckt, dev, 5, 64, amp, seed=1)
+    got, _ = _run_circuit(fcirc, ckt, params, vin, state, node, mlp)
+    want, _ = _run_circuit(fcirc, ckt, params, vin, state, node, mlp, plain=True)
+    torch.cuda.synchronize()
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,b", [("ts_2x16", 1024), ("ts_2x16", 375), ("ts_2x16_row", 375)])
+def test_two_pass_adjoint_matches_one_pass_kernel_and_plain(circuit_cuda, name, b, monkeypatch):
+    """B8's two passes at the training shapes against the one-pass kernel
+    (today's arithmetic: the same bits) and against the autograd VJP of the
+    plain step (relative 1e-4, 3e-4 with pots); and cut into time chunks
+    under a small scratch cap, the same bits again."""
+    from diffwdf_tpu_torch.ops import circuit_codegen as cg
+    from diffwdf_tpu_torch.ops import parallel_bptt as pb
+
+    dev, fcirc = circuit_cuda
+    t = 2048
+    ckt, params, node, mlp, rows = _train_case(name, dev, b, t)
+    vin, state = _circuit_inputs(ckt, dev, b, t, 0.5, seed=b)
+    _, _, seq = _trajectory(fcirc, ckt, params, node, mlp, rows, vin, state)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    g_out = torch.randn(b, t, generator=gen, device=dev) / (b * t)
+    lam_T = [torch.randn(b, generator=gen, device=dev) / b for _ in seq]
+    tree = {k: v for k, v in params.items() if k != "dp"}
+    kw = dict(input_node=node, row_controls=rows, neural_mlp=mlp)
+    pb.fused_backward.launches = 0
+    got = pb.fused_backward(ckt, tree, vin, g_out, seq, lam_T, **kw)
+    prep = fcirc.prepare(ckt, tree, dev, input_node=node, neural_mlp=mlp, row_controls=rows,
+                         shape=(b, t))
+    zseq, lam_t = torch.stack(seq).contiguous(), torch.stack(lam_T).contiguous()
+    one = pb.launch_adjoint_onepass(ckt, prep, vin, g_out, zseq, lam_t)
+    monkeypatch.setattr(cg.AdjointProgram, "SCRATCH_CAP_BYTES", 16 * 2 ** 20)
+    assert cg.adjoint_program(ckt, prep.prog).chunk(b, t) < t
+    chunked = pb.launch_adjoint(ckt, prep, vin, g_out, zseq, lam_t)
+    want = pb.fused_backward_plain(ckt, tree, vin, g_out, seq, lam_T, **kw)
+    torch.cuda.synchronize()
+    assert pb.fused_backward.launches == 2
+    for x, y, z in zip((torch.stack(got[0]), got[1], torch.stack(got[2])), one, chunked):
+        assert torch.equal(x, y), float((x - y).abs().max())
+        assert torch.equal(x, z), float((x - z).abs().max())
+    budget = 3e-4 if rows else 1e-4
+
+    def rel(x, y):
+        return float((x - y).abs().max() / y.abs().max().clamp_min(1e-12))
+
+    assert rel(got[1], want[1]) < budget
+    for k in range(len(seq)):
+        assert rel(got[0][k], want[0][k]) < budget, k
+        assert rel(got[2][k], want[2][k]) < budget, k
+
+
+@pytest.mark.gpu
+def test_fused_generic_training_matches_plain_versions_on_card(circuit_cuda, monkeypatch):
+    """A short fused_generic run of the Tube Screamer with the pretrained 2x16
+    on the card: its loss history through the new kernels matches the same
+    run through the plain versions of B7 and B8 within rtol 5e-4
+    (tests/test_parallel_bptt.py:579)."""
+    from diffwdf_tpu_torch.models import diode_clipper as tdc
+    from diffwdf_tpu_torch.models.tube_screamer import make_tube_screamer
+    from diffwdf_tpu_torch.ops import parallel_bptt as pb
+    from diffwdf_tpu_torch.training.circuit_train import CircuitTrainConfig, train_clipper
+
+    dev, fcirc = circuit_cuda
+    n, t = 16, 512
+    rng = np.random.default_rng(4)
+    x = (0.2 * np.sin(2 * np.pi * 1000.0 * np.arange(n * t) / 48000.0)
+         + 0.05 * rng.standard_normal(n * t)).astype(np.float32).reshape(n, t)
+    x = torch.from_numpy(x).to(dev)
+    aroot = DiodePairRoot(name="dp", diode=diode_1n4148_1u2d)  # the "measured" pair
+    truth = make_tube_screamer(aroot, 48000.0, drive=0.5)
+    y, _ = fcirc.fused_circuit_process(
+        truth, {**truth.init_params(dev), **aroot.init_params(dev)}, x,
+        {k: {"z": torch.zeros(n, device=dev)} for k in truth.init_state("cpu")},
+        input_node="Vin")
+    root, rp = tdc.make_root_from_zoo(4, device=dev)
+    ckt = make_tube_screamer(root, 48000.0, drive=0.5)
+    params = {**ckt.init_params(dev), **rp}
+    cfg = CircuitTrainConfig(epochs=3, batch_size=t, engine="fused_generic", log_every=0)
+    batches = {"x": x, "y": y}
+    pb.fused_backward.launches = fcirc.fused_circuit_process.launches = 0
+    _, hist = train_clipper(ckt, params, batches, batches, cfg,
+                            trainable_filter=lambda p: p["dp"])
+    torch.cuda.synchronize()
+    assert (fcirc.fused_circuit_process.launches, pb.fused_backward.launches) == (6, 3)
+    kernel_backward = pb.fused_backward
+    monkeypatch.setattr(pb, "fused_circuit_process_neural",
+                        fcirc.fused_circuit_process_neural_plain)
+    monkeypatch.setattr(pb, "fused_backward", pb.fused_backward_plain)
+    _, plain = train_clipper(ckt, params, batches, batches, cfg,
+                             trainable_filter=lambda p: p["dp"])
+    # the plain run launched nothing more
+    assert (fcirc.fused_circuit_process.launches, kernel_backward.launches) == (6, 3)
+    assert hist["loss"][-1] < hist["loss"][0]
+    for k in ("loss", "val_loss"):
+        np.testing.assert_allclose(hist[k], plain[k], rtol=5e-4)
 
 
 # ---------------------------------------------------------------------------
