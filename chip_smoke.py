@@ -32,7 +32,11 @@ one line per phase:
              (8192, 2048)
   kernels    the training forward and adjoint kernels against their plain
              versions at the training shape (1337 chunks x 2048 samples),
-             pretrained 2x16, the train split's four source resistances
+             pretrained 2x16, the train split's four source resistances;
+             the forward's lane form (each K it can take) against its
+             one-thread form and the adjoint's two passes against its
+             one-pass form, bit for bit; ptxas registers and spills of the
+             lane form and the two passes (no spill allowed)
   grad       the fused training op's loss and gradients against the scan
              engine (autograd through Circuit.process) at (1024, 256): a
              seeded random-init 2x16 at the JAX suite's budgets, and the
@@ -45,9 +49,13 @@ one line per phase:
              a few epochs with validation; the loss must fall, the launch
              counters must rise, and the trained root, saved and reloaded as
              JSON, must serve a (8192, 2048) block through the serving kernel
-  timing     CUDA-event medians of the training kernels and their plain
-             versions, the parts of one fused training step (forward kernel,
-             loss, adjoint kernel, parameter VJP, Adam) and the whole step
+  timing     CUDA-event medians of the training kernels beside their
+             earlier forms (one-thread forward, one-pass adjoint), the
+             adjoint's two passes apart and its scratch, the forward's lanes
+             per stream (1, 8, 16) at the training and validation batches,
+             the plain versions, and the parts of one fused training step
+             (forward kernel, loss, adjoint kernel, parameter VJP, Adam) and
+             the whole step, with the earlier kernels and the new, in turns
   kernels deer  the single-stream DEER kernel against its plain version
              and against the exact recursion (the analytic kernel at B=1)
              at T = 2048 and 16384, for the "toms" (8 sweeps, 3 omega
@@ -170,6 +178,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -584,7 +593,7 @@ def train_path(dev, card: str, seed: int) -> list:
     fwd_args = (x, z0, mlp, r_rows, TRAIN_CAP)
 
     # --- kernels vs plain at the training shape -------------------------------
-    got = fc.fused_clipper_neural_train_fwd(*fwd_args, fs=TRAIN_FS)
+    got = got_fwd = fc.fused_clipper_neural_train_fwd(*fwd_args, fs=TRAIN_FS)
     want = fc.fused_clipper_neural_train_fwd_plain(*fwd_args, fs=TRAIN_FS)
     torch.cuda.synchronize()
     errs = [_max_err(g, w) for g, w in zip(got, want)]
@@ -608,6 +617,29 @@ def train_path(dev, card: str, seed: int) -> list:
           f"g_z0={scaled[2]:.3e} budget=2e-05 (after dividing by scale)", flush=True)
     _check(all(bool(torch.isfinite(g).all()) for g in got) and max(scaled) <= 2e-5,
            "adjoint kernel within 2e-5 (scaled) of its plain version")
+    # the redesigned kernels (B3 on K lanes a stream, B4 in two passes)
+    # against their earlier forms, bit for bit: the wrappers' results above
+    # and B3 at each K it can take for H = 16
+    old_fwd = fc.launch_train_fwd(*fwd_args, fs=TRAIN_FS, lanes=1)
+    lanes_equal = {K: all(torch.equal(a, b) for a, b in zip(
+        fc.launch_train_fwd(*fwd_args, fs=TRAIN_FS, lanes=K), old_fwd))
+        for K in fc.train_lane_counts(16)}
+    lanes_equal["wrapper"] = all(torch.equal(a, b) for a, b in zip(got_fwd, old_fwd))
+    adj_equal = all(torch.equal(a, b) for a, b in zip(
+        got, ct.launch_adjoint_onepass(*adj_args, fs=TRAIN_FS)))
+    print(f"phase kernels train_fwd lanes vs one-thread kernel shape={shape} bits_equal "
+          + " ".join(f"K={k}:{v}" for k, v in lanes_equal.items())
+          + f" (wrapper K={fc.train_lanes(16, TRAIN_CHUNKS)}); adjoint two passes vs one-pass "
+          f"kernel bits_equal={adj_equal}", flush=True)
+    _check(all(lanes_equal.values()) and adj_equal,
+           "B3's lane form and B4's two passes give their earlier forms' bits")
+    new_ptxas = _ptxas_kernels("", _build.library_path().with_suffix(".log"), CLIPPER_KERNELS)
+    new_ptxas = {k: v for k, v in new_ptxas.items() if k.startswith(CLIPPER_NEW)}
+    print("phase kernels ptxas clipper_train " + " | ".join(
+        f"{k}: {r} registers, {ss}/{sl} bytes spilled (stores/loads)"
+        for k, (r, ss, sl) in new_ptxas.items()), flush=True)
+    _check(len(new_ptxas) == 12 and all(ss == sl == 0 for _, ss, sl in new_ptxas.values()),
+           f"no spills in the lane form and the two passes (8 + 3 + 1 kernels): {new_ptxas}")
 
     # --- grad: the fused op against the scan engine ---------------------------
     ckt = make_training_clipper(root, TRAIN_FS, cap=TRAIN_CAP)
@@ -740,18 +772,43 @@ def train_path(dev, card: str, seed: int) -> list:
 
     # --- timing ----------------------------------------------------------------
     samples = TRAIN_CHUNKS * CHUNK
-    times = {}
-    for name, kernel, plain in (
-        ("train_fwd", lambda: fc.fused_clipper_neural_train_fwd(*fwd_args, fs=TRAIN_FS),
-         lambda: fc.fused_clipper_neural_train_fwd_plain(*fwd_args, fs=TRAIN_FS)),
-        ("adjoint", lambda: ct.clipper_adjoint(*adj_args, fs=TRAIN_FS),
-         lambda: ct.clipper_adjoint_plain(*adj_args, fs=TRAIN_FS)),
+    plain_ms = {name: _timed(fn)[0] for name, fn in (
+        ("train_fwd", lambda: fc.fused_clipper_neural_train_fwd_plain(*fwd_args, fs=TRAIN_FS)),
+        ("adjoint", lambda: ct.clipper_adjoint_plain(*adj_args, fs=TRAIN_FS)))}
+    # the kernels alone, 10 calls back to back a run: the wrappers (B3 on K
+    # lanes, B4's two passes), their earlier forms, and B4's passes as
+    # launch-only calls on a scratch allocated once
+    pass1, pass2, scratch_bytes = _clipper_adjoint_passes(*adj_args[:5])
+    kernel_ms = {}
+    for label, fn in (
+        ("B3", lambda: fc.fused_clipper_neural_train_fwd(*fwd_args, fs=TRAIN_FS)),
+        ("B3 one-thread", lambda: fc.launch_train_fwd(*fwd_args, fs=TRAIN_FS, lanes=1)),
+        ("B4", lambda: ct.clipper_adjoint(*adj_args, fs=TRAIN_FS)),
+        ("B4 pass 1", pass1),
+        ("B4 pass 2", pass2),
+        ("B4 one-pass", lambda: ct.launch_adjoint_onepass(*adj_args, fs=TRAIN_FS)),
     ):
-        k, p = _timed(kernel), _timed(plain)
-        times[name] = (k[0], p[0])
-        print(f"phase timing {name} shape={shape} runs={REPS} kernel_ms={k[0]:.4f} "
-              f"[{k[1]:.4f}, {k[2]:.4f}] ({samples / k[0] / 1e3:.1f} Msamples/s) "
-              f"plain_ms={p[0]:.4f} [{p[1]:.4f}, {p[2]:.4f}] card={card!r}", flush=True)
+        _cuda_ms(fn, 1, 2)
+        k = _cuda_ms(fn, REPS, 10)
+        kernel_ms[label] = statistics.median(k)
+        print(f"phase timing kernel {label} 2x16 shape={shape} runs={REPS} "
+              f"kernel_ms={kernel_ms[label]:.4f} [{min(k):.4f}, {max(k):.4f}] "
+              f"({samples / kernel_ms[label] / 1e3:.1f} Msamples/s; 10 calls per run) "
+              f"card={card!r}", flush=True)
+    print(f"phase timing scratch B4 bytes={scratch_bytes} shape={shape} (the pair (m, go) of "
+          f"every sample, groups of {ct.ADJOINT_GROUP} streams)", flush=True)
+    # B3's lanes per stream at the training and the validation batch
+    for rows in (TRAIN_CHUNKS, VAL_CHUNKS):
+        args = (x[:rows], z0[:rows], mlp, r_rows[:rows], TRAIN_CAP)
+        sweep = {}
+        for lanes in (1,) + fc.train_lane_counts(16):
+            fn = (lambda lanes=lanes: fc.launch_train_fwd(*args, fs=TRAIN_FS, lanes=lanes))
+            _cuda_ms(fn, 1, 2)
+            sweep[lanes] = statistics.median(_cuda_ms(fn, REPS, 10))
+        print(f"phase timing lanes B3 2x16 shape=({rows}, {CHUNK}) runs={REPS} "
+              + " ".join(f"K={k}:{v:.4f}" for k, v in sweep.items())
+              + f" ms fastest=K{min(sweep, key=sweep.get)} chosen=K{fc.train_lanes(16, rows)} "
+              f"card={card!r}", flush=True)
 
     # one fused training step of the trained params, part by part, on the
     # real batches
@@ -786,29 +843,75 @@ def train_path(dev, card: str, seed: int) -> list:
             t.grad = g
         opt.step()
 
-    parts = {}
-    for name, fn in (("forward_kernel", part_forward), ("loss", part_loss),
-                     ("adjoint_kernel", part_adjoint), ("param_vjp", part_vjp),
-                     ("adam", part_adam)):
-        parts[name] = _timed(fn)[0]
-    step = _timed(lambda: train_step(trained, opt, tb))
-    print(f"phase timing train_step shape={shape} runs={REPS} step_ms={step[0]:.4f} "
-          f"[{step[1]:.4f}, {step[2]:.4f}] ({samples / step[0] / 1e3:.3f} Msamples/s) "
-          + " ".join(f"{k}_ms={v:.4f}" for k, v in parts.items())
-          + f" parts_sum_ms={sum(parts.values()):.4f} card={card!r}", flush=True)
+    def step_parts():
+        parts = {}
+        for name, fn in (("forward_kernel", part_forward), ("loss", part_loss),
+                         ("adjoint_kernel", part_adjoint), ("param_vjp", part_vjp),
+                         ("adam", part_adam)):
+            parts[name] = _timed(fn)[0]
+        return parts, _timed(lambda: train_step(trained, opt, tb))
+
+    # the step before and after the redesign, in turns (before, after,
+    # before, after): "before" runs the earlier kernels through the same
+    # wrappers, the one-thread forward (lanes = 1) and the one-pass adjoint
+    runs = {"before": [], "after": []}
+    for label in ("before", "after", "before", "after"):
+        with _old_kernels(label == "before"):
+            runs[label].append(step_parts())
+    for label, (parts, step) in [(k, v[-1]) for k, v in runs.items()]:
+        print(f"phase timing train_step kernels={label} shape={shape} runs={REPS} "
+              f"step_ms={step[0]:.4f} [{step[1]:.4f}, {step[2]:.4f}] (first turn "
+              f"{runs[label][0][1][0]:.4f}) ({samples / step[0] / 1e3:.3f} Msamples/s) "
+              + " ".join(f"{k}_ms={v:.4f}" for k, v in parts.items())
+              + f" parts_sum_ms={sum(parts.values()):.4f} card={card!r}", flush=True)
 
     wrappers = {"train_fwd": "fused_clipper_neural_train_fwd", "adjoint": "clipper_adjoint"}
     ops = {"train_fwd": _neural_ops(16, 2) * samples, "adjoint": _adjoint_ops(16, 2) * samples}
     # train_fwd: vin in, out and a_seq out (z0, r in, z_final out per row);
-    # adjoint: a_seq and g_out in, g_vin and G out (g_zf, r in, g_z0 out)
+    # adjoint: a_seq and g_out in, g_vin and G out (g_zf, r in, g_z0 out),
+    # and the scratch between its passes written once and read once
     nbytes = {"train_fwd": 12 * samples + 12 * TRAIN_CHUNKS,
-              "adjoint": 16 * samples + 12 * TRAIN_CHUNKS}
+              "adjoint": 16 * samples + 12 * TRAIN_CHUNKS + 2 * scratch_bytes}
+    bounds = {name: _bound(ops[name], nbytes[name]) for name in ("train_fwd", "adjoint")}
+    for name, label in (("train_fwd", "B3"), ("adjoint", "B4")):
+        before = kernel_ms[f"{label} one-thread" if label == "B3" else f"{label} one-pass"]
+        print(f"phase timing bound {label} kernel_ms={kernel_ms[label]:.4f} before_ms={before:.4f} "
+              f"bound_ms={bounds[name][0]:.6f} ({bounds[name][1]}) "
+              f"share={bounds[name][0] / kernel_ms[label]:.4f} plain_ms={plain_ms[name]:.4f} "
+              f"launches_on_main_path={launches[name]} card={card!r}", flush=True)
     return [{"name": wrappers[name], "route": "cuda", "source": TRAIN_SOURCE,
              "replaces": TRAIN_REPLACES[name], "launches": launches[name],
-             "max_abs_err": max_err[name], "ms": times[name][0], "plain_ms": times[name][1],
-             **dict(zip(("bound_ms", "bound_by"), _bound(ops[name], nbytes[name]))),
-             "library_ms": None}
-            for name in ("train_fwd", "adjoint")]
+             "max_abs_err": max_err[name], "ms": kernel_ms[label], "plain_ms": plain_ms[name],
+             **dict(zip(("bound_ms", "bound_by"), bounds[name])), "library_ms": None}
+            for name, label in (("train_fwd", "B3"), ("adjoint", "B4"))]
+
+
+#: the ptxas entries of the clipper's redesigned training kernels
+CLIPPER_KERNELS = r"\d+((?:train_fwd_lanes|adjoint_tangent|adjoint_recursion)_kernel)"
+CLIPPER_NEW = ("train_fwd_lanes_kernel", "adjoint_tangent_kernel", "adjoint_recursion_kernel")
+
+
+def _clipper_adjoint_passes(a_seq, g_out, g_zf, r_rows, mlp):
+    """(pass 1, pass 2, scratch bytes): launch-only calls of B4's two
+    kernels on a scratch allocated once, so that each is timed alone."""
+    lib = _build.library()
+    H, L, w = fc.train_weights(mlp, a_seq.device)
+    B, T = a_seq.shape
+    p1r, log_r = fc.row_constants(r_rows, TRAIN_CAP, TRAIN_FS)
+    scratch = torch.empty(ct.adjoint_scratch_floats(B, T), device=a_seq.device)
+    g_vin, G, g_z0 = torch.empty_like(a_seq), torch.empty_like(a_seq), torch.empty_like(g_zf)
+
+    def pass1():
+        _build.check(lib.clipper_tangent_launch(
+            a_seq.data_ptr(), g_out.data_ptr(), log_r.data_ptr(), scratch.data_ptr(), B, T,
+            w.data_ptr(), H, L, torch.cuda.current_stream().cuda_stream), "B4 pass 1")
+
+    def pass2():
+        _build.check(lib.clipper_recursion_launch(
+            scratch.data_ptr(), g_zf.data_ptr(), p1r.data_ptr(), g_vin.data_ptr(), G.data_ptr(),
+            g_z0.data_ptr(), B, T, torch.cuda.current_stream().cuda_stream), "B4 pass 2")
+
+    return pass1, pass2, 4 * scratch.numel()
 
 
 def _strum(seed: int, n: int) -> np.ndarray:
@@ -1469,15 +1572,19 @@ def _gen_grads(case, vin, y, fused: bool):
              for n, x in zip(_leaf_names(params), leaves)}, v.grad)
 
 
-def _ptxas_kernels(source: str) -> dict:
+def _ptxas_kernels(source: str, log: Optional[Path] = None,
+                   kernel: str = r"\d+(circuit_\w*?kernel)") -> dict:
     """{kernel<template args>: (registers, spill store bytes, spill load
-    bytes)} from the ``-Xptxas -v`` log of a generated source."""
+    bytes)} from the ``-Xptxas -v`` log of a generated source, or from
+    ``log`` (the kernel library's), each entry named by ``kernel``'s group
+    where it matches."""
     out, name = {}, None
-    for line in _build.generated_path(source).with_suffix(".log").read_text().splitlines():
+    log = log or _build.generated_path(source).with_suffix(".log")
+    for line in log.read_text().splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             mangled = m.group(1)
-            k = re.search(r"\d+(circuit_\w*?kernel)", mangled)
+            k = re.search(kernel, mangled)
             args = re.findall(r"L[bi](\d+)E", mangled[k.end():].split("Ev", 1)[0]) if k else []
             name = (k.group(1) if k else mangled) + (f"<{','.join(args)}>" if args else "")
             out[name] = [0, 0, 0]
@@ -1496,19 +1603,21 @@ def _generated_ptxas(source: str) -> str:
 
 @contextlib.contextmanager
 def _old_kernels(active: bool):
-    """With ``active``, the generic engine's wrappers run the kernels as
-    they were before their redesign: B7 one thread per stream (lanes = 1),
-    B8 the one-pass kernel.  For the before-and-after timing only."""
+    """With ``active``, the training wrappers run the kernels as they were
+    before their redesign: B7 and B3 one thread per stream (lanes = 1), B8
+    and B4 the one-pass kernel.  For the before-and-after timing only."""
     if not active:
         yield
         return
-    lanes_for, launch_adjoint = fcirc.lanes_for, pb.launch_adjoint
+    saved = (fcirc.lanes_for, pb.launch_adjoint, fc.train_lanes, ct.launch_adjoint)
     fcirc.lanes_for = lambda prog, b: 1
     pb.launch_adjoint = pb.launch_adjoint_onepass
+    fc.train_lanes = lambda h, b: 1
+    ct.launch_adjoint = ct.launch_adjoint_onepass
     try:
         yield
     finally:
-        fcirc.lanes_for, pb.launch_adjoint = lanes_for, launch_adjoint
+        fcirc.lanes_for, pb.launch_adjoint, fc.train_lanes, ct.launch_adjoint = saved
 
 
 def _scratch_bytes(adj, B: int, T: int) -> str:

@@ -46,8 +46,12 @@ _SIGNATURES = {
     "fused_clipper_neural_launch": (
         [_vp, _vp, _vp, _vp, _i, _i, _vp, _i, _i, _f, _vp], ctypes.c_int),
     "clipper_train_fwd_launch": (
+        [_vp] * 7 + [_i, _i, _vp, _i, _i, _i, _i, _vp], ctypes.c_int),
+    "clipper_train_fwd_onethread_launch": (
         [_vp] * 7 + [_i, _i, _vp, _i, _i, _vp], ctypes.c_int),
-    "clipper_adjoint_launch": (
+    "clipper_tangent_launch": ([_vp] * 4 + [_i, _i, _vp, _i, _i, _vp], ctypes.c_int),
+    "clipper_recursion_launch": ([_vp] * 6 + [_i, _i, _vp], ctypes.c_int),
+    "clipper_adjoint_onepass_launch": (
         [_vp] * 8 + [_i, _i, _vp, _i, _i, _vp], ctypes.c_int),
     "deer_clipper_launch": (
         [_vp] * 6 + [_i] + [_f] * 8 + [_i] * 3 + [_vp], ctypes.c_int),

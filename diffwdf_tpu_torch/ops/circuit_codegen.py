@@ -115,6 +115,8 @@ from ..roots.diode import DiodePairRoot
 from ..roots.distilled import PiecewiseChebRoot, cheb_eval
 from ..roots.neural import NeuralDiodeRoot
 from .fused_clipper import (
+    LANE_TARGETS,
+    LANES,
     _nxh_layers,
     cheb_arguments,
     cheb_parameters,
@@ -131,17 +133,6 @@ NODE_CLASSES = (Resistor, Capacitor, Inductor, ResistiveVoltageSource, Resistive
 MAX_MATRIX = 64
 #: slot kinds of a per-row and a per-sample coefficient in a layout
 ROW, TIME = ("row",), ("time",)
-#: the group sizes K (lanes per stream) a lane-cooperative forward of an NxH
-#: root can take, where they divide H (``_NeuralEmitter.lane_counts``)
-LANES = (4, 8, 16)
-#: the most lanes per stream ``fused_circuit.lanes_for`` gives B streams: the
-#: target of the first row whose bound B does not exceed.  Measured on an
-#: H100 (chip_smoke.py's K sweep, T = 2,048; PERF.md): the Tube Screamer 2x16
-#: and the HPF 2x16 run fastest at K = 16 at B = 1,024, K = 16 and 8 tie
-#: (within 2%) at 2,048, K = 8 wins at 4,096 and 8,192 (K = 4 reads its
-#: weights from shared memory, K = 16 repeats the tree and the shuffles on
-#: too many lanes)
-LANE_TARGETS = ((2048, 16), (None, 8))
 
 
 # ---------------------------------------------------------------------------

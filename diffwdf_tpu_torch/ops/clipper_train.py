@@ -15,8 +15,10 @@ Reverse mode: with m_t = dMLP/da at a_t, the state cotangent
     lam_t = c_t lam_{t+1} + 0.5 (1 + c_t) go_t,
     c_t   = -(m_t (1 - p) + p),
 
-from lam_T = dL/ds_T.  ``clipper_adjoint`` walks it backwards in time and
-returns the input cotangent ``g_vin = p (1 - m) G``, the stream
+from lam_T = dL/ds_T.  m_t depends on a_t alone, so on the card
+``clipper_adjoint`` computes every m_t at once (pass 1) and then walks the
+scalar recursion backwards in time (pass 2); it returns the input
+cotangent ``g_vin = p (1 - m) G``, the stream
 ``G_t = lam_{t+1} + 0.5 go_t`` (the total cotangent of s_{t+1}) and
 ``g_z0 = lam_0``; the only residual the forward stores is a_t.  The MLP
 parameters' cotangent is one batched VJP with dL/dy = -G over every (b, t)
@@ -97,33 +99,82 @@ def clipper_adjoint_plain(a_seq, g_out, g_zf, r_rows, mlp_params: MLPParams, cap
     return p * (1.0 - m) * G, G, lam
 
 
-def clipper_adjoint(a_seq, g_out, g_zf, r_rows, mlp_params: MLPParams, cap, *, fs: float):
-    """Reverse-time adjoint of ``fused_clipper_neural_train_fwd``.
+#: streams a block of the adjoint's pass 2 walks (csrc/clipper_train.cuh
+#: kAdjointGroup); the scratch holds whole groups
+ADJOINT_GROUP = 8
 
-    a_seq: (B, T) root inputs the forward wrote; g_out: (B, T) cotangent of
-    out; g_zf: (B,) cotangent of z_final; r_rows: (B,) source resistances.
-    Returns (g_vin (B, T), G (B, T), g_z0 (B,)).
-    """
-    if a_seq.device.type == "cpu":
-        return clipper_adjoint_plain(a_seq, g_out, g_zf, r_rows, mlp_params, cap, fs=fs)
-    _check_adjoint_io(a_seq, g_out, g_zf, r_rows)
+
+def adjoint_scratch_floats(B: int, T: int) -> int:
+    """Floats of the adjoint's scratch at (B, T): the pair (m, go) of every
+    sample of ceil(B / ADJOINT_GROUP) whole groups of streams."""
+    return 2 * -(-B // ADJOINT_GROUP) * ADJOINT_GROUP * T
+
+
+def launch_adjoint(a_seq, g_out, g_zf, r_rows, mlp_params: MLPParams, cap, *, fs: float):
+    """The adjoint kernel on CUDA tensors (arguments and results as
+    :func:`clipper_adjoint`, B > 0): pass 1 (``clipper_tangent_launch``, the
+    tangent m of every (b, t) sample in parallel) writes (m, go) pairs into a
+    scratch of :func:`adjoint_scratch_floats` that this function allocates,
+    pass 2 (``clipper_recursion_launch``, one warp per group of
+    ADJOINT_GROUP streams) walks it back in time.  Counts nothing."""
     H, L, weights = train_weights(mlp_params, a_seq.device)
     B, T = a_seq.shape
-    if B == 0:
-        return torch.empty_like(a_seq), torch.empty_like(a_seq), torch.empty_like(g_zf)
     lib = _build.library()
     with torch.cuda.device(a_seq.device):
         p1r, log_r = row_constants(r_rows, cap, fs)
         a_seq, g_out, g_zf = a_seq.contiguous(), g_out.contiguous(), g_zf.contiguous()
         g_vin, G, g_z0 = torch.empty_like(a_seq), torch.empty_like(a_seq), torch.empty_like(g_zf)
+        scratch = torch.empty(adjoint_scratch_floats(B, T), device=a_seq.device)
         stream = torch.cuda.current_stream(a_seq.device).cuda_stream
-        err = lib.clipper_adjoint_launch(
+        err = lib.clipper_tangent_launch(a_seq.data_ptr(), g_out.data_ptr(), log_r.data_ptr(),
+                                         scratch.data_ptr(), B, T, weights.data_ptr(), H, L,
+                                         stream)
+        _build.check(err, "clipper_adjoint launch (pass 1)")
+        err = lib.clipper_recursion_launch(scratch.data_ptr(), g_zf.data_ptr(), p1r.data_ptr(),
+                                           g_vin.data_ptr(), G.data_ptr(), g_z0.data_ptr(), B,
+                                           T, stream)
+    _build.check(err, "clipper_adjoint launch (pass 2)")
+    return g_vin, G, g_z0
+
+
+def launch_adjoint_onepass(a_seq, g_out, g_zf, r_rows, mlp_params: MLPParams, cap, *,
+                           fs: float):
+    """The adjoint's earlier form, one kernel with one thread per stream (the
+    tangent and the recursion in one step): the reference that the card's
+    tests and ``chip_smoke.py`` hold the two passes to; never on the training
+    path, and counts nothing.  Arguments and results as :func:`launch_adjoint`."""
+    H, L, weights = train_weights(mlp_params, a_seq.device)
+    B, T = a_seq.shape
+    lib = _build.library()
+    with torch.cuda.device(a_seq.device):
+        p1r, log_r = row_constants(r_rows, cap, fs)
+        a_seq, g_out, g_zf = a_seq.contiguous(), g_out.contiguous(), g_zf.contiguous()
+        g_vin, G, g_z0 = torch.empty_like(a_seq), torch.empty_like(a_seq), torch.empty_like(g_zf)
+        err = lib.clipper_adjoint_onepass_launch(
             a_seq.data_ptr(), g_out.data_ptr(), g_zf.data_ptr(), p1r.data_ptr(),
             log_r.data_ptr(), g_vin.data_ptr(), G.data_ptr(), g_z0.data_ptr(), B, T,
-            weights.data_ptr(), H, L, stream)
-    _build.check(err, "clipper_adjoint launch")
-    clipper_adjoint.launches += 1
+            weights.data_ptr(), H, L, torch.cuda.current_stream(a_seq.device).cuda_stream)
+    _build.check(err, "one-pass clipper adjoint launch")
     return g_vin, G, g_z0
+
+
+def clipper_adjoint(a_seq, g_out, g_zf, r_rows, mlp_params: MLPParams, cap, *, fs: float):
+    """Reverse-time adjoint of ``fused_clipper_neural_train_fwd``.
+
+    a_seq: (B, T) root inputs the forward wrote; g_out: (B, T) cotangent of
+    out; g_zf: (B,) cotangent of z_final; r_rows: (B,) source resistances.
+    Returns (g_vin (B, T), G (B, T), g_z0 (B,)).  On the card one call is
+    the two kernels of :func:`launch_adjoint`, counted once.
+    """
+    if a_seq.device.type == "cpu":
+        return clipper_adjoint_plain(a_seq, g_out, g_zf, r_rows, mlp_params, cap, fs=fs)
+    _check_adjoint_io(a_seq, g_out, g_zf, r_rows)
+    if a_seq.shape[0] == 0:
+        train_weights(mlp_params, a_seq.device)
+        return torch.empty_like(a_seq), torch.empty_like(a_seq), torch.empty_like(g_zf)
+    result = launch_adjoint(a_seq, g_out, g_zf, r_rows, mlp_params, cap, fs=fs)
+    clipper_adjoint.launches += 1
+    return result
 
 
 clipper_adjoint.launches = 0

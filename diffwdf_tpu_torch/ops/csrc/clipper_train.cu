@@ -2,55 +2,48 @@
 // training forward and its reverse-time adjoint.
 //
 // Replaces the Pallas TPU kernels
-//   train_fwd_kernel<H> <- diffwdf_tpu/ops/fused_clipper.py,
-//                          fused_clipper_neural_train_fwd / _neural_train_kernel
-//   adjoint_kernel<H>   <- diffwdf_tpu/ops/clipper_train.py, _clipper_adjoint_pallas
+//   train_fwd_lanes_kernel<H, K, L> <- diffwdf_tpu/ops/fused_clipper.py,
+//                                      fused_clipper_neural_train_fwd / _neural_train_kernel
+//   adjoint_tangent_kernel<H> and adjoint_recursion_kernel
+//                                   <- diffwdf_tpu/ops/clipper_train.py, _clipper_adjoint_pallas
 //
 // Forward recursion per stream (s = capacitor state, p = p1R of the row):
 //   b_temp_t = -p (s_t - v_t),  a_t = s_t + b_temp_t,  y_t = MLP([a_t, log R]),
 //   s_{t+1} = -y_t + b_temp_t,  o_t = (s_{t+1} + s_t) / 2.
 // The source resistance R is per stream (the hoisted per-chunk pot of the
 // training data), so p and log R come in as (B,) arrays, and the first
-// layer's bias c1 = w1r log R + b1 is built per thread by nxh_first_bias.
+// layer's bias c1 = w1r log R + b1 is built per stream (nxh_first_bias).
 // The forward also writes a_t, the residual the adjoint needs.
 //
 // Adjoint.  With m_t = dMLP/da at a_t, the state cotangent lam_t = dL/ds_t
 // satisfies the linear reverse-time recurrence
 //   lam_t = c_t lam_{t+1} + (1 + c_t) go_t / 2,   c_t = -(m_t (1 - p) + p),
-// from lam_T = g_zf.  The kernel walks t = T-1 .. 0 with lam in a register,
-// evaluates m_t inline with nxh_tangent (the closed-form jvp of the same MLP
-// the forward ran, bit for bit the same activations) and writes
+// from lam_T = g_zf, and the adjoint writes
 //   G_t = lam_{t+1} + go_t / 2        (total cotangent of s_{t+1}),
 //   g_vin_t = p (1 - m_t) G_t,
 // and g_z0 = lam_0.  The MLP parameters' cotangent (a batched VJP with
 // dL/dy = -G over every (b, t)) is left to PyTorch, as the JAX package
-// leaves it to XLA.
+// leaves it to XLA.  The per-sample arithmetic is clipper_train.cuh's.
 //
-// Design.  As in fused_clipper.cu: both recursions are strictly sequential
-// in time and independent across streams, so one thread owns one stream and
-// walks all T samples with its state in registers; this loop replaces the
-// TPU grid's time-chunk axis and its VMEM scratch carry.  The ragged edge of
-// B is masked, so any B >= 1 works.  Weights sit in shared memory (a warp
-// reads one address, a broadcast).
+// Design.  Both recursions are sequential in time and independent across
+// streams.  Run as one thread per stream (the earlier forms, kept below),
+// each stream is one thread's chain of ~1,200 (forward) or ~2,400 (adjoint)
+// dependent operations a sample, nearly all of them the MLP's, and the
+// training batch of 1,337 streams fills 11 blocks of 128 threads on 132 SMs.
+//   - Forward: a group of K lanes of a warp serves one stream (nxh_lanes.cuh):
+//     every lane runs the tree on the same values, the MLP's neurons are
+//     split across the group, so a sample's chain falls to ~H (L + 1) FMAs
+//     and shuffles, and R = 128 / K streams share a block.
+//   - Adjoint: m_t depends on the stored a_t alone, not on lam.  Pass 1 gives
+//     every (b, t) sample its own thread (the tangent; bound by the card's
+//     f32 rate), pass 2 walks the scalar recursion, ~10 operations a sample,
+//     on the pairs (m_t, go_t) that pass 1 stored.
 //
-// What bounds it.  Per sample the forward reads 4 bytes and writes 8 (out,
-// a); the adjoint reads 8 (a, go) and writes 8 (G, g_vin).  At the training
-// shape (1337, 2048) that is ~11 MB per stream array, against ~600 FMAs and
-// 48 tanhf per sample (2x16 forward; the adjoint's tangent doubles the
-// hidden FMAs).  Each stream's chain of dependent samples (~2.4 us per
-// sample for 2x16 on the serving kernel) bounds it, not bytes.  The training
-// batch of 1337 rows fills 11 blocks of 128 threads on 132 SMs.
-//
-// Reads and writes.  The (B, T) arrays stay row-major, so the lanes of a warp
-// touch addresses T*4 bytes apart at each step and lean on L1: a 128-byte
-// line holds 32 consecutive steps of one stream and is fetched once per 32
-// steps.  Reverse-time reads reuse each line for 32 steps just as forward
-// reads do (walking it from its last word down).
-//
-// Numerics.  Exact f32 library calls only (tanhf, fmaf): no fast-math
-// intrinsics.  The (B,) constants p and log R are computed by the wrapper in
-// double precision and rounded to f32, the same values the plain PyTorch
-// versions use.
+// Numerics.  Exact f32 library calls only (tanhf, fmaf) and the trees'
+// roundings written out: no fast-math intrinsics.  The (B,) constants p and
+// log R are computed by the wrapper in double precision and rounded to f32,
+// the same values the plain PyTorch versions use.  Each kernel gives its
+// earlier form's bits (the card tests and chip_smoke.py check it).
 //
 // Interface.  Plain C, loaded with ctypes; every launch goes on the stream
 // the caller passes and returns cudaGetLastError().
@@ -59,24 +52,107 @@
 
 #include <type_traits>
 
+#include "bulk_copy.cuh"
+#include "clipper_train.cuh"
+#include "nxh_lanes.cuh"
 #include "nxh_mlp.cuh"
+#include "tile.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 
-// Weight buffer layout (floats), built by the Python wrapper:
-//   w1a[H]  first-layer weights of the incident wave a
-//   w1r[H]  first-layer weights of log R
-//   b1[H]   first-layer bias
-//   w3[H]   linear head
-//   b3      head bias
-//   then for each of the L hidden layers: W[H][H] ([in][out]), bias[H]
-template <int H>
-__host__ __device__ constexpr int n_train_weights(int L) {
-  return 4 * H + 1 + L * (H * H + H);
+cudaError_t allow_smem(const void* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
+// ---------------------------------------------------------------------------
+// Forward (B3): K lanes a stream
+// ---------------------------------------------------------------------------
+
+// A group of K consecutive lanes serves one stream; a block of 128 threads
+// holds R = 128 / K streams.  Every lane of a group runs the tree and ends
+// each step with bit-identical state (nxh_lanes.cuh: every activation and
+// the head have nxh_forward's bits on every lane), so the state is
+// replicated, not exchanged.  v comes in and out and a go back through
+// (R, 32) row tiles that the block moves as whole lines; lane `writer` of
+// each group (0 but for the tests) writes them.  The weights sit in shared
+// memory (lane_weight's copy); a lane holds its weight columns in registers
+// where N H L + H <= 96 (NxhLaneWeights).  Launch bounds (128, 1): no register cap, so no spill.
+template <int H, int K, int L>
+__global__ void __launch_bounds__(kThreads, 1)
+train_fwd_lanes_kernel(const float* __restrict__ vin, const float* __restrict__ z0,
+                       const float* __restrict__ p1r, const float* __restrict__ log_r,
+                       float* __restrict__ out, float* __restrict__ a_seq,
+                       float* __restrict__ zf, int B, int T, const float* __restrict__ weights,
+                       int writer) {
+  constexpr int R = kThreads / K;  // streams per block
+  constexpr int kW = n_lane_weights<H>(L);
+  constexpr bool kRegs = (H / K) * H * L + H <= 96;
+  extern __shared__ float4 lanes_smem[];  // 16-byte aligned: the lane form's word loads
+  float* sw = reinterpret_cast<float*>(lanes_smem);
+  for (int i = threadIdx.x; i < kW; i += blockDim.x) sw[i] = lane_weight<H>(weights, i);
+  __syncthreads();
+  RowTile<R>* tiles = reinterpret_cast<RowTile<R>*>(sw + ((kW + 3) & ~3));
+  const int rank = threadIdx.x % K;  // the lane's place in its stream's group
+  const int row = threadIdx.x / K;
+  const bool lead = rank == writer;
+  const int b0 = blockIdx.x * R;
+  const int b = b0 + row;
+  const bool live = b < B;  // rows past B run on zeros, so that every lane shuffles
+  float c1[H / K];
+  nxh_first_bias_lanes<H, K>(sw + H, sw + 2 * H, live ? log_r[b] : 0.f, rank, c1);
+  const float p = live ? p1r[b] : 0.f;
+  NxhLaneWeights<H, K, L, kRegs> lw;
+  lw.load(sw + lane_hidden<H>(), sw + 3 * H, rank);
+  float z = live ? z0[b] : 0.f;
+  for (int t0 = 0; t0 < T; t0 += kTileCols) {
+    const int tc = min(kTileCols, T - t0);
+    rows_load<R>(tiles[0], vin, B, T, b0, t0, tc);
+    for (int k = 0; k < tc; ++k) {
+      float a;
+      const float o = train_step_lanes<H, K, L>(tiles[0][row][k], p, z, a, sw, c1, rank, lw);
+      __syncwarp();  // every lane of the group has read v_t
+      if (lead) {
+        tiles[0][row][k] = o;
+        tiles[1][row][k] = a;
+      }
+    }
+    rows_store<R>(tiles[0], out, B, T, b0, t0, tc);
+    rows_store<R>(tiles[1], a_seq, B, T, b0, t0, tc);
+  }
+  if (live && lead) zf[b] = z;
+}
+
+// The (H, L, K) the lane kernel is built for: the families of the pretrained
+// zoo and the card tests (2x4, 4x4; 2x8, 4x8; 1x16, 2x16), each at the K
+// that ops/fused_clipper.py train_lanes can pick for its width.  Any other
+// triple is an invalid value.
+template <typename F>
+cudaError_t by_family(int H, int L, int K, F f) {
+#define CLIPPER_FAMILY(h, l, k) \
+  if (H == h && L == l && K == k) return f(std::integral_constant<int, h>{}, \
+                                           std::integral_constant<int, l>{}, \
+                                           std::integral_constant<int, k>{});
+  CLIPPER_FAMILY(4, 2, 4)
+  CLIPPER_FAMILY(4, 4, 4)
+  CLIPPER_FAMILY(8, 2, 8)
+  CLIPPER_FAMILY(8, 4, 8)
+  CLIPPER_FAMILY(16, 1, 8)
+  CLIPPER_FAMILY(16, 1, 16)
+  CLIPPER_FAMILY(16, 2, 8)
+  CLIPPER_FAMILY(16, 2, 16)
+#undef CLIPPER_FAMILY
+  return cudaErrorInvalidValue;
+}
+
+// The forward's earlier form (the wrapper never calls it; the card tests
+// and chip_smoke.py hold the lane form to its bits and time it as "before"):
+// one thread per stream over all T, weights in shared memory (a broadcast),
+// the (B, T) streams read and written in place (a 128-byte line holds 32
+// steps of one stream and stays in L1 for them).
 template <int H>
 __global__ void __launch_bounds__(kThreads)
 train_fwd_kernel(const float* __restrict__ vin, const float* __restrict__ z0,
@@ -89,10 +165,6 @@ train_fwd_kernel(const float* __restrict__ vin, const float* __restrict__ z0,
 
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const float* w1a = sw;
-  const float* w3 = sw + 3 * H;
-  const float b3 = sw[4 * H];
-  const float* hidden = sw + 4 * H + 1;
   float c1[H];
   nxh_first_bias<H>(sw + H, sw + 2 * H, log_r[b], c1);
   const float p = p1r[b];
@@ -103,31 +175,163 @@ train_fwd_kernel(const float* __restrict__ vin, const float* __restrict__ z0,
   float* as = a_seq + row;
   float z = z0[b];
   for (int t = 0; t < T; ++t) {
-    const float b_temp = -p * (z - v[t]);
-    const float a = z + b_temp;
-    const float z_new = -nxh_forward<H>(a, w1a, c1, hidden, L, w3, b3) + b_temp;
-    o[t] = 0.5f * (z_new + z);
+    float a;
+    o[t] = train_step<H>(v[t], p, z, a, sw, c1, L);
     as[t] = a;
-    z = z_new;
   }
   zf[b] = z;
 }
 
+// ---------------------------------------------------------------------------
+// Adjoint (B4): pass 1, the tangents; pass 2, the recursion
+// ---------------------------------------------------------------------------
+
+constexpr int kTangentRows = kThreads / kAdjointGroup;  // steps a block covers at once (16)
+constexpr int kTangentSteps = 8 * kTangentRows;         // steps of a block (128)
+
+// Pass 1: block x takes the kAdjointGroup = 8 streams of group x / nt over
+// steps 128 (x % nt) .. + 127 (nt = ceil(T / 128)); thread i takes stream
+// i % 8 at steps i / 8, + 16, ..., so that a warp reads 8 rows x 16 bytes of
+// a_seq and go and writes 256 contiguous bytes of the scratch.  Each thread
+// builds its stream's c1 once and runs the tangent (nxh_tangent: ~2,400
+// operations, 48 tanhf for 2x16) per sample; the tangent and go go to the
+// scratch as one float2 (adjoint_scratch_index).  Streams past B write zeros.
 template <int H>
 __global__ void __launch_bounds__(kThreads)
-adjoint_kernel(const float* __restrict__ a_seq, const float* __restrict__ g_out,
-               const float* __restrict__ g_zf, const float* __restrict__ p1r,
-               const float* __restrict__ log_r, float* __restrict__ g_vin,
-               float* __restrict__ G, float* __restrict__ g_z0, int B, int T,
-               const float* __restrict__ weights, int L) {
+adjoint_tangent_kernel(const float* __restrict__ a_seq, const float* __restrict__ g_out,
+                       const float* __restrict__ log_r, float2* __restrict__ scratch, int B,
+                       int T, const float* __restrict__ weights, int L) {
+  extern __shared__ float sw[];
+  stage_weights(sw, weights, n_train_weights<H>(L));
+  const int nt = (T + kTangentSteps - 1) / kTangentSteps;
+  const int b = (blockIdx.x / nt) * kAdjointGroup + threadIdx.x % kAdjointGroup;
+  const int t0 = (blockIdx.x % nt) * kTangentSteps + threadIdx.x / kAdjointGroup;
+  const int t1 = min(T, (blockIdx.x % nt + 1) * kTangentSteps);
+  if (b >= B) {
+    for (int t = t0; t < t1; t += kTangentRows) {
+      scratch[adjoint_scratch_index(b, t, T)] = make_float2(0.f, 0.f);
+    }
+    return;
+  }
+  float c1[H];
+  nxh_first_bias<H>(sw + H, sw + 2 * H, log_r[b], c1);
+  const size_t row = static_cast<size_t>(b) * T;
+  for (int t = t0; t < t1; t += kTangentRows) {
+    scratch[adjoint_scratch_index(b, t, T)] =
+        make_float2(adjoint_tangent<H>(a_seq[row + t], sw, c1, L), g_out[row + t]);
+  }
+}
+
+constexpr int kSlab = kTileCols;  // steps per stage of pass 2's ring: one output tile
+constexpr int kStages = 16;       // stages in the ring, kStages - 1 slabs in flight
+constexpr int kSlabPairs = kSlab * kAdjointGroup;  // float2 of one stage (2 KB)
+
+// Pass 2: one warp per group of 8 streams (a block each, so that the groups
+// spread over the SMs: 168 blocks at B = 1,337), walking T - 1 .. 0; lanes
+// 0 .. 7 each own a stream.  Its chain is ~10 operations a step; what paces
+// it is how fast the SM pulls its group's 64 bytes a step.  So the scratch
+// streams into a ring of kStages slabs of 32 steps in shared memory by bulk
+// copies (the Tensor Memory Accelerator: lane 0 issues a whole slab,
+// contiguous in the scratch, and an mbarrier counts its bytes), 15 slabs in
+// flight; G and g_vin go out through (8, 32) tiles as whole lines (16-byte
+// stores where T allows).  As in the generated adjoint's pass 2
+// (ops/circuit_codegen.py, B8).
+__global__ void __launch_bounds__(32, 1)
+adjoint_recursion_kernel(const float2* __restrict__ scratch, const float* __restrict__ g_zf,
+                         const float* __restrict__ p1r, float* __restrict__ g_vin,
+                         float* __restrict__ G, float* __restrict__ g_z0, int B, int T) {
+  extern __shared__ float4 smem4[];
+  __shared__ unsigned long long full[kStages];  // one mbarrier a stage
+  float2* ring = reinterpret_cast<float2*>(smem4);
+  float (*otile)[kAdjointGroup][kTileCols + 1] =
+      reinterpret_cast<float (*)[kAdjointGroup][kTileCols + 1]>(ring + kStages * kSlabPairs);
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x * kAdjointGroup + lane;
+  const bool live = lane < kAdjointGroup && b < B;
+  const float2* src = scratch + static_cast<size_t>(blockIdx.x) * T * kAdjointGroup;
+  float lam = live ? g_zf[b] : 0.f;
+  const float p = live ? p1r[b] : 0.f;
+  if (lane == 0) {
+    for (int i = 0; i < kStages; ++i) mbar_init(&full[i], 1);
+    mbar_fence_init();
+  }
+  __syncwarp();
+  const int n_slabs = (T + kSlab - 1) / kSlab;
+  // the u-th slab walked (slab n_slabs - 1 - u) into stage u % kStages
+  auto issue = [&](int u) {
+    if (lane == 0 && u < n_slabs) {
+      const int j = n_slabs - 1 - u;
+      const int n = min(kSlab, T - j * kSlab);
+      const unsigned bytes = static_cast<unsigned>(n) * kAdjointGroup * sizeof(float2);
+      mbar_expect_tx(&full[u % kStages], bytes);
+      bulk_copy(ring + (u % kStages) * kSlabPairs, src + static_cast<size_t>(j) * kSlabPairs,
+                bytes, &full[u % kStages]);
+    }
+  };
+  const bool vec_out = T % 4 == 0;  // 16-byte stores of whole tiles
+  for (int u = 0; u < kStages - 1; ++u) issue(u);
+  for (int u = 0; u < n_slabs; ++u) {
+    issue(u + kStages - 1);  // into the stage that slab u - 1 left
+    mbar_wait(&full[u % kStages], (u / kStages) & 1);  // slab u has landed
+    const int j = n_slabs - 1 - u;
+    const int n = min(kSlab, T - j * kSlab);
+    if (lane < kAdjointGroup) {
+      const float2* mine = ring + (u % kStages) * kSlabPairs + lane;
+      for (int k = n - 1; k >= 0; --k) {
+        const float2 e = mine[k * kAdjointGroup];  // (m_t, go_t)
+        float Gt;
+        otile[1][lane][k] = adjoint_update(e.x, e.y, p, lam, Gt);
+        otile[0][lane][k] = Gt;
+      }
+    }
+    __syncwarp();
+    const int t0 = j * kSlab;
+    if (vec_out && n == kTileCols) {
+      for (int i = lane; i < kAdjointGroup * kTileCols / 4; i += 32) {
+        const int rr = i / (kTileCols / 4), cc = 4 * (i % (kTileCols / 4));
+        const int bb = blockIdx.x * kAdjointGroup + rr;
+        if (bb < B) {
+          const size_t at = static_cast<size_t>(bb) * T + t0 + cc;
+          *reinterpret_cast<float4*>(G + at) = make_float4(
+              otile[0][rr][cc], otile[0][rr][cc + 1], otile[0][rr][cc + 2], otile[0][rr][cc + 3]);
+          *reinterpret_cast<float4*>(g_vin + at) = make_float4(
+              otile[1][rr][cc], otile[1][rr][cc + 1], otile[1][rr][cc + 2], otile[1][rr][cc + 3]);
+        }
+      }
+    } else {
+      for (int i = lane; i < kAdjointGroup * kTileCols; i += 32) {
+        const int rr = i / kTileCols, cc = i % kTileCols;
+        const int bb = blockIdx.x * kAdjointGroup + rr;
+        if (bb < B && cc < n) {
+          const size_t at = static_cast<size_t>(bb) * T + t0 + cc;
+          G[at] = otile[0][rr][cc];
+          g_vin[at] = otile[1][rr][cc];
+        }
+      }
+    }
+    __syncwarp();  // stage u % kStages and the tiles are free again
+  }
+  if (live) g_z0[b] = lam;
+}
+
+// The adjoint's earlier form (the wrapper never calls it; the card tests and
+// chip_smoke.py hold the two passes to its bits and time it as "before"):
+// one thread per stream walking t = T-1 .. 0 with lam in a register, the
+// tangent inline.  Its step keeps the plain expressions: written out as
+// adjoint_update, its loop compiled to a slower chain, and "before" would
+// no longer time the earlier kernel.
+template <int H>
+__global__ void __launch_bounds__(kThreads)
+adjoint_onepass_kernel(const float* __restrict__ a_seq, const float* __restrict__ g_out,
+                       const float* __restrict__ g_zf, const float* __restrict__ p1r,
+                       const float* __restrict__ log_r, float* __restrict__ g_vin,
+                       float* __restrict__ G, float* __restrict__ g_z0, int B, int T,
+                       const float* __restrict__ weights, int L) {
   extern __shared__ float sw[];
   stage_weights(sw, weights, n_train_weights<H>(L));
 
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const float* w1a = sw;
-  const float* w3 = sw + 3 * H;
-  const float* hidden = sw + 4 * H + 1;
   float c1[H];
   nxh_first_bias<H>(sw + H, sw + 2 * H, log_r[b], c1);
   const float p = p1r[b];
@@ -139,7 +343,9 @@ adjoint_kernel(const float* __restrict__ a_seq, const float* __restrict__ g_out,
   float* gs = G + row;
   float lam = g_zf[b];  // lam_{t+1}, starting at lam_T
   for (int t = T - 1; t >= 0; --t) {
-    const float m = nxh_tangent<H>(as[t], w1a, c1, hidden, L, w3);
+    // the step as this kernel was written before pass 2 existed; nvcc
+    // compiles it to adjoint_update's roundings (clipper_train.cuh)
+    const float m = adjoint_tangent<H>(as[t], sw, c1, L);
     const float c = -(m * (1.f - p) + p);
     const float g = go[t];
     const float Gt = lam + 0.5f * g;
@@ -150,21 +356,17 @@ adjoint_kernel(const float* __restrict__ a_seq, const float* __restrict__ g_out,
   g_z0[b] = lam;
 }
 
-template <int H, typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, int B, int L, cudaStream_t stream, Args... args) {
-  const size_t smem = sizeof(float) * static_cast<size_t>(n_train_weights<H>(L));
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const int blocks = (B + kThreads - 1) / kThreads;
+// `blocks` blocks of kThreads with `smem` bytes of shared memory.
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, int blocks, size_t smem, cudaStream_t stream, Args... args) {
+  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (e != cudaSuccess) return e;
   kernel<<<blocks, kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-// Calls f(std::integral_constant<int, H>) for the widths the kernels are
-// compiled for; any other H is an invalid value.
+// Calls f(std::integral_constant<int, H>) for the widths the one-thread
+// kernels and pass 1 are compiled for; any other H is an invalid value.
 template <typename F>
 cudaError_t by_width(int H, F f) {
   switch (H) {
@@ -179,26 +381,80 @@ cudaError_t by_width(int H, F f) {
 
 extern "C" {
 
+// B3: the forward on K lanes a stream (K one of the family's; writer the
+// lane of a group that writes).
 int clipper_train_fwd_launch(const float* vin, const float* z0, const float* p1r,
                              const float* log_r, float* out, float* a_seq, float* zf, int B,
-                             int T, const float* weights, int H, int L, void* stream) {
+                             int T, const float* weights, int H, int L, int K, int writer,
+                             void* stream) {
+  if (writer < 0 || writer >= K) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(by_width(H, [&](auto h) {
-    constexpr int W = decltype(h)::value;
-    return launch<W>(train_fwd_kernel<W>, B, L, s, vin, z0, p1r, log_r, out, a_seq, zf, B, T,
-                     weights, L);
+  return static_cast<int>(by_family(H, L, K, [&](auto h, auto l, auto k) {
+    constexpr int W = decltype(h)::value, NL = decltype(l)::value, NK = decltype(k)::value;
+    constexpr int R = kThreads / NK;
+    const size_t smem = sizeof(float) * ((n_lane_weights<W>(NL) + 3) & ~3) +
+                        2 * sizeof(RowTile<R>);
+    return launch(train_fwd_lanes_kernel<W, NK, NL>, (B + R - 1) / R, smem, s, vin, z0, p1r,
+                  log_r, out, a_seq, zf, B, T, weights, writer);
   }));
 }
 
-int clipper_adjoint_launch(const float* a_seq, const float* g_out, const float* g_zf,
-                           const float* p1r, const float* log_r, float* g_vin, float* G,
-                           float* g_z0, int B, int T, const float* weights, int H, int L,
-                           void* stream) {
+// The forward's earlier form, one thread a stream (reference only).
+int clipper_train_fwd_onethread_launch(const float* vin, const float* z0, const float* p1r,
+                                       const float* log_r, float* out, float* a_seq, float* zf,
+                                       int B, int T, const float* weights, int H, int L,
+                                       void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(by_width(H, [&](auto h) {
     constexpr int W = decltype(h)::value;
-    return launch<W>(adjoint_kernel<W>, B, L, s, a_seq, g_out, g_zf, p1r, log_r, g_vin, G,
-                     g_z0, B, T, weights, L);
+    return launch(train_fwd_kernel<W>, (B + kThreads - 1) / kThreads,
+                  sizeof(float) * static_cast<size_t>(n_train_weights<W>(L)), s, vin, z0, p1r,
+                  log_r, out, a_seq, zf, B, T, weights, L);
+  }));
+}
+
+// B4 pass 1: the pairs (m, go) of every sample into the scratch of
+// 2 ceil(B / 8) 8 T floats (adjoint_scratch_index).
+int clipper_tangent_launch(const float* a_seq, const float* g_out, const float* log_r,
+                           float* scratch, int B, int T, const float* weights, int H, int L,
+                           void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int groups = (B + kAdjointGroup - 1) / kAdjointGroup;
+  const int nt = (T + kTangentSteps - 1) / kTangentSteps;
+  return static_cast<int>(by_width(H, [&](auto h) {
+    constexpr int W = decltype(h)::value;
+    return launch(adjoint_tangent_kernel<W>, groups * nt,
+                  sizeof(float) * static_cast<size_t>(n_train_weights<W>(L)), s, a_seq, g_out,
+                  log_r, reinterpret_cast<float2*>(scratch), B, T, weights, L);
+  }));
+}
+
+// B4 pass 2: the recursion from lam_T = g_zf over pass 1's scratch; writes
+// g_vin and G (B, T) and g_z0 (B,).
+int clipper_recursion_launch(const float* scratch, const float* g_zf, const float* p1r,
+                             float* g_vin, float* G, float* g_z0, int B, int T, void* stream) {
+  const size_t smem = sizeof(float2) * kStages * kSlabPairs +
+                      sizeof(float) * 2 * kAdjointGroup * (kTileCols + 1);
+  const cudaError_t e =
+      allow_smem(reinterpret_cast<const void*>(adjoint_recursion_kernel), smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  adjoint_recursion_kernel<<<(B + kAdjointGroup - 1) / kAdjointGroup, 32, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float2*>(scratch), g_zf, p1r, g_vin, G, g_z0, B, T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The adjoint's earlier form, one pass (reference only).
+int clipper_adjoint_onepass_launch(const float* a_seq, const float* g_out, const float* g_zf,
+                                   const float* p1r, const float* log_r, float* g_vin,
+                                   float* G, float* g_z0, int B, int T, const float* weights,
+                                   int H, int L, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(by_width(H, [&](auto h) {
+    constexpr int W = decltype(h)::value;
+    return launch(adjoint_onepass_kernel<W>, (B + kThreads - 1) / kThreads,
+                  sizeof(float) * static_cast<size_t>(n_train_weights<W>(L)), s, a_seq, g_out,
+                  g_zf, p1r, log_r, g_vin, G, g_z0, B, T, weights, L);
   }));
 }
 

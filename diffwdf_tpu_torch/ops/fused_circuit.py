@@ -162,7 +162,7 @@ def _run_plain(circuit, params, vin, state0, input_node, static_controls, row_co
 def lanes_for(prog: CircuitProgram, B: int) -> int:
     """The lanes per stream ``launch`` uses for B streams: the largest of
     the program's group sizes (``CircuitProgram.lanes``, 1 the one-thread
-    kernel) at most the batch's target in ``circuit_codegen.LANE_TARGETS``.
+    kernel) at most the batch's target in ``fused_clipper.LANE_TARGETS``.
     For an NxH root, few streams leave most of the card idle, so each gets
     many lanes, and many streams fill it, where the tree that every lane
     repeats and the shuffles would make a large group issue-bound."""

@@ -19,7 +19,8 @@ Three roots, one wrapper each, with the JAX package's signatures:
 and the training forward of the neural clipper,
 ``fused_clipper_neural_train_fwd``: the source resistance is per row (the
 hoisted per-chunk pot of the training data), and the root's incident wave
-a_t is written out as the residual of the adjoint (``ops.clipper_train``).
+a_t is written out as the residual of the adjoint (``ops.clipper_train``);
+its kernel gives each stream a group of lanes of a warp (:func:`train_lanes`).
 
 A wrapper given CPU tensors runs its plain version (``*_plain``: a loop over
 time, vectorised over B); given CUDA tensors it launches its kernel from
@@ -37,7 +38,7 @@ from __future__ import annotations
 
 import math
 import weakref
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +50,23 @@ from . import _build
 
 #: hidden widths the neural kernel is compiled for (the pretrained zoo's)
 NEURAL_WIDTHS = (4, 8, 16)
+#: the group sizes K (lanes per stream) a lane-cooperative kernel of an NxH
+#: root can take, where they divide H (csrc/nxh_lanes.cuh; the generated
+#: forward, ``circuit_codegen._NeuralEmitter.lane_counts``, and the training
+#: forward, :func:`train_lanes`)
+LANES = (4, 8, 16)
+#: the most lanes per stream a lane-cooperative kernel gives B streams: the
+#: target of the first row whose bound B does not exceed.  Measured on an
+#: H100 (chip_smoke.py's K sweep, T = 2,048; PERF.md): the Tube Screamer 2x16
+#: and the HPF 2x16 run fastest at K = 16 at B = 1,024, K = 16 and 8 tie
+#: (within 2%) at 2,048, K = 8 wins at 4,096 and 8,192 (K = 4 reads its
+#: weights from shared memory, K = 16 repeats the tree and the shuffles on
+#: too many lanes)
+LANE_TARGETS = ((2048, 16), (None, 8))
+#: the (H, L) of the NxH families the training forward's lane kernel is
+#: built for (csrc/clipper_train.cu by_family): the pretrained zoo's 2x4,
+#: 4x4, 2x8, 4x8, 2x16 and the 1x16
+TRAIN_FAMILIES = ((4, 2), (4, 4), (8, 2), (8, 4), (16, 1), (16, 2))
 
 
 def _f32(x) -> float:
@@ -303,12 +321,30 @@ def _check_rows(r_rows: torch.Tensor, vin: torch.Tensor) -> None:
 def train_weights(mlp_params: MLPParams, device):
     """(H, L, weights) for the training kernels: one contiguous f32 buffer
     w1a[H], w1r[H], b1[H], w3[H], b3, then per hidden layer W[H][H] and
-    bias[H] (the layout of csrc/clipper_train.cu)."""
+    bias[H] (the layout of csrc/clipper_train.cuh)."""
     H, W1, b1, hidden, w3, b3 = _nxh_layers(mlp_params)
     parts = [W1[0], W1[1], b1, w3, b3] + [x.reshape(-1) for layer in hidden for x in layer]
     if any(p.device != device for p in parts):
         raise ValueError(f"MLP weights must lie on {device}, like the streams")
     return H, len(hidden), torch.cat([p.detach() for p in parts]).contiguous()
+
+
+def _lanes_up_to(H: int, target: int) -> int:
+    return max(k for k in LANES if H % k == 0 and k <= target)
+
+
+def train_lanes(H: int, B: int) -> int:
+    """The lanes per stream of the training forward for B streams of an NxH
+    root of width H: the largest K of LANES that divides H and is at most
+    the batch's target in LANE_TARGETS (K = 16 up to B = 2,048, else 8, for
+    H = 16)."""
+    return _lanes_up_to(H, next(k for bound, k in LANE_TARGETS if bound is None or B <= bound))
+
+
+def train_lane_counts(H: int) -> Tuple[int, ...]:
+    """The K the training forward's lane kernel is built for at width H:
+    those :func:`train_lanes` can pick (H = 16: 8 and 16)."""
+    return tuple(sorted({_lanes_up_to(H, target) for _, target in LANE_TARGETS}))
 
 
 def fused_clipper_neural_train_fwd_plain(vin, z0, mlp_params: MLPParams, r_rows, cap, *,
@@ -322,6 +358,38 @@ def fused_clipper_neural_train_fwd_plain(vin, z0, mlp_params: MLPParams, r_rows,
     return _neural_recursion(vin, z0, p1r, W1[0], first_bias(W1, b1, log_r), hidden, w3, b3)
 
 
+def launch_train_fwd(vin, z0, mlp_params: MLPParams, r_rows, cap, *, fs: float,
+                     lanes: Optional[int] = None, writer: int = 0):
+    """Launch the training forward kernel on CUDA tensors (arguments and
+    results as :func:`fused_clipper_neural_train_fwd`, B > 0): ``lanes`` the
+    lanes per stream (default :func:`train_lanes`; 1 is the one-thread
+    kernel, the lane form's earlier form, which the card tests and
+    ``chip_smoke.py`` hold it to), ``writer`` the lane of a group that
+    writes the results (the tests run each).  Counts nothing."""
+    H, L, weights = train_weights(mlp_params, vin.device)
+    B, T = vin.shape
+    lanes = train_lanes(H, B) if lanes is None else lanes
+    if lanes != 1 and (H, L) not in TRAIN_FAMILIES:
+        raise ValueError(f"fused_clipper_neural_train_fwd: no kernel for a {L}x{H} root; the "
+                         f"kernel is built for (H, L) in {TRAIN_FAMILIES}")
+    if lanes != 1 and lanes not in train_lane_counts(H):
+        raise ValueError(f"fused_clipper_neural_train_fwd: lanes={lanes}, a root of width {H} "
+                         f"takes 1 or {train_lane_counts(H)}")
+    lib = _build.library()
+    with torch.cuda.device(vin.device):
+        p1r, log_r = row_constants(r_rows, cap, fs)
+        vin, z0, out, zf, stream = _launch_args(vin, z0)
+        a_seq = torch.empty_like(vin)
+        args = (vin.data_ptr(), z0.data_ptr(), p1r.data_ptr(), log_r.data_ptr(), out.data_ptr(),
+                a_seq.data_ptr(), zf.data_ptr(), B, T, weights.data_ptr(), H, L)
+        if lanes == 1:
+            err = lib.clipper_train_fwd_onethread_launch(*args, stream)
+        else:
+            err = lib.clipper_train_fwd_launch(*args, lanes, writer, stream)
+    _build.check(err, "fused_clipper_neural_train_fwd launch")
+    return out, zf, a_seq
+
+
 def fused_clipper_neural_train_fwd(vin, z0, mlp_params: MLPParams, r_rows, cap, *, fs: float):
     """Training forward of the LPF clipper with an NxH neural root and a
     per-row source resistance.
@@ -330,27 +398,20 @@ def fused_clipper_neural_train_fwd(vin, z0, mlp_params: MLPParams, r_rows, cap, 
     row.  Returns (out (B, T), z_final (B,), a_seq (B, T)), a_seq[b, t] the
     root's incident wave at step t: the residual of the adjoint
     (``ops.clipper_train``).  The differentiable op is
-    ``ops.clipper_train.make_fused_clipper_train``.
+    ``ops.clipper_train.make_fused_clipper_train``.  On the card each stream
+    runs on a group of lanes (:func:`train_lanes`); the root's (H, L) must be
+    one of TRAIN_FAMILIES.
     """
     if vin.device.type == "cpu":
         return fused_clipper_neural_train_fwd_plain(vin, z0, mlp_params, r_rows, cap, fs=fs)
     _check_io(vin, z0)
     _check_rows(r_rows, vin)
-    H, L, weights = train_weights(mlp_params, vin.device)
-    B, T = vin.shape
-    if B == 0:
+    if vin.shape[0] == 0:
+        train_weights(mlp_params, vin.device)
         return torch.empty_like(vin), torch.empty_like(z0), torch.empty_like(vin)
-    lib = _build.library()
-    with torch.cuda.device(vin.device):
-        p1r, log_r = row_constants(r_rows, cap, fs)
-        vin, z0, out, zf, stream = _launch_args(vin, z0)
-        a_seq = torch.empty_like(vin)
-        err = lib.clipper_train_fwd_launch(
-            vin.data_ptr(), z0.data_ptr(), p1r.data_ptr(), log_r.data_ptr(), out.data_ptr(),
-            a_seq.data_ptr(), zf.data_ptr(), B, T, weights.data_ptr(), H, L, stream)
-    _build.check(err, "fused_clipper_neural_train_fwd launch")
+    result = launch_train_fwd(vin, z0, mlp_params, r_rows, cap, fs=fs)
     fused_clipper_neural_train_fwd.launches += 1
-    return out, zf, a_seq
+    return result
 
 
 fused_clipper_neural_train_fwd.launches = 0

@@ -1,0 +1,297 @@
+"""The clipper's training kernels' per-sample functions, compiled on the CPU.
+
+``csrc/clipper_train.cuh`` holds what each kernel of the clipper's in-circuit
+training runs per sample: the forward step with the whole NxH root on one
+thread (``train_step``, the one-thread kernel) and on a group of K lanes
+(``train_step_lanes`` on the lane kernel's copy of the weights,
+``lane_weight``: the lane kernel B3), the tangent of pass 1
+(``adjoint_tangent``), the reverse step of pass 2 (``adjoint_update``, the
+roundings of the one-pass kernel's step) and the scratch layout between the
+passes (``adjoint_scratch_index``).  The host C++ compiler builds them here with the
+stand-in ``cuda_runtime.h`` of ``tests/test_torch_codegen.py`` (a group of K
+lanes is K host threads, ``__shfl_sync`` through a shared array), and a
+ctypes harness walks them as the kernels do.  For every NxH family the lane
+kernel is built for, the lane step at every K that divides H gives the
+one-thread step's bits on every lane; pass 1 into the scratch and pass 2
+walking it back give the bits of a one-pass walk with the same steps (the
+card tests hold pass 2 to the one-pass kernel itself); the one-thread forward is
+within the suite's 2e-5 of ``fused_clipper_neural_train_fwd_plain`` and the
+one-pass adjoint within 2e-5 of scale of ``clipper_adjoint_plain``.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from diffwdf_tpu_torch.ops import _build
+from diffwdf_tpu_torch.ops import clipper_train as ct
+from diffwdf_tpu_torch.ops import fused_clipper as fc
+from diffwdf_tpu_torch.roots.neural import NeuralDiodeRoot
+from test_torch_codegen import CUDA_RUNTIME_STANDIN, LANE_GROUP_HARNESS, LANE_SHUFFLE_STANDIN
+
+FS, CAP = 48000.0, 4.7e-9
+#: (n_layers, width) of the NxH families the lane kernel is built for
+FAMILIES = [(1, 16), (2, 4), (2, 8), (2, 16), (4, 4), (4, 8)]
+
+HARNESS = """
+#include <vector>
+
+#include "clipper_train.cuh"
+
+template <int H>
+static void fwd_one_thread(const float* vin, const float* z0, const float* p1r,
+                           const float* log_r, float* out, float* as, float* zf, int B, int T,
+                           const float* w, int L) {
+  for (int b = 0; b < B; ++b) {
+    float c1[H];
+    nxh_first_bias<H>(w + H, w + 2 * H, log_r[b], c1);
+    float z = z0[b];
+    for (long t = 0; t < T; ++t) {
+      float a;
+      out[b * T + t] = train_step<H>(vin[b * T + t], p1r[b], z, a, w, c1, L);
+      as[b * T + t] = a;
+    }
+    zf[b] = z;
+  }
+}
+
+// out and as (K, B, T), zf (K, B): lane by lane
+template <int H, int K, int L>
+static void fwd_lanes(const float* vin, const float* z0, const float* p1r, const float* log_r,
+                      float* out, float* as, float* zf, int B, int T, const float* w) {
+  constexpr bool kRegs = (H / K) * H * L + H <= 96;
+  std::vector<float> copy(n_lane_weights<H>(L));  // the lane kernel's shared-memory copy
+  for (int i = 0; i < n_lane_weights<H>(L); ++i) copy[i] = lane_weight<H>(w, i);
+  const float* sw = copy.data();
+  for (int b = 0; b < B; ++b) {
+    standin_run_group(K, [&](int rank) {
+      float c1[H / K];
+      nxh_first_bias_lanes<H, K>(sw + H, sw + 2 * H, log_r[b], rank, c1);
+      NxhLaneWeights<H, K, L, kRegs> lw;
+      lw.load(sw + lane_hidden<H>(), sw + 3 * H, rank);
+      float z = z0[b];
+      for (long t = 0; t < T; ++t) {
+        float a;
+        const long at = (static_cast<long>(rank) * B + b) * T + t;
+        out[at] = train_step_lanes<H, K, L>(vin[b * T + t], p1r[b], z, a, sw, c1, rank, lw);
+        as[at] = a;
+      }
+      zf[rank * B + b] = z;
+    });
+  }
+}
+
+// pass 1 into the scratch (every sample of the whole groups), then pass 2
+template <int H>
+static void adjoint_two_pass(const float* a_seq, const float* g_out, const float* g_zf,
+                             const float* p1r, const float* log_r, float* g_vin, float* G,
+                             float* g_z0, float* scratch, int B, int T, const float* w, int L) {
+  float2* pairs = reinterpret_cast<float2*>(scratch);
+  const int padded = (B + kAdjointGroup - 1) / kAdjointGroup * kAdjointGroup;
+  for (int b = 0; b < padded; ++b) {
+    float c1[H];
+    nxh_first_bias<H>(w + H, w + 2 * H, b < B ? log_r[b] : 0.f, c1);
+    for (int t = 0; t < T; ++t) {
+      float2& e = pairs[adjoint_scratch_index(b, t, T)];
+      e.x = b < B ? adjoint_tangent<H>(a_seq[static_cast<long>(b) * T + t], w, c1, L) : 0.f;
+      e.y = b < B ? g_out[static_cast<long>(b) * T + t] : 0.f;
+    }
+  }
+  for (int b = 0; b < B; ++b) {
+    float lam = g_zf[b];
+    for (int t = T - 1; t >= 0; --t) {
+      const float2 e = pairs[adjoint_scratch_index(b, t, T)];
+      float Gt;
+      g_vin[static_cast<long>(b) * T + t] = adjoint_update(e.x, e.y, p1r[b], lam, Gt);
+      G[static_cast<long>(b) * T + t] = Gt;
+    }
+    g_z0[b] = lam;
+  }
+}
+
+template <int H>
+static void adjoint_one_pass(const float* a_seq, const float* g_out, const float* g_zf,
+                             const float* p1r, const float* log_r, float* g_vin, float* G,
+                             float* g_z0, int B, int T, const float* w, int L) {
+  for (int b = 0; b < B; ++b) {
+    float c1[H];
+    nxh_first_bias<H>(w + H, w + 2 * H, log_r[b], c1);
+    float lam = g_zf[b];
+    for (int t = T - 1; t >= 0; --t) {
+      const long at = static_cast<long>(b) * T + t;
+      float Gt;
+      g_vin[at] = adjoint_update(adjoint_tangent<H>(a_seq[at], w, c1, L), g_out[at], p1r[b], lam,
+                                 Gt);
+      G[at] = Gt;
+    }
+    g_z0[b] = lam;
+  }
+}
+
+#define BY_WIDTH(call) \\
+  switch (H) {         \\
+    case 4: call(4); break;  \\
+    case 8: call(8); break;  \\
+    case 16: call(16); break; \\
+  }
+
+extern "C" {
+
+void host_fwd_one_thread(int H, const float* vin, const float* z0, const float* p1r,
+                         const float* log_r, float* out, float* as, float* zf, int B, int T,
+                         const float* w, int L) {
+#define CALL(h) fwd_one_thread<h>(vin, z0, p1r, log_r, out, as, zf, B, T, w, L)
+  BY_WIDTH(CALL)
+#undef CALL
+}
+
+void host_fwd_lanes(int H, int L, int K, const float* vin, const float* z0, const float* p1r,
+                    const float* log_r, float* out, float* as, float* zf, int B, int T,
+                    const float* w) {
+#define LANES(h, l, k) \\
+  if (H == h && L == l && K == k) fwd_lanes<h, k, l>(vin, z0, p1r, log_r, out, as, zf, B, T, w);
+  LANES(4, 2, 4) LANES(4, 4, 4)
+  LANES(8, 2, 4) LANES(8, 2, 8) LANES(8, 4, 4) LANES(8, 4, 8)
+  LANES(16, 1, 4) LANES(16, 1, 8) LANES(16, 1, 16)
+  LANES(16, 2, 4) LANES(16, 2, 8) LANES(16, 2, 16)
+#undef LANES
+}
+
+void host_adjoint_two_pass(int H, const float* a_seq, const float* g_out, const float* g_zf,
+                           const float* p1r, const float* log_r, float* g_vin, float* G,
+                           float* g_z0, float* scratch, int B, int T, const float* w, int L) {
+#define CALL(h) adjoint_two_pass<h>(a_seq, g_out, g_zf, p1r, log_r, g_vin, G, g_z0, scratch, B, \\
+                                    T, w, L)
+  BY_WIDTH(CALL)
+#undef CALL
+}
+
+void host_adjoint_one_pass(int H, const float* a_seq, const float* g_out, const float* g_zf,
+                           const float* p1r, const float* log_r, float* g_vin, float* G,
+                           float* g_z0, int B, int T, const float* w, int L) {
+#define CALL(h) adjoint_one_pass<h>(a_seq, g_out, g_zf, p1r, log_r, g_vin, G, g_z0, B, T, w, L)
+  BY_WIDTH(CALL)
+#undef CALL
+}
+
+}  // extern "C"
+"""
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    """The harness built once with the host compiler and the lane stand-in."""
+    cxx = shutil.which("c++") or shutil.which("g++") or shutil.which("clang++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    inc = tmp_path_factory.mktemp("standin_clipper")
+    (inc / "cuda_runtime.h").write_text(CUDA_RUNTIME_STANDIN + LANE_SHUFFLE_STANDIN)
+    src, so = inc / "clipper_kernels.cpp", inc / "clipper_kernels.so"
+    src.write_text(LANE_GROUP_HARNESS + HARNESS)
+    proc = subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-pthread", "-x", "c++",
+                           f"-I{inc}", f"-I{_build.CSRC_DIR}", "-o", str(so), str(src)],
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    out = ctypes.CDLL(str(so))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    out.host_fwd_one_thread.argtypes = [i] + [vp] * 7 + [i, i, vp, i]
+    out.host_fwd_lanes.argtypes = [i, i, i] + [vp] * 7 + [i, i, vp]
+    out.host_adjoint_two_pass.argtypes = [i] + [vp] * 9 + [i, i, vp, i]
+    out.host_adjoint_one_pass.argtypes = [i] + [vp] * 8 + [i, i, vp, i]
+    return out
+
+
+def _ptrs(*xs):
+    return [x.data_ptr() for x in xs]
+
+
+def _family(n_layers, width, b, t, seed):
+    """A random-init NxH root, its weight buffer and per-row constants, and
+    seeded streams: (mlp, H, L, w, p1r, log_r, r_rows, vin, z0)."""
+    mlp = NeuralDiodeRoot(name="dp", n_layers=n_layers, layer_size=width).init_params(
+        "cpu", torch.Generator().manual_seed(seed))["dp"]
+    H, L, w = fc.train_weights(mlp, torch.device("cpu"))
+    rng = np.random.default_rng(seed)
+    r_rows = torch.from_numpy(np.geomspace(10e3, 99e3, b).astype(np.float32))
+    p1r, log_r = fc.row_constants(r_rows, CAP, FS)
+    vin = torch.from_numpy((2.0 * rng.standard_normal((b, t))).astype(np.float32))
+    z0 = torch.from_numpy(rng.uniform(-0.5, 0.5, b).astype(np.float32))
+    return mlp, H, L, w, p1r, log_r, r_rows, vin, z0
+
+
+@pytest.mark.parametrize("n_layers,width", FAMILIES)
+def test_host_lane_step_matches_one_thread_step(lib, n_layers, width):
+    """The training forward's lane step (train_step_lanes: the clipper's
+    tree on every lane, the root split over K host threads) at every K that
+    divides H: every lane ends every step with the one-thread step's bits
+    for out, a and the final state; the one-thread step is within 2e-5 of
+    the plain version."""
+    b, t = 3, 64
+    mlp, H, L, w, p1r, log_r, r_rows, vin, z0 = _family(n_layers, width, b, t, seed=width + n_layers)
+    one = [torch.empty(b, t), torch.empty(b, t), torch.empty(b)]
+    lib.host_fwd_one_thread(H, *_ptrs(vin, z0, p1r, log_r, *one), b, t, w.data_ptr(), L)
+    want = fc.fused_clipper_neural_train_fwd_plain(vin, z0, mlp, r_rows, CAP, fs=FS)
+    for got, ref in zip(one, (want[0], want[2], want[1])):
+        assert bool(torch.isfinite(got).all())
+        np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=2e-5, rtol=0)
+    ks = [k for k in fc.LANES if H % k == 0]
+    assert set(fc.train_lane_counts(H)) <= set(ks)  # every K the kernel is built for
+    for K in ks:
+        out, a_seq, zf = torch.empty(K, b, t), torch.empty(K, b, t), torch.empty(K, b)
+        lib.host_fwd_lanes(H, L, K, *_ptrs(vin, z0, p1r, log_r, out, a_seq, zf), b, t,
+                           w.data_ptr())
+        for rank in range(K):
+            assert torch.equal(out[rank], one[0]), (K, rank)
+            assert torch.equal(a_seq[rank], one[1]), (K, rank)
+            assert torch.equal(zf[rank], one[2]), (K, rank)
+
+
+@pytest.mark.parametrize("n_layers,width", FAMILIES)
+def test_host_two_pass_adjoint_equals_one_pass(lib, n_layers, width):
+    """The adjoint as the card runs it, pass 1 (adjoint_tangent at every
+    sample, into the scratch layout of adjoint_scratch_index with a ragged
+    last group) and pass 2 (adjoint_update walking it back), gives the
+    one-pass walk's bits for g_vin, G and g_z0; the one-pass walk is within
+    2e-5 of scale of clipper_adjoint_plain."""
+    b, t = 11, 96  # 11 streams: a whole group of 8 and a ragged one
+    mlp, H, L, w, p1r, log_r, r_rows, vin, z0 = _family(n_layers, width, b, t, seed=width + 7)
+    _, _, a_seq = fc.fused_clipper_neural_train_fwd_plain(vin, z0, mlp, r_rows, CAP, fs=FS)
+    rng = np.random.default_rng(n_layers * 100 + width)
+    g_out = torch.from_numpy(rng.standard_normal((b, t)).astype(np.float32))
+    g_zf = torch.from_numpy(rng.standard_normal(b).astype(np.float32))
+    one = [torch.empty(b, t), torch.empty(b, t), torch.empty(b)]
+    lib.host_adjoint_one_pass(H, *_ptrs(a_seq, g_out, g_zf, p1r, log_r, *one), b, t,
+                              w.data_ptr(), L)
+    two = [torch.empty(b, t), torch.empty(b, t), torch.empty(b)]
+    scratch = torch.full((ct.adjoint_scratch_floats(b, t),), float("nan"))
+    lib.host_adjoint_two_pass(H, *_ptrs(a_seq, g_out, g_zf, p1r, log_r, *two, scratch), b, t,
+                              w.data_ptr(), L)
+    assert not bool(torch.isnan(scratch).any())  # pass 1 filled the whole groups
+    for x, y in zip(two, one):
+        assert torch.equal(x, y)
+    want = ct.clipper_adjoint_plain(a_seq, g_out, g_zf, r_rows, mlp, CAP, fs=FS)
+    for got, ref in zip(one, want):
+        assert bool(torch.isfinite(got).all())
+        scale = max(float(ref.abs().max()), 1e-8)
+        np.testing.assert_allclose((got / scale).numpy(), (ref / scale).numpy(), atol=2e-5,
+                                   rtol=0)
+
+
+def test_train_lanes_follow_the_lane_table():
+    """The training forward takes, like the generated forward, the largest K
+    of LANES dividing H at most the batch's target (K = 16 up to B = 2,048,
+    else 8, for H = 16); the lane kernel is built for exactly the (H, L, K)
+    of TRAIN_FAMILIES at those K (csrc/clipper_train.cu by_family)."""
+    assert [fc.train_lanes(16, n) for n in (1, 335, 1337, 2048, 2049, 8192)] == [16] * 4 + [8] * 2
+    assert [fc.train_lanes(h, n) for h in (4, 8) for n in (1, 8192)] == [4, 4, 8, 8]
+    assert {h: fc.train_lane_counts(h) for h in (4, 8, 16)} == {4: (4,), 8: (8,), 16: (8, 16)}
+    assert sorted((width, n) for n, width in FAMILIES) == sorted(fc.TRAIN_FAMILIES)
+    source = (_build.CSRC_DIR / "clipper_train.cu").read_text()
+    built = {tuple(map(int, m)) for m in re.findall(r"CLIPPER_FAMILY\((\d+), (\d+), (\d+)\)\n",
+                                                     source)}
+    assert built == {(h, n, k) for h, n in fc.TRAIN_FAMILIES for k in fc.train_lane_counts(h)}

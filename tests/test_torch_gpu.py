@@ -15,7 +15,8 @@ pots, and the generic training op's gradients against the scan engine
 relative 5e-4 per leaf (tests/test_parallel_bptt.py); the lane-cooperative
 forward of an NxH root 2e-5 against plain and the one-thread kernel's bits,
 every lane of a group the same bits; the two-pass adjoint the one-pass
-kernel's bits and the adjoint's budgets against plain; a short
+kernel's bits and the adjoint's budgets against plain (the generated ones
+and the clipper's, B3 and B4, for every family); a short
 fused_generic run's loss history rtol 5e-4 of the same run through the
 plain versions (tests/test_parallel_bptt.py:579); the generated DEER
 kernel against its plain version and the exact recursion, Tube Screamer
@@ -159,6 +160,57 @@ def test_adjoint_kernel_matches_plain(cuda, n_layers, width):
     assert ct.clipper_adjoint.launches == 1
     for g, w in zip(got, want):
         _close_scaled(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_layers,width", FAMILIES)
+def test_train_fwd_lanes_match_one_thread_kernel(cuda, n_layers, width):
+    """B3's lane form gives the one-thread kernel's bits for out, z_final and
+    a_seq at every K built for the width and with every lane of a group as
+    the writer, at a ragged B (1000, T = 300) and at B = 2,100 (T = 67),
+    where the wrapper takes K = 8 for H = 16."""
+    for b, t in ((1000, 300), (2100, 67)):
+        _, mlp, vin, z0, r_rows = _train_inputs(cuda, n_layers, width, b, t, seed=width + 5)
+        args = (vin, z0, mlp, r_rows, TRAIN_CAP)
+        want = fc.launch_train_fwd(*args, fs=TRAIN_FS, lanes=1)
+        for K in fc.train_lane_counts(width):
+            for writer in range(K):
+                got = fc.launch_train_fwd(*args, fs=TRAIN_FS, lanes=K, writer=writer)
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (b, K, writer)
+        got = fc.fused_clipper_neural_train_fwd(*args, fs=TRAIN_FS)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    torch.cuda.synchronize()
+    assert fc.fused_clipper_neural_train_fwd.launches == 2
+    assert [fc.train_lanes(width, b) for b in (1000, 2100)] == (
+        [16, 8] if width == 16 else [width] * 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_layers,width", FAMILIES)
+def test_adjoint_two_passes_match_one_pass_kernel(cuda, n_layers, width):
+    """B4's two passes (the wrapper) give the one-pass kernel's bits for
+    g_vin, G and g_z0, at a ragged B (1000, T = 300: 16-byte stores of the
+    output tiles) and at B = 2,100 (T = 67: a partial slab and tile)."""
+    for b, t in ((1000, 300), (2100, 67)):
+        _, mlp, vin, z0, r_rows = _train_inputs(cuda, n_layers, width, b, t, seed=width + 6)
+        _, _, a_seq = fc.launch_train_fwd(vin, z0, mlp, r_rows, TRAIN_CAP, fs=TRAIN_FS)
+        g_out, g_zf = _inputs(cuda, b, t, seed=width + 7)
+        args = (a_seq, g_out, g_zf, r_rows, mlp, TRAIN_CAP)
+        got = ct.clipper_adjoint(*args, fs=TRAIN_FS)
+        want = ct.launch_adjoint_onepass(*args, fs=TRAIN_FS)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), b
+    torch.cuda.synchronize()
+    assert ct.clipper_adjoint.launches == 2
+
+
+@pytest.mark.gpu
+def test_train_fwd_raises_for_a_family_without_a_kernel(cuda):
+    _, mlp, vin, z0, r_rows = _train_inputs(cuda, 3, 16, 64, 32, seed=1)
+    with pytest.raises(ValueError, match="no kernel"):
+        fc.fused_clipper_neural_train_fwd(vin, z0, mlp, r_rows, TRAIN_CAP, fs=TRAIN_FS)
+    assert fc.fused_clipper_neural_train_fwd.launches == 0
 
 
 @pytest.mark.gpu
