@@ -16,11 +16,15 @@ It builds the CUDA kernels from ``diffwdf_tpu_torch/ops/csrc`` and prints
 one line per phase:
 
   toolchain  the card (name, power limit), torch, CUDA and nvcc versions
-  build      nvcc compile of the kernel library, timed as set-up, and the
-             registers and spills ptxas reports per kernel
+  build      nvcc compile of the kernel library, timed as set-up, the
+             registers and spills ptxas reports per kernel, and the SASS of
+             the serving kernels before and after their redesign
+             (instructions, transcendental units, branches, local memory)
   kernels    each serving kernel against its plain PyTorch version on the
              card at the served shape (8192 streams x 2048 samples), beside
-             its budget
+             its budget; B1's lane form against its one-thread form, bit for
+             bit; B2 and its earlier form (the two omega solves one after
+             the other) at B = 1 too; no spill in the new kernels
   serve      serving as a user drives it: zoo roots 4 (neural 2x16,
              pretrained) and 0 (analytic, quality "best") in the LPF clipper
              answer four consecutive (8192, 2048) request blocks with the
@@ -28,8 +32,9 @@ one line per phase:
              rise, the output must be finite and equal one (8192, 8192) run
   reference  serving kernels against the circuit's sequential
              Circuit.process on a small input
-  timing     CUDA-event medians of serving kernel and plain version at
-             (8192, 2048)
+  timing     CUDA-event medians of each serving kernel, its earlier form
+             and its plain version at (8192, 2048), in turns; B1's lanes per
+             stream K (1, 8, 16) at B = 1, 2048 and 8192
   kernels    the training forward and adjoint kernels against their plain
              versions at the training shape (1337 chunks x 2048 samples),
              pretrained 2x16, the train split's four source resistances;
@@ -72,9 +77,11 @@ one line per phase:
   warmup     host wall ms of a cold first block, the first block after
              warmup([2048]) and the steady median, per engine
   timing deer  CUDA-event medians of the DEER kernel and its plain version,
-             the exact engine's kernels at B=1, process_block wall ms and
-             real-time factor per engine, and the device work of one
-             served block from a profiler trace
+             the exact engine's kernels B1 and B2 at B=1 and their earlier
+             forms, in turns, with the SM clock and cycles per sample,
+             process_block wall ms and real-time factor per engine (the scan
+             engine's members with the earlier kernels too), and the device
+             work of one served block from a profiler trace
   build circuits  the generated kernels of six circuits (Tube Screamer
              analytic and pretrained 2x16, HPF clipper analytic and
              HPF-trained 2x16, LPF clipper, RC lowpass) and the K sweep's
@@ -158,7 +165,8 @@ one line per phase:
              the HPF at 48 fixed and adaptive sweeps and the 2x16 clipper,
              beside their bounds and plain versions, and
              process_block wall ms, real-time factor and a profile of one
-             block per group and engine
+             block per group and engine (the plugin's scan-engine clipper
+             members with B1 and B2 before their redesign too, in turns)
 
 then a JSON line with every kernel's launches, error, times and bound, the
 card's name and power limit, and finally ``{"ok": true, "device": {...}}``.
@@ -451,6 +459,72 @@ def _timed(fn, runs: int = REPS):
     return statistics.median(ms), min(ms), max(ms)
 
 
+@contextlib.contextmanager
+def _sm_clock():
+    """Sample card 0's SM clock (MHz) every 50 ms while the block runs;
+    yields a list that holds the samples when the block has ended."""
+    proc = subprocess.Popen(["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm",
+                             "--format=csv,noheader,nounits", "-lms", "50"],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    samples = []
+    try:
+        yield samples
+    finally:
+        proc.terminate()
+        samples += [float(v) for v in proc.communicate()[0].split() if v.isdigit()]
+
+
+def _wall_in_turns(serve, before: bool) -> dict:
+    """Host wall ms of WALL_REPS served blocks (the caller has served one
+    to warm up); with ``before``, each block is served with the kernels
+    after and before their redesign (``_old_kernels``) in turns, after a
+    warm-up block of the earlier ones.  {"after": [...], "before": [...]}."""
+    labels = ("after", "before") if before else ("after",)
+    if before:
+        with _old_kernels(True):
+            serve()
+    wall = {label: [] for label in labels}
+    for rep in range(WALL_REPS):
+        for label in (labels if rep % 2 else labels[::-1]):
+            with _old_kernels(label == "before"):
+                t0 = time.perf_counter()
+                serve()
+                wall[label].append((time.perf_counter() - t0) * 1e3)
+    return wall
+
+
+#: (pattern of the mangled name, label) of the serving kernels whose SASS
+#: the build phase summarises: B1 and B2 before their redesign and after
+SASS_KERNELS = ((r"\d+analytic_kernelE", "analytic_kernel"),
+                (r"\d+analytic_pair_kernelILi3EE", "analytic_pair_kernel<3>"),
+                (r"\d+neural_kernelILi16EE", "neural_kernel<16>"),
+                (r"\d+neural_lanes_kernelILi16ELi16ELi2EE", "neural_lanes_kernel<16,16,2>"),
+                (r"\d+neural_lanes_kernelILi16ELi8ELi2EE", "neural_lanes_kernel<16,8,2>"))
+#: the SASS opcodes counted: the transcendental unit, branches, convergence
+#: barriers, calls (the IEEE division's slow path), local memory (spills),
+#: global and shared loads, shuffles
+SASS_OPS = ("MUFU", "BRA", "BSSY", "CALL", "LDL", "STL", "LDG", "LDS", "SHFL", "FFMA")
+
+
+def _sass_summary() -> list:
+    """One line per kernel of SASS_KERNELS from ``cuobjdump -sass`` of the
+    kernel library: its instructions and the count of each of SASS_OPS."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    lines = []
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = part.split("\n", 1)[0].strip()
+        label = next((lab for pat, lab in SASS_KERNELS if re.search(pat, name)), None)
+        if label is None:
+            continue
+        ops = [m.split(".")[0] for m in re.findall(
+            r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", part)]
+        lines.append(f"{label}: {len(ops)} instructions, "
+                     + ", ".join(f"{op} {ops.count(op)}" for op in SASS_OPS))
+    return lines
+
+
 def _ptxas_lines() -> list:
     """The compiler's per-kernel lines (entry function, registers, spills)."""
     log = _build.library_path().with_suffix(".log")
@@ -485,16 +559,44 @@ def serve_path(dev, card: str, seed: int) -> list:
     for name, label, serve in cases:
         got, got_z = serve(blocks[0], z0)
         want, want_z = serve(blocks[0], z0, plain=True)
+        with _old_kernels(True):
+            old, old_z = serve(blocks[0], z0)
         torch.cuda.synchronize()
         err = max(_max_err(got, want), _max_err(got_z, want_z))
+        old_err = max(_max_err(old, want), _max_err(old_z, want_z))
         max_err[name] = max(max_err.get(name, 0.0), err)
+        equal = torch.equal(got, old) and torch.equal(got_z, old_z)
         print(f"phase kernels {name} {label} shape=({B}, {T}) max_abs_err={err:.3e} "
-              f"budget={BUDGET[name]:.0e}", flush=True)
+              f"budget={BUDGET[name]:.0e} earlier_form_max_abs_err={old_err:.3e} "
+              f"vs_earlier_form max_abs={max(_max_err(got, old), _max_err(got_z, old_z)):.3e} "
+              f"bits_equal={equal}", flush=True)
         _check(bool(torch.isfinite(got).all()) and err <= BUDGET[name],
                f"{name} kernel {label} within {BUDGET[name]} of its plain version")
+        if name == "neural":  # the lane form keeps the one-thread kernel's bits
+            _check(equal, "B1's lane form gives its one-thread form's bits")
+    # B2 at B = 1 (the scan engine's blocks), at the low and the best quality
+    one = blocks[0][:1].contiguous()
+    for quality in ("low", "best"):
+        root = DiodePairRoot(name="dp", quality=quality)
+        ckt = make_diode_clipper(root, FS)
+        serve = block_server(ckt, {**ckt.init_params(dev), **root.init_params(dev)})
+        got, got_z = serve(one, z0[:1])
+        want, want_z = serve(one, z0[:1], plain=True)
+        err = max(_max_err(got, want), _max_err(got_z, want_z))
+        max_err["analytic"] = max(max_err["analytic"], err)
+        print(f"phase kernels analytic {quality} iters={root.iters} shape=(1, {T}) "
+              f"max_abs_err={err:.3e} budget={BUDGET['analytic']:.0e}", flush=True)
+        _check(err <= BUDGET["analytic"], f"B2 at B = 1, {quality}, within budget of plain")
+    new_ptxas = _ptxas_kernels("", _build.library_path().with_suffix(".log"), SERVE_KERNELS)
+    new_ptxas = {k: v for k, v in new_ptxas.items() if k.startswith(SERVE_NEW)}
+    print("phase kernels ptxas fused_clipper " + " | ".join(
+        f"{k}: {r} registers, {ss}/{sl} bytes spilled (stores/loads)"
+        for k, (r, ss, sl) in new_ptxas.items()), flush=True)
+    _check(len(new_ptxas) == 12 and all(ss == sl == 0 for _, ss, sl in new_ptxas.values()),
+           f"no spills in B1's lane kernels and B2's paired kernels (8 + 4): {new_ptxas}")
 
     # --- serve: the main path, counted -------------------------------------
-    fc.fused_clipper_neural.launches = 0
+    fc.fused_clipper_neural.launches = fc.fused_clipper_neural.one_thread_launches = 0
     fc.fused_clipper_analytic.launches = 0
     served, wall_ms = {}, {}
     for name, serve in servers.items():
@@ -508,6 +610,7 @@ def serve_path(dev, card: str, seed: int) -> list:
         served[name] = (torch.cat(outs, dim=1), z)
     launches = {"neural": fc.fused_clipper_neural.launches,
                 "analytic": fc.fused_clipper_analytic.launches}
+    one_thread = fc.fused_clipper_neural.one_thread_launches
     for name, serve in servers.items():
         out, z = served[name]
         whole, whole_z = serve(signal, z0)
@@ -515,12 +618,16 @@ def serve_path(dev, card: str, seed: int) -> list:
         carry_err = max(_max_err(out, whole), _max_err(z, whole_z))
         finite = bool(torch.isfinite(out).all() and torch.isfinite(z).all())
         print(f"phase serve {name} zoo={4 if name == 'neural' else 0} blocks={BLOCKS}x({B}, {T}) "
-              f"launches={launches[name]} finite={finite} shape={tuple(out.shape)} "
+              f"launches={launches[name]}"
+              + (f" one_thread_launches={one_thread} (K={fc.nxh_lanes(16, B)} lanes a stream)"
+                 if name == "neural" else "")
+              + f" finite={finite} shape={tuple(out.shape)} "
               f"wall_ms_per_block={wall_ms[name]:.4f} "
               f"carry_vs_one_run_max_abs={carry_err:.3e} budget=1e-06", flush=True)
         _check(launches[name] >= BLOCKS, f"{name} kernel launched on the main path")
         _check(finite and tuple(out.shape) == (B, BLOCKS * T), f"{name} output finite, shaped")
         _check(carry_err <= 1e-6, f"{name} blocks with carried state equal one run")
+    _check(one_thread == 0, "the 2x16 is served by B1's lane kernel")
 
     # --- reference: kernels vs the circuit's sequential loop ----------------
     small = blocks[1][:256, :256].contiguous()
@@ -532,41 +639,69 @@ def serve_path(dev, card: str, seed: int) -> list:
               f"max_abs_err={err:.3e} budget={BUDGET[name]:.0e}", flush=True)
         _check(err <= BUDGET[name], f"{name} kernel within budget of Circuit.process")
 
-    # --- timing --------------------------------------------------------------
+    # --- timing: each kernel, its earlier form and its plain version --------
     times = {}
     for name, serve in servers.items():
         def kernel():
             serve(blocks[0], z0)
 
+        def earlier():
+            with _old_kernels(True):
+                serve(blocks[0], z0)
+
         def plain():
             serve(blocks[0], z0, plain=True)
 
-        _cuda_ms(kernel, 1, 2)  # warm-up
-        _cuda_ms(plain, 1)
-        k_ms, p_ms = [], []
-        for rep in range(REPS):  # alternate which goes first
-            order = (kernel, plain) if rep % 2 else (plain, kernel)
-            for fn in order:
-                if fn is kernel:  # back-to-back launches keep the card busy
-                    k_ms += _cuda_ms(kernel, 1, 10)
-                else:
-                    p_ms += _cuda_ms(plain, 1)
-        km, pm = statistics.median(k_ms), statistics.median(p_ms)
-        times[name] = (km, pm)
-        print(f"phase timing {name} shape=({B}, {T}) runs={REPS} "
-              f"kernel_ms={km:.4f} [{min(k_ms):.4f}, {max(k_ms):.4f}] "
-              f"({B * T / km / 1e3:.1f} Msamples/s, 10 launches per run) "
-              f"plain_ms={pm:.4f} [{min(p_ms):.4f}, {max(p_ms):.4f}] "
-              f"({B * T / pm / 1e3:.1f} Msamples/s) card={card!r}", flush=True)
+        runs = {"kernel": kernel, "earlier_kernel": earlier, "plain": plain}
+        for fn in runs.values():  # warm-up
+            _cuda_ms(fn, 1, 2)
+        ms = {label: [] for label in runs}
+        for rep in range(REPS):  # in turns, alternating which goes first
+            for label in (runs if rep % 2 else reversed(runs)):
+                if label == "plain":
+                    ms[label] += _cuda_ms(plain, 1)
+                else:  # back-to-back launches keep the card busy
+                    ms[label] += _cuda_ms(runs[label], 1, 10)
+        times[name] = {label: statistics.median(v) for label, v in ms.items()}
+        print(f"phase timing {name} shape=({B}, {T}) runs={REPS} in turns "
+              + " ".join(f"{k}_ms={times[name][k]:.4f} [{min(v):.4f}, {max(v):.4f}] "
+                         f"({B * T / times[name][k] / 1e3:.1f} Msamples/s)"
+                         for k, v in ms.items())
+              + f" (kernels: 10 launches per run) card={card!r}", flush=True)
+    # B1's lanes per stream, the pretrained 2x16 at T = 2048
+    mlp = circuits["neural"][1]["dp"]
+    for rows in (1, 2048, B):
+        vin = blocks[0][:rows].contiguous()
+        sweep = {}
+        for lanes in (1,) + fc.nxh_lane_counts(16):
+            fn = (lambda lanes=lanes: fc.launch_neural(vin, z0[:rows], mlp, R_SRC, CAP, fs=FS,
+                                                       lanes=lanes))
+            _cuda_ms(fn, 1, 2)
+            sweep[lanes] = statistics.median(_cuda_ms(fn, REPS, 10))
+        print(f"phase timing lanes B1 2x16 shape=({rows}, {T}) runs={REPS} "
+              + " ".join(f"K={k}:{v:.4f}" for k, v in sweep.items())
+              + f" ms (10 launches per run) fastest=K{min(sweep, key=sweep.get)} "
+              f"chosen=K{fc.nxh_lanes(16, rows)} card={card!r}", flush=True)
 
     ops = {"neural": _neural_ops(16, 2) * B * T, "analytic": _analytic_ops(3) * B * T}
     nbytes = 8 * B * T + 8 * B  # vin in, out out; z0 in, z_final out
+    forms = {"neural": f"neural_lanes_kernel<16,{fc.nxh_lanes(16, B)},2>",
+             "analytic": "analytic_pair_kernel<3>"}
     return [{"name": f"fused_clipper_{name}", "route": "cuda", "source": SOURCE,
              "replaces": REPLACES[name], "launches": launches[name],
-             "max_abs_err": max_err[name], "ms": times[name][0], "plain_ms": times[name][1],
+             "max_abs_err": max_err[name], "ms": times[name]["kernel"],
+             "plain_ms": times[name]["plain"],
              **dict(zip(("bound_ms", "bound_by"), _bound(ops[name], nbytes))),
-             "library_ms": None}
+             "library_ms": None, "form": forms[name], "before_ms": times[name]["earlier_kernel"]}
             for name in ("neural", "analytic")]
+
+
+#: the serving kernels of csrc/fused_clipper.cu, as the profiler names them
+SERVE_KERNEL_NAMES = ("analytic_pair_kernel", "analytic_kernel", "neural_lanes_kernel",
+                      "neural_kernel")
+#: the ptxas entries of the serving kernels redesigned for the H100
+SERVE_KERNELS = r"\d+((?:neural_lanes|analytic_pair)_kernel)"
+SERVE_NEW = ("neural_lanes_kernel", "analytic_pair_kernel")
 
 
 def _pretrained_2x16(dev):
@@ -623,13 +758,13 @@ def train_path(dev, card: str, seed: int) -> list:
     old_fwd = fc.launch_train_fwd(*fwd_args, fs=TRAIN_FS, lanes=1)
     lanes_equal = {K: all(torch.equal(a, b) for a, b in zip(
         fc.launch_train_fwd(*fwd_args, fs=TRAIN_FS, lanes=K), old_fwd))
-        for K in fc.train_lane_counts(16)}
+        for K in fc.nxh_lane_counts(16)}
     lanes_equal["wrapper"] = all(torch.equal(a, b) for a, b in zip(got_fwd, old_fwd))
     adj_equal = all(torch.equal(a, b) for a, b in zip(
         got, ct.launch_adjoint_onepass(*adj_args, fs=TRAIN_FS)))
     print(f"phase kernels train_fwd lanes vs one-thread kernel shape={shape} bits_equal "
           + " ".join(f"K={k}:{v}" for k, v in lanes_equal.items())
-          + f" (wrapper K={fc.train_lanes(16, TRAIN_CHUNKS)}); adjoint two passes vs one-pass "
+          + f" (wrapper K={fc.nxh_lanes(16, TRAIN_CHUNKS)}); adjoint two passes vs one-pass "
           f"kernel bits_equal={adj_equal}", flush=True)
     _check(all(lanes_equal.values()) and adj_equal,
            "B3's lane form and B4's two passes give their earlier forms' bits")
@@ -801,13 +936,13 @@ def train_path(dev, card: str, seed: int) -> list:
     for rows in (TRAIN_CHUNKS, VAL_CHUNKS):
         args = (x[:rows], z0[:rows], mlp, r_rows[:rows], TRAIN_CAP)
         sweep = {}
-        for lanes in (1,) + fc.train_lane_counts(16):
+        for lanes in (1,) + fc.nxh_lane_counts(16):
             fn = (lambda lanes=lanes: fc.launch_train_fwd(*args, fs=TRAIN_FS, lanes=lanes))
             _cuda_ms(fn, 1, 2)
             sweep[lanes] = statistics.median(_cuda_ms(fn, REPS, 10))
         print(f"phase timing lanes B3 2x16 shape=({rows}, {CHUNK}) runs={REPS} "
               + " ".join(f"K={k}:{v:.4f}" for k, v in sweep.items())
-              + f" ms fastest=K{min(sweep, key=sweep.get)} chosen=K{fc.train_lanes(16, rows)} "
+              + f" ms fastest=K{min(sweep, key=sweep.get)} chosen=K{fc.nxh_lanes(16, rows)} "
               f"card={card!r}", flush=True)
 
     # one fused training step of the trained params, part by part, on the
@@ -1135,13 +1270,36 @@ def stream_path(dev, card: str, seed: int) -> list:
         _cuda_ms(lambda: pd.fused_deer_clipper(vin, *args, fs=FS), 1, 10)  # warm-up
         k = _cuda_ms(lambda: pd.fused_deer_clipper(vin, *args, fs=FS), REPS, 10)
         p = _timed(lambda: pd.fused_deer_clipper_plain(vin, *args, fs=FS))
-        b2 = _timed(lambda: fc.fused_clipper_analytic(vin[None], z1, *args, fs=FS))
-        b1 = _timed(lambda: fc.fused_clipper_neural(vin[None], z1, mlp, 47e3, 2.2e-9, fs=FS))
         times[T] = (statistics.median(k), p[0])
         print(f"phase timing deer T={T} runs={REPS} kernel_ms={statistics.median(k):.4f} "
               f"[{min(k):.4f}, {max(k):.4f}] (10 launches per run) plain_ms={p[0]:.4f} "
-              f"[{p[1]:.4f}, {p[2]:.4f}] exact_engine B2_ms={b2[0]:.4f} B1_2x16_ms={b1[0]:.4f} "
-              f"(B=1) card={card!r}", flush=True)
+              f"[{p[1]:.4f}, {p[2]:.4f}] card={card!r}", flush=True)
+        # the exact engine's kernels at B = 1, after and before their redesign,
+        # in turns, 10 launches a run, with the SM clock sampled meanwhile
+        exact = {"B2": lambda: fc.fused_clipper_analytic(vin[None], z1, *args, fs=FS),
+                 "B1": lambda: fc.fused_clipper_neural(vin[None], z1, mlp, 47e3, 2.2e-9, fs=FS)}
+        ms = {(name, label): [] for name in exact for label in ("after", "before")}
+        for label in ("after", "before"):  # warm-up
+            with _old_kernels(label == "before"):
+                for fn in exact.values():
+                    _cuda_ms(fn, 1, 2)
+        with _sm_clock() as mhz:
+            for rep in range(REPS):
+                for label in (("after", "before") if rep % 2 else ("before", "after")):
+                    with _old_kernels(label == "before"):
+                        for name, fn in exact.items():
+                            ms[(name, label)] += _cuda_ms(fn, 1, 10)
+        clock = statistics.median(mhz) if mhz else float("nan")
+        for name in exact:
+            line = " ".join(
+                f"{label}_ms={statistics.median(ms[(name, label)]):.4f} "
+                f"[{min(ms[(name, label)]):.4f}, {max(ms[(name, label)]):.4f}] "
+                f"({statistics.median(ms[(name, label)]) * clock * 1e3 / T:.0f} cycles/sample)"
+                for label in ("after", "before"))
+            print(f"phase timing deer exact_engine {name}"
+                  f"{' 2x16' if name == 'B1' else ' best'} B=1 T={T} runs={REPS} in turns {line} "
+                  f"(10 launches per run) sm_clock_mhz={clock:g} ({len(mhz)} samples) "
+                  f"card={card!r}", flush=True)
     block_audio_ms = STREAM_BLOCK / FS * 1e3
     for engine, proc, model in (("deer", deer, "toms"), ("deer", deer, "approx"),
                                 ("scan", scan, "toms"), ("scan", scan, "neural_2x16")):
@@ -1149,12 +1307,11 @@ def stream_path(dev, card: str, seed: int) -> list:
             proc.process_block(x0, "clipper", model=model, cutoff_hz=4000.0)
 
         serve()
-        wall = []
-        for _ in range(WALL_REPS):
-            t0 = time.perf_counter()
-            serve()
-            wall.append((time.perf_counter() - t0) * 1e3)
-        ms = statistics.median(wall)
+        wall = _wall_in_turns(serve, engine == "scan")
+        ms = statistics.median(wall["after"])
+        before = (f" before_kernels_wall_ms={statistics.median(wall['before']):.4f} "
+                  f"[{min(wall['before']):.4f}, {max(wall['before']):.4f}] (in turns)"
+                  if "before" in wall else "")
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(10):
@@ -1162,12 +1319,13 @@ def stream_path(dev, card: str, seed: int) -> list:
         dev_events = [ev for ev in prof.events()
                       if ev.device_type == torch.autograd.DeviceType.CUDA]
         ours = [ev for ev in dev_events if any(
-            k in ev.name for k in ("deer_clipper_kernel", "analytic_kernel", "neural_kernel"))]
+            k in ev.name for k in ("deer_clipper_kernel",) + SERVE_KERNEL_NAMES)]
         copies = [ev for ev in dev_events if "Memcpy" in ev.name or "Memset" in ev.name]
         dev_us = sum(ev.time_range.elapsed_us() for ev in dev_events) / 10
         print(f"phase timing stream engine={engine} model={model} block={STREAM_BLOCK} "
-              f"process_block_wall_ms={ms:.4f} [{min(wall):.4f}, {max(wall):.4f}] "
-              f"real_time_factor={block_audio_ms / ms:.2f} per block (profiled, 10 blocks): "
+              f"process_block_wall_ms={ms:.4f} [{min(wall['after']):.4f}, "
+              f"{max(wall['after']):.4f}] real_time_factor={block_audio_ms / ms:.2f}{before} "
+              f"per block (profiled, 10 blocks): "
               f"serving_kernel_launches={len(ours) / 10:g} other_device_ops="
               f"{(len(dev_events) - len(ours) - len(copies)) / 10:g} copies={len(copies) / 10:g} "
               f"device_us={dev_us:.1f} device_busy_share={dev_us / 1e3 / ms:.3f} "
@@ -1585,7 +1743,8 @@ def _ptxas_kernels(source: str, log: Optional[Path] = None,
         if m:
             mangled = m.group(1)
             k = re.search(kernel, mangled)
-            args = re.findall(r"L[bi](\d+)E", mangled[k.end():].split("Ev", 1)[0]) if k else []
+            args = [a.replace("n", "-") for a in re.findall(
+                r"L[bi](n?\d+)E", mangled[k.end():].split("Ev", 1)[0])] if k else []
             name = (k.group(1) if k else mangled) + (f"<{','.join(args)}>" if args else "")
             out[name] = [0, 0, 0]
         elif name and "spill stores" in line:
@@ -1603,21 +1762,25 @@ def _generated_ptxas(source: str) -> str:
 
 @contextlib.contextmanager
 def _old_kernels(active: bool):
-    """With ``active``, the training wrappers run the kernels as they were
-    before their redesign: B7 and B3 one thread per stream (lanes = 1), B8
-    and B4 the one-pass kernel.  For the before-and-after timing only."""
+    """With ``active``, the wrappers run the kernels as they were before
+    their redesign: B7, B3 and B1 one thread per stream (lanes = 1), B8 and
+    B4 the one-pass kernel, B2 the two omega solves one after the other.
+    For the before-and-after comparisons only."""
     if not active:
         yield
         return
-    saved = (fcirc.lanes_for, pb.launch_adjoint, fc.train_lanes, ct.launch_adjoint)
+    saved = (fcirc.lanes_for, pb.launch_adjoint, fc.nxh_lanes, ct.launch_adjoint,
+             fc.launch_analytic)
     fcirc.lanes_for = lambda prog, b: 1
     pb.launch_adjoint = pb.launch_adjoint_onepass
-    fc.train_lanes = lambda h, b: 1
+    fc.nxh_lanes = lambda h, b: 1
     ct.launch_adjoint = ct.launch_adjoint_onepass
+    fc.launch_analytic = fc.launch_analytic_serial
     try:
         yield
     finally:
-        fcirc.lanes_for, pb.launch_adjoint, fc.train_lanes, ct.launch_adjoint = saved
+        (fcirc.lanes_for, pb.launch_adjoint, fc.nxh_lanes, ct.launch_adjoint,
+         fc.launch_analytic) = saved
 
 
 def _scratch_bytes(adj, B: int, T: int) -> str:
@@ -2422,12 +2585,14 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
 
         serve()
         fallbacks = proc.fallbacks.get(member, 0)
-        wall = []
-        for _ in range(WALL_REPS):
-            t0 = time.perf_counter()
-            serve()
-            wall.append((time.perf_counter() - t0) * 1e3)
-        ms = statistics.median(wall)
+        # the scan engine's clipper members are one launch of B1 or B2 a
+        # block: served with those kernels before their redesign too
+        wall = _wall_in_turns(serve, engine == "scan" and group != "tube_screamer"
+                              and proc_name != "hpf")
+        ms = statistics.median(wall["after"])
+        before = (f" before_kernels_wall_ms={statistics.median(wall['before']):.4f} "
+                  f"[{min(wall['before']):.4f}, {max(wall['before']):.4f}] (in turns)"
+                  if "before" in wall else "")
         fell = proc.fallbacks.get(member, 0) - fallbacks
         # where a block's time goes: the device's share, and the host's
         # largest self-time operations
@@ -2440,14 +2605,13 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
         dev_us = sum(ev.time_range.elapsed_us() for ev in dev_events) / 10
         kernel_us = sum(ev.time_range.elapsed_us() for ev in dev_events if any(
             k in ev.name for k in ("deer_kernel", "circuit_kernel", "circuit_lanes_kernel",
-                                   "deer_clipper_kernel", "analytic_kernel",
-                                   "neural_kernel"))) / 10
+                                   "deer_clipper_kernel") + SERVE_KERNEL_NAMES)) / 10
         host = sorted((ev for ev in prof.key_averages() if ev.self_cpu_time_total > 0),
                       key=lambda ev: -ev.self_cpu_time_total)[:3]
         print(f"phase timing stream {proc_name} engine={engine} {member} "
-              f"block={STREAM_BLOCK} process_block_wall_ms={ms:.4f} [{min(wall):.4f}, "
-              f"{max(wall):.4f}] real_time_factor={block_audio_ms / ms:.2f} fallbacks="
-              f"{fell}/{WALL_REPS} residual={proc.last_residual[member]:.3e} per block (profiled, "
+              f"block={STREAM_BLOCK} process_block_wall_ms={ms:.4f} [{min(wall['after']):.4f}, "
+              f"{max(wall['after']):.4f}] real_time_factor={block_audio_ms / ms:.2f}{before} "
+              f"fallbacks={fell}/{WALL_REPS} residual={proc.last_residual[member]:.3e} per block (profiled, "
               f"10 blocks): device_ops={len(dev_events) / 10:g} device_us={dev_us:.1f} "
               f"serving_kernels_us={kernel_us:.1f} "
               f"device_busy_share={dev_us / 1e3 / ms:.3f} host_top_self_us="
@@ -2491,6 +2655,10 @@ def main() -> None:
     print(f"phase build seconds={build_s:.2f} lib={_build.library_path().name}", flush=True)
     for line in _ptxas_lines():
         print(f"  ptxas {line}", flush=True)
+    sass = _sass_summary()
+    for line in sass:
+        print(f"  sass {line}", flush=True)
+    _check(len(sass) == len(SASS_KERNELS), "the SASS of every summarised serving kernel")
 
     kernels = (serve_path(dev, card, args.seed) + train_path(dev, card, args.seed)
                + stream_path(dev, card, args.seed) + circuit_path(dev, card, args.seed)

@@ -43,7 +43,11 @@ _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "fused_clipper_analytic_launch": (
         [_vp, _vp, _vp, _vp, _i, _i] + [_f] * 8 + [_i, _vp], ctypes.c_int),
+    "fused_clipper_analytic_serial_launch": (
+        [_vp, _vp, _vp, _vp, _i, _i] + [_f] * 8 + [_i, _vp], ctypes.c_int),
     "fused_clipper_neural_launch": (
+        [_vp, _vp, _vp, _vp, _i, _i, _vp, _i, _i, _f, _i, _vp], ctypes.c_int),
+    "fused_clipper_neural_onethread_launch": (
         [_vp, _vp, _vp, _vp, _i, _i, _vp, _i, _i, _f, _vp], ctypes.c_int),
     "clipper_train_fwd_launch": (
         [_vp] * 7 + [_i, _i, _vp, _i, _i, _i, _i, _vp], ctypes.c_int),

@@ -128,7 +128,7 @@ train_fwd_lanes_kernel(const float* __restrict__ vin, const float* __restrict__ 
 
 // The (H, L, K) the lane kernel is built for: the families of the pretrained
 // zoo and the card tests (2x4, 4x4; 2x8, 4x8; 1x16, 2x16), each at the K
-// that ops/fused_clipper.py train_lanes can pick for its width.  Any other
+// that ops/fused_clipper.py nxh_lanes can pick for its width.  Any other
 // triple is an invalid value.
 template <typename F>
 cudaError_t by_family(int H, int L, int K, F f) {

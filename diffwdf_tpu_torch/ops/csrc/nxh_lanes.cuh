@@ -2,7 +2,9 @@
 // shared-memory row tiles of a kernel that gives each stream K lanes.
 //
 // Used by the generated forward kernel (ops/circuit_codegen.py, B7) for NxH
-// roots.  One stream's chain of samples is the whole cost of the
+// roots and by the clipper's serving and training forward kernels
+// (fused_clipper.cu, B1; clipper_train.cu, B3).  One stream's chain of
+// samples is the whole cost of the
 // one-thread-per-stream kernel: ~1,200 operations a sample, 1,168 of them in
 // the MLP (Tube Screamer 2x16), all on one thread.  Here a group of K lanes
 // serves one stream: the scalar tree runs on every lane of the group (the

@@ -20,7 +20,7 @@ and the training forward of the neural clipper,
 ``fused_clipper_neural_train_fwd``: the source resistance is per row (the
 hoisted per-chunk pot of the training data), and the root's incident wave
 a_t is written out as the residual of the adjoint (``ops.clipper_train``);
-its kernel gives each stream a group of lanes of a warp (:func:`train_lanes`).
+its kernel gives each stream a group of lanes of a warp (:func:`nxh_lanes`).
 
 A wrapper given CPU tensors runs its plain version (``*_plain``: a loop over
 time, vectorised over B); given CUDA tensors it launches its kernel from
@@ -52,8 +52,8 @@ from . import _build
 NEURAL_WIDTHS = (4, 8, 16)
 #: the group sizes K (lanes per stream) a lane-cooperative kernel of an NxH
 #: root can take, where they divide H (csrc/nxh_lanes.cuh; the generated
-#: forward, ``circuit_codegen._NeuralEmitter.lane_counts``, and the training
-#: forward, :func:`train_lanes`)
+#: forward, ``circuit_codegen._NeuralEmitter.lane_counts``, and the clipper's
+#: serving and training forward, :func:`nxh_lanes`)
 LANES = (4, 8, 16)
 #: the most lanes per stream a lane-cooperative kernel gives B streams: the
 #: target of the first row whose bound B does not exceed.  Measured on an
@@ -63,10 +63,30 @@ LANES = (4, 8, 16)
 #: weights from shared memory, K = 16 repeats the tree and the shuffles on
 #: too many lanes)
 LANE_TARGETS = ((2048, 16), (None, 8))
-#: the (H, L) of the NxH families the training forward's lane kernel is
-#: built for (csrc/clipper_train.cu by_family): the pretrained zoo's 2x4,
-#: 4x4, 2x8, 4x8, 2x16 and the 1x16
+#: the (H, L) of the NxH families the clipper's lane kernels are built for
+#: (by_family of csrc/clipper_train.cu, the training forward, and of
+#: csrc/fused_clipper.cu, serving): the pretrained zoo's 2x4, 4x4, 2x8, 4x8,
+#: 2x16 and the 1x16.  Serving runs any other NxH root one thread a stream.
 TRAIN_FAMILIES = ((4, 2), (4, 4), (8, 2), (8, 4), (16, 1), (16, 2))
+
+
+def _lanes_up_to(H: int, target: int) -> int:
+    return max(k for k in LANES if H % k == 0 and k <= target)
+
+
+def nxh_lanes(H: int, B: int) -> int:
+    """The lanes per stream of the clipper's lane kernels (the serving
+    kernel B1 and the training forward B3) for B streams of an NxH root of
+    width H: the largest K of LANES that divides H and is at most the
+    batch's target in LANE_TARGETS (K = 16 up to B = 2,048, else 8, for
+    H = 16)."""
+    return _lanes_up_to(H, next(k for bound, k in LANE_TARGETS if bound is None or B <= bound))
+
+
+def nxh_lane_counts(H: int) -> Tuple[int, ...]:
+    """The K the clipper's lane kernels are built for at width H: those
+    :func:`nxh_lanes` can pick (H = 16: 8 and 16)."""
+    return tuple(sorted({_lanes_up_to(H, target) for _, target in LANE_TARGETS}))
 
 
 def _f32(x) -> float:
@@ -159,6 +179,41 @@ def fused_clipper_analytic_plain(vin, z0, r_source, cap, Is, Vt_eff, n_up, n_dow
     return out, z
 
 
+def _launch_analytic(symbol, vin, z0, r_source, cap, Is, Vt_eff, n_up, n_down, fs,
+                     quality_iters):
+    consts = _analytic_constants(r_source, cap, fs, Is, Vt_eff, n_up, n_down)
+    B, T = vin.shape
+    lib = _build.library()
+    with torch.cuda.device(vin.device):
+        vin, z0, out, zf, stream = _launch_args(vin, z0)
+        err = getattr(lib, symbol)(vin.data_ptr(), z0.data_ptr(), out.data_ptr(), zf.data_ptr(),
+                                   B, T, *consts, int(quality_iters), stream)
+    _build.check(err, symbol)
+    return out, zf
+
+
+def launch_analytic(vin, z0, r_source, cap, Is, Vt_eff, n_up, n_down, *, fs: float,
+                    quality_iters: int = 3):
+    """Launch the analytic kernel on CUDA tensors (arguments and results as
+    :func:`fused_clipper_analytic`, B > 0): the diode pair's two omega
+    solves branch-free with their Newton steps unrolled, one on each lane of
+    a pair of lanes a stream, built for quality_iters 1, 2 and 3 (a run-time
+    loop for any other count).  Counts nothing."""
+    return _launch_analytic("fused_clipper_analytic_launch", vin, z0, r_source, cap, Is,
+                            Vt_eff, n_up, n_down, fs, quality_iters)
+
+
+def launch_analytic_serial(vin, z0, r_source, cap, Is, Vt_eff, n_up, n_down, *, fs: float,
+                           quality_iters: int = 3):
+    """The analytic kernel's earlier form (arguments as :func:`launch_analytic`):
+    the two omega solves one after the other, each behind its region
+    branches and a run-time Newton loop.  The wrapper never calls it; the
+    card tests and ``chip_smoke.py`` report its distance and time it as
+    "before".  Counts nothing."""
+    return _launch_analytic("fused_clipper_analytic_serial_launch", vin, z0, r_source, cap, Is,
+                            Vt_eff, n_up, n_down, fs, quality_iters)
+
+
 def fused_clipper_analytic(vin, z0, r_source, cap, Is, Vt_eff, n_up, n_down,
                            *, fs: float, quality_iters: int = 3):
     """Fused LPF diode clipper with the analytic diode-pair root.
@@ -171,19 +226,12 @@ def fused_clipper_analytic(vin, z0, r_source, cap, Is, Vt_eff, n_up, n_down,
         return fused_clipper_analytic_plain(vin, z0, r_source, cap, Is, Vt_eff, n_up,
                                             n_down, fs=fs, quality_iters=quality_iters)
     _check_io(vin, z0)
-    consts = _analytic_constants(r_source, cap, fs, Is, Vt_eff, n_up, n_down)
-    B, T = vin.shape
-    if B == 0:
+    if vin.shape[0] == 0:
         return torch.empty_like(vin), torch.empty_like(z0)
-    lib = _build.library()
-    with torch.cuda.device(vin.device):
-        vin, z0, out, zf, stream = _launch_args(vin, z0)
-        err = lib.fused_clipper_analytic_launch(
-            vin.data_ptr(), z0.data_ptr(), out.data_ptr(), zf.data_ptr(), B, T,
-            *consts, int(quality_iters), stream)
-    _build.check(err, "fused_clipper_analytic launch")
+    result = launch_analytic(vin, z0, r_source, cap, Is, Vt_eff, n_up, n_down, fs=fs,
+                             quality_iters=quality_iters)
     fused_clipper_analytic.launches += 1
-    return out, zf
+    return result
 
 
 fused_clipper_analytic.launches = 0
@@ -258,35 +306,76 @@ def fused_clipper_neural_plain(vin, z0, mlp_params: MLPParams, r_source, cap, *,
     return out, z
 
 
+def serve_weights(mlp_params: MLPParams, r_source, cap, fs: float, device):
+    """(H, L, p1R, weights) for the serving kernels: one contiguous f32
+    buffer w1a[H], c1[H] (log R folded in), w3[H], b3, then per hidden layer
+    W[H][H] and bias[H] (the layout of csrc/clipper_serve.cuh)."""
+    p1R, r_up = _lpf_adaptor(r_source, cap, fs)
+    H, w1a, c1, hidden, w3, b3 = _neural_weights(mlp_params, _f32(math.log(r_up)))
+    parts = [w1a, c1, w3, b3] + [x.reshape(-1) for layer in hidden for x in layer]
+    if any(p.device != device for p in parts):
+        raise ValueError(f"MLP weights must lie on {device}, like vin")
+    return H, len(hidden), _f32(p1R), torch.cat([p.detach() for p in parts]).contiguous()
+
+
+def neural_lanes(H: int, L: int, B: int) -> int:
+    """The lanes per stream of the serving kernel for B streams of an NxH
+    root with L hidden layers: :func:`nxh_lanes` for the families of
+    TRAIN_FAMILIES, which the lane kernel is built for, and 1 (the
+    one-thread kernel) for any other."""
+    return nxh_lanes(H, B) if (H, L) in TRAIN_FAMILIES else 1
+
+
+def launch_neural(vin, z0, mlp_params: MLPParams, r_source, cap, *, fs: float,
+                  lanes: Optional[int] = None):
+    """Launch the neural kernel on CUDA tensors (arguments and results as
+    :func:`fused_clipper_neural`, B > 0): ``lanes`` the lanes per stream
+    (default :func:`neural_lanes`; 1 is the one-thread kernel, which takes
+    any L, the lane kernel's earlier form that the card tests and
+    ``chip_smoke.py`` hold it to).  Counts nothing."""
+    H, L, p1R, weights = serve_weights(mlp_params, r_source, cap, fs, vin.device)
+    B, T = vin.shape
+    lanes = neural_lanes(H, L, B) if lanes is None else lanes
+    if lanes != 1 and ((H, L) not in TRAIN_FAMILIES or lanes not in nxh_lane_counts(H)):
+        raise ValueError(f"fused_clipper_neural: no lane kernel for a {L}x{H} root at "
+                         f"lanes={lanes}; it is built for (H, L) in {TRAIN_FAMILIES} at "
+                         f"nxh_lane_counts(H), and lanes=1 takes any root")
+    lib = _build.library()
+    with torch.cuda.device(vin.device):
+        vin, z0, out, zf, stream = _launch_args(vin, z0)
+        args = (vin.data_ptr(), z0.data_ptr(), out.data_ptr(), zf.data_ptr(), B, T,
+                weights.data_ptr(), H, L, p1R)
+        if lanes == 1:
+            err = lib.fused_clipper_neural_onethread_launch(*args, stream)
+        else:
+            err = lib.fused_clipper_neural_launch(*args, lanes, stream)
+    _build.check(err, "fused_clipper_neural launch")
+    return out, zf
+
+
 def fused_clipper_neural(vin, z0, mlp_params: MLPParams, r_source, cap, *, fs: float):
     """Fused LPF diode clipper with an NxH neural root (all-tanh, linear head).
 
-    vin: (B, T) float32; z0: (B,).  Returns (out (B, T), z_final (B,)).
+    vin: (B, T) float32; z0: (B,).  Returns (out (B, T), z_final (B,)).  On
+    the card each stream of a root in TRAIN_FAMILIES runs on a group of
+    lanes (:func:`neural_lanes`), any other root one thread a stream; the
+    launches of the latter are counted in ``one_thread_launches`` too.
     """
     if vin.device.type == "cpu":
         return fused_clipper_neural_plain(vin, z0, mlp_params, r_source, cap, fs=fs)
     _check_io(vin, z0)
-    p1R, r_up = _lpf_adaptor(r_source, cap, fs)
-    H, w1a, c1, hidden, w3, b3 = _neural_weights(mlp_params, _f32(math.log(r_up)))
-    parts = [w1a, c1, w3, b3] + [x.reshape(-1) for layer in hidden for x in layer]
-    if any(p.device != vin.device for p in parts):
-        raise ValueError(f"MLP weights must lie on {vin.device}, like vin")
-    B, T = vin.shape
-    if B == 0:
+    H, _, _, hidden, _, _ = _nxh_layers(mlp_params)
+    if vin.shape[0] == 0:
         return torch.empty_like(vin), torch.empty_like(z0)
-    lib = _build.library()
-    with torch.cuda.device(vin.device):
-        weights = torch.cat(parts).contiguous()
-        vin, z0, out, zf, stream = _launch_args(vin, z0)
-        err = lib.fused_clipper_neural_launch(
-            vin.data_ptr(), z0.data_ptr(), out.data_ptr(), zf.data_ptr(), B, T,
-            weights.data_ptr(), H, len(hidden), _f32(p1R), stream)
-    _build.check(err, "fused_clipper_neural launch")
+    lanes = neural_lanes(H, len(hidden), vin.shape[0])
+    result = launch_neural(vin, z0, mlp_params, r_source, cap, fs=fs, lanes=lanes)
     fused_clipper_neural.launches += 1
-    return out, zf
+    fused_clipper_neural.one_thread_launches += int(lanes == 1)
+    return result
 
 
 fused_clipper_neural.launches = 0
+fused_clipper_neural.one_thread_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -329,24 +418,6 @@ def train_weights(mlp_params: MLPParams, device):
     return H, len(hidden), torch.cat([p.detach() for p in parts]).contiguous()
 
 
-def _lanes_up_to(H: int, target: int) -> int:
-    return max(k for k in LANES if H % k == 0 and k <= target)
-
-
-def train_lanes(H: int, B: int) -> int:
-    """The lanes per stream of the training forward for B streams of an NxH
-    root of width H: the largest K of LANES that divides H and is at most
-    the batch's target in LANE_TARGETS (K = 16 up to B = 2,048, else 8, for
-    H = 16)."""
-    return _lanes_up_to(H, next(k for bound, k in LANE_TARGETS if bound is None or B <= bound))
-
-
-def train_lane_counts(H: int) -> Tuple[int, ...]:
-    """The K the training forward's lane kernel is built for at width H:
-    those :func:`train_lanes` can pick (H = 16: 8 and 16)."""
-    return tuple(sorted({_lanes_up_to(H, target) for _, target in LANE_TARGETS}))
-
-
 def fused_clipper_neural_train_fwd_plain(vin, z0, mlp_params: MLPParams, r_rows, cap, *,
                                          fs: float):
     """Plain PyTorch version of the training forward kernel: the same per-row
@@ -362,19 +433,19 @@ def launch_train_fwd(vin, z0, mlp_params: MLPParams, r_rows, cap, *, fs: float,
                      lanes: Optional[int] = None, writer: int = 0):
     """Launch the training forward kernel on CUDA tensors (arguments and
     results as :func:`fused_clipper_neural_train_fwd`, B > 0): ``lanes`` the
-    lanes per stream (default :func:`train_lanes`; 1 is the one-thread
+    lanes per stream (default :func:`nxh_lanes`; 1 is the one-thread
     kernel, the lane form's earlier form, which the card tests and
     ``chip_smoke.py`` hold it to), ``writer`` the lane of a group that
     writes the results (the tests run each).  Counts nothing."""
     H, L, weights = train_weights(mlp_params, vin.device)
     B, T = vin.shape
-    lanes = train_lanes(H, B) if lanes is None else lanes
+    lanes = nxh_lanes(H, B) if lanes is None else lanes
     if lanes != 1 and (H, L) not in TRAIN_FAMILIES:
         raise ValueError(f"fused_clipper_neural_train_fwd: no kernel for a {L}x{H} root; the "
                          f"kernel is built for (H, L) in {TRAIN_FAMILIES}")
-    if lanes != 1 and lanes not in train_lane_counts(H):
+    if lanes != 1 and lanes not in nxh_lane_counts(H):
         raise ValueError(f"fused_clipper_neural_train_fwd: lanes={lanes}, a root of width {H} "
-                         f"takes 1 or {train_lane_counts(H)}")
+                         f"takes 1 or {nxh_lane_counts(H)}")
     lib = _build.library()
     with torch.cuda.device(vin.device):
         p1r, log_r = row_constants(r_rows, cap, fs)
@@ -399,7 +470,7 @@ def fused_clipper_neural_train_fwd(vin, z0, mlp_params: MLPParams, r_rows, cap, 
     root's incident wave at step t: the residual of the adjoint
     (``ops.clipper_train``).  The differentiable op is
     ``ops.clipper_train.make_fused_clipper_train``.  On the card each stream
-    runs on a group of lanes (:func:`train_lanes`); the root's (H, L) must be
+    runs on a group of lanes (:func:`nxh_lanes`); the root's (H, L) must be
     one of TRAIN_FAMILIES.
     """
     if vin.device.type == "cpu":

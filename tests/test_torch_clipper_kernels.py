@@ -240,7 +240,7 @@ def test_host_lane_step_matches_one_thread_step(lib, n_layers, width):
         assert bool(torch.isfinite(got).all())
         np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=2e-5, rtol=0)
     ks = [k for k in fc.LANES if H % k == 0]
-    assert set(fc.train_lane_counts(H)) <= set(ks)  # every K the kernel is built for
+    assert set(fc.nxh_lane_counts(H)) <= set(ks)  # every K the kernel is built for
     for K in ks:
         out, a_seq, zf = torch.empty(K, b, t), torch.empty(K, b, t), torch.empty(K, b)
         lib.host_fwd_lanes(H, L, K, *_ptrs(vin, z0, p1r, log_r, out, a_seq, zf), b, t,
@@ -287,11 +287,11 @@ def test_train_lanes_follow_the_lane_table():
     of LANES dividing H at most the batch's target (K = 16 up to B = 2,048,
     else 8, for H = 16); the lane kernel is built for exactly the (H, L, K)
     of TRAIN_FAMILIES at those K (csrc/clipper_train.cu by_family)."""
-    assert [fc.train_lanes(16, n) for n in (1, 335, 1337, 2048, 2049, 8192)] == [16] * 4 + [8] * 2
-    assert [fc.train_lanes(h, n) for h in (4, 8) for n in (1, 8192)] == [4, 4, 8, 8]
-    assert {h: fc.train_lane_counts(h) for h in (4, 8, 16)} == {4: (4,), 8: (8,), 16: (8, 16)}
+    assert [fc.nxh_lanes(16, n) for n in (1, 335, 1337, 2048, 2049, 8192)] == [16] * 4 + [8] * 2
+    assert [fc.nxh_lanes(h, n) for h in (4, 8) for n in (1, 8192)] == [4, 4, 8, 8]
+    assert {h: fc.nxh_lane_counts(h) for h in (4, 8, 16)} == {4: (4,), 8: (8,), 16: (8, 16)}
     assert sorted((width, n) for n, width in FAMILIES) == sorted(fc.TRAIN_FAMILIES)
     source = (_build.CSRC_DIR / "clipper_train.cu").read_text()
     built = {tuple(map(int, m)) for m in re.findall(r"CLIPPER_FAMILY\((\d+), (\d+), (\d+)\)\n",
                                                      source)}
-    assert built == {(h, n, k) for h, n in fc.TRAIN_FAMILIES for k in fc.train_lane_counts(h)}
+    assert built == {(h, n, k) for h, n in fc.TRAIN_FAMILIES for k in fc.nxh_lane_counts(h)}

@@ -20,7 +20,12 @@ and the clipper's, B3 and B4, for every family); a short
 fused_generic run's loss history rtol 5e-4 of the same run through the
 plain versions (tests/test_parallel_bptt.py:579); the generated DEER
 kernel against its plain version and the exact recursion, Tube Screamer
-1e-4, HPF clipper 3e-4, neural clipper 5e-6 (tests/test_deer_circuit.py).
+1e-4, HPF clipper 3e-4, neural clipper 5e-6 (tests/test_deer_circuit.py);
+the serving kernels' redesigned forms: B1's lane kernel the one-thread
+kernel's bits (every family, every K, at B = 1, 777 and 4,096), a family
+outside the lane set on the one-thread kernel (its counter), B2 with both
+omega solves paired at iters 1, 2, 3 and the run-time loop (4), at B = 1
+and a ragged B, within the analytic budget, as is its earlier form.
 """
 
 import numpy as np
@@ -45,6 +50,7 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     fc.fused_clipper_analytic.launches = 0
     fc.fused_clipper_neural.launches = 0
+    fc.fused_clipper_neural.one_thread_launches = 0
     fc.fused_clipper_neural_train_fwd.launches = 0
     ct.clipper_adjoint.launches = 0
     return torch.device("cuda")
@@ -91,13 +97,24 @@ def test_neural_kernel_matches_plain(cuda, n_layers, width):
 
 @pytest.mark.gpu
 def test_kernels_carry_state_across_blocks(cuda):
+    """Two half blocks with the state carried equal one block, for every
+    form: B1's lane kernel (2x16) and one-thread kernel (a 3x16, outside the
+    lane set), B2 at its built counts 1 and 3 and its run-time loop (4)."""
     vin, z0 = _inputs(cuda, 300, 512, seed=3)
     mlp = NeuralDiodeRoot(name="dp").init_params(cuda)["dp"]
+    deep = NeuralDiodeRoot(name="dp", n_layers=3).init_params(cuda)["dp"]
     d = diode_1n4148_1u1d
+
+    def analytic(iters):
+        return lambda v, z: fc.fused_clipper_analytic(
+            v, z, R_SRC, CAP, d.Is, d.Vt * d.nabla, 1.0, 1.0, fs=FS, quality_iters=iters)
+
     runs = {
         "neural": lambda v, z: fc.fused_clipper_neural(v, z, mlp, R_SRC, CAP, fs=FS),
-        "analytic": lambda v, z: fc.fused_clipper_analytic(
-            v, z, R_SRC, CAP, d.Is, d.Vt * d.nabla, 1.0, 1.0, fs=FS),
+        "neural one-thread": lambda v, z: fc.fused_clipper_neural(v, z, deep, R_SRC, CAP, fs=FS),
+        "analytic": analytic(3),
+        "analytic low": analytic(1),
+        "analytic loop": analytic(4),
     }
     for run in runs.values():
         full, zf = run(vin, z0)
@@ -106,7 +123,77 @@ def test_kernels_carry_state_across_blocks(cuda):
         torch.cuda.synchronize()
         _close(torch.cat([h1, h2], 1), full, 1e-6)
         _close(z2, zf, 1e-6)
-    assert fc.fused_clipper_neural.launches == fc.fused_clipper_analytic.launches == 3
+    assert fc.fused_clipper_neural.launches == 6 and fc.fused_clipper_analytic.launches == 9
+    assert fc.fused_clipper_neural.one_thread_launches == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_layers,width", [(1, 16), (2, 4), (2, 8), (2, 16), (4, 4), (4, 8)])
+def test_neural_lanes_match_one_thread_kernel(cuda, n_layers, width):
+    """B1's lane kernel gives the one-thread kernel's bits for out and
+    z_final at every K built for the width, at B = 1, a ragged B (777) and
+    B = 4,096 (where the wrapper takes K = 8 for H = 16); the wrapper runs
+    the lane kernel, and both forms are within 2e-5 of plain."""
+    mlp = NeuralDiodeRoot(name="dp", n_layers=n_layers, layer_size=width).init_params(
+        cuda, torch.Generator().manual_seed(width + 20))["dp"]
+    for b, t in ((1, 300), (777, 257), (4096, 67)):
+        vin, z0 = _inputs(cuda, b, t, seed=width + b)
+        args = (vin, z0, mlp, R_SRC, CAP)
+        one = fc.launch_neural(*args, fs=FS, lanes=1)
+        for K in fc.nxh_lane_counts(width):
+            got = fc.launch_neural(*args, fs=FS, lanes=K)
+            assert all(torch.equal(g, w) for g, w in zip(got, one)), (b, K)
+        got = fc.fused_clipper_neural(*args, fs=FS)
+        assert all(torch.equal(g, w) for g, w in zip(got, one)), b
+        want = fc.fused_clipper_neural_plain(*args, fs=FS)
+        for g, w in zip(one, want):
+            _close(g, w, 2e-5)
+    torch.cuda.synchronize()
+    assert fc.fused_clipper_neural.launches == 3
+    assert fc.fused_clipper_neural.one_thread_launches == 0
+    assert [fc.neural_lanes(width, n_layers, b) for b in (1, 4096)] == (
+        [16, 8] if width == 16 else [width] * 2)
+
+
+@pytest.mark.gpu
+def test_neural_family_outside_lane_set_runs_one_thread_kernel(cuda):
+    """A 3x16 root, outside TRAIN_FAMILIES, is served by the one-thread
+    kernel (seen through the counter), within 2e-5 of plain; the lane
+    kernel refuses it."""
+    mlp = NeuralDiodeRoot(name="dp", n_layers=3).init_params(
+        cuda, torch.Generator().manual_seed(5))["dp"]
+    vin, z0 = _inputs(cuda, 200, 129, seed=5)
+    got = fc.fused_clipper_neural(vin, z0, mlp, R_SRC, CAP, fs=FS)
+    want = fc.fused_clipper_neural_plain(vin, z0, mlp, R_SRC, CAP, fs=FS)
+    torch.cuda.synchronize()
+    assert fc.fused_clipper_neural.launches == fc.fused_clipper_neural.one_thread_launches == 1
+    for g, w in zip(got, want):
+        _close(g, w, 2e-5)
+    with pytest.raises(ValueError, match="no lane kernel"):
+        fc.launch_neural(vin, z0, mlp, R_SRC, CAP, fs=FS, lanes=16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("diode", [diode_1n4148_1u1d, diode_1n4148_1u2d], ids=lambda d: d.name)
+@pytest.mark.parametrize("iters", [1, 2, 3, 4])
+@pytest.mark.parametrize("b", [1, 777])
+def test_analytic_pair_kernel_matches_plain(cuda, diode, iters, b):
+    """B2 with both omega solves branch-free and unrolled, one on each lane of
+    a pair (built for iters 1, 2, 3; 4 runs the run-time loop), is within
+    5e-6 of plain at B = 1 and a ragged B, as is its earlier form, whose
+    distance from the new kernel is printed."""
+    vin, z0 = _inputs(cuda, b, 300, seed=iters + b)
+    args = (vin, z0, R_SRC, CAP, diode.Is, diode.Vt * diode.nabla, diode.N_up, diode.N_down)
+    got = fc.fused_clipper_analytic(*args, fs=FS, quality_iters=iters)
+    old = fc.launch_analytic_serial(*args, fs=FS, quality_iters=iters)
+    want = fc.fused_clipper_analytic_plain(*args, fs=FS, quality_iters=iters)
+    torch.cuda.synchronize()
+    assert fc.fused_clipper_analytic.launches == 1
+    for g, o, w in zip(got, old, want):
+        _close(g, w, 5e-6)
+        _close(o, w, 5e-6)
+    print(f"B2 paired vs serial kernel b={b} iters={iters} {diode.name}: max_abs="
+          f"{max(float((g - o).abs().max()) for g, o in zip(got, old)):.3e}")
 
 
 @pytest.mark.gpu
@@ -173,7 +260,7 @@ def test_train_fwd_lanes_match_one_thread_kernel(cuda, n_layers, width):
         _, mlp, vin, z0, r_rows = _train_inputs(cuda, n_layers, width, b, t, seed=width + 5)
         args = (vin, z0, mlp, r_rows, TRAIN_CAP)
         want = fc.launch_train_fwd(*args, fs=TRAIN_FS, lanes=1)
-        for K in fc.train_lane_counts(width):
+        for K in fc.nxh_lane_counts(width):
             for writer in range(K):
                 got = fc.launch_train_fwd(*args, fs=TRAIN_FS, lanes=K, writer=writer)
                 for g, w in zip(got, want):
@@ -182,7 +269,7 @@ def test_train_fwd_lanes_match_one_thread_kernel(cuda, n_layers, width):
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     torch.cuda.synchronize()
     assert fc.fused_clipper_neural_train_fwd.launches == 2
-    assert [fc.train_lanes(width, b) for b in (1000, 2100)] == (
+    assert [fc.nxh_lanes(width, b) for b in (1000, 2100)] == (
         [16, 8] if width == 16 else [width] * 2)
 
 
