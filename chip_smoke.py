@@ -61,11 +61,15 @@ one line per phase:
              the plain versions, and the parts of one fused training step
              (forward kernel, loss, adjoint kernel, parameter VJP, Adam) and
              the whole step, with the earlier kernels and the new, in turns
-  kernels deer  the single-stream DEER kernel against its plain version
-             and against the exact recursion (the analytic kernel at B=1)
-             at T = 2048 and 16384, for the "toms" (8 sweeps, 3 omega
-             iterations) and "approx" (4, 1) configurations, hard overdrive,
-             and the residual certificate at R = 180 Ohm
+  kernels deer  the single-stream DEER kernel (a cluster of 16 CTAs)
+             against its plain version and against the exact recursion (the
+             analytic kernel at B=1) at T = 2048 and 16384, for the "toms"
+             (8 sweeps, 3 omega iterations) and "approx" (4, 1)
+             configurations, hard overdrive, and the residual certificate at
+             R = 180 Ohm; it and its comparison form at 8 CTAs
+             (ops/deer_forms.py) against the one-CTA kernel before the
+             redesign (its bits with no sweep); ptxas of all three and the
+             forms' SASS (no spill in the cluster kernels)
   stream     single-stream serving as a plugin drives it: one second of a
              seeded stereo strum at 96 kHz in 47 blocks of 2048 through
              make_clipper_processor(engine="deer") and (engine="scan"),
@@ -76,12 +80,19 @@ one line per phase:
              against the same processor on the CPU
   warmup     host wall ms of a cold first block, the first block after
              warmup([2048]) and the steady median, per engine
-  timing deer  CUDA-event medians of the DEER kernel and its plain version,
+  timing deer  CUDA-event medians (10 calls back to back) and device
+             times (launches queued back to back) of the DEER kernel at 16
+             CTAs and of its forms at 8 CTAs and one CTA, in turns, with
+             cudaOccupancyMaxActiveClusters, the device time with no sweep
+             and no relaxation, a relaxation pass and a sweep, and its plain
+             version;
              the exact engine's kernels B1 and B2 at B=1 and their earlier
              forms, in turns, with the SM clock and cycles per sample,
              process_block wall ms and real-time factor per engine (the scan
              engine's members with the earlier kernels too), and the device
-             work of one served block from a profiler trace
+             work of one served block from a profiler trace (taken again
+             until it holds one kernel event per counted launch; the line
+             says whether it does)
   build circuits  the generated kernels of six circuits (Tube Screamer
              analytic and pretrained 2x16, HPF clipper analytic and
              HPF-trained 2x16, LPF clipper, RC lowpass) and the K sweep's
@@ -144,13 +155,21 @@ one line per phase:
              Screamer analytic best and low and 2x16, the HPF clipper
              analytic best and low and 2x16, the LPF clipper with the five
              1U-1D neural sizes) and their exact recursions (B7), one nvcc
-             each, all started together: seconds cold and cached, ptxas
-             registers and spills, operations per sample
+             each, all started together: seconds cold and cached; the
+             comparison forms' sources (the cluster kernel at 8 CTAs and the
+             one-CTA kernel), built apart; the cold nvcc seconds of one
+             source alone (the Tube Screamer and its 2x16: the served source,
+             the forms, both in one source as before they were split; B5's
+             two sources); ptxas registers and spills and the SASS of the
+             cluster kernel and its forms (no spill in a cluster kernel),
+             operations per sample
   kernels deer circuit  each B9 against its plain version and the exact
              recursion (B7 at B=1) at T = 2048 and 16384, at the JAX suite's
-             budgets, with as many sweeps run; the adaptive HPF's early exit
-             at JAX's count; the residual flagging a hard-overdrive block; a
-             drive change with no nvcc run
+             budgets, with as many sweeps run, and at 16 and 8 CTAs against
+             the one-CTA kernel (its bits with no sweep); the adaptive HPF's
+             early exit at JAX's count; two chained 2x8-clipper blocks
+             against one solve, for each form; the residual flagging a
+             hard-overdrive block; a drive change with no nvcc run
   stream plugin  single-stream serving as a plugin drives it: the same strum
              through make_plugin_processor(engine="deer") and (engine="scan"),
              hot-swapping all 14 members with cutoff, drive and gain changes,
@@ -159,14 +178,20 @@ one line per phase:
              1000-sample block on B7; the HPF processor's four members and the
              clipper processor's neural member, deer against scan; warmup
              builds every member's kernels first
-  timing deer circuit  CUDA-event medians of B9's launch alone (arguments
-             and outputs prepared once) for the TS at T = 2048 and at the JAX
+  timing deer circuit  CUDA-event medians and device times of B9's
+             launch alone (arguments and outputs prepared once), at 16 CTAs
+             and as its forms (8 CTAs, one CTA) in turns, with
+             cudaOccupancyMaxActiveClusters (and for the TS bench and the
+             fixed HPF the time of a relaxation pass and of a sweep), for
+             the TS at T = 2048 and at the JAX
              bench's T = 16384 with 10 sweeps and 4 relaxations, the TS 2x16,
              the HPF at 48 fixed and adaptive sweeps and the 2x16 clipper,
              beside their bounds and plain versions, and
              process_block wall ms, real-time factor and a profile of one
-             block per group and engine (the plugin's scan-engine clipper
-             members with B1 and B2 before their redesign too, in turns)
+             block per group and engine (the deer engine's blocks with the
+             one-CTA kernels, the plugin's scan-engine clipper members with
+             B1 and B2 before their redesign too, in turns; the trace
+             checked as in timing deer)
 
 then a JSON line with every kernel's launches, error, times and bound, the
 card's name and power limit, and finally ``{"ok": true, "device": {...}}``.
@@ -178,6 +203,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import os
 import re
@@ -209,6 +235,7 @@ from diffwdf_tpu_torch.ops import _build
 from diffwdf_tpu_torch.ops import circuit_codegen as cg
 from diffwdf_tpu_torch.ops import clipper_train as ct
 from diffwdf_tpu_torch.ops import deer_circuit as dc
+from diffwdf_tpu_torch.ops import deer_forms as df
 from diffwdf_tpu_torch.ops import fused_circuit as fcirc
 from diffwdf_tpu_torch.ops import fused_clipper as fc
 from diffwdf_tpu_torch.ops import parallel_bptt as pb
@@ -379,13 +406,21 @@ def _adjoint_ops(h: int, n_hidden: int) -> int:
     return _neural_ops(h, n_hidden) - 7 + tangent + 13
 
 
+def _scan_ops(S: int) -> int:
+    """One sweep's block scan at S states, as the function needs it
+    whatever the kernel's layout: the exclusive scan of the 1024 block
+    totals (1023 compositions, S^2 (2S - 1) + 2 S^2 operations each) and
+    each block's start state (1024 applications, 2 S^2 each)."""
+    return 1023 * (S * S * (2 * S - 1) + 2 * S * S) + 1024 * 2 * S * S
+
+
 def _deer_ops(T: int, sweeps: int, relax: int, iters: int) -> int:
     """The DEER kernel on T samples: the max|v| pass, relax_passes true
     steps, per sweep a step with its Jacobian (14 more), the affine row
     (3 + 2) and the fix-up with its clamp (4), the emit pass (a step and 5),
-    and per sweep the block scan over 1024 totals (~25 operations each)."""
+    and per sweep the block scan (``_scan_ops``)."""
     f = _step_ops(iters)
-    return T * (2 + relax * f + sweeps * (f + 23) + f + 5) + sweeps * 1024 * 25
+    return T * (2 + relax * f + sweeps * (f + 23) + f + 5) + sweeps * _scan_ops(1)
 
 
 def _card() -> str:
@@ -459,6 +494,92 @@ def _timed(fn, runs: int = REPS):
     return statistics.median(ms), min(ms), max(ms)
 
 
+#: the DEER kernels' forms timed in turns: label -> form (the served cluster
+#: of 16 CTAs; ops/deer_forms.py's 8 CTAs and one-CTA kernel before the
+#: cluster redesign)
+DEER_FORMS = {"C16": pd.CLUSTER, "C8": df.C8, "one_cta": df.ONE_CTA}
+#: the DEER kernels' names in a profiler trace (B5's cluster and one-CTA
+#: kernels, B9's)
+DEER_KERNEL_NAMES = ("deer_clipper_cluster_kernel", "deer_clipper_kernel", "deer_cluster_kernel",
+                     "deer_kernel")
+
+
+def _b5_launch(form: int):
+    """B5's launch function at ``form`` (``parallel_time_deer.launch``'s
+    arguments): the served kernel at pd.CLUSTER, else the comparison form."""
+    return pd.launch if form == pd.CLUSTER else functools.partial(df.clipper_launch, form)
+
+
+def _b9_launcher(form: int):
+    """B9's launcher at ``form`` (``deer_circuit.launcher``'s arguments)."""
+    return dc.launcher if form == dc.CLUSTER else functools.partial(df.circuit_launcher, form)
+
+
+@contextlib.contextmanager
+def _deer_form(form: int):
+    """B5's and B9's wrappers launching ``form``: the comparison forms put
+    in the served launch functions' place (as ``_old_kernels`` does for the
+    other kernels)."""
+    saved = (pd.launch, dc.launcher)
+    pd.launch, dc.launcher = _b5_launch(form), _b9_launcher(form)
+    try:
+        yield
+    finally:
+        pd.launch, dc.launcher = saved
+
+
+def _device_ms(fn, calls: int = 10) -> float:
+    """Device ms per launch of the kernel that fn launches: CUDA events
+    between ``calls`` launches queued behind a ~10-ms spin of the card, so
+    that they run back to back whatever the host takes to issue them (the
+    median of the gaps).  A profiler trace missed most launches of the
+    generated kernels on some runs, so it is not read for this."""
+    torch.cuda.synchronize()
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(calls + 1)]
+    torch.cuda._sleep(20_000_000)
+    evs[0].record()
+    for ev in evs[1:]:
+        fn()
+        ev.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in zip(evs, evs[1:]))
+
+
+def _forms_in_turns(forms: dict, launch_only: Optional[dict] = None) -> dict:
+    """label -> (median, min, max of the per-call CUDA-event ms of 10 calls
+    back to back, over REPS runs in turns; the median of REPS device times
+    a launch, ``_device_ms`` of the same label in ``launch_only``, default
+    ``forms``): each fn launches one DEER kernel."""
+    launch_only = launch_only or forms
+    for fn in forms.values():  # warm-up
+        _cuda_ms(fn, 1, 2)
+    ms = {label: [] for label in forms}
+    dev = {label: [] for label in forms}
+    labels = list(forms)
+    for rep in range(REPS):
+        for label in (labels if rep % 2 else labels[::-1]):
+            ms[label] += _cuda_ms(forms[label], 1, 10)
+            dev[label].append(_device_ms(launch_only[label]))
+    return {label: (statistics.median(v), min(v), max(v), statistics.median(dev[label]))
+            for label, v in ms.items()}
+
+
+def _breakdown(make, sweeps: int, relax: int) -> str:
+    """Where a DEER launch's device time goes: ``make(sweeps, relax)`` gives
+    a call that launches the kernel with that many sweeps and relaxation
+    passes; the time with neither (stage, emit, launch), then each
+    relaxation pass and each sweep, from the differences."""
+    base, with_relax, whole = (_device_ms(make(s, r)) for s, r in
+                               ((0, 0), (0, relax), (sweeps, relax)))
+    return (f"no_sweep_no_relaxation_ms={base:.4f} per_relaxation_ms="
+            f"{(with_relax - base) / relax:.4f} per_sweep_ms={(whole - with_relax) / sweeps:.4f}")
+
+
+def _forms_line(times: dict) -> str:
+    return " ".join(f"{label}_ms={m:.4f} [{lo:.4f}, {hi:.4f}] {label}_device_ms={d:.4f}"
+                    for label, (m, lo, hi, d) in times.items())
+
+
 @contextlib.contextmanager
 def _sm_clock():
     """Sample card 0's SM clock (MHz) every 50 ms while the block runs;
@@ -499,27 +620,37 @@ SASS_KERNELS = ((r"\d+analytic_kernelE", "analytic_kernel"),
                 (r"\d+analytic_pair_kernelILi3EE", "analytic_pair_kernel<3>"),
                 (r"\d+neural_kernelILi16EE", "neural_kernel<16>"),
                 (r"\d+neural_lanes_kernelILi16ELi16ELi2EE", "neural_lanes_kernel<16,16,2>"),
-                (r"\d+neural_lanes_kernelILi16ELi8ELi2EE", "neural_lanes_kernel<16,8,2>"))
+                (r"\d+neural_lanes_kernelILi16ELi8ELi2EE", "neural_lanes_kernel<16,8,2>"),
+                (r"\d+deer_clipper_cluster_kernelILi16EE", "deer_clipper_cluster_kernel<16>"))
+#: B5's comparison forms' SASS (ops/deer_forms.py)
+DEER_CLIPPER_FORMS_SASS = ((r"\d+deer_clipper_kernelE", "deer_clipper_kernel"),
+                           (r"\d+deer_clipper_cluster_kernelILi8EE",
+                            "deer_clipper_cluster_kernel<8>"))
+#: the generated DEER kernels' SASS, summarised for each B9 source and its forms
+DEER_SASS_KERNELS = ((r"\d+deer_kernelE", "deer_kernel"),
+                     (r"\d+deer_cluster_kernelILi8EE", "deer_cluster_kernel<8>"),
+                     (r"\d+deer_cluster_kernelILi16EE", "deer_cluster_kernel<16>"))
 #: the SASS opcodes counted: the transcendental unit, branches, convergence
 #: barriers, calls (the IEEE division's slow path), local memory (spills),
 #: global and shared loads, shuffles
 SASS_OPS = ("MUFU", "BRA", "BSSY", "CALL", "LDL", "STL", "LDG", "LDS", "SHFL", "FFMA")
 
 
-def _sass_summary() -> list:
-    """One line per kernel of SASS_KERNELS from ``cuobjdump -sass`` of the
-    kernel library: its instructions and the count of each of SASS_OPS."""
+def _sass_summary(lib: Optional[Path] = None, kernels=SASS_KERNELS) -> list:
+    """One line per kernel of ``kernels`` from ``cuobjdump -sass`` of a
+    library (default: the kernel library): its instructions and the count
+    of each of SASS_OPS."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path())],
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib or _build.library_path())],
                           capture_output=True, text=True, check=True).stdout
     lines = []
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
         name = part.split("\n", 1)[0].strip()
-        label = next((lab for pat, lab in SASS_KERNELS if re.search(pat, name)), None)
+        label = next((lab for pat, lab in kernels if re.search(pat, name)), None)
         if label is None:
             continue
         ops = [m.split(".")[0] for m in re.findall(
-            r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", part)]
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", part)]
         lines.append(f"{label}: {len(ops)} instructions, "
                      + ", ".join(f"{op} {ops.count(op)}" for op in SASS_OPS))
     return lines
@@ -1085,9 +1216,43 @@ def _launches_of(fn) -> dict:
     return {k: v - before[k] for k, v in _launch_counts().items()}
 
 
+#: the kernels that serve a block, in a profiler trace (B1, B2, B5, B7, B9)
+SERVED_KERNEL_NAMES = (DEER_KERNEL_NAMES + SERVE_KERNEL_NAMES
+                       + ("circuit_kernel", "circuit_lanes_kernel"))
+
+
+def _profiled_blocks(serve, blocks: int = 10, tries: int = 3):
+    """A profiler trace of ``blocks`` calls of serve, taken again (up to
+    ``tries`` times) until it holds one event of SERVED_KERNEL_NAMES for
+    each launch the wrappers counted, so that a device busy share read from
+    it leaves no kernel out.  The card is synchronised before the trace
+    starts and before it ends: a kernel still running when it ends is not
+    in it (the last block's, where a block ends without a host read), and
+    with earlier blocks' work still queued at its start one launch of the
+    traced blocks went missing.  (prof, "kernels_traced=a/b
+    trace_complete=...")."""
+    for _ in range(tries):
+        before = sum(_all_launches().values())
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(blocks):
+                serve()
+            torch.cuda.synchronize()
+        launched = sum(_all_launches().values()) - before
+        traced = sum(1 for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA
+                     and any(k in ev.name for k in SERVED_KERNEL_NAMES))
+        if traced == launched:
+            break
+    return prof, f"kernels_traced={traced}/{launched} trace_complete={traced == launched}"
+
+
 def _deer_case(vin, r_src, fs, sweeps, iters, relax=2):
     """The DEER kernel on vin against its plain version and against the
-    exact recursion (the analytic kernel at B=1, same constants)."""
+    exact recursion (the analytic kernel at B=1, same constants), and at
+    each cluster size against the one-CTA kernel: with no sweep its bits
+    (``bits``), with the sweeps within ``one_cta`` of it."""
     d = diode_1n4148_1u1d
     args = (r_src, 2.2e-9, d.Is, d.Vt * d.nabla, d.N_up, d.N_down)
     kw = dict(fs=fs, sweeps=sweeps, relax_passes=relax, quality_iters=iters)
@@ -1095,12 +1260,21 @@ def _deer_case(vin, r_src, fs, sweeps, iters, relax=2):
     p_out, p_zf, p_res = pd.fused_deer_clipper_plain(vin, *args, **kw)
     e_out, e_zf = fc.fused_clipper_analytic(vin[None], torch.zeros(1, device=vin.device), *args,
                                             fs=fs, quality_iters=iters)
+    forms = {}
+    for c in DEER_FORMS.values():
+        with _deer_form(c):
+            forms[c] = (pd.fused_deer_clipper(vin, *args, **kw),
+                        pd.fused_deer_clipper(vin, *args, **{**kw, "sweeps": 0}))
     torch.cuda.synchronize()
     _check(bool(torch.isfinite(out).all()) and out.shape == vin.shape, "DEER output finite, shaped")
+    one, one_bare = forms[df.ONE_CTA]
     return {"plain": max(_max_err(out, p_out), _max_err(zf, p_zf)),
             "exact": max(_max_err(out, e_out[0]), _max_err(zf, e_zf[0])),
             "plain_exact": max(_max_err(p_out, e_out[0]), _max_err(p_zf, e_zf[0])),
-            "res": float(res), "plain_res": float(p_res)}
+            "res": float(res), "plain_res": float(p_res),
+            "bits": all(all(torch.equal(x, y) for x, y in zip(forms[c][1], one_bare))
+                        for c in (pd.CLUSTER, df.C8)),
+            "one_cta": max(_max_err(forms[c][0][0], one[0]) for c in (pd.CLUSTER, df.C8))}
 
 
 def stream_path(dev, card: str, seed: int) -> list:
@@ -1117,13 +1291,17 @@ def stream_path(dev, card: str, seed: int) -> list:
             plain_errs.append(e["plain"])
             converged = name == "toms" or T > 2048
             print(f"phase kernels deer {name} sweeps={sweeps} iters={iters} T={T} "
-                  f"vs_plain={e['plain']:.3e} budget=1e-06 vs_exact={e['exact']:.3e} "
+                  f"vs_plain={e['plain']:.3e} budget=1e-06 vs_one_cta={e['one_cta']:.3e} "
+                  f"no_sweep_bits_of_one_cta={e['bits']} vs_exact={e['exact']:.3e} "
                   + (f"budget={DEER_BUDGET[name]:.0e}" if converged else
                      f"plain_vs_exact={e['plain_exact']:.3e} (4 sweeps at L=2 leave the "
                      f"DEER algorithm unconverged: the kernel must reproduce the plain "
                      f"version's distance, within 1e-06)")
                   + f" residual={e['res']:.3e} plain_residual={e['plain_res']:.3e}", flush=True)
             _check(e["plain"] <= 1e-6, f"DEER kernel {name} T={T} within 1e-6 of its plain version")
+            _check(e["bits"] and e["one_cta"] <= 1e-6,
+                   f"DEER kernel {name} T={T}: the one-CTA kernel's bits with no sweep, within "
+                   "1e-6 of it with the sweeps, at 8 and 16 CTAs")
             _check(e["exact"] <= DEER_BUDGET[name] if converged
                    else abs(e["exact"] - e["plain_exact"]) <= 1e-6,
                    f"DEER kernel {name} T={T} against the exact recursion")
@@ -1147,6 +1325,19 @@ def stream_path(dev, card: str, seed: int) -> list:
     print(f"phase kernels deer r_source=180 T=2048 residual={e['res']:.3e} (must exceed 1e-02) "
           f"plain_residual={e['plain_res']:.3e} vs_exact={e['exact']:.3e}", flush=True)
     _check(e["res"] > 1e-2, "the residual certificate flags R = 180 Ohm")
+    forms_lib = _build.generated_path(df.CLIPPER_FORMS_SOURCE.read_text())
+    new_ptxas = {k: v for log in (_build.library_path(), forms_lib)
+                 for k, v in _ptxas_kernels("", log.with_suffix(".log"),
+                                            r"\d+(deer_clipper_(?:cluster_)?kernel)").items()
+                 if k.startswith("deer_clipper")}
+    print("phase kernels ptxas deer " + " | ".join(
+        f"{k}: {r} registers, {ss}/{sl} bytes spilled (stores/loads)"
+        for k, (r, ss, sl) in new_ptxas.items()), flush=True)
+    for line in _sass_summary(forms_lib, DEER_CLIPPER_FORMS_SASS):
+        print(f"  sass {line} (comparison form)", flush=True)
+    cluster_ptxas = {k: v for k, v in new_ptxas.items() if "cluster" in k}
+    _check(len(cluster_ptxas) == 2 and all(ss == sl == 0 for _, ss, sl in cluster_ptxas.values()),
+           f"no spills in B5's cluster kernels (16 CTAs; the form at 8): {cluster_ptxas}")
 
     # --- stream: the main path, counted ----------------------------------------
     n = STREAM_BLOCKS * STREAM_BLOCK
@@ -1265,15 +1456,36 @@ def stream_path(dev, card: str, seed: int) -> list:
     mlp = scan.circuits["neural_2x16"][1]["dp"]
     z1 = torch.zeros(1, device=dev)
     times = {}
+    clusters = {df.C8: df.clipper_max_clusters(), pd.CLUSTER: pd.max_active_clusters()}
     for T in DEER_T:
         vin = 2.0 * torch.randn(T, generator=gen, device=dev)
-        _cuda_ms(lambda: pd.fused_deer_clipper(vin, *args, fs=FS), 1, 10)  # warm-up
-        k = _cuda_ms(lambda: pd.fused_deer_clipper(vin, *args, fs=FS), REPS, 10)
+
+        def form(c):
+            def run():
+                with _deer_form(c):
+                    pd.fused_deer_clipper(vin, *args, fs=FS)
+            return run
+
+        def launch(c, sweeps=8, relax=2):
+            """B5's launch alone, on outputs allocated once."""
+            out, zf, res, s0 = (torch.empty_like(vin), *(torch.zeros((), device=dev)
+                                                          for _ in range(3)))
+            consts = pd._analytic_constants(*args[:2], FS, *args[2:])
+            fn = _b5_launch(c)
+            return lambda: fn(vin, s0, out, zf, res, T // 1024, consts, sweeps, relax, 3)
+
+        forms = _forms_in_turns({label: form(c) for label, c in DEER_FORMS.items()},
+                                {label: launch(c) for label, c in DEER_FORMS.items()})
+        parts = _breakdown(lambda s, r: launch(pd.CLUSTER, s, r), DEER_CFG["toms"][0], 2)
         p = _timed(lambda: pd.fused_deer_clipper_plain(vin, *args, fs=FS))
-        times[T] = (statistics.median(k), p[0])
-        print(f"phase timing deer T={T} runs={REPS} kernel_ms={statistics.median(k):.4f} "
-              f"[{min(k):.4f}, {max(k):.4f}] (10 launches per run) plain_ms={p[0]:.4f} "
-              f"[{p[1]:.4f}, {p[2]:.4f}] card={card!r}", flush=True)
+        times[T] = (forms[f"C{pd.CLUSTER}"][3], p[0])
+        bound = _bound(_deer_ops(T, DEER_CFG["toms"][0], 2, DEER_CFG["toms"][1]), 8 * T + 12)
+        print(f"phase timing deer T={T} runs={REPS} in turns (10 wrapper calls per run; "
+              f"device: launches back to back) {_forms_line(forms)} plain_ms={p[0]:.4f} "
+              f"[{p[1]:.4f}, {p[2]:.4f}] bound_ms={bound[0]:.7f} ({bound[1]}) "
+              f"max_active_clusters(8, 16)={clusters} card={card!r}", flush=True)
+        print(f"phase timing deer T={T} breakdown C{pd.CLUSTER} (device, toms) {parts} "
+              f"card={card!r}", flush=True)
         # the exact engine's kernels at B = 1, after and before their redesign,
         # in turns, 10 launches a run, with the SM clock sampled meanwhile
         exact = {"B2": lambda: fc.fused_clipper_analytic(vin[None], z1, *args, fs=FS),
@@ -1307,33 +1519,30 @@ def stream_path(dev, card: str, seed: int) -> list:
             proc.process_block(x0, "clipper", model=model, cutoff_hz=4000.0)
 
         serve()
-        wall = _wall_in_turns(serve, engine == "scan")
+        wall = _wall_in_turns(serve, True)
         ms = statistics.median(wall["after"])
         before = (f" before_kernels_wall_ms={statistics.median(wall['before']):.4f} "
                   f"[{min(wall['before']):.4f}, {max(wall['before']):.4f}] (in turns)"
                   if "before" in wall else "")
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                serve()
+        prof, traced = _profiled_blocks(serve)
         dev_events = [ev for ev in prof.events()
                       if ev.device_type == torch.autograd.DeviceType.CUDA]
-        ours = [ev for ev in dev_events if any(
-            k in ev.name for k in ("deer_clipper_kernel",) + SERVE_KERNEL_NAMES)]
+        ours = [ev for ev in dev_events if any(k in ev.name for k in SERVED_KERNEL_NAMES)]
         copies = [ev for ev in dev_events if "Memcpy" in ev.name or "Memset" in ev.name]
         dev_us = sum(ev.time_range.elapsed_us() for ev in dev_events) / 10
         print(f"phase timing stream engine={engine} model={model} block={STREAM_BLOCK} "
               f"process_block_wall_ms={ms:.4f} [{min(wall['after']):.4f}, "
               f"{max(wall['after']):.4f}] real_time_factor={block_audio_ms / ms:.2f}{before} "
               f"per block (profiled, 10 blocks): "
-              f"serving_kernel_launches={len(ours) / 10:g} other_device_ops="
+              f"serving_kernel_launches={len(ours) / 10:g} {traced} other_device_ops="
               f"{(len(dev_events) - len(ours) - len(copies)) / 10:g} copies={len(copies) / 10:g} "
               f"device_us={dev_us:.1f} device_busy_share={dev_us / 1e3 / ms:.3f} "
               f"card={card!r}", flush=True)
 
     sweeps, iters = DEER_CFG["toms"]
     bound = _bound(_deer_ops(STREAM_BLOCK, sweeps, 2, iters), 8 * STREAM_BLOCK + 12)
-    return [{"name": "fused_deer_clipper", "route": "cuda", "source": DEER_SOURCE,
+    return [{"name": f"fused_deer_clipper (deer_clipper_cluster_kernel<{pd.CLUSTER}>)",
+             "route": "cuda", "source": DEER_SOURCE,
              "replaces": DEER_REPLACES, "launches": launches["B5"],
              "max_abs_err": max(plain_errs), "ms": times[STREAM_BLOCK][0],
              "plain_ms": times[STREAM_BLOCK][1], "bound_ms": bound[0], "bound_by": bound[1],
@@ -1755,17 +1964,24 @@ def _ptxas_kernels(source: str, log: Optional[Path] = None,
     return {k: tuple(v) for k, v in out.items()}
 
 
-def _generated_ptxas(source: str) -> str:
+def _generated_ptxas(source: str, kernel: str = r"\d+(circuit_\w*?kernel)") -> str:
     return " | ".join(f"{k}: {r} registers, {ss}/{sl} bytes spilled (stores/loads)"
-                      for k, (r, ss, sl) in _ptxas_kernels(source).items())
+                      for k, (r, ss, sl) in _ptxas_kernels(source, kernel=kernel).items())
+
+
+#: the generated DEER kernels in a ptxas log: the one-CTA deer_kernel and
+#: deer_cluster_kernel<C>
+DEER_PTXAS = r"\d+(deer_\w*?kernel)"
 
 
 @contextlib.contextmanager
 def _old_kernels(active: bool):
     """With ``active``, the wrappers run the kernels as they were before
     their redesign: B7, B3 and B1 one thread per stream (lanes = 1), B8 and
-    B4 the one-pass kernel, B2 the two omega solves one after the other.
-    For the before-and-after comparisons only."""
+    B4 the one-pass kernel, B2 the two omega solves one after the other, B5
+    and B9 the one-CTA kernels (with omega()'s zero-residual skip, which
+    their earlier builds did not take).  For the before-and-after
+    comparisons only."""
     if not active:
         yield
         return
@@ -1777,7 +1993,8 @@ def _old_kernels(active: bool):
     ct.launch_adjoint = ct.launch_adjoint_onepass
     fc.launch_analytic = fc.launch_analytic_serial
     try:
-        yield
+        with _deer_form(df.ONE_CTA):
+            yield
     finally:
         (fcirc.lanes_for, pb.launch_adjoint, fc.nxh_lanes, ct.launch_adjoint,
          fc.launch_analytic) = saved
@@ -2254,17 +2471,12 @@ def _dc_ops(deer, T: int, sweeps: int, relax: int, damping: float, adapt_tol: fl
     c = f - J z (2 S^2), the composition onto the block's prefix
     (S^2 (2S - 1) + 2 S^2) and the fix-up: apply (2 S^2) and clamp (2 S),
     the damping (3 S) only when damping != 1, the update (2 S) only when
-    adapt_tol > 0.  Per sweep and time block: the thread's chain, the start
-    state (2 S^2) and the application; per sweep the CTA scan: 129
-    compositions in each warp's shuffles, those of warp 0 over the warp
-    totals that reach a warp, and one for each thread after warp 0."""
-    S, nb, nt = deer.n_state, cg.DEER_BLOCKS, cg.DEER_THREADS
+    adapt_tol > 0; per sweep the block scan (``_scan_ops``)."""
+    S = deer.n_state
     compose = S * S * (2 * S - 1) + 2 * S * S
     row = (deer.ops_per_sample + 2 * S * S + compose + 2 * S * S + 2 * S
            + (3 * S if damping != 1.0 else 0) + (2 * S if adapt_tol > 0 else 0))
-    warps = nt // 32
-    scan = warps * 129 + sum(max(0, warps - d) for d in (1, 2, 4, 8, 16)) + nt - 32
-    per_sweep = T * row + nb * (2 * compose + 2 * S * S) + scan * compose
+    per_sweep = T * row + _scan_ops(S)
     return T * ((relax + 1) * deer.step_ops + 2 * S) + sweeps * per_sweep
 
 
@@ -2293,6 +2505,36 @@ def _counted(fn) -> dict:
     return {k: v - before[k] for k, v in _all_launches().items() if v != before[k]}
 
 
+def _nvcc_seconds(jobs: dict) -> dict:
+    """label -> source text: the wall seconds of one cold nvcc of each into
+    a shared library (ops/_build.py's flags, csrc/ on the include path) in a
+    temporary directory, all started together."""
+    nvcc = _build._nvcc()
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        try:
+            for i, (label, text) in enumerate(jobs.items()):
+                cu = Path(tmp) / f"source{i}.cu"
+                cu.write_text(text)
+                procs[label] = (time.perf_counter(), subprocess.Popen(
+                    [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR), "-shared", "-o",
+                     str(cu.with_suffix(".so")), str(cu)],
+                    stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
+            while len(seconds) < len(procs):
+                for label, (t0, proc) in procs.items():
+                    if label not in seconds and proc.poll() is not None:
+                        seconds[label] = time.perf_counter() - t0
+                        _check(proc.returncode == 0, f"nvcc of {label}")
+                time.sleep(0.02)
+        finally:
+            for _, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    return seconds
+
+
 def deer_circuit_path(dev, card: str, seed: int) -> list:
     """Single-stream serving of the generic circuits: build deer, kernels
     deer circuit, stream plugin and timing deer circuit phases.  Returns the
@@ -2313,13 +2555,68 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
     t0 = time.perf_counter()
     _build.build_generated(sources)
     cached_s = time.perf_counter() - t0
+    nvcc_runs = _build.build_generated.builds - builds
+    # the comparison forms (ops/deer_forms.py), which the served path never builds
+    t0 = time.perf_counter()
+    _build.build_generated([d.forms_source for d in deers.values()])
+    forms_s = time.perf_counter() - t0
     print(f"phase build deer sources={len(set(sources))} (B9 {len(deers)}, B7 {len(progs)}) "
-          f"nvcc_runs="
-          f"{_build.build_generated.builds - builds} cold_seconds={cold_s:.2f} "
-          f"cached_seconds={cached_s:.4f}", flush=True)
+          f"nvcc_runs={nvcc_runs} cold_seconds={cold_s:.2f} cached_seconds={cached_s:.4f} "
+          f"forms_sources={len(deers)} forms_cold_seconds={forms_s:.2f}", flush=True)
+    # one cold nvcc of a DEER source, each alone in its process, all started
+    # together: the served source (the cluster kernel at 16 CTAs), the forms,
+    # and both in one source as they were built before they were split
+    jobs = {f"{name}_{kind}": text for name in ("ts", "ts_2x16")
+            for kind, text in (("served", deers[name].source),
+                               ("forms", deers[name].forms_source),
+                               ("served_and_forms", cg.deer_source(
+                                   deers[name], cg.DEER_FORMS + (cg.DEER_CLUSTER,))))}
+    jobs.update({"b5_served": (_build.CSRC_DIR / "parallel_time_deer.cu").read_text(),
+                 "b5_forms": df.CLIPPER_FORMS_SOURCE.read_text()})
+    seconds = _nvcc_seconds(jobs)
+    print("phase build deer nvcc_seconds (cold, one source a process, "
+          f"{len(jobs)} started together) " + " ".join(
+              f"{label}={sec:.2f}" for label, sec in seconds.items()), flush=True)
+    spilled = {}
     for name, d in deers.items():
+        ptxas = {k: v for src in (d.source, d.forms_source)
+                 for k, v in _ptxas_kernels(src, kernel=DEER_PTXAS).items()}
         print(f"  ptxas deer {name} states={d.n_state} deer_step_ops={d.ops_per_sample} "
-              f"forward_step_ops={d.step_ops} {_generated_ptxas(d.source)}", flush=True)
+              f"forward_step_ops={d.step_ops} " + " | ".join(
+                  f"{k}: {r} registers, {ss}/{sl} bytes spilled (stores/loads)"
+                  for k, (r, ss, sl) in ptxas.items()), flush=True)
+        for src, what in ((d.source, ""), (d.forms_source, " (comparison form)")):
+            for line in _sass_summary(_build.generated_path(src), DEER_SASS_KERNELS):
+                print(f"  sass deer {name} {line}{what}", flush=True)
+        cluster_ptxas = {k: v for k, v in ptxas.items() if k.startswith("deer_cluster_kernel")}
+        _check(len(cluster_ptxas) == 2, f"B9 {name}: the cluster kernel and its form at 8 CTAs")
+        spilled.update({f"{name}/{k}": v for k, v in cluster_ptxas.items() if v[1] or v[2]})
+    _check(not spilled, f"no spills in B9's cluster kernels: {spilled}")
+
+    def launch_only(case, vin, form=dc.CLUSTER, **kw):
+        """B9's launch alone, on arguments and outputs prepared once, as
+        ``form`` (the served cluster kernel, or a comparison form)."""
+        s0 = kw.pop("s0", None)
+        ckt, params, node, neural, skw, _ = case
+        skw = {**skw, **kw}
+        mlp = params[ckt.root.name] if neural else None
+        prep = fcirc.prepare(ckt, params, dev, input_node=node, neural_mlp=mlp)
+        s0 = dc._state_vector(prep, ckt, None, vin) if s0 is None else s0
+        return _b9_launcher(form)(ckt, prep, vin, s0, vin.shape[0] // dc.NB,
+                                  skw.get("sweeps", 8), skw.get("relax_passes", 2),
+                                  skw.get("damping", 1.0), skw.get("adapt_tol", 0.0),
+                                  dc.fused_deer_neural if neural else dc.fused_deer_circuit)
+
+    def one_cta_check(case, vin):
+        """(the one-CTA kernel's bits with no sweep at 16 and 8 CTAs, the
+        largest output difference from it with the case's sweeps)."""
+        runs = {c: ([t.clone() for t in launch_only(case, vin, c)()],
+                    [t.clone() for t in launch_only(case, vin, c, sweeps=0)()])
+                for c in DEER_FORMS.values()}
+        one, one_bare = runs[df.ONE_CTA]
+        clusters = (dc.CLUSTER, df.C8)
+        bits = all(all(torch.equal(x, y) for x, y in zip(runs[c][1], one_bare)) for c in clusters)
+        return bits, max(_max_err(runs[c][0][0], one[0]) for c in clusters)
 
     # --- kernels deer circuit: B9 against plain and the exact recursion --------
     builds = _build.build_generated.builds
@@ -2338,6 +2635,7 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
             vs_plain = max(_max_err(out, p_out), _state_err(st, p_st))
             vs_exact = max(_max_err(out, e_out), _state_err(st, e_st))
             plain_exact = max(_max_err(p_out, e_out), _state_err(p_st, e_st))
+            bits, vs_one = one_cta_check(case, vin)
             res, p_res, n, p_n = (float(x) for x in (res, p_res, n, p_n))
             budget = DC_BUDGET[kind]
             converged = p_res < 1e-3
@@ -2345,13 +2643,17 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
             print(f"phase kernels deer circuit {name} T={T} sweeps_run={n:g} plain_sweeps_run="
                   f"{p_n:g} vs_plain={vs_plain:.3e} vs_exact={vs_exact:.3e} plain_vs_exact="
                   f"{plain_exact:.3e} budget={budget:g} residual={res:.3e} plain_residual="
-                  f"{p_res:.3e} converged={converged}", flush=True)
+                  f"{p_res:.3e} converged={converged} vs_one_cta={vs_one:.3e} "
+                  f"no_sweep_bits_of_one_cta={bits}", flush=True)
             _check(bool(torch.isfinite(out).all()) and out.shape == vin.shape,
                    f"B9 {name} T={T} output finite, shaped")
+            _check(bits, f"B9 {name} T={T}: the one-CTA kernel's bits with no sweep")
             _check(n == p_n, f"B9 {name} T={T} runs as many sweeps as its plain version")
             if converged:
-                _check(vs_plain <= budget and vs_exact <= budget and res < 1e-3,
-                       f"B9 {name} T={T} within {budget:g} of plain and of the exact recursion")
+                _check(vs_plain <= budget and vs_exact <= budget and res < 1e-3
+                       and vs_one <= budget,
+                       f"B9 {name} T={T} within {budget:g} of plain, of the exact recursion "
+                       "and of the one-CTA kernel")
             else:  # same algorithm: the same trajectory, flagged in both versions
                 unconverged.append(f"{name}/{T}")
                 _check(vs_plain <= DC_UNCONVERGED_BUDGET and res > 1e-3,
@@ -2371,6 +2673,22 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
     print(f"phase kernels deer circuit hpf adaptive numpy_seed=2 amplitude=0.5 T=2048 "
           f"sweeps_run={n:g} plain_sweeps_run={p_n:g} (JAX kernel: 20) cap=48", flush=True)
     _check(n == p_n == 20, "the adaptive HPF exits early as its plain version and JAX's")
+    # two chained blocks against one solve: the 2x8 clipper on the card
+    # test's input (numpy seed 115, 2 N(0, 1), then the same reversed), each
+    # form on the same input
+    half = torch.from_numpy((2.0 * np.random.default_rng(115).standard_normal(2048))
+                            .astype(np.float32)).to(dev)
+    x = torch.cat([half, half.flip(0)])
+    chained = {}
+    for label, form in DEER_FORMS.items():
+        full = launch_only(cases["clip_2x8"], x, form)()[0].clone()
+        a_out, a_zf = (t.clone() for t in launch_only(cases["clip_2x8"], x[:2048], form)()[:2])
+        b_out = launch_only(cases["clip_2x8"], x[2048:], form, s0=a_zf)()[0]
+        chained[label] = _max_err(torch.cat([a_out, b_out]), full)
+    print("phase kernels deer circuit clip_2x8 chained T=2x2048 two_blocks_vs_one_solve "
+          + " ".join(f"{label}={err:.3e}" for label, err in chained.items())
+          + " budget=2e-06 (the JAX suite's for chained DEER blocks)", flush=True)
+    _check(chained[f"C{dc.CLUSTER}"] <= 2e-6, "two chained B9 blocks equal one solve")
     # hard overdrive: the Tube Screamer on 4 N(0, 1), 8 sweeps
     vin = 4.0 * torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(2048)
                                  .astype(np.float32)).to(dev)
@@ -2520,18 +2838,6 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
     _check(_build.build_generated.builds == builds, "no served block ran nvcc after warmup")
 
     # --- timing deer circuit ----------------------------------------------------
-    def launch_only(case, vin, **kw):
-        """B9's launch alone, on arguments and outputs prepared once."""
-        ckt, params, node, neural, skw, _ = case
-        skw = {**skw, **kw}
-        mlp = params[ckt.root.name] if neural else None
-        prep = fcirc.prepare(ckt, params, dev, input_node=node, neural_mlp=mlp)
-        s0 = dc._state_vector(prep, ckt, None, vin)
-        return dc.launcher(ckt, prep, vin, s0, vin.shape[0] // dc.NB, skw.get("sweeps", 8),
-                           skw.get("relax_passes", 2), skw.get("damping", 1.0),
-                           skw.get("adapt_tol", 0.0),
-                           dc.fused_deer_neural if neural else dc.fused_deer_circuit)
-
     timing = {}
     bench = torch.from_numpy((2.0 * np.random.default_rng(seed + 9).standard_normal(16384))
                              .astype(np.float32)).to(dev)  # bench.py:647-651, 723-726
@@ -2543,9 +2849,13 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
             ("clip_2x16", "clip_2x16", _dc_input("clip", 2048, seed + 6, dev), {})]
     for label, name, vin, kw in rows:
         case = cases[name]
-        fn = launch_only(case, vin, **kw)
-        _cuda_ms(fn, 1, 2)  # warm-up
-        kms = _cuda_ms(fn, REPS, 10)
+        forms = _forms_in_turns({f: launch_only(case, vin, c, **kw)
+                                 for f, c in DEER_FORMS.items()})
+        ckt, params, node, neural = case[:4]
+        prep = fcirc.prepare(ckt, params, dev, input_node=node,
+                             neural_mlp=params[ckt.root.name] if neural else None)
+        clusters = {df.C8: df.circuit_max_clusters(ckt, prep),
+                    dc.CLUSTER: dc.max_active_clusters(ckt, prep)}
         t0 = time.perf_counter()
         _, _, p_res, p_n = _dc_solve(case, vin, plain=True, **kw)
         torch.cuda.synchronize()
@@ -2558,12 +2868,20 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
         ops = _dc_ops(d, T, int(n), skw.get("relax_passes", 2), skw.get("damping", 1.0),
                       skw.get("adapt_tol", 0.0))
         bound = _bound(ops, 8 * T + 8 * d.n_state + 8)
-        timing[label] = (statistics.median(kms), p_ms, bound)
-        print(f"phase timing deer circuit {label} T={T} sweeps_run={n:g} runs={REPS} "
-              f"kernel_ms={statistics.median(kms):.4f} [{min(kms):.4f}, {max(kms):.4f}] "
-              f"(10 launches per run) plain_ms={p_ms:.1f} (host clock, one run) residual="
+        dev_ms = forms[f"C{dc.CLUSTER}"][3]
+        timing[label] = (dev_ms, p_ms, bound)
+        print(f"phase timing deer circuit {label} T={T} sweeps_run={n:g} runs={REPS} in turns "
+              f"(10 launches per run; device: launches back to back) "
+              f"{_forms_line(forms)} plain_ms={p_ms:.1f} (host clock, one run) residual="
               f"{res:.3e} ops={ops} bound_ms={bound[0]:.6f} ({bound[1]}) "
-              f"share={bound[0] / statistics.median(kms):.5f} card={card!r}", flush=True)
+              f"share={bound[0] / dev_ms:.5f} max_active_clusters(8, 16)={clusters} "
+              f"card={card!r}", flush=True)
+        if label in ("ts bench", "hpf fixed"):
+            parts = _breakdown(lambda sw, r: launch_only(case, vin, dc.CLUSTER, **{
+                **kw, "sweeps": sw, "relax_passes": r, "adapt_tol": 0.0}), int(n),
+                skw.get("relax_passes", 2))
+            print(f"phase timing deer circuit {label} breakdown C{dc.CLUSTER} (device) {parts} "
+                  f"card={card!r}", flush=True)
     block_audio_ms = STREAM_BLOCK / FS * 1e3
     x0 = blocks[1]
     served = [("plugin", e, g, m, kw) for e in ("deer", "scan")
@@ -2587,8 +2905,8 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
         fallbacks = proc.fallbacks.get(member, 0)
         # the scan engine's clipper members are one launch of B1 or B2 a
         # block: served with those kernels before their redesign too
-        wall = _wall_in_turns(serve, engine == "scan" and group != "tube_screamer"
-                              and proc_name != "hpf")
+        wall = _wall_in_turns(serve, engine == "deer" or (
+            engine == "scan" and group != "tube_screamer" and proc_name != "hpf"))
         ms = statistics.median(wall["after"])
         before = (f" before_kernels_wall_ms={statistics.median(wall['before']):.4f} "
                   f"[{min(wall['before']):.4f}, {max(wall['before']):.4f}] (in turns)"
@@ -2596,16 +2914,12 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
         fell = proc.fallbacks.get(member, 0) - fallbacks
         # where a block's time goes: the device's share, and the host's
         # largest self-time operations
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                serve()
+        prof, traced = _profiled_blocks(serve)
         dev_events = [ev for ev in prof.events()
                       if ev.device_type == torch.autograd.DeviceType.CUDA]
         dev_us = sum(ev.time_range.elapsed_us() for ev in dev_events) / 10
         kernel_us = sum(ev.time_range.elapsed_us() for ev in dev_events if any(
-            k in ev.name for k in ("deer_kernel", "circuit_kernel", "circuit_lanes_kernel",
-                                   "deer_clipper_kernel") + SERVE_KERNEL_NAMES)) / 10
+            k in ev.name for k in SERVED_KERNEL_NAMES)) / 10
         host = sorted((ev for ev in prof.key_averages() if ev.self_cpu_time_total > 0),
                       key=lambda ev: -ev.self_cpu_time_total)[:3]
         print(f"phase timing stream {proc_name} engine={engine} {member} "
@@ -2613,7 +2927,7 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
               f"{max(wall['after']):.4f}] real_time_factor={block_audio_ms / ms:.2f}{before} "
               f"fallbacks={fell}/{WALL_REPS} residual={proc.last_residual[member]:.3e} per block (profiled, "
               f"10 blocks): device_ops={len(dev_events) / 10:g} device_us={dev_us:.1f} "
-              f"serving_kernels_us={kernel_us:.1f} "
+              f"serving_kernels_us={kernel_us:.1f} {traced} "
               f"device_busy_share={dev_us / 1e3 / ms:.3f} host_top_self_us="
               f"{ {ev.key: round(ev.self_cpu_time_total / 10, 1) for ev in host} } "
               f"card={card!r}", flush=True)
@@ -2621,7 +2935,8 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
     for entry, label in (("circuit", "ts bench"), ("neural", "clip_2x16")):
         kms, p_ms, bound = timing[label]
         records.append({
-            "name": f"fused_deer_{entry}", "route": "cuda", "source": CIRCUIT_SOURCE,
+            "name": f"fused_deer_{entry} (deer_cluster_kernel<{dc.CLUSTER}>)", "route": "cuda",
+            "source": CIRCUIT_SOURCE,
             "replaces": DC_REPLACES[entry],
             "launches": launches["B9" if entry == "circuit" else "B9n"],
             "max_abs_err": max(plain_errs[entry]), "ms": kms, "plain_ms": p_ms,

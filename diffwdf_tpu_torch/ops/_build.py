@@ -1,7 +1,7 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
-At first use, ``library()`` compiles every ``.cu`` file under ``csrc/`` with
-``nvcc`` (one compiler process per source, all started together), links the
+At first use, ``library()`` compiles every ``.cu`` file of ``csrc/`` (not of
+``csrc/forms/``) with ``nvcc`` (one compiler process per source, all started together), links the
 objects into one shared library with a plain C interface and loads it with
 ``ctypes``.  The library lands in ``diffwdf_tpu_torch/_build/`` (listed in
 ``.gitignore``) under a name keyed by a hash of the sources, the headers
@@ -10,7 +10,10 @@ an unchanged one is loaded as it is.  Nothing is compiled when the module is
 imported.
 
 Generated sources (``ops.circuit_codegen``, a forward, an adjoint and a DEER
-solve per circuit structure) take another path: ``generated_library(source)`` writes
+solve per circuit structure) and the DEER kernels' comparison forms
+(``ops.deer_forms``: a generated circuit's ``forms_source`` and
+``csrc/forms/deer_clipper_forms.cu``, which ``library()`` leaves out) take
+another path: ``generated_library(source)`` writes
 the source into the same directory, compiles it alone into its own library
 with the same flags (the
 headers of ``csrc/`` on the include path) and keys it by a hash of the
@@ -59,6 +62,7 @@ _SIGNATURES = {
         [_vp] * 8 + [_i, _i, _vp, _i, _i, _vp], ctypes.c_int),
     "deer_clipper_launch": (
         [_vp] * 6 + [_i] + [_f] * 8 + [_i] * 3 + [_vp], ctypes.c_int),
+    "deer_clipper_max_clusters": ([], ctypes.c_int),
     "fused_clipper_cheb_launch": (
         [_vp] * 4 + [_i, _i, _vp, _i, _i, _i, _f, _vp], ctypes.c_int),
     "diffwdf_cuda_error_string": ([_i], ctypes.c_char_p),
@@ -150,15 +154,26 @@ def check(err: int, what: str, error_string=None) -> None:
 
 #: C signatures of the generated circuit kernel libraries (a forward source
 #: exports circuit_launch, an adjoint source its two passes and the one-pass
-#: reference, a DEER source circuit_deer_launch)
+#: reference, a DEER source circuit_deer_launch and its cluster occupancy
+#: query) and of the DEER kernels' comparison forms (a generated circuit's
+#: DeerProgram.forms_source, the clipper's csrc/forms/deer_clipper_forms.cu:
+#: the kernel at 8 CTAs and the one-CTA kernel before the cluster redesign)
+_DEER = [_vp] * 6 + [_i] + [_vp] * 2 + [_i] * 4 + [_f] * 2 + [_i, _vp]
+_DEER_CLIPPER = [_vp] * 6 + [_i] + [_f] * 8 + [_i] * 3 + [_vp]
 _GENERATED_SIGNATURES = {
     "circuit_launch": ([_vp] * 5 + [_i, _i] + [_vp] * 4 + [_i] * 3 + [_vp], ctypes.c_int),
     "circuit_jacobian_launch": ([_vp] * 4 + [_i] * 4 + [_vp] * 4 + [_i, _vp], ctypes.c_int),
     "circuit_recursion_launch": ([_vp] * 5 + [_i] * 4 + [_vp], ctypes.c_int),
     "circuit_adjoint_onepass_launch": ([_vp] * 7 + [_i, _i] + [_vp] * 4 + [_i, _vp],
                                        ctypes.c_int),
-    "circuit_deer_launch": ([_vp] * 6 + [_i] + [_vp] * 2 + [_i] * 4 + [_f] * 2 + [_i, _vp],
-                            ctypes.c_int),
+    "circuit_deer_launch": (_DEER, ctypes.c_int),
+    "circuit_deer_max_clusters": ([_i], ctypes.c_int),
+    "circuit_deer_c8_launch": (_DEER, ctypes.c_int),
+    "circuit_deer_c8_max_clusters": ([_i], ctypes.c_int),
+    "circuit_deer_onecta_launch": (_DEER, ctypes.c_int),
+    "deer_clipper_c8_launch": (_DEER_CLIPPER, ctypes.c_int),
+    "deer_clipper_c8_max_clusters": ([], ctypes.c_int),
+    "deer_clipper_onecta_launch": (_DEER_CLIPPER, ctypes.c_int),
     "circuit_error_string": ([_i], ctypes.c_char_p),
 }
 

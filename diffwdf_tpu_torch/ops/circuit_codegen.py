@@ -15,8 +15,10 @@ Three kernels per circuit structure:
   t = T-1 ... 0 through them (``generate_adjoint``);
 - the **DEER solve** (``DeerProgram.source``, ``ops.deer_circuit``): one
   stream's recursion solved parallel in time by Newton sweeps over the
-  whole trajectory, one CTA, its step writing f and the S x S state
-  Jacobian from S forward-mode tangents (``generate_deer``).
+  whole trajectory, on a cluster of CTAs (``csrc/deer_cluster.cuh``), its
+  step writing f and the S x S state Jacobian from S forward-mode tangents
+  (``generate_deer``); its comparison forms (``DeerProgram.forms_source``,
+  ``ops.deer_forms``) are a source of their own.
 
 The per-sample steps are generated by **tracing** the circuit's own pure
 step: the tree's ``reflected`` / ``incident`` methods (``core``) run once on
@@ -2062,27 +2064,282 @@ extern "C" void circuit_recursion_host_run(const float* jac, const float* lam_in
 # The DEER program (single-stream parallel-in-time solve)
 # ---------------------------------------------------------------------------
 
-#: the DEER kernel's time partition (the JAX kernel's 8 x 128 blocks) and its
-#: one CTA: each thread owns DEER_BLOCKS // DEER_THREADS consecutive blocks
+#: the DEER kernels' time partition (the JAX kernel's 8 x 128 blocks) and
+#: their CTA size: the cluster kernels' CTAs, and the one-CTA kernel before
+#: the redesign, whose threads own DEER_BLOCKS // DEER_THREADS consecutive
+#: blocks each
 DEER_BLOCKS, DEER_THREADS = 1024, 256
-
+#: CTAs of the cluster that serves a solve (DeerProgram.source): 16, a
+#: non-portable cluster size
+DEER_CLUSTER = 16
+#: the comparison forms (DeerProgram.forms_source, ops.deer_forms): the one-CTA
+#: kernel before the cluster redesign (DEER_ONE_CTA) and the cluster at 8 CTAs
+DEER_ONE_CTA = 1
+DEER_FORMS = (DEER_ONE_CTA, 8)
 
 @dataclasses.dataclass(frozen=True)
 class DeerProgram:
     """The generated DEER kernel of one circuit structure (scalar slots
     only; the layout is its forward program's)."""
 
-    source: str            # the whole .cu: both steps, the kernel, the launch function
-    host_source: str       # the forward and DEER steps and a host loop of the DEER step (tests)
+    source: str            # the served .cu: the steps, the cluster kernel at DEER_CLUSTER CTAs
+    forms_source: str      # the comparison forms' .cu (DEER_FORMS), built only to compare
+    step_source: str       # the forward and DEER steps and CircuitDeer, both sources' start
+    host_source: str       # step_source and a host loop of the DEER step (tests)
     n_state: int
     ops_per_sample: int    # the DEER step (f and J), counted from the emitted code
     step_ops: int          # the forward step (relaxation and emit passes)
 
     def scratch_floats(self, T: int) -> int:
-        """Global scratch of one solve: the input, the trajectory and the
-        within-block prefixes (S^2 + S), T floats each."""
+        """Global scratch of one solve: the input, two trajectory buffers
+        (S each; the one-CTA kernel of the forms uses one) and the rows
+        (J_t, c_t) or their within-block prefixes (S^2 + S), T floats each."""
         S = self.n_state
-        return (1 + S + S * S + S) * T
+        return (1 + 3 * S + S * S) * T
+
+
+#: the one-CTA kernel before the cluster redesign (DEER_ONE_CTA): its comment
+#: and its code, as it was built before the redesign
+_DEER_ONECTA_COMMENT = f"""// deer_kernel: the kernel before the cluster redesign, one CTA on one SM.
+//
+// Time is cut into {DEER_BLOCKS} contiguous blocks of L samples (the JAX
+// kernel's partition, which decides what a relaxation and a sweep compute);
+// each of the {DEER_THREADS} threads owns {DEER_BLOCKS // DEER_THREADS} consecutive blocks, so
+// that a thread may hold up to 255 registers (__launch_bounds__({DEER_THREADS}, 1)):
+// the Tube Screamer's steps need well over the 64 that 1024 threads would
+// leave.  The kernel runs
+//   - relax_passes nonlinear block relaxations: every block re-runs the
+//     recursion (circuit_step) from the previous iterate's block start;
+//   - Newton sweeps: each block composes its rows' affine maps (J_t, c_t =
+//     f - J_t z_(t-1), from circuit_deer_step at the current guess) into
+//     within-block prefixes, each thread composes its blocks' totals, the CTA
+//     scans the thread totals (deer_scan.cuh), and each block applies its
+//     prefixes to its start state; the iterate is clamped to
+//     +-100 (max|v| + 1), then damped, z <- z_old + d (z_new - z_old).  With
+//     tol >= 0 (adapt_tol) the loop stops once the largest update of the
+//     last sweep of a trip of `unroll` sweeps falls below tol;
+//   - an emit pass: the probe output at the converged trajectory, the
+//     residual max|f(z_(t-1)) - z_t| (a convergence certificate), the final
+//     state and the sweeps run.
+// The input, the trajectory and the prefixes live in global scratch (T
+// floats each, (1 + 2 S + S^2) T in all, resident in L2) laid out
+// [r][j][t] for row r of block j of thread t, so that a row is one coalesced
+// access across the CTA.  __syncthreads() separates every read of a
+// neighbouring block's last z from the pass that rewrites z.  The
+// coefficient slots and the root array sit in shared memory.
+//
+// What bounds it: one SM's instruction rate and each thread's chain of
+// (blocks per thread) x L dependent steps per pass; the bytes (the input in,
+// the output out) are a few microseconds' worth at most.
+"""
+_DEER_ONECTA_KERNEL = """__global__ void __launch_bounds__(kThreads, 1)
+deer_kernel(const float* __restrict__ vin, const float* __restrict__ z0, float* __restrict__ out,
+            float* __restrict__ zf, float* __restrict__ info, float* __restrict__ scratch, int L,
+            const float* __restrict__ coef, const float* __restrict__ warr, int n_warr,
+            int sweeps, int relax_passes, int unroll, float damping, float tol, int track) {
+  extern __shared__ float smem[];
+  __shared__ Map s_tot[32];
+  __shared__ float s_red[32];
+  const int t = threadIdx.x;
+  float* s_coef = smem;
+  float* s_w = smem + ((CIRCUIT_NC + 3) & ~3);
+  for (int i = t; i < CIRCUIT_NC; i += kThreads) s_coef[i] = coef[i];
+  for (int i = t; i < n_warr; i += kThreads) s_w[i] = warr[i];
+  __syncthreads();
+  const float* c = s_coef;
+  const float* w = s_w;
+  float r_none[1] = {0.f}, q_none[1] = {0.f}, p[kDeerKeep];
+  circuit_prologue(c, r_none, w, p);
+
+  constexpr int kPer = kBlocks / kThreads;  // consecutive time blocks per thread
+  const size_t T = static_cast<size_t>(L) * kBlocks;
+  // element (r, j) of this thread in a [r][j][t] array
+  auto at = [&](int r, int j) { return (static_cast<size_t>(r) * kPer + j) * kThreads + t; };
+  float* V = scratch;
+  float* Z = scratch + T;                  // Z + k T: state k of the trajectory guess
+  float* JP = scratch + (1 + S) * T;       // JP + (i S + k) T: within-block prefix J
+  float* CP = scratch + (1 + S + S * S) * T;  // CP + i T: within-block prefix c
+  float s0[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) s0[k] = z0[k];
+  // the guess at the sample before block j's first: block j-1's last, the
+  // previous thread's last block's for j = 0, the initial state for block 0
+  auto block_start = [&](int j, float* z) {
+    const size_t last = static_cast<size_t>(L - 1) * kPer + kPer - 1;  // (L - 1, kPer - 1)
+    const size_t i = j > 0 ? at(L - 1, j - 1) : last * kThreads + t - (t > 0);
+    if (j == 0 && t == 0) {
+#pragma unroll
+      for (int k = 0; k < S; ++k) z[k] = s0[k];
+    } else {
+#pragma unroll
+      for (int k = 0; k < S; ++k) z[k] = Z[k * T + i];
+    }
+  };
+
+  // stage the input, zero the guess; a loose divergence backstop: generic
+  // circuits (op-amp stages) carry states far beyond the input range
+  float vmax = 0.f;
+  for (int j = 0; j < kPer; ++j) {
+    const size_t b = static_cast<size_t>(t) * kPer + j;
+    for (int r = 0; r < L; ++r) {
+      const float x = vin[b * L + r];
+      V[at(r, j)] = x;
+#pragma unroll
+      for (int k = 0; k < S; ++k) Z[k * T + at(r, j)] = 0.f;
+      vmax = deer_nanmax(vmax, fabsf(x));
+    }
+  }
+  const float v_bound = __fmul_rn(100.f, __fadd_rn(deer_block_max(vmax, s_red), 1.f));
+
+  for (int pass = 0; pass < relax_passes; ++pass) {
+    float first[S];
+    block_start(0, first);  // the previous thread's block, read before any rewrite
+    __syncthreads();
+    // last block first: block j - 1's last row is still the old iterate
+#pragma unroll 1
+    for (int j = kPer - 1; j >= 0; --j) {
+      float z[S];
+      if (j > 0) {
+        block_start(j, z);
+      } else {
+#pragma unroll
+        for (int k = 0; k < S; ++k) z[k] = first[k];
+      }
+      for (int r = 0; r < L; ++r) {
+        circuit_step(V[at(r, j)], z, c, r_none, q_none, w, p);
+#pragma unroll
+        for (int k = 0; k < S; ++k) Z[k * T + at(r, j)] = z[k];
+      }
+    }
+    __syncthreads();  // the new iterate is visible to the neighbours
+  }
+
+  // one Newton sweep; returns the CTA's largest state update when asked
+  auto sweep = [&](bool reduce) {
+    Map total = deer_identity<S>();  // this thread's blocks, composed
+#pragma unroll 1
+    for (int j = 0; j < kPer; ++j) {
+      float prev[S];
+      block_start(j, prev);  // z is not rewritten before the scan's barriers
+      Map acc = deer_identity<S>();
+      for (int r = 0; r < L; ++r) {
+        const size_t i = at(r, j);
+        Map row;
+        float f[S];
+        circuit_deer_step(V[i], prev, f, row.J, c, w, p);
+#pragma unroll
+        for (int a = 0; a < S; ++a) {
+          float jz = __fmul_rn(row.J[a * S], prev[0]);
+#pragma unroll
+          for (int k = 1; k < S; ++k) jz = __fadd_rn(jz, __fmul_rn(row.J[a * S + k], prev[k]));
+          row.c[a] = __fsub_rn(f[a], jz);
+        }
+        acc = deer_compose(acc, row);
+#pragma unroll
+        for (int m = 0; m < S * S; ++m) JP[m * T + i] = acc.J[m];
+#pragma unroll
+        for (int a = 0; a < S; ++a) {
+          CP[a * T + i] = acc.c[a];
+          prev[a] = Z[a * T + i];  // row r + 1 linearises at the guess z_r
+        }
+      }
+      total = deer_compose(total, acc);
+    }
+    Map ex = deer_block_exclusive_scan(total, s_tot);  // the blocks before this thread's
+    float dmax = 0.f;
+#pragma unroll 1
+    for (int j = 0; j < kPer; ++j) {
+      float zs[S];
+      deer_apply(ex, s0, zs);  // block j's start state
+      for (int r = 0; r < L; ++r) {
+        const size_t i = at(r, j);
+#pragma unroll
+        for (int a = 0; a < S; ++a) {
+          float zn = __fmul_rn(JP[a * S * T + i], zs[0]);
+#pragma unroll
+          for (int k = 1; k < S; ++k) zn = __fadd_rn(zn, __fmul_rn(JP[(a * S + k) * T + i], zs[k]));
+          zn = __fadd_rn(zn, CP[a * T + i]);
+          zn = zn < -v_bound ? -v_bound : (zn > v_bound ? v_bound : zn);  // NaN stays
+          const float zo = Z[a * T + i];
+          if (damping != 1.f) zn = __fadd_rn(zo, __fmul_rn(damping, __fsub_rn(zn, zo)));
+          if (track) dmax = deer_nanmax(dmax, fabsf(__fsub_rn(zn, zo)));
+          Z[a * T + i] = zn;
+        }
+      }
+      Map block;  // block j's total: its last prefix
+#pragma unroll
+      for (int m = 0; m < S * S; ++m) block.J[m] = JP[m * T + at(L - 1, j)];
+#pragma unroll
+      for (int a = 0; a < S; ++a) block.c[a] = CP[a * T + at(L - 1, j)];
+      ex = deer_compose(ex, block);
+    }
+    __syncthreads();  // the new iterate is visible to the neighbours
+    return reduce ? deer_block_max(dmax, s_red) : 0.f;
+  };
+
+  // trips of `unroll` sweeps; with track the last sweep's largest update is
+  // the exit test, so the sweeps run are a multiple of unroll
+  const float limit = track ? tol : -1.f;
+  int done = 0;
+  float delta = INFINITY;
+  while (done < sweeps && delta >= limit) {
+    for (int q = 0; q < unroll; ++q) {
+      const float d = sweep(track && q == unroll - 1);
+      if (q == unroll - 1) delta = d;
+    }
+    done += unroll;
+  }
+  done = min(done, sweeps);
+
+  float res = 0.f;
+#pragma unroll 1
+  for (int j = 0; j < kPer; ++j) {
+    float prev[S];
+    block_start(j, prev);
+    for (int r = 0; r < L; ++r) {
+      const size_t i = at(r, j);
+      float z[S];
+#pragma unroll
+      for (int k = 0; k < S; ++k) z[k] = prev[k];
+      const float y = circuit_step(V[i], z, c, r_none, q_none, w, p);
+#pragma unroll
+      for (int k = 0; k < S; ++k) {
+        prev[k] = Z[k * T + i];
+        res = deer_nanmax(res, fabsf(__fsub_rn(z[k], prev[k])));
+      }
+      out[(static_cast<size_t>(t) * kPer + j) * L + r] = y;
+    }
+  }
+  res = deer_block_max(res, s_red);
+  if (t == kThreads - 1) {
+#pragma unroll
+    for (int k = 0; k < S; ++k) zf[k] = Z[k * T + at(L - 1, kPer - 1)];
+  }
+  if (t == 0) {
+    info[0] = res;
+    info[1] = static_cast<float>(done);
+  }
+}
+"""
+#: the cluster kernel on the generated step (deer_cluster.cuh)
+_DEER_CLUSTER_KERNEL = """template <int C>
+__global__ void __launch_bounds__(kThreads, 1)
+deer_cluster_kernel(DeerArgs a, const float* __restrict__ coef, const float* __restrict__ warr,
+                    int n_warr) {
+  extern __shared__ float smem[];
+  float* s_coef = smem;
+  float* s_w = smem + ((CIRCUIT_NC + 3) & ~3);
+  for (int i = threadIdx.x; i < CIRCUIT_NC; i += kThreads) s_coef[i] = coef[i];
+  for (int i = threadIdx.x; i < n_warr; i += kThreads) s_w[i] = warr[i];
+  __syncthreads();
+  CircuitDeer st;
+  st.c = s_coef;
+  st.w = s_w;
+  const float r_none[1] = {0.f};
+  circuit_prologue(s_coef, r_none, s_w, st.p);
+  deer_cluster_solve<C, kThreads, S>(st, a);
+}
+"""
 
 
 def generate_deer(circuit: Circuit, prog: CircuitProgram) -> DeerProgram:
@@ -2133,6 +2390,8 @@ def generate_deer(circuit: Circuit, prog: CircuitProgram) -> DeerProgram:
 // Operations per sample (counted from the emitted f and J lines): {ops}
 namespace {{
 
+constexpr int kDeerKeep = {max(emitter.n_keep, 1)};  // floats of the prologue's p
+
 // One linearisation: v = v_t, z[CIRCUIT_NS] = z_(t-1); writes f = F(z, v)
 // and J[i * CIRCUIT_NS + k] = dF_i / dz_k, returns the output.  Plain C, as
 // circuit_step.
@@ -2148,270 +2407,35 @@ __device__ __forceinline__ float circuit_deer_step(float v, const float* z, floa
   return {out.ref};
 }}
 
-}}  // namespace
-"""
-    kernel = f"""
-#include "deer_scan.cuh"
+// The circuit as deer_cluster.cuh's step: the coefficient slots c and the
+// root array w (shared memory), the prologue's per-thread p.  Its relax and
+// emit are the forward step of the one-CTA kernel's relaxation and emit
+// passes, its lin the DEER step, with the same arguments.
+struct CircuitDeer {{
+  const float* c;
+  const float* w;
+  float p[kDeerKeep];
 
-// The whole single-stream DEER solve of one block of T = 1024 L samples in
-// one launch of one CTA.  Replaces the Pallas TPU kernel
-// diffwdf_tpu/ops/deer_circuit.py, fused_deer_circuit / fused_deer_neural.
-//
-// Time is cut into {DEER_BLOCKS} contiguous blocks of L samples (the JAX
-// kernel's partition, which decides what a relaxation and a sweep compute);
-// each of the {DEER_THREADS} threads owns {DEER_BLOCKS // DEER_THREADS} consecutive blocks, so
-// that a thread may hold up to 255 registers (__launch_bounds__({DEER_THREADS}, 1)):
-// the Tube Screamer's steps need well over the 64 that 1024 threads would
-// leave.  The kernel runs
-//   - relax_passes nonlinear block relaxations: every block re-runs the
-//     recursion (circuit_step) from the previous iterate's block start;
-//   - Newton sweeps: each block composes its rows' affine maps (J_t, c_t =
-//     f - J_t z_(t-1), from circuit_deer_step at the current guess) into
-//     within-block prefixes, each thread composes its blocks' totals, the CTA
-//     scans the thread totals (deer_scan.cuh), and each block applies its
-//     prefixes to its start state; the iterate is clamped to
-//     +-100 (max|v| + 1), then damped, z <- z_old + d (z_new - z_old).  With
-//     tol >= 0 (adapt_tol) the loop stops once the largest update of the
-//     last sweep of a trip of `unroll` sweeps falls below tol;
-//   - an emit pass: the probe output at the converged trajectory, the
-//     residual max|f(z_(t-1)) - z_t| (a convergence certificate), the final
-//     state and the sweeps run.
-// The input, the trajectory and the prefixes live in global scratch (T
-// floats each, (1 + 2 S + S^2) T in all, resident in L2) laid out
-// [r][j][t] for row r of block j of thread t, so that a row is one coalesced
-// access across the CTA.  __syncthreads() separates every read of a
-// neighbouring block's last z from the pass that rewrites z.  The
-// coefficient slots and the root array sit in shared memory.
-//
-// What bounds it: one SM's instruction rate and each thread's chain of
-// (blocks per thread) x L dependent steps per pass; the bytes (the input in,
-// the output out) are a few microseconds' worth at most.
-namespace {{
-
-constexpr int kBlocks = {DEER_BLOCKS};
-constexpr int kThreads = {DEER_THREADS};
-constexpr int kPer = kBlocks / kThreads;  // consecutive time blocks per thread
-constexpr int S = CIRCUIT_NS;
-using Map = DeerAffine<S>;
-
-__global__ void __launch_bounds__(kThreads, 1)
-deer_kernel(const float* __restrict__ vin, const float* __restrict__ z0, float* __restrict__ out,
-            float* __restrict__ zf, float* __restrict__ info, float* __restrict__ scratch, int L,
-            const float* __restrict__ coef, const float* __restrict__ warr, int n_warr,
-            int sweeps, int relax_passes, int unroll, float damping, float tol, int track) {{
-  extern __shared__ float smem[];
-  __shared__ Map s_tot[32];
-  __shared__ float s_red[32];
-  const int t = threadIdx.x;
-  float* s_coef = smem;
-  float* s_w = smem + ((CIRCUIT_NC + 3) & ~3);
-  for (int i = t; i < CIRCUIT_NC; i += kThreads) s_coef[i] = coef[i];
-  for (int i = t; i < n_warr; i += kThreads) s_w[i] = warr[i];
-  __syncthreads();
-  const float* c = s_coef;
-  const float* w = s_w;
-  float r_none[1] = {{0.f}}, q_none[1] = {{0.f}}, p[{max(emitter.n_keep, 1)}];
-  circuit_prologue(c, r_none, w, p);
-
-  const size_t T = static_cast<size_t>(L) * kBlocks;
-  // element (r, j) of this thread in a [r][j][t] array
-  auto at = [&](int r, int j) {{ return (static_cast<size_t>(r) * kPer + j) * kThreads + t; }};
-  float* V = scratch;
-  float* Z = scratch + T;                  // Z + k T: state k of the trajectory guess
-  float* JP = scratch + (1 + S) * T;       // JP + (i S + k) T: within-block prefix J
-  float* CP = scratch + (1 + S + S * S) * T;  // CP + i T: within-block prefix c
-  float s0[S];
-#pragma unroll
-  for (int k = 0; k < S; ++k) s0[k] = z0[k];
-  // the guess at the sample before block j's first: block j-1's last, the
-  // previous thread's last block's for j = 0, the initial state for block 0
-  auto block_start = [&](int j, float* z) {{
-    const size_t last = static_cast<size_t>(L - 1) * kPer + kPer - 1;  // (L - 1, kPer - 1)
-    const size_t i = j > 0 ? at(L - 1, j - 1) : last * kThreads + t - (t > 0);
-    if (j == 0 && t == 0) {{
-#pragma unroll
-      for (int k = 0; k < S; ++k) z[k] = s0[k];
-    }} else {{
-#pragma unroll
-      for (int k = 0; k < S; ++k) z[k] = Z[k * T + i];
-    }}
-  }};
-
-  // stage the input, zero the guess; a loose divergence backstop: generic
-  // circuits (op-amp stages) carry states far beyond the input range
-  float vmax = 0.f;
-  for (int j = 0; j < kPer; ++j) {{
-    const size_t b = static_cast<size_t>(t) * kPer + j;
-    for (int r = 0; r < L; ++r) {{
-      const float x = vin[b * L + r];
-      V[at(r, j)] = x;
-#pragma unroll
-      for (int k = 0; k < S; ++k) Z[k * T + at(r, j)] = 0.f;
-      vmax = deer_nanmax(vmax, fabsf(x));
-    }}
+  __device__ __forceinline__ float bound(float vmax) const {{
+    return __fmul_rn(100.f, __fadd_rn(vmax, 1.f));
   }}
-  const float v_bound = __fmul_rn(100.f, __fadd_rn(deer_block_max(vmax, s_red), 1.f));
-
-  for (int pass = 0; pass < relax_passes; ++pass) {{
-    float first[S];
-    block_start(0, first);  // the previous thread's block, read before any rewrite
-    __syncthreads();
-    // last block first: block j - 1's last row is still the old iterate
-#pragma unroll 1
-    for (int j = kPer - 1; j >= 0; --j) {{
-      float z[S];
-      if (j > 0) {{
-        block_start(j, z);
-      }} else {{
-#pragma unroll
-        for (int k = 0; k < S; ++k) z[k] = first[k];
-      }}
-      for (int r = 0; r < L; ++r) {{
-        circuit_step(V[at(r, j)], z, c, r_none, q_none, w, p);
-#pragma unroll
-        for (int k = 0; k < S; ++k) Z[k * T + at(r, j)] = z[k];
-      }}
-    }}
-    __syncthreads();  // the new iterate is visible to the neighbours
+  __device__ __forceinline__ void relax(float v, float* z) const {{
+    const float none[1] = {{0.f}};
+    circuit_step(v, z, c, none, none, w, p);
   }}
-
-  // one Newton sweep; returns the CTA's largest state update when asked
-  auto sweep = [&](bool reduce) {{
-    Map total = deer_identity<S>();  // this thread's blocks, composed
-#pragma unroll 1
-    for (int j = 0; j < kPer; ++j) {{
-      float prev[S];
-      block_start(j, prev);  // z is not rewritten before the scan's barriers
-      Map acc = deer_identity<S>();
-      for (int r = 0; r < L; ++r) {{
-        const size_t i = at(r, j);
-        Map row;
-        float f[S];
-        circuit_deer_step(V[i], prev, f, row.J, c, w, p);
-#pragma unroll
-        for (int a = 0; a < S; ++a) {{
-          float jz = __fmul_rn(row.J[a * S], prev[0]);
-#pragma unroll
-          for (int k = 1; k < S; ++k) jz = __fadd_rn(jz, __fmul_rn(row.J[a * S + k], prev[k]));
-          row.c[a] = __fsub_rn(f[a], jz);
-        }}
-        acc = deer_compose(acc, row);
-#pragma unroll
-        for (int m = 0; m < S * S; ++m) JP[m * T + i] = acc.J[m];
-#pragma unroll
-        for (int a = 0; a < S; ++a) {{
-          CP[a * T + i] = acc.c[a];
-          prev[a] = Z[a * T + i];  // row r + 1 linearises at the guess z_r
-        }}
-      }}
-      total = deer_compose(total, acc);
-    }}
-    Map ex = deer_block_exclusive_scan(total, s_tot);  // the blocks before this thread's
-    float dmax = 0.f;
-#pragma unroll 1
-    for (int j = 0; j < kPer; ++j) {{
-      float zs[S];
-      deer_apply(ex, s0, zs);  // block j's start state
-      for (int r = 0; r < L; ++r) {{
-        const size_t i = at(r, j);
-#pragma unroll
-        for (int a = 0; a < S; ++a) {{
-          float zn = __fmul_rn(JP[a * S * T + i], zs[0]);
-#pragma unroll
-          for (int k = 1; k < S; ++k) zn = __fadd_rn(zn, __fmul_rn(JP[(a * S + k) * T + i], zs[k]));
-          zn = __fadd_rn(zn, CP[a * T + i]);
-          zn = zn < -v_bound ? -v_bound : (zn > v_bound ? v_bound : zn);  // NaN stays
-          const float zo = Z[a * T + i];
-          if (damping != 1.f) zn = __fadd_rn(zo, __fmul_rn(damping, __fsub_rn(zn, zo)));
-          if (track) dmax = deer_nanmax(dmax, fabsf(__fsub_rn(zn, zo)));
-          Z[a * T + i] = zn;
-        }}
-      }}
-      Map block;  // block j's total: its last prefix
-#pragma unroll
-      for (int m = 0; m < S * S; ++m) block.J[m] = JP[m * T + at(L - 1, j)];
-#pragma unroll
-      for (int a = 0; a < S; ++a) block.c[a] = CP[a * T + at(L - 1, j)];
-      ex = deer_compose(ex, block);
-    }}
-    __syncthreads();  // the new iterate is visible to the neighbours
-    return reduce ? deer_block_max(dmax, s_red) : 0.f;
-  }};
-
-  // trips of `unroll` sweeps; with track the last sweep's largest update is
-  // the exit test, so the sweeps run are a multiple of unroll
-  const float limit = track ? tol : -1.f;
-  int done = 0;
-  float delta = INFINITY;
-  while (done < sweeps && delta >= limit) {{
-    for (int q = 0; q < unroll; ++q) {{
-      const float d = sweep(track && q == unroll - 1);
-      if (q == unroll - 1) delta = d;
-    }}
-    done += unroll;
+  __device__ __forceinline__ void lin(float v, const float* z, float* f, float* J) const {{
+    circuit_deer_step(v, z, f, J, c, w, p);
   }}
-  done = min(done, sweeps);
-
-  float res = 0.f;
-#pragma unroll 1
-  for (int j = 0; j < kPer; ++j) {{
-    float prev[S];
-    block_start(j, prev);
-    for (int r = 0; r < L; ++r) {{
-      const size_t i = at(r, j);
-      float z[S];
-#pragma unroll
-      for (int k = 0; k < S; ++k) z[k] = prev[k];
-      const float y = circuit_step(V[i], z, c, r_none, q_none, w, p);
-#pragma unroll
-      for (int k = 0; k < S; ++k) {{
-        prev[k] = Z[k * T + i];
-        res = deer_nanmax(res, fabsf(__fsub_rn(z[k], prev[k])));
-      }}
-      out[(static_cast<size_t>(t) * kPer + j) * L + r] = y;
-    }}
+  __device__ __forceinline__ float emit(float v, const float* prev, float* f,
+                                        const float* z) const {{
+    (void)z;
+    const float none[1] = {{0.f}};
+    for (int k = 0; k < {S}; ++k) f[k] = prev[k];
+    return circuit_step(v, f, c, none, none, w, p);
   }}
-  res = deer_block_max(res, s_red);
-  if (t == kThreads - 1) {{
-#pragma unroll
-    for (int k = 0; k < S; ++k) zf[k] = Z[k * T + at(L - 1, kPer - 1)];
-  }}
-  if (t == 0) {{
-    info[0] = res;
-    info[1] = static_cast<float>(done);
-  }}
-}}
+}};
 
 }}  // namespace
-
-extern "C" {{
-
-// One solve on `stream`: vin (T,), z0 (S,), out (T,), zf (S,), info (2,) =
-// (residual, sweeps run), scratch ({1 + 2 * S + S * S} T floats); T = 1024 L.
-int circuit_deer_launch(const float* vin, const float* z0, float* out, float* zf, float* info,
-                        float* scratch, int L, const float* coef, const float* warr, int n_warr,
-                        int sweeps, int relax_passes, int unroll, float damping, float tol,
-                        int track, void* stream) {{
-  if (L < 1 || sweeps < 0 || relax_passes < 0 || unroll < 1 || n_warr < 0) {{
-    return static_cast<int>(cudaErrorInvalidValue);
-  }}
-  const size_t smem = sizeof(float) * (static_cast<size_t>((CIRCUIT_NC + 3) & ~3) + n_warr);
-  if (smem > 48 * 1024) {{
-    const cudaError_t e = cudaFuncSetAttribute(
-        deer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }}
-  deer_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      vin, z0, out, zf, info, scratch, L, coef, warr, n_warr, sweeps, relax_passes, unroll,
-      damping, tol, track);
-  return static_cast<int>(cudaGetLastError());
-}}
-
-const char* circuit_error_string(int err) {{
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}}
-
-}}  // extern "C"
 """
     host = f"""
 // Host loop of the DEER step over n linearisation points (CPU tests):
@@ -2428,9 +2452,130 @@ extern "C" void circuit_deer_host_run(const float* z, const float* v, float* f, 
   }}
 }}
 """
-    return DeerProgram(source=prog.step_source + deer_step + kernel,
-                       host_source=prog.step_source + deer_step + host, n_state=S,
+    step_source = prog.step_source + deer_step
+    return DeerProgram(source=step_source + _deer_kernels((DEER_CLUSTER,), S),
+                       forms_source=step_source + _deer_kernels(DEER_FORMS, S),
+                       step_source=step_source, host_source=step_source + host, n_state=S,
                        ops_per_sample=ops, step_ops=prog.ops_per_sample)
+
+
+def deer_source(deer: DeerProgram, kernels) -> str:
+    """A DEER source of ``deer``'s structure with the given kernels: cluster
+    sizes C and DEER_ONE_CTA.  ``deer.source`` is (DEER_CLUSTER,),
+    ``deer.forms_source`` DEER_FORMS; chip_smoke.py times the build of all
+    three in one source, as they were built before they were split."""
+    return deer.step_source + _deer_kernels(tuple(kernels), deer.n_state)
+
+
+def _deer_export(kernel: int) -> str:
+    """The C name prefix of a DEER kernel's launch functions."""
+    if kernel == DEER_ONE_CTA:
+        return "circuit_deer_onecta"
+    return "circuit_deer" if kernel == DEER_CLUSTER else f"circuit_deer_c{kernel}"
+
+
+def _deer_kernels(kernels: tuple, S: int) -> str:
+    """The kernels, launch functions and occupancy queries of a DEER source
+    (after its steps): deer_cluster_kernel<C> for each cluster size C of
+    ``kernels``, the one-CTA deer_kernel for DEER_ONE_CTA."""
+    clusters = [c for c in kernels if c != DEER_ONE_CTA]
+    cluster_text = f"""
+// deer_cluster_kernel<C>: one cluster of C CTAs of {DEER_THREADS} threads on
+// neighbouring SMs (C = {" or ".join(map(str, clusters))}; deer_cluster.cuh has the passes):
+// CTA k owns {DEER_BLOCKS} / C time blocks, the step and apply passes run over
+// its samples in parallel, one thread per block runs a relaxation and
+// composes its rows, the block totals are scanned in the CTA and then across
+// the cluster through distributed shared memory; two cluster barriers a
+// sweep.  Scratch (1 + 3 S + S^2) T floats.  __launch_bounds__({DEER_THREADS}, 1): the
+// Tube Screamer's DEER step needs well over 64 registers.
+""" if clusters else ""
+    onecta_text = f"""
+{_DEER_ONECTA_COMMENT}""" if DEER_ONE_CTA in kernels else ""
+    text = f"""
+#include "deer_scan.cuh"
+#include "deer_cluster.cuh"
+
+// Replaces the Pallas TPU kernel diffwdf_tpu/ops/deer_circuit.py,
+// fused_deer_circuit / fused_deer_neural: the whole single-stream DEER solve
+// of one block of T = 1024 L samples in one launch.
+{cluster_text}{onecta_text}namespace {{
+
+constexpr int kBlocks = {DEER_BLOCKS};
+constexpr int kThreads = {DEER_THREADS};
+constexpr int S = CIRCUIT_NS;
+using Map = DeerAffine<S>;
+"""
+    if DEER_ONE_CTA in kernels:
+        text += f"""
+{_DEER_ONECTA_KERNEL}"""
+    if clusters:
+        text += f"""
+{_DEER_CLUSTER_KERNEL}"""
+    text += f"""
+// dynamic shared memory of a kernel: the coefficient slots, the root array
+size_t deer_smem(int n_warr) {{
+  return sizeof(float) * (static_cast<size_t>((CIRCUIT_NC + 3) & ~3) + n_warr);
+}}
+
+}}  // namespace
+
+extern "C" {{
+"""
+    for c in kernels:
+        name = _deer_export(c)
+        pad = "\n" + " " * len(f"int {name}_launch(")
+        args = pad.join(("const float* vin, const float* z0, float* out, float* zf, float* info,",
+                         "float* scratch, int L, const float* coef, const float* warr, int n_warr,",
+                         "int sweeps, int relax_passes, int unroll, float damping, float tol,",
+                         "int track, void* stream"))
+        if c == DEER_ONE_CTA:
+            text += f"""
+// One solve by the one-CTA kernel: the arguments of a cluster kernel's
+// launch; it uses {1 + 2 * S + S * S} T floats of the scratch.
+int {name}_launch({args}) {{
+  if (L < 1 || sweeps < 0 || relax_passes < 0 || unroll < 1 || n_warr < 0) {{
+    return static_cast<int>(cudaErrorInvalidValue);
+  }}
+  const size_t smem = deer_smem(n_warr);
+  if (smem > 48 * 1024) {{
+    const cudaError_t e = cudaFuncSetAttribute(
+        deer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }}
+  deer_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      vin, z0, out, zf, info, scratch, L, coef, warr, n_warr, sweeps, relax_passes, unroll,
+      damping, tol, track);
+  return static_cast<int>(cudaGetLastError());
+}}
+"""
+            continue
+        text += f"""
+// One solve on `stream` by a cluster of {c} CTAs: vin (T,), z0 (S,), out (T,),
+// zf (S,), info (2,) = (residual, sweeps run), scratch ({1 + 3 * S + S * S} T
+// floats); T = 1024 L.  A refused launch returns CUDA's error.
+int {name}_launch({args}) {{
+  if (L < 1 || sweeps < 0 || relax_passes < 0 || unroll < 1 || n_warr < 0) {{
+    return static_cast<int>(cudaErrorInvalidValue);
+  }}
+  const DeerArgs a{{vin, z0, out, zf, info, info + 1, scratch, L, sweeps, relax_passes, unroll,
+                   damping, tol, track}};
+  return static_cast<int>(deer_cluster_launch<{c}, &deer_cluster_kernel<{c}>>(
+      kThreads, deer_smem(n_warr), static_cast<cudaStream_t>(stream), a, coef, warr, n_warr));
+}}
+
+// cudaOccupancyMaxActiveClusters of that kernel with a root array of n_warr
+// floats (negative: a CUDA error).
+int {name}_max_clusters(int n_warr) {{
+  return deer_cluster_max_active<{c}, &deer_cluster_kernel<{c}>>(kThreads, deer_smem(n_warr));
+}}
+"""
+    return text + """
+const char* circuit_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"
+"""
 
 
 #: circuit -> {(input node, slot layout, root key): program}; held weakly, so

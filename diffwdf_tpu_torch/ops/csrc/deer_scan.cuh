@@ -1,12 +1,13 @@
-// S-state affine maps z -> J z + c and their scans, for the generated DEER
-// kernels (ops/circuit_codegen.py, generate_deer).
+// S-state affine maps z -> J z + c and their scans, for the DEER kernels
+// (ops/circuit_codegen.py generate_deer, and deer_cluster.cuh, which the
+// clipper's cluster kernel runs at S = 1).
 //
 // A Newton sweep of DEER linearises the step map around the current
 // trajectory, z_t = J_t z_{t-1} + c_t with J_t an S x S matrix, and solves
 // that recurrence exactly by composing the affine maps: in-thread over the
 // rows of a time block, then across the CTA for the block totals.  The S x S
-// generalisation of parallel_time_deer.cu's scalar pair (which stays as it
-// is for the clipper).
+// generalisation of the scalar pair of parallel_time_deer.cu's one-CTA
+// kernel.
 //
 // Affine maps do not commute: deer_compose(a, b) applies a, then b.  Every
 // product and sum is a round-to-nearest intrinsic, which nvcc never contracts

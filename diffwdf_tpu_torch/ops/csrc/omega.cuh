@@ -23,6 +23,16 @@ __device__ __forceinline__ float sign0(float a) {
   return static_cast<float>((a > 0.f) - (a < 0.f));
 }
 
+// One Newton step on e^u + u = x.  A zero residual (a converged step)
+// divides as 0 and leaves u as it is; it is kept out of the division, whose
+// range check sends it down the slow path.  The same bits as u - r / (eu + 1)
+// for every u, up to the sign of a zero u, which expf does not see.
+__device__ __forceinline__ float omega_newton_step(float x, float u) {
+  const float eu = expf(u);
+  const float r = eu + u - x;
+  return r == 0.f ? u : u - r / (eu + 1.f);
+}
+
 // Real-line Wright omega: region-split guess for u = log(w), then Newton on
 // e^u + u = x.  Same math as roots/omega.py, but only the selected region's
 // guess is evaluated.
@@ -37,10 +47,7 @@ __device__ __forceinline__ float omega(float x, int iters) {
     const float t = x - 1.f;
     u = logf(1.f + 0.5f * t + 0.0625f * t * t);
   }
-  for (int k = 0; k < iters; ++k) {
-    const float eu = expf(u);
-    u = u - (eu + u - x) / (eu + 1.f);
-  }
+  for (int k = 0; k < iters; ++k) u = omega_newton_step(x, u);
   return expf(u);
 }
 
@@ -62,15 +69,6 @@ __device__ __forceinline__ float omega_guess(float x) {
   return x <= -1.f ? u_lo : (x >= 2.f ? u_hi : u_mid);
 }
 
-// One Newton step on e^u + u = x, as omega() takes it.
-__device__ __forceinline__ float omega_newton_step(float x, float u) {
-  const float eu = expf(u);
-  const float r = eu + u - x;
-  // a zero residual (a converged step) divides as 0 and leaves u as it is;
-  // it is kept out of the division, whose range check sends it down the
-  // slow path
-  return r == 0.f ? u : u - r / (eu + 1.f);
-}
 
 // u after ITERS Newton steps, unrolled at compile time by the template (a
 // #pragma unroll over the count left the loop rolled in the SASS); ITERS < 0:

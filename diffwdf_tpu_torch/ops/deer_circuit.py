@@ -25,9 +25,11 @@ residual max|f(z_{t-1}) - z_t| over all states and samples.
 ``fused_deer_circuit`` / ``fused_deer_neural`` given a CPU tensor run
 ``fused_deer_circuit_plain``; given a CUDA tensor they launch the kernel that
 ``ops.circuit_codegen.generate_deer`` generates for the circuit's structure
-(with ``csrc/deer_scan.cuh``; B9 in ROADMAP) or raise, and count the launch
-in their own ``.launches``.  The plain version is the same
-algorithm in torch ops on the (L, 1024) layout, vectorised over the blocks:
+(B9 in ROADMAP) on one cluster of ``CLUSTER`` CTAs (``csrc/deer_cluster.cuh``)
+or raise with CUDA's message, and count the launch in their own
+``.launches``.  The kernel's comparison forms (8 CTAs, and the one-CTA
+kernel before the redesign) are in ``ops.deer_forms``.  The plain version is
+the same algorithm in torch ops on the (L, 1024) layout, vectorised over the blocks:
 the step is ``circuit_codegen.step`` with the root emitter's plain twin, and
 the S x S Jacobian comes from S forward-mode passes (``torch.autograd.
 forward_ad``; the diode root's omega carries its implicit ``jvp``).  The
@@ -48,11 +50,13 @@ import torch
 import torch.autograd.forward_ad as fwAD
 
 from . import _build
-from .circuit_codegen import DEER_BLOCKS, deer_program
+from .circuit_codegen import DEER_BLOCKS, DEER_CLUSTER, deer_program
 from .fused_circuit import Controls, Prepared, _state_dict, plain_step, prepare
 from .fused_clipper import _nxh_layers
 
 NB = DEER_BLOCKS
+#: CTAs of the cluster that runs one solve: 16, a non-portable cluster size
+CLUSTER = DEER_CLUSTER
 
 
 def _check_vin(vin: torch.Tensor) -> int:
@@ -221,10 +225,19 @@ def launcher(circuit, prep: Prepared, vin, s0, L: int, sweeps: int, relax_passes
     outputs allocated once: a callable that launches the kernel on the
     current stream, counts it in ``entry.launches`` (the public entry that
     was called) and returns as :func:`_plain`, the last two read from the
-    card's info pair without a host copy.  Each call overwrites the
-    previous one's outputs (chip_smoke.py times the kernel through it)."""
+    card's info pair without a host copy.  Each call overwrites the previous
+    one's outputs (chip_smoke.py times the kernel through it)."""
     deer = deer_program(circuit, prep.prog)
-    lib = _build.generated_library(deer.source)
+    return bind(_build.generated_library(deer.source), "circuit_deer_launch", deer, prep, vin,
+                s0, L, sweeps, relax_passes, damping, adapt_tol, entry)
+
+
+def bind(lib, name: str, deer, prep: Prepared, vin, s0, L: int, sweeps: int,
+         relax_passes: int, damping: float, adapt_tol: float, entry):
+    """:func:`launcher` on the launch function ``name`` of a loaded DEER
+    library ``lib`` (``ops.deer_forms`` binds the comparison forms' the
+    same way)."""
+    fn = getattr(lib, name)
     T = vin.shape[0]
     with torch.cuda.device(vin.device):
         vin = vin.contiguous()
@@ -241,7 +254,7 @@ def launcher(circuit, prep: Prepared, vin, s0, L: int, sweeps: int, relax_passes
                 torch.cuda.current_stream(vin.device).cuda_stream)
 
     def launch():
-        err = lib.circuit_deer_launch(*args)
+        err = fn(*args)
         _build.check(err, "fused_deer_circuit launch", lib.circuit_error_string)
         entry.launches += 1
         return out, zf, info[0], info[1]
@@ -253,6 +266,16 @@ def launcher(circuit, prep: Prepared, vin, s0, L: int, sweeps: int, relax_passes
 def _launch(*args):
     """One launch on fresh outputs (see :func:`launcher`)."""
     return launcher(*args)()
+
+
+def max_active_clusters(circuit, prep: Prepared) -> int:
+    """cudaOccupancyMaxActiveClusters of the circuit's kernel: how many
+    clusters of ``CLUSTER`` CTAs the card can hold at once."""
+    lib = _build.generated_library(deer_program(circuit, prep.prog).source)
+    n = lib.circuit_deer_max_clusters(0 if prep.warr is None else prep.warr.numel())
+    _build.check(max(0, -n), f"cudaOccupancyMaxActiveClusters at {CLUSTER} CTAs",
+                 lib.circuit_error_string)
+    return n
 
 
 def _solve(circuit, params, vin, neural_mlp, *, input_node, static_controls, state0, sweeps,

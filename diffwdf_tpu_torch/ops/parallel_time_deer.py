@@ -23,10 +23,13 @@ the block and the residual max|f(z_{t-1}) - z_t|: a convergence certificate
 that the streaming processor uses to fall back to the exact recursion.
 
 ``fused_deer_clipper`` given a CPU tensor runs ``fused_deer_clipper_plain``;
-given a CUDA tensor it launches ``deer_clipper_kernel`` from
-``csrc/parallel_time_deer.cu`` or raises, and counts the launch in
-``fused_deer_clipper.launches``.  The plain version is the same DEER
-algorithm in torch ops on the (L, 1024) layout, vectorised over the blocks:
+given a CUDA tensor it launches ``deer_clipper_cluster_kernel`` from
+``csrc/parallel_time_deer.cu`` on one cluster of ``CLUSTER`` CTAs
+(``csrc/deer_cluster.cuh``) or raises with CUDA's message, and counts the
+launch in ``fused_deer_clipper.launches``.  The kernel's comparison forms (8
+CTAs, and the one-CTA kernel before the redesign) are in ``ops.deer_forms``.
+The plain version is the same DEER algorithm in torch ops on the (L, 1024)
+layout, vectorised over the blocks:
 it is what the kernel is held against.  At 8 sweeps DEER agrees with the
 sequential recursion (``ops.fused_clipper.fused_clipper_analytic``) only to
 ~1e-6, so both are also held against that recursion.
@@ -43,8 +46,17 @@ from . import _build
 from .fused_clipper import _analytic_constants
 from ..roots.omega import wright_omega_u
 
-#: time blocks per solve (the kernel's one CTA of 1024 threads)
+#: time blocks per solve (the JAX kernel's partition)
 NB = 1024
+#: CTAs of the cluster that runs one solve (csrc/parallel_time_deer.cu
+#: kCluster): 16, a non-portable cluster size
+CLUSTER = 16
+
+
+def scratch_floats(T: int) -> int:
+    """Global scratch of one solve: the input, two trajectory buffers and
+    the rows (J_t, c_t)."""
+    return 5 * T
 
 
 def _check_vin(vin: torch.Tensor) -> int:
@@ -171,22 +183,44 @@ def fused_deer_clipper(vin, r_source, cap, Is, Vt_eff, n_up, n_down, *, fs: floa
                                         quality_iters=quality_iters)
     L = _check_vin(vin)
     consts = _analytic_constants(r_source, cap, fs, Is, Vt_eff, n_up, n_down)
-    lib = _build.library()
     with torch.cuda.device(vin.device):
         vin = vin.contiguous()
         s0 = _state_in(z0, vin).contiguous()
         out = torch.empty_like(vin)
         zf = torch.empty((), dtype=torch.float32, device=vin.device)
         res = torch.empty((), dtype=torch.float32, device=vin.device)
-        scratch = torch.empty(4 * vin.shape[0], dtype=torch.float32, device=vin.device)
-        stream = torch.cuda.current_stream(vin.device).cuda_stream
-        err = lib.deer_clipper_launch(
-            vin.data_ptr(), s0.data_ptr(), out.data_ptr(), zf.data_ptr(), res.data_ptr(),
-            scratch.data_ptr(), L, *consts, int(sweeps), int(relax_passes),
-            int(quality_iters), stream)
-    _build.check(err, "fused_deer_clipper launch")
+        launch(vin, s0, out, zf, res, L, consts, int(sweeps), int(relax_passes),
+               int(quality_iters))
     fused_deer_clipper.launches += 1
     return out, zf, res
 
 
 fused_deer_clipper.launches = 0
+
+
+def launch(vin, s0, out, zf, res, L: int, consts, sweeps: int, relax_passes: int,
+           iters: int) -> None:
+    """One solve on the current stream into out, zf and res.  Allocates the
+    scratch; raises with CUDA's message if the launch is refused (nothing
+    falls back)."""
+    lib = _build.library()
+    scratch = torch.empty(scratch_floats(vin.shape[0]), dtype=torch.float32, device=vin.device)
+    err = lib.deer_clipper_launch(*launch_args(vin, s0, out, zf, res, scratch, L, consts, sweeps,
+                                               relax_passes, iters))
+    _build.check(err, "fused_deer_clipper launch")
+
+
+def launch_args(vin, s0, out, zf, res, scratch, L: int, consts, sweeps: int, relax_passes: int,
+                iters: int) -> tuple:
+    """The C arguments of a launch, the current stream last."""
+    return (vin.data_ptr(), s0.data_ptr(), out.data_ptr(), zf.data_ptr(), res.data_ptr(),
+            scratch.data_ptr(), L, *consts, sweeps, relax_passes, iters,
+            torch.cuda.current_stream(vin.device).cuda_stream)
+
+
+def max_active_clusters() -> int:
+    """cudaOccupancyMaxActiveClusters of the kernel: how many clusters of
+    ``CLUSTER`` CTAs the card can hold at once."""
+    n = _build.library().deer_clipper_max_clusters()
+    _build.check(max(0, -n), f"cudaOccupancyMaxActiveClusters at {CLUSTER} CTAs")
+    return n

@@ -653,7 +653,7 @@ def test_host_compiled_deer_step_matches_plain_jacobian(host_cxx, name):
     prep = tfc.prepare(ckt, params, "cpu", input_node=node)
     deer = cg.deer_program(ckt, prep.prog)
     S = deer.n_state
-    assert S == len(seq) and deer.ops_per_sample > 0 and "deer_kernel" in deer.source
+    assert S == len(seq) and deer.ops_per_sample > 0 and "deer_cluster_kernel" in deer.source
     assert "deer_kernel" not in deer.host_source and '#include "deer_scan.cuh"' in deer.source
     assert deer is cg.deer_program(ckt, prep.prog)  # cached by structure
     lib = host_cxx(name + "_deer", deer.host_source)

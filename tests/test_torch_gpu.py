@@ -25,7 +25,13 @@ the serving kernels' redesigned forms: B1's lane kernel the one-thread
 kernel's bits (every family, every K, at B = 1, 777 and 4,096), a family
 outside the lane set on the one-thread kernel (its counter), B2 with both
 omega solves paired at iters 1, 2, 3 and the run-time loop (4), at B = 1
-and a ragged B, within the analytic budget, as is its earlier form.
+and a ragged B, within the analytic budget, as is its earlier form; the
+DEER kernels on a thread-block cluster (B5 and B9 at 8 and 16 CTAs, T =
+1,024 x 1, 2, 16 and 64): within their budgets of plain, the one-CTA
+kernels' bits with no sweep and within the budget of them with the sweeps,
+chained blocks (the suite's 2e-6 for chained DEER blocks), the 180-Ohm
+block still flagged, the adaptive HPF at JAX's 20 sweeps, and a refused
+launch raising with nothing run or counted in its place.
 """
 
 import numpy as np
@@ -397,6 +403,95 @@ def test_deer_kernel_chains_blocks_and_flags_180_ohm(deer_cuda):
     with pytest.raises(ValueError):
         pd.fused_deer_clipper(vin[:1000], *_deer_args(), fs=FS)
     assert pd.fused_deer_clipper.launches == 4
+
+
+def _deer_solve(pd, vin, form, sweeps=8, iters=3, r_src=R_SRC, z0=0.2, relax=2):
+    """One B5 launch as ``form``: the served kernel at pd.CLUSTER, else a
+    comparison form of ops/deer_forms.py (8 CTAs, or df.ONE_CTA)."""
+    from diffwdf_tpu_torch.ops import deer_forms as df
+
+    out, zf, res = (torch.empty_like(vin), torch.empty((), device=vin.device),
+                    torch.empty((), device=vin.device))
+    consts = pd._analytic_constants(r_src, CAP, FS, *_deer_args(r_src)[2:])
+    s0 = torch.full((), z0, device=vin.device)
+    args = (vin, s0, out, zf, res, vin.shape[0] // 1024, consts, sweeps, relax, iters)
+    if form == pd.CLUSTER:
+        pd.launch(*args)
+    else:
+        df.clipper_launch(form, *args)
+    return out, zf, res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("blocks", [1, 2, 16, 64])
+def test_deer_cluster_kernel_matches_plain_and_one_cta_kernel(deer_cuda, blocks, cluster):
+    """B5 on a cluster (16 CTAs, served; 8, its comparison form) at T =
+    1024 blocks: 1e-6 of plain; with no sweep the one-CTA kernel's bits,
+    with 8 sweeps within 1e-6 of it (another scan order); one counted
+    launch through the wrapper."""
+    from diffwdf_tpu_torch.ops import deer_forms as df
+
+    dev, pd = deer_cuda
+    T = 1024 * blocks
+    vin = torch.from_numpy(np.random.default_rng(blocks).standard_normal(T)
+                           .astype(np.float32) * 2).to(dev)
+    got = _deer_solve(pd, vin, cluster)
+    want = pd.fused_deer_clipper_plain(vin, *_deer_args(), fs=FS, z0=0.2)
+    bare, bare_z, bare_r = _deer_solve(pd, vin, cluster, sweeps=0)
+    one, one_z, one_r = _deer_solve(pd, vin, df.ONE_CTA, sweeps=0)
+    before = _deer_solve(pd, vin, df.ONE_CTA)
+    torch.cuda.synchronize()
+    _close(got[0], want[0], 1e-6)
+    _close(got[1], want[1], 1e-6)
+    assert torch.equal(bare, one) and torch.equal(bare_z, one_z) and torch.equal(bare_r, one_r)
+    _close(got[0], before[0], 1e-6)
+    out, _, _ = pd.fused_deer_clipper(vin, *_deer_args(), fs=FS, z0=0.2)
+    torch.cuda.synchronize()
+    assert pd.fused_deer_clipper.launches == 1
+    if cluster == pd.CLUSTER:
+        assert torch.equal(out, got[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_deer_cluster_kernel_chains_blocks_and_flags_180_ohm(deer_cuda, cluster):
+    """Two chained blocks equal one solve within the suite's 2e-6
+    (tests/test_parallel_time_deer.py:89); R = 180 Ohm is still flagged."""
+    dev, pd = deer_cuda
+    vin = torch.from_numpy(np.random.default_rng(17).standard_normal(4096)
+                           .astype(np.float32) * 2).to(dev)
+    full = _deer_solve(pd, vin, cluster)
+    a = _deer_solve(pd, vin[:2048], cluster)
+    b = _deer_solve(pd, vin[2048:], cluster, z0=float(a[1]))
+    _, _, res = _deer_solve(pd, vin[:2048], cluster, r_src=180.0)
+    torch.cuda.synchronize()
+    _close(torch.cat([a[0], b[0]]), full[0], 2e-6)
+    assert float(res) > 1e-2
+
+
+@pytest.mark.gpu
+def test_deer_refused_cluster_launch_raises(deer_cuda):
+    """A launch the library refuses raises with CUDA's message (arguments
+    it rejects), and a form that was never built is refused before any
+    launch; nothing runs in their place and nothing is counted."""
+    from diffwdf_tpu_torch.ops import deer_forms as df
+
+    dev, pd = deer_cuda
+    vin = torch.zeros(2048, device=dev)
+    out = torch.full_like(vin, 7.0)
+    consts = pd._analytic_constants(R_SRC, CAP, FS, *_deer_args()[2:])
+    args = (vin, torch.zeros((), device=dev), out, torch.empty((), device=dev),
+            torch.empty((), device=dev))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pd.launch(*args, 0, consts, 8, 2, 3)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        df.clipper_launch(df.C8, *args, 2, consts, -1, 2, 3)
+    with pytest.raises(ValueError, match="no DEER comparison form"):
+        df.clipper_launch(32, *args, 2, consts, 8, 2, 3)
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all()) and pd.fused_deer_clipper.launches == 0
+    assert df.clipper_max_clusters() >= 1 and pd.max_active_clusters() >= 1
 
 
 @pytest.mark.gpu
@@ -992,3 +1087,108 @@ def test_deer_circuit_kernel_rejects_and_keeps_cpu_plain(circuit_cuda):
            for k, v in params.items()}
     out, _, _ = dc.fused_deer_circuit(ckt, cpu, vin.cpu(), input_node=node)
     assert out.device.type == "cpu" and dc.fused_deer_circuit.launches == 0
+
+
+def _one_launch(dc, fcirc, ckt, params, node, mlp, vin, kw, form, s0=None, entry=None):
+    """B9 through ``launcher`` as ``form`` (the served kernel at dc.CLUSTER,
+    else a comparison form of ops/deer_forms.py): (out, zf, residual,
+    sweeps run)."""
+    from diffwdf_tpu_torch.ops import deer_forms as df
+
+    prep = fcirc.prepare(ckt, params, vin.device, input_node=node, neural_mlp=mlp)
+    s0 = dc._state_vector(prep, ckt, None, vin) if s0 is None else s0
+    args = (ckt, prep, vin, s0, vin.shape[0] // 1024, kw.get("sweeps", 8),
+            kw.get("relax_passes", 2), kw.get("damping", 1.0), kw.get("adapt_tol", 0.0),
+            entry or dc.fused_deer_circuit)
+    return (dc.launcher(*args) if form == dc.CLUSTER else df.circuit_launcher(form, *args))()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("blocks", [1, 2, 16, 64])
+def test_deer_circuit_cluster_kernel_at_sizes(circuit_cuda, blocks, cluster):
+    """B9 on a cluster (16 CTAs, served; 8, its comparison form), the Tube
+    Screamer at T = 1024 blocks: within 1e-4 of plain (both converged), the
+    one-CTA kernel's bits with no sweep and within 1e-4 of it with 8."""
+    from diffwdf_tpu_torch.ops import deer_circuit as dc
+    from diffwdf_tpu_torch.ops import deer_forms as df
+
+    dev, fcirc = circuit_cuda
+    ckt, params, node, kw, _ = _deer_case("ts", 0, dev)
+    T = 1024 * blocks
+    rng = np.random.default_rng(101)
+    x = 0.2 * np.sin(2 * np.pi * 1000.0 * np.arange(T) / FS) + 0.1 * rng.standard_normal(T)
+    vin = torch.from_numpy(x.astype(np.float32)).to(dev)
+    dc.fused_deer_circuit.launches = 0
+    out, zf, res, n = (t.clone() for t in _one_launch(dc, fcirc, ckt, params, node, None, vin,
+                                                      kw, cluster))
+    p_out, _, p_res = dc.fused_deer_circuit_plain(ckt, params, vin, input_node=node)
+    bare = [t.clone() for t in _one_launch(dc, fcirc, ckt, params, node, None, vin,
+                                           {"sweeps": 0}, cluster)]
+    one = [t.clone() for t in _one_launch(dc, fcirc, ckt, params, node, None, vin,
+                                          {"sweeps": 0}, df.ONE_CTA)]
+    before = _one_launch(dc, fcirc, ckt, params, node, None, vin, kw, df.ONE_CTA)
+    torch.cuda.synchronize()
+    assert dc.fused_deer_circuit.launches == 4 and float(n) == 8
+    assert all(torch.equal(a, b) for a, b in zip(bare, one))
+    if float(p_res) < 1e-3:
+        assert float(res) < 1e-3
+        _close(out, p_out, 1e-4)
+        _close(out, before[0], 1e-4)
+    else:  # 8 sweeps leave a long block unconverged: flagged, as plain is
+        assert float(res) > 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", [8, 16])
+def test_deer_circuit_cluster_kernel_adaptive_count_and_chain(circuit_cuda, cluster):
+    """The HPF's adaptive exit at JAX's 20 sweeps (numpy seed 2, 0.5 N(0, 1));
+    two chained 2x8-clipper blocks equal one solve within the suite's 2e-6
+    for chained DEER blocks (tests/test_parallel_time_deer.py:89): each is
+    within the DEER solve's convergence error of the recursion, 1.1e-6
+    apart on one sample of 4,096 on an H100."""
+    from diffwdf_tpu_torch.ops import deer_circuit as dc
+
+    dev, fcirc = circuit_cuda
+    ckt, params, node, kw, _ = _deer_case("hpf", 0, dev)
+    quiet = torch.from_numpy((0.5 * np.random.default_rng(2).standard_normal(2048))
+                             .astype(np.float32)).to(dev)
+    _, _, _, n = _one_launch(dc, fcirc, ckt, params, node, None, quiet, kw, cluster)
+    assert float(n) == 20
+    ckt, params, node, kw, vin = _deer_case("clip_2x8", 3, dev)
+    mlp = params[ckt.root.name]
+    x = torch.cat([vin, vin.flip(0)])
+    full = [t.clone() for t in _one_launch(dc, fcirc, ckt, params, node, mlp, x, kw, cluster)]
+    a = [t.clone() for t in _one_launch(dc, fcirc, ckt, params, node, mlp, x[:2048], kw,
+                                        cluster)]
+    b = _one_launch(dc, fcirc, ckt, params, node, mlp, x[2048:], kw, cluster, s0=a[1],
+                    entry=dc.fused_deer_neural)
+    torch.cuda.synchronize()
+    _close(torch.cat([a[0], b[0]]), full[0], 2e-6)
+
+
+@pytest.mark.gpu
+def test_deer_circuit_refused_cluster_launch_raises(circuit_cuda):
+    """A root array too large for shared memory is refused with CUDA's
+    message, by the served kernel and by its comparison forms, and a form
+    that was never built is refused before any launch: nothing runs in
+    their place and nothing is counted."""
+    from diffwdf_tpu_torch.ops import deer_circuit as dc
+    from diffwdf_tpu_torch.ops import deer_forms as df
+
+    dev, fcirc = circuit_cuda
+    ckt, params, node, kw, vin = _deer_case("ts", 0, dev)
+    prep = fcirc.prepare(ckt, params, dev, input_node=node)
+    s0 = dc._state_vector(prep, ckt, None, vin)
+    dc.fused_deer_circuit.launches = 0
+    huge = prep._replace(warr=torch.zeros(70000, device=dev))
+    args = (ckt, huge, vin, s0, 2, 8, 2, 1.0, 0.0, dc.fused_deer_circuit)
+    for launch in (dc.launcher(*args), df.circuit_launcher(df.C8, *args),
+                   df.circuit_launcher(df.ONE_CTA, *args)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            launch()
+    with pytest.raises(ValueError, match="no DEER comparison form"):
+        df.circuit_launcher(32, ckt, prep, vin, s0, 2, 8, 2, 1.0, 0.0, dc.fused_deer_circuit)
+    torch.cuda.synchronize()
+    assert dc.fused_deer_circuit.launches == 0
+    assert df.circuit_max_clusters(ckt, prep) >= 1 and dc.max_active_clusters(ckt, prep) >= 1

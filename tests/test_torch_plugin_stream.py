@@ -181,9 +181,9 @@ def test_kernel_sources_follow_the_structure():
         sorted(generic + ["tube_screamer/0", "tube_screamer/1"])
     for name in generic:
         (src,) = p._kernel_sources(name, {})
-        assert "deer_kernel" in src and "nxh_forward_tangent" in src
+        assert "deer_cluster_kernel" in src and "nxh_forward_tangent" in src
     exact, deer = p._kernel_sources("tube_screamer/0", p.param_maps["tube_screamer"](0.1))
-    assert "circuit_kernel" in exact and "deer_kernel" in deer and "omega_slope" in deer
+    assert "circuit_kernel" in exact and "deer_cluster_kernel" in deer and "omega_slope" in deer
     assert p._kernel_sources("tube_screamer/0", p.param_maps["tube_screamer"](0.9)) == \
         [exact, deer]
     hpf = tstream.make_hpf_processor(FS, device="cpu")
