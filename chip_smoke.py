@@ -18,8 +18,10 @@ one line per phase:
   toolchain  the card (name, power limit), torch, CUDA and nvcc versions
   build      nvcc compile of the kernel library, timed as set-up, the
              registers and spills ptxas reports per kernel, and the SASS of
-             the serving kernels before and after their redesign
-             (instructions, transcendental units, branches, local memory)
+             the serving kernels B1, B2 and the distilled clipper's B6
+             before and after their redesign (instructions, transcendental
+             units, branches, calls to the division's slow path, local
+             memory)
   kernels    each serving kernel against its plain PyTorch version on the
              card at the served shape (8192 streams x 2048 samples), beside
              its budget; B1's lane form against its one-thread form, bit for
@@ -93,29 +95,38 @@ one line per phase:
              work of one served block from a profiler trace (taken again
              until it holds one kernel event per counted launch; the line
              says whether it does)
-  build circuits  the generated kernels of six circuits (Tube Screamer
-             analytic and pretrained 2x16, HPF clipper analytic and
-             HPF-trained 2x16, LPF clipper, RC lowpass) and the K sweep's
-             builds of the two 2x16 roots (every K that divides H), one
-             nvcc each, all started together: seconds cold and cached,
-             ptxas registers and
-             spills per kernel (none allowed in the lane-cooperative ones),
-             slots and operations per sample
+  build circuits  the generated kernels of seven circuits (Tube Screamer
+             analytic "best" and "low" and pretrained 2x16, HPF clipper
+             analytic and HPF-trained 2x16, LPF clipper, RC lowpass), the K
+             sweep's builds of the two 2x16 roots (every K that divides H)
+             and the other block size of the diode pair's lane form (TS and
+             LPF), one nvcc each, all started together: seconds cold and
+             cached, ptxas registers and spills per kernel (none allowed in
+             the lane-cooperative ones), slots and operations per sample,
+             the SASS of the diode pair's one-thread and lane kernels
   kernels distilled  the 1N4148 root distilled at the clipper's port R (fit
-             error), the distilled clipper kernel against its plain version
-             and against the analytic kernel (ESR) at (8192, 2048)
-  kernels circuit  every generated kernel against its plain version at
-             (8192, 2048), the LPF clipper's also against the analytic kernel,
-             the NxH roots' lane-cooperative form also against the
+             error), the distilled clipper kernel (one Chebyshev segment a
+             lane) against its plain version, against the analytic kernel
+             (ESR) and against its one-thread form (the same bits) at
+             (8192, 2048); ptxas of its every (degree, K) (no spill)
+  kernels circuit  omega() against omega_select on the card over a grid
+             (the generated forward's omega); every generated kernel
+             against its plain version at (8192, 2048), the LPF clipper's
+             also against the analytic kernel, the lane-cooperative form of
+             the NxH roots and of the diode pair (K = 2) also against the
              one-thread kernel (the same bits)
   serve circuit  serving as a user drives it: the Tube Screamer (analytic
              and 2x16), the HPF 2x16 and the distilled clipper answer two
              (8192, 2048) request blocks with the state carried; the launch
              counters must rise and the blocks equal one run; the drive pot
              from 0 to 1 moves the gain without an nvcc run
-  timing circuit  CUDA-event medians of the distilled and generated kernels,
-             the wrapper calls, the plain versions and the LPF clipper's own
-             kernels on the same streams; the lanes per stream K of the NxH
+  timing circuit  CUDA-event medians of the distilled and generated kernels
+             and their one-thread forms in turns, the wrapper calls, the
+             plain versions and the LPF clipper's own kernels on the same
+             streams; B7 at B = 1 (the plugin's TS "low", the HPF "toms")
+             and B6 at B = 1, device time, the lane form and the one-thread
+             form in turns, with the SM clock; the diode pair's lane form in blocks of 64 and
+             128 threads in turns; the lanes per stream K of the NxH
              roots' kernel (1, the one-thread kernel, 4, 8, 16; the sweep's
              build) for the TS 2x16 and the HPF 2x16 at B = 8192, 4096,
              2048 and 1024, T = 2048
@@ -188,10 +199,11 @@ one line per phase:
              the HPF at 48 fixed and adaptive sweeps and the 2x16 clipper,
              beside their bounds and plain versions, and
              process_block wall ms, real-time factor and a profile of one
-             block per group and engine (the deer engine's blocks with the
-             one-CTA kernels, the plugin's scan-engine clipper members with
-             B1 and B2 before their redesign too, in turns; the trace
-             checked as in timing deer)
+             block per group and engine (every block with the kernels
+             before their redesign too, in turns: the deer engine's one-CTA
+             kernels, the scan engine's B1, B2 and one-thread B7; the trace
+             checked as in timing deer); the B7 launches of the diode
+             pair's lane form on the plugin stream
 
 then a JSON line with every kernel's launches, error, times and bound, the
 card's name and power limit, and finally ``{"ok": true, "device": {...}}``.
@@ -494,6 +506,21 @@ def _timed(fn, runs: int = REPS):
     return statistics.median(ms), min(ms), max(ms)
 
 
+def _kernel_in_turns(fn):
+    """(after, before): per-call CUDA-event ms of 10 back-to-back calls of fn
+    over REPS runs each, with the kernels after and before their redesign
+    (``_old_kernels``) in turns, after a warm-up of both."""
+    for old in (False, True):
+        with _old_kernels(old):
+            _cuda_ms(fn, 1, 2)
+    ms = {False: [], True: []}
+    for rep in range(REPS):
+        for old in ((False, True) if rep % 2 else (True, False)):
+            with _old_kernels(old):
+                ms[old] += _cuda_ms(fn, 1, 10)
+    return ms[False], ms[True]
+
+
 #: the DEER kernels' forms timed in turns: label -> form (the served cluster
 #: of 16 CTAs; ops/deer_forms.py's 8 CTAs and one-CTA kernel before the
 #: cluster redesign)
@@ -615,13 +642,15 @@ def _wall_in_turns(serve, before: bool) -> dict:
 
 
 #: (pattern of the mangled name, label) of the serving kernels whose SASS
-#: the build phase summarises: B1 and B2 before their redesign and after
+#: the build phase summarises: B1, B2 and B6 before their redesign and after
 SASS_KERNELS = ((r"\d+analytic_kernelE", "analytic_kernel"),
                 (r"\d+analytic_pair_kernelILi3EE", "analytic_pair_kernel<3>"),
                 (r"\d+neural_kernelILi16EE", "neural_kernel<16>"),
                 (r"\d+neural_lanes_kernelILi16ELi16ELi2EE", "neural_lanes_kernel<16,16,2>"),
                 (r"\d+neural_lanes_kernelILi16ELi8ELi2EE", "neural_lanes_kernel<16,8,2>"),
-                (r"\d+deer_clipper_cluster_kernelILi16EE", "deer_clipper_cluster_kernel<16>"))
+                (r"\d+deer_clipper_cluster_kernelILi16EE", "deer_clipper_cluster_kernel<16>"),
+                (r"\d+cheb_kernelILi24EE", "cheb_kernel<24>"),
+                (r"\d+cheb_lanes_kernelILi24ELi4EE", "cheb_lanes_kernel<24,4>"))
 #: B5's comparison forms' SASS (ops/deer_forms.py)
 DEER_CLIPPER_FORMS_SASS = ((r"\d+deer_clipper_kernelE", "deer_clipper_kernel"),
                            (r"\d+deer_clipper_cluster_kernelILi8EE",
@@ -1553,9 +1582,11 @@ def _circuits(dev) -> dict:
     """name -> (circuit, params, input node, amplitude, MLP served through
     the ``_neural`` entry or None): the circuits of the batch-serving path."""
     root0, rp0 = make_root_from_zoo(0, device=dev)  # 1N4148 1U-1D, quality "best"
+    root1, rp1 = make_root_from_zoo(1, device=dev)  # quality "low" (the plugin's TS/0)
     root4, rp4 = make_root_from_zoo(4, device=dev)  # pretrained 2x16
     out = {}
-    for name, root, rp, mlp in (("ts", root0, rp0, None), ("ts_2x16", root4, rp4, rp4["dp"])):
+    for name, root, rp, mlp in (("ts", root0, rp0, None), ("ts_low", root1, rp1, None),
+                                ("ts_2x16", root4, rp4, rp4["dp"])):
         ts = make_tube_screamer(root, FS, drive=0.5)
         out[name] = (ts, {**ts.init_params(dev), **rp}, "Vin", 0.2, mlp)
     for name, index in (("hpf", 0), ("hpf_2x16", 3)):
@@ -1588,6 +1619,20 @@ def _state_err(got, want) -> float:
                default=0.0)
 
 
+#: the SASS summarised for the diode pair's generated forward: the one-thread
+#: kernel and the lane form
+CIRCUIT_SASS = ((r"\d+circuit_kernelILb0EE", "circuit_kernel<false>"),
+                (r"\d+circuit_lanes_kernelILb0ELi2EE", "circuit_lanes_kernel<false,2>"))
+#: the block sizes of the diode pair's lane form that the timing phase
+#: measures in turns (the emitter's ``lane_threads`` is the faster)
+LANE_SHAPES = (64, 128)
+
+
+def _other_shape(prog) -> int:
+    """The block size of LANE_SHAPES that ``prog``'s lane form does not use."""
+    return next(t for t in LANE_SHAPES if t != prog.emitter.lane_threads)
+
+
 def circuit_path(dev, card: str, seed: int) -> list:
     """Batched serving of the generic circuits: build, kernels distilled,
     kernels circuit, serve circuits and timing circuit phases.  Returns the
@@ -1612,7 +1657,13 @@ def circuit_path(dev, card: str, seed: int) -> list:
     # the K sweep's builds of the NxH roots: every K that divides H
     sweeps = {name: cg.sweep_program(circuits[name][0], progs[name])
               for name in ("ts_2x16", "hpf_2x16")}
-    sources = [prog.source for prog in progs.values()] + [p.source for p in sweeps.values()]
+    # the diode pair's lane form in the block size of LANE_SHAPES that its
+    # emitter does not take, for the block-shape measurement
+    shapes = {name: cg.shape_program(circuits[name][0], progs[name],
+                                     _other_shape(progs[name]))
+              for name in ("ts", "lpf")}
+    sources = ([prog.source for prog in progs.values()] + [p.source for p in sweeps.values()]
+               + [p.source for p in shapes.values()])
     builds = _build.build_generated.builds
     t0 = time.perf_counter()
     _build.build_generated(sources)
@@ -1632,6 +1683,13 @@ def circuit_path(dev, card: str, seed: int) -> list:
         print(f"  ptxas {name} sweep lanes={prog.lanes} {_generated_ptxas(prog.source)}",
               flush=True)
         _check_no_spills(prog.source, f"the sweep's forward of {name}")
+    for name, prog in shapes.items():
+        print(f"  ptxas {name} block shape {_other_shape(progs[name])} threads "
+              f"{_generated_ptxas(prog.source)}", flush=True)
+        _check_no_spills(prog.source, f"the block-shape build of {name}")
+    for name in ("ts", "lpf"):  # the diode pair's kernels, one-thread and lane form
+        for line in _sass_summary(_build.generated_path(progs[name].source), CIRCUIT_SASS):
+            print(f"  sass {name} {line}", flush=True)
 
     # --- kernels distilled: B6 against its plain version and against B2 -------
     d = diode_1n4148_1u1d
@@ -1646,18 +1704,44 @@ def circuit_path(dev, card: str, seed: int) -> list:
     want, want_z = fc.fused_clipper_cheb_plain(cheb_blocks[0], z0, *cheb_args, fs=FS)
     analytic_args = (R_SRC, CAP, d.Is, d.Vt * d.nabla, d.N_up, d.N_down)
     y2, _ = fc.fused_clipper_analytic(cheb_blocks[0], z0, *analytic_args, fs=FS)
+    one, one_z = fc.launch_cheb_onethread(cheb_blocks[0], z0, *cheb_args, fs=FS)
     torch.cuda.synchronize()
     cheb_err = max(_max_err(got, want), _max_err(got_z, want_z))
     esr = float(((y2 - got) ** 2).sum() / (y2 ** 2).sum())
+    same = torch.equal(got, one) and torch.equal(got_z, one_z)
     print(f"phase kernels distilled root=1N4148 1U-1D best r_port={r_port:.3f} "
           f"degrees={tuple(len(c) - 1 for c in droot.coeffs)} fit_max_abs_err={fit_err:.3e} "
           f"budget=1e-04 shape=({B}, {T}) vs_plain={cheb_err:.3e} budget=1e-05 "
-          f"esr_vs_analytic_kernel={esr:.3e} budget=1e-07", flush=True)
+          f"esr_vs_analytic_kernel={esr:.3e} budget=1e-07 lanes={fc.cheb_lanes(len(droot.coeffs))} "
+          f"equals_one_thread_kernel={same}", flush=True)
     _check(fit_err < 1e-4, "distilled root within 1e-4 of the analytic root")
     _check(bool(torch.isfinite(got).all()) and cheb_err <= 1e-5, "B6 within 1e-5 of plain")
     _check(esr < 1e-7, "distilled clipper ESR below 1e-7 against B2")
+    _check(same, "B6: the lane form has the one-thread kernel's bits")
+    cheb_ptxas = {k: v for k, v in _ptxas_kernels(
+        "", _build.library_path().with_suffix(".log"), r"\d+(cheb_lanes_kernel)").items()
+        if k.startswith("cheb_lanes_kernel")}
+    print("phase kernels ptxas distilled " + " | ".join(
+        f"{k}: {r} registers, {ss}/{sl} bytes spilled (stores/loads)"
+        for k, (r, ss, sl) in sorted(cheb_ptxas.items())), flush=True)
+    _check(len(cheb_ptxas) == 2 * len(fc.CHEB_DEGREES)
+           and all(ss == sl == 0 for _, ss, sl in cheb_ptxas.values()),
+           f"no spills in B6's lane kernels (every degree at K = 4 and 8): {cheb_ptxas}")
 
     # --- kernels circuit: B7 against its plain version -------------------------
+    # omega() against omega_select on the card: the generated forward solves
+    # the diode pair with omega_select (omega_pair, omega_pair_lanes); where
+    # the two agree, its bits are those of the earlier two omega() calls
+    grid = torch.cat([torch.linspace(-120.0, 200.0, 2_000_001), torch.linspace(-1.5, 2.5, 2_000_001),
+                      torch.tensor([-1.0, 2.0, -0.99999994, 1.9999999, 0.0, 88.0, 89.0, -1e30,
+                                    1e30])]).to(dev)
+    differ = {}
+    for iters in (1, 2, 3):
+        w_omega, w_select = fcirc.omega_forms(grid, iters)
+        torch.cuda.synchronize()
+        differ[iters] = int((w_omega.view(torch.int32) != w_select.view(torch.int32)).sum())
+    print(f"phase kernels circuit omega_vs_omega_select points={grid.numel()} (-120..200, "
+          f"-1.5..2.5, the region edges, both tails) differing_bits_by_iters={differ}", flush=True)
     circuit_err = {}
     for name, serve in servers.items():
         ckt = circuits[name][0]
@@ -1675,7 +1759,7 @@ def circuit_path(dev, card: str, seed: int) -> list:
             _check(b2_err <= 2e-5, "B7 on the LPF clipper within 2e-5 of B2")
         prep = fcirc.prepare(ckt, circuits[name][1], dev, input_node=circuits[name][2],
                              neural_mlp=circuits[name][4])
-        if prep.prog.lanes != (1,):  # an NxH root: the lane form, and the one-thread kernel
+        if prep.prog.lanes != (1,):  # a root with a lane form, and the one-thread kernel
             z = torch.zeros(len(prep.prog.state_order), B, device=dev)
             lanes = fcirc.lanes_for(prep.prog, B)
             one = fcirc.launch(prep, first[name], z, lanes=1)
@@ -1690,7 +1774,7 @@ def circuit_path(dev, card: str, seed: int) -> list:
     # --- serve circuits: the main path, counted --------------------------------
     served = ("ts", "ts_2x16", "hpf_2x16")
     fc.fused_clipper_cheb.launches = 0
-    fcirc.fused_circuit_process.launches = 0
+    fcirc.fused_circuit_process.launches = fcirc.fused_circuit_process.pair_launches = 0
     outs = {}
     for name in served:
         state, parts = zero_state(circuits[name][0]), []
@@ -1705,6 +1789,7 @@ def circuit_path(dev, card: str, seed: int) -> list:
     outs["distilled"] = (torch.cat(parts, dim=1), z)
     torch.cuda.synchronize()
     launches = {"B6": fc.fused_clipper_cheb.launches, "B7": fcirc.fused_circuit_process.launches}
+    pair_launches = fcirc.fused_circuit_process.pair_launches
     for name in served + ("distilled",):
         out, state = outs[name]
         if name == "distilled":
@@ -1720,7 +1805,8 @@ def circuit_path(dev, card: str, seed: int) -> list:
               flush=True)
         _check(finite and tuple(out.shape) == (B, CIRCUIT_BLOCKS * T), f"{name} output shaped")
         _check(carry <= 1e-6, f"{name}: two blocks with carried state equal one run")
-    print(f"phase serve circuit launches={launches}", flush=True)
+    print(f"phase serve circuit launches={launches} (B7 diode-pair lane form: {pair_launches})",
+          flush=True)
     _check(launches["B6"] >= CIRCUIT_BLOCKS and launches["B7"] >= len(served) * CIRCUIT_BLOCKS,
            "B6 and B7 launched on the main path")
 
@@ -1740,36 +1826,73 @@ def circuit_path(dev, card: str, seed: int) -> list:
     _check(gains[1] > 2.0 * gains[0], "more drive, more gain")
 
     # --- timing circuit -------------------------------------------------------
-    def launch_only(name):
-        """The generated kernel's launch alone, on arguments prepared once."""
+    def launch_only(name, rows=B, prog=None):
+        """The generated kernel's launch alone, on arguments prepared once
+        (``prog``: another build of the circuit's forward)."""
         ckt, p, node, _, mlp = circuits[name]
         prep = fcirc.prepare(ckt, p, dev, input_node=node, neural_mlp=mlp)
-        z = torch.zeros(len(prep.prog.state_order), B, device=dev)
-        return lambda: fcirc.launch(prep, first[name], z)
+        prep = prep if prog is None else prep._replace(prog=prog)
+        x = first[name][:rows].contiguous()
+        z = torch.zeros(len(prep.prog.state_order), rows, device=dev)
+        return lambda: fcirc.launch(prep, x, z)
 
     times = {}
     cases = [("B6", lambda: fc.fused_clipper_cheb(cheb_blocks[0], z0, *cheb_args, fs=FS),
               lambda: fc.fused_clipper_cheb_plain(cheb_blocks[0], z0, *cheb_args, fs=FS))]
-    for name in ("ts", "ts_2x16", "hpf_2x16", "lpf"):
+    for name in ("ts", "ts_low", "ts_2x16", "hpf", "hpf_2x16", "lpf"):
         ckt = circuits[name][0]
         cases.append((f"B7 {name}", launch_only(name),
                       lambda name=name, ckt=ckt: servers[name](first[name], zero_state(ckt),
                                                                plain=True)))
     for label, kernel, plain in cases:
-        _cuda_ms(kernel, 1, 2)  # warm-up
-        k = _cuda_ms(kernel, REPS, 10)
+        after, before = _kernel_in_turns(kernel)
         wrapper = ""
         if label.startswith("B7"):  # the user's call: adaptation, vector, launch
             name = label.split()[1]
             state = zero_state(circuits[name][0])
             w_ms = statistics.median(_cuda_ms(lambda: servers[name](first[name], state), 3, 10))
             wrapper = f" wrapper_ms={w_ms:.4f} (10 calls per run)"
-        p_ms = _cuda_ms(plain, 1)[0] if label != "B7 lpf" else float("nan")
-        times[label] = (statistics.median(k), p_ms)
-        print(f"phase timing circuit {label} shape=({B}, {T}) runs={REPS} "
-              f"kernel_ms={statistics.median(k):.4f} [{min(k):.4f}, {max(k):.4f}] "
-              f"(10 launches per run){wrapper} plain_ms={p_ms:.4f} (one run) card={card!r}",
-              flush=True)
+        p_ms = _cuda_ms(plain, 1)[0] if label in ("B6", "B7 ts", "B7 ts_2x16") else float("nan")
+        times[label] = (statistics.median(after), p_ms)
+        print(f"phase timing circuit {label} shape=({B}, {T}) runs={REPS} in turns "
+              f"kernel_ms={statistics.median(after):.4f} [{min(after):.4f}, {max(after):.4f}] "
+              f"before_ms={statistics.median(before):.4f} [{min(before):.4f}, {max(before):.4f}] "
+              f"(one thread a stream; 10 launches per run){wrapper} plain_ms={p_ms:.4f} "
+              f"(one run) card={card!r}", flush=True)
+    # B7 at B = 1, the kernel a single-stream scan block waits on: the
+    # plugin's Tube Screamer (analytic "low") and the HPF clipper's "toms";
+    # and B6 at B = 1; device time, the lane form and the one-thread form in
+    # turns
+    one_row, z1 = cheb_blocks[0][:1].contiguous(), z0[:1].contiguous()
+    b1_cases = {"B7 ts_low": launch_only("ts_low", rows=1), "B7 hpf": launch_only("hpf", rows=1),
+                "B6": lambda: fc.fused_clipper_cheb(one_row, z1, *cheb_args, fs=FS)}
+    for name, fn in b1_cases.items():
+        dev_ms = {False: [], True: []}
+        with _sm_clock() as mhz:
+            for rep in range(REPS):
+                for old in ((False, True) if rep % 2 else (True, False)):
+                    with _old_kernels(old):
+                        dev_ms[old].append(_device_ms(fn))
+        clock = statistics.median(mhz) if mhz else float("nan")
+        line = " ".join(f"{label}_ms={statistics.median(dev_ms[old]):.4f} "
+                        f"({statistics.median(dev_ms[old]) * clock * 1e3 / T:.0f} cycles/sample)"
+                        for label, old in (("lanes", False), ("one_thread", True)))
+        print(f"phase timing circuit {name} B=1 T={T} runs={REPS} in turns device {line} "
+              f"sm_clock_mhz={clock:g} card={card!r}", flush=True)
+    # the block shape of the diode pair's lane form at (8192, 2048): 64 and
+    # 128 threads, in turns (the emitter keeps the faster as its lane_threads)
+    for name in ("ts", "lpf"):
+        forms = {progs[name].emitter.lane_threads: launch_only(name),
+                 _other_shape(progs[name]): launch_only(name, prog=shapes[name])}
+        shape_ms = {t: [] for t in forms}
+        for rep in range(REPS):
+            for t in (sorted(forms) if rep % 2 else sorted(forms, reverse=True)):
+                shape_ms[t] += _cuda_ms(forms[t], 1, 10)
+        med = {t: statistics.median(v) for t, v in shape_ms.items()}
+        print(f"phase timing circuit block_shape {name} shape=({B}, {T}) runs={REPS} in turns "
+              + " ".join(f"threads={t}:{med[t]:.4f}" for t in sorted(med))
+              + f" ms (10 launches per run) fastest={min(med, key=med.get)} "
+              f"chosen={progs[name].emitter.lane_threads} card={card!r}", flush=True)
     # the lanes per stream of the NxH roots' lane form (B7), on the sweep's
     # build, at the serving shape, the generic training batch and two
     # batches between them (where lanes_for switches K), no trajectory;
@@ -1811,7 +1934,7 @@ def circuit_path(dev, card: str, seed: int) -> list:
     # B6 per sample: the clipper's b_temp, a, z' and output (6) around the root
     cheb_ops = (fc.cheb_root_ops(len(droot.coeffs), fc.cheb_parameters(droot)[1]) + 6) * B * T
     bounds = {"B6": _bound(cheb_ops, 8 * B * T + 8 * B)}
-    for name in ("ts", "ts_2x16", "hpf_2x16", "lpf"):
+    for name in ("ts", "ts_low", "ts_2x16", "hpf", "hpf_2x16", "lpf"):
         prog = progs[name]
         bounds[f"B7 {name}"] = _bound(prog.ops_per_sample * B * T,
                                       8 * B * T + 8 * len(prog.state_order) * B)
@@ -1977,27 +2100,31 @@ DEER_PTXAS = r"\d+(deer_\w*?kernel)"
 @contextlib.contextmanager
 def _old_kernels(active: bool):
     """With ``active``, the wrappers run the kernels as they were before
-    their redesign: B7, B3 and B1 one thread per stream (lanes = 1), B8 and
-    B4 the one-pass kernel, B2 the two omega solves one after the other, B5
-    and B9 the one-CTA kernels (with omega()'s zero-residual skip, which
-    their earlier builds did not take).  For the before-and-after
-    comparisons only."""
+    their redesign: B7 one thread per stream (lanes = 1: the NxH roots' and
+    the diode pair's lane forms off; the one-thread step solves the pair
+    with omega_pair, whose bits are omega()'s, the kernels circuit phase
+    checks), B3 and B1 one thread per stream, B8 and B4 the one-pass kernel,
+    B2 the two omega solves one after the other, B6 one thread per stream
+    (``cheb_kernel<D>``), B5 and B9 the one-CTA kernels (with omega()'s
+    zero-residual skip, which their earlier builds did not take).  For the
+    before-and-after comparisons only."""
     if not active:
         yield
         return
     saved = (fcirc.lanes_for, pb.launch_adjoint, fc.nxh_lanes, ct.launch_adjoint,
-             fc.launch_analytic)
+             fc.launch_analytic, fc.launch_cheb)
     fcirc.lanes_for = lambda prog, b: 1
     pb.launch_adjoint = pb.launch_adjoint_onepass
     fc.nxh_lanes = lambda h, b: 1
     ct.launch_adjoint = ct.launch_adjoint_onepass
     fc.launch_analytic = fc.launch_analytic_serial
+    fc.launch_cheb = fc.launch_cheb_onethread
     try:
         with _deer_form(df.ONE_CTA):
             yield
     finally:
         (fcirc.lanes_for, pb.launch_adjoint, fc.nxh_lanes, ct.launch_adjoint,
-         fc.launch_analytic) = saved
+         fc.launch_analytic, fc.launch_cheb) = saved
 
 
 def _scratch_bytes(adj, B: int, T: int) -> str:
@@ -2741,6 +2868,7 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
     for c in (dc.fused_deer_circuit, dc.fused_deer_neural, pd.fused_deer_clipper,
               fcirc.fused_circuit_process, fc.fused_clipper_analytic, fc.fused_clipper_neural):
         c.launches = 0
+    fcirc.fused_circuit_process.pair_launches = 0
     deer, scan = procs["plugin"]["deer"], procs["plugin"]["scan"]
     scan_of = {(g, m): ({"B2": 1} if g == "clipper" and m < 2 else
                         {"B7": 1} if g == "tube_screamer" else {"B1": 1})
@@ -2832,7 +2960,8 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
     _check(max(n_err) <= NEURAL_BUDGET and nd.fallbacks == {}
            and nd.last_residual["neural_2x16"] < 1e-4, "the neural clipper under deer")
     launches = _all_launches()  # the main path's count
-    print(f"phase stream plugin launches={launches} nvcc_runs="
+    print(f"phase stream plugin launches={launches} (B7 diode-pair lane form at B = 1: "
+          f"{fcirc.fused_circuit_process.pair_launches}) nvcc_runs="
           f"{_build.build_generated.builds - builds}", flush=True)
     _check(all(v > 0 for v in launches.values()), "every single-stream kernel launched")
     _check(_build.build_generated.builds == builds, "no served block ran nvcc after warmup")
@@ -2903,10 +3032,9 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
 
         serve()
         fallbacks = proc.fallbacks.get(member, 0)
-        # the scan engine's clipper members are one launch of B1 or B2 a
-        # block: served with those kernels before their redesign too
-        wall = _wall_in_turns(serve, engine == "deer" or (
-            engine == "scan" and group != "tube_screamer" and proc_name != "hpf"))
+        # every block is served with the kernels before their redesign too
+        # (the scan engine's: B1, B2 or B7 one thread a stream)
+        wall = _wall_in_turns(serve, True)
         ms = statistics.median(wall["after"])
         before = (f" before_kernels_wall_ms={statistics.median(wall['before']):.4f} "
                   f"[{min(wall['before']):.4f}, {max(wall['before']):.4f}] (in turns)"

@@ -65,6 +65,8 @@ _SIGNATURES = {
     "deer_clipper_max_clusters": ([], ctypes.c_int),
     "fused_clipper_cheb_launch": (
         [_vp] * 4 + [_i, _i, _vp, _i, _i, _i, _f, _vp], ctypes.c_int),
+    "fused_clipper_cheb_onethread_launch": (
+        [_vp] * 4 + [_i, _i, _vp, _i, _i, _i, _f, _vp], ctypes.c_int),
     "diffwdf_cuda_error_string": ([_i], ctypes.c_char_p),
 }
 
@@ -157,7 +159,8 @@ def check(err: int, what: str, error_string=None) -> None:
 #: reference, a DEER source circuit_deer_launch and its cluster occupancy
 #: query) and of the DEER kernels' comparison forms (a generated circuit's
 #: DeerProgram.forms_source, the clipper's csrc/forms/deer_clipper_forms.cu:
-#: the kernel at 8 CTAs and the one-CTA kernel before the cluster redesign)
+#: the kernel at 8 CTAs and the one-CTA kernel before the cluster redesign),
+#: and csrc/forms/omega_forms.cu (omega() against omega_select)
 _DEER = [_vp] * 6 + [_i] + [_vp] * 2 + [_i] * 4 + [_f] * 2 + [_i, _vp]
 _DEER_CLIPPER = [_vp] * 6 + [_i] + [_f] * 8 + [_i] * 3 + [_vp]
 _GENERATED_SIGNATURES = {
@@ -175,6 +178,7 @@ _GENERATED_SIGNATURES = {
     "deer_clipper_c8_max_clusters": ([], ctypes.c_int),
     "deer_clipper_onecta_launch": (_DEER_CLIPPER, ctypes.c_int),
     "circuit_error_string": ([_i], ctypes.c_char_p),
+    "omega_forms_launch": ([_vp] * 3 + [_i, _i, _vp], ctypes.c_int),
 }
 
 

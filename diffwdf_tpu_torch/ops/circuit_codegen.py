@@ -4,10 +4,10 @@ Three kernels per circuit structure:
 
 - the **forward** (``CircuitProgram.source``, ``ops.fused_circuit``): the
   circuit's whole sample recursion over a batch of streams, one thread per
-  stream or, for an NxH neural root, a group of K lanes per stream (the
-  tree on every lane, the MLP split across them: ``_lanes_parts``),
-  optionally writing the pre-step state trajectory z_{t-1} (the residual of
-  training);
+  stream or a group of K lanes per stream (the tree on every lane; an NxH
+  neural root's MLP split across them, a diode pair's two omega solves on a
+  pair of lanes: ``_lanes_parts``), optionally writing the pre-step state
+  trajectory z_{t-1} (the residual of training);
 - the **adjoint** (``AdjointProgram.source``, ``ops.parallel_bptt``): the
   reverse-time recursion lam_{t-1} = J_t^T lam_t + A_t^T obar_t of training
   over the stored trajectory, in two passes: the step's tangents at every
@@ -480,6 +480,36 @@ class _RootEmitter:
     def plain(self, a, r_up, slots, array, controls, params):
         raise NotImplementedError
 
+    # --- the lane-cooperative forward (``_lanes_parts``): a root with lanes
+
+    #: headers of the lane form's root code
+    lane_headers: Tuple[str, ...] = ()
+    #: threads a block of the lane form (a multiple of 32 and of every K)
+    lane_threads = 128
+    #: substrings that mark the root's own lines of a traced step: the lines
+    #: the lane form may emit differently (``_lanes_parts``' tree check drops
+    #: them and requires every other line to be the one-thread step's)
+    own_marks: Tuple[str, ...] = ("// root",)
+
+    def lane_counts(self, every: bool = False) -> Tuple[int, ...]:
+        """The group sizes K of the lane-cooperative forward kernel built for
+        this root (``every``: the K sweep's build); none: the one-thread
+        kernel alone."""
+        return ()
+
+    def lane_weights(self) -> Tuple[str, str]:
+        """(the C++ type of a lane's weights in the lane form, given K; the
+        statement that loads them for lane ``rank`` from the root array
+        ``w``): none by default."""
+        return "CircuitNoLaneWeights", ""
+
+    def prologue_lanes(self, slots) -> List[str]:
+        """The lane form's prologue: none by default."""
+        return []
+
+    def own_line(self, line: str) -> bool:
+        return any(mark in line for mark in self.own_marks)
+
 
 class _TracedRoot(_RootEmitter):
     """A root whose ``reflect`` is arithmetic on its inputs
@@ -511,9 +541,20 @@ class _DiodePairEmitter(_RootEmitter):
     the step, in f32 and in the order of ``diode_pair_reflected``
     (R Is / Vt, then / n, then log), and the slots are Is, Vt and the last
     five.  The lines around omega round as ``diode_pair_root`` does
-    (uncontracted)."""
+    (uncontracted).
+
+    The forward step solves the pair branch-free with the Newton steps
+    unrolled: ``omega_pair`` on one thread, ``omega_pair_lanes`` on a pair
+    of lanes (K = 2, omega_lanes.cuh), each lane one solve, the same bits.
+    The adjoint and DEER steps keep ``omega()``."""
 
     headers = ("omega.cuh",)
+    lane_headers = ("omega_lanes.cuh",)
+    own_marks = ("// root", "omega_pair")
+    #: blocks of 64 threads (32 streams) in the lane form: against 128 at
+    #: (8192, 2048) on an H100, in turns, the TS took 0.998x and the LPF
+    #: 0.995x the time (chip_smoke.py's block-shape line)
+    lane_threads = 64
     n_slots = 7
 
     def __init__(self, root: DiodePairRoot, r_kind: str = "scalar"):
@@ -523,6 +564,10 @@ class _DiodePairEmitter(_RootEmitter):
 
     def key(self):
         return ("DiodePairRoot", self.iters)
+
+    def lane_counts(self, every: bool = False) -> Tuple[int, ...]:
+        """K = 2: the pair's two solves on a pair of lanes, at every B."""
+        return (2,)
 
     def slots(self, r_up, params):
         p = {k: torch.as_tensor(v).detach().double() for k, v in params[self.name].items()}
@@ -543,9 +588,11 @@ class _DiodePairEmitter(_RootEmitter):
         return (tr.let(f"logf(__fdiv_rn({riv.ref}, {n_up}))", 2, "d"),
                 tr.let(f"logf(__fdiv_rn({riv.ref}, {n_dn}))", 2, "d"))
 
-    def _core(self, tr, a, r_up, slots):
+    def _core(self, tr, a, r_up, slots, pair: Optional[str] = None):
         """The branch selects and the two omega values at a: a dict of the
-        symbols b and m are built from."""
+        symbols b and m are built from.  ``pair``: the function that solves
+        both at once (``omega_pair`` of the forward step, or
+        ``omega_pair_lanes`` of its lane form), else two ``omega()`` calls."""
         log_up, log_dn = (s.ref for s in self._logs(tr, r_up, slots))
         inv_up, inv_dn, two_vt, n_up, n_dn = (s.ref for s in slots[2:])
         x = a.ref
@@ -557,15 +604,32 @@ class _DiodePairEmitter(_RootEmitter):
                                            ("inv0", (inv_dn, inv_up)), ("inv1", (inv_up, inv_dn))):
             s[name] = tr.let(f"{pos} ? {when_pos} : {when_neg}", 1, "d").ref
         la = tr.let(f"__fmul_rn({s['lam']}, {x})", 1, "d").ref
-        s["w0"] = tr.let(f"omega(__fadd_rn({s['log0']}, __fmul_rn({la}, {s['inv0']})), "
-                         f"{self.iters})", 2 + self.omega_ops, "d").ref
-        s["w1"] = tr.let(f"omega(__fsub_rn({s['log1']}, __fmul_rn({la}, {s['inv1']})), "
-                         f"{self.iters})", 2 + self.omega_ops, "d").ref
+        x0 = f"__fadd_rn({s['log0']}, __fmul_rn({la}, {s['inv0']}))"
+        x1 = f"__fsub_rn({s['log1']}, __fmul_rn({la}, {s['inv1']}))"
+        if pair is None:
+            s["w0"] = tr.let(f"omega({x0}, {self.iters})", 2 + self.omega_ops, "d").ref
+            s["w1"] = tr.let(f"omega({x1}, {self.iters})", 2 + self.omega_ops, "d").ref
+            return s
+        # one statement fills both, w[0] = omega(x0) and w[1] = omega(x1): as
+        # many names as the two omega() lines, so that the lines after them
+        # keep their names
+        rank = ", rank" if pair == "omega_pair_lanes" else ""
+        w = tr.decl(f"float {{name}}[2]; {pair}<{self.iters}>({x0}, {x1}, {{name}}[0], "
+                    f"{{name}}[1]{rank});", 4 + 2 * self.omega_ops, "om")
+        s["w0"], s["w1"] = f"{w}[0]", f"{w}[1]"
         return s
 
-    def emit(self, tr, a, r_up, slots, controls, params):
-        tr.raw(f"// root: asymmetric diode pair, omega.cuh with {self.iters} Newton iterations")
-        s = self._core(tr, a, r_up, slots)
+    def emit(self, tr, a, r_up, slots, controls, params, lanes: bool = False):
+        """b at a; with ``lanes`` the pair form (``omega_pair_lanes`` on the
+        pair of lanes of the kernel's group, ``rank`` the lane's place in
+        it), which only the lane-cooperative forward kernel emits."""
+        if lanes:
+            tr.raw(f"// root: asymmetric diode pair, its two omega solves on a pair of lanes "
+                   f"(omega_lanes.cuh), {self.iters} Newton iterations")
+        else:
+            tr.raw(f"// root: asymmetric diode pair, omega.cuh's omega_pair with {self.iters} "
+                   "Newton iterations")
+        s = self._core(tr, a, r_up, slots, "omega_pair_lanes" if lanes else "omega_pair")
         return tr.let(f"__fsub_rn({a.ref}, __fmul_rn(__fmul_rn({s['two_vt']}, {s['lam']}), "
                       f"__fsub_rn(__fmul_rn({s['mu0']}, {s['w0']}), "
                       f"__fmul_rn({s['mu1']}, {s['w1']}))))", 6, "root")
@@ -614,6 +678,8 @@ class _NeuralEmitter(_RootEmitter):
     form reads every block in 16-byte words."""
 
     headers = ("nxh_mlp.cuh",)
+    lane_headers = ("nxh_lanes.cuh",)
+    own_marks = ("// root", "nxh_")
     #: one block per SM: with the block size alone ptxas put the Tube
     #: Screamer 2x16 at 96 registers and spilled the MLP's activations
     launch_bounds = "kTileRows, 1"
@@ -868,10 +934,10 @@ class CircuitProgram:
     ops_per_sample: int    # counted from the emitted step
     emitter: Any
     #: the lanes per stream ``circuit_launch`` takes: 1 (one thread per
-    #: stream, every root) and, for an NxH root, the group sizes K of the
-    #: lane-cooperative kernel
+    #: stream, every root) and, for a root with a lane form (an NxH MLP, the
+    #: diode pair), the group sizes K of the lane-cooperative kernel
     lanes: Tuple[int, ...] = (1,)
-    lanes_source: str = ""  # the lane form's prologue and step (NxH roots; device only)
+    lanes_source: str = ""  # the lane form's prologue and step (device only)
 
     def arguments(self, circuit: Circuit, coeffs, params, static_controls, device):
         """(coefficient vector (NC,), row slots (NR, B), time slots
@@ -1098,12 +1164,14 @@ def _trace_forward(circuit: Circuit, layout, input_node: str, emitter: _RootEmit
 
 
 def generate(circuit: Circuit, layout, input_node: str, emitter: _RootEmitter,
-             every_lane: bool = False) -> CircuitProgram:
+             every_lane: bool = False, lane_threads: Optional[int] = None) -> CircuitProgram:
     """Trace ``circuit``'s step into a CircuitProgram for a slot ``layout``
     (``_layout``: the kinds and shapes of the adapted coefficients, params
-    and static controls).  An NxH root's lane form is built for the K that
-    ``fused_circuit.lanes_for`` can pick, with ``every_lane`` for every K
-    that divides H (``_NeuralEmitter.lane_counts``)."""
+    and static controls).  A root with a lane form gets it for the K of its
+    ``lane_counts``: an NxH root for the K that ``fused_circuit.lanes_for``
+    can pick (with ``every_lane`` every K that divides H), the diode pair for
+    K = 2; its blocks hold ``lane_threads`` threads (default the emitter's
+    ``lane_threads``)."""
     _check_tree(circuit.tree)
     if len(circuit.outputs) != 1:
         raise ValueError(f"fused_circuit: one output probe, got {tuple(circuit.outputs)}")
@@ -1139,15 +1207,16 @@ __device__ __forceinline__ float circuit_step(float v, float* z, const float* c,
     q_reads = "".join(f"\n        q[{j}] = tiles[{1 + i}][threadIdx.x][k];"
                       for i, j in enumerate(used_q))
     seq0 = 1 + len(used_q)
-    lane_counts = (emitter.lane_counts(every_lane) if isinstance(emitter, _NeuralEmitter)
-                   else ())
+    lane_counts = emitter.lane_counts(every_lane)
     lanes_source = lanes_kernel = ""
     if lane_counts:
-        lanes_source, lanes_kernel = _lanes_parts(circuit, layout, input_node, emitter, body,
-                                                  lane_counts, (zn, cn, rn, qn, pn))
+        lanes_source, lanes_kernel = _lanes_parts(
+            circuit, layout, input_node, emitter, body, lane_counts, (zn, cn, rn, qn, pn),
+            lane_threads or emitter.lane_threads)
     lane_cases = "".join(
         f"\n    case {k}:\n      kernel = with_seq ? circuit_lanes_kernel<true, {k}> : "
-        f"circuit_lanes_kernel<false, {k}>;\n      break;" for k in lane_counts)
+        f"circuit_lanes_kernel<false, {k}>;\n      threads = CIRCUIT_LANE_THREADS;\n"
+        "      break;" for k in lane_counts)
     kernel = f"""
 #include "tile.cuh"
 {lanes_kernel}
@@ -1229,6 +1298,7 @@ int circuit_launch(const float* vin, const float* z0, float* out, float* zf, flo
   const bool with_seq = seq != nullptr;
   const int n_tiles = 1 + kTimeTiles + (with_seq ? CIRCUIT_NS : 0);
   decltype(&circuit_kernel<false>) kernel = nullptr;
+  int threads = kTileRows;  // a block: kTileRows threads, or the lane kernel's
   switch (lanes) {{
     case 1:
       kernel = with_seq ? circuit_kernel<true> : circuit_kernel<false>;
@@ -1236,7 +1306,7 @@ int circuit_launch(const float* vin, const float* z0, float* out, float* zf, flo
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }}
-  const int rows_per_block = kTileRows / lanes;  // streams per block
+  const int rows_per_block = threads / lanes;  // streams per block
   const size_t smem = sizeof(float) * static_cast<size_t>((n_warr + 3) & ~3) +
                       sizeof(float) * static_cast<size_t>(rows_per_block) * (kTileCols + 1) *
                           static_cast<size_t>(n_tiles);
@@ -1246,7 +1316,7 @@ int circuit_launch(const float* vin, const float* z0, float* out, float* zf, flo
     if (e != cudaSuccess) return static_cast<int>(e);
   }}
   const int blocks = (B + rows_per_block - 1) / rows_per_block;
-  kernel<<<blocks, kTileRows, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       vin, z0, out, zf, seq, B, T, coef, rows, times, warr, n_warr, writer);
   return static_cast<int>(cudaGetLastError());
 }}
@@ -1284,28 +1354,34 @@ extern "C" void circuit_host_run(const float* vin, const float* z0, float* out, 
         lanes=(1,) + lane_counts, lanes_source=lanes_source)
 
 
-def _lanes_parts(circuit, layout, input_node, emitter, body, lane_counts, sizes):
-    """(the lane form's prologue and step, its kernel) for an NxH root: the
-    step traced again with the root's lane form; the tree's lines are the
+def _tree_lines(emitter: _RootEmitter, body: str) -> List[str]:
+    """The lines of a traced step that are not the root's own."""
+    return [line for line in body.splitlines() if not emitter.own_line(line)]
+
+
+def _lanes_parts(circuit, layout, input_node, emitter, body, lane_counts, sizes, lane_threads):
+    """(the lane form's prologue and step, its kernel) for a root with a
+    lane form (an NxH MLP, the diode pair): the step traced again with the
+    root's lane form; every line that is not the root's own is the
     one-thread step's (checked)."""
     zn, cn, rn, qn, pn = sizes
     lbody, lout, _, root_slots, _, _ = _trace_forward(circuit, layout, input_node, emitter,
                                                       lanes=True)
-    tree = [line for line in body.splitlines() if "nxh_" not in line and "// root" not in line]
-    if tree != [line for line in lbody.splitlines()
-                if "nxh_" not in line and "// root" not in line]:
+    if _tree_lines(emitter, body) != _tree_lines(emitter, lbody):
         raise AssertionError("the lane form's tree differs from the one-thread step's")
     prologue = "\n".join("  " + line for line in emitter.prologue_lanes(root_slots))
     weights_type, weights_load = emitter.lane_weights()
+    headers = "".join(f'#include "{h}"\n' for h in emitter.lane_headers)
     source = f"""
 // The lane form of the step (lane-cooperative kernel below; device only):
-// the same tree lines on every lane of a group of K, the MLP split across
-// the group (nxh_lanes.cuh); rank is the lane's place in its group.
-#include "nxh_lanes.cuh"
-
+// the same tree lines on every lane of a group of K, the root's work split
+// across the group (the header below); rank is the lane's place in its group.
+{headers}
 namespace {{
 
-// a lane's weights of the root (registers or none; nxh_lanes.cuh)
+// the root's weights that a lane holds in registers (NxH; a root without
+// lane weights holds none)
+struct CircuitNoLaneWeights {{}};
 template <int K>
 using CircuitLaneWeights = {weights_type};
 
@@ -1337,38 +1413,42 @@ __device__ __forceinline__ float circuit_step_lanes(float v, float* z, const flo
 }}  // namespace
 """
     used_q = _used("q", lbody)
-    q_loads = "".join(f"\n      rows_load<R>(tiles[{1 + i}], times + static_cast<size_t>({j}) * B "
-                      f"* T, B, T, b0, t0, tc);" for i, j in enumerate(used_q))
+    q_loads = "".join(f"\n      rows_load<R, CIRCUIT_LANE_THREADS>(tiles[{1 + i}], times + "
+                      f"static_cast<size_t>({j}) * B * T, B, T, b0, t0, tc);"
+                      for i, j in enumerate(used_q))
     q_reads = "".join(f"\n        q[{j}] = tiles[{1 + i}][row][k];" for i, j in enumerate(used_q))
     seq0 = 1 + len(used_q)
     kernel = f"""
-// Lane-cooperative kernel of an NxH root (lanes = K in {{{", ".join(map(str, lane_counts))}}}):
-// a group of K consecutive lanes serves one stream, so a block of 128
-// threads holds R = 128 / K streams.  What bounds the one-thread kernel on
-// this card: each stream is one thread's chain of ~1,200 dependent
-// operations a sample, 1,168 of them the MLP's (8 blocks of 4 warps at
-// B = 1,024 on 132 SMs, the other SMs idle).  Here every lane of a group
-// runs the tree on the same values and ends each step with the same bits
-// (nxh_lanes.cuh), so the state is replicated, not exchanged; the MLP's
-// neurons are split across the group and its chain a sample falls from
-// H^2 L to ~H (L + 1) FMAs and shuffles.  What bounds this kernel: at few
-// streams (K = 16) that shorter chain, sample after sample; at many, the
-// issue rate, since every lane repeats the tree and gathers the H
-// activations of each layer (the launch then takes K = 8;
-// ops/fused_circuit.py, lanes_for).  One lane of a group (`writer`, 0 but
-// for the tests) writes the output, the final state and the trajectory,
-// through (R, 32) tiles that the block stores as whole lines.  Launch
-// bounds (128, 1): no register cap, so no spill.
+// Lane-cooperative kernel (lanes = K in {{{", ".join(map(str, lane_counts))}}}): a group of K
+// consecutive lanes serves one stream, so a block of CIRCUIT_LANE_THREADS
+// threads holds R = CIRCUIT_LANE_THREADS / K streams.  What bounds the
+// one-thread kernel on this card: each stream is one thread's chain of
+// dependent operations a sample (a 2x16 MLP root's ~1,200, 1,168 of them the
+// MLP's; a diode pair's two omega solves, whose IEEE divisions ptxas runs
+// one after the other), one warp a scheduler at most.  Here every lane of a
+// group runs the tree on the same values and ends each step with the same
+// bits, so the state is replicated, not exchanged, and the root's work is
+// split across the group: an NxH MLP's neurons (nxh_lanes.cuh; the chain a
+// sample falls from H^2 L to ~H (L + 1) FMAs and shuffles; at many streams
+// the issue rate bounds it, since every lane repeats the tree, and the
+// launch then takes fewer lanes: ops/fused_circuit.py, lanes_for), or the
+// diode pair's two omega solves, one a lane (omega_lanes.cuh; the chain is
+// one solve long).  One lane of a group (`writer`, 0 but for the tests)
+// writes the output, the final state and the trajectory, through (R, 32)
+// tiles that the block stores as whole lines; rows past B run on zeros, so
+// that every lane of a live warp shuffles.  Launch bounds
+// (CIRCUIT_LANE_THREADS, 1): no register cap, so no spill.
+#define CIRCUIT_LANE_THREADS {lane_threads}  // the root emitter's lane_threads
 namespace {{
 
 template <bool kSeq, int K>
-__global__ void __launch_bounds__(kTileRows, 1)
+__global__ void __launch_bounds__(CIRCUIT_LANE_THREADS, 1)
 circuit_lanes_kernel(const float* __restrict__ vin, const float* __restrict__ z0,
                      float* __restrict__ out, float* __restrict__ zf, float* __restrict__ seq,
                      int B, int T, const float* __restrict__ coef,
                      const float* __restrict__ rows, const float* __restrict__ times,
                      const float* __restrict__ warr, int n_warr, int writer) {{
-  constexpr int R = kTileRows / K;  // streams per block
+  constexpr int R = CIRCUIT_LANE_THREADS / K;  // streams per block
   extern __shared__ float4 lanes_smem[];  // 16-byte aligned: the root array's blocks
   float* smem = reinterpret_cast<float*>(lanes_smem);
   for (int i = threadIdx.x; i < n_warr; i += blockDim.x) smem[i] = warr[i];
@@ -1402,7 +1482,7 @@ circuit_lanes_kernel(const float* __restrict__ vin, const float* __restrict__ z0
   for (int k = 0; k < CIRCUIT_NS; ++k) z[k] = live ? z0[static_cast<size_t>(k) * B + b] : 0.f;
   for (int t0 = 0; t0 < T; t0 += kTileCols) {{
     const int tc = min(kTileCols, T - t0);
-    rows_load<R>(tiles[0], vin, B, T, b0, t0, tc);{q_loads}
+    rows_load<R, CIRCUIT_LANE_THREADS>(tiles[0], vin, B, T, b0, t0, tc);{q_loads}
     for (int k = 0; k < tc; ++k) {{
       float q[{qn}];{q_reads}
       if (kSeq && lead) {{
@@ -1413,10 +1493,11 @@ circuit_lanes_kernel(const float* __restrict__ vin, const float* __restrict__ z0
       __syncwarp();  // every lane of the group has read v_t
       if (lead) tiles[0][row][k] = y;
     }}
-    rows_store<R>(tiles[0], out, B, T, b0, t0, tc);
+    rows_store<R, CIRCUIT_LANE_THREADS>(tiles[0], out, B, T, b0, t0, tc);
     if (kSeq) {{
       for (int s = 0; s < CIRCUIT_NS; ++s) {{
-        rows_store<R>(tiles[{seq0} + s], seq + static_cast<size_t>(s) * B * T, B, T, b0, t0, tc);
+        rows_store<R, CIRCUIT_LANE_THREADS>(tiles[{seq0} + s], seq + static_cast<size_t>(s) * B * T,
+                                            B, T, b0, t0, tc);
       }}
     }}
   }}
@@ -2611,6 +2692,13 @@ def sweep_program(circuit: Circuit, prog: CircuitProgram) -> CircuitProgram:
     H, not only the K that ``fused_circuit.lanes_for`` picks: a source of
     its own for the K sweep of chip_smoke.py and the card tests."""
     return generate(circuit, prog.layout, prog.input_node, prog.emitter, every_lane=True)
+
+
+def shape_program(circuit: Circuit, prog: CircuitProgram, lane_threads: int) -> CircuitProgram:
+    """``prog`` with blocks of ``lane_threads`` threads in its lane form: a
+    source of its own for chip_smoke.py's block-shape measurement."""
+    return generate(circuit, prog.layout, prog.input_node, prog.emitter,
+                    lane_threads=lane_threads)
 
 
 def adjoint_program(circuit: Circuit, prog: CircuitProgram) -> AdjointProgram:

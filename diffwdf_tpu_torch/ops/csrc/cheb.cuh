@@ -1,14 +1,16 @@
 // Device code of the distilled piecewise-odd Chebyshev root, shared by the
-// distilled clipper kernel (cheb.cu, cheb_kernel) and the generated circuit
-// kernels (ops/circuit_codegen.py) that serve a PiecewiseChebRoot.
+// distilled clipper's kernels (cheb.cu; the lane form in cheb_lanes.cuh) and
+// the generated circuit kernels (ops/circuit_codegen.py) that serve a
+// PiecewiseChebRoot.
 //
 //   b = a - sign(a) h(|a|),  s = clip(|a|, 0, a_max),
 //   h = sum_k c_jk T_k(t_j),  t_j = clip((2 s - (hi_j + lo_j)) / (hi_j - lo_j), -1, 1)
 //
 // on the segment j the JAX kernel's evaluate-all-then-where selects: the last
-// one whose lower edge s reaches (NaN selects the last, as there).  Only that
-// segment is evaluated, by the Clenshaw recurrence in the JAX order
-// b1' = 2 t b1 - b2 + c_k, k = degree .. 1, then h = t b1 - b2 + c_0.
+// one whose lower edge s reaches (a NaN a clips to s = 0 here, and gives a
+// NaN b).  cheb_root evaluates only that segment, by the Clenshaw recurrence
+// in the JAX order b1' = 2 t b1 - b2 + c_k, k = degree .. 1, then
+// h = t b1 - b2 + c_0 (cheb_segment).
 //
 // Parameter layout (floats; built in double on the host, rounded to f32):
 //   a_max, then per segment lo_j, hi_j + lo_j, hi_j - lo_j,
@@ -40,6 +42,26 @@ __host__ __device__ __forceinline__ float cheb_clip(float x, float lo, float hi)
   return fminf(fmaxf(x, lo), hi);
 }
 
+// h of one segment at s: t = clip((2 s - (hi + lo)) / (hi - lo), -1, 1),
+// then the Clenshaw recurrence over the segment's coefficients c[0 .. D]
+// (zero-padded to D).  cheb_root (one thread, the selected segment) and the
+// lane form (cheb_lanes.cuh, one segment a lane) both run this, so both run
+// the same expressions.
+template <int D>
+__host__ __device__ __forceinline__ float cheb_segment(float s, float hpl, float hml,
+                                                       const float* c) {
+  const float t = cheb_clip((2.f * s - hpl) / hml, -1.f, 1.f);
+  const float t2 = 2.f * t;
+  float b1 = 0.f, b2 = 0.f;
+#pragma unroll
+  for (int k = D; k >= 1; --k) {
+    const float b0 = t2 * b1 - b2 + c[k];
+    b2 = b1;
+    b1 = b0;
+  }
+  return t * b1 - b2 + c[0];
+}
+
 // b of the root at a; p the parameters above, n_seg segments padded to D.
 template <int D>
 __host__ __device__ __forceinline__ float cheb_root(float a, const float* p, int n_seg) {
@@ -50,17 +72,23 @@ __host__ __device__ __forceinline__ float cheb_root(float a, const float* p, int
     if (!(s < seg[3 * k])) j = k;
   }
   const float* c = p + 1 + 3 * n_seg + j * (D + 1);
-  const float t = cheb_clip((2.f * s - seg[3 * j + 1]) / seg[3 * j + 2], -1.f, 1.f);
-  const float t2 = 2.f * t;
-  float b1 = 0.f, b2 = 0.f;
-#pragma unroll
-  for (int k = D; k >= 1; --k) {
-    const float b0 = t2 * b1 - b2 + c[k];
-    b2 = b1;
-    b1 = b0;
-  }
-  const float h = t * b1 - b2 + c[0];
+  const float h = cheb_segment<D>(s, seg[3 * j + 1], seg[3 * j + 2], c);
   return a - cheb_sign(a) * h;
+}
+
+// One step of the LPF clipper around the root (cheb.cu's kernels):
+//   b_temp = -p1R (z - v),  a = z + b_temp,  z' = root(a) + b_temp,
+//   out = (z' + z) / 2;
+// z is the state, updated.  Returns the output.
+template <class Root>
+__host__ __device__ __forceinline__ float cheb_clipper_step(float v, float p1R, float& z,
+                                                            Root root) {
+  const float b_temp = -p1R * (z - v);
+  const float a = z + b_temp;
+  const float z_new = root(a) + b_temp;
+  const float o = 0.5f * (z_new + z);
+  z = z_new;
+  return o;
 }
 
 }  // namespace

@@ -30,6 +30,7 @@
 #include "nxh_lanes.cuh"
 #include "nxh_mlp.cuh"
 #include "omega.cuh"
+#include "omega_lanes.cuh"
 
 namespace {
 
@@ -94,19 +95,6 @@ struct AnalyticConsts {
   float n_up;
   float n_dn;
 };
-
-// The diode pair's two solves on a pair of consecutive lanes (K = 2): lane
-// `rank` (0 or 1) solves x_rank with omega_select, and one shuffle gives each
-// lane the other's w, so both lanes end with omega_pair's (w0, w1), bit for
-// bit.  Every lane of the warp calls it.
-template <int ITERS>
-__device__ __forceinline__ void omega_pair_lanes(float x0, float x1, float& w0, float& w1,
-                                                 int rank, int iters = ITERS) {
-  const float w = omega_select<ITERS>(rank ? x1 : x0, iters);
-  const float other = __shfl_sync(0xffffffffu, w, rank ^ 1, 2);
-  w0 = rank ? other : w;
-  w1 = rank ? w : other;
-}
 
 // One analytic clipper step of state z at input v: the diode pair with its
 // two omega solves on the pair of lanes `rank` belongs to (K = 2,

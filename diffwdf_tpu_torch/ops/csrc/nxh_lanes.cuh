@@ -1,5 +1,4 @@
-// The "NxH" neural diode root shared by K lanes of one warp, and the
-// shared-memory row tiles of a kernel that gives each stream K lanes.
+// The "NxH" neural diode root shared by K lanes of one warp.
 //
 // Used by the generated forward kernel (ops/circuit_codegen.py, B7) for NxH
 // roots and by the clipper's serving and training forward kernels
@@ -34,8 +33,6 @@
 #pragma once
 
 #include <cuda_runtime.h>
-
-#include "tile.cuh"
 
 namespace {
 
@@ -155,35 +152,6 @@ __device__ __forceinline__ float nxh_forward_lanes(float a, const float* w1a, co
 #pragma unroll
   for (int i = 0; i < H; ++i) y = fmaf(__shfl_sync(0xffffffffu, h[i % N], i / N, K), head[i], y);
   return y;
-}
-
-// (R, kTileCols) tiles of R = 128 / K streams, staged like tile.cuh's
-// (128, kTileCols) ones by all 128 threads: a warp moves one 128-byte line
-// of one stream at a time.  Rows past B and samples past T are masked.
-template <int R>
-using RowTile = float[R][kTileCols + 1];
-
-template <int R>
-__device__ __forceinline__ void rows_load(RowTile<R>& tile, const float* __restrict__ src, int B,
-                                          int T, int b0, int t0, int tc) {
-  for (int i = threadIdx.x; i < R * kTileCols; i += blockDim.x) {
-    const int r = i / kTileCols, c = i % kTileCols;
-    const int row = b0 + r;
-    tile[r][c] = (row < B && c < tc) ? src[static_cast<size_t>(row) * T + t0 + c] : 0.f;
-  }
-  __syncthreads();
-}
-
-template <int R>
-__device__ __forceinline__ void rows_store(const RowTile<R>& tile, float* __restrict__ dst, int B,
-                                           int T, int b0, int t0, int tc) {
-  __syncthreads();
-  for (int i = threadIdx.x; i < R * kTileCols; i += blockDim.x) {
-    const int r = i / kTileCols, c = i % kTileCols;
-    const int row = b0 + r;
-    if (row < B && c < tc) dst[static_cast<size_t>(row) * T + t0 + c] = tile[r][c];
-  }
-  __syncthreads();
 }
 
 }  // namespace

@@ -8,7 +8,11 @@
 //
 // omega_select and omega_pair (below) run the same math without the region
 // branches, one solve and the pair: fused_clipper.cu's analytic_pair_kernel,
-// the batched recursion, evaluates the pair with them (clipper_serve.cuh).
+// the batched recursion, evaluates the pair with them (clipper_serve.cuh),
+// and so does the forward step that ops/circuit_codegen.py generates for a
+// diode-pair root (omega_pair on one thread, omega_lanes.cuh's
+// omega_pair_lanes on a pair of lanes).  The adjoint and DEER steps it
+// generates keep omega().
 //
 // Exact f32 throughout (expf, logf, IEEE division): no fast-math intrinsics.
 
@@ -97,9 +101,9 @@ __device__ __forceinline__ float omega_select(float x, int iters = ITERS) {
 // division is a region of its own (FCHK, a branch to the slow path), and
 // ptxas places the second solve's division region after the first's: on
 // one thread the pair's divisions run one after the other.  The serving
-// kernel splits the pair over two lanes instead (clipper_serve.cuh
-// omega_pair_lanes), each lane running one omega_select: the same bits,
-// which the CPU tests hold it to.
+// kernel and the generated forward split the pair over two lanes instead
+// (omega_lanes.cuh omega_pair_lanes), each lane running one omega_select:
+// the same bits, which the CPU tests hold it to.
 template <int ITERS>
 __device__ __forceinline__ void omega_pair(float x0, float x1, float& w0, float& w1,
                                            int iters = ITERS) {

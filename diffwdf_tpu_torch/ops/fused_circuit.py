@@ -3,9 +3,10 @@ CUDA kernel, and its plain PyTorch version.
 
 ``ops.circuit_codegen`` traces the circuit's sample step into C and wraps it
 in a kernel that gives each stream one thread, the state and coefficients in
-registers (B7 in ROADMAP), or, for an NxH neural root, a group of K lanes
-that runs the tree on every lane and splits the MLP across the group
-(:func:`lanes_for` picks K from the batch); ``ops._build`` compiles one
+registers (B7 in ROADMAP), or a group of K lanes that runs the tree on every
+lane and splits the root's work across the group: an NxH neural root's MLP,
+or the diode pair's two omega solves on a pair of lanes (:func:`lanes_for`
+picks K from the batch); ``ops._build`` compiles one
 library per generated source and keeps it, keyed by a hash of the source,
 so a new component value or drive setting is a new argument, never a new
 build.  This serves and trains the Tube Screamer (4-port R-type stage,
@@ -18,7 +19,8 @@ hoisted out of the loop, then the circuit's step (the tree's own
 over the batch, on the same f32 slot values the kernel gets.  Given CUDA
 tensors it launches the generated kernel or raises.  Kernel launches are
 counted in ``fused_circuit_process.launches`` (the ``_neural`` entry
-launches through it).
+launches through it); those of the diode pair's lane form (K = 2) also in
+``fused_circuit_process.pair_launches``.
 
 Impedance-affecting controls are block-rate (``static_controls``), per row
 or per sample (``row_controls``, {node: {field: (B,) | (B, T)}}: the
@@ -165,7 +167,9 @@ def lanes_for(prog: CircuitProgram, B: int) -> int:
     kernel) at most the batch's target in ``fused_clipper.LANE_TARGETS``.
     For an NxH root, few streams leave most of the card idle, so each gets
     many lanes, and many streams fill it, where the tree that every lane
-    repeats and the shuffles would make a large group issue-bound."""
+    repeats and the shuffles would make a large group issue-bound.  The
+    diode pair's program has lanes (1, 2), so it takes K = 2 at every B,
+    B = 1 included: its two omega solves on a pair of lanes."""
     target = next(k for bound, k in LANE_TARGETS if bound is None or B <= bound)
     return max(k for k in prog.lanes if k <= target)
 
@@ -199,7 +203,26 @@ def launch(prep: Prepared, vin, z0, with_seq: bool = False, lanes: Optional[int]
             torch.cuda.current_stream(vin.device).cuda_stream)
     _build.check(err, "fused_circuit_process launch", lib.circuit_error_string)
     fused_circuit_process.launches += 1
+    if lanes == 2:
+        fused_circuit_process.pair_launches += 1
     return out, zf, seq
+
+
+def omega_forms(x: torch.Tensor, iters: int):
+    """(omega(x, iters), omega_select<iters>(x)) of ``csrc/omega.cuh`` on
+    the card, iters 1, 2 or 3: the check that the generated forward step,
+    which solves the diode pair with omega_select, gives the bits it gave
+    with omega() (``csrc/forms/omega_forms.cu``; chip_smoke.py and the card
+    tests).  x: f32 on a card.  Counts nothing."""
+    lib = _build.generated_library((_build.CSRC_DIR / "forms" / "omega_forms.cu").read_text())
+    x = x.contiguous()
+    w_omega, w_select = torch.empty_like(x), torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = lib.omega_forms_launch(x.data_ptr(), w_omega.data_ptr(), w_select.data_ptr(),
+                                     x.numel(), iters,
+                                     torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "omega_forms launch")
+    return w_omega, w_select
 
 
 def _run(circuit, params, vin, state0, input_node, static_controls, row_controls, neural_mlp,
@@ -253,6 +276,7 @@ def fused_circuit_process(circuit, params, vin, state0, *, input_node: str = "Vi
 
 
 fused_circuit_process.launches = 0
+fused_circuit_process.pair_launches = 0
 
 
 def fused_circuit_process_neural_plain(circuit, params, mlp_params, vin, state0, *,

@@ -14,7 +14,8 @@ Three roots, one wrapper each, with the JAX package's signatures:
 - ``fused_clipper_neural``: the "NxH" all-tanh MLP root with a linear head,
   H in {4, 8, 16} and any number L >= 1 of hidden H->H layers;
 - ``fused_clipper_cheb``: a distilled piecewise-Chebyshev root
-  (``roots.distilled``), no transcendentals (``csrc/cheb.cu``).
+  (``roots.distilled``), no transcendentals (``csrc/cheb.cu``), one segment
+  a lane of its stream's group (:func:`cheb_lanes`).
 
 and the training forward of the neural clipper,
 ``fused_clipper_neural_train_fwd``: the source resistance is per row (the
@@ -562,10 +563,47 @@ def fused_clipper_cheb_plain(vin, z0, root, r_source, cap, *, fs: float):
     return out, z
 
 
+def cheb_lanes(n_seg: int) -> int:
+    """The lanes per stream of the distilled kernel (csrc/cheb.cu): one
+    segment a lane, 4 for up to four segments, 8 for five to eight."""
+    return 4 if n_seg <= 4 else 8
+
+
+def _launch_cheb(symbol, vin, z0, root, r_source, cap, fs):
+    root_params, degree = cheb_arguments(root, vin.device)
+    p1R = _f32(_lpf_adaptor(r_source, cap, fs)[0])
+    B, T = vin.shape
+    lib = _build.library()
+    with torch.cuda.device(vin.device):
+        vin, z0, out, zf, stream = _launch_args(vin, z0)
+        err = getattr(lib, symbol)(
+            vin.data_ptr(), z0.data_ptr(), out.data_ptr(), zf.data_ptr(), B, T,
+            root_params.data_ptr(), root_params.numel(), len(root.coeffs), degree, p1R, stream)
+    _build.check(err, symbol)
+    return out, zf
+
+
+def launch_cheb(vin, z0, root, r_source, cap, *, fs: float):
+    """Launch the distilled kernel on CUDA tensors (arguments and results as
+    :func:`fused_clipper_cheb`, B > 0): a group of :func:`cheb_lanes` lanes a
+    stream, one segment a lane.  Counts nothing."""
+    return _launch_cheb("fused_clipper_cheb_launch", vin, z0, root, r_source, cap, fs)
+
+
+def launch_cheb_onethread(vin, z0, root, r_source, cap, *, fs: float):
+    """The distilled kernel's earlier form (arguments as :func:`launch_cheb`):
+    one thread a stream, the selected segment's coefficients read from
+    shared memory.  The wrapper never calls it; the card tests hold the lane
+    kernel to its bits and ``chip_smoke.py`` times it as "before".  Counts
+    nothing."""
+    return _launch_cheb("fused_clipper_cheb_onethread_launch", vin, z0, root, r_source, cap,
+                        fs)
+
+
 def fused_clipper_cheb(vin, z0, root, r_source, cap, *, fs: float):
     """Fused LPF diode clipper with a distilled PiecewiseChebRoot
-    (``roots.distilled``): no transcendentals, ~sum(degrees) FMAs per sample
-    on the selected segment.
+    (``roots.distilled``): no transcendentals, each segment's Clenshaw
+    recurrence on a lane of its stream's group (:func:`launch_cheb`).
 
     vin: (B, T) float32; z0: (B,).  Returns (out (B, T), z_final (B,)).
     The root's coefficients travel as one small argument, so another
@@ -574,20 +612,11 @@ def fused_clipper_cheb(vin, z0, root, r_source, cap, *, fs: float):
     if vin.device.type == "cpu":
         return fused_clipper_cheb_plain(vin, z0, root, r_source, cap, fs=fs)
     _check_io(vin, z0)
-    root_params, degree = cheb_arguments(root, vin.device)
-    p1R = _f32(_lpf_adaptor(r_source, cap, fs)[0])
-    B, T = vin.shape
-    if B == 0:
+    if vin.shape[0] == 0:
         return torch.empty_like(vin), torch.empty_like(z0)
-    lib = _build.library()
-    with torch.cuda.device(vin.device):
-        vin, z0, out, zf, stream = _launch_args(vin, z0)
-        err = lib.fused_clipper_cheb_launch(
-            vin.data_ptr(), z0.data_ptr(), out.data_ptr(), zf.data_ptr(), B, T,
-            root_params.data_ptr(), root_params.numel(), len(root.coeffs), degree, p1R, stream)
-    _build.check(err, "fused_clipper_cheb launch")
+    result = launch_cheb(vin, z0, root, r_source, cap, fs=fs)
     fused_clipper_cheb.launches += 1
-    return out, zf
+    return result
 
 
 fused_clipper_cheb.launches = 0

@@ -19,11 +19,19 @@ with and without per-row and per-sample pots), the HPF and the LPF
 clippers.  The NxH root's lane form (csrc/nxh_lanes.cuh, and the generated
 lane step for every r_kind at every K, and for roots of width 4, 8 and 16
 at the K built for each) runs on K host threads per stream, its shuffles
-through a stand-in, and every lane gives the one-thread step's bits.  The tests also show that the source depends on the
-structure only (two drive settings, one source; a scalar and a per-row R6,
-two), that an unknown node or root class raises, that a root with no tangent
-emitter raises naming ROADMAP, and that the generated-build path caches by
-source and raises on a failed compile (with a stand-in compiler).
+through a stand-in, and every lane gives the one-thread step's bits; so
+does the diode pair's lane form (its two omega solves on a pair of host
+threads) for the LPF, HPF and Tube Screamer with the "best" and "low"
+roots, with a per-row and a per-sample R and the trajectory, the one-thread
+step within the JAX suite's 2e-5 of JAX's ``fused_circuit_process`` in
+interpret mode; the lane form's tree check refuses an altered tree line;
+and ``omega_select`` against ``omega()`` on the host (the same bits where
+the host compiler's arithmetic is the card's).  The tests also show that
+the source depends on the structure only (two drive settings, one source; a
+scalar and a per-row R6, two), that an unknown node or root class raises,
+that a root with no tangent emitter raises naming ROADMAP, and that the
+generated-build path caches by source and raises on a failed compile (with
+a stand-in compiler).
 """
 
 import ctypes
@@ -778,7 +786,11 @@ def test_source_layout_and_operation_count():
     assert ts_prog.state_order == (("C2", "z"), ("C3", "z"), ("C4", "z"))
     assert ("coeffs", "R", "S") in dict(ts_prog.layout)
     assert dict(ts_prog.layout)[("coeffs", "R", "S")] == (4, 4)
-    assert ts_prog.n_coeffs == len(ts_vec) and "omega(" in ts_prog.step_source
+    # the forward solves the diode pair with omega_pair (branch-free, the
+    # lane form's omega); the adjoint keeps omega()
+    assert ts_prog.n_coeffs == len(ts_vec) and "omega_pair<3>(" in ts_prog.step_source
+    assert "omega(" not in ts_prog.step_source
+    assert "omega(" in cg.adjoint_program(ts, ts_prog).source
 
 
 def test_symbols_fold_zeros_and_ones():
@@ -854,3 +866,226 @@ def test_generated_build_caches_by_source(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="error: bad"):
         _build.build_generated(["// COMPILE_ERROR\n"])
     assert not _build.generated_path("// COMPILE_ERROR\n").exists()
+
+
+# ---------------------------------------------------------------------------
+# The diode pair's lane form (B7 analytic): its two omega solves on a pair
+# of lanes (csrc/omega_lanes.cuh), the tree on both
+# ---------------------------------------------------------------------------
+
+
+def _pair_case(name):
+    """(JAX circuit, port circuit, input node, amplitude) of an analytic
+    root served through B7: the LPF clipper, the HPF clipper with the TOMS
+    ("best") and approx ("low") roots, the Tube Screamer with both."""
+    import diffwdf_tpu as dwdf
+    from diffwdf_tpu.models import diode_clipper as jdc
+    from diffwdf_tpu.models import tube_screamer as jts
+
+    quality = "low" if name.endswith("_low") else "best"
+    jroot = dwdf.DiodePairRoot(name="dp", diode=dwdf.diode_1n4148_1u1d, quality=quality)
+    troot = tdc.DiodePairRoot(name="dp", diode=diode_1n4148_1u1d, quality=quality)
+    if name.startswith("ts"):
+        return (jts.make_tube_screamer(jroot, FS, drive=0.5),
+                tts.make_tube_screamer(troot, FS, drive=0.5), "Vin", 0.2)
+    if name.startswith("hpf"):
+        return jdc.make_hpf_diode_clipper(jroot, FS), tdc.make_hpf_diode_clipper(troot, FS), \
+            "Vs", 1.5
+    return jdc.make_diode_clipper(jroot, FS), tdc.make_diode_clipper(troot, FS), "Vs", 1.5
+
+
+def _pair_lanes(host_lanes_cxx, name, prog, prep, vin, state):
+    """(out (2, b, T), z_final (2, S, b), trajectory (2, S, b, T)) of the
+    generated lane form on a pair of host threads per stream."""
+    b, t = vin.shape
+    assert prog.lanes == (1, 2) and "omega_pair_lanes<" in prog.lanes_source
+    cases = "\n    case 2:\n      lanes_run<2>(vin, z0, out, zf, seq, B, T, c, rows, times, w);\n      break;"
+    lib = host_lanes_cxx(name, prog.step_source + prog.lanes_source + LANE_GROUP_HARNESS
+                         + LANE_STEP_HARNESS.format(cases=cases, load=prog.emitter.lane_weights()[1]))
+    S = len(prog.state_order)
+    z0 = tfc._state_stack(prog, state, vin)
+    out, zf, seq = torch.empty(2, b, t), torch.empty(2, S, b), torch.empty(2, S, b, t)
+    lib.circuit_lanes_host_run(2, vin.data_ptr(), z0.data_ptr(), out.data_ptr(), zf.data_ptr(),
+                               seq.data_ptr(), b, t, prep.vec.data_ptr(),
+                               _ptr(prep.rows, prep.vec), _ptr(prep.times, prep.vec),
+                               _ptr(prep.warr, prep.vec))
+    return out, zf, seq
+
+
+@pytest.mark.parametrize("name", ["lpf", "hpf", "hpf_low", "ts", "ts_low"])
+def test_host_pair_step_matches_one_thread_step_and_jax(host_cxx, host_lanes_cxx, name):
+    """The diode pair's lane form on two host threads a stream: both lanes
+    end every step with the one-thread step's bits (output, final state,
+    trajectory); the one-thread step lies within the JAX suite's 2e-5 of
+    JAX's fused_circuit_process in interpret mode (tests/test_fused_circuit.py:55)
+    at its tile of 1,024 streams, output and final state."""
+    import jax
+    import jax.numpy as jnp
+
+    from diffwdf_tpu.ops import fused_circuit as jfc
+    from diffwdf_tpu_torch.nn.convert import params_from_jax
+
+    jckt, ckt, node, amp = _pair_case(name)
+    jparams = {**jckt.init_params(), **jckt.root.init_params()}
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    b, t = 1024, 64
+    rng = np.random.default_rng(len(name) + 30)
+    x = amp * np.sin(2 * np.pi * 1000.0 * np.arange(t) / FS)[None, :] * np.ones((b, 1))
+    vin = torch.from_numpy((x + 0.1 * rng.standard_normal((b, t))).astype(np.float32))
+    prep = tfc.prepare(ckt, params, "cpu", input_node=node)
+    one = _host_forward(host_cxx(name + "_pair_one", prep.prog.host_source), prep, vin,
+                        _state(ckt, b))
+    want, want_state = jfc.fused_circuit_process(
+        jckt, jparams, jnp.asarray(vin.numpy()),
+        jax.tree_util.tree_map(lambda z: jnp.zeros((b,), jnp.float32), jckt.init_state()),
+        input_node=node, interpret=True)
+    np.testing.assert_allclose(one[0].numpy(), np.asarray(want), atol=2e-5, rtol=0)
+    for k, (n, f) in enumerate(prep.prog.state_order):
+        np.testing.assert_allclose(one[1][k].numpy(), np.asarray(want_state[n][f]), atol=2e-5,
+                                   rtol=0)
+    rows = 6  # the lane form on the first rows
+    lanes = _pair_lanes(host_lanes_cxx, name + "_pair_lanes", prep.prog, prep,
+                        vin[:rows].contiguous(), _state(ckt, rows))
+    for rank in range(2):
+        assert torch.equal(lanes[0][rank], one[0][:rows]), rank
+        assert torch.equal(lanes[1][rank], one[1][:, :rows]), rank
+        assert torch.equal(lanes[2][rank], one[2][:, :rows]), rank
+
+
+def _pair_pot_case(name):
+    """(circuit, params, input node, amplitude, row controls) of the diode
+    pair with a pot: the training clipper with one source R per row
+    (r_kind "row") and per sample ("time": the root's two logs in the step),
+    the Tube Screamer with its drive per sample (time slots in the tree and
+    at the root)."""
+    if name in ("ts_sample", "clipper_sample"):
+        return _pot_case(name)
+    rng = np.random.default_rng(12)
+    root = tdc.DiodePairRoot(name="dp", diode=diode_1n4148_1u1d)
+    ckt = tdc.make_training_clipper(root, FS)
+    r = np.exp(rng.uniform(np.log(36e3), np.log(73e3), B)).astype(np.float32)
+    return (ckt, {**ckt.init_params("cpu"), **root.init_params("cpu")}, "Vs", 1.5,
+            {"Vs": {"R": torch.from_numpy(r)}})
+
+
+@pytest.mark.parametrize("name,r_kind", [("clipper_row", "row"), ("clipper_sample", "time"),
+                                         ("ts_sample", "time")])
+def test_host_pair_step_with_pots_matches_one_thread_step(host_cxx, host_lanes_cxx, name,
+                                                          r_kind):
+    """The lane form with a per-row R at the root and a per-sample R (the two
+    logs taken in the step on both lanes; the Tube Screamer's drive also in
+    the tree):
+    both lanes have the one-thread step's bits, trajectory included, and the
+    one-thread step lies within 2e-5 of the plain version."""
+    ckt, params, node, amp, rows = _pair_pot_case(name)
+    vin = _vin(len(name) + 40, amp)
+    prep = tfc.prepare(ckt, params, "cpu", input_node=node, row_controls=rows, shape=(B, T))
+    assert prep.prog.emitter.r_kind == r_kind
+    one = _host_forward(host_cxx(name + "_pair_pot_one", prep.prog.host_source), prep, vin,
+                        _state(ckt))
+    want, _, want_seq = tfc.fused_circuit_process_plain(
+        ckt, params, vin, _state(ckt), input_node=node, row_controls=rows, return_state_seq=True)
+    np.testing.assert_allclose(one[0].numpy(), want.numpy(), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(one[2].numpy(), torch.stack(want_seq).numpy(), atol=2e-5, rtol=0)
+    lanes = _pair_lanes(host_lanes_cxx, name + "_pair_pot_lanes", prep.prog, prep, vin,
+                        _state(ckt))
+    for rank in range(2):
+        assert torch.equal(lanes[0][rank], one[0]) and torch.equal(lanes[1][rank], one[1]), rank
+        assert torch.equal(lanes[2][rank], one[2]), rank
+
+
+@pytest.mark.parametrize("name", ["ts", "ts_2x16", "clipper_sample"])
+def test_lane_tree_check_refuses_an_altered_tree_line(name):
+    """_lanes_parts holds every line of the lane form that is not the root's
+    own to the one-thread step's: a step whose tree differs in one operation
+    is refused (AssertionError), one whose root line differs is not (the
+    root's lines are the emitter's, ``own_line``)."""
+    ckt, params, node, _, rows = (_pot_case(name) if name == "clipper_sample"
+                                  else (*_case(name), None))
+    prep = tfc.prepare(ckt, params, "cpu", input_node=node, row_controls=rows, shape=(B, T))
+    prog, emitter = prep.prog, prep.prog.emitter
+    body = cg._trace_forward(ckt, prog.layout, node, emitter)[0]
+    sizes = (max(len(prog.state_order), 1), max(prog.n_coeffs, 1), max(prog.n_rows, 1),
+             max(prog.n_times, 1), max(emitter.n_keep, 1))
+    ks = emitter.lane_counts()
+    assert ks and cg._lanes_parts(ckt, prog.layout, node, emitter, body, ks, sizes, 128)
+    lines = body.splitlines()
+    tree = next(i for i, line in enumerate(lines)
+                if "__fadd_rn(" in line and not emitter.own_line(line))
+    own = next(i for i, line in enumerate(lines)
+               if emitter.own_line(line) and not line.strip().startswith("//"))
+    altered = lines[:tree] + [lines[tree].replace("__fadd_rn(", "__fsub_rn(", 1)] + lines[tree + 1:]
+    with pytest.raises(AssertionError, match="tree differs"):
+        cg._lanes_parts(ckt, prog.layout, node, emitter, "\n".join(altered), ks, sizes, 128)
+    root_only = lines[:own] + [lines[own] + "  // another root line"] + lines[own + 1:]
+    assert cg._lanes_parts(ckt, prog.layout, node, emitter, "\n".join(root_only), ks, sizes, 128)
+
+
+OMEGA_FORMS_HARNESS = """
+#include "omega.cuh"
+
+// omega() with its middle-region polynomial written as nvcc contracts it
+// (the fmaf form of omega_guess): the host compiler does not contract
+static float omega_contracted(float x, int iters) {
+  float u;
+  if (x <= -1.f) {
+    u = x - expf(x);
+  } else if (x >= 2.f) {
+    const float lx = logf(x);
+    u = logf(x - lx + lx / x);
+  } else {
+    const float t = x - 1.f;
+    u = logf(fmaf(0.0625f * t, t, fmaf(0.5f, t, 1.f)));
+  }
+  for (int k = 0; k < iters; ++k) u = omega_newton_step(x, u);
+  return expf(u);
+}
+
+template <int ITERS>
+static void forms(const float* x, int n, float* w_omega, float* w_select, float* w_contracted) {
+  for (int i = 0; i < n; ++i) {
+    w_omega[i] = omega(x[i], ITERS);
+    w_select[i] = omega_select<ITERS>(x[i]);
+    w_contracted[i] = omega_contracted(x[i], ITERS);
+  }
+}
+
+extern "C" void omega_forms_host(const float* x, int n, int iters, float* a, float* b, float* c) {
+  switch (iters) {
+    case 1: forms<1>(x, n, a, b, c); break;
+    case 2: forms<2>(x, n, a, b, c); break;
+    case 3: forms<3>(x, n, a, b, c); break;
+  }
+}
+"""
+
+
+@pytest.mark.parametrize("iters", [1, 2, 3])
+def test_omega_select_against_omega_on_host(host_cxx, iters):
+    """omega_select<ITERS> (the generated forward's omega) against omega()
+    on the host, over a grid that crosses the region edges -1 and 2 and
+    reaches both tails, at the zoo's Newton counts (3 "best", 2, 1 "low").
+    Outside (-1, 2) the two are the same operations: the same bits.  Inside,
+    omega_select's guess is the polynomial as nvcc contracts omega()'s
+    (fmaf): it has the bits of omega() written so, while the host's omega(),
+    which the host compiler does not contract, rounds the polynomial twice
+    and may differ in the last bits (within 4e-7 relative).  On the card the
+    two agree everywhere (tests/test_torch_gpu.py, chip_smoke.py), so one
+    omega serves the generated forward's one-thread step and lane form."""
+    lib = host_cxx("omega_forms", OMEGA_FORMS_HARNESS)
+    vp = ctypes.c_void_p
+    lib.omega_forms_host.argtypes = [vp, ctypes.c_int, ctypes.c_int, vp, vp, vp]
+    x = np.concatenate([np.linspace(-120.0, 200.0, 400_001), np.linspace(-1.5, 2.5, 400_001),
+                        [-1.0, 2.0, np.nextafter(np.float32(-1.0), np.float32(0.0)),
+                         np.nextafter(np.float32(2.0), np.float32(0.0)), 0.0, -1e30, 1e30]])
+    x = np.ascontiguousarray(x.astype(np.float32))
+    w = [np.empty_like(x) for _ in range(3)]
+    lib.omega_forms_host(x.ctypes.data, x.size, iters, *(a.ctypes.data for a in w))
+    w_omega, w_select, w_contracted = w
+    assert np.isfinite(w_select[:-2]).all()
+    outside = (x <= -1.0) | (x >= 2.0)
+    assert np.array_equal(w_omega[outside].view(np.uint32), w_select[outside].view(np.uint32))
+    assert np.array_equal(w_contracted.view(np.uint32), w_select.view(np.uint32))
+    inside = ~outside
+    rel = np.abs(w_omega[inside] - w_select[inside]) / np.abs(w_select[inside])
+    assert rel.max() <= 4e-7, rel.max()

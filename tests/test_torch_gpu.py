@@ -31,7 +31,14 @@ DEER kernels on a thread-block cluster (B5 and B9 at 8 and 16 CTAs, T =
 kernels' bits with no sweep and within the budget of them with the sweeps,
 chained blocks (the suite's 2e-6 for chained DEER blocks), the 180-Ohm
 block still flagged, the adaptive HPF at JAX's 20 sweeps, and a refused
-launch raising with nothing run or counted in its place.
+launch raising with nothing run or counted in its place; the distilled
+clipper on one Chebyshev segment a lane (B6) the one-thread kernel's bits
+and 1e-5 of plain at every padded degree, K = 4 and 8, B = 1, 1,000 and
+8,192, NaN in the same places; the diode pair's lane form of B7 (its two
+omega solves on a pair of lanes) the one-thread kernel's bits on the TS,
+the HPF and the LPF clipper at B = 1, 3 and 8,192, with and without the
+trajectory, and 2e-5 of plain; omega_select and omega() the same bits on
+the card; a refused launch of either raising with nothing in its place.
 """
 
 import numpy as np
@@ -903,14 +910,17 @@ def test_lane_kernel_lanes_of_a_group_agree(circuit_cuda, name):
 @pytest.mark.gpu
 def test_wrapper_picks_lanes_by_batch(circuit_cuda):
     """fused_circuit_process on an NxH root goes through the lane kernel at
-    the K that lanes_for gives the batch; an analytic root keeps lanes = 1."""
+    the K that lanes_for gives the batch; an analytic root (the diode pair)
+    takes its pair form, K = 2, at every batch."""
     dev, fcirc = circuit_cuda
     ckt, params, node, amp, mlp = _circuit_case("ts_2x16", dev)
     prog = fcirc.prepare(ckt, params, dev, input_node=node, neural_mlp=mlp).prog
     assert prog.lanes == (1, 8, 16)
     assert [fcirc.lanes_for(prog, b) for b in (1, 1024, 2048, 4096, 8192)] == [16, 16, 16, 8, 8]
     ckt_a, params_a, node_a, _, _ = _circuit_case("ts", dev)
-    assert fcirc.prepare(ckt_a, params_a, dev, input_node=node_a).prog.lanes == (1,)
+    prog_a = fcirc.prepare(ckt_a, params_a, dev, input_node=node_a).prog
+    assert prog_a.lanes == (1, 2)
+    assert [fcirc.lanes_for(prog_a, b) for b in (1, 1024, 2048, 4096, 8192)] == [2] * 5
     vin, state = _circuit_inputs(ckt, dev, 5, 64, amp, seed=1)
     got, _ = _run_circuit(fcirc, ckt, params, vin, state, node, mlp)
     want, _ = _run_circuit(fcirc, ckt, params, vin, state, node, mlp, plain=True)
@@ -1192,3 +1202,192 @@ def test_deer_circuit_refused_cluster_launch_raises(circuit_cuda):
     torch.cuda.synchronize()
     assert dc.fused_deer_circuit.launches == 0
     assert df.circuit_max_clusters(ckt, prep) >= 1 and dc.max_active_clusters(ckt, prep) >= 1
+
+
+# ---------------------------------------------------------------------------
+# The redesigned B6 (one Chebyshev segment a lane) and B7's diode-pair form
+# (its two omega solves on a pair of lanes)
+# ---------------------------------------------------------------------------
+
+#: (padded degree, breaks, degrees) of the distilled roots the B6 card tests
+#: run: the 1N4148 pair at every padded degree (three segments, K = 4), and
+#: at 24 with eight segments (K = 8)
+CHEB_ROOTS = [(d, (0.8, 4.0), (d, min(d, 16), min(d, 12))) for d in fc.CHEB_DEGREES] + [
+    (24, (0.4, 0.8, 1.5, 2.5, 4.0, 8.0, 14.0), (24, 24, 16, 16, 16, 12, 12, 12))]
+CHEB_SHAPES = [(1, 2048), (1000, 333), (8192, 2048)]
+
+
+@pytest.fixture(scope="module")
+def cheb_roots():
+    """(padded degree, number of segments) -> the 1N4148 1U-1D pair distilled
+    at the clipper's port R with those segments (``CHEB_ROOTS``)."""
+    from diffwdf_tpu_torch.roots.distilled import distill_root
+
+    root = DiodePairRoot(name="dp", diode=diode_1n4148_1u1d)
+    r_port = 1.0 / (1.0 / R_SRC + 2.0 * CAP * FS)
+    return {(d, len(degrees)): distill_root(root, root.init_params("cpu"), r_port, breaks=breaks,
+                                            degrees=degrees)[0]
+            for d, breaks, degrees in CHEB_ROOTS}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t", CHEB_SHAPES)
+@pytest.mark.parametrize("degree,n_seg", [(d, len(g)) for d, _, g in CHEB_ROOTS])
+def test_cheb_lane_kernel_matches_one_thread_kernel_and_plain(circuit_cuda, cheb_roots, degree,
+                                                               n_seg, b, t):
+    """B6's lane kernel (``cheb_lanes_kernel<D, K>``, K = 4 up to four
+    segments, else 8) gives the one-thread ``cheb_kernel<D>``'s bits, and
+    lies within 1e-5 of the plain version (the suite's distilled budget),
+    at every padded degree; two blocks with carried state equal one run
+    within 1e-6."""
+    dev, _ = circuit_cuda
+    root = cheb_roots[(degree, n_seg)]
+    assert fc.cheb_parameters(root)[1] == degree and fc.cheb_lanes(n_seg) == (4 if n_seg <= 4
+                                                                             else 8)
+    vin, z0 = _inputs(dev, b, t, seed=degree + n_seg + b)
+    got, got_z = fc.fused_clipper_cheb(vin, z0, root, R_SRC, CAP, fs=FS)
+    one, one_z = fc.launch_cheb_onethread(vin, z0, root, R_SRC, CAP, fs=FS)
+    want, want_z = fc.fused_clipper_cheb_plain(vin, z0, root, R_SRC, CAP, fs=FS)
+    torch.cuda.synchronize()
+    assert fc.fused_clipper_cheb.launches == 1
+    assert torch.equal(got, one) and torch.equal(got_z, one_z)
+    _close(got, want, 1e-5)
+    _close(got_z, want_z, 1e-5)
+    h = t // 3
+    h1, z1 = fc.fused_clipper_cheb(vin[:, :h], z0, root, R_SRC, CAP, fs=FS)
+    h2, z2 = fc.fused_clipper_cheb(vin[:, h:], z1, root, R_SRC, CAP, fs=FS)
+    torch.cuda.synchronize()
+    _close(torch.cat([h1, h2], 1), got, 1e-6)
+    _close(z2, got_z, 1e-6)
+
+
+@pytest.mark.gpu
+def test_cheb_kernels_keep_nan_in_the_same_places(circuit_cuda, distilled_root):
+    """A NaN, an infinite and an out-of-range input: the lane kernel and the
+    one-thread kernel give the same bits, NaN in the same places."""
+    dev, _ = circuit_cuda
+    vin, z0 = _inputs(dev, 64, 256, seed=4)
+    vin[0, 10] = float("nan")
+    vin[1, 20] = float("inf")
+    vin[2, 30] = 1e30
+    vin[3, 40] = -25.0
+    got, got_z = fc.fused_clipper_cheb(vin, z0, distilled_root, R_SRC, CAP, fs=FS)
+    one, one_z = fc.launch_cheb_onethread(vin, z0, distilled_root, R_SRC, CAP, fs=FS)
+    torch.cuda.synchronize()
+    assert bool(got.isnan().any()) and torch.equal(got.isnan(), one.isnan())
+    assert torch.equal(got.view(torch.int32), one.view(torch.int32))
+    assert torch.equal(got_z.view(torch.int32), one_z.view(torch.int32))
+
+
+# the analytic roots served through B7: the Tube Screamer ("best" and the
+# plugin's "low"), the HPF clipper ("toms"), the LPF clipper
+PAIR_CASES = ["ts", "ts_low", "hpf", "lpf"]
+
+
+def _pair_case(name, dev):
+    from diffwdf_tpu_torch.models import diode_clipper as tdc
+    from diffwdf_tpu_torch.models.tube_screamer import make_tube_screamer
+
+    if name == "ts_low":
+        root = DiodePairRoot(name="dp", diode=diode_1n4148_1u1d, quality="low")
+        ckt = make_tube_screamer(root, FS, drive=0.5)
+        return ckt, {**ckt.init_params(dev), **root.init_params(dev)}, "Vin", 0.2
+    if name == "lpf":
+        root = DiodePairRoot(name="dp", diode=diode_1n4148_1u1d)
+        ckt = tdc.make_diode_clipper(root, FS)
+        return ckt, {**ckt.init_params(dev), **root.init_params(dev)}, "Vs", 1.5
+    ckt, params, node, amp, _ = _circuit_case(name, dev)
+    return ckt, params, node, amp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 3, 8192])
+@pytest.mark.parametrize("name", PAIR_CASES)
+def test_pair_form_matches_one_thread_kernel(circuit_cuda, name, b):
+    """B7's diode-pair lane form (K = 2, the wrapper's choice at every B)
+    gives the one-thread kernel's bits, with and without the state
+    trajectory, whichever lane of the pair writes; the wrapper's output is
+    the lane form's."""
+    dev, fcirc = circuit_cuda
+    ckt, params, node, amp = _pair_case(name, dev)
+    t = 2048
+    vin, state = _circuit_inputs(ckt, dev, b, t, amp, seed=b + len(name))
+    prep = fcirc.prepare(ckt, params, dev, input_node=node)
+    assert prep.prog.lanes == (1, 2) and fcirc.lanes_for(prep.prog, b) == 2
+    z0 = fcirc._state_stack(prep.prog, state, vin)
+    fcirc.fused_circuit_process.pair_launches = 0
+    for with_seq in (False, True):
+        one = fcirc.launch(prep, vin, z0, with_seq, lanes=1)
+        for writer in (0, 1):
+            got = fcirc.launch(prep, vin, z0, with_seq, lanes=2, writer=writer)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], one[0]) and torch.equal(got[1], one[1]), (with_seq, writer)
+            if with_seq:
+                assert torch.equal(got[2], one[2])
+    served, _ = fcirc.fused_circuit_process(ckt, params, vin, state, input_node=node)
+    torch.cuda.synchronize()
+    assert torch.equal(served, one[0])
+    assert fcirc.fused_circuit_process.launches == 7
+    assert fcirc.fused_circuit_process.pair_launches == 5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", PAIR_CASES)
+def test_pair_form_matches_plain_and_carries_state(circuit_cuda, name):
+    """The pair form within 2e-5 of the plain version at a ragged (1000,
+    333); two blocks with carried state equal one run within 1e-6."""
+    dev, fcirc = circuit_cuda
+    ckt, params, node, amp = _pair_case(name, dev)
+    vin, state = _circuit_inputs(ckt, dev, 1000, 333, amp, seed=len(name) + 7)
+    got, got_state = fcirc.fused_circuit_process(ckt, params, vin, state, input_node=node)
+    want, want_state = fcirc.fused_circuit_process_plain(ckt, params, vin, state, input_node=node)
+    h1, st = fcirc.fused_circuit_process(ckt, params, vin[:, :111], state, input_node=node)
+    h2, st2 = fcirc.fused_circuit_process(ckt, params, vin[:, 111:], st, input_node=node)
+    torch.cuda.synchronize()
+    assert fcirc.fused_circuit_process.pair_launches >= 3
+    _close(got, want, 2e-5)
+    _close(torch.cat([h1, h2], 1), got, 1e-6)
+    for k, d in want_state.items():
+        for f, z in d.items():
+            _close(got_state[k][f], z, 2e-5)
+            _close(st2[k][f], got_state[k][f], 1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("iters", [1, 2, 3])
+def test_omega_select_matches_omega_on_card(circuit_cuda, iters):
+    """omega_select<ITERS> (branch-free, the generated forward's) gives
+    omega(x, ITERS)'s bits on the card over a grid that crosses the region
+    edges -1 and 2 and reaches both tails, at the zoo's Newton counts: so
+    the generated forward keeps the bits it had with omega()."""
+    dev, fcirc = circuit_cuda
+    x = torch.cat([torch.linspace(-120.0, 200.0, 1_000_001), torch.linspace(-1.5, 2.5, 1_000_001),
+                   torch.tensor([-1.0, 2.0, -0.99999994, 1.9999999, 0.0, -1e30, 1e30])]).to(dev)
+    w_omega, w_select = fcirc.omega_forms(x, iters)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(w_omega[:-2]).all())
+    assert torch.equal(w_omega.view(torch.int32), w_select.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_new_lane_kernels_raise_and_fall_back_to_nothing(circuit_cuda, distilled_root,
+                                                          monkeypatch):
+    """A refused B6 or B7 launch raises, and neither the one-thread kernel
+    nor the plain version runs in its place: the counters stay put."""
+    dev, fcirc = circuit_cuda
+    vin, z0 = _inputs(dev, 8, 64, seed=5)
+    params, _ = fc.cheb_arguments(distilled_root, dev)
+    # a degree no kernel is built for: the launch function refuses it
+    monkeypatch.setattr(fc, "cheb_arguments", lambda root, device: (params, 12))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fc.fused_clipper_cheb(vin, z0, distilled_root, R_SRC, CAP, fs=FS)
+    ckt, params_c, node, amp = _pair_case("ts", dev)
+    cvin, state = _circuit_inputs(ckt, dev, 8, 64, amp, seed=6)
+    prep = fcirc.prepare(ckt, params_c, dev, input_node=node)
+    z = fcirc._state_stack(prep.prog, state, cvin)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fcirc.launch(prep, cvin, z, lanes=2, writer=2)
+    with pytest.raises(ValueError, match="lanes"):
+        fcirc.launch(prep, cvin, z, lanes=4)
+    torch.cuda.synchronize()
+    assert fc.fused_clipper_cheb.launches == 0 and fcirc.fused_circuit_process.launches == 0
