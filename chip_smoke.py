@@ -4,9 +4,11 @@ serving, in-circuit training of the clipper (engine="fused"), single-stream
 serving through the streaming processor (engine="deer" and "scan"), batched
 serving of the generic circuits (generated kernels) and the distilled
 clipper, generic in-circuit training (engine="fused_generic": generated
-forward and adjoint kernels) of the Tube Screamer and the clippers, and
+forward and adjoint kernels) of the Tube Screamer and the clippers,
 single-stream serving of the plugin's circuit set and the HPF clipper
-(engine="deer": the generated DEER kernel).
+(engine="deer": the generated DEER kernel), pretraining of the zoo's
+neural roots, circuit sweeps and model-zoo ensembles on the generated
+kernel, and the DEER kernels against the parallel-in-time oracle.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -205,6 +207,29 @@ one line per phase:
              checked as in timing deer); the B7 launches of the diode
              pair's lane form on the plugin stream
 
+  pretrain   pretraining as a user drives it: the 2x16 1N4148 (1U-1D) root
+             at the reference grid (20 x 1000 points, 625 steps of 32 an
+             epoch, Adam 2e-5) for a few epochs, replayed from CUDA graphs
+             and again eagerly (the same bits), and eight seeds at once
+             (seed 0 the single run's curve within 5e-4); evaluate, the
+             transconductance error, the model saved, loaded and served by
+             B1 at B = 1 against its plain version
+  timing pretrain  CUDA-event ms an epoch, steps a second and a 2,000-epoch
+             run's time, graph-replayed and eager, one seed and eight
+  sweep      BASELINE configuration 4: the LPF clipper (analytic 1U-1D
+             pair) with 1,024 source resistances from 1 to 100 kOhm over one
+             2,048-sample input through sweep_process: one B7 launch, every
+             row against the plain version, the output energy falling with R
+  timing sweep  the sweep_process call and its B7 launch alone (CUDA events),
+             samples a second, the bound and the plain version
+  ensemble   the seven checked-in 2x16 zoo roots over one input through
+             ensemble_process: one B7 launch of the NxH lane form an expert,
+             each against its plain version, the experts distinct
+  oracle     B5 (the LPF clipper) and B9 (the Tube Screamer) at T = 2,048
+             against the parallel-in-time oracle ops/parallel_time.py (the
+             circuit's own step in torch ops) on the card, at the JAX
+             suite's budgets, with the oracle's residual below its bound
+
 then a JSON line with every kernel's launches, error, times and bound, the
 card's name and power limit, and finally ``{"ok": true, "device": {...}}``.
 Any failed check raises, so the script exits non-zero and prints no result;
@@ -229,6 +254,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from diffwdf_tpu_torch.analysis import transconductance_error
 from diffwdf_tpu_torch.data.dataimport import load_diode_data
 from diffwdf_tpu_torch.data.synthetic import make_synthetic_dataset_dir, synth_ts_measurement
 from diffwdf_tpu_torch.models.diode_clipper import (
@@ -251,7 +277,9 @@ from diffwdf_tpu_torch.ops import deer_forms as df
 from diffwdf_tpu_torch.ops import fused_circuit as fcirc
 from diffwdf_tpu_torch.ops import fused_clipper as fc
 from diffwdf_tpu_torch.ops import parallel_bptt as pb
+from diffwdf_tpu_torch.ops.parallel_time import parallel_time_process
 from diffwdf_tpu_torch.ops import parallel_time_deer as pd
+from diffwdf_tpu_torch.parallel.sweep import ensemble_process, stack_mlp_params, sweep_process
 from diffwdf_tpu_torch.roots.diode import DiodePairRoot, diode_1n4148_1u1d, diode_1n4148_1u2d
 from diffwdf_tpu_torch.roots.distilled import distill_root
 from diffwdf_tpu_torch.roots.neural import NeuralDiodeRoot
@@ -270,6 +298,7 @@ from diffwdf_tpu_torch.training.circuit_train import (
 )
 from diffwdf_tpu_torch.training.losses import esr, mse
 from diffwdf_tpu_torch.training.metrics import MetricsLogger
+from diffwdf_tpu_torch.training import pretrain as tp
 
 FS = 96000.0
 B, T, BLOCKS = 8192, 2048, 4
@@ -3072,9 +3101,275 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
     return records
 
 
+# --- pretraining, circuit sweeps, model-zoo ensembles, the DEER oracle ------
+
+PRETRAIN_DIODE = diode_1n4148_1u1d
+PRETRAIN_EPOCHS = 5  # epochs of each pretraining run (the reference runs 2,000)
+PRETRAIN_SEEDS = 8
+PRETRAIN_TIMED = 3  # epochs timed after one warm-up epoch
+HIST_RTOL = 5e-4  # the JAX suite's training-history tolerance (tests/test_clipper_train.py:186)
+SWEEP_N, SWEEP_T = 1024, 2048  # BASELINE.json configuration 4
+GEN_BUDGET_B7 = 2e-5  # the generated circuit kernel's (tests/test_fused_circuit.py:55-118)
+ORACLE_T = 2048
+ORACLE_BUDGET = {"clipper": (1e-4, 1e-5), "ts": (5e-4, 1e-4)}  # (error, residual),
+# tests/test_parallel_time.py:28,63 and :26,62
+ORACLE_ITERS = {"clipper": 16, "ts": 20}  # the JAX suite's Newton sweeps for each
+
+
+def _pretrain_epoch_ms(cfg, seeds, dev, graph: bool):
+    """(median ms of an epoch, capture seconds) of a pretraining run of
+    ``seeds`` at ``cfg``: CUDA events around PRETRAIN_TIMED epochs after a
+    warm-up epoch, replayed from the captured graphs or stepped eagerly."""
+    cfg = tp.PretrainConfig(**{**cfg.__dict__, "epochs": PRETRAIN_TIMED + 1})
+    tr = tp._Trainer(PRETRAIN_DIODE, cfg, seeds, dev)
+    with tp._matmul_precision(cfg.matmul_precision):
+        capture_s, graphs = 0.0, None
+        if graph:
+            t0 = time.perf_counter()
+            graphs = tr._capture()
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t0
+        tr.epoch(graphs)
+        ms = _cuda_ms(lambda: tr.epoch(graphs), PRETRAIN_TIMED)
+    return statistics.median(ms), capture_s
+
+
+def pretrain_path(dev, card: str, seed: int) -> list:
+    """Pretraining as a user drives it (the reference ladder's 2x16 1U-1D
+    rung at the full grid, a few epochs): graph-replayed epochs against
+    eager ones bit for bit, eight seeds at once against one, the epoch's
+    time, and the trained root saved, reloaded and served by B1."""
+    cfg = tp.PretrainConfig(n_layers=2, layer_size=16, epochs=PRETRAIN_EPOCHS, seed=seed)
+    n = cfg.n_r * cfg.n_a
+    n_batches = n // cfg.batch_size
+    t0 = time.perf_counter()
+    params, acts, hist = tp.pretrain_diode(PRETRAIN_DIODE, cfg, device=dev)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    eager = tp._Trainer(PRETRAIN_DIODE, cfg, [seed], dev)
+    e_hist = eager.run(False)
+    e_params = eager.params(False)
+    same = all(np.array_equal(hist[k], e_hist[k][0]) for k in hist) and all(
+        torch.equal(a[k], b[k]) for a, b in zip(params["layers"], e_params["layers"])
+        for k in ("kernel", "bias"))
+    seeds = tuple(range(seed, seed + PRETRAIN_SEEDS))
+    s_params, _, s_hist = tp.pretrain_diode_multiseed(PRETRAIN_DIODE, cfg, seeds, device=dev)
+    seed0 = max(float(np.max(np.abs(s_hist[k][0] / hist[k] - 1.0))) for k in hist)
+    print(f"phase pretrain {cfg.n_layers}x{cfg.layer_size} {PRETRAIN_DIODE.name} grid={n} "
+          f"steps_per_epoch={n_batches} batch={cfg.batch_size} lr={cfg.learning_rate} "
+          f"epochs={cfg.epochs} loss={hist['loss'].tolist()} mse_last={hist['mse'][-1]:.4e} "
+          f"esr_last={hist['esr'][-1]:.4e} graph_equals_eager={same} "
+          f"seeds={len(seeds)} seed0_vs_single_rel={seed0:.3e} "
+          f"loss_last_per_seed={[float(f'{x:.4e}') for x in s_hist['loss'][:, -1]]} "
+          f"wall_s={graph_s:.2f} card={card!r}", flush=True)
+    _check(same, "graph-replayed pretraining epochs equal eager ones bit for bit")
+    _check(seed0 <= HIST_RTOL, "multiseed seed 0 matches the single-seed run")
+    _check(all(np.isfinite(v).all() for v in (*hist.values(), *s_hist.values())),
+           "pretraining histories finite")
+    _check(hist["loss"][-1] < hist["loss"][0], "pretraining loss falls")
+
+    timing = {}
+    for label, s, graph in (("1 seed graph", (seed,), True), ("1 seed eager", (seed,), False),
+                            (f"{PRETRAIN_SEEDS} seeds graph", seeds, True)):
+        timing[label] = _pretrain_epoch_ms(cfg, s, dev, graph)
+    for label, (ms, cap_s) in timing.items():
+        print(f"phase timing pretrain {label} epoch_ms={ms:.3f} steps_per_s={n_batches / ms * 1e3:.0f} "
+              f"seed_steps_per_s={n_batches * int(label.split()[0]) / ms * 1e3:.0f} "
+              f"capture_s={cap_s:.2f} extrapolated_2000_epochs_s={cap_s + 2.0 * ms:.1f} "
+              f"card={card!r}", flush=True)
+
+    final = tp.evaluate_pretrained(params, acts, PRETRAIN_DIODE, cfg, device=dev)
+    tc = {r: transconductance_error(params, acts, PRETRAIN_DIODE, r=r) for r in (1e3, 47e3)}
+    _check(all(np.isfinite(v) for v in (*final.values(), *tc.values())),
+           "evaluate_pretrained and transconductance_error finite")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "pretrained_2x16.json"
+        save_model_json(params, acts, path)
+        mlp, acts_back, _ = load_model_json(path, device=dev)
+    _check(tuple(acts_back) == tuple(acts) and all(
+        torch.equal(a[k], b[k]) for a, b in zip(mlp["layers"], params["layers"])
+        for k in ("kernel", "bias")), "the saved model loads back to the same weights")
+    vin = torch.from_numpy((2.0 * np.random.default_rng(seed).standard_normal((1, 2048)))
+                           .astype(np.float32)).to(dev)
+    z0 = torch.zeros(1, device=dev)
+    out, zf = fc.fused_clipper_neural(vin, z0, mlp, R_SRC, CAP, fs=FS)
+    want, want_z = fc.fused_clipper_neural_plain(vin, z0, mlp, R_SRC, CAP, fs=FS)
+    err = max(_max_err(out, want), _max_err(zf, want_z))
+    print(f"phase pretrain evaluate mse={final['mse']:.4e} esr={final['esr']:.4e} "
+          f"transconductance_error_1k={tc[1e3]:.4f} transconductance_error_47k={tc[47e3]:.4f} "
+          f"served_by_B1_b1_err={err:.2e} budget={BUDGET['neural']:g} card={card!r}", flush=True)
+    _check(err <= BUDGET["neural"], "the pretrained root served by B1 matches its plain version")
+    return []
+
+
+def full_pretrain(dev, card: str, seed: int, epochs: int) -> None:
+    """The reference ladder's 2x16 1U-1D rung trained in full: ``epochs``
+    epochs of PRETRAIN_SEEDS seeds at once at the full grid; the wall
+    seconds and each seed's final MSE and ESR on the grid."""
+    cfg = tp.PretrainConfig(n_layers=2, layer_size=16, epochs=epochs, seed=seed)
+    seeds = tuple(range(seed, seed + PRETRAIN_SEEDS))
+    t0 = time.perf_counter()
+    stacked, acts, hist = tp.pretrain_diode_multiseed(PRETRAIN_DIODE, cfg, seeds, device=dev)
+    wall_s = time.perf_counter() - t0  # the histories came back to the host: the card is done
+    finals = [tp.evaluate_pretrained({"layers": [{k: v[i] for k, v in layer.items()}
+                                                 for layer in stacked["layers"]]},
+                                     acts, PRETRAIN_DIODE, cfg, device=dev)
+              for i in range(len(seeds))]
+    mses, esrs = [f["mse"] for f in finals], [f["esr"] for f in finals]
+    best = int(np.argmin(mses))
+    print(f"phase full pretrain {cfg.n_layers}x{cfg.layer_size} {PRETRAIN_DIODE.name} "
+          f"grid={cfg.n_r * cfg.n_a} epochs={epochs} seeds={list(seeds)} wall_s={wall_s:.1f} "
+          f"mse={[float(f'{m:.4e}') for m in mses]} "
+          f"esr={[float(f'{e:.4e}') for e in esrs]} "
+          f"loss_last={[float(f'{x:.4e}') for x in hist['loss'][:, -1]]} "
+          f"median_mse={float(np.median(mses)):.4e} best_seed={seeds[best]} "
+          f"best_mse={mses[best]:.4e} best_esr={esrs[best]:.4e} card={card!r}",
+          flush=True)
+    _check(all(np.isfinite(m) for m in mses), "full pretraining finite")
+
+
+def sweep_path(dev, card: str, seed: int) -> list:
+    """Circuit sweeps and model-zoo ensembles: BASELINE configuration 4 (the
+    LPF clipper with 1,024 source resistances, one B7 launch) and the seven
+    checked-in 2x16 roots over one input (one NxH launch each).  Returns
+    B7's record in this form for the JSON line."""
+    ckt = make_diode_clipper(DiodePairRoot(name="dp", diode=diode_1n4148_1u1d), FS,
+                             r_source=R_SRC, cap=CAP)
+    params = ckt.init_params(dev)
+    r = torch.from_numpy(np.geomspace(1e3, 1e5, SWEEP_N).astype(np.float32)).to(dev)
+    rng = np.random.default_rng(seed)
+    n = np.arange(SWEEP_T)
+    vin = torch.from_numpy((2.0 * np.sin(2 * np.pi * 440.0 * n / FS)
+                            + 0.1 * rng.standard_normal(SWEEP_T)).astype(np.float32)).to(dev)
+    inputs = {"Vs": {"v": vin}}
+
+    fcirc.fused_circuit_process.launches = 0
+    out = sweep_process(ckt, params, {"Vs.R": r}, inputs, device=dev)
+    torch.cuda.synchronize()
+    sweep_launches = fcirc.fused_circuit_process.launches
+    _check(sweep_launches == 1, "a sweep of 1,024 instances is one B7 launch")
+    _check(bool(torch.isfinite(out).all()) and out.shape == (SWEEP_N, SWEEP_T),
+           "sweep output finite, shaped")
+    vin_n = vin.expand(SWEEP_N, -1).contiguous()
+    z0 = {"C": {"z": torch.zeros(SWEEP_N, device=dev)}}
+    rows = {"Vs": {"R": r}}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want, _ = fcirc.fused_circuit_process_plain(ckt, params, vin_n, z0, input_node="Vs",
+                                                row_controls=rows)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    held = torch.linspace(0, SWEEP_N - 1, 64, device=dev).long()
+    sweep_err = _max_err(out[held, :256], want[held, :256])
+    full_err = _max_err(out, want)
+    e = (out[:, 32:] ** 2).mean(dim=1)
+    falls = bool(e[0] > e[-1])
+    sweep_ms = statistics.median(_cuda_ms(
+        lambda: sweep_process(ckt, params, {"Vs.R": r}, inputs, device=dev), REPS))
+    prep = fcirc.prepare(ckt, params, dev, input_node="Vs", row_controls=rows,
+                         shape=(SWEEP_N, SWEEP_T))
+    zs = torch.zeros(1, SWEEP_N, device=dev)
+    launch_ms = statistics.median(_cuda_ms(lambda: fcirc.launch(prep, vin_n, zs), REPS, 10))
+    # the function's bytes: the shared input and the N resistances read, the
+    # (N, T) output written; operations: the generated step per sample
+    bound = _bound(prep.prog.ops_per_sample * SWEEP_N * SWEEP_T,
+                   4 * SWEEP_T + 4 * SWEEP_N + 4 * SWEEP_N * SWEEP_T)
+    print(f"phase sweep clipper Vs.R=1k..100k N={SWEEP_N} T={SWEEP_T} launches={sweep_launches} "
+          f"held_64x256_err={sweep_err:.2e} all_rows_err={full_err:.2e} "
+          f"budget={GEN_BUDGET_B7:g} energy_falls_with_R={falls} "
+          f"energy_1k={float(e[0]):.4f} energy_100k={float(e[-1]):.4f} card={card!r}", flush=True)
+    _check(sweep_err <= GEN_BUDGET_B7 and full_err <= GEN_BUDGET_B7, "sweep matches plain")
+    _check(falls, "output energy falls with the source resistance")
+    print(f"phase timing sweep sweep_process_ms={sweep_ms:.4f} launch_ms={launch_ms:.4f} "
+          f"samples_per_s={SWEEP_N * SWEEP_T / launch_ms * 1e3:.4e} plain_ms={plain_ms:.1f} "
+          f"bound_ms={bound[0]:.6f} ({bound[1]}) share={bound[0] / launch_ms:.4f} "
+          f"(10 launches per run, {REPS} runs) card={card!r}", flush=True)
+
+    zoo = sorted((Path(__file__).resolve().parent / "models" / "pretrained")
+                 .glob("*_2x16_pretrained_model.json"))
+    loaded = [load_model_json(p, device=dev) for p in zoo]
+    acts = loaded[0][1]
+    _check(len(loaded) == 7 and all(tuple(a) == tuple(acts) for _, a, _ in loaded),
+           "seven checked-in 2x16 roots of one architecture")
+    stack = stack_mlp_params([m for m, _, _ in loaded])
+    evin = torch.from_numpy((2.0 * rng.standard_normal(SWEEP_T)).astype(np.float32)).to(dev)
+    factory = lambda root: make_diode_clipper(root, FS, r_source=R_SRC, cap=CAP)  # noqa: E731
+    fcirc.fused_circuit_process.launches = 0
+    t0 = time.perf_counter()
+    eout = ensemble_process(factory, stack, acts, {"Vs": {"v": evin}}, device=dev)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0  # the first call builds the NxH program
+    ens_launches = fcirc.fused_circuit_process.launches
+    ens_ms = statistics.median(_cuda_ms(
+        lambda: ensemble_process(factory, stack, acts, {"Vs": {"v": evin}}, device=dev), REPS))
+    _check(ens_launches == len(zoo), "one B7 launch per expert")
+    eckt = factory(NeuralDiodeRoot(name="dp", n_layers=2, layer_size=16, activations=tuple(acts)))
+    ens_err = 0.0
+    for i, (mlp, _, _) in enumerate(loaded):
+        w, _ = fcirc.fused_circuit_process_neural_plain(
+            eckt, eckt.init_params(dev), mlp, evin[None], {"C": {"z": torch.zeros(1, device=dev)}},
+            input_node="Vs")
+        ens_err = max(ens_err, _max_err(eout[i], w[0]))
+    spread = min(_max_err(eout[i], eout[j]) for i in range(len(zoo)) for j in range(i))
+    print(f"phase ensemble {len(zoo)} zoo 2x16 roots T={SWEEP_T} launches={ens_launches} "
+          f"err={ens_err:.2e} budget={GEN_BUDGET_B7:g} least_pairwise_diff={spread:.3e} "
+          f"ensemble_process_ms={ens_ms:.3f} first_call_s={first_s:.2f} "
+          f"members={[p.name.split('_')[0] for p in zoo]} "
+          f"card={card!r}", flush=True)
+    _check(ens_err <= GEN_BUDGET_B7, "every expert matches its plain version")
+    _check(spread > 1e-4, "the experts differ from each other")
+    return [{"name": "fused_circuit_process (sweep: 1,024 rows of row controls; ensemble: NxH "
+                     "lane form a member)", "route": "cuda", "source": CIRCUIT_SOURCE,
+             "replaces": CIRCUIT_REPLACES, "launches": sweep_launches + ens_launches,
+             "max_abs_err": max(full_err, ens_err), "ms": launch_ms, "plain_ms": plain_ms,
+             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}]
+
+
+def oracle_path(dev, card: str, seed: int) -> list:
+    """B5 (the LPF clipper) and B9 (the Tube Screamer) against the
+    parallel-in-time oracle (ops/parallel_time.py: the circuit's own step,
+    plain torch ops) on the card, at the same circuit and input, the oracle
+    at the JAX suite's sweeps and budgets with its residual below bound."""
+    d = diode_1n4148_1u1d
+    rng = np.random.default_rng(seed)
+    n = np.arange(ORACLE_T)
+    vin = torch.from_numpy((2.0 * np.sin(2 * np.pi * 330.0 * n / FS)
+                            + 0.1 * rng.standard_normal(ORACLE_T)).astype(np.float32)).to(dev)
+    out, _, res = pd.fused_deer_clipper(vin, R_SRC, CAP, d.Is, d.Vt * d.nabla, d.N_up, d.N_down,
+                                        fs=FS)
+    ckt = make_diode_clipper(DiodePairRoot(name="dp", diode=d), FS, r_source=R_SRC, cap=CAP)
+    cases = {"clipper": (ckt, ckt.init_params(dev), "Vs", vin, out, res)}
+    ts = _dc_case("ts", dev)
+    tvin = _dc_input("ts", ORACLE_T, seed, dev)
+    tout, _, tres, _ = _dc_solve(ts, tvin)
+    cases["ts"] = (ts[0], ts[1], ts[2], tvin, tout, tres)
+    for name, (c, p, node, x, kernel_out, kernel_res) in cases.items():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want, resid = parallel_time_process(c, p, {node: {"v": x}}, n_iters=ORACLE_ITERS[name],
+                                            return_residual=True, device=dev)
+        end.record()
+        end.synchronize()
+        err = _max_err(kernel_out, want)
+        budget, res_bound = ORACLE_BUDGET[name]
+        kernel = "B5 fused_deer_clipper" if name == "clipper" else "B9 fused_deer_circuit"
+        print(f"phase oracle {name} {kernel} T={ORACLE_T} vs parallel_time_process "
+              f"n_iters={ORACLE_ITERS[name]} err={err:.2e} budget={budget:g} "
+              f"oracle_residual={float(resid):.2e} bound={res_bound:g} "
+              f"kernel_residual={float(kernel_res):.2e} oracle_ms={start.elapsed_time(end):.1f} "
+              f"card={card!r}", flush=True)
+        _check(float(resid) < res_bound, f"the {name} oracle converged")
+        _check(err <= budget, f"{kernel} within the JAX suite's budget of the oracle")
+    return []
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of the input signals")
+    parser.add_argument("--full-pretrain", type=int, default=0, metavar="EPOCHS",
+                        help="instead of the smoke, pretrain the 2x16 rung for EPOCHS epochs "
+                             "at eight seeds and print each seed's final MSE and ESR")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -3084,6 +3379,10 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     card = _card()
     kind = torch.cuda.get_device_name(0)
+    if args.full_pretrain:
+        full_pretrain(dev, card, args.seed, args.full_pretrain)
+        print(card, flush=True)
+        return
 
     # --- toolchain ---------------------------------------------------------
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
@@ -3106,7 +3405,9 @@ def main() -> None:
     kernels = (serve_path(dev, card, args.seed) + train_path(dev, card, args.seed)
                + stream_path(dev, card, args.seed) + circuit_path(dev, card, args.seed)
                + generic_train_path(dev, card, args.seed)
-               + deer_circuit_path(dev, card, args.seed))
+               + deer_circuit_path(dev, card, args.seed)
+               + pretrain_path(dev, card, args.seed) + sweep_path(dev, card, args.seed)
+               + oracle_path(dev, card, args.seed))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,8 +10,11 @@ kernels for batched clipper serving and training
 single-stream serving (``ops.parallel_time_deer``), batched serving of
 any circuit through a kernel generated per circuit structure
 (``ops.fused_circuit``), and in-circuit training of any such circuit
-through a generated adjoint kernel (``ops.parallel_bptt``).  It imports
-nothing of JAX.
+through a generated adjoint kernel (``ops.parallel_bptt``), pretraining of
+neural roots (``training.pretrain``, epochs replayed from CUDA graphs),
+parameter sweeps and model-zoo ensembles (``parallel.sweep``) and the
+parallel-in-time oracle (``ops.parallel_time``).  It imports nothing of
+JAX.
 """
 
 from .core.elements import (

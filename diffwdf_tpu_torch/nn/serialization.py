@@ -81,3 +81,49 @@ def save_model_json(
         with open(path, "w") as f:
             json.dump(out, f, indent=4)
     return out
+
+
+#: layer-kind tags of the reference exporter: the schema also carries
+#: recurrent and conv layers, though the WDF zoo is all dense.
+LAYER_TYPES = ("dense", "gru", "lstm", "conv1d", "time-distributed-dense")
+ACTIVATIONS = ("tanh", "relu", "sigmoid", "softmax")
+
+
+def _f64_list(w):
+    """A weight (tensor or array-like) as nested float64 lists."""
+    if isinstance(w, torch.Tensor):
+        w = w.detach().cpu().double().numpy()
+    return np.asarray(w, np.float64).tolist()
+
+
+def save_layers_json(
+    layer_specs: Sequence[Dict[str, Any]],
+    path=None,
+    in_shape: Sequence = (None, 2),
+) -> Dict[str, Any]:
+    """Generic exporter for the reference schema, covering the full tag set:
+    each spec is ``{"type", "activation", "shape", "weights",
+    ["kernel_size", "dilation"]}`` with weights as tensors or arrays.
+    Unknown types are tagged "unknown" (the loader skips them)."""
+    layers = []
+    for spec in layer_specs:
+        kind = spec.get("type", "unknown")
+        entry = {
+            "type": kind if kind in LAYER_TYPES else "unknown",
+            "activation": (
+                spec.get("activation", "")
+                if spec.get("activation", "") in ACTIVATIONS
+                else ""
+            ),
+            "shape": list(spec.get("shape", [])),
+            "weights": [_f64_list(w) for w in spec.get("weights", [])],
+        }
+        if entry["type"] == "conv1d":
+            entry["kernel_size"] = [int(k) for k in np.atleast_1d(spec["kernel_size"])]
+            entry["dilation"] = [int(d) for d in np.atleast_1d(spec.get("dilation", 1))]
+        layers.append(entry)
+    out = {"in_shape": list(in_shape), "layers": layers}
+    if path is not None:
+        with open(path, "w") as f:
+            json.dump(out, f, indent=4)
+    return out

@@ -1391,3 +1391,100 @@ def test_new_lane_kernels_raise_and_fall_back_to_nothing(circuit_cuda, distilled
         fcirc.launch(prep, cvin, z, lanes=4)
     torch.cuda.synchronize()
     assert fc.fused_clipper_cheb.launches == 0 and fcirc.fused_circuit_process.launches == 0
+
+
+# --- pretraining, sweeps, ensembles and the parallel-in-time oracle ---------
+
+
+@pytest.mark.gpu
+def test_pretrain_graph_epochs_equal_eager_epochs(cuda):
+    """Epochs replayed from the captured CUDA graphs give the eager steps'
+    bits: the histories and the weights, one seed and three."""
+    from diffwdf_tpu_torch.training import pretrain as tp
+
+    cfg = tp.PretrainConfig(n_layers=2, layer_size=8, epochs=3, n_r=8, n_a=128,
+                            learning_rate=1e-3, schedule="cosine")
+    for seeds in ((0,), (0, 1, 2)):
+        graph, eager = (tp._Trainer(diode_1n4148_1u1d, cfg, seeds, cuda) for _ in range(2))
+        m_graph, m_eager = graph.run(True), eager.run(False)
+        p_graph, p_eager = graph.params(True), eager.params(True)
+        for k in ("loss", "mse", "esr"):
+            np.testing.assert_array_equal(m_graph[k], m_eager[k])
+        for a, b in zip(p_graph["layers"], p_eager["layers"]):
+            assert torch.equal(a["kernel"], b["kernel"]) and torch.equal(a["bias"], b["bias"])
+    assert (m_graph["loss"][:, -1] < m_graph["loss"][:, 0]).all()
+
+
+@pytest.mark.gpu
+def test_sweep_is_one_launch_and_matches_plain(circuit_cuda):
+    from diffwdf_tpu_torch.models.diode_clipper import make_diode_clipper
+    from diffwdf_tpu_torch.parallel.sweep import sweep_process
+
+    dev, fcirc = circuit_cuda
+    ckt = make_diode_clipper(DiodePairRoot(name="dp", diode=diode_1n4148_1u1d), FS)
+    params = ckt.init_params(dev)
+    r = torch.from_numpy(np.geomspace(1e3, 1e5, 300).astype(np.float32)).to(dev)
+    vin = _inputs(dev, 1, 256)[0][0]
+    out = sweep_process(ckt, params, {"Vs.R": r}, {"Vs": {"v": vin}}, device=dev)
+    torch.cuda.synchronize()
+    assert fcirc.fused_circuit_process.launches == 1
+    z0 = {"C": {"z": torch.zeros(300, device=dev)}}
+    want, _ = fcirc.fused_circuit_process_plain(ckt, params, vin.expand(300, -1).contiguous(), z0,
+                                                input_node="Vs", row_controls={"Vs": {"R": r}})
+    _close(out, want, 2e-5)
+    # a swept capacitance: one launch per distinct value
+    caps = torch.tensor([1e-9, 2.2e-9, 1e-9, 4.7e-9], device=dev)
+    sweep_process(ckt, params, {"C.C": caps, "Vs.R": r[:4]}, {"Vs": {"v": vin}}, device=dev)
+    assert fcirc.fused_circuit_process.launches == 1 + 3
+
+
+@pytest.mark.gpu
+def test_ensemble_is_one_launch_per_expert(circuit_cuda):
+    from diffwdf_tpu_torch.models.diode_clipper import make_diode_clipper
+    from diffwdf_tpu_torch.parallel.sweep import ensemble_process, stack_mlp_params
+
+    dev, fcirc = circuit_cuda
+    root = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=16)
+    mlps = [root.init_params(dev, torch.Generator().manual_seed(i))["dp"] for i in range(5)]
+    vin = _inputs(dev, 1, 300, seed=3)[0][0]
+    factory = lambda r: make_diode_clipper(r, FS)  # noqa: E731
+    out = ensemble_process(factory, stack_mlp_params(mlps), root.activations,
+                           {"Vs": {"v": vin}}, device=dev)
+    torch.cuda.synchronize()
+    assert fcirc.fused_circuit_process.launches == 5
+    ckt = factory(root)
+    for i, mlp in enumerate(mlps):
+        want, _ = fcirc.fused_circuit_process_neural_plain(
+            ckt, ckt.init_params(dev), mlp, vin[None], {"C": {"z": torch.zeros(1, device=dev)}},
+            input_node="Vs")
+        _close(out[i], want[0], 2e-5)
+    assert float((out[0] - out[1]).abs().max()) > 1e-4
+
+
+@pytest.mark.gpu
+def test_deer_clipper_kernel_matches_the_parallel_time_oracle(cuda):
+    """B5 against the trajectory solve in plain torch ops on the card (the
+    JAX suite's clipper budget 1e-4, tests/test_parallel_time.py:28)."""
+    from diffwdf_tpu_torch.models.diode_clipper import make_diode_clipper
+    from diffwdf_tpu_torch.ops import parallel_time_deer as pd
+    from diffwdf_tpu_torch.ops.parallel_time import parallel_time_process
+
+    d = diode_1n4148_1u1d
+    vin = (2.0 * torch.sin(2 * np.pi * 330.0 * torch.arange(2048) / FS)).to(cuda)
+    out, _, _ = pd.fused_deer_clipper(vin, R_SRC, CAP, d.Is, d.Vt * d.nabla, d.N_up, d.N_down,
+                                      fs=FS)
+    ckt = make_diode_clipper(DiodePairRoot(name="dp", diode=d), FS, r_source=R_SRC, cap=CAP)
+    want, resid = parallel_time_process(ckt, ckt.init_params(cuda), {"Vs": {"v": vin}},
+                                        n_iters=16, return_residual=True, device=cuda)
+    assert float(resid) < 1e-5
+    _close(out, want, 1e-4)
+
+
+@pytest.mark.gpu
+def test_profiler_times_with_cuda_events(cuda):
+    from diffwdf_tpu_torch.runtime import profiler
+
+    x = torch.ones((512, 512), device=cuda)
+    r = profiler.Timer(warmup=1, iters=5).time(lambda a: a @ a, [(x,)])
+    assert r["mean_ms"] > 0
+    assert isinstance(profiler.device_memory_stats(), dict)
