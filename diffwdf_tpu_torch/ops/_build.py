@@ -19,6 +19,14 @@ with the same flags (the
 headers of ``csrc/`` on the include path) and keys it by a hash of the
 source, the headers and the flags, so a circuit that only changes values
 never builds again.
+
+A generated forward also builds for the host: ``host_library(source)``
+compiles a program's ``host_source`` (the step and ``circuit_host_run``, a
+one-thread loop over streams and samples) with the host ``c++``, the CUDA
+qualifiers defined away by ``csrc/host_standin.h`` and no FMA contraction,
+into the same directory, keyed by a hash of the source, the headers and the
+flags.  It serves the artifact's circuit op on the CPU and the command
+line's native engine.
 """
 
 from __future__ import annotations
@@ -255,4 +263,79 @@ def generated_library(source: str) -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = restype
         _generated_libs[source] = lib
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# Host builds of generated forwards (circuit_host_run)
+# ---------------------------------------------------------------------------
+
+HOST_STANDIN = CSRC_DIR / "host_standin.h"
+#: no contraction: an FMA rounds once where the card's __f*_rn steps round
+#: twice, and the Tube Screamer amplifies that ~10x
+HOST_FLAGS = ("-O2", "-ffp-contract=off", "-shared", "-fPIC", "-x", "c++")
+#: circuit_host_run(vin, z0, out, zf, seq, B, T, coef, rows, times, warr)
+HOST_RUN_SIGNATURE = [_vp] * 5 + [_i, _i] + [_vp] * 4
+
+
+def _cxx() -> str:
+    found = os.environ.get("CXX") or shutil.which("c++") or shutil.which("g++")
+    if found is None:
+        raise RuntimeError("no host C++ compiler: set CXX or put c++ on PATH")
+    return found
+
+
+def host_path(source: str) -> Path:
+    """Where the host library of a generated host source lives."""
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    for hdr in [HOST_STANDIN] + sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
+    h.update(source.encode())
+    return BUILD_DIR / f"libhost_{h.hexdigest()[:16]}.so"
+
+
+def build_host(source: str) -> Path:
+    """Compile a generated host source unless its library exists: the host
+    ``c++`` with ``HOST_FLAGS``, ``csrc/host_standin.h`` as
+    ``cuda_runtime.h``.  Every compiler run adds one to
+    ``build_host.builds``; a failed one raises with its output."""
+    so = host_path(source)
+    if so.exists():
+        return so
+    tag = f"{so.stem}.{os.getpid()}"
+    inc = BUILD_DIR / f"{tag}.include"
+    inc.mkdir(parents=True, exist_ok=True)
+    (inc / "cuda_runtime.h").write_text(HOST_STANDIN.read_text())
+    cpp, tmp = so.with_suffix(".cpp"), BUILD_DIR / f"{tag}.tmp.so"
+    tmp_cpp = BUILD_DIR / f"{tag}.tmp.cpp"
+    tmp_cpp.write_text(source)
+    os.replace(tmp_cpp, cpp)
+    proc = subprocess.run([_cxx(), *HOST_FLAGS, f"-I{inc}", f"-I{CSRC_DIR}", "-o", str(tmp),
+                           str(cpp)], capture_output=True, text=True)
+    build_host.builds += 1
+    shutil.rmtree(inc, ignore_errors=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"c++ failed on a generated host source:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, so)  # atomic, as build()
+    return so
+
+
+build_host.builds = 0
+
+#: host source -> its loaded library
+_host_libs: dict = {}
+
+
+def host_library(source: str) -> ctypes.CDLL:
+    """The loaded host library of a generated host source (a program's
+    ``host_source``), built first if needed, with ``circuit_host_run``
+    bound."""
+    lib = _host_libs.get(source)
+    if lib is None:
+        lib = ctypes.CDLL(str(build_host(source)))
+        lib.circuit_host_run.argtypes = HOST_RUN_SIGNATURE
+        lib.circuit_host_run.restype = None
+        _host_libs[source] = lib
     return lib

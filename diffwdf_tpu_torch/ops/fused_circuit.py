@@ -183,23 +183,36 @@ def launch(prep: Prepared, vin, z0, with_seq: bool = False, lanes: Optional[int]
     a group that writes the results (the tests run each).  Returns (out
     (B, T), z_final (S, B), the trajectory (S, B, T) or None).  Counts in
     ``fused_circuit_process.launches``."""
-    lib = _build.generated_library(prep.prog.source)
-    B, T = vin.shape
-    lanes = lanes_for(prep.prog, B) if lanes is None else lanes
+    lanes = lanes_for(prep.prog, vin.shape[0]) if lanes is None else lanes
     if lanes not in prep.prog.lanes:
         raise ValueError(f"fused_circuit: lanes={lanes}, this kernel takes {prep.prog.lanes}")
-    dummy = prep.vec  # a valid pointer where an argument is empty
+    return launch_source(prep.prog.source, vin, z0, prep.vec, prep.rows, prep.times,
+                         prep.warr, with_seq, lanes, writer)
+
+
+def launch_source(source: str, vin, z0, vec, rows, times, warr, with_seq: bool = False,
+                  lanes: int = 1, writer: int = 0):
+    """Launch the generated kernel of ``source`` (a program's ``source``) on
+    its launch arguments, with no program object: vin (B, T), z0 (S, B), the
+    slots ``vec``, ``rows``, ``times`` and the root array ``warr`` (or None)
+    f32 on one card; ``lanes`` one of the program's ``lanes`` (the kernel
+    refuses any other).  Returns as :func:`launch`.  Counts in
+    ``fused_circuit_process.launches`` (the artifact's op, ``ops.registry``,
+    launches through it too)."""
+    lib = _build.generated_library(source)
+    B, T = vin.shape
+    dummy = vec  # a valid pointer where an argument is empty
     with torch.cuda.device(vin.device):
         vin = vin.contiguous()
         out, zf = torch.empty_like(vin), torch.empty_like(z0)
         seq = torch.empty((z0.shape[0], B, T), device=vin.device) if with_seq else None
-        w = prep.warr if prep.warr is not None else dummy
+        w = warr if warr is not None else dummy
         err = lib.circuit_launch(
             vin.data_ptr(), z0.data_ptr(), out.data_ptr(), zf.data_ptr(),
             seq.data_ptr() if seq is not None and seq.numel() else None, B, T,
-            prep.vec.data_ptr(), (prep.rows if prep.rows.numel() else dummy).data_ptr(),
-            (prep.times if prep.times.numel() else dummy).data_ptr(), w.data_ptr(),
-            0 if prep.warr is None else prep.warr.numel(), lanes, writer,
+            vec.data_ptr(), (rows if rows.numel() else dummy).data_ptr(),
+            (times if times.numel() else dummy).data_ptr(), w.data_ptr(),
+            0 if warr is None else warr.numel(), lanes, writer,
             torch.cuda.current_stream(vin.device).cuda_stream)
     _build.check(err, "fused_circuit_process launch", lib.circuit_error_string)
     fused_circuit_process.launches += 1

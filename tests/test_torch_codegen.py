@@ -60,21 +60,9 @@ from diffwdf_tpu_torch.roots.neural import NeuralDiodeRoot
 FS = 96000.0
 B, T = 8, 256
 
-CUDA_RUNTIME_STANDIN = """\
-#pragma once
-#include <math.h>
-#define __host__
-#define __device__
-#define __global__
-#define __forceinline__ inline
-struct standin_dim3 { unsigned x, y, z; };
-static standin_dim3 threadIdx, blockIdx, blockDim;
-static inline void __syncthreads() {}
-#define __fadd_rn(a, b) ((a) + (b))
-#define __fsub_rn(a, b) ((a) - (b))
-#define __fmul_rn(a, b) ((a) * (b))
-#define __fdiv_rn(a, b) ((a) / (b))
-"""
+#: the package's stand-in for cuda_runtime.h (ops/csrc/host_standin.h, the
+#: header of _build.host_library): the CUDA qualifiers defined away
+CUDA_RUNTIME_STANDIN = _build.HOST_STANDIN.read_text()
 
 
 @pytest.fixture(scope="module")

@@ -1488,3 +1488,90 @@ def test_profiler_times_with_cuda_events(cuda):
     r = profiler.Timer(warmup=1, iters=5).time(lambda a: a @ a, [(x,)])
     assert r["mean_ms"] > 0
     assert isinstance(profiler.device_memory_stats(), dict)
+
+
+def _bits(got, want):
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 777])
+def test_ops_equal_their_wrappers_bit_for_bit(cuda, b):
+    """The artifact's custom ops (ops/registry.py) launch what the wrappers
+    launch: B2, B1 (lane form and one-thread form) and B7 (the diode pair's
+    lane form and an NxH root's), the same bits, counted in the wrappers'
+    counters: one launch for the op and one for the wrapper."""
+    from diffwdf_tpu_torch.models.tube_screamer import make_tube_screamer
+    from diffwdf_tpu_torch.ops import fused_circuit as fcirc
+    from diffwdf_tpu_torch.ops import registry
+
+    def counts():
+        return {"B2": fc.fused_clipper_analytic.launches, "B1": fc.fused_clipper_neural.launches,
+                "B7": fcirc.fused_circuit_process.launches}
+
+    vin, z0 = _inputs(cuda, b, 300, seed=b)
+    before = counts()
+    d = diode_1n4148_1u1d
+    args = (R_SRC, CAP, d.Is, d.Vt * d.nabla, d.N_up, d.N_down)
+    _bits(registry.clipper_analytic(vin, z0, *args, FS, 3),
+          fc.fused_clipper_analytic(vin, z0, *args, fs=FS, quality_iters=3))
+    for n_layers, width in ((2, 16), (3, 8)):  # a lane family and one-thread-only
+        root = NeuralDiodeRoot(name="dp", n_layers=n_layers, layer_size=width)
+        mlp = root.init_params(cuda, torch.Generator().manual_seed(width))["dp"]
+        _bits(registry.clipper_neural(vin, z0, registry.mlp_layers(mlp), R_SRC, CAP, FS),
+              fc.fused_clipper_neural(vin, z0, mlp, R_SRC, CAP, fs=FS))
+    for root in (DiodePairRoot(name="dp"), NeuralDiodeRoot(name="dp", layer_size=16)):
+        ckt = make_tube_screamer(root, FS, drive=0.5)
+        params = {**ckt.init_params(cuda), **root.init_params(cuda)}
+        st = {k: {f: torch.zeros(b, device=cuda) for f in dd}
+              for k, dd in ckt.init_state(cuda).items()}
+        want, wz = fcirc.fused_circuit_process(ckt, params, 0.3 * vin, st, input_node="Vin")
+        prep = fcirc.prepare(ckt, params, cuda, input_node="Vin")
+        got = registry.circuit_forward(prep.prog.source, prep.prog.host_source, 0.3 * vin,
+                                       torch.zeros(3, b, device=cuda), prep.vec, prep.rows,
+                                       prep.times, prep.warr, fcirc.lanes_for(prep.prog, b))
+        _bits(got, (want, torch.stack([wz[n][f] for n, f in prep.prog.state_order])))
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in counts().items()} == {"B2": 2, "B1": 4, "B7": 4}
+
+
+def _artifact_case(name, device):
+    from diffwdf_tpu_torch.models.diode_clipper import make_diode_clipper, make_root_from_zoo
+    from diffwdf_tpu_torch.models.tube_screamer import make_tube_screamer
+
+    if name == "ts":
+        root = DiodePairRoot(name="dp")
+        ckt = make_tube_screamer(root, 48000.0, drive=0.5)
+        return ckt, {**ckt.init_params(device), **root.init_params(device)}, "Vin", 0.5
+    root, frag = make_root_from_zoo({"analytic": 0, "neural": 4}[name], device=device)
+    ckt = make_diode_clipper(root, 48000.0)
+    return ckt, {**ckt.init_params(device), **frag}, "Vs", 2.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["analytic", "neural", "ts"])
+def test_artifact_crosses_devices(cuda, tmp_path, name):
+    """An artifact exported on the CPU serves on the card and one exported on
+    the card serves on the CPU, each within 1e-5 of the scan engine
+    (tests/test_artifact.py:46); exported on the card, its blocks are the
+    stream's exact runner's, bit for bit."""
+    from diffwdf_tpu_torch.runtime.artifact import load_artifact, save_artifact
+    from diffwdf_tpu_torch.runtime.stream import _generic_exact_runner, _lpf_exact_runner
+
+    x = (np.sin(2 * np.pi * 220.0 * np.arange(1000) / 48000.0)).astype(np.float32)
+    for made, served in (("cpu", cuda), (cuda, "cpu"), (cuda, cuda)):
+        ckt, params, node, amp = _artifact_case(name, made)
+        path = str(tmp_path / f"{name}_{torch.device(made).type}.pt2")
+        save_artifact(path, ckt, params, input_node=node, block_len=256, fs=48000.0)
+        art = load_artifact(path, device=served)
+        y = art.run(amp * x)
+        ref, _ = ckt.process(params, ckt.init_state(made),
+                             {node: {"v": torch.from_numpy(amp * x).to(made)}})
+        assert np.max(np.abs(y - ref.cpu().numpy())) < 1e-5, (made, served)
+    run = _lpf_exact_runner(ckt) if node == "Vs" else _generic_exact_runner(ckt, node)
+    state, st = art.init_state, ckt.init_state(cuda)
+    for i in range(0, 512, 256):
+        v = torch.from_numpy(amp * x[i: i + 256]).to(cuda)
+        got, state = art.process(state, v)
+        want, st = run(params, st, {node: {"v": v}}, {})
+        assert torch.equal(got, want)
