@@ -9,7 +9,9 @@ single-stream serving of the plugin's circuit set and the HPF clipper
 (engine="deer": the generated DEER kernel), pretraining of the zoo's
 neural roots, circuit sweeps and model-zoo ensembles on the generated
 kernel, the DEER kernels against the parallel-in-time oracle, the deploy
-artifact with its custom ops, and every subcommand of the command line.
+artifact with its custom ops, every subcommand of the command line, and
+the multi-device layer at one rank (NCCL) and two ranks sharing the card
+(gloo).
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -253,6 +255,23 @@ one line per phase:
              matplotlib imports; the line says so) and bench (the JAX bench's
              headline on B1); each command's JSON line parsed and checked,
              its wall printed
+  parallel   the multi-device layer (diffwdf_tpu_torch/parallel/): B3 and B4
+             at a rank's DP rows, B7 at a time-block rank's block (B = 1)
+             and B8 at a time-block training rank's, each against its plain
+             version, timed, with its bound; the single-process references;
+             then one rank under NCCL (the one-card deployment) and two
+             ranks sharing the card under gloo, each run spawned on a
+             FileStore: the DP step of the clipper (fused, 1,336 x 2,048,
+             pretrained 2x16) and of the TS 2x16 (fused_generic, 1,024 x
+             2,048) against the single-process step (loss, reduced
+             gradient, params after a step; replicas the same bits),
+             time-block serving of 16,384 samples a rank (W 256) and its
+             exact handoff against B7 over the whole signal, with two ranks
+             the time-block training step (4,096 a rank, W 192) against
+             the generic engine over the whole row and the 1,024-R sweep
+             sharded against one run, with one rank the step times against
+             the single-process step, B7 alone, and run_scaling_suite; the
+             launches of B3, B4, B7 and B8 read in every rank
 
 Each path's seconds follow it on a "phase seconds" line.  Then a JSON line
 with every kernel's (and op's) launches, error, times and bound, the card's
@@ -307,7 +326,16 @@ from diffwdf_tpu_torch.ops import parallel_bptt as pb
 from diffwdf_tpu_torch.ops import registry
 from diffwdf_tpu_torch.ops.parallel_time import parallel_time_process
 from diffwdf_tpu_torch.ops import parallel_time_deer as pd
+from diffwdf_tpu_torch.parallel.data_parallel import make_dp_train_step
+from diffwdf_tpu_torch.parallel.distributed import spawn
+from diffwdf_tpu_torch.parallel.mesh import make_mesh
+from diffwdf_tpu_torch.parallel.scaling_bench import run_scaling_suite
 from diffwdf_tpu_torch.parallel.sweep import ensemble_process, stack_mlp_params, sweep_process
+from diffwdf_tpu_torch.parallel.time_block import (
+    make_time_block_train_step,
+    time_block_process,
+    time_block_process_exact,
+)
 from diffwdf_tpu_torch.roots.diode import DiodePairRoot, diode_1n4148_1u1d, diode_1n4148_1u2d
 from diffwdf_tpu_torch.roots.distilled import distill_root
 from diffwdf_tpu_torch.roots.neural import NeuralDiodeRoot
@@ -325,6 +353,7 @@ from diffwdf_tpu_torch.training.circuit_train import (
     CircuitTrainConfig,
     joint_fit_clipper,
     make_clipper_batches,
+    make_loss_fn,
     make_train_step,
     train_clipper,
 )
@@ -3804,6 +3833,467 @@ def cli_path(dev, card: str, seed: int) -> list:
     return []
 
 
+# ---------------------------------------------------------------------------
+# The multi-device layer (parallel/): one rank under NCCL, two ranks sharing
+# the card under gloo
+# ---------------------------------------------------------------------------
+
+#: the clipper's training batch less one chunk (1,337 - 1), so that one and
+#: two ranks divide its rows; the TS 2x16's generic-training batch
+PAR_ROWS, PAR_GEN_ROWS = TRAIN_CHUNKS - 1, GEN_B
+#: time_block_scaling's and time_block_training_scaling's shapes, a rank
+#: (samples, warm-up W), at 48 kHz
+PAR_TB, PAR_TBT, PAR_FS = (16384, 256), (4096, 192), 48000.0
+#: tests/test_parallel.py:128-213 (DP against one process) and :218-315 (the
+#: time-block step against the whole row); time_block against B7 over the
+#: whole signal, the exact handoff, and the sharded sweep against one run
+PAR_LOSS_RTOL, PAR_GRAD_REL, PAR_PARAM_ATOL, PAR_TBT_GRAD = 1e-5, 1e-4, 5e-6, 1e-3
+PAR_TB_BUDGET, PAR_EXACT_BUDGET, PAR_SWEEP_BUDGET = 1e-5, 1e-6, 1e-6
+PAR_REPS = 5  # host-clock repetitions of a step in a rank
+PAR_TIMEOUT_S = 420
+PAR_SOURCE = "diffwdf_tpu_torch/parallel/"
+
+
+def _root_leaves(params):
+    return params["dp"]
+
+
+def _par_counts() -> dict:
+    return {"B3": fc.fused_clipper_neural_train_fwd.launches, "B4": ct.clipper_adjoint.launches,
+            "B7": fcirc.fused_circuit_process.launches, "B8": pb.fused_backward.launches}
+
+
+def _par_reset() -> None:
+    fc.fused_clipper_neural_train_fwd.launches = ct.clipper_adjoint.launches = 0
+    fcirc.fused_circuit_process.launches = pb.fused_backward.launches = 0
+
+
+def _par_dp_case(name: str, dev, seed: int, rows: int):
+    """(circuit, params, batches, config) of a DP case: the clipper's fused
+    step (the pretrained 2x16 at 48 kHz, the train split's four source
+    resistances one per row) or the TS 2x16's fused_generic step, each on
+    ``rows`` rows of 2,048 samples made from ``seed``."""
+    rng = np.random.default_rng(seed + (41 if name == "fused" else 42))
+    x = rng.standard_normal((rows, CHUNK)).astype(np.float32)
+    if name == "fused":
+        root, frag = _pretrained_2x16(dev)
+        ckt = make_training_clipper(root, TRAIN_FS, cap=TRAIN_CAP)
+        r_train = np.array([rk * 1e3 for rk in R_KOHMS if rk != 45.2], np.float32)
+        x *= 2.0
+        batches = {"x": x, "y": np.tanh(0.5 * x), "r0": r_train[np.arange(rows) * 4 // rows]}
+        params = {**ckt.init_params(dev), **frag}
+    else:
+        ckt, params, *_ = _gen_case("ts_2x16", dev, rows, CHUNK)
+        x *= 0.5
+        batches = {"x": x, "y": np.tanh(2.0 * x)}
+    cfg = CircuitTrainConfig(batch_size=CHUNK, engine=name)
+    return ckt, params, {k: torch.from_numpy(v) for k, v in batches.items()}, cfg
+
+
+def _par_signal(seed: int, n: int) -> np.ndarray:
+    return (1.5 * np.random.default_rng(seed + 43).standard_normal(n)).astype(np.float32)
+
+
+def _par_lpf(dev):
+    ckt = make_diode_clipper(DiodePairRoot(name="dp", diode=diode_1n4148_1u1d), PAR_FS)
+    return ckt, ckt.init_params(dev)
+
+
+def _par_train_clipper(dev):
+    root = NeuralDiodeRoot(name="dp", n_layers=1, layer_size=8)
+    ckt = make_training_clipper(root, PAR_FS)
+    return ckt, {**ckt.init_params(dev), **root.init_params(dev)}
+
+
+def _par_tbt_data(seed: int, n: int):
+    x = (0.8 * np.random.default_rng(seed + 44).standard_normal(n)).astype(np.float32)
+    return x, np.tanh(x)
+
+
+def _flat_np(tree) -> dict:
+    """{leaf name: a numpy copy} of a params tree."""
+    return {n: x.detach().cpu().numpy().copy()
+            for n, x in zip(_leaf_names(tree), pb._flatten(tree)[0])}
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _host_ms(fn, dev, reps: int = PAR_REPS) -> float:
+    """Median host-clock ms of fn() ending in a synchronize."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _parallel_rank(rank: int, world: int, seed: int, sizes: dict) -> dict:
+    """One rank of the parallel path (spawned): DP steps, time-block serving
+    and its exact handoff, and with two ranks the time-block training step
+    and the sharded sweep, with one rank the scaling suite.  Returns each
+    phase's results and launches as numpy and numbers."""
+    dev = torch.device(sizes["device"], torch.cuda.current_device()) \
+        if sizes["device"] == "cuda" else torch.device("cpu")
+    out = {"rank": rank, "world": world}
+    data_mesh = make_mesh((world, 1), device=dev.type)
+    time_mesh = make_mesh((1, world), device=dev.type)
+    for name, rows in (("fused", sizes["rows"]), ("fused_generic", sizes["gen_rows"])):
+        ckt, params, batches, cfg = _par_dp_case(name, dev, seed, rows)
+        make_optimizer, dp_train, dp_eval, prepare = make_dp_train_step(
+            ckt, cfg, data_mesh, _root_leaves, device=dev.type)
+        _par_reset()
+        p, b = prepare(params, batches)
+        loss, _, grads = dp_train.grads_fn(p, b)
+        opt = make_optimizer(p)
+        dp_train(p, opt, b)
+        _sync(dev)
+        rec = {"loss": float(loss), "grads": _flat_np(grads), "p1": _flat_np(p["dp"]),
+               "launches": _par_counts(), "rows": int(b["x"].shape[0])}
+        rec["step_ms"] = _host_ms(lambda: dp_train(p, opt, b), dev, sizes["reps"])
+        if world == 1:  # the single-process step on the same rows, in turns
+            make_opt1, step1, _ = make_train_step(ckt, cfg, _root_leaves)
+            leaves, rebuild = pb._flatten(p)
+            p_one = rebuild([x.detach().clone() for x in leaves])
+            opt1 = make_opt1(p_one)
+            ms = {"dp": [], "single": []}
+            for turn in ("single", "dp", "dp", "single"):
+                fn = (lambda: step1(p_one, opt1, b)) if turn == "single" else \
+                    (lambda: dp_train(p, opt, b))
+                ms[turn].append(_host_ms(fn, dev, sizes["reps"]))
+            rec["turns_ms"] = {k: min(v) for k, v in ms.items()}
+        out[name] = rec
+
+    ckt, params = _par_lpf(dev)
+    T, W = sizes["tb"]
+    x = _par_signal(seed, world * T)
+    _par_reset()
+    got = time_block_process(ckt, params, {"Vs": {"v": x}}, time_mesh, warmup=W,
+                             device=dev.type)
+    exact = time_block_process_exact(ckt, params, {"Vs": {"v": x}}, time_mesh, device=dev.type)
+    out["tb"] = {"out": got.cpu().numpy(), "exact": exact.cpu().numpy(),
+                 "launches": _par_counts()}
+    xs = torch.from_numpy(x).to(dev)
+    out["tb"]["ms"] = _host_ms(lambda: time_block_process(
+        ckt, params, {"Vs": {"v": xs}}, time_mesh, warmup=W, device=dev.type), dev, sizes["reps"])
+    if world == 1:  # the same T samples through B7 with no warm-up and no gather
+        z0 = {"C": {"z": torch.zeros(1, device=dev)}}
+        out["tb"]["control_ms"] = _host_ms(lambda: fcirc.fused_circuit_process(
+            ckt, params, xs[None], z0, input_node="Vs"), dev, sizes["reps"])
+        out["scaling"] = run_scaling_suite(device=dev.type)
+        return out
+
+    T, W = sizes["tbt"]
+    ckt, params = _par_train_clipper(dev)
+    x, y = _par_tbt_data(seed, world * T)
+    cfg = CircuitTrainConfig(learning_rate=1e-3, skip_samples=50)
+    make_optimizer, step, _ = make_time_block_train_step(ckt, cfg, time_mesh, warmup=W,
+                                                         device=dev.type)
+    _par_reset()
+    loss, _, grads = step.grads_fn(params, x, y)
+    out["tbt"] = {"loss": float(loss), "grads": _flat_np(grads), "launches": _par_counts()}
+    opt = make_optimizer(params)
+    out["tbt"]["step_ms"] = _host_ms(lambda: step(params, opt, x, y), dev, sizes["reps"])
+
+    sckt = make_diode_clipper(DiodePairRoot(name="dp", diode=diode_1n4148_1u1d), FS,
+                              r_source=R_SRC, cap=CAP)
+    sparams = sckt.init_params(dev)
+    r = torch.from_numpy(np.geomspace(1e3, 1e5, sizes["sweep"][0]).astype(np.float32)).to(dev)
+    n = np.arange(sizes["sweep"][1])
+    vin = torch.from_numpy((2.0 * np.sin(2 * np.pi * 440.0 * n / FS)).astype(np.float32)).to(dev)
+    _par_reset()
+    sharded = sweep_process(sckt, sparams, {"Vs.R": r}, {"Vs": {"v": vin}}, data_mesh,
+                            device=dev)
+    launches = _par_counts()
+    one = sweep_process(sckt, sparams, {"Vs.R": r}, {"Vs": {"v": vin}}, device=dev)
+    out["sweep"] = {"err": _max_err(sharded, one), "shape": tuple(sharded.shape),
+                    "launches": launches}
+    return out
+
+
+def _par_dp_reference(name: str, dev, seed: int, rows: int) -> dict:
+    """The single-process step of a DP case on all its rows: the loss, the
+    gradient of the root's leaves and the root after one Adam step."""
+    ckt, params, batches, cfg = _par_dp_case(name, dev, seed, rows)
+    batches = {k: v.to(dev) for k, v in batches.items()}
+    make_optimizer, step, _ = make_train_step(ckt, cfg, _root_leaves)
+    leaves, rebuild = pb._flatten(params["dp"])
+    mlp = [x.detach().clone().requires_grad_(True) for x in leaves]
+    loss, _ = make_loss_fn(ckt, cfg)({**params, "dp": rebuild(mlp)}, batches)
+    grads = torch.autograd.grad(loss, mlp)
+    opt = make_optimizer(params)
+    step(params, opt, batches)
+    return {"loss": float(loss.detach()), "grads": dict(zip(_leaf_names(params["dp"]),
+                                                   (g.cpu().numpy() for g in grads))),
+            "p1": _flat_np(params["dp"])}
+
+
+def _par_tbt_reference(dev, seed: int, n: int, skip: int = 50):
+    """The loss and gradient of the time-block step's loss over the whole
+    row: the generic engine from zero state over n samples, the masked MSE +
+    ESR from sample ``skip`` (tests/test_parallel.py:252-258)."""
+    ckt, params = _par_train_clipper(dev)
+    x, y = (torch.from_numpy(a).to(dev) for a in _par_tbt_data(seed, n))
+    f = pb.make_fused_circuit_train_generic(ckt, input_node="Vs")
+    leaves, rebuild = pb._flatten(params)
+    leaves = [p.detach().clone().requires_grad_(True) for p in leaves]
+    z0 = [torch.zeros(1, device=dev) for _ in cg.state_order(ckt)]
+    o = f(rebuild(leaves), x[None], z0)[0][0, skip:]
+    t = y[skip:]
+    se, te = torch.sum((o - t) ** 2), torch.sum(t ** 2)
+    loss = se / t.numel() + torch.sqrt(se / (te + float(np.finfo(np.float32).eps)) / t.numel())
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    zero = np.zeros(1, np.float32)
+    return float(loss.detach()), {k: (g.cpu().numpy() if g is not None else zero)
+                                  for k, g in zip(_leaf_names(params), grads)}
+
+
+def _np_rel(got: dict, want: dict) -> float:
+    _check(set(got) == set(want), f"the same leaves: {sorted(got)} / {sorted(want)}")
+    return max(float(np.abs(got[k] - want[k]).max()) / max(float(np.abs(want[k]).max()), 1e-30)
+               for k in want)
+
+
+def _par_kernels(dev, card: str, seed: int, sizes: dict) -> dict:
+    """B3 and B4 at a rank's DP shape (two ranks), B7 at a sharded-sweep
+    rank's (the diode pair, half the source resistances as impedance rows;
+    its plain version walks the rows' samples together, where at a
+    time-block rank's B = 1 it takes ~30 s) and B8 (with B7's training form)
+    at a time-block training rank's (the 1x8 clipper at B = 1), each
+    wrapper against its plain version on the same inputs, timed beside it,
+    with its bound.  Returns {kernel: (max_abs_err, ms, plain_ms, (bound_ms,
+    by))}."""
+    res = {}
+    rows = sizes["rows"] // 2
+    n_sw, t_sw = sizes["sweep"][0] // 2, sizes["sweep"][1]
+    shapes = {"B3": (rows, CHUNK), "B4": (rows, CHUNK), "B7": (n_sw, t_sw),
+              "B8": (1, sum(sizes["tbt"]))}
+    root, frag = _pretrained_2x16(dev)
+    rng = np.random.default_rng(seed + 45)
+    x = torch.from_numpy((2.0 * rng.standard_normal((rows, CHUNK))).astype(np.float32)).to(dev)
+    z0 = torch.zeros(rows, device=dev)
+    r0 = torch.full((rows,), 25e3, device=dev)
+    fwd_args = (x, z0, frag["dp"], r0, TRAIN_CAP)
+    samples = rows * CHUNK
+
+    def pair(fn, plain):
+        """(max_abs_err, scaled error, kernel ms, plain ms): the plain
+        version runs once, timed as it gives its result."""
+        got, box = _tensors(fn()), []
+        plain_ms = _cuda_ms(lambda: box.append(plain()), 1)[0]
+        want = _tensors(box[0])
+        err = max(_max_err(g, w) for g, w in zip(got, want))
+        rel = max(_scaled_err(g, w) for g, w in zip(got, want))
+        _cuda_ms(fn, 1, 2)
+        return err, rel, statistics.median(_cuda_ms(fn, REPS, 10)), plain_ms
+
+    b3 = pair(lambda: fc.fused_clipper_neural_train_fwd(*fwd_args, fs=TRAIN_FS),
+              lambda: fc.fused_clipper_neural_train_fwd_plain(*fwd_args, fs=TRAIN_FS))
+    res["B3"] = b3 + (_bound(_neural_ops(16, 2) * samples, 12 * samples + 12 * rows),)
+    a_seq = fc.fused_clipper_neural_train_fwd(*fwd_args, fs=TRAIN_FS)[2]
+    g_out = torch.from_numpy(rng.standard_normal((rows, CHUNK)).astype(np.float32)).to(dev)
+    adj_args = (a_seq, g_out / samples, torch.zeros(rows, device=dev), r0, frag["dp"], TRAIN_CAP)
+    b4 = pair(lambda: ct.clipper_adjoint(*adj_args, fs=TRAIN_FS),
+              lambda: ct.clipper_adjoint_plain(*adj_args, fs=TRAIN_FS))
+    res["B4"] = b4 + (_bound(_adjoint_ops(16, 2) * samples, 16 * samples + 12 * rows),)
+
+    ckt = make_diode_clipper(DiodePairRoot(name="dp", diode=diode_1n4148_1u1d), FS,
+                             r_source=R_SRC, cap=CAP)
+    params = ckt.init_params(dev)
+    r = torch.from_numpy(np.geomspace(1e3, 1e5, 2 * n_sw).astype(np.float32)[:n_sw]).to(dev)
+    v = torch.from_numpy(_par_signal(seed, t_sw)).to(dev)[None].expand(n_sw, -1).contiguous()
+    zs, rc = {"C": {"z": torch.zeros(n_sw, device=dev)}}, {"Vs": {"R": r}}
+    b7 = pair(lambda: fcirc.fused_circuit_process(ckt, params, v, zs, input_node="Vs",
+                                                  row_controls=rc),
+              lambda: fcirc.fused_circuit_process_plain(ckt, params, v, zs, input_node="Vs",
+                                                        row_controls=rc))
+    prog = fcirc.prepare(ckt, params, dev, input_node="Vs", row_controls=rc,
+                         shape=(n_sw, t_sw)).prog
+    # as sweep_path's: the shared input and the resistances read, (N, T) written
+    res["B7"] = b7 + (_bound(prog.ops_per_sample * n_sw * t_sw,
+                             4 * t_sw + 4 * n_sw + 4 * n_sw * t_sw),)
+
+    ckt, params = _par_train_clipper(dev)
+    n = sum(sizes["tbt"])
+    xv, _ = _par_tbt_data(seed, n)
+    v = torch.from_numpy(xv).to(dev)[None]
+    zs = {"C": {"z": torch.zeros(1, device=dev)}}
+    _, _, seq = fcirc.fused_circuit_process(ckt, params, v, zs, input_node="Vs",
+                                            return_state_seq=True)
+    g = torch.from_numpy(rng.standard_normal((1, n)).astype(np.float32)).to(dev) / n
+    lam = [torch.zeros(1, device=dev)]
+    b8 = pair(lambda: pb.fused_backward(ckt, params, v, g, seq, lam, input_node="Vs"),
+              lambda: pb.fused_backward_plain(ckt, params, v, g, seq, lam, input_node="Vs"))
+    prog = fcirc.prepare(ckt, params, dev, input_node="Vs").prog
+    adj = cg.adjoint_program(ckt, prog)
+    res["B8"] = b8 + (_bound(adj.ops_per_sample * n, (3 + 2) * 4 * n + 8),)
+    budgets = {"B3": ("abs", 2e-5), "B4": ("scaled", 2e-5), "B7": ("abs", GEN_BUDGET_B7),
+               "B8": ("scaled", 1e-4)}
+    for k, (err, rel, ms, plain_ms, bound) in res.items():
+        kind, budget = budgets[k]
+        print(f"phase kernels parallel {k} shape={shapes[k]} max_abs_err={err:.3e} "
+              f"scaled_err={rel:.3e} budget={budget:g} ({kind}) kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.1f} bound_ms={bound[0]:.6f} ({bound[1]}) card={card!r}",
+              flush=True)
+        _check((err if kind == "abs" else rel) <= budget,
+               f"{k} within its budget of its plain version at the parallel path's shape")
+    return res
+
+
+def _tensors(x) -> list:
+    """The tensors of a result of tuples, lists and dicts (in key order)."""
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in _tensors(x[k])]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    return [x]
+
+
+def parallel_path(dev, card: str, seed: int) -> list:
+    """The multi-device layer: the parallel phase's kernels against their
+    plain versions, the single-process references here, then one rank under
+    NCCL (the one-card deployment: DP fused and fused_generic steps,
+    time-block serving and its exact handoff, the scaling suite) and two
+    ranks sharing the card under gloo (the same, the time-block training
+    step and the sharded sweep), each a spawned run with the launch counters
+    of B3, B4, B7 and B8 read in every rank.  Returns the four kernels'
+    records for the JSON line."""
+    sizes = {"device": dev.type, "rows": PAR_ROWS, "gen_rows": PAR_GEN_ROWS, "tb": PAR_TB,
+             "tbt": PAR_TBT, "sweep": (SWEEP_N, SWEEP_T), "reps": PAR_REPS}
+    kern = _par_kernels(dev, card, seed, sizes)
+    # the single-process references, which also build every generated source
+    # the ranks load (a spawned rank finds each library built)
+    t0 = time.perf_counter()
+    refs = {name: _par_dp_reference(name, dev, seed, rows)
+            for name, rows in (("fused", PAR_ROWS), ("fused_generic", PAR_GEN_ROWS))}
+    ckt, params = _par_lpf(dev)
+    serial = {}
+    for world in (1, 2):
+        x = torch.from_numpy(_par_signal(seed, world * PAR_TB[0])).to(dev)[None]
+        serial[world] = fcirc.fused_circuit_process(
+            ckt, params, x, {"C": {"z": torch.zeros(1, device=dev)}},
+            input_node="Vs")[0][0].cpu().numpy()
+    tbt_loss, tbt_grads = _par_tbt_reference(dev, seed, 2 * PAR_TBT[0])
+    sckt = make_diode_clipper(DiodePairRoot(name="dp", diode=diode_1n4148_1u1d), FS,
+                              r_source=R_SRC, cap=CAP)
+    half = torch.from_numpy(np.geomspace(1e3, 1e5, SWEEP_N // 2).astype(np.float32)).to(dev)
+    sweep_process(sckt, sckt.init_params(dev), {"Vs.R": half},
+                  {"Vs": {"v": torch.zeros(SWEEP_T, device=dev)}}, device=dev)
+    torch.cuda.synchronize()
+    print(f"phase parallel references seconds={time.perf_counter() - t0:.1f} (single-process "
+          f"DP steps, B7 over the whole signals, the generic engine over the whole row)",
+          flush=True)
+
+    backends = {1: "nccl" if dev.type == "cuda" else "gloo", 2: "gloo"}
+    runs = {}
+    for world in (1, 2):
+        t0 = time.perf_counter()
+        runs[world] = spawn(_parallel_rank, world, seed, sizes, backend=backends[world],
+                            device=dev.type, timeout_s=PAR_TIMEOUT_S)
+        print(f"phase parallel spawn world={world} backend={backends[world]} seconds="
+              f"{time.perf_counter() - t0:.1f}", flush=True)
+
+    total = dict.fromkeys(("B3", "B4", "B7", "B8"), 0)
+    for world, ranks in runs.items():
+        label = ("one rank, NCCL" if world == 1
+                 else "two ranks sharing one card, gloo (not scaling)")
+        for name, kernels in (("fused", ("B3", "B4")), ("fused_generic", ("B7", "B8"))):
+            ref = refs[name]
+            for r in ranks:
+                rec = r[name]
+                loss_rel = abs(rec["loss"] - ref["loss"]) / abs(ref["loss"])
+                grad_rel = _np_rel(rec["grads"], ref["grads"])
+                p_err = max(float(np.abs(rec["p1"][k] - ref["p1"][k]).max()) for k in ref["p1"])
+                print(f"phase parallel dp {name} world={world} rank={r['rank']} rows="
+                      f"{rec['rows']}x{CHUNK} loss={rec['loss']:.6e} loss_rel={loss_rel:.2e} "
+                      f"(rtol {PAR_LOSS_RTOL:g}) grad_rel={grad_rel:.2e} ({PAR_GRAD_REL:g}) "
+                      f"params_err={p_err:.2e} ({PAR_PARAM_ATOL:g}) launches={rec['launches']} "
+                      f"step_ms={rec['step_ms']:.3f} ({label}) card={card!r}", flush=True)
+                _check(loss_rel <= PAR_LOSS_RTOL and grad_rel <= PAR_GRAD_REL
+                       and p_err <= PAR_PARAM_ATOL,
+                       f"DP {name} at world {world} matches the single-process step")
+                _check(all(rec["launches"][k] > 0 for k in kernels),
+                       f"DP {name} launched {kernels} in rank {r['rank']} of {world}")
+                for k in kernels:
+                    total[k] += rec["launches"][k]
+                if "turns_ms" in rec:
+                    t = rec["turns_ms"]
+                    print(f"phase timing parallel dp {name} world=1 dp_step_ms={t['dp']:.3f} "
+                          f"single_process_step_ms={t['single']:.3f} ratio="
+                          f"{t['dp'] / t['single']:.3f} ({rec['rows'] * CHUNK / t['dp'] / 1e3:.1f}"
+                          f" Msamples/s; best of two turns, median of {PAR_REPS}) card={card!r}",
+                          flush=True)
+            for r in ranks[1:]:
+                _check(all(r[name]["p1"][k].tobytes() == ranks[0][name]["p1"][k].tobytes()
+                           for k in ref["p1"]), f"DP {name} replicas hold the same bits")
+        T, W = PAR_TB
+        for r in ranks:
+            tb = r["tb"]
+            err, exact_err = (_max_err(torch.from_numpy(tb[k]), torch.from_numpy(serial[world]))
+                              for k in ("out", "exact"))
+            print(f"phase parallel time_block world={world} rank={r['rank']} T={world}x{T} W={W} "
+                  f"err={err:.2e} (budget {PAR_TB_BUDGET:g}) exact_err={exact_err:.2e} "
+                  f"({PAR_EXACT_BUDGET:g}) launches={tb['launches']} ms={tb['ms']:.3f} "
+                  f"samples_per_s={world * T / tb['ms'] * 1e3:.4e} ({label}) card={card!r}",
+                  flush=True)
+            _check(err <= PAR_TB_BUDGET and exact_err <= PAR_EXACT_BUDGET,
+                   f"time-block serving at world {world} matches B7 over the whole signal")
+            _check(tb["launches"]["B7"] > 0, f"time-block serving launched B7 in rank {r['rank']}")
+            total["B7"] += tb["launches"]["B7"]
+            if "control_ms" in tb:
+                print(f"phase timing parallel time_block world=1 ms={tb['ms']:.3f} "
+                      f"b7_alone_ms={tb['control_ms']:.3f} (the same {T} samples with no "
+                      f"warm-up and no gather; W overhead {tb['ms'] / tb['control_ms']:.3f}x) "
+                      f"card={card!r}", flush=True)
+        if world == 1:
+            suite = ranks[0]["scaling"]
+            for curve in ("dp_training", "dp_control", "time_block", "time_block_control",
+                          "time_block_training"):
+                rec = suite[curve][1]
+                rate = rec.get("items_per_s", rec.get("samples_per_s"))
+                print(f"phase parallel scaling {curve} n=1 mean_s={rec['mean_s']:.6f} "
+                      f"per_s={rate:.4e} efficiency={rec['efficiency']:.3f} env={suite['env']} "
+                      f"card={card!r}", flush=True)
+                _check(np.isfinite(rec["mean_s"]) and rec["mean_s"] > 0, f"scaling {curve}")
+            continue
+        for r in ranks:
+            tbt = r["tbt"]
+            loss_rel = abs(tbt["loss"] - tbt_loss) / abs(tbt_loss)
+            grad_rel = _np_rel(tbt["grads"], tbt_grads)
+            print(f"phase parallel time_block_train world=2 rank={r['rank']} T=2x{PAR_TBT[0]} "
+                  f"W={PAR_TBT[1]} loss_rel={loss_rel:.2e} (rtol {PAR_LOSS_RTOL:g}) "
+                  f"grad_rel={grad_rel:.2e} ({PAR_TBT_GRAD:g}, against the generic engine over "
+                  f"the whole row) launches={tbt['launches']} step_ms={tbt['step_ms']:.3f} "
+                  f"({label}) card={card!r}", flush=True)
+            _check(loss_rel <= PAR_LOSS_RTOL and grad_rel <= PAR_TBT_GRAD,
+                   "the time-block training step matches the whole row")
+            _check(tbt["launches"]["B7"] > 0 and tbt["launches"]["B8"] > 0,
+                   f"time-block training launched B7 and B8 in rank {r['rank']}")
+            sw = r["sweep"]
+            print(f"phase parallel sweep world=2 rank={r['rank']} shape={sw['shape']} "
+                  f"sharded_vs_one_err={sw['err']:.2e} (budget {PAR_SWEEP_BUDGET:g}) "
+                  f"launches={sw['launches']} card={card!r}", flush=True)
+            _check(sw["err"] <= PAR_SWEEP_BUDGET and sw["shape"] == (SWEEP_N, SWEEP_T)
+                   and sw["launches"]["B7"] > 0, "the sharded sweep equals the unsharded one")
+            for k in ("B7", "B8"):
+                total[k] += tbt["launches"][k]
+            total["B7"] += sw["launches"]["B7"]
+
+    names = {"B3": ("fused_clipper_neural_train_fwd", TRAIN_SOURCE, TRAIN_REPLACES["train_fwd"]),
+             "B4": ("clipper_adjoint", TRAIN_SOURCE, TRAIN_REPLACES["adjoint"]),
+             "B7": ("fused_circuit_process", CIRCUIT_SOURCE, CIRCUIT_REPLACES),
+             "B8": ("fused_backward", CIRCUIT_SOURCE, BPTT_REPLACES)}
+    return [{"name": f"{names[k][0]} (parallel path: {PAR_SOURCE}, every rank)", "route": "cuda",
+             "source": names[k][1], "replaces": names[k][2], "launches": total[k],
+             "max_abs_err": kern[k][0], "ms": kern[k][2], "plain_ms": kern[k][3],
+             "bound_ms": kern[k][4][0], "bound_by": kern[k][4][1], "library_ms": None}
+            for k in ("B3", "B4", "B7", "B8")]
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of the input signals")
@@ -3845,7 +4335,7 @@ def main() -> None:
     kernels = []
     for path in (serve_path, train_path, stream_path, circuit_path, generic_train_path,
                  deer_circuit_path, pretrain_path, sweep_path, oracle_path, artifact_path,
-                 cli_path):
+                 cli_path, parallel_path):
         t0 = time.perf_counter()
         kernels += path(dev, card, args.seed)
         print(f"phase seconds {path.__name__} s={time.perf_counter() - t0:.1f}", flush=True)

@@ -37,6 +37,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -79,6 +80,20 @@ _SIGNATURES = {
 }
 
 
+def _tag(so: Path) -> str:
+    """The stem of a build's temporary files: the library's, the process's
+    and the thread's, so builders of one source in two processes or two
+    threads never share a temporary file (the last to finish replaces the
+    library, atomically, with the same bytes)."""
+    return f"{so.stem}.{os.getpid()}.{threading.get_ident()}"
+
+
+def _write_atomic(path: Path, text: str, tag: str) -> None:
+    tmp = path.with_name(f"{tag}.{path.name}.tmp")
+    tmp.write_text(text)
+    os.replace(tmp, path)
+
+
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     candidate = Path(cuda_home) / "bin" / "nvcc"
@@ -113,7 +128,7 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{so.stem}.{os.getpid()}"
+    tag = _tag(so)
     nvcc = _nvcc()
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
@@ -132,7 +147,7 @@ def build() -> Path:
     for obj in objs:
         obj.unlink(missing_ok=True)
     log = "\n".join(logs)
-    so.with_suffix(".log").write_text(log)
+    _write_atomic(so.with_suffix(".log"), log, tag)
     if failed:
         raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
@@ -221,19 +236,18 @@ def build_generated(sources) -> list:
     nvcc = _nvcc()
     procs = []
     for so, src in todo.items():
-        tag = f"{so.stem}.{os.getpid()}"
-        cu, tmp_cu = so.with_suffix(".cu"), BUILD_DIR / f"{tag}.tmp.cu"
-        tmp_cu.write_text(src)
-        os.replace(tmp_cu, cu)
+        tag = _tag(so)
+        cu = so.with_suffix(".cu")
+        _write_atomic(cu, src, tag)
         tmp = BUILD_DIR / f"{tag}.tmp.so"
-        procs.append((so, tmp, subprocess.Popen(
+        procs.append((so, tag, tmp, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-shared", "-o", str(tmp), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         build_generated.builds += 1
     failed = []
-    for so, tmp, proc in procs:
+    for so, tag, tmp, proc in procs:
         log = f"$ nvcc -shared {so.stem}.cu\n{proc.communicate()[0]}"
-        so.with_suffix(".log").write_text(log)
+        _write_atomic(so.with_suffix(".log"), log, tag)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             failed.append(log)
@@ -303,14 +317,12 @@ def build_host(source: str) -> Path:
     so = host_path(source)
     if so.exists():
         return so
-    tag = f"{so.stem}.{os.getpid()}"
+    tag = _tag(so)
     inc = BUILD_DIR / f"{tag}.include"
     inc.mkdir(parents=True, exist_ok=True)
     (inc / "cuda_runtime.h").write_text(HOST_STANDIN.read_text())
     cpp, tmp = so.with_suffix(".cpp"), BUILD_DIR / f"{tag}.tmp.so"
-    tmp_cpp = BUILD_DIR / f"{tag}.tmp.cpp"
-    tmp_cpp.write_text(source)
-    os.replace(tmp_cpp, cpp)
+    _write_atomic(cpp, source, tag)
     proc = subprocess.run([_cxx(), *HOST_FLAGS, f"-I{inc}", f"-I{CSRC_DIR}", "-o", str(tmp),
                            str(cpp)], capture_output=True, text=True)
     build_host.builds += 1

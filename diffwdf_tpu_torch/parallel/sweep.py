@@ -18,15 +18,17 @@ plain versions run.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..core.circuit import Circuit, _collect_impedance_controls
 from ..core.elements import Device
 from ..ops.fused_circuit import (_merge_controls, fused_circuit_process,
                                  fused_circuit_process_neural)
 from ..roots.neural import MLPParams, NeuralDiodeRoot
+from .mesh import all_gather, block_bounds
 
 
 def expand_params(base_params, overrides: Dict[str, Any]):
@@ -107,14 +109,23 @@ def _to(tree, device: Device):
     return torch.as_tensor(tree, device=device)
 
 
-def sweep_process(circuit: Circuit, base_params, overrides: Dict[str, Any], inputs, *,
+def sweep_process(circuit: Circuit, base_params, overrides: Dict[str, Any], inputs,
+                  mesh: Optional[DeviceMesh] = None, data_axis: str = "data", *,
                   device: Device = "cuda") -> torch.Tensor:
     """Run the circuit once per instance of the sweep, sharing the input.
 
     overrides: {"Node.field": [N]}; inputs: {node: {field: [T]}} with one
     signal field "v".  Returns outputs (N, T) on ``device``: one B7 launch
     when every swept field is an impedance control, else one per distinct
-    value of the other swept leaves."""
+    value of the other swept leaves.  With a mesh, each rank of
+    ``data_axis`` runs its block of the instances (N divisible by the axis
+    size) and every rank returns the gathered (N, T)."""
+    if mesh is not None:
+        n = next(iter(overrides.values())).shape[0]
+        lo, hi = block_bounds(n, mesh, data_axis)
+        local = {k: v[lo:hi] for k, v in overrides.items()}
+        return all_gather(sweep_process(circuit, base_params, local, inputs, device=device),
+                          mesh, data_axis)
     base = _to(base_params, device)
     overrides = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
                  for k, v in overrides.items()}
@@ -168,7 +179,8 @@ def sweep_process(circuit: Circuit, base_params, overrides: Dict[str, Any], inpu
 
 
 def ensemble_process(circuit_factory: Callable, mlp_params_stack: MLPParams, activations,
-                     inputs, *, device: Device = "cuda") -> torch.Tensor:
+                     inputs, mesh: Optional[DeviceMesh] = None, *,
+                     device: Device = "cuda") -> torch.Tensor:
     """Model-zoo ensemble: run the same circuit under N stacked MLP roots.
 
     mlp_params_stack: MLP params with a leading N axis on every leaf (a
@@ -176,7 +188,14 @@ def ensemble_process(circuit_factory: Callable, mlp_params_stack: MLPParams, act
     the circuit given a ``NeuralDiodeRoot``.  Each expert is one launch of
     ``fused_circuit_process_neural`` (B7's NxH lane form) on one stream; an
     architecture outside its all-tanh NxH family raises ``ValueError``.
-    Returns outputs (N, T)."""
+    Returns outputs (N, T).  With a mesh, each rank of its "data" axis runs
+    its block of the experts and every rank returns the gathered (N, T)."""
+    if mesh is not None:
+        lo, hi = block_bounds(mlp_params_stack["layers"][0]["kernel"].shape[0], mesh, "data")
+        local = {"layers": [{k: l[k][lo:hi] for k in ("kernel", "bias")}
+                            for l in mlp_params_stack["layers"]]}
+        return all_gather(ensemble_process(circuit_factory, local, activations, inputs,
+                                           device=device), mesh, "data")
     layers = mlp_params_stack["layers"]
     root = NeuralDiodeRoot(name="dp", n_layers=len(layers) - 2,
                            layer_size=int(layers[0]["kernel"].shape[-1]),

@@ -249,6 +249,16 @@ def _map(fn, tree):
     return fn(tree)
 
 
+def make_adam(params, cfg: CircuitTrainConfig, trainable_filter: Optional[Callable] = None):
+    """``torch.optim.Adam(lr, betas=(beta1, 0.999), eps=1e-8)`` over the
+    leaves of ``trainable_filter(params)`` (default: every leaf), which it
+    marks as requiring grad: the optimizer of every circuit training step."""
+    trainable = _leaves(params if trainable_filter is None else trainable_filter(params))
+    for x in trainable:
+        x.requires_grad_(True)
+    return torch.optim.Adam(trainable, lr=cfg.learning_rate, betas=(cfg.beta1, 0.999), eps=1e-8)
+
+
 def make_train_step(
     circuit: Circuit,
     cfg: CircuitTrainConfig,
@@ -257,10 +267,9 @@ def make_train_step(
     """Build the training step.  Returns (make_optimizer, train_step,
     eval_step):
 
-    - ``make_optimizer(params)``: ``torch.optim.Adam(lr, betas=(beta1,
-      0.999), eps=1e-8)`` over the leaves of ``trainable_filter(params)``
-      (a subtree, e.g. ``lambda p: p["dp"]``; default: every leaf), which it
-      marks as requiring grad;
+    - ``make_optimizer(params)``: :func:`make_adam` over the leaves of
+      ``trainable_filter(params)`` (a subtree, e.g. ``lambda p: p["dp"]``;
+      default: every leaf);
     - ``train_step(params, opt, batches) -> metrics``: one gradient step,
       updating the trainable leaves in place;
     - ``eval_step(params, batches) -> metrics``, without gradients.
@@ -271,11 +280,7 @@ def make_train_step(
     loss_fn = make_loss_fn(circuit, cfg)
 
     def make_optimizer(params):
-        trainable = _leaves(params if trainable_filter is None else trainable_filter(params))
-        for x in trainable:
-            x.requires_grad_(True)
-        return torch.optim.Adam(trainable, lr=cfg.learning_rate, betas=(cfg.beta1, 0.999),
-                                eps=1e-8)
+        return make_adam(params, cfg, trainable_filter)
 
     def train_step(params, opt, batches):
         opt.zero_grad(set_to_none=True)

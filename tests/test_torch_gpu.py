@@ -38,7 +38,11 @@ and 1e-5 of plain at every padded degree, K = 4 and 8, B = 1, 1,000 and
 omega solves on a pair of lanes) the one-thread kernel's bits on the TS,
 the HPF and the LPF clipper at B = 1, 3 and 8,192, with and without the
 trajectory, and 2e-5 of plain; omega_select and omega() the same bits on
-the card; a refused launch of either raising with nothing in its place.
+the card; a refused launch of either raising with nothing in its place;
+the multi-device layer at world size 1 under NCCL (``parallel``: the DP
+steps of both fused engines against the single-process step, time-block
+serving against B7 over the whole signal) and one generated source built by
+two processes of two threads at once.
 """
 
 import numpy as np
@@ -1575,3 +1579,184 @@ def test_artifact_crosses_devices(cuda, tmp_path, name):
         got, state = art.process(state, v)
         want, st = run(params, st, {node: {"v": v}}, {})
         assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The multi-device layer at world size 1 under NCCL (parallel/), and builds
+# of one generated source by concurrent builders
+# ---------------------------------------------------------------------------
+
+
+def _dp_case(engine, device):
+    """A DP case at a small shape: the clipper's fused step (a seeded 2x16,
+    one source R per row) or the HPF clipper's fused_generic step (1x4)."""
+    from diffwdf_tpu_torch.models.diode_clipper import make_hpf_diode_clipper
+    from diffwdf_tpu_torch.training.circuit_train import CircuitTrainConfig
+
+    rng = np.random.default_rng(17)
+    rows, t = 64, 256
+    x = rng.standard_normal((rows, t)).astype(np.float32)
+    batches = {"x": x, "y": np.tanh(x)}
+    if engine == "fused":
+        root = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=16)
+        ckt = make_training_clipper(root, 48000.0)
+        batches["r0"] = np.exp(rng.uniform(np.log(36e3), np.log(73e3), rows)).astype(np.float32)
+    else:
+        root = NeuralDiodeRoot(name="dp", n_layers=1, layer_size=4)
+        ckt = make_hpf_diode_clipper(root, 48000.0)
+    params = {**ckt.init_params(device),
+              **root.init_params(device, torch.Generator().manual_seed(5))}
+    cfg = CircuitTrainConfig(batch_size=t, learning_rate=3e-3, skip_samples=8, engine=engine)
+    return ckt, params, {k: torch.from_numpy(v) for k, v in batches.items()}, cfg
+
+
+def _root(params):
+    return params["dp"]
+
+
+def _flat_root(params):
+    return [x.detach().cpu().numpy().copy() for x in _leaves_sorted(params["dp"])]
+
+
+def _leaves_sorted(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves_sorted(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves_sorted(v)]
+    return [tree]
+
+
+def _nccl_rank(rank, world):
+    """One rank under NCCL: the DP step of both fused engines (reduced
+    gradient, params after a step, launches) and time-block serving of the
+    LPF clipper with its exact handoff."""
+    from diffwdf_tpu_torch.ops import fused_circuit as fcirc
+    from diffwdf_tpu_torch.ops import parallel_bptt as pb
+    from diffwdf_tpu_torch.parallel.data_parallel import make_dp_train_step
+    from diffwdf_tpu_torch.parallel.mesh import make_mesh
+    from diffwdf_tpu_torch.parallel.time_block import (time_block_process,
+                                                       time_block_process_exact)
+    from diffwdf_tpu_torch.models.diode_clipper import make_diode_clipper
+
+    mesh = make_mesh((1, 1))
+    out = {}
+    for engine in ("fused", "fused_generic"):
+        ckt, params, batches, cfg = _dp_case(engine, "cuda")
+        counters = (fc.fused_clipper_neural_train_fwd, ct.clipper_adjoint,
+                    fcirc.fused_circuit_process, pb.fused_backward)
+        for c in counters:
+            c.launches = 0
+        make_optimizer, dp_train, _, prepare = make_dp_train_step(ckt, cfg, mesh, _root)
+        p, b = prepare(params, batches)
+        loss, _, grads = dp_train.grads_fn(p, b)
+        dp_train(p, make_optimizer(p), b)
+        out[engine] = {"loss": float(loss), "grads": [g.cpu().numpy() for g in
+                                                      _leaves_sorted(grads)],
+                       "p1": _flat_root(p), "launches": [c.launches for c in counters]}
+    ckt = make_diode_clipper(DiodePairRoot(name="dp", diode=diode_1n4148_1u1d), 48000.0)
+    x = np.random.default_rng(3).standard_normal(4096).astype(np.float32)
+    tmesh = make_mesh((1, 1))
+    fcirc.fused_circuit_process.launches = 0
+    tb = time_block_process(ckt, ckt.init_params("cuda"), {"Vs": {"v": x}}, tmesh, warmup=256)
+    exact = time_block_process_exact(ckt, ckt.init_params("cuda"), {"Vs": {"v": x}}, tmesh)
+    out["tb"] = {"out": tb.cpu().numpy(), "exact": exact.cpu().numpy(),
+                 "launches": fcirc.fused_circuit_process.launches}
+    return out
+
+
+@pytest.mark.gpu
+def test_world_one_nccl_matches_the_single_process_step_and_b7(cuda):
+    """World size 1 under NCCL (a FileStore): the DP step of the fused
+    (B3, B4) and fused_generic (B7, B8) engines against the single-process
+    make_train_step (loss rtol 1e-5, gradient 1e-4 relative, params after a
+    step atol 5e-6, tests/test_parallel.py:128-213), and time-block serving
+    and its exact handoff against B7 over the whole signal (the one block
+    is the whole signal: the same bits)."""
+    from diffwdf_tpu_torch.models.diode_clipper import make_diode_clipper
+    from diffwdf_tpu_torch.ops import fused_circuit as fcirc
+    from diffwdf_tpu_torch.parallel.distributed import spawn
+    from diffwdf_tpu_torch.training.circuit_train import make_loss_fn, make_train_step
+
+    (res,) = spawn(_nccl_rank, 1, backend="nccl", device="cuda", timeout_s=300)
+    for engine in ("fused", "fused_generic"):
+        got = res[engine]
+        kernels = slice(0, 2) if engine == "fused" else slice(2, 4)  # B3, B4 or B7, B8
+        assert all(n > 0 for n in got["launches"][kernels]), (engine, got["launches"])
+        ckt, params, batches, cfg = _dp_case(engine, cuda)
+        batches = {k: v.to(cuda) for k, v in batches.items()}
+        leaves = _leaves_sorted(params["dp"])
+        for x in leaves:
+            x.requires_grad_(True)
+        loss, _ = make_loss_fn(ckt, cfg)(params, batches)
+        grads = torch.autograd.grad(loss, leaves)
+        np.testing.assert_allclose(got["loss"], float(loss.detach()), rtol=1e-5)
+        for g, w in zip(got["grads"], grads):
+            w = w.cpu().numpy()
+            assert np.abs(g - w).max() / np.abs(w).max() < 1e-4, engine
+        make_optimizer, step, _ = make_train_step(ckt, cfg, _root)
+        ckt, params, batches, cfg = _dp_case(engine, cuda)
+        step(params, make_optimizer(params), {k: v.to(cuda) for k, v in batches.items()})
+        for g, w in zip(got["p1"], _flat_root(params)):
+            np.testing.assert_allclose(g, w, atol=5e-6, err_msg=engine)
+    ckt = make_diode_clipper(DiodePairRoot(name="dp", diode=diode_1n4148_1u1d), 48000.0)
+    x = np.random.default_rng(3).standard_normal(4096).astype(np.float32)
+    want, _ = fcirc.fused_circuit_process(ckt, ckt.init_params(cuda),
+                                          torch.from_numpy(x).to(cuda)[None],
+                                          {"C": {"z": torch.zeros(1, device=cuda)}},
+                                          input_node="Vs")
+    want = want[0].cpu().numpy()
+    assert res["tb"]["launches"] == 2
+    np.testing.assert_allclose(res["tb"]["out"], want, atol=1e-5)
+    np.testing.assert_array_equal(res["tb"]["exact"], want)
+
+
+def _generated_build_rank(rank, world, build_dir, source):
+    """Two threads of this rank build one generated CUDA source at once."""
+    import concurrent.futures
+    from pathlib import Path
+
+    from diffwdf_tpu_torch.ops import _build
+
+    _build.BUILD_DIR = Path(build_dir)
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        paths = list(ex.map(lambda _: _build.build_generated([source])[0], range(2)))
+    return [str(p) for p in paths]
+
+
+@pytest.mark.gpu
+def test_concurrent_builds_of_one_generated_source(cuda, tmp_path):
+    """Two processes of two threads each build one generated forward source
+    with nvcc into one directory at once: one library, no temporary file
+    left, and it serves the circuit with the wrapper's bits."""
+    from pathlib import Path
+
+    from diffwdf_tpu_torch.models.simple_circuits import make_rc_lowpass
+    from diffwdf_tpu_torch.ops import _build
+    from diffwdf_tpu_torch.ops import fused_circuit as fcirc
+    from diffwdf_tpu_torch.parallel.distributed import spawn
+
+    ckt = make_rc_lowpass(48000.0, r=2200.0)
+    params = ckt.init_params(cuda)
+    prep = fcirc.prepare(ckt, params, cuda, input_node="Vs")
+    build_dir = tmp_path / "build"
+    ranks = spawn(_generated_build_rank, 2, str(build_dir), prep.prog.source, timeout_s=600)
+    so = {p for r in ranks for p in r}
+    assert len(so) == 1
+    stem = Path(so.pop()).stem
+    assert sorted(p.name for p in build_dir.iterdir()) == [f"{stem}.cu", f"{stem}.log",
+                                                          f"{stem}.so"]
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((3, 500))
+                         .astype(np.float32)).to(cuda)
+    z0 = torch.zeros(len(prep.prog.state_order), 3, device=cuda)
+    want = fcirc.launch(prep, x, z0)[0]
+    old = _build.BUILD_DIR
+    try:
+        _build.BUILD_DIR = build_dir
+        _build._generated_libs.pop(prep.prog.source, None)
+        builds = _build.build_generated.builds
+        got = fcirc.launch(prep, x, z0)[0]
+        assert _build.build_generated.builds == builds  # loaded, not built again
+    finally:
+        _build.BUILD_DIR = old
+        _build._generated_libs.pop(prep.prog.source, None)
+    assert torch.equal(got, want)
