@@ -9,9 +9,11 @@ single-stream serving of the plugin's circuit set and the HPF clipper
 (engine="deer": the generated DEER kernel), pretraining of the zoo's
 neural roots, circuit sweeps and model-zoo ensembles on the generated
 kernel, the DEER kernels against the parallel-in-time oracle, the deploy
-artifact with its custom ops, every subcommand of the command line, and
-the multi-device layer at one rank (NCCL) and two ranks sharing the card
-(gloo).
+artifact with its custom ops, every subcommand of the command line, the
+multi-device layer at one rank (NCCL) and two ranks sharing the card
+(gloo), and the roots the generated kernels took last: the distilled
+root's training and parallel-in-time serving (B8, B9) and a general MLP
+root's serving and export (B7).
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -272,6 +274,25 @@ one line per phase:
              sharded against one run, with one rank the step times against
              the single-process step, B7 alone, and run_scaling_suite; the
              launches of B3, B4, B7 and B8 read in every rank
+  distilled_path  the 1N4148 1U-1D pair ("best") distilled at the LPF
+             clipper's port R (96 kHz, 47 kOhm, 2.2 nF): the new generated
+             sources in one parallel nvcc, ptxas of every new kernel (no
+             spill in B8's pass 1 and B9's cluster kernel); B9 at T = 2,048
+             and 16,384 on stream_path's DEER inputs (and a quiet one)
+             against its plain version and B6's scan (1e-6), at 2,048 the
+             oracle (1e-4), its residual and device time; B7's training form
+             and B8 at (1024, 2048) against their plain versions (2e-5,
+             1e-4 relative), the fused_generic gradients against the scan
+             engine at (1024, 256), 5e-4 a leaf; B7's general MLP root (a
+             relu-mixed and a sigmoid 2x8 JSON root) against its plain
+             version at B = 1; then, the counters set to 0: B9 serving two
+             blocks, five fused_generic steps training C from 20% off
+             (the target from B2), the time-block training step at one rank
+             under NCCL against the single-process step, and both JSON
+             roots served 47 blocks of 2,048 by the exact runner (block
+             walls beside Circuit.process's, in turns, 2e-5) and by an
+             artifact (the relu one by export-artifact --check in a
+             subprocess started first)
 
 Each path's seconds follow it on a "phase seconds" line.  Then a JSON line
 with every kernel's (and op's) launches, error, times and bound, the card's
@@ -337,7 +358,7 @@ from diffwdf_tpu_torch.parallel.time_block import (
     time_block_process_exact,
 )
 from diffwdf_tpu_torch.roots.diode import DiodePairRoot, diode_1n4148_1u1d, diode_1n4148_1u2d
-from diffwdf_tpu_torch.roots.distilled import distill_root
+from diffwdf_tpu_torch.roots.distilled import PiecewiseChebRoot, distill_root
 from diffwdf_tpu_torch.roots.neural import NeuralDiodeRoot
 from diffwdf_tpu_torch.runtime.artifact import load_artifact, save_artifact
 from diffwdf_tpu_torch.runtime.stream import (
@@ -4032,11 +4053,12 @@ def _par_dp_reference(name: str, dev, seed: int, rows: int) -> dict:
             "p1": _flat_np(params["dp"])}
 
 
-def _par_tbt_reference(dev, seed: int, n: int, skip: int = 50):
+def _par_tbt_reference(dev, seed: int, n: int, skip: int = 50, make=_par_train_clipper):
     """The loss and gradient of the time-block step's loss over the whole
     row: the generic engine from zero state over n samples, the masked MSE +
-    ESR from sample ``skip`` (tests/test_parallel.py:252-258)."""
-    ckt, params = _par_train_clipper(dev)
+    ESR from sample ``skip`` (tests/test_parallel.py:252-258), on the
+    circuit and params of ``make(dev)``."""
+    ckt, params = make(dev)
     x, y = (torch.from_numpy(a).to(dev) for a in _par_tbt_data(seed, n))
     f = pb.make_fused_circuit_train_generic(ckt, input_node="Vs")
     leaves, rebuild = pb._flatten(params)
@@ -4294,6 +4316,430 @@ def parallel_path(dev, card: str, seed: int) -> list:
             for k in ("B3", "B4", "B7", "B8")]
 
 
+# ---------------------------------------------------------------------------
+# The roots the generated kernels took last (distilled_path): the distilled
+# root's slope in B8 and B9, a general MLP root in B7's forward
+# ---------------------------------------------------------------------------
+
+#: B9 on the distilled clipper: within 1e-6 of its plain version and of B6's
+#: scan (tests/test_deer_circuit.py:57), 1e-4 of the oracle (as B5's)
+DIST_BUDGET, DIST_ORACLE_BUDGET = 1e-6, 1e-4
+#: the fused_generic steps: (rows, samples), steps, the grad check's shape
+DIST_B, DIST_T, DIST_STEPS = GEN_B, GEN_T, 5
+DIST_GRAD_B, DIST_GRAD_T = GEN_GRAD_B, GEN_GRAD_T
+DIST_ADJ_BUDGET, DIST_GRAD_BUDGET = 1e-4, 5e-4  # tests/test_parallel_bptt.py:537, :76-81
+DIST_LR = 8e-11  # Adam's step on C (farads): 20% off the true 2.2 nF is 4.4e-10
+#: the general MLP roots saved and loaded as JSON (2x8): activations
+DIST_MLP = {"relu": ("tanh", "relu", "tanh", ""), "sigmoid": ("sigmoid", "sigmoid", "sigmoid", "")}
+DIST_BLOCKS, DIST_TURNS = 47, 3  # served blocks of CHUNK; Circuit.process blocks in turns
+DIST_MLP_BUDGET = 2e-5  # the generic forward's (tests/test_fused_circuit.py:55)
+
+
+def _distilled(fs: float, r_source: float, cap: float):
+    """The 1N4148 1U-1D pair, quality "best", distilled at the port R of the
+    LPF clipper Vs(r_source) || C(cap) at fs (bench.py:364-371): (root, fit
+    error)."""
+    diode = DiodePairRoot(name="dp", diode=diode_1n4148_1u1d, quality="best")
+    return distill_root(diode, diode.init_params("cpu"), 1.0 / (1.0 / r_source + 2.0 * cap * fs))
+
+
+def _dist_train_clipper(dev, cheb):
+    """The training clipper (48 kHz, 45 kOhm, 4.7 nF: the time-block phase's
+    circuit) with the distilled root of ``cheb`` = (a_max, breaks,
+    coefficients)."""
+    a_max, breaks, coeffs = cheb
+    root = PiecewiseChebRoot(name="dp", a_max=a_max, breaks=breaks, coeffs=coeffs)
+    ckt = make_training_clipper(root, PAR_FS)
+    return ckt, ckt.init_params(dev)
+
+
+def _dist_tbt_rank(rank: int, world: int, cheb, seed: int, device: str) -> dict:
+    """One rank of the distilled root's time-block training step (spawned):
+    the loss, the reduced gradient, the launches and the step's ms."""
+    dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else \
+        torch.device("cpu")
+    ckt, params = _dist_train_clipper(dev, cheb)
+    T, W = PAR_TBT
+    x, y = _par_tbt_data(seed, world * T)
+    cfg = CircuitTrainConfig(learning_rate=1e-3, skip_samples=50)
+    make_optimizer, step, _ = make_time_block_train_step(
+        ckt, cfg, make_mesh((1, world), device=device), warmup=W, device=device)
+    _par_reset()
+    loss, _, grads = step.grads_fn(params, x, y)
+    rec = {"loss": float(loss), "grads": _flat_np(grads), "launches": _par_counts()}
+    opt = make_optimizer(params)
+    rec["step_ms"] = _host_ms(lambda: step(params, opt, x, y), dev)
+    return rec
+
+
+def _mlp_root(name: str, dev, folder: Path):
+    """A general 2x8 MLP root, seeded random weights, saved with
+    save_model_json and loaded back as a user would: (root, params, path)."""
+    seeded = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=8, activations=DIST_MLP[name])
+    frag = seeded.init_params(dev, torch.Generator().manual_seed(len(name)))
+    path = folder / f"{name}.json"
+    save_model_json(frag["dp"], seeded.activations, str(path))
+    mlp, acts, _ = load_model_json(str(path), device=dev)
+    root, frag = NeuralDiodeRoot.from_mlp("dp", mlp, acts)
+    return root, frag, path
+
+
+def distilled_path(dev, card: str, seed: int) -> list:
+    """The roots that the generated kernels took last: build distilled (the
+    new generated sources in one parallel nvcc, ptxas of every new kernel);
+    kernels distilled_path (B9 on the distilled clipper against its plain
+    version, B6 and the oracle; B7's training form and B8 against theirs;
+    the fused_generic gradients against the scan engine; B7's general MLP
+    root against its plain version); then the path as a user drives it,
+    the launch counters set to 0 before and read after: B9 serving the
+    distilled clipper, five fused_generic steps training C, the time-block
+    training step at one rank under NCCL, and a relu and a sigmoid JSON
+    root served 47 blocks by the exact runner and by an artifact (one
+    exported in-process, one by the export-artifact command, started first
+    in a subprocess).  Returns the new forms' records for the JSON line."""
+    t_path = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(Path(__file__).resolve().parent), os.environ.get("PYTHONPATH")) if p)}
+    with tempfile.TemporaryDirectory(prefix="distilled_path_") as tmp:
+        folder = Path(tmp)
+        mlps = {name: _mlp_root(name, dev, folder) for name in DIST_MLP}
+        with open(folder / "export.log", "w") as cli_log:
+            cli = subprocess.Popen(
+                [sys.executable, "-m", "diffwdf_tpu_torch.cli", "export-artifact", "--model",
+                 "3", "--model-json", str(mlps["relu"][2]), "--fs", str(FS), "--block",
+                 str(CHUNK), "--check", "--out", str(folder / "relu.pt2")],
+                cwd=folder, env=env, stdout=cli_log, stderr=subprocess.STDOUT)
+            try:
+                return _distilled_path(dev, card, seed, mlps, cli, folder, t_path)
+            finally:
+                if cli.poll() is None:
+                    cli.kill()
+                    cli.wait()
+
+
+def _distilled_path(dev, card, seed, mlps, cli, folder, t_path) -> list:
+    # --- build distilled ----------------------------------------------------
+    droot, fit_err = _distilled(FS, R_SRC, CAP)
+    ckt = make_diode_clipper(droot, FS, r_source=R_SRC, cap=CAP)
+    params = ckt.init_params(dev)
+    prog = fcirc.prepare(ckt, params, dev, input_node="Vs").prog
+    adj, deer = cg.adjoint_program(ckt, prog), cg.deer_program(ckt, prog)
+    mlp_ckts = {}
+    for name, (root, frag, _) in mlps.items():  # at the export-artifact command's cutoff
+        c = make_diode_clipper(root, FS, r_source=cutoff_to_resistance(ART_CUTOFF, CAP), cap=CAP)
+        mlp_ckts[name] = (c, {**c.init_params(dev), **frag})
+    mlp_progs = {name: fcirc.prepare(c, p, dev, input_node="Vs").prog
+                 for name, (c, p) in mlp_ckts.items()}
+    sources = {"B7": prog.source, "B8": adj.source, "B9": deer.source,
+               **{f"B7_{n}": p.source for n, p in mlp_progs.items()}}
+    t0 = time.perf_counter()
+    before = _build.build_generated.builds
+    _build.build_generated(list(sources.values()))
+    print(f"phase build distilled seconds={time.perf_counter() - t0:.2f} nvcc_runs="
+          f"{_build.build_generated.builds - before} fit_err={fit_err:.3e} degrees="
+          f"{tuple(len(c) - 1 for c in droot.coeffs)} slope_ops={prog.emitter.slope_ops} "
+          f"root_ops={prog.emitter.ops} adjoint pass1_ops={adj.jacobian_ops} "
+          f"deer_ops_per_sample={deer.ops_per_sample} "
+          + " ".join(f"mlp_{n}_ops={p.ops_per_sample}" for n, p in mlp_progs.items()),
+          flush=True)
+    for label, src in sources.items():
+        kernel = DEER_PTXAS if label == "B9" else r"\d+(circuit_\w*?kernel)"
+        print(f"  ptxas {label} {_generated_ptxas(src, kernel=kernel)}", flush=True)
+    pass1 = {k: v for k, v in _ptxas_kernels(adj.source).items()
+             if k.startswith("circuit_jacobian")}
+    cluster = {k: v for k, v in _ptxas_kernels(deer.source, kernel=DEER_PTXAS).items()
+               if k.startswith("deer_cluster")}
+    _check(pass1 and all(ss == sl == 0 for _, ss, sl in {**pass1, **cluster}.values()),
+           f"no spill in B8's pass 1 and B9's cluster kernel: {pass1} {cluster}")
+
+    # --- kernels distilled_path: B9 --------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)  # stream_path's DEER inputs
+    b9 = {}
+    for T in DEER_T:
+        vin = 2.0 * torch.randn(T, generator=gen, device=dev)
+        out, st, res, n = dc.fused_deer_circuit(ckt, params, vin, input_node="Vs",
+                                                return_info=True)
+        box = []
+        plain_ms = _cuda_ms(lambda: box.append(dc.fused_deer_circuit_plain(
+            ckt, params, vin, input_node="Vs", return_info=True)), 1)[0]
+        p_out, p_st, p_res, p_n = box[0]
+        scan, z = fc.fused_clipper_cheb(vin[None], torch.zeros(1, device=dev), droot, R_SRC,
+                                        CAP, fs=FS)
+        errs = {"plain": max(_max_err(out, p_out), abs(float(st["C"]["z"] - p_st["C"]["z"]))),
+                "b6": max(_max_err(out, scan[0]), abs(float(st["C"]["z"] - z[0])))}
+        if T == ORACLE_T:
+            want, resid = parallel_time_process(ckt, params, {"Vs": {"v": vin}},
+                                                n_iters=ORACLE_ITERS["clipper"],
+                                                return_residual=True, device=dev)
+            errs["oracle"] = _max_err(out, want)
+            _check(float(resid) < ORACLE_BUDGET["clipper"][1], "the oracle converged")
+        prep = fcirc.prepare(ckt, params, dev, input_node="Vs")
+        s0 = dc._state_vector(prep, ckt, None, vin)
+        launch = dc.launcher(ckt, prep, vin, s0, T // dc.NB, 8, 2, 1.0, 0.0,
+                             dc.fused_deer_circuit)
+        dev_ms = statistics.median(_device_ms(launch) for _ in range(3))
+        calls_ms = statistics.median(_cuda_ms(launch, REPS, 10))
+        bound = _bound(_dc_ops(deer, T, 8, 2, 1.0, 0.0), 8 * T)
+        b9[T] = (errs["plain"], dev_ms, plain_ms, bound)
+        print(f"phase kernels distilled_path B9 T={T} input=2 N(0,1) vs_plain={errs['plain']:.3e} "
+              f"vs_b6={errs['b6']:.3e} budget={DIST_BUDGET:g}"
+              + (f" vs_oracle={errs['oracle']:.3e} budget={DIST_ORACLE_BUDGET:g} "
+                 f"oracle_residual={float(resid):.2e}" if "oracle" in errs else "")
+              + f" residual={float(res):.3e} plain_residual={float(p_res):.3e} sweeps="
+              f"{int(n)} device_ms={dev_ms:.4f} launch_ms_10_calls={calls_ms:.4f} "
+              f"plain_ms={plain_ms:.1f} bound_ms={bound[0]:.6f} ({bound[1]}) card={card!r}",
+              flush=True)
+        _check(bool(torch.isfinite(out).all()) and float(res) < 1e-5,
+               f"B9 on the distilled clipper converged at T={T}")
+        _check(errs["plain"] <= DIST_BUDGET and errs["b6"] <= DIST_BUDGET
+               and errs.get("oracle", 0.0) <= DIST_ORACLE_BUDGET,
+               f"B9 on the distilled root within its budgets at T={T}")
+    quiet = 0.5 * torch.randn(DEER_T[0], generator=gen, device=dev)
+    q_out, _, q_res = dc.fused_deer_circuit(ckt, params, quiet, input_node="Vs")
+    q_plain, _, _ = dc.fused_deer_circuit_plain(ckt, params, quiet, input_node="Vs")
+    q_err = _max_err(q_out, q_plain)
+    print(f"phase kernels distilled_path B9 T={DEER_T[0]} input=0.5 N(0,1) vs_plain={q_err:.3e} "
+          f"residual={float(q_res):.3e} card={card!r}", flush=True)
+    _check(q_err <= DIST_BUDGET and float(q_res) < 1e-5, "B9 distilled on a quiet input")
+
+    # --- kernels distilled_path: B7's training form and B8 --------------------
+    rng = np.random.default_rng(seed + 47)
+    x = torch.from_numpy((1.5 * rng.standard_normal((DIST_B, DIST_T))).astype(np.float32)).to(dev)
+    zs = _zero_state(ckt, x)
+    kw = dict(input_node="Vs", return_state_seq=True)
+    out, _, seq = fcirc.fused_circuit_process(ckt, params, x, zs, **kw)
+    box = []
+    fwd_plain_ms = _cuda_ms(lambda: box.append(fcirc.fused_circuit_process_plain(
+        ckt, params, x, zs, **kw)), 1)[0]
+    p_out, _, p_seq = box[0]
+    fwd_err = max(_max_err(out, p_out), _max_err(seq[0], p_seq[0]))
+    fwd_ms = statistics.median(_cuda_ms(lambda: fcirc.fused_circuit_process(
+        ckt, params, x, zs, **kw), REPS, 10))
+    g_out = torch.from_numpy(rng.standard_normal((DIST_B, DIST_T)).astype(np.float32)).to(dev)
+    g_out /= DIST_B * DIST_T
+    lam = [torch.zeros(DIST_B, device=dev)]
+    got = pb.fused_backward(ckt, params, x, g_out, seq, lam, input_node="Vs")
+    box = []
+    adj_plain_ms = _cuda_ms(lambda: box.append(pb.fused_backward_plain(
+        ckt, params, x, g_out, seq, lam, input_node="Vs")), 1)[0]
+    want = box[0]
+    adj_err = max(_rel_err(got[1], want[1]), _rel_err(got[0][0], want[0][0]),
+                  _rel_err(got[2][0], want[2][0]))
+    adj_abs = max(_max_err(got[1], want[1]), _max_err(got[0][0], want[0][0]))
+    adj_ms = statistics.median(_cuda_ms(lambda: pb.fused_backward(
+        ckt, params, x, g_out, seq, lam, input_node="Vs"), REPS, 10))
+    passes = _adjoint_passes(ckt, fcirc.prepare(ckt, params, dev, input_node="Vs"), x, g_out,
+                             torch.stack(seq).contiguous(), torch.stack(lam).contiguous())
+    pass_ms = [statistics.median(_cuda_ms(fn, REPS, 10)) for fn in passes]
+    samples = DIST_B * DIST_T
+    fwd_bound = _bound(prog.ops_per_sample * samples, (1 + 1 + 1) * 4 * samples + 8 * DIST_B)
+    adj_bound = _bound(adj.ops_per_sample * samples, (3 + 2) * 4 * samples + 8 * DIST_B)
+    print(f"phase kernels distilled_path B7 training form ({DIST_B}, {DIST_T}) vs_plain="
+          f"{fwd_err:.3e} budget={GEN_BUDGET_B7:g} kernel_ms={fwd_ms:.4f} plain_ms="
+          f"{fwd_plain_ms:.1f} bound_ms={fwd_bound[0]:.6f} ({fwd_bound[1]}) card={card!r}",
+          flush=True)
+    print(f"phase kernels distilled_path B8 ({DIST_B}, {DIST_T}) vs_plain_rel={adj_err:.3e} "
+          f"budget={DIST_ADJ_BUDGET:g} max_abs_err={adj_abs:.3e} kernel_ms={adj_ms:.4f} "
+          f"pass1_ms={pass_ms[0]:.4f} pass2_ms={pass_ms[1]:.4f} plain_ms={adj_plain_ms:.1f} "
+          f"bound_ms={adj_bound[0]:.6f} ({adj_bound[1]}) scratch_bytes="
+          f"{_scratch_bytes(adj, DIST_B, DIST_T)} card={card!r}", flush=True)
+    _check(fwd_err <= GEN_BUDGET_B7 and adj_err <= DIST_ADJ_BUDGET,
+           "B7's training form and B8 on the distilled root within their budgets of plain")
+
+    # --- grad distilled_path: the fused_generic op against the scan engine ----
+    case = (ckt, params, "Vs", None, None, None, 1.5)
+    gx = x[:DIST_GRAD_B, :DIST_GRAD_T].contiguous()
+    gy = torch.tanh(gx)
+    fused, fused_gv = _gen_grads(case, gx, gy, fused=True)
+    scan, scan_gv = _gen_grads(case, gx, gy, fused=False)
+    leaf_err = {k: _rel_err(fused[k], scan[k]) for k in scan}
+    print(f"phase grad distilled_path ({DIST_GRAD_B}, {DIST_GRAD_T}) vs_scan_engine "
+          + " ".join(f"{k}={e:.3e}" for k, e in leaf_err.items())
+          + f" g_vin={_rel_err(fused_gv, scan_gv):.3e} budget={DIST_GRAD_BUDGET:g} per leaf "
+          f"card={card!r}", flush=True)
+    _check(all(e <= DIST_GRAD_BUDGET for e in leaf_err.values()),
+           "the fused_generic gradients on the distilled root within 5e-4 of the scan engine")
+
+    # --- kernels distilled_path: B7's general MLP root ---------------------------
+    mlp_rec = {}
+    for name, (c, p) in mlp_ckts.items():
+        v = torch.from_numpy(_strum(seed, CHUNK)[0]).to(dev)[None]
+        z1 = _zero_state(c, v)
+        k_out, _ = fcirc.fused_circuit_process(c, p, v, z1, input_node="Vs")
+        box = []
+        plain_ms = _cuda_ms(lambda: box.append(fcirc.fused_circuit_process_plain(
+            c, p, v, z1, input_node="Vs")), 1)[0]
+        err = _max_err(k_out, box[0][0])
+        dev_ms = _device_ms(lambda: fcirc.fused_circuit_process(c, p, v, z1, input_node="Vs"))
+        bound = _bound(mlp_progs[name].ops_per_sample * CHUNK, 8 * CHUNK)
+        mlp_rec[name] = [err, dev_ms, plain_ms, bound]
+        print(f"phase kernels distilled_path B7 mlp {name} {DIST_MLP[name]} (1, {CHUNK}) "
+              f"vs_plain={err:.3e} budget={DIST_MLP_BUDGET:g} device_ms={dev_ms:.4f} "
+              f"plain_ms={plain_ms:.1f} bound_ms={bound[0]:.6f} ({bound[1]}) card={card!r}",
+              flush=True)
+        _check(err <= DIST_MLP_BUDGET, f"B7's general MLP root ({name}) within 2e-5 of plain")
+
+    # --- the path as a user drives it, the counters set to 0 first -------------
+    dc.fused_deer_circuit.launches = 0
+    fcirc.fused_circuit_process.launches = pb.fused_backward.launches = 0
+    outs = [dc.fused_deer_circuit(ckt, params, 2.0 * torch.randn(T, generator=gen, device=dev),
+                                  input_node="Vs") for T in DEER_T]
+    torch.cuda.synchronize()
+    b9_launches = dc.fused_deer_circuit.launches
+    _check(b9_launches == len(DEER_T) and all(bool(torch.isfinite(o[0]).all()) and
+                                              float(o[2]) < 1e-5 for o in outs),
+           "B9 served the distilled clipper, one launch a block, converged")
+
+    # five fused_generic steps training C from 20% off, the target from B2
+    d = diode_1n4148_1u1d
+    y, _ = fc.fused_clipper_analytic(x, torch.zeros(DIST_B, device=dev), R_SRC, CAP, d.Is,
+                                     d.Vt * d.nabla, d.N_up, d.N_down, fs=FS, quality_iters=3)
+    start = {**params, "C": {"C": torch.tensor(1.2 * CAP, device=dev)}}
+    cfg = CircuitTrainConfig(epochs=DIST_STEPS, batch_size=DIST_B, learning_rate=DIST_LR,
+                             engine="fused_generic", log_every=1)
+    step_ms = []
+
+    def on_epoch(epoch, p, hist):
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - on_epoch.t0) * 1e3)
+        on_epoch.t0 = time.perf_counter()
+
+    fcirc.fused_circuit_process.launches = pb.fused_backward.launches = 0
+    torch.cuda.synchronize()
+    on_epoch.t0 = time.perf_counter()
+    trained, hist = train_clipper(ckt, start, {"x": x, "y": y}, cfg=cfg,
+                                  trainable_filter=lambda q: q["C"], on_epoch=on_epoch)
+    train_launches = {"B7": fcirc.fused_circuit_process.launches,
+                      "B8": pb.fused_backward.launches}
+    c1 = float(trained["C"]["C"])
+    print(f"phase train distilled_path fused_generic ({DIST_B}, {DIST_T}) steps={DIST_STEPS} "
+          f"loss={' '.join(f'{l:.6e}' for l in hist['loss'])} C={1.2 * CAP:.4e}->{c1:.4e} "
+          f"(true {CAP:g}) step_ms={' '.join(f'{m:.2f}' for m in step_ms)} "
+          f"launches={train_launches} card={card!r}", flush=True)
+    _check(all(np.isfinite(hist["loss"])) and hist["loss"][-1] < hist["loss"][0]
+           and abs(c1 - CAP) < 0.2 * CAP, "fused_generic trains C on the distilled root")
+    _check(train_launches["B7"] >= DIST_STEPS and train_launches["B8"] >= DIST_STEPS,
+           "the training steps launched B7 and B8")
+
+    # the time-block training step at one rank under NCCL
+    troot, _ = _distilled(PAR_FS, 45e3, 4.7e-9)
+    cheb = (float(troot.a_max), tuple(troot.breaks), tuple(troot.coeffs))
+    make = functools.partial(_dist_train_clipper, cheb=cheb)
+    tbt_loss, tbt_grads = _par_tbt_reference(dev, seed, PAR_TBT[0], make=make)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    rank = spawn(_dist_tbt_rank, 1, cheb, seed, dev.type, backend=backend, device=dev.type,
+                 timeout_s=PAR_TIMEOUT_S)[0]
+    loss_rel = abs(rank["loss"] - tbt_loss) / abs(tbt_loss)
+    grad_rel = _np_rel(rank["grads"], tbt_grads)
+    print(f"phase train distilled_path time_block world=1 backend={backend} T={PAR_TBT[0]} "
+          f"W={PAR_TBT[1]} loss_rel={loss_rel:.2e} (rtol {PAR_LOSS_RTOL:g}) grad_rel="
+          f"{grad_rel:.2e} ({PAR_TBT_GRAD:g}, against the single-process step over the row) "
+          f"launches={rank['launches']} step_ms={rank['step_ms']:.3f} spawn_s="
+          f"{time.perf_counter() - t0:.1f} card={card!r}", flush=True)
+    _check(loss_rel <= PAR_LOSS_RTOL and grad_rel <= PAR_TBT_GRAD,
+           "the distilled root's time-block step matches the single-process step")
+    _check(rank["launches"]["B7"] > 0 and rank["launches"]["B8"] > 0,
+           "the time-block step launched B7 and B8")
+
+    # the export-artifact command's relu artifact (started first)
+    cli.wait(timeout=max(1.0, CLI_TIMEOUT_S - (time.perf_counter() - t_path)))
+    text = (folder / "export.log").read_text()
+    lines = [l for l in text.splitlines() if l.startswith("{")]
+    if cli.returncode != 0 or not lines:
+        print(f"phase cli export relu FAILED rc={cli.returncode}\n{text[-3000:]}", flush=True)
+    _check(cli.returncode == 0 and bool(lines), "export-artifact --model-json relu.json --check")
+    rec = json.loads(lines[-1])
+    print(f"phase cli distilled_path export-artifact --model-json relu.json --check "
+          f"kernel={rec.get('kernel')!r} check_max_abs_err={rec['check_max_abs_err']:.3e} "
+          f"(budget {DIST_MLP_BUDGET:g}) card={card!r}", flush=True)
+    _check(rec.get("kernel") == "B7 circuit_forward"
+           and rec["check_max_abs_err"] <= DIST_MLP_BUDGET, "the relu root's artifact checks")
+
+    # the general MLP roots served by the exact runner, and by artifacts
+    signal = _strum(seed, DIST_BLOCKS * CHUNK)[0]
+    serve_launches = 0
+    for name, (c, p) in mlp_ckts.items():
+        run = _lpf_exact_runner(c)
+        blocks = [torch.from_numpy(signal[i * CHUNK:(i + 1) * CHUNK]).to(dev)
+                  for i in range(DIST_BLOCKS)]
+        fcirc.fused_circuit_process.launches = 0
+        st, served, walls = c.init_state(dev), [], []
+        for blk in blocks:
+            t0 = time.perf_counter()
+            o, st = run(p, st, {"Vs": {"v": blk}}, {})
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            served.append(o)
+        launches = fcirc.fused_circuit_process.launches
+        served = torch.cat(served)
+        whole, _ = fcirc.fused_circuit_process(c, p, torch.cat(blocks)[None],
+                                               _zero_state(c, served[None]), input_node="Vs")
+        # the first blocks again through the runner and Circuit.process, in turns
+        st_r, st_p, err, ms = c.init_state(dev), c.init_state(dev), 0.0, {"b7": [], "process": []}
+        for i in range(DIST_TURNS):
+            for label in (("b7", "process") if i % 2 == 0 else ("process", "b7")):
+                t0 = time.perf_counter()
+                if label == "b7":
+                    o_r, st_r = run(p, st_r, {"Vs": {"v": blocks[i]}}, {})
+                else:
+                    o_p, st_p = c.process(p, st_p, {"Vs": {"v": blocks[i]}})
+                torch.cuda.synchronize()
+                ms[label].append((time.perf_counter() - t0) * 1e3)
+            err = max(err, _max_err(o_r, o_p))
+        art = load_artifact(str(folder / "relu.pt2"), device="cuda") if name == "relu" else None
+        if art is None:
+            save_artifact(str(folder / f"{name}.pt2"), c, p, input_node="Vs", block_len=CHUNK,
+                          fs=FS)
+            art = load_artifact(str(folder / f"{name}.pt2"), device="cuda")
+        fcirc.fused_circuit_process.launches = 0
+        served_art = torch.from_numpy(art.run(signal)).to(dev)
+        art_launches = fcirc.fused_circuit_process.launches
+        serve_launches += launches + art_launches
+        print(f"phase serve distilled_path mlp {name} {DIST_MLP[name]} blocks={DIST_BLOCKS}x"
+              f"{CHUNK} fs={FS:g} exact_runner_launches={launches} block_wall_ms_median="
+              f"{statistics.median(walls):.3f} vs_one_launch={_max_err(served, whole[0]):.3e} "
+              f"vs_circuit_process={err:.3e} budget={DIST_MLP_BUDGET:g} (first {DIST_TURNS} "
+              f"blocks in turns: b7_ms={' '.join(f'{m:.3f}' for m in ms['b7'])} "
+              f"circuit_process_ms={' '.join(f'{m:.1f}' for m in ms['process'])}) "
+              f"artifact={art.meta['kernel']!r} launches={art_launches} vs_runner="
+              f"{_max_err(served_art, served):.3e} card={card!r}", flush=True)
+        _check(launches == DIST_BLOCKS and art_launches == DIST_BLOCKS,
+               f"one B7 launch a block for the {name} root, runner and artifact")
+        _check(err <= DIST_MLP_BUDGET and _max_err(served, whole[0]) <= 1e-6
+               and _max_err(served_art, served) <= 1e-6 and bool(torch.isfinite(served).all()),
+               f"the {name} root's served blocks")
+        mlp_rec[name][0] = max(mlp_rec[name][0], err)
+    b7_launches = train_launches["B7"] + rank["launches"]["B7"]
+    b8_launches = train_launches["B8"] + rank["launches"]["B8"]
+    common = {"route": "cuda", "source": CIRCUIT_SOURCE, "library_ms": None}
+    records = [
+        {"name": f"fused_deer_circuit (distilled root: cheb_root_value_tangent, "
+                 f"T={DEER_T[-1]}, device time)",
+         **common, "replaces": DC_REPLACES["circuit"], "launches": b9_launches,
+         "max_abs_err": b9[DEER_T[-1]][0], "ms": b9[DEER_T[-1]][1],
+         "plain_ms": b9[DEER_T[-1]][2], "bound_ms": b9[DEER_T[-1]][3][0],
+         "bound_by": b9[DEER_T[-1]][3][1]},
+        {"name": f"fused_circuit_process (distilled root, training form, {DIST_B}x{DIST_T})",
+         **common, "replaces": CIRCUIT_REPLACES, "launches": b7_launches, "max_abs_err": fwd_err,
+         "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound[0],
+         "bound_by": fwd_bound[1]},
+        {"name": f"fused_backward (distilled root: cheb_root_tangent in pass 1, "
+                 f"{DIST_B}x{DIST_T}; ms: pass 1 + pass 2, the wrapper's call in the "
+                 f"phase line)", **common, "replaces": BPTT_REPLACES,
+         "launches": b8_launches, "max_abs_err": adj_abs, "ms": sum(pass_ms),
+         "plain_ms": adj_plain_ms, "bound_ms": adj_bound[0], "bound_by": adj_bound[1]},
+    ]
+    err, ms, plain_ms, bound = mlp_rec["relu"]
+    records.append({"name": "fused_circuit_process (general MLP root: mlp_dense.cuh, the relu "
+                            "and sigmoid 2x8 JSON roots, B=1; timed: relu)", **common,
+                    "replaces": CIRCUIT_REPLACES, "launches": serve_launches,
+                    "max_abs_err": max(r[0] for r in mlp_rec.values()), "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1]})
+    return records
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of the input signals")
@@ -4335,7 +4781,7 @@ def main() -> None:
     kernels = []
     for path in (serve_path, train_path, stream_path, circuit_path, generic_train_path,
                  deer_circuit_path, pretrain_path, sweep_path, oracle_path, artifact_path,
-                 cli_path, parallel_path):
+                 cli_path, parallel_path, distilled_path):
         t0 = time.perf_counter()
         kernels += path(dev, card, args.seed)
         print(f"phase seconds {path.__name__} s={time.perf_counter() - t0:.1f}", flush=True)

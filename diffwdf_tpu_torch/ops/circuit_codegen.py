@@ -30,7 +30,8 @@ never contracts into an FMA, so the tree's algebra rounds exactly as the
 plain version's separate torch operations do (the Tube Screamer's op-amp
 scatter amplifies any difference).  The root is not traced: each root kind
 has an emitter that calls its device code (``csrc/omega.cuh``,
-``nxh_mlp.cuh``, ``cheb.cuh``) and a plain PyTorch twin of the same math.
+``nxh_mlp.cuh``, ``mlp_dense.cuh``, ``cheb.cuh``) and a plain PyTorch twin of
+the same math.
 
 The adjoint step is the forward-mode derivative of the same trace: the step
 runs again on dual symbols (``Dual``: a primal and one tangent per
@@ -39,18 +40,20 @@ tangent line is again one uncontracted intrinsic.  Coefficients carry no
 tangent; the tree is linear in the waves, so the tangent lines are products
 with coefficient slots.  The root's derivative m = db/da is computed once
 per step at the primal a (the diode pair's derivative through
-``omega_slope``, the NxH MLP's by ``nxh_tangent``) and the S + 1 pulls of
+``omega_slope``, the NxH MLP's by ``nxh_tangent``, the distilled root's by
+``cheb_root_tangent``) and the S + 1 pulls of
 the root are db = m da.  The cotangents are then contracted with the carried
 lam and the output's cotangent; pass 1 writes the tangents that are not
 exact constants, pass 2 contracts them in the one-pass step's order, so the
 two give its bits.  The DEER step
 is the same trace with the S state directions only, its primal f and its
 tangents J written out; there the root's value and slope come from one
-pass (``emit_value_slope``: one omega pair, or ``nxh_forward_tangent``).
+pass (``emit_value_slope``: one omega pair, ``nxh_forward_tangent`` or
+``cheb_root_value_tangent``).
 
 What a source depends on: the tree's topology and node names, the root's
-kind and shape (the omega iteration count; the MLP's H and L; the Chebyshev
-degrees) and the kinds and shapes of the coefficients.  Never on a value:
+kind and shape (the omega iteration count; the NxH MLP's H and L, a general
+MLP's widths and activations; the Chebyshev degrees) and the kinds and shapes of the coefficients.  Never on a value:
 every component value reaches the kernel at launch, so moving a pot (the
 Tube Screamer's drive, R6) or any component is a new argument, not a new
 build.
@@ -73,14 +76,15 @@ Launch arguments, in fixed orders:
   a per-sample pot control (shape (B, T)) made per sample, staged through
   shared memory like the input and read per step.
 - **Root array** (f32, staged to shared memory, ``w`` in the step): the NxH
-  weights (log R folded into the first bias when R is one value), or the
-  Chebyshev segments and coefficients.
+  weights (log R folded into the first bias when R is one value), a general
+  MLP's layers, or the Chebyshev segments and coefficients.
 
 Supported node classes: ``Resistor``, ``Capacitor``, ``Inductor``,
 ``ResistiveVoltageSource``, ``ResistiveCurrentSource``, ``Series``,
 ``Parallel``, ``Inverter``, ``RTypeAdaptor``; roots: ``DiodePairRoot``,
-``NeuralDiodeRoot`` (all-tanh NxH, linear head), ``PiecewiseChebRoot``
-(forward only), ``IdealVoltageSourceRoot``, ``OpenCircuitRoot``.  Anything
+``NeuralDiodeRoot`` (an all-tanh NxH with a linear head in every kernel;
+any other widths and activations in the forward only, ``_DenseEmitter``),
+``PiecewiseChebRoot``, ``IdealVoltageSourceRoot``, ``OpenCircuitRoot``.  Anything
 else raises ``NotImplementedError`` naming it.  One output probe.  A pot
 control must not reach a matrix coefficient (no pot inside an R-type
 adaptor): that raises ``ValueError``.
@@ -687,11 +691,10 @@ class _NeuralEmitter(_RootEmitter):
     def __init__(self, name: str, mlp_params, activations: Sequence[str],
                  r_kind: str = "scalar"):
         super().__init__(r_kind)
-        acts = tuple(activations)
-        if acts and (set(acts[:-1]) != {"tanh"} or acts[-1] not in ("", "linear")):
+        if not _nxh_activations(activations):
             raise ValueError(
                 "the fused circuit kernel takes all-tanh hidden layers with a linear head "
-                f"only; root {name!r} has activations {acts}")
+                f"only; root {name!r} has activations {tuple(activations)}")
         self.mlp = mlp_params
         self.H, _, _, hidden, _, _ = _nxh_layers(mlp_params)
         self.L = len(hidden)
@@ -829,7 +832,9 @@ class _NeuralEmitter(_RootEmitter):
 class _ChebEmitter(_RootEmitter):
     """Distilled piecewise-odd Chebyshev root through cheb.cuh; root array:
     cheb_parameters' layout; the segment count and padded degree go into the
-    source.  Forward only: no training workload differentiates it."""
+    source.  Its slope (the adjoint's pass 1, the DEER step) is forward mode
+    of the Clenshaw recurrence (``cheb_root_tangent``,
+    ``cheb_root_value_tangent``), JAX's autodiff of the root's reflect."""
 
     headers = ("cheb.cuh",)
 
@@ -839,6 +844,10 @@ class _ChebEmitter(_RootEmitter):
         _, self.padded = cheb_parameters(root)
         self.degrees = tuple(len(c) - 1 for c in root.coeffs)
         self.ops = cheb_root_ops(len(self.degrees), self.padded)
+        # the forward again, the tangent's 4 a Clenshaw step (every thread
+        # runs the padded degree), dt/ds with its clip slope 7, dh/ds 4, ds/da
+        # with its clip slope 5, m 3
+        self.slope_ops = self.ops + 4 * self.padded + 19
 
     def key(self):
         return ("PiecewiseChebRoot", self.degrees)
@@ -846,39 +855,168 @@ class _ChebEmitter(_RootEmitter):
     def array(self, r_up, params, device):
         return cheb_arguments(self.root, device)[0]
 
+    def _degrees(self) -> str:
+        return ", ".join(map(str, self.degrees))
+
     def emit(self, tr, a, r_up, slots, controls, params):
-        degrees = ", ".join(map(str, self.degrees))
-        tr.raw(f"// root: distilled piecewise Chebyshev, degrees {degrees} (cheb.cuh)")
+        tr.raw(f"// root: distilled piecewise Chebyshev, degrees {self._degrees()} (cheb.cuh)")
         return tr.let(f"cheb_root<{self.padded}>({a.ref}, w, {len(self.degrees)})", self.ops,
                       "root")
 
     def emit_slope(self, tr, a, r_up, slots, controls, params):
-        raise NotImplementedError(
-            "fused_circuit adjoint: the distilled PiecewiseChebRoot has no tangent emitter "
-            "(ROADMAP.md queue A); train the analytic or neural root and distill it after")
+        tr.raw(f"// root slope: d/da of the distilled root by cheb_root_tangent, degrees "
+               f"{self._degrees()}")
+        return tr.let(f"cheb_root_tangent<{self.padded}>({a.ref}, w, {len(self.degrees)})",
+                      self.slope_ops, "slope")
 
     def emit_value_slope(self, tr, a, r_up, slots, controls, params):
-        raise NotImplementedError(
-            "fused_deer_circuit: the distilled PiecewiseChebRoot has no slope emitter, so its "
-            "DEER Jacobian cannot be generated; serve the distilled root with the scan engine")
+        tr.raw(f"// root and slope: the distilled root and d/da in one pass by "
+               f"cheb_root_value_tangent, degrees {self._degrees()}")
+        # one statement fills both: [0] = b, [1] = m
+        pair = tr.decl(f"float {{name}}[2]; {{name}}[0] = cheb_root_value_tangent<{self.padded}>("
+                       f"{a.ref}, w, {len(self.degrees)}, {{name}}[1]);", self.slope_ops, "cheb")
+        return tr.let(f"{pair}[0]", 0, "root"), tr.let(f"{pair}[1]", 0, "slope")
 
     def plain(self, a, r_up, slots, array, controls, params):
         root = self.root
         return cheb_eval(a, float(root.a_max), tuple(float(b) for b in root.breaks), root.coeffs)
 
 
+#: each activation of roots/neural.py's _ACTS: (mlp_dense.cuh's DenseAct, its
+#: operations an output (softmax: the max, the shift, expf, the sum and the
+#: division), the plain twin)
+_DENSE_ACTS = {
+    "tanh": ("kDenseTanh", 1, torch.tanh),
+    "relu": ("kDenseRelu", 1, torch.relu),
+    "sigmoid": ("kDenseSigmoid", 4, torch.sigmoid),
+    "softmax": ("kDenseSoftmax", 5, lambda x: torch.softmax(x, dim=-1)),
+    "": ("kDenseLinear", 0, lambda x: x),
+    "linear": ("kDenseLinear", 0, lambda x: x),
+}
+
+
+def _nxh_activations(acts: Sequence[str]) -> bool:
+    """Tanh hidden layers and a linear head (or none given): the NxH
+    family's activations."""
+    acts = tuple(acts)
+    return not acts or (set(acts[:-1]) == {"tanh"} and acts[-1] in ("", "linear"))
+
+
+def is_nxh(activations: Sequence[str], mlp) -> bool:
+    """Whether an MLP root is of the NxH family the NxH kernels take: its
+    activations (``_nxh_activations``) and the shapes ``_nxh_layers`` takes."""
+    if not _nxh_activations(activations):
+        return False
+    try:
+        _nxh_layers(mlp)
+    except (ValueError, TypeError):
+        return False
+    return True
+
+
+class _DenseEmitter(_RootEmitter):
+    """A general MLP root, b = -MLP([a, log R]), with any layer widths and
+    any activation of ``roots/neural._ACTS`` per layer, through
+    mlp_dense.cuh, one thread a stream: the MLP roots outside the NxH family
+    (a JSON model that mixes relu and tanh).  The layers run as
+    ``mlp_apply`` zips them with the activations.  log R is a slot taken in
+    double (a coefficient slot for one R, a row slot for a per-row R) or
+    ``logf`` of the streamed R.  Root array: each layer's kernel [IN][OUT]
+    and bias [OUT], in order.
+
+    Forward only: JAX's adjoint and DEER kernels refuse such a root, and so
+    do ``emit_slope`` and ``emit_value_slope``, in the words of its own
+    refusals (the training engines and ``fused_deer_neural`` refuse it before
+    they reach an emitter)."""
+
+    headers = ("mlp_dense.cuh",)
+    #: one block per SM: no register cap, so the widest layer's activations
+    #: stay in registers (as _NeuralEmitter)
+    launch_bounds = "kTileRows, 1"
+
+    def __init__(self, name: str, mlp_params, activations: Sequence[str],
+                 r_kind: str = "scalar"):
+        super().__init__(r_kind)
+        unknown = [a for a in activations if a not in _DENSE_ACTS]
+        if unknown:
+            raise ValueError(f"root {name!r}: unknown activations {unknown}; the kernels take "
+                             f"{sorted(_DENSE_ACTS)}")
+        self.layers = [(l["kernel"].detach(), l["bias"].detach())
+                       for l, _ in zip(mlp_params["layers"], activations)]
+        self.acts = tuple(_DENSE_ACTS[a] for a, _ in zip(activations, self.layers))
+        self.widths = tuple([int(self.layers[0][0].shape[0])]
+                            + [int(k.shape[1]) for k, _ in self.layers])
+        if self.widths[0] != 2:
+            raise ValueError(f"root {name!r}: the first layer takes [a, log R], 2 inputs, "
+                             f"not {self.widths[0]}")
+        self.ops = (int(r_kind == "time") + sum(
+            2 * n_in * n_out + n_out + act_ops * n_out
+            for n_in, n_out, (_, act_ops, _) in zip(self.widths[:-1], self.widths[1:],
+                                                     self.acts)))
+        self.n_slots = 0 if r_kind == "time" else 1
+
+    def key(self):
+        return ("NeuralDiodeRoot", self.widths, tuple(act for act, _, _ in self.acts))
+
+    def slots(self, r_up, params):
+        if self.r_kind == "time":
+            return []
+        return [torch.log(torch.as_tensor(r_up).detach().double())]
+
+    def array(self, r_up, params, device):
+        return torch.cat([x.reshape(-1).to(device, torch.float32)
+                          for layer in self.layers for x in layer])
+
+    def emit(self, tr, a, r_up, slots, controls, params):
+        widths, acts = "x".join(map(str, self.widths)), [act for act, _, _ in self.acts]
+        tr.raw(f"// root: MLP {widths}, activations {', '.join(acts)} (mlp_dense.cuh)")
+        log_r = f"logf({r_up.ref})" if self.r_kind == "time" else slots[0].ref
+        code, offset = [f"const float mlp_x0[2] = {{{a.ref}, {log_r}}};"], 0
+        for i, (n_in, n_out, act) in enumerate(zip(self.widths[:-1], self.widths[1:], acts)):
+            code.append(f"float mlp_x{i + 1}[{n_out}]; dense_layer<{n_in}, {n_out}, {act}>("
+                        f"w + {offset}, w + {offset + n_in * n_out}, mlp_x{i}, mlp_x{i + 1});")
+            offset += n_in * n_out + n_out
+        code.append(f"@ = -mlp_x{len(self.acts)}[0];")
+        block = " ".join(code).replace("{", "{{").replace("}", "}}").replace("@", "{name}")
+        name = tr.decl(f"float {{name}}; {{{{ {block} }}}}", self.ops, "mlp")
+        return tr.let(name, 0, "root")
+
+    def _refuse(self):
+        raise ValueError(
+            "the generated adjoint and DEER kernels take all-tanh hidden layers with a linear "
+            "head only (as JAX's kernels); an MLP root with other activations or widths is "
+            "served by the generated forward alone")
+
+    def emit_slope(self, tr, a, r_up, slots, controls, params):
+        self._refuse()
+
+    def emit_value_slope(self, tr, a, r_up, slots, controls, params):
+        self._refuse()
+
+    def plain(self, a, r_up, slots, array, controls, params):
+        log_r = torch.log(r_up) if self.r_kind == "time" else slots[0]
+        x = torch.stack(torch.broadcast_tensors(a, log_r.to(a.dtype)), dim=-1)
+        for (kernel, bias), (_, _, act) in zip(self.layers, self.acts):
+            x = act(x @ kernel.to(x) + bias.to(x))
+        return -x[..., 0]
+
+
 def root_emitter(circuit: Circuit, params, neural_mlp=None, r_kind: str = "scalar"
                  ) -> _RootEmitter:
     """The emitter of the circuit's root (an NxH MLP replaces it when
     ``neural_mlp`` is given, as ``fused_circuit_process_neural`` does) for a
-    port impedance of kind ``r_kind``."""
+    port impedance of kind ``r_kind``.  A ``NeuralDiodeRoot`` of the NxH
+    family gets the NxH emitter, any other MLP root the general one."""
     root = circuit.root
     if neural_mlp is not None:
         return _NeuralEmitter(root.name, neural_mlp, getattr(root, "activations", ()), r_kind)
     if type(root) is DiodePairRoot:
         return _DiodePairEmitter(root, r_kind)
     if type(root) is NeuralDiodeRoot:
-        return _NeuralEmitter(root.name, params[root.name], root.activations, r_kind)
+        mlp = params[root.name]
+        if is_nxh(root.activations, mlp):
+            return _NeuralEmitter(root.name, mlp, root.activations, r_kind)
+        return _DenseEmitter(root.name, mlp, root.activations, r_kind)
     if type(root) is PiecewiseChebRoot:
         return _ChebEmitter(root, r_kind)
     if type(root) in (IdealVoltageSourceRoot, OpenCircuitRoot):

@@ -43,7 +43,6 @@ from ..core.elements import Device
 from ..ops.circuit_codegen import state_order
 from ..ops.fused_circuit import fused_circuit_process
 from ..ops.parallel_bptt import make_fused_circuit_train_generic
-from ..roots.distilled import PiecewiseChebRoot
 from ..training.losses import pre_emphasis
 from .data_parallel import sums_train_step
 from .mesh import (all_gather, axis_index, axis_size, block_bounds, has_axis, rank_device,
@@ -148,15 +147,6 @@ def time_block_process_exact(circuit: Circuit, params, inputs, mesh: DeviceMesh,
     return all_gather(out, mesh, axis)
 
 
-def _check_differentiable(circuit: Circuit) -> None:
-    root = circuit.root
-    if isinstance(root, PiecewiseChebRoot):
-        raise NotImplementedError(
-            f"make_time_block_train_step: no kernel differentiates root {root.name!r} "
-            f"({type(root).__name__}): the generated adjoint has no tangent for the distilled "
-            "root; train the analytic or neural root and distill it after")
-
-
 def make_time_block_train_step(circuit: Circuit, cfg, mesh: DeviceMesh, *, warmup: int = 256,
                                axis: str = "time", batch_axis: str = "data",
                                input_node: str = "", trainable_filter=None,
@@ -185,8 +175,7 @@ def make_time_block_train_step(circuit: Circuit, cfg, mesh: DeviceMesh, *, warmu
     y)`` take the global [T] (rows replicated) or [n_seq, T] (rows split
     over ``batch_axis``, each row's samples over ``axis``) on every rank;
     ``train_step.grads_fn(params, x, y) -> (loss, aux, grads)`` gives the
-    reduced gradient.  A root that no kernel differentiates raises."""
-    _check_differentiable(circuit)
+    reduced gradient."""
     node = input_node or ("Vin" if "Vin" in circuit.init_params("cpu") else "Vs")
     forward = make_fused_circuit_train_generic(circuit, input_node=node)
     order = state_order(circuit)

@@ -17,8 +17,9 @@ for the circuit, held in the program as a custom op of ``ops.registry``:
 - the LPF clipper with the analytic diode pair: ``clipper_analytic`` (B2);
 - the LPF clipper with an NxH neural root: ``clipper_neural`` (B1);
 - any other circuit the generator takes (the Tube Screamer, the HPF
-  clipper, the RC lowpass): ``circuit_forward`` (B7), its generated source
-  an argument of the op.
+  clipper, the RC lowpass, a root of another kind: an MLP outside the NxH
+  family, such as a JSON model with relu layers, or a distilled root):
+  ``circuit_forward`` (B7), its generated source an argument of the op.
 
 The params and static controls are closed over: the weights, the adaptor
 coefficients (the B7 slot vector) and the root's constants become constants
@@ -27,9 +28,7 @@ registry and no circuit, root or params object; the program runs on the
 card, or on the CPU when asked (B1 and B2 through their plain versions, B7
 through its host build).  A B7 artifact carries native code: serving it
 compiles and runs the sources it holds, so load only trusted files
-(:func:`load_artifact`).  A root that no kernel takes (an MLP with relu
-layers) is refused: the JAX package exports such a root through its scan
-(ROADMAP queue C).
+(:func:`load_artifact`).
 """
 
 from __future__ import annotations
@@ -50,7 +49,6 @@ from ..ops import registry  # importing it registers the ops the programs call
 from ..ops.circuit_codegen import state_order
 from ..ops.fused_circuit import lanes_for, prepare
 from ..roots.diode import DiodePairRoot
-from ..roots.neural import NeuralDiodeRoot
 from .stream import _diode_pair_args, _host_floats, _kernel_nxh
 
 FORMAT = "diffwdf-torch-artifact-v1"
@@ -121,17 +119,11 @@ def _block_module(circuit: Circuit, params, input_node: str, input_field: str,
     """The block module of the kernel the scan engine serves ``circuit``
     with, and that kernel's name."""
     root = circuit.root
-    if isinstance(root, NeuralDiodeRoot) and not _kernel_nxh(root):
-        raise ValueError(
-            f"export_circuit: no kernel takes the root {type(root).__name__} {root.name!r} "
-            f"(activations {tuple(root.activations)}, {root.n_layers}x{root.layer_size}); the "
-            f"kernels take DiodePairRoot, an NxH root (tanh hidden layers, linear head, "
-            f"width 4, 8 or 16) and the generated roots")
     if _is_lpf_clipper(circuit, input_node, input_field):
         if isinstance(root, DiodePairRoot):
             consts = _diode_pair_args(params, static_controls, root.name)
             return _AnalyticBlock(consts, circuit.fs, root.iters), "B2 clipper_analytic"
-        if isinstance(root, NeuralDiodeRoot):
+        if _kernel_nxh(root):
             r = (static_controls or {}).get("Vs", {}).get("R", params["Vs"]["R"])
             r, cap = _host_floats(r, params["C"]["C"])
             return _NeuralBlock(params[root.name], r, cap, circuit.fs), "B1 clipper_neural"

@@ -644,16 +644,15 @@ def _kernel_nxh(root) -> bool:
             and acts[-1] in ("", "linear"))
 
 
-def _lpf_exact_runner(ckt: Circuit) -> Optional[Callable]:
-    """The exact engine of an LPF clipper as one kernel launch at B=1, or
-    None where no kernel computes its root.
+def _lpf_exact_runner(ckt: Circuit) -> Callable:
+    """The exact engine of an LPF clipper as one kernel launch at B=1.
 
     The batched clipper kernels compute exactly the sequential recursion of
     ``Circuit.process``: ``fused_clipper_analytic`` for a ``DiodePairRoot``
     (with its quality's omega iteration count), ``fused_clipper_neural`` for
     a ``NeuralDiodeRoot`` of the NxH family (``_kernel_nxh``).  Any other
-    root, e.g. a JSON model with relu layers, gets None and is served by
-    ``Circuit.process``, a host loop of a few dozen torch ops per sample.
+    root, e.g. a JSON model with relu layers or a distilled root, gets the
+    generated forward of the circuit (``_generic_exact_runner``, B7).
     The runner takes (params, state, inputs, static_controls) and returns
     (out, state); a static "R" of "Vs" overrides the params' source R.
     """
@@ -680,23 +679,18 @@ def _lpf_exact_runner(ckt: Circuit) -> Optional[Callable]:
             return out[0], {"C": {"z": zf[0]}}
 
         return run
-    return None
+    return _generic_exact_runner(ckt, "Vs")
 
 
-def _generic_exact_runner(ckt: Circuit, node: str) -> Optional[Callable]:
+def _generic_exact_runner(ckt: Circuit, node: str) -> Callable:
     """The exact engine of any circuit the generated kernels take (the Tube
-    Screamer, the HPF clipper): one launch of ``fused_circuit_process``
-    (B7) at B=1, the block's static controls as slot values; or None for a
-    root B7 does not take (an NxH root outside ``_kernel_nxh``), which
-    ``Circuit.process`` serves.  It serves the scan engine, the blocks whose
+    Screamer, the HPF clipper, an MLP root of any widths and activations):
+    one launch of ``fused_circuit_process`` (B7) at B=1, the block's static
+    controls as slot values.  It serves the scan engine, the blocks whose
     length is no multiple of 1024 and the residual fallbacks of the DEER
     engine.  Takes and returns as ``_lpf_exact_runner``; ``node`` is the
     input node.  ``run.sources`` names its generated kernel."""
     from ..ops.fused_circuit import fused_circuit_process, prepare
-    from ..roots.neural import NeuralDiodeRoot
-
-    if isinstance(ckt.root, NeuralDiodeRoot) and not _kernel_nxh(ckt.root):
-        return None
 
     def run(params, state, inputs, static_controls):
         z0 = {k: {f: z.reshape(1) for f, z in d.items()} for k, d in state.items()}
@@ -712,11 +706,11 @@ def _generic_exact_runner(ckt: Circuit, node: str) -> Optional[Callable]:
     return run
 
 
-def _deer_runner(ckt: Circuit, node: str, exact_run: Optional[Callable], **solver_kw) -> Callable:
+def _deer_runner(ckt: Circuit, node: str, exact_run: Callable, **solver_kw) -> Callable:
     """The DEER engine of a circuit (B9): ``fused_deer_neural`` for an NxH
     root, else ``fused_deer_circuit``, with ``solver_kw`` (sweeps,
     relax_passes, damping, adapt_tol); a block whose length is no multiple
-    of 1024 goes to ``exact_run`` (``Circuit.process`` where that is None).
+    of 1024 goes to ``exact_run``.
     Returns (out, state, residual).  ``run.sources`` names its generated
     kernel."""
     from ..ops.circuit_codegen import deer_program
@@ -729,8 +723,6 @@ def _deer_runner(ckt: Circuit, node: str, exact_run: Optional[Callable], **solve
     def run(params, state, inputs, static_controls):
         v = inputs[node]["v"]
         if v.shape[0] % NB:
-            if exact_run is None:
-                return ckt.process(params, state, inputs, static_controls=static_controls)
             return exact_run(params, state, inputs, static_controls)
         return solver(ckt, params, v, input_node=node, static_controls=static_controls,
                       state0=state, **solver_kw)
@@ -823,8 +815,7 @@ def make_clipper_processor(
     def clipper_map(cutoff_hz):
         return {"Vs": {"R": cutoff_to_resistance(cutoff_hz, cap)}}
 
-    exact = {m: run for m, (ckt, _) in circuits.items()
-             if (run := _lpf_exact_runner(ckt)) is not None}
+    exact = {m: _lpf_exact_runner(ckt) for m, (ckt, _) in circuits.items()}
     overrides = {}
     if engine == "deer":
         # (sweeps, omega iters) per root: the omega iteration count must
@@ -835,7 +826,7 @@ def make_clipper_processor(
             if m in cfg_of:
                 overrides[m] = _clipper_deer_runner(exact[m], fs, *cfg_of[m])
             else:
-                overrides[m] = _deer_runner(ckt, "Vs", exact.get(m))
+                overrides[m] = _deer_runner(ckt, "Vs", exact[m])
 
     specs = clipper_param_specs(choices=tuple(circuits))
     names = list(circuits) + ["clipper"]
@@ -894,11 +885,10 @@ def make_hpf_processor(
     def hpf_map(cutoff_hz):
         return {"R": {"R": cutoff_to_resistance(cutoff_hz, cap)}}
 
-    exact = {n: run for n, (ckt, _) in circuits.items()
-             if (run := _generic_exact_runner(ckt, "Vs")) is not None}
+    exact = {n: _generic_exact_runner(ckt, "Vs") for n, (ckt, _) in circuits.items()}
     overrides = {}
     if engine == "deer":
-        overrides = {n: _deer_runner(ckt, "Vs", exact.get(n), **HPF_DEER)
+        overrides = {n: _deer_runner(ckt, "Vs", exact[n], **HPF_DEER)
                      for n, (ckt, _) in circuits.items()}
 
     specs = hpf_param_specs()
@@ -1012,10 +1002,8 @@ def make_plugin_processor(
     for n in ts_members + ("tube_screamer",):
         param_maps[n] = ts_map
 
-    exact = {n: run for n in clipper_members + md_members
-             if (run := _lpf_exact_runner(circuits[n][0])) is not None}
-    exact.update({n: run for n in ts_members
-                  if (run := _generic_exact_runner(circuits[n][0], "Vin")) is not None})
+    exact = {n: _lpf_exact_runner(circuits[n][0]) for n in clipper_members + md_members}
+    exact.update({n: _generic_exact_runner(circuits[n][0], "Vin") for n in ts_members})
     overrides = {}
     if engine == "deer":
         # (sweeps, omega iters) of zoo 0 and 1 mirror make_clipper_processor's
@@ -1026,9 +1014,9 @@ def make_plugin_processor(
             if i in cfg_of:
                 overrides[name] = _clipper_deer_runner(exact[name], fs, *cfg_of[i])
             else:
-                overrides[name] = _deer_runner(ckt, "Vs", exact.get(name))
+                overrides[name] = _deer_runner(ckt, "Vs", exact[name])
         for name in ts_members:
-            overrides[name] = _deer_runner(circuits[name][0], "Vin", exact.get(name))
+            overrides[name] = _deer_runner(circuits[name][0], "Vin", exact[name])
 
     def with_default(specs, choice):
         return tuple(dataclasses.replace(s, default_choice=choice) if s.name == "model" else s

@@ -9,8 +9,9 @@ forward built for the host), and within 1e-5 of the JAX package's own
 artifact (``save_artifact`` / ``load_artifact``) for the same circuit and
 input; chunked serving equals one-shot serving; loading needs no circuit;
 a file of another format, the JAX package's ``.npz`` among them, is
-refused by name, as is a root no kernel takes, and ``device="cuda"`` with
-no card.  The ops on CPU tensors give the bits of the wrappers' plain
+refused by name, as is ``device="cuda"`` with no card; a relu MLP root is
+exported through B7's general MLP root and served within 1e-5 of the JAX
+package's artifact.  The ops on CPU tensors give the bits of the wrappers' plain
 versions (B7: of its host build), count no launch, and pass
 ``torch.library.opcheck``.
 """
@@ -24,6 +25,7 @@ from diffwdf_tpu.models.diode_clipper import make_diode_clipper as j_make_clippe
 from diffwdf_tpu.models.diode_clipper import make_root_from_zoo as j_zoo
 from diffwdf_tpu.models.tube_screamer import make_tube_screamer as j_make_ts
 from diffwdf_tpu.roots.diode import DiodePairRoot as JDiodePairRoot
+from diffwdf_tpu.roots.neural import NeuralDiodeRoot as JNeuralDiodeRoot
 from diffwdf_tpu.runtime import artifact as jart
 from diffwdf_tpu_torch.models.diode_clipper import make_diode_clipper, make_root_from_zoo
 from diffwdf_tpu_torch.models.tube_screamer import make_tube_screamer
@@ -178,13 +180,30 @@ def test_artifact_rejects_foreign_files(tmp_path):
 
 
 def test_artifact_refuses_a_root_no_kernel_takes(tmp_path):
+    """An MLP root outside the NxH family (relu layers), which no kernel
+    took before the general MLP root of B7's generated forward: exported
+    through B7's op and served (its host build here) within 1e-5 of the
+    JAX package's artifact of the same root (its scan) and of
+    Circuit.process."""
     root = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=8,
                            activations=("relu", "relu", "relu", ""))
     ckt = make_diode_clipper(root, FS)
     params = {**ckt.init_params("cpu"), **root.init_params("cpu")}
-    with pytest.raises(ValueError, match="no kernel takes the root NeuralDiodeRoot 'dp'"):
-        save_artifact(str(tmp_path / "relu.pt2"), ckt, params)
-    assert not (tmp_path / "relu.pt2").exists()
+    path = str(tmp_path / "relu.pt2")
+    meta = save_artifact(path, ckt, params, block_len=256, fs=FS)
+    assert meta["kernel"] == "B7 circuit_forward"
+    jroot = JNeuralDiodeRoot(name="dp", n_layers=2, layer_size=8, activations=root.activations)
+    jckt = j_make_clipper(jroot, FS)
+    jmlp = {"layers": [{k: jnp.asarray(v.numpy()) for k, v in l.items()}
+                       for l in params["dp"]["layers"]]}
+    jpath = str(tmp_path / "relu.npz")
+    jart.save_artifact(jpath, jckt, {**jckt.init_params(), "dp": jmlp}, block_len=256, fs=FS,
+                       platforms=("cpu",))
+    x = _sine(700, 2.0, f=330.0)
+    got = load_artifact(path, device="cpu").run(x)
+    ref, _ = ckt.process(params, ckt.init_state("cpu"), {"Vs": {"v": torch.from_numpy(x)}})
+    assert np.max(np.abs(got - jart.load_artifact(jpath).run(x))) < BUDGET
+    assert np.max(np.abs(got - ref.numpy())) < BUDGET
 
 
 def test_load_artifact_cuda_without_a_card_raises(saved):

@@ -10,13 +10,15 @@ root and the RC lowpass, held against the plain version within the JAX
 suite's 2e-5, and with per-row and per-sample pots, writing the state
 trajectory.  The adjoint step runs t = T-1 ... 0 over the plain forward's
 trajectory for the Tube Screamer (analytic and random-init 2x8), the HPF
-clipper and the training clipper with a per-sample pot, held against
+clipper, the training clipper with a per-sample pot and the distilled LPF
+clipper, held against
 ``fused_backward_plain`` (autograd of the plain step) within the JAX suite's
 relative budgets; its two passes as the card runs them (pass 1 into the
 kernels' scratch layout, pass 2 walking it back, whole and in time chunks)
 give the one-pass step's bits for the Tube Screamer (analytic, 2x16, 2x8,
 with and without per-row and per-sample pots), the HPF and the LPF
-clippers.  The NxH root's lane form (csrc/nxh_lanes.cuh, and the generated
+clippers (the distilled root's adjoint and DEER steps on its forward-mode
+Clenshaw slope among them).  The NxH root's lane form (csrc/nxh_lanes.cuh, and the generated
 lane step for every r_kind at every K, and for roots of width 4, 8 and 16
 at the K built for each) runs on K host threads per stream, its shuffles
 through a stand-in, and every lane gives the one-thread step's bits; so
@@ -29,7 +31,7 @@ and ``omega_select`` against ``omega()`` on the host (the same bits where
 the host compiler's arithmetic is the card's).  The tests also show that
 the source depends on the structure only (two drive settings, one source; a
 scalar and a per-row R6, two), that an unknown node or root class raises,
-that a root with no tangent emitter raises naming ROADMAP, and that the
+that an MLP root outside the NxH family has no tangent emitter, and that the
 generated-build path caches by source and raises on a failed compile (with
 a stand-in compiler).
 """
@@ -281,7 +283,8 @@ def _rel(got, want):
     return float((got - want).abs().max() / max(float(want.abs().max()), 1e-12))
 
 
-@pytest.mark.parametrize("name", ["ts", "ts_2x8", "hpf", "ts_row", "clipper_sample"])
+@pytest.mark.parametrize("name", ["ts", "ts_2x8", "hpf", "ts_row", "clipper_sample",
+                                  "distilled"])
 def test_host_compiled_adjoint_matches_plain(host_cxx, name):
     """The generated adjoint step (S + 1 forward-mode tangents) against the
     autograd VJP of the plain step, over the plain forward's trajectory."""
@@ -354,7 +357,7 @@ def _host_two_pass(lib, adj, prep, vin, g_out, zseq, lam_t, tc):
 
 
 TWO_PASS_CASES = ["ts", "ts_2x16", "ts_2x16_row", "ts_2x16_sample", "ts_row", "ts_sample", "hpf",
-                  "lpf", "clipper_sample"]
+                  "lpf", "clipper_sample", "distilled"]
 
 
 @pytest.mark.parametrize("name", TWO_PASS_CASES)
@@ -633,7 +636,7 @@ def _plain_f_and_jacobian(ckt, prep, z, v):
     return f, [[cols[k][i] for k in range(len(z))] for i in range(len(z))]
 
 
-@pytest.mark.parametrize("name", ["ts", "ts_2x16", "hpf"])
+@pytest.mark.parametrize("name", ["ts", "ts_2x16", "hpf", "distilled"])
 def test_host_compiled_deer_step_matches_plain_jacobian(host_cxx, name):
     """The generated DEER step (S forward-mode tangents of the traced step)
     writes f and the S x S Jacobian of the plain step, at the operating
@@ -695,12 +698,26 @@ def test_wright_omega_jvp_matches_jax_custom_jvp():
 
 
 def test_root_without_tangent_and_pot_in_rtype_raise():
+    """The distilled root has its tangent (the adjoint and DEER programs
+    generate, counting its slope's operations); an MLP root outside the NxH
+    family has none and raises in the words of JAX's refusals; a pot
+    reaching an R-type's matrix raises."""
     root, rp = tdc.make_root_from_zoo(0, device="cpu")
     droot, _ = distill_root(root, rp, 1.0 / (1.0 / 47.0e3 + 2.0 * 2.2e-9 * FS))
     ckt = tdc.make_diode_clipper(droot, FS)
     prep = tfc.prepare(ckt, ckt.init_params("cpu"), "cpu", input_node="Vs")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cg.adjoint_program(ckt, prep.prog)
+    adj, deer = cg.adjoint_program(ckt, prep.prog), cg.deer_program(ckt, prep.prog)
+    slope = prep.prog.emitter.slope_ops
+    assert slope > prep.prog.emitter.ops and adj.jacobian_ops > slope
+    assert deer.ops_per_sample > slope and "cheb_root_value_tangent" in deer.source
+    relu = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=8,
+                           activations=("tanh", "relu", "tanh", ""))
+    rck = tdc.make_diode_clipper(relu, FS)
+    rprep = tfc.prepare(rck, {**rck.init_params("cpu"), **relu.init_params("cpu")}, "cpu",
+                        input_node="Vs")
+    for make in (cg.adjoint_program, cg.deer_program):
+        with pytest.raises(ValueError, match="all-tanh hidden layers"):
+            make(rck, rprep.prog)
     # a per-row value reaching a matrix coefficient (an R-type's S) is refused
     with pytest.raises(ValueError, match="matrix-valued"):
         cg._shape(torch.zeros(4, 4, 4), batch=4, time=16)

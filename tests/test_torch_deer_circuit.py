@@ -269,8 +269,9 @@ def test_neural_root_matches_jax_and_scan(case, jax_neural_clippers):
 
 def test_rejects_what_the_kernel_does_not_take():
     """Relu layers and a root with no hidden H->H layer raise ValueError as
-    in the JAX kernel; T must be a multiple of 1024; the distilled root has
-    no slope emitter."""
+    in the JAX kernel, through fused_deer_neural and fused_deer_circuit
+    alike; T must be a multiple of 1024; the distilled root is solved (its
+    slope emitter gives the Jacobian), within 1e-6 of Circuit.process."""
     fs = 48000.0
     relu = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=8,
                            activations=("tanh", "relu", "tanh", ""))
@@ -278,6 +279,8 @@ def test_rejects_what_the_kernel_does_not_take():
     params = {**ckt.init_params("cpu"), **relu.init_params("cpu")}
     with pytest.raises(ValueError, match="tanh"):
         dc.fused_deer_neural(ckt, params, torch.zeros(1024), input_node="Vs")
+    with pytest.raises(ValueError, match="tanh"):
+        dc.fused_deer_circuit(ckt, params, torch.zeros(1024), input_node="Vs")
     shallow = NeuralDiodeRoot(name="dp", n_layers=0, layer_size=8)
     ckt0 = tdc.make_diode_clipper(shallow, fs)
     with pytest.raises(ValueError):
@@ -291,8 +294,11 @@ def test_rejects_what_the_kernel_does_not_take():
     root, rp = tdc.make_root_from_zoo(0, device="cpu")
     droot, _ = distill_root(root, rp, 1.0 / (1.0 / 47.0e3 + 2.0 * 2.2e-9 * FS))
     dck = tdc.make_diode_clipper(droot, FS)
-    with pytest.raises(NotImplementedError, match="PiecewiseChebRoot"):
-        dc.fused_deer_circuit(dck, dck.init_params("cpu"), torch.zeros(1024), input_node="Vs")
+    x = torch.from_numpy(_signal(6, 1024, 2.0))
+    out, st, res = dc.fused_deer_circuit(dck, dck.init_params("cpu"), x, input_node="Vs")
+    ref, ref_st = dck.process(dck.init_params("cpu"), dck.init_state("cpu"), {"Vs": {"v": x}})
+    assert _max(out, ref) < 1e-6 and float(res) < 1e-5
+    assert abs(float(st["C"]["z"]) - float(ref_st["C"]["z"])) < 1e-6
 
 
 def test_chained_blocks_and_plain_entry():

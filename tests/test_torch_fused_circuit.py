@@ -244,17 +244,33 @@ def test_deferred_arguments_raise(entry):
 
 @pytest.mark.parametrize("entry", ["root", "neural"])
 def test_non_tanh_net_raises(entry):
+    """A relu-mixed MLP root: the NxH entry (``fused_circuit_process_neural``)
+    raises as JAX's does (tests/test_deer_circuit.py:349-378);
+    ``fused_circuit_process`` serves it with the general MLP root (its plain
+    version here) within 2e-5 of JAX's scan, where JAX's generic kernel
+    refuses it (ROADMAP queue C)."""
     root = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=4,
                            activations=("relu", "tanh", "tanh", ""))
     ckt = tdc.make_diode_clipper(root, FS)
     mlp = root.init_params("cpu")["dp"]
     params = {**ckt.init_params("cpu"), "dp": mlp}
-    vin, state = torch.zeros(4, 8), _port_state(ckt, 4)
-    with pytest.raises(ValueError, match="all-tanh"):
-        if entry == "root":
-            tfc.fused_circuit_process(ckt, params, vin, state, input_node="Vs")
-        else:
+    if entry == "neural":
+        vin, state = torch.zeros(4, 8), _port_state(ckt, 4)
+        with pytest.raises(ValueError, match="all-tanh"):
             tfc.fused_circuit_process_neural(ckt, params, mlp, vin, state, input_node="Vs")
+        return
+    vin = _vin(5, b=4, t=64)
+    got, got_state = tfc.fused_circuit_process(ckt, params, torch.from_numpy(vin),
+                                               _port_state(ckt, 4), input_node="Vs")
+    jroot = JaxNeuralDiodeRoot(name="dp", n_layers=2, layer_size=4,
+                               activations=root.activations)
+    jckt = jdc.make_diode_clipper(jroot, FS)
+    jmlp = {"layers": [{k: jnp.asarray(v.numpy()) for k, v in l.items()} for l in mlp["layers"]]}
+    want, want_state = jckt.process({**jckt.init_params(), "dp": jmlp}, {"C": {"z": jnp.zeros(4)}},
+                                    {"Vs": {"v": jnp.asarray(vin.T)}})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want).T, atol=2e-5, rtol=0)
+    np.testing.assert_allclose(got_state["C"]["z"].numpy(), np.asarray(want_state["C"]["z"]),
+                               atol=2e-5, rtol=0)
 
 
 def test_port_circuit_modules_import_no_jax():

@@ -42,7 +42,12 @@ the card; a refused launch of either raising with nothing in its place;
 the multi-device layer at world size 1 under NCCL (``parallel``: the DP
 steps of both fused engines against the single-process step, time-block
 serving against B7 over the whole signal) and one generated source built by
-two processes of two threads at once.
+two processes of two threads at once; the distilled root in B9 (1e-6 of
+plain and of B6, on a quiet and a loud input) and in B7's training form and
+B8 (the adjoint's budgets, the two passes the one-pass kernel's bits, whole
+and chunked, with a scalar and a per-row R), and B7's general MLP root (a
+relu-mixed 2x8, and sigmoid, softmax and linear layers of unequal widths)
+within 2e-5 of plain, at a ragged (B, T) and through the exact runner.
 """
 
 import numpy as np
@@ -1760,3 +1765,127 @@ def test_concurrent_builds_of_one_generated_source(cuda, tmp_path):
         _build.BUILD_DIR = old
         _build._generated_libs.pop(prep.prog.source, None)
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the roots the generated kernels took last: the distilled root's slope in
+# B8 and B9, a general MLP root in B7's forward
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("amp", [0.5, 2.0], ids=["quiet", "loud"])
+def test_deer_circuit_kernel_on_the_distilled_root(circuit_cuda, distilled_root, amp):
+    """B9 on the distilled clipper (its Jacobian from cheb_root_value_tangent)
+    within 1e-6 of its plain version and of B6's scan of the same root, the
+    residual below 1e-5 (tests/test_deer_circuit.py:57), on a quiet input
+    and on a loud one that crosses both breaks."""
+    from diffwdf_tpu_torch.models.diode_clipper import make_diode_clipper
+    from diffwdf_tpu_torch.ops import deer_circuit as dc
+
+    dev, _ = circuit_cuda
+    ckt = make_diode_clipper(distilled_root, FS, R_SRC, CAP)
+    params = ckt.init_params(dev)
+    rng = np.random.default_rng(int(10 * amp))
+    vin = torch.from_numpy((amp * rng.standard_normal(2048)).astype(np.float32)).to(dev)
+    dc.fused_deer_circuit.launches = 0
+    out, st, res = dc.fused_deer_circuit(ckt, params, vin, input_node="Vs")
+    p_out, p_st, p_res = dc.fused_deer_circuit_plain(ckt, params, vin, input_node="Vs")
+    scan, z = fc.fused_clipper_cheb(vin[None], torch.zeros(1, device=dev), distilled_root,
+                                    R_SRC, CAP, fs=FS)
+    torch.cuda.synchronize()
+    assert dc.fused_deer_circuit.launches == 1
+    assert float(res) < 1e-5 and float(p_res) < 1e-5
+    _close(out, p_out, 1e-6)
+    _close(out, scan[0], 1e-6)
+    assert abs(float(st["C"]["z"]) - float(z[0])) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [False, True], ids=["scalar_r", "row_r"])
+def test_adjoint_circuit_kernel_on_the_distilled_root(circuit_cuda, distilled_root, rows,
+                                                      monkeypatch):
+    """B7's training form and B8 (pass 1 on cheb_root_tangent) on the
+    distilled clipper against their plain versions (the adjoint 1e-4
+    relative, 3e-4 with a per-row R, tests/test_parallel_bptt.py:303,537),
+    the two passes the one-pass kernel's bits, whole and in time chunks."""
+    from diffwdf_tpu_torch.models.diode_clipper import make_diode_clipper
+    from diffwdf_tpu_torch.ops import circuit_codegen as cg
+    from diffwdf_tpu_torch.ops import parallel_bptt as pb
+
+    dev, fcirc = circuit_cuda
+    b, t = 300, 100
+    ckt = make_diode_clipper(distilled_root, FS, R_SRC, CAP)
+    params = ckt.init_params(dev)
+    vin, state = _circuit_inputs(ckt, dev, b, t, 2.0, seed=29)
+    rc = None
+    if rows:
+        r = np.exp(np.random.default_rng(3).uniform(np.log(30e3), np.log(60e3), b))
+        rc = {"Vs": {"R": torch.from_numpy(r.astype(np.float32)).to(dev)}}
+    kw = dict(input_node="Vs", row_controls=rc)
+    out, _, seq = fcirc.fused_circuit_process(ckt, params, vin, state, return_state_seq=True,
+                                              **kw)
+    p_out, _, p_seq = fcirc.fused_circuit_process_plain(ckt, params, vin, state,
+                                                        return_state_seq=True, **kw)
+    _close(out, p_out, 2e-5)
+    _close(seq[0], p_seq[0], 2e-5)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    g_out = torch.randn(b, t, generator=gen, device=dev)
+    lam_T = [torch.randn(b, generator=gen, device=dev)]
+    pb.fused_backward.launches = 0
+    got = pb.fused_backward(ckt, params, vin, g_out, seq, lam_T, **kw)
+    want = pb.fused_backward_plain(ckt, params, vin, g_out, seq, lam_T, **kw)
+    prep = fcirc.prepare(ckt, params, dev, shape=(b, t), **kw)
+    one = pb.launch_adjoint_onepass(ckt, prep, vin, g_out, torch.stack(seq), torch.stack(lam_T))
+    adj = cg.adjoint_program(ckt, prep.prog)
+    monkeypatch.setattr(cg.AdjointProgram, "SCRATCH_CAP_BYTES", 4 * adj.scratch_floats(b, 32))
+    assert adj.chunk(b, t) == 32
+    chunked = pb.fused_backward(ckt, params, vin, g_out, seq, lam_T, **kw)
+    torch.cuda.synchronize()
+    assert pb.fused_backward.launches == 2
+    budget = 3e-4 if rows else 1e-4
+
+    def rel(x, y):
+        return float((x - y).abs().max() / y.abs().max().clamp_min(1e-12))
+
+    assert rel(got[1], want[1]) < budget
+    assert rel(got[0][0], want[0][0]) < budget and rel(got[2][0], want[2][0]) < budget
+    for two in (got, chunked):
+        assert torch.equal(two[1], one[1]) and torch.equal(two[0][0], one[0][0])
+        assert torch.equal(two[2][0], one[2][0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("acts,widths", [
+    (("tanh", "relu", "tanh", ""), (2, 8, 8, 8, 1)),
+    (("sigmoid", "softmax", "linear", ""), (2, 12, 5, 7, 1)),
+], ids=["relu_mixed", "unequal"])
+def test_circuit_kernel_general_mlp_root(circuit_cuda, acts, widths):
+    """B7's general MLP root (mlp_dense.cuh, one thread a stream) within
+    2e-5 of its plain version at a ragged (B, T), the LPF clipper, and
+    through the stream's exact runner at B = 1."""
+    from diffwdf_tpu_torch.models.diode_clipper import make_diode_clipper
+    from diffwdf_tpu_torch.runtime.stream import _lpf_exact_runner
+
+    dev, fcirc = circuit_cuda
+    rng = np.random.default_rng(len(widths))
+    mlp = {"layers": [{"kernel": torch.from_numpy((rng.standard_normal((i, o)) / np.sqrt(i))
+                                                  .astype(np.float32)).to(dev),
+                       "bias": torch.from_numpy((0.3 * rng.standard_normal(o))
+                                                .astype(np.float32)).to(dev)}
+                      for i, o in zip(widths[:-1], widths[1:])]}
+    root, frag = NeuralDiodeRoot.from_mlp("dp", mlp, acts)
+    ckt = make_diode_clipper(root, FS)
+    params = {**ckt.init_params(dev), **frag}
+    vin, state = _circuit_inputs(ckt, dev, 1000, 300, 1.5, seed=3)
+    got, got_state = fcirc.fused_circuit_process(ckt, params, vin, state, input_node="Vs")
+    want, want_state = fcirc.fused_circuit_process_plain(ckt, params, vin, state,
+                                                         input_node="Vs")
+    run = _lpf_exact_runner(ckt)
+    one, _ = run(params, ckt.init_state(dev), {"Vs": {"v": vin[0]}}, {})
+    ref, _ = ckt.process(params, ckt.init_state(dev), {"Vs": {"v": vin[0]}})
+    torch.cuda.synchronize()
+    assert fcirc.fused_circuit_process.launches == 2
+    _close(got, want, 2e-5)
+    _close(got_state["C"]["z"], want_state["C"]["z"], 2e-5)
+    _close(one, ref, 2e-5)

@@ -421,17 +421,62 @@ def test_time_block_train_step_matches_jax(devices8, case):
         assert ranks[0]["after"] < ranks[0]["before"], ranks[0]
 
 
-def test_time_block_train_step_refuses_the_distilled_root():
-    """No kernel differentiates the distilled root (the generated adjoint has
-    no tangent for it): the step is refused when it is made, naming the
-    root, before any mesh is read."""
+def _tbt_distilled_rank(rank, world, cheb, params_np, x, y, warmup):
     from diffwdf_tpu_torch.parallel.time_block import make_time_block_train_step
     from diffwdf_tpu_torch.roots.distilled import PiecewiseChebRoot
 
-    ckt = make_training_clipper(PiecewiseChebRoot(name="cheb", breaks=(1.0,),
-                                                  coeffs=(np.ones(4), np.ones(4))), FS)
-    with pytest.raises(NotImplementedError, match="'cheb'"):
-        make_time_block_train_step(ckt, CircuitTrainConfig(), None, device="cpu")
+    a_max, breaks, coeffs = cheb
+    ckt = make_training_clipper(PiecewiseChebRoot(name="dp", a_max=a_max, breaks=breaks,
+                                                  coeffs=coeffs), FS)
+    cfg = CircuitTrainConfig(learning_rate=1e-3, skip_samples=50)
+    mesh = make_mesh((1, world), device="cpu")
+    _, step, _ = make_time_block_train_step(ckt, cfg, mesh, warmup=warmup, device="cpu")
+    loss, _, grads = step.grads_fn(params_from_jax(params_np, "cpu"), x, y)
+    return {"loss": float(loss), "grads": _flat(grads)}
+
+
+def test_time_block_train_step_refuses_the_distilled_root(devices8):
+    """The distilled root, which the step refused while no kernel had its
+    tangent: JAX's distillation of the 1N4148 pair at the training
+    clipper's port R in the training clipper, one sequence's blocks over
+    two gloo ranks; the loss and the reduced gradient of the circuit's
+    leaves (C, the source R; the root has none) against JAX's
+    make_time_block_train_step on a (1, 2) mesh."""
+    import jax
+    import jax.numpy as jnp
+
+    import diffwdf_tpu as dwdf
+    from diffwdf_tpu.models.diode_clipper import make_training_clipper as jtrain
+    from diffwdf_tpu.parallel.time_block import make_time_block_train_step as jtbt
+    from diffwdf_tpu.parallel.time_block import warmup_for_tolerance
+    from diffwdf_tpu.roots.distilled import distill_root
+    from diffwdf_tpu.training.circuit_train import CircuitTrainConfig as JCfg
+
+    r_port = 1.0 / (1.0 / 45e3 + 2.0 * 4.7e-9 * FS)
+    diode = dwdf.DiodePairRoot(name="dp", diode=dwdf.diode_1n4148_1u1d, quality="best")
+    droot, _ = distill_root(diode, diode.init_params(), r_port)
+    jck = jtrain(droot, FS)
+    jparams = jck.init_params()
+    rng = np.random.default_rng(43)
+    x = (1.5 * rng.standard_normal(2 * 1024)).astype(np.float32)
+    y = np.tanh(0.8 * x).astype(np.float32)
+    warmup = warmup_for_tolerance(1.0 / (2 * np.pi * 45e3 * 4.7e-9), FS, 1e-6)
+    cheb = (float(droot.a_max), tuple(float(b) for b in droot.breaks),
+            tuple(np.asarray(c, np.float64) for c in droot.coeffs))
+
+    def jax_side():
+        _, step, _ = jtbt(jck, JCfg(learning_rate=1e-3, skip_samples=50),
+                          _jax_mesh(devices8, (1, 2)), warmup=warmup)
+        loss, _, g = step.grads_fn(jparams, jnp.asarray(x), jnp.asarray(y))
+        return float(loss), _flat(jax.tree_util.tree_map(np.asarray, g))
+
+    ranks, (j_loss, j_grads) = _spawn_beside(
+        jax_side, _tbt_distilled_rank, 2, cheb, jax.tree_util.tree_map(np.asarray, jparams), x,
+        y, warmup)
+    assert set(j_grads) == {"/C/C", "/Vs/R"}
+    for r in ranks:
+        np.testing.assert_allclose(r["loss"], j_loss, rtol=1e-5)
+        assert _rel(r["grads"], j_grads) < 1e-3
 
 
 # ---------------------------------------------------------------------------

@@ -331,8 +331,10 @@ def test_deer_with_neural_member_raises():
 
 def test_exact_runner_covers_the_kernel_roots_only():
     """The exact engine is one launch of the batched kernel at B=1 for a
-    diode pair and for an all-tanh NxH root; a root the kernels do not
-    compute (relu layers) keeps Circuit.process, and still serves."""
+    diode pair and for an all-tanh NxH root, and of the generated forward
+    (B7's general MLP root) for a root with relu layers, within 2e-5 of
+    Circuit.process; a processor given no runner for a member serves it
+    by Circuit.process."""
     fs = 48000.0
     diode = DiodePairRoot(name="dp", diode=diode_1n4148_1u1d, quality="low")
     tanh = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=8)
@@ -340,8 +342,8 @@ def test_exact_runner_covers_the_kernel_roots_only():
                            activations=("tanh", "relu", "tanh", ""))
     runners = {name: tstream._lpf_exact_runner(make_diode_clipper(root, fs))
                for name, root in (("diode", diode), ("tanh", tanh), ("relu", relu))}
-    assert runners["diode"] is not None and runners["tanh"] is not None
-    assert runners["relu"] is None
+    assert all(run is not None for run in runners.values())
+    assert hasattr(runners["relu"], "sources")  # the generated forward's runner
     circuits = {n: (make_diode_clipper(r, fs), None) for n, r in (("tanh", tanh), ("relu", relu))}
     circuits = {n: (c, c.init_params("cpu")) for n, (c, _) in circuits.items()}
     proc = tstream.StreamingProcessor(
@@ -359,6 +361,13 @@ def test_exact_runner_covers_the_kernel_roots_only():
     want, st = ckt.process(params, ckt.init_state("cpu"), {"Vs": {"v": torch.from_numpy(x)}})
     np.testing.assert_allclose(out.numpy(), want.numpy(), atol=2e-5, rtol=0)
     np.testing.assert_allclose(float(z["C"]["z"]), float(st["C"]["z"]), atol=2e-5)
+    # the relu member through its runner, with a static source R, too
+    ckt, params = circuits["relu"]
+    inputs, static = {"Vs": {"v": torch.from_numpy(x)}}, {"Vs": {"R": 30e3}}
+    out, z = runners["relu"](params, ckt.init_state("cpu"), inputs, static)
+    want, st = ckt.process(params, ckt.init_state("cpu"), inputs, static_controls=static)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(float(z["C"]["z"]), float(st["C"]["z"]), atol=2e-5, rtol=0)
 
 
 def test_dc_blocker_scan_matches_the_recursion():
