@@ -276,23 +276,31 @@ one line per phase:
              launches of B3, B4, B7 and B8 read in every rank
   distilled_path  the 1N4148 1U-1D pair ("best") distilled at the LPF
              clipper's port R (96 kHz, 47 kOhm, 2.2 nF): the new generated
-             sources in one parallel nvcc, ptxas of every new kernel (no
-             spill in B8's pass 1 and B9's cluster kernel); B9 at T = 2,048
-             and 16,384 on stream_path's DEER inputs (and a quiet one)
-             against its plain version and B6's scan (1e-6), at 2,048 the
-             oracle (1e-4), its residual and device time; B7's training form
-             and B8 at (1024, 2048) against their plain versions (2e-5,
-             1e-4 relative), the fused_generic gradients against the scan
-             engine at (1024, 256), 5e-4 a leaf; B7's general MLP root (a
-             relu-mixed and a sigmoid 2x8 JSON root) against its plain
-             version at B = 1; then, the counters set to 0: B9 serving two
-             blocks, five fused_generic steps training C from 20% off
-             (the target from B2), the time-block training step at one rank
-             under NCCL against the single-process step, and both JSON
-             roots served 47 blocks of 2,048 by the exact runner (block
-             walls beside Circuit.process's, in turns, 2e-5) and by an
-             artifact (the relu one by export-artifact --check in a
-             subprocess started first)
+             sources in one parallel nvcc, ptxas of every new kernel (no spill
+             in B8's pass 1, B9's cluster kernel and B7's lane forms); B9 at
+             T = 2,048 and 16,384 on stream_path's DEER inputs (and a quiet
+             one) against its plain version and B6's scan (1e-6), at 2,048 the
+             oracle (1e-4), its residual and device time; B7's lane forms
+             against its one-thread form, the same bits, in turns with it (10
+             calls and the device time): the distilled root (one Chebyshev
+             segment a lane, K = 4) in the training form at (1024, 2048) and
+             at B = 1 (faster than one thread there, checked) and served at
+             (8192, 2048) beside B6, the general MLP roots (K = 8, and the
+             relu root's K = 4) at B = 1 and at (8192, 2048) with plain
+             there (2e-5); B7's training form and B8 at (1024, 2048) against
+             their plain versions (2e-5, 1e-4 relative), the fused_generic
+             gradients against the scan engine at (1024, 256), 5e-4 a leaf;
+             B7's general MLP root (a relu-mixed and a sigmoid 2x8 JSON root)
+             against its plain version at B = 1; then, the counters set to 0:
+             B9 serving two blocks, five fused_generic steps training C from
+             20% off (the target from B2), the time-block training step at one
+             rank under NCCL against the single-process step, and both JSON
+             roots served 47 blocks of 2,048 by the exact runner (block walls
+             beside Circuit.process's, in turns, 2e-5) and by an artifact (the
+             relu one by export-artifact --check in a subprocess started
+             first); every B7 launch of the training steps, the time-block
+             rank and the served blocks on the lane form
+             (``fused_circuit_process.lane_launches``)
 
 Each path's seconds follow it on a "phase seconds" line.  Then a JSON line
 with every kernel's (and op's) launches, error, times and bound, the card's
@@ -3881,12 +3889,14 @@ def _root_leaves(params):
 
 def _par_counts() -> dict:
     return {"B3": fc.fused_clipper_neural_train_fwd.launches, "B4": ct.clipper_adjoint.launches,
-            "B7": fcirc.fused_circuit_process.launches, "B8": pb.fused_backward.launches}
+            "B7": fcirc.fused_circuit_process.launches, "B8": pb.fused_backward.launches,
+            "B7_lanes": fcirc.fused_circuit_process.lane_launches}
 
 
 def _par_reset() -> None:
     fc.fused_clipper_neural_train_fwd.launches = ct.clipper_adjoint.launches = 0
     fcirc.fused_circuit_process.launches = pb.fused_backward.launches = 0
+    fcirc.fused_circuit_process.lane_launches = 0
 
 
 def _par_dp_case(name: str, dev, seed: int, rows: int):
@@ -4333,6 +4343,10 @@ DIST_LR = 8e-11  # Adam's step on C (farads): 20% off the true 2.2 nF is 4.4e-10
 DIST_MLP = {"relu": ("tanh", "relu", "tanh", ""), "sigmoid": ("sigmoid", "sigmoid", "sigmoid", "")}
 DIST_BLOCKS, DIST_TURNS = 47, 3  # served blocks of CHUNK; Circuit.process blocks in turns
 DIST_MLP_BUDGET = 2e-5  # the generic forward's (tests/test_fused_circuit.py:55)
+#: B7's lane forms of both roots also at the JAX bench's serving shape
+DIST_SERVE = (B, T)
+#: the general MLP root whose lane form is also timed at every K (the sweep)
+DIST_MLP_SWEEP = "relu"
 
 
 def _distilled(fs: float, r_source: float, cap: float):
@@ -4384,11 +4398,96 @@ def _mlp_root(name: str, dev, folder: Path):
     return root, frag, path
 
 
+def _lanes_in_turns(forms: dict, x, z0, with_seq: bool, ref: str) -> dict:
+    """label -> (median, min, max per-call CUDA-event ms of 10 calls, median
+    device ms a launch) of B7's forms (label -> (prepared program, lanes)),
+    in turns (``_forms_in_turns``), after a check that every form gives the
+    ``ref`` form's bits: output, final state and the trajectory."""
+    want = fcirc.launch(forms[ref][0], x, z0, with_seq, lanes=forms[ref][1])
+    for label, (prep, lanes) in forms.items():
+        got = fcirc.launch(prep, x, z0, with_seq, lanes=lanes)
+        torch.cuda.synchronize()
+        _check(all(torch.equal(g, w) for g, w in zip(got, want) if w is not None),
+               f"B7's {label} form gives the {ref} form's bits at {tuple(x.shape)}")
+    return _forms_in_turns({label: (lambda p=prep, k=lanes: fcirc.launch(p, x, z0, with_seq,
+                                                                         lanes=k))
+                            for label, (prep, lanes) in forms.items()})
+
+
+def _lanes_line(times: dict, ref: str) -> str:
+    return " ".join(f"{label}_ms={m:.4f} [{lo:.4f}, {hi:.4f}] {label}_device_ms={d:.4f}"
+                    + ("" if label == ref else f" ({times[ref][0] / m:.3f}x)")
+                    for label, (m, lo, hi, d) in times.items())
+
+
+def _dist_lane_forms(dev, card, ckt, params, msweep, x, zs, fwd_err, mlp_ckts, seed) -> dict:
+    """kernels distilled_path, B7's lane forms: each against the one-thread
+    form (the same bits) and in turns with it; the distilled root's training
+    form with the trajectory at (DIST_B, DIST_T) and at B = 1 (the time-block
+    rank's), and served at DIST_SERVE beside B6; the general MLP roots at
+    B = 1 (device time) and DIST_SERVE, DIST_MLP_SWEEP's at every K of
+    ``msweep`` (its sweep program), and against their plain versions there.
+    Returns the figures of the JSON records."""
+    prep = fcirc.prepare(ckt, params, dev, input_node="Vs")
+    k = fcirc.lanes_for(prep.prog, DIST_B)
+    _check(fcirc.lanes_for(prep.prog, 1) == k, "the distilled root's lane form at every B")
+    forms = {"one_thread": (prep, 1), f"k{k}": (prep, k)}
+    train = _lanes_in_turns(forms, x, fcirc._state_stack(prep.prog, zs, x), True, "one_thread")
+    print(f"phase kernels distilled_path B7 lanes distilled training form ({DIST_B}, {DIST_T}) "
+          f"with trajectory, bits of one_thread, vs_plain={fwd_err:.3e} budget="
+          f"{GEN_BUDGET_B7:g}: {_lanes_line(train, 'one_thread')} card={card!r}", flush=True)
+    x1 = x[:1, :CHUNK].contiguous()
+    one = _lanes_in_turns(forms, x1, fcirc._state_stack(prep.prog, _zero_state(ckt, x1), x1),
+                          True, "one_thread")
+    print(f"phase kernels distilled_path B7 lanes distilled training form (1, {CHUNK}) with "
+          f"trajectory, bits of one_thread: {_lanes_line(one, 'one_thread')} card={card!r}",
+          flush=True)
+    _check(one[f"k{k}"][3] < one["one_thread"][3],
+           "the distilled root's lane form is faster than one thread at B = 1 (device time)")
+    rng = np.random.default_rng(seed + 48)
+    xs = torch.from_numpy((2.0 * rng.standard_normal(DIST_SERVE)).astype(np.float32)).to(dev)
+    z0 = torch.zeros(1, DIST_SERVE[0], device=dev)
+    serve = _lanes_in_turns(forms, xs, z0, False, "one_thread")
+    b6_ms = statistics.median(_cuda_ms(lambda: fc.fused_clipper_cheb(
+        xs, z0[0], ckt.root, R_SRC, CAP, fs=FS), REPS, 10))
+    print(f"phase kernels distilled_path B7 lanes distilled served {DIST_SERVE}, bits of "
+          f"one_thread: {_lanes_line(serve, 'one_thread')} b6_ms={b6_ms:.4f} card={card!r}",
+          flush=True)
+    out = {"distilled": (k, train, fwd_err)}
+    for name, (c, p) in mlp_ckts.items():
+        mprep = fcirc.prepare(c, p, dev, input_node="Vs")
+        k = fcirc.lanes_for(mprep.prog, 1)
+        mforms = {"one_thread": (mprep, 1), f"k{k}": (mprep, k)}
+        if name == DIST_MLP_SWEEP:
+            mforms.update({f"k{j}": (mprep._replace(prog=msweep), j) for j in msweep.lanes[1:]
+                           if j != k})
+        v = torch.from_numpy(_strum(seed, CHUNK)[0]).to(dev)[None]
+        one = _lanes_in_turns(mforms, v, torch.zeros(1, 1, device=dev), False, "one_thread")
+        vs = torch.from_numpy((1.5 * rng.standard_normal(DIST_SERVE)).astype(np.float32)).to(dev)
+        zs0 = _zero_state(c, vs)
+        got, _ = fcirc.fused_circuit_process(c, p, vs, zs0, input_node="Vs")
+        box = []
+        plain_ms = _cuda_ms(lambda: box.append(fcirc.fused_circuit_process_plain(
+            c, p, vs, zs0, input_node="Vs")), 1)[0]
+        err = _max_err(got, box[0][0])
+        many = _lanes_in_turns(mforms, vs, torch.zeros(1, DIST_SERVE[0], device=dev), False,
+                               "one_thread")
+        print(f"phase kernels distilled_path B7 lanes mlp {name} {DIST_MLP[name]} bits of "
+              f"one_thread; (1, {CHUNK}): {_lanes_line(one, 'one_thread')}; {DIST_SERVE}: "
+              f"{_lanes_line(many, 'one_thread')} vs_plain={err:.3e} budget="
+              f"{DIST_MLP_BUDGET:g} plain_ms={plain_ms:.1f} card={card!r}", flush=True)
+        _check(err <= DIST_MLP_BUDGET, f"B7's {name} lane form within 2e-5 of plain at "
+                                       f"{DIST_SERVE}")
+        out[name] = (k, one, many, err)
+    return out
+
+
 def distilled_path(dev, card: str, seed: int) -> list:
     """The roots that the generated kernels took last: build distilled (the
-    new generated sources in one parallel nvcc, ptxas of every new kernel);
-    kernels distilled_path (B9 on the distilled clipper against its plain
-    version, B6 and the oracle; B7's training form and B8 against theirs;
+    new generated sources in one parallel nvcc, ptxas of every new kernel,
+    the lane forms' spill check); kernels distilled_path (B9 on the distilled
+    clipper against its plain version, B6 and the oracle; B7's lane forms
+    against its one-thread form, in turns; B7's training form and B8 against theirs;
     the fused_generic gradients against the scan engine; B7's general MLP
     root against its plain version); then the path as a user drives it,
     the launch counters set to 0 before and read after: B9 serving the
@@ -4430,8 +4529,11 @@ def _distilled_path(dev, card, seed, mlps, cli, folder, t_path) -> list:
         mlp_ckts[name] = (c, {**c.init_params(dev), **frag})
     mlp_progs = {name: fcirc.prepare(c, p, dev, input_node="Vs").prog
                  for name, (c, p) in mlp_ckts.items()}
+    # one general MLP root's K sweep (a comparison build)
+    msweep = cg.sweep_program(mlp_ckts[DIST_MLP_SWEEP][0], mlp_progs[DIST_MLP_SWEEP])
     sources = {"B7": prog.source, "B8": adj.source, "B9": deer.source,
-               **{f"B7_{n}": p.source for n, p in mlp_progs.items()}}
+               **{f"B7_{n}": p.source for n, p in mlp_progs.items()},
+               f"B7_{DIST_MLP_SWEEP}_sweep": msweep.source}
     t0 = time.perf_counter()
     before = _build.build_generated.builds
     _build.build_generated(list(sources.values()))
@@ -4451,6 +4553,10 @@ def _distilled_path(dev, card, seed, mlps, cli, folder, t_path) -> list:
                if k.startswith("deer_cluster")}
     _check(pass1 and all(ss == sl == 0 for _, ss, sl in {**pass1, **cluster}.values()),
            f"no spill in B8's pass 1 and B9's cluster kernel: {pass1} {cluster}")
+    for label, src in sources.items():
+        if label.startswith("B7"):
+            _check("circuit_lanes_kernel" in src, f"{label} has a lane form")
+            _check_no_spills(src, f"{label}'s lane form")
 
     # --- kernels distilled_path: B9 --------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(seed + 5)  # stream_path's DEER inputs
@@ -4513,8 +4619,8 @@ def _distilled_path(dev, card, seed, mlps, cli, folder, t_path) -> list:
         ckt, params, x, zs, **kw)), 1)[0]
     p_out, _, p_seq = box[0]
     fwd_err = max(_max_err(out, p_out), _max_err(seq[0], p_seq[0]))
-    fwd_ms = statistics.median(_cuda_ms(lambda: fcirc.fused_circuit_process(
-        ckt, params, x, zs, **kw), REPS, 10))
+    lanes = _dist_lane_forms(dev, card, ckt, params, msweep, x, zs, fwd_err, mlp_ckts, seed)
+    fwd_ms = lanes["distilled"][1]["one_thread"][0]  # in turns with the lane forms
     g_out = torch.from_numpy(rng.standard_normal((DIST_B, DIST_T)).astype(np.float32)).to(dev)
     g_out /= DIST_B * DIST_T
     lam = [torch.zeros(DIST_B, device=dev)]
@@ -4535,7 +4641,7 @@ def _distilled_path(dev, card, seed, mlps, cli, folder, t_path) -> list:
     fwd_bound = _bound(prog.ops_per_sample * samples, (1 + 1 + 1) * 4 * samples + 8 * DIST_B)
     adj_bound = _bound(adj.ops_per_sample * samples, (3 + 2) * 4 * samples + 8 * DIST_B)
     print(f"phase kernels distilled_path B7 training form ({DIST_B}, {DIST_T}) vs_plain="
-          f"{fwd_err:.3e} budget={GEN_BUDGET_B7:g} kernel_ms={fwd_ms:.4f} plain_ms="
+          f"{fwd_err:.3e} budget={GEN_BUDGET_B7:g} one_thread_ms={fwd_ms:.4f} plain_ms="
           f"{fwd_plain_ms:.1f} bound_ms={fwd_bound[0]:.6f} ({fwd_bound[1]}) card={card!r}",
           flush=True)
     print(f"phase kernels distilled_path B8 ({DIST_B}, {DIST_T}) vs_plain_rel={adj_err:.3e} "
@@ -4570,11 +4676,11 @@ def _distilled_path(dev, card, seed, mlps, cli, folder, t_path) -> list:
         plain_ms = _cuda_ms(lambda: box.append(fcirc.fused_circuit_process_plain(
             c, p, v, z1, input_node="Vs")), 1)[0]
         err = _max_err(k_out, box[0][0])
-        dev_ms = _device_ms(lambda: fcirc.fused_circuit_process(c, p, v, z1, input_node="Vs"))
+        dev_ms = lanes[name][1]["one_thread"][3]  # device time, in turns with the lane forms
         bound = _bound(mlp_progs[name].ops_per_sample * CHUNK, 8 * CHUNK)
         mlp_rec[name] = [err, dev_ms, plain_ms, bound]
         print(f"phase kernels distilled_path B7 mlp {name} {DIST_MLP[name]} (1, {CHUNK}) "
-              f"vs_plain={err:.3e} budget={DIST_MLP_BUDGET:g} device_ms={dev_ms:.4f} "
+              f"vs_plain={err:.3e} budget={DIST_MLP_BUDGET:g} one_thread_device_ms={dev_ms:.4f} "
               f"plain_ms={plain_ms:.1f} bound_ms={bound[0]:.6f} ({bound[1]}) card={card!r}",
               flush=True)
         _check(err <= DIST_MLP_BUDGET, f"B7's general MLP root ({name}) within 2e-5 of plain")
@@ -4605,12 +4711,14 @@ def _distilled_path(dev, card, seed, mlps, cli, folder, t_path) -> list:
         on_epoch.t0 = time.perf_counter()
 
     fcirc.fused_circuit_process.launches = pb.fused_backward.launches = 0
+    fcirc.fused_circuit_process.lane_launches = 0
     torch.cuda.synchronize()
     on_epoch.t0 = time.perf_counter()
     trained, hist = train_clipper(ckt, start, {"x": x, "y": y}, cfg=cfg,
                                   trainable_filter=lambda q: q["C"], on_epoch=on_epoch)
     train_launches = {"B7": fcirc.fused_circuit_process.launches,
-                      "B8": pb.fused_backward.launches}
+                      "B8": pb.fused_backward.launches,
+                      "B7_lanes": fcirc.fused_circuit_process.lane_launches}
     c1 = float(trained["C"]["C"])
     print(f"phase train distilled_path fused_generic ({DIST_B}, {DIST_T}) steps={DIST_STEPS} "
           f"loss={' '.join(f'{l:.6e}' for l in hist['loss'])} C={1.2 * CAP:.4e}->{c1:.4e} "
@@ -4620,6 +4728,8 @@ def _distilled_path(dev, card, seed, mlps, cli, folder, t_path) -> list:
            and abs(c1 - CAP) < 0.2 * CAP, "fused_generic trains C on the distilled root")
     _check(train_launches["B7"] >= DIST_STEPS and train_launches["B8"] >= DIST_STEPS,
            "the training steps launched B7 and B8")
+    _check(train_launches["B7_lanes"] == train_launches["B7"],
+           "every B7 launch of the training steps took the distilled root's lane form")
 
     # the time-block training step at one rank under NCCL
     troot, _ = _distilled(PAR_FS, 45e3, 4.7e-9)
@@ -4642,6 +4752,8 @@ def _distilled_path(dev, card, seed, mlps, cli, folder, t_path) -> list:
            "the distilled root's time-block step matches the single-process step")
     _check(rank["launches"]["B7"] > 0 and rank["launches"]["B8"] > 0,
            "the time-block step launched B7 and B8")
+    _check(rank["launches"]["B7_lanes"] == rank["launches"]["B7"],
+           "every B7 launch of the time-block step took the lane form")
 
     # the export-artifact command's relu artifact (started first)
     cli.wait(timeout=max(1.0, CLI_TIMEOUT_S - (time.perf_counter() - t_path)))
@@ -4659,12 +4771,12 @@ def _distilled_path(dev, card, seed, mlps, cli, folder, t_path) -> list:
 
     # the general MLP roots served by the exact runner, and by artifacts
     signal = _strum(seed, DIST_BLOCKS * CHUNK)[0]
-    serve_launches = 0
+    serve_launches = serve_lane_launches = 0
     for name, (c, p) in mlp_ckts.items():
         run = _lpf_exact_runner(c)
         blocks = [torch.from_numpy(signal[i * CHUNK:(i + 1) * CHUNK]).to(dev)
                   for i in range(DIST_BLOCKS)]
-        fcirc.fused_circuit_process.launches = 0
+        fcirc.fused_circuit_process.launches = fcirc.fused_circuit_process.lane_launches = 0
         st, served, walls = c.init_state(dev), [], []
         for blk in blocks:
             t0 = time.perf_counter()
@@ -4673,6 +4785,7 @@ def _distilled_path(dev, card, seed, mlps, cli, folder, t_path) -> list:
             walls.append((time.perf_counter() - t0) * 1e3)
             served.append(o)
         launches = fcirc.fused_circuit_process.launches
+        lane_launches = fcirc.fused_circuit_process.lane_launches
         served = torch.cat(served)
         whole, _ = fcirc.fused_circuit_process(c, p, torch.cat(blocks)[None],
                                                _zero_state(c, served[None]), input_node="Vs")
@@ -4693,12 +4806,15 @@ def _distilled_path(dev, card, seed, mlps, cli, folder, t_path) -> list:
             save_artifact(str(folder / f"{name}.pt2"), c, p, input_node="Vs", block_len=CHUNK,
                           fs=FS)
             art = load_artifact(str(folder / f"{name}.pt2"), device="cuda")
-        fcirc.fused_circuit_process.launches = 0
+        fcirc.fused_circuit_process.launches = fcirc.fused_circuit_process.lane_launches = 0
         served_art = torch.from_numpy(art.run(signal)).to(dev)
         art_launches = fcirc.fused_circuit_process.launches
+        lane_launches += fcirc.fused_circuit_process.lane_launches
         serve_launches += launches + art_launches
+        serve_lane_launches += lane_launches
         print(f"phase serve distilled_path mlp {name} {DIST_MLP[name]} blocks={DIST_BLOCKS}x"
-              f"{CHUNK} fs={FS:g} exact_runner_launches={launches} block_wall_ms_median="
+              f"{CHUNK} fs={FS:g} exact_runner_launches={launches} lane_form_launches="
+              f"{lane_launches} (runner and artifact) block_wall_ms_median="
               f"{statistics.median(walls):.3f} vs_one_launch={_max_err(served, whole[0]):.3e} "
               f"vs_circuit_process={err:.3e} budget={DIST_MLP_BUDGET:g} (first {DIST_TURNS} "
               f"blocks in turns: b7_ms={' '.join(f'{m:.3f}' for m in ms['b7'])} "
@@ -4707,13 +4823,17 @@ def _distilled_path(dev, card, seed, mlps, cli, folder, t_path) -> list:
               f"{_max_err(served_art, served):.3e} card={card!r}", flush=True)
         _check(launches == DIST_BLOCKS and art_launches == DIST_BLOCKS,
                f"one B7 launch a block for the {name} root, runner and artifact")
+        _check(lane_launches == 2 * DIST_BLOCKS,
+               f"every served block of the {name} root took the lane form")
         _check(err <= DIST_MLP_BUDGET and _max_err(served, whole[0]) <= 1e-6
                and _max_err(served_art, served) <= 1e-6 and bool(torch.isfinite(served).all()),
                f"the {name} root's served blocks")
         mlp_rec[name][0] = max(mlp_rec[name][0], err)
     b7_launches = train_launches["B7"] + rank["launches"]["B7"]
+    b7_lanes = train_launches["B7_lanes"] + rank["launches"]["B7_lanes"]
     b8_launches = train_launches["B8"] + rank["launches"]["B8"]
     common = {"route": "cuda", "source": CIRCUIT_SOURCE, "library_ms": None}
+    k, times, _ = lanes["distilled"]
     records = [
         {"name": f"fused_deer_circuit (distilled root: cheb_root_value_tangent, "
                  f"T={DEER_T[-1]}, device time)",
@@ -4721,9 +4841,16 @@ def _distilled_path(dev, card, seed, mlps, cli, folder, t_path) -> list:
          "max_abs_err": b9[DEER_T[-1]][0], "ms": b9[DEER_T[-1]][1],
          "plain_ms": b9[DEER_T[-1]][2], "bound_ms": b9[DEER_T[-1]][3][0],
          "bound_by": b9[DEER_T[-1]][3][1]},
-        {"name": f"fused_circuit_process (distilled root, training form, {DIST_B}x{DIST_T})",
+        {"name": f"fused_circuit_process (distilled root, training form, {DIST_B}x{DIST_T}; "
+                 f"ms: the one-thread form, in turns with the lane form; launches: the "
+                 f"wrapper's)",
          **common, "replaces": CIRCUIT_REPLACES, "launches": b7_launches, "max_abs_err": fwd_err,
          "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound[0],
+         "bound_by": fwd_bound[1]},
+        {"name": f"fused_circuit_process (distilled root lane form: cheb_root_lanes, K = {k}, "
+                 f"training form, {DIST_B}x{DIST_T})",
+         **common, "replaces": CIRCUIT_REPLACES, "launches": b7_lanes, "max_abs_err": fwd_err,
+         "ms": times[f"k{k}"][0], "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound[0],
          "bound_by": fwd_bound[1]},
         {"name": f"fused_backward (distilled root: cheb_root_tangent in pass 1, "
                  f"{DIST_B}x{DIST_T}; ms: pass 1 + pass 2, the wrapper's call in the "
@@ -4732,11 +4859,20 @@ def _distilled_path(dev, card, seed, mlps, cli, folder, t_path) -> list:
          "plain_ms": adj_plain_ms, "bound_ms": adj_bound[0], "bound_by": adj_bound[1]},
     ]
     err, ms, plain_ms, bound = mlp_rec["relu"]
+    k, one, _, _ = lanes["relu"]
     records.append({"name": "fused_circuit_process (general MLP root: mlp_dense.cuh, the relu "
-                            "and sigmoid 2x8 JSON roots, B=1; timed: relu)", **common,
-                    "replaces": CIRCUIT_REPLACES, "launches": serve_launches,
+                            "and sigmoid 2x8 JSON roots, B=1; ms: relu, the one-thread form's "
+                            "device time in turns with the lane form; launches: the wrapper's)",
+                    **common, "replaces": CIRCUIT_REPLACES, "launches": serve_launches,
                     "max_abs_err": max(r[0] for r in mlp_rec.values()), "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1]})
+    records.append({"name": f"fused_circuit_process (general MLP root lane form: "
+                            f"mlp_dense_lanes.cuh, K = {k}, the relu and sigmoid 2x8 JSON roots, "
+                            f"B=1; ms: relu, device time)", **common,
+                    "replaces": CIRCUIT_REPLACES, "launches": serve_lane_launches,
+                    "max_abs_err": max(r[0] for r in mlp_rec.values()),
+                    "ms": one[f"k{k}"][3], "plain_ms": plain_ms, "bound_ms": bound[0],
+                    "bound_by": bound[1]})
     return records
 
 

@@ -5,9 +5,10 @@ Three kernels per circuit structure:
 - the **forward** (``CircuitProgram.source``, ``ops.fused_circuit``): the
   circuit's whole sample recursion over a batch of streams, one thread per
   stream or a group of K lanes per stream (the tree on every lane; an NxH
-  neural root's MLP split across them, a diode pair's two omega solves on a
-  pair of lanes: ``_lanes_parts``), optionally writing the pre-step state
-  trajectory z_{t-1} (the residual of training);
+  neural root's MLP or a general MLP's hidden layers split across them, a
+  diode pair's two omega solves on a pair of lanes, a distilled root's
+  Chebyshev segments one a lane: ``_lanes_parts``), optionally writing the
+  pre-step state trajectory z_{t-1} (the residual of training);
 - the **adjoint** (``AdjointProgram.source``, ``ops.parallel_bptt``): the
   reverse-time recursion lam_{t-1} = J_t^T lam_t + A_t^T obar_t of training
   over the stored trajectory, in two passes: the step's tangents at every
@@ -30,8 +31,9 @@ never contracts into an FMA, so the tree's algebra rounds exactly as the
 plain version's separate torch operations do (the Tube Screamer's op-amp
 scatter amplifies any difference).  The root is not traced: each root kind
 has an emitter that calls its device code (``csrc/omega.cuh``,
-``nxh_mlp.cuh``, ``mlp_dense.cuh``, ``cheb.cuh``) and a plain PyTorch twin of
-the same math.
+``nxh_mlp.cuh``, ``mlp_dense.cuh``, ``cheb.cuh``; the lane forms'
+``omega_lanes.cuh``, ``nxh_lanes.cuh``, ``mlp_dense_lanes.cuh``,
+``cheb_lanes.cuh``) and a plain PyTorch twin of the same math.
 
 The adjoint step is the forward-mode derivative of the same trace: the step
 runs again on dual symbols (``Dual``: a primal and one tangent per
@@ -125,6 +127,7 @@ from .fused_clipper import (
     LANES,
     _nxh_layers,
     cheb_arguments,
+    cheb_lanes,
     cheb_parameters,
     cheb_root_ops,
     diode_pair_root,
@@ -511,6 +514,11 @@ class _RootEmitter:
         """The lane form's prologue: none by default."""
         return []
 
+    def lane_definitions(self) -> str:
+        """C++ the lane form's weights type needs, emitted before it (the
+        general MLP's per-layer weights struct): none by default."""
+        return ""
+
     def own_line(self, line: str) -> bool:
         return any(mark in line for mark in self.own_marks)
 
@@ -708,7 +716,7 @@ class _NeuralEmitter(_RootEmitter):
         self.n_keep = H if r_kind == "row" else 0
         # offsets into the root array: c1 (or w1r), the head, b3, hidden
         self._head = 2 * H if r_kind == "scalar" else 3 * H
-        self._hidden = (self._head + H + 1 + 3) // 4 * 4
+        self._hidden = _pad4(self._head + H + 1)
 
     def key(self):
         return ("NeuralDiodeRoot", self.H, self.L)
@@ -744,16 +752,8 @@ class _NeuralEmitter(_RootEmitter):
 
     def lane_counts(self, every: bool = False) -> Tuple[int, ...]:
         """The group sizes K of the lane-cooperative forward kernel built for
-        this root (``nxh_lanes.cuh``): of the K in LANES that divide H, the
-        largest at most each target of LANE_TARGETS (those that
-        ``fused_circuit.lanes_for`` can pick), or with ``every`` all of them
-        (the K sweep); none where no K divides H (the one-thread kernel
-        serves such a root alone)."""
-        ks = [k for k in LANES if self.H % k == 0]
-        if not every:
-            ks = {max(k for k in ks if k <= target) for _, target in LANE_TARGETS
-                  if any(k <= target for k in ks)}
-        return tuple(sorted(ks))
+        this root (``nxh_lanes.cuh``): ``_mlp_lane_counts`` of H."""
+        return _mlp_lane_counts((self.H,), every)
 
     def lane_weights(self) -> Tuple[str, str]:
         """(the C++ type of a lane's weights in the lane form, given K; the
@@ -834,9 +834,16 @@ class _ChebEmitter(_RootEmitter):
     cheb_parameters' layout; the segment count and padded degree go into the
     source.  Its slope (the adjoint's pass 1, the DEER step) is forward mode
     of the Clenshaw recurrence (``cheb_root_tangent``,
-    ``cheb_root_value_tangent``), JAX's autodiff of the root's reflect."""
+    ``cheb_root_value_tangent``), JAX's autodiff of the root's reflect.
+
+    The forward's lane form is B6's: one segment a lane of a group of K = 4
+    (8 for five to eight segments), its edges and coefficients in registers
+    (``ChebLane``), the selected segment's h by one shuffle
+    (``cheb_root_lanes``, cheb_lanes.cuh), the one-thread step's bits."""
 
     headers = ("cheb.cuh",)
+    lane_headers = ("cheb_lanes.cuh",)
+    own_marks = ("// root", "cheb_root")
 
     def __init__(self, root: PiecewiseChebRoot, r_kind: str = "scalar"):
         super().__init__(r_kind)
@@ -858,7 +865,25 @@ class _ChebEmitter(_RootEmitter):
     def _degrees(self) -> str:
         return ", ".join(map(str, self.degrees))
 
-    def emit(self, tr, a, r_up, slots, controls, params):
+    def lane_counts(self, every: bool = False) -> Tuple[int, ...]:
+        """K = cheb_lanes(segments), B6's choice, at every B; with ``every``
+        also 8 where K is 4 (the sweep's build)."""
+        k = cheb_lanes(len(self.degrees))
+        return tuple(x for x in (4, 8) if x >= k) if every else (k,)
+
+    def lane_weights(self) -> Tuple[str, str]:
+        """A lane's segment and the lower edges in registers (ChebLane)."""
+        return (f"ChebLane<{self.padded}, K>",
+                f"lw.load(w, {len(self.degrees)}, rank);")
+
+    def emit(self, tr, a, r_up, slots, controls, params, lanes: bool = False):
+        """b at a; with ``lanes`` the lane form (``cheb_root_lanes`` on the
+        group of K lanes of the kernel's template), which only the
+        lane-cooperative forward kernel emits."""
+        if lanes:
+            tr.raw(f"// root: distilled piecewise Chebyshev on K lanes, one segment a lane, "
+                   f"degrees {self._degrees()} (cheb_lanes.cuh)")
+            return tr.let(f"cheb_root_lanes<{self.padded}, K>({a.ref}, lw)", self.ops, "root")
         tr.raw(f"// root: distilled piecewise Chebyshev, degrees {self._degrees()} (cheb.cuh)")
         return tr.let(f"cheb_root<{self.padded}>({a.ref}, w, {len(self.degrees)})", self.ops,
                       "root")
@@ -895,6 +920,24 @@ _DENSE_ACTS = {
 }
 
 
+def _pad4(n: int) -> int:
+    """n rounded up to a multiple of 4 floats (a 16-byte word)."""
+    return (n + 3) // 4 * 4
+
+
+def _mlp_lane_counts(widths: Sequence[int], every: bool) -> Tuple[int, ...]:
+    """The group sizes K of an MLP root's lane form: of the K in LANES that
+    divide every width of ``widths``, the largest at most each target of
+    LANE_TARGETS (those that ``fused_circuit.lanes_for`` can pick), or with
+    ``every`` all of them (the K sweep); none where no K divides them all, or
+    no width is given (the one-thread kernel serves such a root alone)."""
+    ks = [k for k in LANES if widths and all(w % k == 0 for w in widths)]
+    if not every:
+        ks = {max(k for k in ks if k <= target) for _, target in LANE_TARGETS
+              if any(k <= target for k in ks)}
+    return tuple(sorted(ks))
+
+
 def _nxh_activations(acts: Sequence[str]) -> bool:
     """Tanh hidden layers and a linear head (or none given): the NxH
     family's activations."""
@@ -917,12 +960,19 @@ def is_nxh(activations: Sequence[str], mlp) -> bool:
 class _DenseEmitter(_RootEmitter):
     """A general MLP root, b = -MLP([a, log R]), with any layer widths and
     any activation of ``roots/neural._ACTS`` per layer, through
-    mlp_dense.cuh, one thread a stream: the MLP roots outside the NxH family
-    (a JSON model that mixes relu and tanh).  The layers run as
-    ``mlp_apply`` zips them with the activations.  log R is a slot taken in
-    double (a coefficient slot for one R, a row slot for a per-row R) or
-    ``logf`` of the streamed R.  Root array: each layer's kernel [IN][OUT]
-    and bias [OUT], in order.
+    mlp_dense.cuh: the MLP roots outside the NxH family (a JSON model that
+    mixes relu and tanh).  The layers run as ``mlp_apply`` zips them with
+    the activations.  log R is a slot taken in double (a coefficient slot
+    for one R, a row slot for a per-row R) or ``logf`` of the streamed R.
+    Root array: each layer's kernel [IN][OUT] and bias [OUT], in order, each
+    block zero-padded to a multiple of 4 floats for the lane form's 16-byte
+    loads.
+
+    The forward's lane form (mlp_dense_lanes.cuh) splits each hidden
+    layer's outputs over a group of K lanes and computes the head on every
+    lane, the one-thread step's bits; it is built where a K of LANES divides
+    every hidden width (``lane_counts``), and such a root's lane weights go
+    in registers where a lane's share is at most 96 floats.
 
     Forward only: JAX's adjoint and DEER kernels refuse such a root, and so
     do ``emit_slope`` and ``emit_value_slope``, in the words of its own
@@ -930,6 +980,8 @@ class _DenseEmitter(_RootEmitter):
     they reach an emitter)."""
 
     headers = ("mlp_dense.cuh",)
+    lane_headers = ("mlp_dense_lanes.cuh",)
+    own_marks = ("// root", "mlp")
     #: one block per SM: no register cap, so the widest layer's activations
     #: stay in registers (as _NeuralEmitter)
     launch_bounds = "kTileRows, 1"
@@ -954,6 +1006,13 @@ class _DenseEmitter(_RootEmitter):
             for n_in, n_out, (_, act_ops, _) in zip(self.widths[:-1], self.widths[1:],
                                                      self.acts)))
         self.n_slots = 0 if r_kind == "time" else 1
+        # each layer's (kernel, bias) offsets in the root array
+        self._offsets, offset = [], 0
+        for n_in, n_out in zip(self.widths[:-1], self.widths[1:]):
+            w_off = offset
+            offset += _pad4(n_in * n_out)
+            self._offsets.append((w_off, offset))
+            offset += _pad4(n_out)
 
     def key(self):
         return ("NeuralDiodeRoot", self.widths, tuple(act for act, _, _ in self.acts))
@@ -964,22 +1023,83 @@ class _DenseEmitter(_RootEmitter):
         return [torch.log(torch.as_tensor(r_up).detach().double())]
 
     def array(self, r_up, params, device):
-        return torch.cat([x.reshape(-1).to(device, torch.float32)
-                          for layer in self.layers for x in layer])
+        parts = []
+        for layer in self.layers:
+            for x in layer:
+                x = x.reshape(-1).to(device, torch.float32)
+                parts += [x, x.new_zeros(_pad4(x.numel()) - x.numel())]
+        return torch.cat(parts)
 
-    def emit(self, tr, a, r_up, slots, controls, params):
-        widths, acts = "x".join(map(str, self.widths)), [act for act, _, _ in self.acts]
-        tr.raw(f"// root: MLP {widths}, activations {', '.join(acts)} (mlp_dense.cuh)")
-        log_r = f"logf({r_up.ref})" if self.r_kind == "time" else slots[0].ref
-        code, offset = [f"const float mlp_x0[2] = {{{a.ref}, {log_r}}};"], 0
+    def _layer_lines(self, lanes: bool) -> List[str]:
+        """One call a layer: ``dense_layer`` on one thread, or
+        ``dense_layer_lanes`` (the hidden layers split over the group, the
+        head whole on every lane)."""
+        acts = [act for act, _, _ in self.acts]
+        last = len(acts) - 1
+        code = []
         for i, (n_in, n_out, act) in enumerate(zip(self.widths[:-1], self.widths[1:], acts)):
-            code.append(f"float mlp_x{i + 1}[{n_out}]; dense_layer<{n_in}, {n_out}, {act}>("
-                        f"w + {offset}, w + {offset + n_in * n_out}, mlp_x{i}, mlp_x{i + 1});")
-            offset += n_in * n_out + n_out
+            w_off, b_off = self._offsets[i]
+            args = f"w + {w_off}, w + {b_off}, mlp_x{i}, mlp_x{i + 1}"
+            if not lanes:
+                code.append(f"float mlp_x{i + 1}[{n_out}]; dense_layer<{n_in}, {n_out}, {act}>("
+                            f"{args});")
+                continue
+            size = f"{n_out}" if i == last else f"{n_out} / K"
+            split_in = "true" if i > 0 else "false"
+            code.append(f"float mlp_x{i + 1}[{size}]; dense_layer_lanes<{n_in}, {n_out}, {act}, "
+                        f"K, {split_in}>({args}, rank, lw.l{i});")
+        return code
+
+    def emit(self, tr, a, r_up, slots, controls, params, lanes: bool = False):
+        """b at a; with ``lanes`` the lane form (``dense_layer_lanes`` on the
+        group of K lanes of the kernel's template, ``rank`` the lane's place
+        in it), which only the lane-cooperative forward kernel emits."""
+        widths, acts = "x".join(map(str, self.widths)), [act for act, _, _ in self.acts]
+        if lanes:
+            tr.raw(f"// root: MLP {widths} on K lanes, activations {', '.join(acts)} "
+                   "(mlp_dense_lanes.cuh)")
+        else:
+            tr.raw(f"// root: MLP {widths}, activations {', '.join(acts)} (mlp_dense.cuh)")
+        log_r = f"logf({r_up.ref})" if self.r_kind == "time" else slots[0].ref
+        code = [f"const float mlp_x0[2] = {{{a.ref}, {log_r}}};"] + self._layer_lines(lanes)
         code.append(f"@ = -mlp_x{len(self.acts)}[0];")
         block = " ".join(code).replace("{", "{{").replace("}", "}}").replace("@", "{name}")
         name = tr.decl(f"float {{name}}; {{{{ {block} }}}}", self.ops, "mlp")
         return tr.let(name, 0, "root")
+
+    def lane_counts(self, every: bool = False) -> Tuple[int, ...]:
+        """The group sizes K of the lane form: ``_mlp_lane_counts`` of the
+        hidden widths (none for a root without a hidden layer)."""
+        return _mlp_lane_counts(self.widths[1:-1], every)
+
+    def lane_definitions(self) -> str:
+        """``MlpLaneWeights<K>``: one ``DenseLaneLayer`` a layer (the hidden
+        layers' N = OUT / K columns, the head whole), in registers where
+        their floats add up to at most 96 (as ``NxhLaneWeights``)."""
+        last = len(self.acts) - 1
+        pairs = list(zip(self.widths[:-1], self.widths[1:]))
+        floats = " + ".join(f"{n_in + 1} * {n_out}" if i == last else
+                            f"{n_in + 1} * ({n_out} / K)" for i, (n_in, n_out) in enumerate(pairs))
+        members = "\n".join(
+            f"  DenseLaneLayer<{n_in}, {n_out}, K, {'true' if i == last else 'false'}, kRegs> "
+            f"l{i};" for i, (n_in, n_out) in enumerate(pairs))
+        loads = "\n".join(f"    l{i}.load(w + {w_off}, w + {b_off}, rank);"
+                          for i, (w_off, b_off) in enumerate(self._offsets))
+        return f"""
+// a lane's weights of the MLP {"x".join(map(str, self.widths))}: its columns of
+// each hidden layer and the whole head, in registers where they fit
+template <int K>
+struct MlpLaneWeights {{
+  static constexpr bool kRegs = {floats} <= 96;
+{members}
+  __device__ __forceinline__ void load(const float* w, int rank) {{
+{loads}
+  }}
+}};
+"""
+
+    def lane_weights(self) -> Tuple[str, str]:
+        return "MlpLaneWeights<K>", "lw.load(w, rank);"
 
     def _refuse(self):
         raise ValueError(
@@ -1072,8 +1192,9 @@ class CircuitProgram:
     ops_per_sample: int    # counted from the emitted step
     emitter: Any
     #: the lanes per stream ``circuit_launch`` takes: 1 (one thread per
-    #: stream, every root) and, for a root with a lane form (an NxH MLP, the
-    #: diode pair), the group sizes K of the lane-cooperative kernel
+    #: stream, every root) and, for a root with a lane form (an NxH or a
+    #: general MLP, the diode pair, the distilled root), the group sizes K of
+    #: the lane-cooperative kernel
     lanes: Tuple[int, ...] = (1,)
     lanes_source: str = ""  # the lane form's prologue and step (device only)
 
@@ -1306,9 +1427,11 @@ def generate(circuit: Circuit, layout, input_node: str, emitter: _RootEmitter,
     """Trace ``circuit``'s step into a CircuitProgram for a slot ``layout``
     (``_layout``: the kinds and shapes of the adapted coefficients, params
     and static controls).  A root with a lane form gets it for the K of its
-    ``lane_counts``: an NxH root for the K that ``fused_circuit.lanes_for``
-    can pick (with ``every_lane`` every K that divides H), the diode pair for
-    K = 2; its blocks hold ``lane_threads`` threads (default the emitter's
+    ``lane_counts``: an NxH root (and a general MLP) for the K that
+    ``fused_circuit.lanes_for`` can pick (with ``every_lane`` every K that
+    divides H, or every hidden width), the diode pair for K = 2, the
+    distilled root for ``cheb_lanes(segments)`` (with ``every_lane`` 4 and
+    8); its blocks hold ``lane_threads`` threads (default the emitter's
     ``lane_threads``)."""
     _check_tree(circuit.tree)
     if len(circuit.outputs) != 1:
@@ -1499,9 +1622,9 @@ def _tree_lines(emitter: _RootEmitter, body: str) -> List[str]:
 
 def _lanes_parts(circuit, layout, input_node, emitter, body, lane_counts, sizes, lane_threads):
     """(the lane form's prologue and step, its kernel) for a root with a
-    lane form (an NxH MLP, the diode pair): the step traced again with the
-    root's lane form; every line that is not the root's own is the
-    one-thread step's (checked)."""
+    lane form (an NxH or a general MLP, the diode pair, the distilled root):
+    the step traced again with the root's lane form; every line that is not
+    the root's own is the one-thread step's (checked)."""
     zn, cn, rn, qn, pn = sizes
     lbody, lout, _, root_slots, _, _ = _trace_forward(circuit, layout, input_node, emitter,
                                                       lanes=True)
@@ -1517,9 +1640,10 @@ def _lanes_parts(circuit, layout, input_node, emitter, body, lane_counts, sizes,
 {headers}
 namespace {{
 
-// the root's weights that a lane holds in registers (NxH; a root without
-// lane weights holds none)
+// the root's weights that a lane holds in registers (a root without lane
+// weights holds none)
 struct CircuitNoLaneWeights {{}};
+{emitter.lane_definitions()}
 template <int K>
 using CircuitLaneWeights = {weights_type};
 
@@ -1569,9 +1693,14 @@ __device__ __forceinline__ float circuit_step_lanes(float v, float* z, const flo
 // split across the group: an NxH MLP's neurons (nxh_lanes.cuh; the chain a
 // sample falls from H^2 L to ~H (L + 1) FMAs and shuffles; at many streams
 // the issue rate bounds it, since every lane repeats the tree, and the
-// launch then takes fewer lanes: ops/fused_circuit.py, lanes_for), or the
-// diode pair's two omega solves, one a lane (omega_lanes.cuh; the chain is
-// one solve long).  One lane of a group (`writer`, 0 but for the tests)
+// launch then takes fewer lanes: ops/fused_circuit.py, lanes_for), a
+// general MLP's hidden-layer outputs (mlp_dense_lanes.cuh, the same scheme
+// for any widths and activations), the diode pair's two omega solves, one a
+// lane (omega_lanes.cuh; the chain is one solve long), or the distilled
+// root's Chebyshev segments, one a lane (cheb_lanes.cuh; the chain is one
+// segment's Clenshaw recurrence, no loop over the segments and no load of
+// the selected segment's coefficients).  One lane of a group (`writer`, 0
+// but for the tests)
 // writes the output, the final state and the trajectory, through (R, 32)
 // tiles that the block stores as whole lines; rows past B run on zeros, so
 // that every lane of a live warp shuffles.  Launch bounds
@@ -2826,9 +2955,11 @@ def program(circuit: Circuit, coeffs, params, static_controls, input_node: str,
 
 
 def sweep_program(circuit: Circuit, prog: CircuitProgram) -> CircuitProgram:
-    """``prog`` with its lane form built for every K of LANES that divides
-    H, not only the K that ``fused_circuit.lanes_for`` picks: a source of
-    its own for the K sweep of chip_smoke.py and the card tests."""
+    """``prog`` with its lane form built for every K its root can take
+    (``lane_counts(every=True)``: each K of LANES that divides an MLP's
+    hidden widths, 4 and 8 for a distilled root of up to four segments),
+    not only the K that ``fused_circuit.lanes_for`` picks: a source of its
+    own for the K sweep of chip_smoke.py and the card tests."""
     return generate(circuit, prog.layout, prog.input_node, prog.emitter, every_lane=True)
 
 

@@ -4,9 +4,11 @@ CUDA kernel, and its plain PyTorch version.
 ``ops.circuit_codegen`` traces the circuit's sample step into C and wraps it
 in a kernel that gives each stream one thread, the state and coefficients in
 registers (B7 in ROADMAP), or a group of K lanes that runs the tree on every
-lane and splits the root's work across the group: an NxH neural root's MLP,
-or the diode pair's two omega solves on a pair of lanes (:func:`lanes_for`
-picks K from the batch); ``ops._build`` compiles one
+lane and splits the root's work across the group: an NxH neural root's MLP
+or a general MLP's hidden layers (their outputs over the lanes), the diode
+pair's two omega solves on a pair of lanes, or the distilled root's
+Chebyshev segments, one a lane (:func:`lanes_for` picks K from the batch);
+``ops._build`` compiles one
 library per generated source and keeps it, keyed by a hash of the source,
 so a new component value or drive setting is a new argument, never a new
 build.  This serves and trains the Tube Screamer (4-port R-type stage,
@@ -19,7 +21,8 @@ hoisted out of the loop, then the circuit's step (the tree's own
 over the batch, on the same f32 slot values the kernel gets.  Given CUDA
 tensors it launches the generated kernel or raises.  Kernel launches are
 counted in ``fused_circuit_process.launches`` (the ``_neural`` entry
-launches through it); those of the diode pair's lane form (K = 2) also in
+launches through it); those of a lane form (K > 1) also in
+``fused_circuit_process.lane_launches``, and of the diode pair's (K = 2) in
 ``fused_circuit_process.pair_launches``.
 
 Impedance-affecting controls are block-rate (``static_controls``), per row
@@ -165,11 +168,12 @@ def lanes_for(prog: CircuitProgram, B: int) -> int:
     """The lanes per stream ``launch`` uses for B streams: the largest of
     the program's group sizes (``CircuitProgram.lanes``, 1 the one-thread
     kernel) at most the batch's target in ``fused_clipper.LANE_TARGETS``.
-    For an NxH root, few streams leave most of the card idle, so each gets
-    many lanes, and many streams fill it, where the tree that every lane
-    repeats and the shuffles would make a large group issue-bound.  The
-    diode pair's program has lanes (1, 2), so it takes K = 2 at every B,
-    B = 1 included: its two omega solves on a pair of lanes."""
+    For an NxH root (and a general MLP's), few streams leave most of the
+    card idle, so each gets many lanes, and many streams fill it, where the
+    tree that every lane repeats and the shuffles would make a large group
+    issue-bound.  The diode pair's program has lanes (1, 2) and the
+    distilled root's (1, 4) (8 for five to eight segments), so they take
+    that K at every B, B = 1 included."""
     target = next(k for bound, k in LANE_TARGETS if bound is None or B <= bound)
     return max(k for k in prog.lanes if k <= target)
 
@@ -216,6 +220,8 @@ def launch_source(source: str, vin, z0, vec, rows, times, warr, with_seq: bool =
             torch.cuda.current_stream(vin.device).cuda_stream)
     _build.check(err, "fused_circuit_process launch", lib.circuit_error_string)
     fused_circuit_process.launches += 1
+    if lanes > 1:
+        fused_circuit_process.lane_launches += 1
     if lanes == 2:
         fused_circuit_process.pair_launches += 1
     return out, zf, seq
@@ -289,6 +295,7 @@ def fused_circuit_process(circuit, params, vin, state0, *, input_node: str = "Vi
 
 
 fused_circuit_process.launches = 0
+fused_circuit_process.lane_launches = 0
 fused_circuit_process.pair_launches = 0
 
 

@@ -65,16 +65,23 @@ DEFAULT_BREAKS = (0.8, 4.0)
 DEFAULT_DEGREES = (24, 16, 12)
 
 
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    # the bounds are filled on x's device (new_full), never copied from the host
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)), x.new_full((), hi))
+
+
 def cheb_eval(a, a_max: float, breaks: Sequence[float], coeffs: Sequence) -> torch.Tensor:
     """b = a - sign(a) h(|a|) of a piecewise-odd Chebyshev root: every
     segment is evaluated, then the last one whose lower edge |a| reaches is
-    selected."""
-    s = torch.clamp(torch.abs(a), 0.0, a_max)
+    selected.  The clips are maximum then minimum, which split the slope
+    at an exact edge half and half, as JAX's clip and cheb.cuh's
+    cheb_clip_slope do (torch.clamp passes all of it)."""
+    s = _clip(torch.abs(a), 0.0, a_max)
     edges = (0.0,) + tuple(breaks) + (a_max,)
     h = None
     for j, c in enumerate(coeffs):
         lo, hi = edges[j], edges[j + 1]
-        t = torch.clamp((2.0 * s - (hi + lo)) / (hi - lo), -1.0, 1.0)
+        t = _clip((2.0 * s - (hi + lo)) / (hi - lo), -1.0, 1.0)
         hj = clenshaw(c, t)
         h = hj if h is None else torch.where(s < lo, h, hj)
     return a - torch.sign(a) * h

@@ -14,8 +14,10 @@ coefficients.
   breaks, a_max and the float just above each, and beyond a_max): within
   5e-6 relative everywhere, the same value at the ties.  ``torch.func.jvp``
   of ``cheb_eval`` (what the plain adjoint and DEER differentiate) agrees
-  with both away from the ties; at a tie its clamp passes the whole slope
-  where JAX's clip passes half (ROADMAP queue C), pinned here.
+  with both on the whole grid, ties included: its clips are a maximum and a
+  minimum, whose slopes split a tie as JAX's clip does.  So do the plain
+  DEER step's Jacobian (forward mode through ``fused_circuit.plain_step``)
+  and the plain adjoint's one step back (``fused_backward_plain``).
 - The plain DEER solve on the distilled clipper against JAX's
   ``fused_deer_circuit(interpret=True)`` and the JAX scan, on a quiet input
   and a loud one (N(0, 2^2), which crosses both breaks): 1e-6, residuals
@@ -38,6 +40,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.autograd.forward_ad as fwAD
 
 import diffwdf_tpu as dwdf
 from diffwdf_tpu.models import diode_clipper as jdc
@@ -138,19 +141,43 @@ def test_generated_slope_matches_jax_on_the_tie_grid(roots):
     np.testing.assert_allclose(f[0].numpy(), b_jax, atol=1e-6, rtol=0)
     for m in (J[0].numpy(), m_pass1):
         np.testing.assert_allclose(m, m_jax, rtol=5e-6, atol=0)
-    # torch's clamp passes the whole slope at an exact edge, JAX's clip half
-    # of it (a quarter at |a| = a_max, where both clips are on an edge): at
-    # a_max, at the second break (t = -1 there) and at the float above the
-    # first (its t rounds to -1; at the break itself it lies below -1)
+    # the plain slope splits a tie as JAX's clip does (a quarter at |a| =
+    # a_max, where both clips are on an edge): at a_max, at the second break
+    # (t = -1 there) and at the float above the first (its t rounds to -1;
+    # at the break itself it lies below -1)
     f32 = np.float32
     edges = [f32(droot.a_max), f32(droot.breaks[1]), np.nextafter(f32(droot.breaks[0]), f32(1))]
     tie = np.isin(np.abs(a), edges)
     assert tie[:2 * n_grid].sum() == 6 and tie.sum() > 6  # the sweep holds 4.0 and 20.0
-    np.testing.assert_allclose(m_torch[~tie], m_jax[~tie], rtol=5e-6, atol=0)
-    factor = np.where(np.abs(a[tie]) == edges[0], 4.0, 2.0)
-    np.testing.assert_allclose(1.0 - m_torch[tie], factor * (1.0 - m_jax[tie]), rtol=1e-5)
+    np.testing.assert_allclose(m_torch, m_jax, rtol=5e-6, atol=0)
     assert (m_jax[np.abs(a) > droot.a_max] == 1.0).all()  # clipped: b = a - h(a_max)
     assert (m_jax[a == 0.0] == 1.0).all()  # sign(0) = 0
+
+
+def test_plain_deer_and_adjoint_slopes_match_jax_at_the_ties(roots):
+    """The plain DEER step's Jacobian (forward mode through the plain step,
+    as ``deer_circuit._plain`` takes it) and the plain adjoint's one step
+    back from lam = 1 (``fused_backward_plain``) of the circuit a = z, z' =
+    b(a), on the tie grid: JAX's slope within 5e-6 relative, ties
+    included."""
+    droot, troot = roots
+    a, _ = _tie_grid(droot)
+    n = a.size
+    _, m_jax = jax.jvp(lambda x: droot.reflect(x, R_PORT, {}, {}), (jnp.asarray(a),),
+                       (jnp.ones(n, jnp.float32),))
+    m_jax = np.asarray(m_jax)
+    ckt = Circuit(tree=Capacitor("C", C=CAP), root=troot, fs=FS, outputs=("C",))
+    params = ckt.init_params("cpu")
+    prep = tfc.prepare(ckt, params, "cpu", input_node="Vs")
+    z = torch.from_numpy(a)
+    with fwAD.dual_level():
+        new, _ = tfc.plain_step(ckt, prep)([fwAD.make_dual(z, torch.ones(n))], torch.zeros(n), 0)
+        m_deer = fwAD.unpack_dual(new[0]).tangent.numpy()
+    zero = torch.zeros(n, 1)
+    _, _, lam = pb.fused_backward_plain(ckt, params, zero, zero, [z.reshape(n, 1)],
+                                        [torch.ones(n)], input_node="Vs")
+    for m in (m_deer, lam[0].numpy()):
+        np.testing.assert_allclose(m, m_jax, rtol=5e-6, atol=0)
 
 
 def _clippers(roots):

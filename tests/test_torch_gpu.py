@@ -47,7 +47,13 @@ plain and of B6, on a quiet and a loud input) and in B7's training form and
 B8 (the adjoint's budgets, the two passes the one-pass kernel's bits, whole
 and chunked, with a scalar and a per-row R), and B7's general MLP root (a
 relu-mixed 2x8, and sigmoid, softmax and linear layers of unequal widths)
-within 2e-5 of plain, at a ragged (B, T) and through the exact runner.
+within 2e-5 of plain, at a ragged (B, T) and through the exact runner; B7's
+lane forms of the distilled root (one Chebyshev segment a lane) and of the
+general MLP root (relu, sigmoid and softmax roots, their hidden layers split
+over the lanes) the one-thread kernel's bits at every K and writer, with and
+without the trajectory, at B = 1, 37 and 1,024, and within the budgets of
+plain (1e-5, 2e-5), a per-sample R included; a lanes value the program
+lacks, or a writer outside the group, refused.
 """
 
 import numpy as np
@@ -1889,3 +1895,128 @@ def test_circuit_kernel_general_mlp_root(circuit_cuda, acts, widths):
     _close(got, want, 2e-5)
     _close(got_state["C"]["z"], want_state["C"]["z"], 2e-5)
     _close(one, ref, 2e-5)
+
+
+# ---------------------------------------------------------------------------
+# B7's lane forms of the distilled root (one Chebyshev segment a lane) and
+# of the general MLP root (its hidden layers split over the lanes)
+# ---------------------------------------------------------------------------
+
+#: the general MLP roots of the lane-form card tests: (activations, widths)
+ROOT_LANE_MLPS = {
+    "relu": (("tanh", "relu", "tanh", ""), (2, 8, 8, 8, 1)),
+    "sigmoid": (("sigmoid", "sigmoid", "sigmoid", ""), (2, 8, 8, 8, 1)),
+    "softmax": (("softmax", "relu", "softmax"), (2, 16, 16, 4)),  # K = 16; shared-memory weights
+}
+
+
+def _root_lane_case(name, dev, distilled_root):
+    """(circuit, params, amplitude) of a lane-form case: the distilled LPF
+    clipper, or the LPF clipper with a seeded general MLP root."""
+    from diffwdf_tpu_torch.models.diode_clipper import make_diode_clipper
+
+    if name == "distilled":
+        ckt = make_diode_clipper(distilled_root, FS, R_SRC, CAP)
+        return ckt, ckt.init_params(dev), 6.0
+    acts, widths = ROOT_LANE_MLPS[name]
+    rng = np.random.default_rng(len(name))
+    mlp = {"layers": [{"kernel": torch.from_numpy((rng.standard_normal((i, o)) / np.sqrt(i))
+                                                  .astype(np.float32)).to(dev),
+                       "bias": torch.from_numpy((0.3 * rng.standard_normal(o))
+                                                .astype(np.float32)).to(dev)}
+                      for i, o in zip(widths[:-1], widths[1:])]}
+    root, frag = NeuralDiodeRoot.from_mlp("dp", mlp, acts)
+    ckt = make_diode_clipper(root, FS)
+    return ckt, {**ckt.init_params(dev), **frag}, 1.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 37, 1024])
+@pytest.mark.parametrize("name", ["distilled", "relu", "sigmoid", "softmax"])
+def test_root_lane_forms_match_one_thread_kernel_and_plain(circuit_cuda, distilled_root, name,
+                                                           b):
+    """Every K of the sweep's build gives the one-thread kernel's bits, with
+    and without the trajectory, whichever lane of the group writes; the
+    wrapper takes the program's lane form (lanes_for) and lies within the
+    budget of plain: the distilled root 1e-5, the general MLP 2e-5."""
+    from diffwdf_tpu_torch.ops import circuit_codegen as cg
+
+    dev, fcirc = circuit_cuda
+    ckt, params, amp = _root_lane_case(name, dev, distilled_root)
+    t = 512
+    vin, state = _circuit_inputs(ckt, dev, b, t, amp, seed=b + len(name))
+    prep = fcirc.prepare(ckt, params, dev, input_node="Vs")
+    k = fcirc.lanes_for(prep.prog, b)
+    assert k > 1 and k in prep.prog.lanes
+    sweep = prep._replace(prog=cg.sweep_program(ckt, prep.prog))
+    z0 = fcirc._state_stack(prep.prog, state, vin)
+    for with_seq in (False, True):
+        one = fcirc.launch(prep, vin, z0, with_seq, lanes=1)
+        for lanes in sweep.prog.lanes[1:]:
+            for writer in range(lanes):
+                got = fcirc.launch(sweep, vin, z0, with_seq, lanes=lanes, writer=writer)
+                torch.cuda.synchronize()
+                assert torch.equal(got[0], one[0]) and torch.equal(got[1], one[1]), (
+                    with_seq, lanes, writer)
+                if with_seq:
+                    assert torch.equal(got[2], one[2]), (lanes, writer)
+    fcirc.fused_circuit_process.lane_launches = 0
+    got, got_state, seq = fcirc.fused_circuit_process(ckt, params, vin, state, input_node="Vs",
+                                                      return_state_seq=True)
+    want, want_state, want_seq = fcirc.fused_circuit_process_plain(
+        ckt, params, vin, state, input_node="Vs", return_state_seq=True)
+    torch.cuda.synchronize()
+    assert fcirc.fused_circuit_process.lane_launches == 1
+    assert torch.equal(got, one[0]) and torch.equal(seq[0], one[2][0])
+    budget = 1e-5 if name == "distilled" else 2e-5
+    _close(got, want, budget)
+    _close(got_state["C"]["z"], want_state["C"]["z"], budget)
+    _close(seq[0], want_seq[0], budget)
+
+
+@pytest.mark.gpu
+def test_distilled_training_form_lanes_with_a_per_sample_r(circuit_cuda, distilled_root):
+    """The training clipper with a per-sample source R (time slots) on the
+    distilled root: the lane form's trajectory is the one-thread kernel's,
+    and within 1e-5 of plain."""
+    dev, fcirc = circuit_cuda
+    ckt = make_training_clipper(distilled_root, FS)
+    params = ckt.init_params(dev)
+    b, t = 37, 300
+    vin, state = _circuit_inputs(ckt, dev, b, t, 6.0, seed=41)
+    walk = np.cumsum(0.02 * np.random.default_rng(5).standard_normal((b, t)), axis=1)
+    rows = {"Vs": {"R": torch.from_numpy(np.exp(np.log(45e3) + walk).astype(np.float32))
+                   .to(dev)}}
+    kw = dict(input_node="Vs", row_controls=rows, return_state_seq=True)
+    prep = fcirc.prepare(ckt, params, dev, input_node="Vs", row_controls=rows, shape=(b, t))
+    assert prep.prog.lanes == (1, 4) and prep.prog.emitter.r_kind == "time"
+    z0 = fcirc._state_stack(prep.prog, state, vin)
+    one = fcirc.launch(prep, vin, z0, True, lanes=1)
+    got, _, seq = fcirc.fused_circuit_process(ckt, params, vin, state, **kw)
+    want, _, want_seq = fcirc.fused_circuit_process_plain(ckt, params, vin, state, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, one[0]) and torch.equal(seq[0], one[2][0])
+    _close(got, want, 1e-5)
+    _close(seq[0], want_seq[0], 1e-5)
+
+
+@pytest.mark.gpu
+def test_root_lane_forms_refuse_lanes_they_lack(circuit_cuda, distilled_root):
+    """A lanes value the program lacks raises before any launch, and a
+    writer outside the group is refused by the kernel's launch function:
+    nothing runs or counts in their place."""
+    dev, fcirc = circuit_cuda
+    for name in ("distilled", "relu"):
+        ckt, params, amp = _root_lane_case(name, dev, distilled_root)
+        vin, state = _circuit_inputs(ckt, dev, 8, 64, amp, seed=9)
+        prep = fcirc.prepare(ckt, params, dev, input_node="Vs")
+        z = fcirc._state_stack(prep.prog, state, vin)
+        lacking = 8 if name == "distilled" else 4
+        assert lacking not in prep.prog.lanes
+        with pytest.raises(ValueError, match="lanes"):
+            fcirc.launch(prep, vin, z, lanes=lacking)
+        k = prep.prog.lanes[-1]
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            fcirc.launch(prep, vin, z, lanes=k, writer=k)
+    torch.cuda.synchronize()
+    assert fcirc.fused_circuit_process.launches == 0
