@@ -24,6 +24,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from ..runtime.profiler import h2d
+
 Device = Any  # torch.device or a string such as "cpu" / "cuda"
 
 
@@ -40,7 +42,9 @@ def current(waves: Dict[str, Tuple[Any, Any]], coeffs: Dict[str, Any], name: str
 
 
 def _scalar(value: float, device: Device) -> torch.Tensor:
-    return torch.tensor(value, dtype=torch.float32, device=device)
+    """``value`` as an f32 0-d tensor on ``device``: on a card, a copy of a
+    host value (``runtime.profiler.h2d``)."""
+    return h2d(torch.tensor(value, dtype=torch.float32), device)
 
 
 class Symbolic:

@@ -36,6 +36,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..runtime.profiler import h2d
 from .elements import WDFNode
 
 
@@ -221,7 +222,7 @@ class RTypeAdaptor(WDFNode):
             # on the children's device, so serving on a card copies S once
             device = torch.as_tensor(child_rs[0]).device
             if device not in self._static_on:
-                self._static_on[device] = tuple(torch.as_tensor(x).to(device)
+                self._static_on[device] = tuple(h2d(x, device, None)
                                                 for x in self.static_s)
             S, ra = self._static_on[device]
         else:

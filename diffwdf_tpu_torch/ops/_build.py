@@ -40,6 +40,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..runtime.profiler import count
+
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 
@@ -266,9 +268,11 @@ _generated_libs: dict = {}
 
 
 def generated_library(source: str) -> ctypes.CDLL:
-    """The loaded library of a generated source, built first if needed."""
+    """The loaded library of a generated source, built first if needed.  A
+    miss counts one in ``runtime.profiler``'s ``libraries_loaded``."""
     lib = _generated_libs.get(source)
     if lib is None:
+        count("libraries_loaded")
         lib = ctypes.CDLL(str(build_generated([source])[0]))
         for name, (argtypes, restype) in _GENERATED_SIGNATURES.items():
             if not hasattr(lib, name):

@@ -122,6 +122,7 @@ from ..core.rtype import RTypeAdaptor
 from ..roots.diode import DiodePairRoot
 from ..roots.distilled import PiecewiseChebRoot, cheb_eval
 from ..roots.neural import NeuralDiodeRoot
+from ..runtime.profiler import count, h2d
 from .fused_clipper import (
     LANE_TARGETS,
     LANES,
@@ -735,13 +736,13 @@ class _NeuralEmitter(_RootEmitter):
     def array(self, r_up, params, device):
         W1, b1, hidden, w3, b3 = self._layers()
         if self.r_kind == "scalar":
-            log_r = torch.log(torch.as_tensor(r_up).detach().double()).float().to(W1.device)
+            log_r = h2d(torch.log(torch.as_tensor(r_up).detach().double()).float(), W1.device)
             parts = [W1[0], W1[1] * log_r + b1, w3, b3]
         else:
             parts = [W1[0], W1[1], b1, w3, b3]
         parts.append(torch.zeros(self._hidden - self._head - self.H - 1, device=W1.device))
         parts += [x.reshape(-1) for layer in hidden for x in layer]
-        return torch.cat([p.detach().to(device, torch.float32) for p in parts])
+        return torch.cat([h2d(p, device) for p in parts])
 
     def prologue(self, slots):
         if self.r_kind != "row":
@@ -1026,7 +1027,7 @@ class _DenseEmitter(_RootEmitter):
         parts = []
         for layer in self.layers:
             for x in layer:
-                x = x.reshape(-1).to(device, torch.float32)
+                x = h2d(x.reshape(-1), device)
                 parts += [x, x.new_zeros(_pad4(x.numel()) - x.numel())]
         return torch.cat(parts)
 
@@ -1200,18 +1201,19 @@ class CircuitProgram:
 
     def arguments(self, circuit: Circuit, coeffs, params, static_controls, device):
         """(coefficient vector (NC,), row slots (NR, B), time slots
-        (NQ, B, T)) as f32 on ``device``; empty where there are none."""
+        (NQ, B, T)) as f32 on ``device``; empty where there are none.  A
+        value held on the host is copied through ``runtime.profiler.h2d``."""
         vec, rows, times = [], [], []
         for (_, kind), (_, v) in zip(self.layout,
                                      _leaves(_bundle(circuit, coeffs, params, static_controls))):
-            t = torch.as_tensor(v).detach().to(device, torch.float32)
+            t = h2d(v, device)
             if kind == ROW:
                 rows.append(t)
             elif kind == TIME:
                 times.append(t)
             else:
                 vec.append(t.reshape(-1))
-        slots = [torch.as_tensor(s).detach().to(device, torch.float32)
+        slots = [h2d(s, device)
                  for s in self.emitter.slots(coeffs[circuit.tree.name]["R"], params)]
         if self.emitter.r_kind == "row":
             rows += slots
@@ -2941,7 +2943,9 @@ def program(circuit: Circuit, coeffs, params, static_controls, input_node: str,
     circuit object, the input node, the slot layout (the kinds and shapes of
     ``coeffs``, ``params`` and ``static_controls``; (batch,) and
     (batch, time) leaves are row and time slots when ``batch`` > 0) and the
-    root's kind and shape."""
+    root's kind and shape.  A miss, which generates the program, counts one
+    in ``runtime.profiler``'s ``programs_generated``, as do those of
+    :func:`adjoint_program` and :func:`deer_program`."""
     layout = _layout(circuit, coeffs, params, static_controls, batch, time)
     r_kind = {ROW: "row", TIME: "time"}.get(dict(layout)[("coeffs", circuit.tree.name, "R")],
                                             "scalar")
@@ -2950,6 +2954,7 @@ def program(circuit: Circuit, coeffs, params, static_controls, input_node: str,
     key = (input_node, layout, emitter.key())
     prog = per_circuit.get(key)
     if prog is None:
+        count("programs_generated")
         prog = per_circuit[key] = generate(circuit, layout, input_node, emitter)
     return dataclasses.replace(prog, emitter=emitter)
 
@@ -2975,6 +2980,7 @@ def adjoint_program(circuit: Circuit, prog: CircuitProgram) -> AdjointProgram:
     per_circuit = _adjoints.setdefault(circuit, {})
     adj = per_circuit.get(prog.source)
     if adj is None:
+        count("programs_generated")
         adj = per_circuit[prog.source] = generate_adjoint(circuit, prog)
     return adj
 
@@ -2984,5 +2990,6 @@ def deer_program(circuit: Circuit, prog: CircuitProgram) -> DeerProgram:
     per_circuit = _deers.setdefault(circuit, {})
     deer = per_circuit.get(prog.source)
     if deer is None:
+        count("programs_generated")
         deer = per_circuit[prog.source] = generate_deer(circuit, prog)
     return deer

@@ -31,7 +31,10 @@ data and C is frozen (the reference freezes both, ``clipper_pot.py``).
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches its kernel from ``csrc/clipper_train.cu`` or raises.  Each wrapper
-counts its launches in ``<wrapper>.launches``.
+counts its launches in ``<wrapper>.launches``.  Spans (``runtime.profiler``,
+while a profiler records): ``wdf.bptt`` around the op's backward, with
+``wdf.launch.B4.pass1`` and ``wdf.launch.B4.pass2`` (the adjoint's two
+launches) and ``wdf.param_pass`` (``mlp_param_vjp``) inside.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..roots.neural import MLPParams, mlp_apply
+from ..runtime.profiler import span
 from . import _build
 from .fused_clipper import (
     _nxh_layers,
@@ -126,13 +130,15 @@ def launch_adjoint(a_seq, g_out, g_zf, r_rows, mlp_params: MLPParams, cap, *, fs
         g_vin, G, g_z0 = torch.empty_like(a_seq), torch.empty_like(a_seq), torch.empty_like(g_zf)
         scratch = torch.empty(adjoint_scratch_floats(B, T), device=a_seq.device)
         stream = torch.cuda.current_stream(a_seq.device).cuda_stream
-        err = lib.clipper_tangent_launch(a_seq.data_ptr(), g_out.data_ptr(), log_r.data_ptr(),
-                                         scratch.data_ptr(), B, T, weights.data_ptr(), H, L,
-                                         stream)
+        with span("wdf.launch.B4.pass1"):
+            err = lib.clipper_tangent_launch(a_seq.data_ptr(), g_out.data_ptr(),
+                                             log_r.data_ptr(), scratch.data_ptr(), B, T,
+                                             weights.data_ptr(), H, L, stream)
         _build.check(err, "clipper_adjoint launch (pass 1)")
-        err = lib.clipper_recursion_launch(scratch.data_ptr(), g_zf.data_ptr(), p1r.data_ptr(),
-                                           g_vin.data_ptr(), G.data_ptr(), g_z0.data_ptr(), B,
-                                           T, stream)
+        with span("wdf.launch.B4.pass2"):
+            err = lib.clipper_recursion_launch(scratch.data_ptr(), g_zf.data_ptr(),
+                                               p1r.data_ptr(), g_vin.data_ptr(), G.data_ptr(),
+                                               g_z0.data_ptr(), B, T, stream)
     _build.check(err, "clipper_adjoint launch (pass 2)")
     return g_vin, G, g_z0
 
@@ -190,6 +196,7 @@ def mlp_tree(leaves) -> MLPParams:
     return {"layers": [{"kernel": k, "bias": b} for k, b in zip(leaves[::2], leaves[1::2])]}
 
 
+@span("wdf.param_pass")
 def mlp_param_vjp(mlp_params: MLPParams, activations: Sequence[str], a_seq, log_r, G):
     """Cotangents of the MLP parameters: the VJP of y = MLP([a_seq, log_r])
     over every (b, t) with dL/dy = -G.  Returns a list in the order kernel0,
@@ -216,6 +223,7 @@ class _FusedClipperTrain(torch.autograd.Function):
 
     @staticmethod
     @once_differentiable
+    @span("wdf.bptt")
     def backward(ctx, g_out, g_zf):
         a_seq, r_rows, *leaves = ctx.saved_tensors
         if g_out is None:

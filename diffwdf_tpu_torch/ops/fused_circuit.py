@@ -23,7 +23,12 @@ tensors it launches the generated kernel or raises.  Kernel launches are
 counted in ``fused_circuit_process.launches`` (the ``_neural`` entry
 launches through it); those of a lane form (K > 1) also in
 ``fused_circuit_process.lane_launches``, and of the diode pair's (K = 2) in
-``fused_circuit_process.pair_launches``.
+``fused_circuit_process.pair_launches``.  Spans (``runtime.profiler``, while a
+profiler records): ``wdf.call`` around each call of a wrapper, ``wdf.prepare``
+around :func:`prepare` with ``wdf.adapt``, ``wdf.codegen`` (the program's
+lookup, and its generation on a miss) and ``wdf.slots`` (the slot values and
+the root array, each copy of a host value in a ``wdf.h2d``) inside, and
+``wdf.launch.B7`` around the kernel's launch.
 
 Impedance-affecting controls are block-rate (``static_controls``), per row
 or per sample (``row_controls``, {node: {field: (B,) | (B, T)}}: the
@@ -40,6 +45,7 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
+from ..runtime.profiler import span
 from . import _build
 from .circuit_codegen import LANE_TARGETS, CircuitProgram, program, step
 
@@ -93,10 +99,14 @@ def prepare(circuit, params, device, *, input_node: str = "Vin",
         if shape is None:
             raise ValueError("prepare: row_controls need the call's shape (B, T)")
         batch, time = shape
-    coeffs = circuit.adapt(params, _merge_controls(static, row_controls))
-    prog = program(circuit, coeffs, params, static, input_node, neural_mlp, batch, time)
-    vec, rows, times = prog.arguments(circuit, coeffs, params, static, device)
-    warr = prog.emitter.array(coeffs[circuit.tree.name]["R"], params, device)
+    with span("wdf.prepare"):
+        with span("wdf.adapt"):
+            coeffs = circuit.adapt(params, _merge_controls(static, row_controls))
+        with span("wdf.codegen"):
+            prog = program(circuit, coeffs, params, static, input_node, neural_mlp, batch, time)
+        with span("wdf.slots"):
+            vec, rows, times = prog.arguments(circuit, coeffs, params, static, device)
+            warr = prog.emitter.array(coeffs[circuit.tree.name]["R"], params, device)
     return Prepared(prog, vec, warr, rows, times)
 
 
@@ -211,13 +221,14 @@ def launch_source(source: str, vin, z0, vec, rows, times, warr, with_seq: bool =
         out, zf = torch.empty_like(vin), torch.empty_like(z0)
         seq = torch.empty((z0.shape[0], B, T), device=vin.device) if with_seq else None
         w = warr if warr is not None else dummy
-        err = lib.circuit_launch(
-            vin.data_ptr(), z0.data_ptr(), out.data_ptr(), zf.data_ptr(),
-            seq.data_ptr() if seq is not None and seq.numel() else None, B, T,
-            vec.data_ptr(), (rows if rows.numel() else dummy).data_ptr(),
-            (times if times.numel() else dummy).data_ptr(), w.data_ptr(),
-            0 if warr is None else warr.numel(), lanes, writer,
-            torch.cuda.current_stream(vin.device).cuda_stream)
+        with span("wdf.launch.B7"):
+            err = lib.circuit_launch(
+                vin.data_ptr(), z0.data_ptr(), out.data_ptr(), zf.data_ptr(),
+                seq.data_ptr() if seq is not None and seq.numel() else None, B, T,
+                vec.data_ptr(), (rows if rows.numel() else dummy).data_ptr(),
+                (times if times.numel() else dummy).data_ptr(), w.data_ptr(),
+                0 if warr is None else warr.numel(), lanes, writer,
+                torch.cuda.current_stream(vin.device).cuda_stream)
     _build.check(err, "fused_circuit_process launch", lib.circuit_error_string)
     fused_circuit_process.launches += 1
     if lanes > 1:
@@ -244,6 +255,7 @@ def omega_forms(x: torch.Tensor, iters: int):
     return w_omega, w_select
 
 
+@span("wdf.call")
 def _run(circuit, params, vin, state0, input_node, static_controls, row_controls, neural_mlp,
          want_seq):
     """The plain version for CPU tensors, the generated kernel for CUDA ones."""

@@ -28,7 +28,10 @@ time, vectorised over B); given CUDA tensors it launches its kernel from
 ``csrc/fused_clipper.cu`` (``csrc/clipper_train.cu`` for the training
 forward, ``csrc/cheb.cu`` for the distilled root) or raises.  Each wrapper
 counts its kernel launches in the plain integer ``<wrapper>.launches``.  The plain versions
-run on any device and are what the kernels are held against.
+run on any device and are what the kernels are held against.  Spans
+(``runtime.profiler``, while a profiler records): ``wdf.call`` around each call
+of ``fused_clipper_neural``, ``wdf.launch.B1`` and ``wdf.launch.B3`` around the
+launches of the serving and the training forward kernels.
 
 Constants (p1R, the diode-pair logs and reciprocals, log R; per row for
 training) are computed once in double precision and rounded to f32, so
@@ -47,6 +50,7 @@ import torch
 from ..roots.distilled import cheb_eval
 from ..roots.neural import MLPParams
 from ..roots.omega import wright_omega
+from ..runtime.profiler import h2d, span
 from . import _build
 
 #: hidden widths the neural kernel is compiled for (the pretrained zoo's)
@@ -346,14 +350,16 @@ def launch_neural(vin, z0, mlp_params: MLPParams, r_source, cap, *, fs: float,
         vin, z0, out, zf, stream = _launch_args(vin, z0)
         args = (vin.data_ptr(), z0.data_ptr(), out.data_ptr(), zf.data_ptr(), B, T,
                 weights.data_ptr(), H, L, p1R)
-        if lanes == 1:
-            err = lib.fused_clipper_neural_onethread_launch(*args, stream)
-        else:
-            err = lib.fused_clipper_neural_launch(*args, lanes, stream)
+        with span("wdf.launch.B1"):
+            if lanes == 1:
+                err = lib.fused_clipper_neural_onethread_launch(*args, stream)
+            else:
+                err = lib.fused_clipper_neural_launch(*args, lanes, stream)
     _build.check(err, "fused_clipper_neural launch")
     return out, zf
 
 
+@span("wdf.call")
 def fused_clipper_neural(vin, z0, mlp_params: MLPParams, r_source, cap, *, fs: float):
     """Fused LPF diode clipper with an NxH neural root (all-tanh, linear head).
 
@@ -454,10 +460,11 @@ def launch_train_fwd(vin, z0, mlp_params: MLPParams, r_rows, cap, *, fs: float,
         a_seq = torch.empty_like(vin)
         args = (vin.data_ptr(), z0.data_ptr(), p1r.data_ptr(), log_r.data_ptr(), out.data_ptr(),
                 a_seq.data_ptr(), zf.data_ptr(), B, T, weights.data_ptr(), H, L)
-        if lanes == 1:
-            err = lib.clipper_train_fwd_onethread_launch(*args, stream)
-        else:
-            err = lib.clipper_train_fwd_launch(*args, lanes, writer, stream)
+        with span("wdf.launch.B3"):
+            if lanes == 1:
+                err = lib.clipper_train_fwd_onethread_launch(*args, stream)
+            else:
+                err = lib.clipper_train_fwd_launch(*args, lanes, writer, stream)
     _build.check(err, "fused_clipper_neural_train_fwd launch")
     return out, zf, a_seq
 
@@ -541,7 +548,7 @@ def cheb_arguments(root, device) -> Tuple[torch.Tensor, int]:
     device = torch.device(device)
     if device not in per_root:
         params, degree = cheb_parameters(root)
-        per_root[device] = (torch.from_numpy(params).to(device), degree)
+        per_root[device] = (h2d(torch.from_numpy(params), device, None), degree)
     return per_root[device]
 
 

@@ -42,6 +42,10 @@ a reverse loop over t that pulls the VJP of one plain step by autograd at
 z_{t-1}: an oracle independent of the kernel's forward-mode pulls.  Calls
 of B8 are counted in ``fused_backward.launches``: one call is two kernel
 launches (pass 1 and pass 2) per time chunk, one chunk up to the scratch cap.
+Spans (``runtime.profiler``, while a profiler records): ``wdf.bptt`` around the
+op's backward, with B8's ``wdf.prepare`` (``fused_circuit.prepare``),
+``wdf.launch.B8.pass1`` and ``wdf.launch.B8.pass2`` (each time chunk's two
+launches) and ``wdf.param_pass`` (:func:`parameter_cotangents`) inside.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..roots.neural import NeuralDiodeRoot
+from ..runtime.profiler import span
 from . import _build
 from .circuit_codegen import adjoint_program, state_order
 from .fused_circuit import (
@@ -201,14 +206,17 @@ def launch_adjoint(circuit, prep, vin, g_out, zseq, lam_t):
         lam_in = lam_t if S else dummy
         for t0 in range(((T - 1) // tc) * tc, -1, -tc):
             n = min(tc, T - t0)
-            err = lib.circuit_jacobian_launch(
-                vin.data_ptr(), g_out.data_ptr(), z_ptr, jac.data_ptr(), B, T, t0, n,
-                prep.vec.data_ptr(), rows.data_ptr(), times.data_ptr(), w.data_ptr(),
-                0 if prep.warr is None else prep.warr.numel(), stream)
+            with span("wdf.launch.B8.pass1"):
+                err = lib.circuit_jacobian_launch(
+                    vin.data_ptr(), g_out.data_ptr(), z_ptr, jac.data_ptr(), B, T, t0, n,
+                    prep.vec.data_ptr(), rows.data_ptr(), times.data_ptr(), w.data_ptr(),
+                    0 if prep.warr is None else prep.warr.numel(), stream)
             _build.check(err, "fused_backward launch (pass 1)", lib.circuit_error_string)
-            err = lib.circuit_recursion_launch(
-                jac.data_ptr(), lam_in.data_ptr(), (g_z0 if S else dummy).data_ptr(),
-                (lam_seq if S else dummy).data_ptr(), g_vin.data_ptr(), B, T, t0, n, stream)
+            with span("wdf.launch.B8.pass2"):
+                err = lib.circuit_recursion_launch(
+                    jac.data_ptr(), lam_in.data_ptr(), (g_z0 if S else dummy).data_ptr(),
+                    (lam_seq if S else dummy).data_ptr(), g_vin.data_ptr(), B, T, t0, n,
+                    stream)
             _build.check(err, "fused_backward launch (pass 2)", lib.circuit_error_string)
             lam_in = g_z0 if S else dummy
     fused_backward.launches += 1
@@ -244,6 +252,7 @@ def launch_adjoint_onepass(circuit, prep, vin, g_out, zseq, lam_t):
 fused_backward.launches = 0
 
 
+@span("wdf.param_pass")
 def parameter_cotangents(circuit, params, vin, z_prev, g_out, lam_step, *,
                          input_node: str = "Vs", static_controls: Controls = None,
                          row_controls: Controls = None) -> List[Optional[torch.Tensor]]:
@@ -356,6 +365,7 @@ def make_fused_circuit_train_generic(
             return (out, *zf)
 
         @staticmethod
+        @span("wdf.bptt")
         def backward(ctx, g_out, *g_zf):
             vin, *rest = ctx.saved_tensors
             n_row = ctx.n_row

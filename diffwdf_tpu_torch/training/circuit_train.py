@@ -42,6 +42,7 @@ import torch
 
 from ..core.circuit import Circuit
 from ..core.elements import Device
+from ..runtime.profiler import span
 from .losses import esr, mse, pre_emphasis
 
 
@@ -275,18 +276,24 @@ def make_train_step(
     - ``eval_step(params, batches) -> metrics``, without gradients.
 
     Metrics are 0-d tensors {"loss", "mse", "esr"} of the params the step
-    started from.
+    started from.  While a profiler records, a step is a ``wdf.train_step``
+    span (``runtime.profiler``) holding ``wdf.loss``, ``wdf.backward`` and
+    ``wdf.adam``.
     """
     loss_fn = make_loss_fn(circuit, cfg)
 
     def make_optimizer(params):
         return make_adam(params, cfg, trainable_filter)
 
+    @span("wdf.train_step")
     def train_step(params, opt, batches):
         opt.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(params, batches)
-        loss.backward()
-        opt.step()
+        with span("wdf.loss"):
+            loss, aux = loss_fn(params, batches)
+        with span("wdf.backward"):
+            loss.backward()
+        with span("wdf.adam"):
+            opt.step()
         return {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
 
     @torch.no_grad()

@@ -1,0 +1,7 @@
+"""Copies of host values to the card a training step (``wdf.h2d`` spans)."""
+
+from wdfbench.spans import per_unit
+
+
+def read(ctx):
+    return per_unit(ctx, "wdf.h2d")
