@@ -1054,6 +1054,7 @@ def train_path(dev, card: str, seed: int) -> list:
         for k, (r, ss, sl) in new_ptxas.items()), flush=True)
     _check(len(new_ptxas) == 12 and all(ss == sl == 0 for _, ss, sl in new_ptxas.values()),
            f"no spills in the lane form and the two passes (8 + 3 + 1 kernels): {new_ptxas}")
+    param_record = _param_pass(dev, card, mlp, adj_args, got[1])
 
     # --- grad: the fused op against the scan engine ---------------------------
     ckt = make_training_clipper(root, TRAIN_FS, cap=TRAIN_CAP)
@@ -1146,7 +1147,7 @@ def train_path(dev, card: str, seed: int) -> list:
             logger.log(epoch, samples=n_train * CHUNK, **{k: v[-1] for k, v in hist.items() if v})
 
         counters = (fc.fused_clipper_neural_train_fwd, ct.clipper_adjoint,
-                    fc.fused_clipper_neural, fc.fused_clipper_analytic)
+                    fc.fused_clipper_neural, fc.fused_clipper_analytic, ct.mlp_param_vjp)
         for c in counters:
             c.launches = 0
         t0 = time.perf_counter()
@@ -1154,7 +1155,8 @@ def train_path(dev, card: str, seed: int) -> list:
                                       trainable_filter=lambda p: p["dp"], on_epoch=on_epoch)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        launches = {"train_fwd": counters[0].launches, "adjoint": counters[1].launches}
+        launches = {"train_fwd": counters[0].launches, "adjoint": counters[1].launches,
+                    "param_vjp": counters[4].launches}
         logger.close()
         epoch_ms = [(b - a) * 1e3 for a, b in zip([t0] + epoch_ends, epoch_ends)]
         losses = hist["loss"] + hist["val_loss"]
@@ -1163,10 +1165,12 @@ def train_path(dev, card: str, seed: int) -> list:
               f"loss={[round(v, 8) for v in hist['loss']]} "
               f"val_loss={[round(v, 8) for v in hist['val_loss']]} "
               f"launches train_fwd={launches['train_fwd']} adjoint={launches['adjoint']} "
+              f"param_vjp={launches['param_vjp']} "
               f"serve_kernels={counters[2].launches + counters[3].launches}", flush=True)
         _check(bool(torch.isfinite(torch.tensor(losses)).all()), "every loss finite")
         _check(hist["loss"][-1] < hist["loss"][0], "train loss falls")
-        _check(launches["train_fwd"] >= 2 * EPOCHS and launches["adjoint"] == EPOCHS,
+        _check(launches["train_fwd"] >= 2 * EPOCHS
+               and launches["adjoint"] == launches["param_vjp"] == EPOCHS,
                "training kernels launched on the main path (train + validation)")
 
         # the trained root back to serving: JSON out and in, then kernel B1
@@ -1297,7 +1301,67 @@ def train_path(dev, card: str, seed: int) -> list:
              "replaces": TRAIN_REPLACES[name], "launches": launches[name],
              "max_abs_err": max_err[name], "ms": kernel_ms[label], "plain_ms": plain_ms[name],
              **dict(zip(("bound_ms", "bound_by"), bounds[name])), "library_ms": None}
-            for name, label in (("train_fwd", "B3"), ("adjoint", "B4"))]
+            for name, label in (("train_fwd", "B3"), ("adjoint", "B4"))] + [
+        {**param_record, "launches": launches["param_vjp"]}]
+
+
+#: operations a sample of the MLP parameters' cotangents, 2x16: the forward at
+#: a and its backward (wdfbench/work/clipper_2x16.json, torch stage param_vjp)
+PARAM_OPS = 3521
+#: the shapes pass 3 is timed at: the paper's training set and the benchmark's
+PARAM_SHAPES = ((TRAIN_CHUNKS, CHUNK), (8192, CHUNK))
+
+
+def _param_pass(dev, card: str, mlp, adj_args, G) -> dict:
+    """B4's pass 3 (``mlp_param_vjp`` on the card) at the training shape:
+    against autograd of the plain MLP (every leaf within 1e-4 of its largest
+    magnitude), the same bits on two calls, no spills; then timed beside its
+    bound and the plain path at PARAM_SHAPES (CUDA-event medians, 10 calls
+    a run for the kernel).  Returns its record for the JSON line."""
+    a_seq, _, _, r_rows, _, _ = adj_args
+    acts = ("tanh",) * 3 + ("",)
+    _, log_r = fc.row_constants(r_rows, TRAIN_CAP, TRAIN_FS)
+    got = ct.mlp_param_vjp(mlp, acts, a_seq, log_r, G)
+    again = ct.mlp_param_vjp(mlp, acts, a_seq, log_r, G)
+    want = ct.mlp_param_vjp_plain(mlp, acts, a_seq, log_r, G)
+    torch.cuda.synchronize()
+    scaled = [_scaled_err(g, w) for g, w in zip(got, want)]
+    same = all(torch.equal(g, h) for g, h in zip(got, again))
+    print(f"phase kernels param_vjp 2x16 pretrained shape={tuple(a_seq.shape)} scaled_err="
+          f"{[float(f'{e:.2e}') for e in scaled]} budget=1e-04 same_bits_twice={same}",
+          flush=True)
+    _check(max(scaled) <= 1e-4 and same, "pass 3 within 1e-4 (scaled) of plain, the same bits")
+    ptxas = _ptxas_kernels("", _build.library_path().with_suffix(".log"),
+                           r"\d+(param_\w+?_kernel)")
+    ptxas = {k: v for k, v in ptxas.items() if k.startswith("param_")}
+    print("phase kernels ptxas param_vjp " + " | ".join(
+        f"{k}: {r} registers, {ss}/{sl} bytes spilled" for k, (r, ss, sl) in ptxas.items()),
+        flush=True)
+    _check(len(ptxas) == 4 and all(ss == sl == 0 for _, ss, sl in ptxas.values()),
+           f"no spills in pass 3 (3 widths + the sum): {ptxas}")
+    times = {}
+    for b, t in PARAM_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(b)
+        a = 2.0 * torch.rand(b, t, generator=gen, device=dev) - 1.0
+        g = torch.randn(b, t, generator=gen, device=dev) / (b * t)
+        lr = log_r[torch.arange(b, device=dev) % len(log_r)]
+        args = (mlp, acts, a, lr, g)
+        kern = lambda: ct.mlp_param_vjp(*args)
+        _cuda_ms(kern, 1, 2)
+        k = _cuda_ms(kern, REPS, 10)
+        plain = _timed(lambda: ct.mlp_param_vjp_plain(*args))[0]
+        bound = _bound(PARAM_OPS * b * t, 8 * b * t + 4 * b)
+        times[b] = (statistics.median(k), plain, bound)
+        print(f"phase timing param_vjp 2x16 shape=({b}, {t}) runs={REPS} "
+              f"kernel_ms={statistics.median(k):.4f} [{min(k):.4f}, {max(k):.4f}] "
+              f"plain_ms={plain:.4f} bound_ms={bound[0]:.6f} ({bound[1]}) "
+              f"share={bound[0] / statistics.median(k):.4f} card={card!r}", flush=True)
+    ms, plain, bound = times[TRAIN_CHUNKS]
+    return {"name": "mlp_param_vjp", "route": "cuda", "source": TRAIN_SOURCE,
+            "replaces": "none (the JAX package leaves it to XLA: "
+                        "diffwdf_tpu/ops/clipper_train.py:272-282)",
+            "max_abs_err": max(_max_err(g, w) for g, w in zip(got, want)), "ms": ms,
+            "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
 
 
 #: the ptxas entries of the clipper's redesigned training kernels
@@ -2222,7 +2286,8 @@ def _old_kernels(active: bool):
     their redesign: B7 one thread per stream (lanes = 1: the NxH roots' and
     the diode pair's lane forms off; the one-thread step solves the pair
     with omega_pair, whose bits are omega()'s, the kernels circuit phase
-    checks), B3 and B1 one thread per stream, B8 and B4 the one-pass kernel,
+    checks), B3 and B1 one thread per stream, B8 and B4 the one-pass kernel
+    (and the clipper's parameter pass, B4's pass 3, autograd of the MLP),
     B2 the two omega solves one after the other, B6 one thread per stream
     (``cheb_kernel<D>``), B5 and B9 the one-CTA kernels (with omega()'s
     zero-residual skip, which their earlier builds did not take).  For the
@@ -2231,8 +2296,10 @@ def _old_kernels(active: bool):
         yield
         return
     saved = (fcirc.lanes_for, pb.launch_adjoint, fc.nxh_lanes, ct.launch_adjoint,
-             fc.launch_analytic, fc.launch_cheb)
+             fc.launch_analytic, fc.launch_cheb, ct.launch_param_vjp)
     fcirc.lanes_for = lambda prog, b: 1
+    ct.launch_param_vjp = lambda mlp, a, lr, g: ct.mlp_param_vjp_plain(
+        mlp, ("tanh",) * (len(mlp["layers"]) - 1) + ("",), a, lr, g)
     pb.launch_adjoint = pb.launch_adjoint_onepass
     fc.nxh_lanes = lambda h, b: 1
     ct.launch_adjoint = ct.launch_adjoint_onepass
@@ -2243,7 +2310,7 @@ def _old_kernels(active: bool):
             yield
     finally:
         (fcirc.lanes_for, pb.launch_adjoint, fc.nxh_lanes, ct.launch_adjoint,
-         fc.launch_analytic, fc.launch_cheb) = saved
+         fc.launch_analytic, fc.launch_cheb, ct.launch_param_vjp) = saved
 
 
 def _scratch_bytes(adj, B: int, T: int) -> str:

@@ -71,6 +71,8 @@ _SIGNATURES = {
     "clipper_recursion_launch": ([_vp] * 6 + [_i, _i, _vp], ctypes.c_int),
     "clipper_adjoint_onepass_launch": (
         [_vp] * 8 + [_i, _i, _vp, _i, _i, _vp], ctypes.c_int),
+    "clipper_param_ctas": ([_i, _i, _vp], ctypes.c_int),
+    "clipper_param_launch": ([_vp] * 4 + [_i, _vp, _i, _i, _vp, _i, _i, _vp], ctypes.c_int),
     "deer_clipper_launch": (
         [_vp] * 6 + [_i] + [_f] * 8 + [_i] * 3 + [_vp], ctypes.c_int),
     "deer_clipper_max_clusters": ([], ctypes.c_int),

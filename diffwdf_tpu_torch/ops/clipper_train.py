@@ -22,9 +22,12 @@ cotangent ``g_vin = p (1 - m) G``, the stream
 ``G_t = lam_{t+1} + 0.5 go_t`` (the total cotangent of s_{t+1}) and
 ``g_z0 = lam_0``; the only residual the forward stores is a_t.  The MLP
 parameters' cotangent is one batched VJP with dL/dy = -G over every (b, t)
-(``mlp_param_vjp``): PyTorch ops, as the JAX package leaves it to XLA.
+(``mlp_param_vjp``): on the card the adjoint's third pass, one kernel after
+pass 2 (G comes from pass 2's recursion) whose blocks each sum a share of
+the samples' outer products and a second launch that adds the blocks'
+partials in order; the JAX package leaves this VJP to XLA.
 
-``make_fused_clipper_train`` wraps the two kernels in a
+``make_fused_clipper_train`` wraps the kernels in a
 ``torch.autograd.Function``.  r_rows (measured pot data) and cap get no
 cotangent BY DESIGN: this engine serves the measured-data regime where R is
 data and C is frozen (the reference freezes both, ``clipper_pot.py``).
@@ -34,11 +37,14 @@ launches its kernel from ``csrc/clipper_train.cu`` or raises.  Each wrapper
 counts its launches in ``<wrapper>.launches``.  Spans (``runtime.profiler``,
 while a profiler records): ``wdf.bptt`` around the op's backward, with
 ``wdf.launch.B4.pass1`` and ``wdf.launch.B4.pass2`` (the adjoint's two
-launches) and ``wdf.param_pass`` (``mlp_param_vjp``) inside.
+launches) and ``wdf.param_pass`` (``mlp_param_vjp``, with
+``wdf.launch.B4.pass3`` around its launch) inside.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -196,16 +202,91 @@ def mlp_tree(leaves) -> MLPParams:
     return {"layers": [{"kernel": k, "bias": b} for k, b in zip(leaves[::2], leaves[1::2])]}
 
 
-@span("wdf.param_pass")
-def mlp_param_vjp(mlp_params: MLPParams, activations: Sequence[str], a_seq, log_r, G):
-    """Cotangents of the MLP parameters: the VJP of y = MLP([a_seq, log_r])
-    over every (b, t) with dL/dy = -G.  Returns a list in the order kernel0,
-    bias0, kernel1, bias1, ..."""
+def mlp_param_vjp_plain(mlp_params: MLPParams, activations: Sequence[str], a_seq, log_r, G):
+    """Plain PyTorch version of :func:`mlp_param_vjp`: autograd of the MLP
+    over every (b, t) at once."""
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_(True) for x in mlp_leaves(mlp_params)]
         x = torch.stack([a_seq, log_r[:, None].expand_as(a_seq)], dim=-1)
         y = mlp_apply(mlp_tree(leaves), activations, x)[..., 0]
         return list(torch.autograd.grad(y, leaves, grad_outputs=-G))
+
+
+@functools.lru_cache(maxsize=None)
+def _param_ctas(device_index: int, H: int, L: int) -> int:
+    """The blocks pass 3 runs at most for (H, L) on a card: as many as it
+    holds resident at once (``clipper_param_ctas``)."""
+    ctas = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _build.library().clipper_param_ctas(H, L, ctypes.byref(ctas))
+    _build.check(err, "mlp_param_vjp (pass 3's blocks)")
+    return ctas.value
+
+
+def launch_param_vjp(mlp_params: MLPParams, a_seq, log_r, G):
+    """B4's pass 3 on CUDA tensors (arguments and result as
+    :func:`mlp_param_vjp`, B, T > 0): ``clipper_param_launch``, the
+    kernel's blocks each writing one partial of the cotangents into a scratch
+    this function allocates, then their sum in block order.  Counts
+    nothing."""
+    H, L, weights = train_weights(mlp_params, a_seq.device)
+    B, T = a_seq.shape
+    lib = _build.library()
+    with torch.cuda.device(a_seq.device):
+        ctas = _param_ctas(a_seq.device.index, H, L)
+        leaves = mlp_leaves(mlp_params)
+        a_seq, G, log_r = a_seq.contiguous(), G.contiguous(), log_r.contiguous()
+        out = torch.empty(sum(x.numel() for x in leaves), device=a_seq.device)
+        partials = torch.empty(ctas * out.numel(), device=a_seq.device)
+        with span("wdf.launch.B4.pass3"):
+            err = lib.clipper_param_launch(a_seq.data_ptr(), G.data_ptr(), log_r.data_ptr(),
+                                           partials.data_ptr(), ctas, out.data_ptr(), B, T,
+                                           weights.data_ptr(), H, L,
+                                           torch.cuda.current_stream(a_seq.device).cuda_stream)
+    _build.check(err, "mlp_param_vjp launch (pass 3)")
+    return [g.view_as(x) for g, x in zip(out.split([x.numel() for x in leaves]), leaves)]
+
+
+def _check_nxh(activations, what: str) -> None:
+    """Raise unless ``activations`` are the NxH family's (all-tanh hidden
+    layers, linear head): the kernels hard-code tanh."""
+    acts = tuple(activations)
+    if not (all(a == "tanh" for a in acts[:-1]) and acts[-1] in ("", "linear")):
+        raise ValueError(f"{what} supports the all-tanh NxH family, got {acts}")
+
+
+def _check_param_io(activations, a_seq, log_r, G) -> None:
+    _check_nxh(activations, "mlp_param_vjp's kernel")
+    if a_seq.dim() != 2 or G.shape != a_seq.shape or log_r.shape != a_seq.shape[:1]:
+        raise ValueError(f"a_seq and G must be one (B, T) shape and log_r (B,), got "
+                         f"{tuple(a_seq.shape)}, {tuple(G.shape)} and {tuple(log_r.shape)}")
+    if any(x.dtype != torch.float32 for x in (a_seq, log_r, G)):
+        raise TypeError("a_seq, log_r and G must be float32")
+    if any(x.device != a_seq.device for x in (log_r, G)):
+        raise ValueError(f"all streams must lie on {a_seq.device}, like a_seq")
+
+
+@span("wdf.param_pass")
+def mlp_param_vjp(mlp_params: MLPParams, activations: Sequence[str], a_seq, log_r, G):
+    """Cotangents of the MLP parameters: the VJP of y = MLP([a_seq, log_r])
+    over every (b, t) with dL/dy = -G.  Returns a list in the order kernel0,
+    bias0, kernel1, bias1, ...  On the card one call is the adjoint's third
+    pass (:func:`launch_param_vjp`), counted once; it takes the all-tanh NxH
+    roots of the widths B4's pass 1 takes and raises on any other."""
+    if a_seq.device.type == "cpu":
+        return mlp_param_vjp_plain(mlp_params, activations, a_seq, log_r, G)
+    if a_seq.device.type != "cuda":
+        raise ValueError(f"unsupported device {a_seq.device}")
+    _check_param_io(activations, a_seq, log_r, G)
+    if a_seq.numel() == 0:
+        train_weights(mlp_params, a_seq.device)
+        return [torch.zeros_like(x) for x in mlp_leaves(mlp_params)]
+    result = launch_param_vjp(mlp_params, a_seq, log_r, G)
+    mlp_param_vjp.launches += 1
+    return result
+
+
+mlp_param_vjp.launches = 0
 
 
 class _FusedClipperTrain(torch.autograd.Function):
@@ -250,8 +331,7 @@ def make_fused_clipper_train(activations: Sequence[str], cap: float, fs: float):
     hard-code tanh.  The op is once-differentiable.
     """
     activations = tuple(activations)
-    if not (all(a == "tanh" for a in activations[:-1]) and activations[-1] in ("", "linear")):
-        raise ValueError(f"fused kernel supports the all-tanh NxH family, got {activations}")
+    _check_nxh(activations, "fused kernel")
     cap, fs = float(cap), float(fs)
 
     def f(vin, z0, mlp_params: MLPParams, r_rows):

@@ -1,11 +1,17 @@
 // In-circuit training of the LPF diode clipper for Hopper (sm_90a): the
-// training forward and its reverse-time adjoint.
+// training forward, its reverse-time adjoint and the MLP parameters'
+// cotangents.
 //
 // Replaces the Pallas TPU kernels
 //   train_fwd_lanes_kernel<H, K, L> <- diffwdf_tpu/ops/fused_clipper.py,
 //                                      fused_clipper_neural_train_fwd / _neural_train_kernel
 //   adjoint_tangent_kernel<H> and adjoint_recursion_kernel
 //                                   <- diffwdf_tpu/ops/clipper_train.py, _clipper_adjoint_pallas
+// and adds one that replaces no TPU kernel, the adjoint's third pass
+//   param_cotangent_kernel<H> and param_sum_kernel: the JAX package leaves
+//   this VJP to XLA (diffwdf_tpu/ops/clipper_train.py:272-282), and PyTorch's
+//   autograd of the same VJP wrote and read back each (B T, H) activation
+//   and cotangent several times in device memory.
 //
 // Forward recursion per stream (s = capacitor state, p = p1R of the row):
 //   b_temp_t = -p (s_t - v_t),  a_t = s_t + b_temp_t,  y_t = MLP([a_t, log R]),
@@ -21,9 +27,9 @@
 // from lam_T = g_zf, and the adjoint writes
 //   G_t = lam_{t+1} + go_t / 2        (total cotangent of s_{t+1}),
 //   g_vin_t = p (1 - m_t) G_t,
-// and g_z0 = lam_0.  The MLP parameters' cotangent (a batched VJP with
-// dL/dy = -G over every (b, t)) is left to PyTorch, as the JAX package
-// leaves it to XLA.  The per-sample arithmetic is clipper_train.cuh's.
+// and g_z0 = lam_0.  The MLP parameters' cotangent is a batched VJP with
+// dL/dy = -G over every (b, t): pass 3, after pass 2, since G comes from
+// pass 2's recursion.  The per-sample arithmetic is clipper_train.cuh's.
 //
 // Design.  Both recursions are sequential in time and independent across
 // streams.  Run as one thread per stream (the earlier forms, kept below),
@@ -38,6 +44,17 @@
 //     every (b, t) sample its own thread (the tangent; bound by the card's
 //     f32 rate), pass 2 walks the scalar recursion, ~10 operations a sample,
 //     on the pairs (m_t, go_t) that pass 1 stored.
+//   - Parameters (pass 3): bound by operations, 3,521 a sample for 2x16
+//     (the forward at a_t and its backward, wdfbench/work/clipper_2x16.json
+//     param_vjp); it reads 8 bytes a sample (a_t, G_t) and writes the 609
+//     cotangents.  Every sample gets its own thread for its forward and
+//     backward, in registers; the weight cotangents, sums of outer products
+//     over samples, are taken a tile of 128 samples at a time from shared
+//     memory as small products whose depth is the sample axis (4 x 4 blocks
+//     in registers).  Persistent blocks walk the tiles, so nothing per
+//     sample reaches device memory; each block writes one partial, and a
+//     second launch adds the partials in a fixed order (no atomics: the
+//     same bits on every call).  Float32 FMAs on the CUDA cores, no TF32.
 //
 // Numerics.  Exact f32 library calls only (tanhf, fmaf) and the trees'
 // roundings written out: no fast-math intrinsics.  The (B,) constants p and
@@ -356,6 +373,155 @@ adjoint_onepass_kernel(const float* __restrict__ a_seq, const float* __restrict_
   g_z0[b] = lam;
 }
 
+// ---------------------------------------------------------------------------
+// Pass 3 (B4): the MLP parameters' cotangents
+// ---------------------------------------------------------------------------
+
+constexpr int kParamThreads = 128;  // threads of a pass-3 block: the most samples of a tile
+
+// A tile's rows in shared memory, as rows of 16-byte words, one word a
+// sample (S samples and one word of padding a row): word c of slot r's row
+// vector (r = 0 .. 2L + 1: param_sample's h and d) is row r Q + c (Q = H /
+// 4); rows 2 (L + 1) Q and one more hold the per-sample vectors [a, log R,
+// 1, 0] and [dy, 0, 0, 0].  A thread writes its sample's words down a
+// column (its neighbours' words are the next ones: no bank conflict); a job
+// walks its two factors' rows along the samples, and the padding puts the
+// rows that a warp's threads read at once on different banks.
+template <int H>
+struct TileRows {
+  float4* tile;
+  int S, s;
+  __device__ __forceinline__ void put(int slot, const float (&v)[H]) {
+#pragma unroll
+    for (int c = 0; c < H / 4; ++c) {
+      tile[(slot * (H / 4) + c) * (S + 1) + s] =
+          make_float4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
+    }
+  }
+  __device__ __forceinline__ void get(int slot, float (&v)[H]) const {
+#pragma unroll
+    for (int c = 0; c < H / 4; ++c) {
+      const float4 x = tile[(slot * (H / 4) + c) * (S + 1) + s];
+      v[4 * c] = x.x;
+      v[4 * c + 1] = x.y;
+      v[4 * c + 2] = x.z;
+      v[4 * c + 3] = x.w;
+    }
+  }
+};
+
+// Slices of a tile's samples that a job's sums are split over: as many as
+// leave every thread of a block a job.
+__host__ __device__ __forceinline__ int param_slices(int jobs) {
+  return jobs < kParamThreads ? kParamThreads / jobs : 1;
+}
+
+// Shared memory of a pass-3 block with tiles of S samples, in 16-byte
+// words: the weights (lane_weight's copy), the tile's 2 (L + 1) Q + 2 rows
+// (TileRows), and the running sums, 20 floats a job and slice.
+template <int H>
+size_t param_smem(int L, int S) {
+  const int jobs = n_param_jobs<H>(L);
+  return 16 * (static_cast<size_t>(n_lane_weights<H>(L) + 3) / 4 +
+               static_cast<size_t>(2 * (L + 1) * (H / 4) + 2) * (S + 1) +
+               5 * param_slices(jobs) * jobs);
+}
+
+// Pass 3: block x walks tiles x, x + gridDim.x, ... of S consecutive samples
+// of the flat (B, T) streams.  Each thread runs one sample of the tile
+// (param_sample: the forward at a and the backward from dy = -G, ~3,500
+// operations for 2x16, all in registers) and leaves its h and d vectors in
+// the tile's rows; then each thread takes one job (param_job, a 4 x 4 block
+// of one layer's outer products) over one slice of the tile's samples, a
+// small product with the samples as its depth: 16 FMAs per two 16-byte
+// shared-memory reads, the sum kept in registers over the slice (at most S
+// samples) and added to the job and slice's running sum in shared memory
+// once a tile.  At the end the slices' sums are added in order and written
+// as the block's partial (n_param_leaves floats).  Nothing per sample goes
+// to device memory.
+template <int H>
+__global__ void __launch_bounds__(kParamThreads)
+param_cotangent_kernel(const float* __restrict__ a_seq, const float* __restrict__ G,
+                       const float* __restrict__ log_r, float* __restrict__ partials,
+                       long long N, long long tiles, int T, const float* __restrict__ weights,
+                       int L, int S) {
+  constexpr int Q = H / 4;
+  extern __shared__ float4 param_smem4[];
+  const int n_w = n_lane_weights<H>(L);
+  float* sw = reinterpret_cast<float*>(param_smem4);
+  for (int i = threadIdx.x; i < n_w; i += blockDim.x) sw[i] = lane_weight<H>(weights, i);
+  float4* tile = param_smem4 + (n_w + 3) / 4;
+  const int vec_row = 2 * (L + 1) * Q;  // [a, log R, 1, 0]; the next row [dy, 0, 0, 0]
+  float* run = reinterpret_cast<float*>(tile + (vec_row + 2) * (S + 1));
+  const int jobs = n_param_jobs<H>(L);
+  const int slices = param_slices(jobs);
+  for (int i = threadIdx.x; i < 20 * slices * jobs; i += blockDim.x) run[i] = 0.f;
+  __syncthreads();
+  // this thread's sample (b, t) of tile x, stepped on by gridDim.x S samples a
+  // tile (32-bit arithmetic: a 64-bit division is a call, and its saved
+  // registers spill)
+  const int step = gridDim.x * S, n_first = blockIdx.x * S + threadIdx.x;
+  int b = n_first / T, t = n_first % T;
+  const int db = step / T, dt = step % T;
+  for (long long x = blockIdx.x; x < tiles; x += gridDim.x) {
+    const long long n0 = x * S;
+    const int valid = static_cast<int>(min(static_cast<long long>(S), N - n0));
+    if (static_cast<int>(threadIdx.x) < valid) {
+      const float a = a_seq[n0 + threadIdx.x], lr = log_r[b], dy = -G[n0 + threadIdx.x];
+      TileRows<H> rows{tile, S, static_cast<int>(threadIdx.x)};
+      param_sample<H>(a, lr, dy, sw, L, rows);
+      tile[vec_row * (S + 1) + threadIdx.x] = make_float4(a, lr, 1.f, 0.f);
+      tile[(vec_row + 1) * (S + 1) + threadIdx.x] = make_float4(dy, 0.f, 0.f, 0.f);
+    }
+    b += db;
+    t += dt;
+    if (t >= T) {
+      t -= T;
+      ++b;
+    }
+    __syncthreads();
+    for (int q = threadIdx.x; q < slices * jobs; q += blockDim.x) {
+      const ParamJob job = param_job<H>(q % jobs, L);
+      const int p = q / jobs, lo = p * S / slices;
+      const int hi = min((p + 1) * S / slices, valid);
+      const float4* u = tile + (job.u < 0 ? vec_row : job.u * Q + job.ib) * (S + 1);
+      const float4* v = tile + (job.v < 0 ? vec_row + 1 : job.v * Q + job.kb) * (S + 1);
+      float r[20] = {};
+#pragma unroll 4
+      for (int s = lo; s < hi; ++s) param_accumulate(u[s], v[s], r);
+      float4* mine = reinterpret_cast<float4*>(run) + 5 * q;  // an odd stride of words
+#pragma unroll
+      for (int c = 0; c < 5; ++c) {
+        const float4 m = mine[c];
+        mine[c] = make_float4(m.x + r[4 * c], m.y + r[4 * c + 1], m.z + r[4 * c + 2],
+                              m.w + r[4 * c + 3]);
+      }
+    }
+    __syncthreads();
+  }
+  const int n_leaves = n_param_leaves<H>(L);
+  for (int i = threadIdx.x; i < 20 * jobs; i += blockDim.x) {
+    const int j = i / 20, e = i % 20;
+    const int leaf = param_leaf<H>(j, L, e);
+    if (leaf < 0) continue;
+    float s = 0.f;
+    for (int p = 0; p < slices; ++p) s += run[20 * (p * jobs + j) + e];
+    partials[static_cast<size_t>(blockIdx.x) * n_leaves + leaf] = s;
+  }
+}
+
+// The blocks' partials summed in block order, one thread a cotangent: the
+// same bits on every call (no atomics).
+__global__ void __launch_bounds__(kParamThreads)
+param_sum_kernel(const float* __restrict__ partials, int blocks, int n,
+                 float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int c = 0; c < blocks; ++c) s += partials[static_cast<size_t>(c) * n + i];
+  out[i] = s;
+}
+
 // `blocks` blocks of kThreads with `smem` bytes of shared memory.
 template <typename Kernel, typename... Args>
 cudaError_t launch(Kernel kernel, int blocks, size_t smem, cudaStream_t stream, Args... args) {
@@ -375,6 +541,24 @@ cudaError_t by_width(int H, F f) {
     case 16: return f(std::integral_constant<int, 16>{});
     default: return cudaErrorInvalidValue;
   }
+}
+
+// Pass 3's tile at (H, L): the most samples S (up to kParamThreads) whose
+// shared memory (param_smem) fits a block of this card; lets the kernel
+// take it.
+template <int H>
+cudaError_t param_config(int L, int& S, size_t& smem) {
+  int dev, most;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  for (S = kParamThreads; S > 0; S /= 2) {
+    smem = param_smem<H>(L, S);
+    if (smem <= static_cast<size_t>(most)) {
+      return allow_smem(reinterpret_cast<const void*>(param_cotangent_kernel<H>), smem);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -455,6 +639,55 @@ int clipper_adjoint_onepass_launch(const float* a_seq, const float* g_out, const
     return launch(adjoint_onepass_kernel<W>, (B + kThreads - 1) / kThreads,
                   sizeof(float) * static_cast<size_t>(n_train_weights<W>(L)), s, a_seq, g_out,
                   g_zf, p1r, log_r, g_vin, G, g_z0, B, T, weights, L);
+  }));
+}
+
+// B4 pass 3: the blocks pass 3 runs at most for (H, L), as many as this card
+// holds resident at once; the caller's partials hold that many rows.
+int clipper_param_ctas(int H, int L, int* ctas) {
+  return static_cast<int>(by_width(H, [&](auto h) {
+    constexpr int W = decltype(h)::value;
+    int S, per_sm = 0, dev, sms;
+    size_t smem;
+    cudaError_t e = param_config<W>(L, S, smem);
+    if (e == cudaSuccess) {
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, param_cotangent_kernel<W>,
+                                                        kParamThreads, smem);
+    }
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    *ctas = per_sm * sms;
+    return cudaSuccess;
+  }));
+}
+
+// B4 pass 3: the cotangents of the MLP's parameters (n_param_leaves floats
+// into out, mlp_leaves order) from a_seq, G (B, T) and log R (B,), through
+// partials of max_ctas rows of n_param_leaves floats (clipper_param_ctas).
+int clipper_param_launch(const float* a_seq, const float* G, const float* log_r,
+                         float* partials, int max_ctas, float* out, int B, int T,
+                         const float* weights, int H, int L, void* stream) {
+  if (B <= 0 || T <= 0 || L < 1 || max_ctas < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(by_width(H, [&](auto h) {
+    constexpr int W = decltype(h)::value;
+    int S;
+    size_t smem;
+    cudaError_t e = param_config<W>(L, S, smem);
+    if (e != cudaSuccess) return e;
+    const long long N = static_cast<long long>(B) * T;
+    const long long tiles = (N + S - 1) / S;
+    const int blocks = tiles < max_ctas ? static_cast<int>(tiles) : max_ctas;
+    param_cotangent_kernel<W><<<blocks, kParamThreads, smem, s>>>(a_seq, G, log_r, partials, N,
+                                                                  tiles, T, weights, L, S);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    const int n = n_param_leaves<W>(L);
+    param_sum_kernel<<<(n + kParamThreads - 1) / kParamThreads, kParamThreads, 0, s>>>(
+        partials, blocks, n, out);
+    return cudaGetLastError();
   }));
 }
 

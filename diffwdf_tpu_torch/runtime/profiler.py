@@ -304,6 +304,7 @@ def counters() -> Dict[str, int]:
         "B2": fused_clipper.fused_clipper_analytic.launches,
         "B3": fused_clipper.fused_clipper_neural_train_fwd.launches,
         "B4": clipper_train.clipper_adjoint.launches,
+        "B4.pass3": clipper_train.mlp_param_vjp.launches,
         "B5": parallel_time_deer.fused_deer_clipper.launches,
         "B6": fused_clipper.fused_clipper_cheb.launches,
         "B7": circuit.launches, "B7.lanes": circuit.lane_launches,

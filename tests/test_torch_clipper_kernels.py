@@ -16,7 +16,11 @@ one-thread step's bits on every lane; pass 1 into the scratch and pass 2
 walking it back give the bits of a one-pass walk with the same steps (the
 card tests hold pass 2 to the one-pass kernel itself); the one-thread forward is
 within the suite's 2e-5 of ``fused_clipper_neural_train_fwd_plain`` and the
-one-pass adjoint within 2e-5 of scale of ``clipper_adjoint_plain``.
+one-pass adjoint within 2e-5 of scale of ``clipper_adjoint_plain``.  Pass 3
+(the MLP parameters' cotangents): one sample's forward and backward
+(``param_sample``) at every sample, summed by the kernel's jobs
+(``param_job``, ``param_accumulate``, ``param_leaf``), within 2e-5 of scale
+of autograd of the plain MLP at H = 4, 8, 16 and L = 1, 2.
 """
 
 import ctypes
@@ -133,6 +137,58 @@ static void adjoint_one_pass(const float* a_seq, const float* g_out, const float
   }
 }
 
+// pass 3's per-sample rows on the host: slot r of sample s at (r S + s) H
+template <int H>
+struct HostRows {
+  float* buf;
+  int S, s;
+  void put(int slot, const float (&v)[H]) {
+    for (int j = 0; j < H; ++j) buf[(static_cast<long>(slot) * S + s) * H + j] = v[j];
+  }
+  void get(int slot, float (&v)[H]) const {
+    for (int j = 0; j < H; ++j) v[j] = buf[(static_cast<long>(slot) * S + s) * H + j];
+  }
+};
+
+// pass 3 on the host: param_sample at every sample into the rows, then each
+// job's sums over all samples in order (param_accumulate), each entry
+// written to its leaf (param_leaf)
+template <int H>
+static void param_cotangents(const float* a, const float* log_r, const float* G, int B, int T,
+                             const float* w, int L, float* out, float* rows) {
+  std::vector<float> copy(n_lane_weights<H>(L));  // the kernel's shared-memory copy
+  for (int i = 0; i < n_lane_weights<H>(L); ++i) copy[i] = lane_weight<H>(w, i);
+  const int N = B * T;
+  for (int n = 0; n < N; ++n) {
+    HostRows<H> r{rows, N, n};
+    param_sample<H>(a[n], log_r[n / T], -G[n], copy.data(), L, r);
+  }
+  auto word = [&](int slot, int n, int c) {
+    const float* x = rows + (static_cast<long>(slot) * N + n) * H + 4 * c;
+    return float4{x[0], x[1], x[2], x[3]};
+  };
+  for (int j = 0; j < n_param_jobs<H>(L); ++j) {
+    const ParamJob job = param_job<H>(j, L);
+    float r[20] = {};
+    for (int n = 0; n < N; ++n) {
+      const float4 u = job.u < 0 ? float4{a[n], log_r[n / T], 1.f, 0.f} : word(job.u, n, job.ib);
+      const float4 v = job.v < 0 ? float4{-G[n], 0.f, 0.f, 0.f} : word(job.v, n, job.kb);
+      param_accumulate(u, v, r);
+    }
+    for (int e = 0; e < 20; ++e) {
+      const int leaf = param_leaf<H>(j, L, e);
+      if (leaf >= 0) out[leaf] = r[e];
+    }
+  }
+}
+
+template <int H>
+static void param_leaves(int L, int* leaf) {
+  for (int j = 0; j < n_param_jobs<H>(L); ++j) {
+    for (int e = 0; e < 20; ++e) leaf[20 * j + e] = param_leaf<H>(j, L, e);
+  }
+}
+
 #define BY_WIDTH(call) \\
   switch (H) {         \\
     case 4: call(4); break;  \\
@@ -179,6 +235,23 @@ void host_adjoint_one_pass(int H, const float* a_seq, const float* g_out, const 
 #undef CALL
 }
 
+void host_param_cotangents(int H, const float* a, const float* log_r, const float* G, int B,
+                           int T, const float* w, int L, float* out, float* rows) {
+#define CALL(h) param_cotangents<h>(a, log_r, G, B, T, w, L, out, rows)
+  BY_WIDTH(CALL)
+#undef CALL
+}
+
+// the leaf of every job's 20 entries (-1 for none), and the counts
+int host_param_leaves(int H, int L, int* leaf) {
+  switch (H) {
+    case 4: param_leaves<4>(L, leaf); return n_param_leaves<4>(L) * 1000 + n_param_jobs<4>(L);
+    case 8: param_leaves<8>(L, leaf); return n_param_leaves<8>(L) * 1000 + n_param_jobs<8>(L);
+    case 16: param_leaves<16>(L, leaf); return n_param_leaves<16>(L) * 1000 + n_param_jobs<16>(L);
+  }
+  return -1;
+}
+
 }  // extern "C"
 """
 
@@ -203,6 +276,8 @@ def lib(tmp_path_factory):
     out.host_fwd_lanes.argtypes = [i, i, i] + [vp] * 7 + [i, i, vp]
     out.host_adjoint_two_pass.argtypes = [i] + [vp] * 9 + [i, i, vp, i]
     out.host_adjoint_one_pass.argtypes = [i] + [vp] * 8 + [i, i, vp, i]
+    out.host_param_cotangents.argtypes = [i] + [vp] * 3 + [i, i, vp, i, vp, vp]
+    out.host_param_leaves.argtypes = [i, i, vp]
     return out
 
 
@@ -295,3 +370,41 @@ def test_train_lanes_follow_the_lane_table():
     built = {tuple(map(int, m)) for m in re.findall(r"CLIPPER_FAMILY\((\d+), (\d+), (\d+)\)\n",
                                                      source)}
     assert built == {(h, n, k) for h, n in fc.TRAIN_FAMILIES for k in fc.nxh_lane_counts(h)}
+
+
+@pytest.mark.parametrize("n_layers", [1, 2])
+@pytest.mark.parametrize("width", [4, 8, 16])
+def test_host_param_pass_matches_autograd(lib, n_layers, width):
+    """Pass 3's arithmetic on the host: param_sample (one sample's forward at
+    a and its backward from dy = -G) at every sample, its outer products
+    summed by the kernel's jobs (param_job, param_accumulate) and placed by
+    param_leaf, against torch.autograd of the plain MLP (mlp_param_vjp_plain)
+    on random roots and streams, every leaf within 2e-5 of its largest
+    magnitude (float32 sums over 3 x 67 samples in another order); the jobs'
+    entries fall on every leaf exactly once."""
+    b, t = 3, 67
+    mlp = NeuralDiodeRoot(name="dp", n_layers=n_layers, layer_size=width).init_params(
+        "cpu", torch.Generator().manual_seed(31 * width + n_layers))["dp"]
+    H, L, w = fc.train_weights(mlp, torch.device("cpu"))
+    rng = np.random.default_rng(width + 10 * n_layers)
+    a_seq = torch.from_numpy(rng.uniform(-3.0, 3.0, (b, t)).astype(np.float32))
+    log_r = torch.from_numpy(rng.uniform(6.5, 8.5, b).astype(np.float32))
+    G = torch.from_numpy(rng.standard_normal((b, t)).astype(np.float32))
+    leaves = ct.mlp_leaves(mlp)
+    n = sum(x.numel() for x in leaves)
+    jobs = 2 * (H // 4) + L * (H // 4) ** 2
+    leaf = torch.empty(20 * jobs, dtype=torch.int32)
+    assert lib.host_param_leaves(H, L, leaf.data_ptr()) == n * 1000 + jobs
+    placed = leaf[leaf >= 0]
+    assert sorted(placed.tolist()) == list(range(n))
+    out = torch.full((n,), float("nan"))
+    rows = torch.empty(2 * (L + 1) * b * t * H)
+    lib.host_param_cotangents(H, a_seq.data_ptr(), log_r.data_ptr(), G.data_ptr(), b, t,
+                              w.data_ptr(), L, out.data_ptr(), rows.data_ptr())
+    want = ct.mlp_param_vjp_plain(mlp, ("tanh",) * (L + 1) + ("linear",), a_seq, log_r, G)
+    got = [x.view(y.shape) for x, y in zip(out.split([y.numel() for y in want]), want)]
+    for k, (g, y) in enumerate(zip(got, want)):
+        assert bool(torch.isfinite(g).all()), k
+        scale = float(y.abs().max())
+        np.testing.assert_allclose((g / scale).numpy(), (y / scale).numpy(), atol=2e-5, rtol=0,
+                                   err_msg=f"leaf {k}")

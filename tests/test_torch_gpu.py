@@ -16,7 +16,12 @@ relative 5e-4 per leaf (tests/test_parallel_bptt.py); the lane-cooperative
 forward of an NxH root 2e-5 against plain and the one-thread kernel's bits,
 every lane of a group the same bits; the two-pass adjoint the one-pass
 kernel's bits and the adjoint's budgets against plain (the generated ones
-and the clipper's, B3 and B4, for every family); a short
+and the clipper's, B3 and B4, for every family); B4's pass 3 (the
+clipper's MLP parameter cotangents) within 1e-4 of the largest magnitude
+of each leaf of autograd of the plain MLP at every family and B x T in
+{1, 7, 1,000} x {1, 129, 2,048}, the same bits on two calls, one count a
+call, the whole fused op's gradients within 2e-5 (scaled) of the same op
+on the CPU, an unsupported width or root raising; a short
 fused_generic run's loss history rtol 5e-4 of the same run through the
 plain versions (tests/test_parallel_bptt.py:579); the generated DEER
 kernel against its plain version and the exact recursion, Tube Screamer
@@ -81,6 +86,7 @@ def cuda():
     fc.fused_clipper_neural.one_thread_launches = 0
     fc.fused_clipper_neural_train_fwd.launches = 0
     ct.clipper_adjoint.launches = 0
+    ct.mlp_param_vjp.launches = 0
     return torch.device("cuda")
 
 
@@ -320,6 +326,88 @@ def test_adjoint_two_passes_match_one_pass_kernel(cuda, n_layers, width):
     assert ct.clipper_adjoint.launches == 2
 
 
+def _param_inputs(device, n_layers, width, b, t, seed):
+    """A random-init root and seeded (a, log R, G) of b x t samples, a in the
+    range the training forward writes."""
+    _, mlp, _, _, r_rows = _train_inputs(device, n_layers, width, b, t, seed)
+    rng = np.random.default_rng(seed)
+    a_seq = torch.from_numpy(rng.uniform(-3.0, 3.0, (b, t)).astype(np.float32)).to(device)
+    G = torch.from_numpy(rng.standard_normal((b, t)).astype(np.float32)).to(device)
+    _, log_r = fc.row_constants(r_rows, TRAIN_CAP, TRAIN_FS)
+    return mlp, a_seq, log_r, G
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_layers,width", FAMILIES)
+def test_param_pass_matches_plain(cuda, n_layers, width):
+    """B4's pass 3 against autograd of the plain MLP (mlp_param_vjp_plain on
+    the card, full float32) at B in {1, 7, 1,000} x T in {1, 129, 2,048}: a
+    ragged tile and a ragged walk of the persistent blocks.  Each leaf within
+    1e-4 of its largest magnitude: float32 sums over up to 2 M samples, taken
+    in another order than cuBLAS takes them.  Two calls give the same bits;
+    each call counts once in B4.pass3."""
+    from diffwdf_tpu_torch.runtime import profiler
+
+    acts = ("tanh",) * (n_layers + 1) + ("",)
+    calls = 0
+    for b in (1, 7, 1000):
+        for t in (1, 129, 2048):
+            mlp, a_seq, log_r, G = _param_inputs(cuda, n_layers, width, b, t, seed=width + b + t)
+            before = profiler.counters()["B4.pass3"]
+            got = ct.mlp_param_vjp(mlp, acts, a_seq, log_r, G)
+            again = ct.mlp_param_vjp(mlp, acts, a_seq, log_r, G)
+            calls += 2
+            assert profiler.counters()["B4.pass3"] - before == 2
+            want = ct.mlp_param_vjp_plain(mlp, acts, a_seq, log_r, G)
+            torch.cuda.synchronize()
+            assert [g.shape for g in got] == [w.shape for w in want]
+            for g, g2, w in zip(got, again, want):
+                assert torch.equal(g, g2), (b, t)
+                assert bool(torch.isfinite(g).all()), (b, t)
+                _close_scaled(g, w, 1e-4)
+    assert ct.mlp_param_vjp.launches == calls
+
+
+@pytest.mark.gpu
+def test_fused_train_op_backward_matches_plain_op(cuda):
+    """The whole make_fused_clipper_train op on the card (B3, B4's three
+    passes) against the same op on the CPU (every plain version): loss
+    rtol 1e-5, every gradient within 2e-5 of its largest magnitude."""
+    root, mlp, vin, z0, r_rows = _train_inputs(cuda, 2, 16, 67, 300, seed=21)
+    fused = ct.make_fused_clipper_train(root.activations, TRAIN_CAP, TRAIN_FS)
+    y = torch.tanh(0.5 * vin)
+
+    def grads(device):
+        leaves = [x.detach().to(device).clone().requires_grad_(True)
+                  for x in ct.mlp_leaves(mlp)]
+        v = vin.detach().to(device).clone().requires_grad_(True)
+        z = z0.detach().to(device).clone().requires_grad_(True)
+        out, zf = fused(v, z, ct.mlp_tree(leaves), r_rows.to(device))
+        loss = ((out[:, 32:] - y.to(device)[:, 32:]) ** 2).mean() + 0.1 * (zf ** 2).mean()
+        loss.backward()
+        return loss.item(), [v.grad, z.grad] + [x.grad for x in leaves]
+
+    lc, gc = grads(cuda)
+    lp, gp = grads(torch.device("cpu"))
+    assert ct.clipper_adjoint.launches == ct.mlp_param_vjp.launches == 1
+    np.testing.assert_allclose(lc, lp, rtol=1e-5)
+    for g, w in zip(gc, gp):
+        _close_scaled(g.cpu(), w)
+
+
+@pytest.mark.gpu
+def test_param_pass_raises_outside_its_family(cuda):
+    """A width the kernel is not built for, or a root that is not all-tanh,
+    raises: nothing runs or counts in its place."""
+    mlp, a_seq, log_r, G = _param_inputs(cuda, 2, 16, 7, 33, seed=3)
+    bad = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=12).init_params(cuda)["dp"]
+    with pytest.raises(ValueError):
+        ct.mlp_param_vjp(bad, ("tanh",) * 3 + ("",), a_seq, log_r, G)
+    with pytest.raises(ValueError, match="all-tanh"):
+        ct.mlp_param_vjp(mlp, ("tanh", "relu", "tanh", ""), a_seq, log_r, G)
+    assert ct.mlp_param_vjp.launches == 0
+
+
 @pytest.mark.gpu
 def test_train_fwd_raises_for_a_family_without_a_kernel(cuda):
     _, mlp, vin, z0, r_rows = _train_inputs(cuda, 3, 16, 64, 32, seed=1)
@@ -351,6 +439,7 @@ def test_fused_train_op_grads_match_scan_on_card(cuda):
     lf, gf = grads(lambda v, z, m: fused(v, z, m, r_rows))
     ls, gs = grads(scan)
     assert fc.fused_clipper_neural_train_fwd.launches == ct.clipper_adjoint.launches == 1
+    assert ct.mlp_param_vjp.launches == 1
     np.testing.assert_allclose(lf, ls, rtol=1e-5)
     for g, w in zip(gf, gs):
         _close_scaled(g, w)
