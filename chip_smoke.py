@@ -323,6 +323,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 from pathlib import Path
 from typing import Optional
 
@@ -2280,6 +2281,11 @@ def _generated_ptxas(source: str, kernel: str = r"\d+(circuit_\w*?kernel)") -> s
 DEER_PTXAS = r"\d+(deer_\w*?kernel)"
 
 
+#: the adjoint programs that ``_old_kernels`` runs (no root streams), kept
+#: apart from the main path's, which the same forward source keys
+_OLD_ADJOINTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
 @contextlib.contextmanager
 def _old_kernels(active: bool):
     """With ``active``, the wrappers run the kernels as they were before
@@ -2287,7 +2293,9 @@ def _old_kernels(active: bool):
     the diode pair's lane forms off; the one-thread step solves the pair
     with omega_pair, whose bits are omega()'s, the kernels circuit phase
     checks), B3 and B1 one thread per stream, B8 and B4 the one-pass kernel
-    (and the clipper's parameter pass, B4's pass 3, autograd of the MLP),
+    (and the clipper's parameter pass, B4's pass 3, autograd of the MLP;
+    B8's programs have no root streams, from a cache of their own, so the
+    TS root's leaves go through autograd),
     B2 the two omega solves one after the other, B6 one thread per stream
     (``cheb_kernel<D>``), B5 and B9 the one-CTA kernels (with omega()'s
     zero-residual skip, which their earlier builds did not take).  For the
@@ -2296,11 +2304,14 @@ def _old_kernels(active: bool):
         yield
         return
     saved = (fcirc.lanes_for, pb.launch_adjoint, fc.nxh_lanes, ct.launch_adjoint,
-             fc.launch_analytic, fc.launch_cheb, ct.launch_param_vjp)
+             fc.launch_analytic, fc.launch_cheb, ct.launch_param_vjp, cg.root_streams,
+             cg._adjoints)
     fcirc.lanes_for = lambda prog, b: 1
-    ct.launch_param_vjp = lambda mlp, a, lr, g: ct.mlp_param_vjp_plain(
+    ct.launch_param_vjp = lambda mlp, a, lr, g, launch_span: ct.mlp_param_vjp_plain(
         mlp, ("tanh",) * (len(mlp["layers"]) - 1) + ("",), a, lr, g)
-    pb.launch_adjoint = pb.launch_adjoint_onepass
+    cg.root_streams = lambda emitter: False
+    cg._adjoints = _OLD_ADJOINTS
+    pb.launch_adjoint = lambda *args, streams=None: pb.launch_adjoint_onepass(*args)
     fc.nxh_lanes = lambda h, b: 1
     ct.launch_adjoint = ct.launch_adjoint_onepass
     fc.launch_analytic = fc.launch_analytic_serial
@@ -2310,7 +2321,8 @@ def _old_kernels(active: bool):
             yield
     finally:
         (fcirc.lanes_for, pb.launch_adjoint, fc.nxh_lanes, ct.launch_adjoint,
-         fc.launch_analytic, fc.launch_cheb, ct.launch_param_vjp) = saved
+         fc.launch_analytic, fc.launch_cheb, ct.launch_param_vjp, cg.root_streams,
+         cg._adjoints) = saved
 
 
 def _scratch_bytes(adj, B: int, T: int) -> str:
@@ -2322,13 +2334,16 @@ def _scratch_bytes(adj, B: int, T: int) -> str:
 
 def _adjoint_passes(circuit, prep, vin, g_out, zseq, lam_t):
     """(pass 1, pass 2): launch-only calls of B8's two kernels over all T on
-    a scratch allocated once, so that each is timed alone."""
+    a scratch allocated once (writing the root's streams where the program
+    has them, as the main path does), so that each is timed alone."""
     adj = cg.adjoint_program(circuit, prep.prog)
     lib = _build.generated_library(adj.source)
     B, T = vin.shape
     _check(adj.chunk(B, T) == T, "one chunk at the timed shape")
     jac = torch.empty(adj.scratch_floats(B, T), device=vin.device)
     lam_seq, g_vin, g_z0 = torch.empty_like(zseq), torch.empty_like(vin), torch.empty_like(lam_t)
+    a_seq, gseq = torch.empty_like(vin), torch.empty_like(vin)
+    a_ptr, g_ptr = (a_seq.data_ptr(), gseq.data_ptr()) if adj.root_streams else (None, None)
     rows = prep.rows if prep.rows.numel() else prep.vec
     times = prep.times if prep.times.numel() else prep.vec
     n_w = 0 if prep.warr is None else prep.warr.numel()
@@ -2336,14 +2351,14 @@ def _adjoint_passes(circuit, prep, vin, g_out, zseq, lam_t):
 
     def pass1():
         _build.check(lib.circuit_jacobian_launch(
-            vin.data_ptr(), g_out.data_ptr(), zseq.data_ptr(), jac.data_ptr(), B, T, 0, T,
+            vin.data_ptr(), g_out.data_ptr(), zseq.data_ptr(), jac.data_ptr(), a_ptr, B, T, 0, T,
             prep.vec.data_ptr(), rows.data_ptr(), times.data_ptr(), w.data_ptr(), n_w,
             torch.cuda.current_stream().cuda_stream), "pass 1", lib.circuit_error_string)
 
     def pass2():
         _build.check(lib.circuit_recursion_launch(
             jac.data_ptr(), lam_t.data_ptr(), g_z0.data_ptr(), lam_seq.data_ptr(),
-            g_vin.data_ptr(), B, T, 0, T, torch.cuda.current_stream().cuda_stream), "pass 2",
+            g_vin.data_ptr(), g_ptr, B, T, 0, T, torch.cuda.current_stream().cuda_stream), "pass 2",
             lib.circuit_error_string)
 
     return pass1, pass2
@@ -2397,6 +2412,8 @@ def generic_train_path(dev, card: str, seed: int) -> list:
     # the K sweep's build of the training form (every K that divides H)
     ts_sweep = cg.sweep_program(cases["ts_2x16"][0], preps["ts_2x16"].prog)
     extra.append(ts_sweep.source)
+    with _old_kernels(True):  # the timing's "before": B8 without the root's streams
+        extra.append(cg.adjoint_program(cases["ts_2x16"][0], preps["ts_2x16"].prog).source)
     sources = ([p.prog.source for p in preps.values()] + [a.source for a in adjs.values()]
                + extra)
     builds = _build.build_generated.builds
@@ -2418,7 +2435,7 @@ def generic_train_path(dev, card: str, seed: int) -> list:
         _check_no_spills(adj.source, f"the adjoint of {name}")
 
     # --- kernels generic: B7 with its trajectory and B8 against plain ----------
-    fwd_err, bwd_err, plain_ms = {}, {}, {}
+    fwd_err, bwd_err, plain_ms, roots = {}, {}, {}, {}
     for name, case in cases.items():
         vin = inputs[name]
         got = _gen_forward(case, vin)
@@ -2465,6 +2482,19 @@ def generic_train_path(dev, card: str, seed: int) -> list:
               f"clock, one run)", flush=True)
         _check(all(bool(torch.isfinite(x).all()) for x in [b_got[1], *b_got[0]])
                and max(rel) < GEN_BUDGET[name], f"B8 {name} within budget of plain")
+        # the root's streams (an NxH root, R_up one value or one per row)
+        root, p_root = b_got[3], b_want[3]
+        _check((root is None) == (p_root is None) == (not adjs[name].root_streams),
+               f"B8 {name}: the root's streams where the program has them")
+        if root is not None:
+            a_err, g_rel = _max_err(root.a_seq, p_root.a_seq), _rel_err(root.G, p_root.G)
+            same_r = torch.equal(root.log_r, p_root.log_r)
+            print(f"phase kernels generic {name} root streams shape={shape} a max_abs_err="
+                  f"{a_err:.3e} budget=2e-05 G relative={g_rel:.3e} budget={GEN_BUDGET[name]:g} "
+                  f"log_r_equal={same_r}", flush=True)
+            _check(a_err <= 2e-5 and g_rel < GEN_BUDGET[name] and same_r,
+                   f"B8 {name}: the root's a and G within budget of plain")
+            roots[name] = root
         # the two passes against the one-pass kernel (today's arithmetic)
         one = pb.launch_adjoint_onepass(case[0], prep, vin, g_out, torch.stack(seq),
                                         torch.stack(lam_T))
@@ -2474,6 +2504,7 @@ def generic_train_path(dev, card: str, seed: int) -> list:
         print(f"phase kernels generic {name} adjoint two passes vs one-pass kernel shape={shape} "
               f"max_abs_diff={diff:.3e} bitwise={all(map(torch.equal, two, one))}", flush=True)
         _check(all(map(torch.equal, two, one)), f"B8 {name}: the two passes give the one-pass bits")
+    pass3 = _root_pass3(card, cases["ts_2x16"][3], roots["ts_2x16"])
 
     # --- grad generic: the fused_generic op against the scan engine ------------
     gb, gt = GEN_GRAD_B, GEN_GRAD_T
@@ -2519,24 +2550,26 @@ def generic_train_path(dev, card: str, seed: int) -> list:
                              log_every=1)
     epoch_ends = []
     fcirc.fused_circuit_process.launches = 0
-    pb.fused_backward.launches = 0
+    pb.fused_backward.launches = pb.root_param_vjp.launches = 0
     t0 = time.perf_counter()
     trained, hist = train_clipper(circuit, params, tb, vb, cfg, trainable_filter=lambda p: p["dp"],
                                   on_epoch=lambda e, p, h: epoch_ends.append(time.perf_counter()))
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     epoch_ms = [(b - a) * 1e3 for a, b in zip([t0] + epoch_ends, epoch_ends)]
-    train_launches = (fcirc.fused_circuit_process.launches, pb.fused_backward.launches)
+    train_launches = (fcirc.fused_circuit_process.launches, pb.fused_backward.launches,
+                      pb.root_param_vjp.launches)
     print(f"phase train generic engine=fused_generic circuit=tube_screamer root=2x16 pretrained "
           f"epochs={GEN_EPOCHS} chunks={n_train}x{CHUNK} seconds={train_s:.3f} "
           f"epoch_wall_ms={[round(v, 1) for v in epoch_ms]} "
           f"loss={[round(v, 8) for v in hist['loss']]} "
           f"val_loss={[round(v, 8) for v in hist['val_loss']]} "
-          f"launches B7={train_launches[0]} B8={train_launches[1]}", flush=True)
+          f"launches B7={train_launches[0]} B8={train_launches[1]} "
+          f"B8.pass3={train_launches[2]}", flush=True)
     _check(bool(np.isfinite(hist["loss"] + hist["val_loss"]).all()), "every loss finite")
     _check(hist["loss"][-1] < hist["loss"][0], "TS train loss falls")
-    _check(train_launches == (2 * GEN_EPOCHS, GEN_EPOCHS),
-           "B7 once per step and validation, B8 once per step")
+    _check(train_launches == (2 * GEN_EPOCHS, GEN_EPOCHS, GEN_EPOCHS),
+           "B7 once per step and validation, B8 and the root's pass 3 once per step")
 
     # the per-row drive pot (bench.py:560-604): two steps
     r6 = drive_to_r6(np.random.default_rng(3).uniform(0.0, 1.0, n_train)).astype(np.float32)
@@ -2573,11 +2606,12 @@ def generic_train_path(dev, card: str, seed: int) -> list:
           f"{jhist['loss'][-1]:.6g} C={6.5e-9:.4e}->{c_fit:.4e} (true 4.7000e-09)", flush=True)
     _check(jhist["loss"][-1] < jhist["loss"][0], "joint fit loss falls")
     _check(abs(c_fit - 4.7e-9) < abs(6.5e-9 - 4.7e-9), "C moves toward 4.7 nF")
-    launches = {"B7": fcirc.fused_circuit_process.launches, "B8": pb.fused_backward.launches}
+    launches = {"B7": fcirc.fused_circuit_process.launches, "B8": pb.fused_backward.launches,
+                "B8.pass3": pb.root_param_vjp.launches}
     print(f"phase train generic launches={launches} (train {train_launches}, "
           f"pot steps and joint fit after)", flush=True)
-    _check(launches["B8"] == GEN_EPOCHS + GEN_POT_STEPS + JOINT_EPOCHS,
-           "B8 once per training step on the main path")
+    _check(launches["B8"] == launches["B8.pass3"] == GEN_EPOCHS + GEN_POT_STEPS + JOINT_EPOCHS,
+           "B8 and the root's pass 3 once per training step on the main path")
 
     # --- timing generic: one fused_generic step of the TS 2x16 ----------------
     x = torch.randn(GEN_B, GEN_T, generator=gen, device=dev)
@@ -2602,14 +2636,17 @@ def generic_train_path(dev, card: str, seed: int) -> list:
                                          [torch.zeros(GEN_B, device=dev)] * 3, input_node="Vin",
                                          neural_mlp=mlp)
 
-    def part_params():
-        state["grads"] = pb.parameter_cotangents(circuit, trained, x, state["fwd"][2],
-                                                 state["g_out"], state["adj"][0],
-                                                 input_node="Vin")
-
     make_optimizer, step_fn, _ = make_train_step(circuit, cfg, lambda p: p["dp"])
     opt = make_optimizer(trained)
     leaves = pb._flatten(trained)[0]
+    root_ids = {id(t) for t in ct.mlp_leaves(mlp)}
+    needs = [id(t) in root_ids for t in leaves]  # the step trains the root alone
+
+    def part_params():  # the root's pass 3 on B8's streams ("before": autograd's pass)
+        state["grads"] = pb.parameter_cotangents(circuit, trained, x, state["fwd"][2],
+                                                 state["g_out"], state["adj"][0],
+                                                 input_node="Vin", root=state["adj"][3],
+                                                 needs=needs)
 
     def part_adam():
         for t, g in zip(leaves, state["grads"]):
@@ -2651,15 +2688,17 @@ def generic_train_path(dev, card: str, seed: int) -> list:
     x375, g375 = x[:rows375].contiguous(), g_out[:rows375].contiguous()
     z375, l375 = zseq[:, :rows375].contiguous(), lam_t[:, :rows375].contiguous()
     pass1, pass2 = _adjoint_passes(circuit, prep, x, g_out, zseq, lam_t)
+    streams, s375 = (torch.empty_like(x), torch.empty_like(x)), (torch.empty_like(x375),
+                                                                 torch.empty_like(x375))
     kernel_ms = {}
     for label, fn in (
         ("B7", lambda: fcirc.launch(prep, x, z0, with_seq=True)),
         ("B7 one-thread", lambda: fcirc.launch(prep, x, z0, with_seq=True, lanes=1)),
-        ("B8", lambda: pb.launch_adjoint(circuit, prep, x, g_out, zseq, lam_t)),
+        ("B8", lambda: pb.launch_adjoint(circuit, prep, x, g_out, zseq, lam_t, streams)),
         ("B8 pass 1", pass1),
         ("B8 pass 2", pass2),
         ("B8 one-pass", lambda: pb.launch_adjoint_onepass(circuit, prep, x, g_out, zseq, lam_t)),
-        ("B8 375", lambda: pb.launch_adjoint(circuit, prep, x375, g375, z375, l375)),
+        ("B8 375", lambda: pb.launch_adjoint(circuit, prep, x375, g375, z375, l375, s375)),
         ("B8 375 one-pass", lambda: pb.launch_adjoint_onepass(circuit, prep, x375, g375, z375,
                                                               l375)),
     ):
@@ -2688,12 +2727,13 @@ def generic_train_path(dev, card: str, seed: int) -> list:
           f"{adj.SCRATCH_CAP_BYTES}", flush=True)
     # bytes: B7 reads vin and writes out and the S trajectories; B8 reads
     # vin, obar and the trajectories (the TS streams no pot) and writes the S
-    # lam streams and g_vin; both read and write S values per row
+    # lam streams, g_vin and the root's a and G; both read and write S
+    # values per row
     bounds = {"B7": _bound(prep.prog.ops_per_sample * samples,
                            (2 + S) * 4 * samples + 8 * S * GEN_B)}
     for label, rows in (("B8", GEN_B), ("B8 375", rows375)):
         bounds[label] = _bound(adj.ops_per_sample * rows * GEN_T,
-                               (3 + 2 * S) * 4 * rows * GEN_T + 8 * S * rows)
+                               (3 + 2 * S + 2) * 4 * rows * GEN_T + 8 * S * rows)
     for label, before in (("B7", "B7 one-thread"), ("B8", "B8 one-pass"),
                           ("B8 375", "B8 375 one-pass")):
         plain = f"{plain_ms['ts_2x16'][0 if label == 'B7' else 1]:.1f}" if label != "B8 375" \
@@ -2714,7 +2754,48 @@ def generic_train_path(dev, card: str, seed: int) -> list:
          "max_abs_err": max(bwd_err.values()), "ms": kernel_ms["B8"],
          "plain_ms": plain_ms["ts_2x16"][1],
          **dict(zip(("bound_ms", "bound_by"), bounds["B8"])), "library_ms": None},
+        {**pass3, "launches": launches["B8.pass3"]},
     ]
+
+
+def _root_pass3(card: str, mlp, root) -> dict:
+    """B4's pass 3 on the root streams B8 wrote (``root_param_vjp``) at the
+    generic training shape: against ``mlp_param_vjp_plain`` on the same
+    streams (every leaf within 1e-4 of its largest magnitude but the head's
+    bias, which sums -G over every sample and cancels: within 16 float32
+    epsilon of sum |G| of the exact sum), the same bits on two calls; then
+    timed beside its bound and the plain path.  Returns its record."""
+    acts = ("tanh",) * (len(mlp["layers"]) - 1) + ("",)
+    args = (mlp, acts, root.a_seq, root.log_r, root.G)
+    got, again = pb.root_param_vjp(*args), pb.root_param_vjp(*args)
+    want = ct.mlp_param_vjp_plain(*args)
+    torch.cuda.synchronize()
+    scaled = [_scaled_err(g, w) for g, w in zip(got[:-1], want[:-1])]
+    G = root.G.double()
+    bias_gap = abs(float(got[-1]) + float(G.sum())) / (float(torch.finfo(torch.float32).eps)
+                                                       * float(G.abs().sum()))
+    same = all(torch.equal(g, h) for g, h in zip(got, again))
+    kern = lambda: pb.root_param_vjp(*args)
+    _cuda_ms(kern, 1, 2)
+    k = _cuda_ms(kern, REPS, 10)
+    plain = _timed(lambda: ct.mlp_param_vjp_plain(*args))[0]
+    b, t = root.a_seq.shape
+    bound = _bound(PARAM_OPS * b * t, 8 * b * t + 4 * b)
+    ms = statistics.median(k)
+    print(f"phase kernels generic root pass3 ts_2x16 shape=({b}, {t}) scaled_err="
+          f"{[float(f'{e:.2e}') for e in scaled]} budget=1e-04 head_bias_gap={bias_gap:.3f} "
+          f"budget=16 (float32 epsilon x sum |G|) same_bits_twice={same} runs={REPS} "
+          f"kernel_ms={ms:.4f} [{min(k):.4f}, {max(k):.4f}] plain_ms={plain:.4f} "
+          f"bound_ms={bound[0]:.6f} ({bound[1]}) share={bound[0] / ms:.4f} card={card!r}",
+          flush=True)
+    _check(max(scaled) <= 1e-4 and bias_gap < 16 and same,
+           "the root's pass 3 within 1e-4 (scaled) of plain on B8's streams, the same bits")
+    return {"name": "root_param_vjp (B4's pass 3 on B8's root streams)", "route": "cuda",
+            "source": TRAIN_SOURCE,
+            "replaces": "none (the JAX package leaves it to XLA: "
+                        "diffwdf_tpu/ops/parallel_bptt.py:621-645)",
+            "max_abs_err": max(_max_err(g, w) for g, w in zip(got, want)), "ms": ms,
+            "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
 
 
 def _dc_case(name: str, dev):
@@ -4225,8 +4306,8 @@ def _par_kernels(dev, card: str, seed: int, sizes: dict) -> dict:
                                             return_state_seq=True)
     g = torch.from_numpy(rng.standard_normal((1, n)).astype(np.float32)).to(dev) / n
     lam = [torch.zeros(1, device=dev)]
-    b8 = pair(lambda: pb.fused_backward(ckt, params, v, g, seq, lam, input_node="Vs"),
-              lambda: pb.fused_backward_plain(ckt, params, v, g, seq, lam, input_node="Vs"))
+    b8 = pair(lambda: pb.fused_backward(ckt, params, v, g, seq, lam, input_node="Vs")[:3],
+              lambda: pb.fused_backward_plain(ckt, params, v, g, seq, lam, input_node="Vs")[:3])
     prog = fcirc.prepare(ckt, params, dev, input_node="Vs").prog
     adj = cg.adjoint_program(ckt, prog)
     res["B8"] = b8 + (_bound(adj.ops_per_sample * n, (3 + 2) * 4 * n + 8),)

@@ -192,8 +192,8 @@ _DEER = [_vp] * 6 + [_i] + [_vp] * 2 + [_i] * 4 + [_f] * 2 + [_i, _vp]
 _DEER_CLIPPER = [_vp] * 6 + [_i] + [_f] * 8 + [_i] * 3 + [_vp]
 _GENERATED_SIGNATURES = {
     "circuit_launch": ([_vp] * 5 + [_i, _i] + [_vp] * 4 + [_i] * 3 + [_vp], ctypes.c_int),
-    "circuit_jacobian_launch": ([_vp] * 4 + [_i] * 4 + [_vp] * 4 + [_i, _vp], ctypes.c_int),
-    "circuit_recursion_launch": ([_vp] * 5 + [_i] * 4 + [_vp], ctypes.c_int),
+    "circuit_jacobian_launch": ([_vp] * 5 + [_i] * 4 + [_vp] * 4 + [_i, _vp], ctypes.c_int),
+    "circuit_recursion_launch": ([_vp] * 6 + [_i] * 4 + [_vp], ctypes.c_int),
     "circuit_adjoint_onepass_launch": ([_vp] * 7 + [_i, _i] + [_vp] * 4 + [_i, _vp],
                                        ctypes.c_int),
     "circuit_deer_launch": (_DEER, ctypes.c_int),

@@ -47,7 +47,11 @@ per step at the primal a (the diode pair's derivative through
 the root are db = m da.  The cotangents are then contracted with the carried
 lam and the output's cotangent; pass 1 writes the tangents that are not
 exact constants, pass 2 contracts them in the one-pass step's order, so the
-two give its bits.  The DEER step
+two give its bits.  For an NxH root whose R_up is one value or one per row
+(``root_streams``) one more direction, the root's reflected wave b, gives
+the step's b column: pass 1 writes the root's incident wave a and pass 2
+G = (dF/db)^T (lam, obar), the streams of the root's parameter pass.
+The DEER step
 is the same trace with the S state directions only, its primal f and its
 tangents J written out; there the root's value and slope come from one
 pass (``emit_value_slope``: one omega pair, ``nxh_forward_tangent`` or
@@ -1265,6 +1269,9 @@ class AdjointProgram:
     recursion_ops: int     # pass 2 a sample (the contraction)
     n_entries: int         # floats a sample in the scratch between the passes
     n_state: int
+    #: whether pass 1 writes the root's incident wave a and pass 2 the
+    #: cotangent G of its reflected wave b at every sample (``root_streams``)
+    root_streams: bool = False
 
     #: the scratch cap of one adjoint call: longer inputs run in time chunks
     SCRATCH_CAP_BYTES = 256 * 2 ** 20
@@ -1792,20 +1799,30 @@ def _dual(x, n: int) -> Dual:
     return Dual(x, (None,) * n)
 
 
-def _scan_shape(n_entries: int, n_state: int) -> Tuple[int, int]:
+def _scan_shape(n_entries: int, n_out: int) -> Tuple[int, int]:
     """(steps per pipeline slab of a group's entries, stages in the ring) of
     the recursion kernel: a ring of about 128 KB of shared memory beside the
-    (S + 1) output tiles, at least two stages, at most 16; a slab is 32
+    n_out output tiles (S + 1, and one more for G where the program writes
+    the root's streams), at least two stages, at most 16; a slab is 32
     steps (fewer for very wide states), a divisor of the 32 columns of an
     output tile."""
     g = AdjointProgram.GROUP
     step_bytes = g * AdjointProgram.padded(n_entries) * 4
     slab = 32
-    tiles = (n_state + 1) * g * 33 * 4
+    tiles = n_out * g * 33 * 4
     while slab > 1 and 2 * slab * step_bytes + tiles > 200 * 1024:
         slab //= 2
     stages = max(2, min(16, (128 * 1024) // (slab * step_bytes)))
     return slab, stages
+
+
+def root_streams(emitter: _RootEmitter) -> bool:
+    """Whether the adjoint of a program with this root writes the root's
+    streams for the parameter pass (B4's pass 3 on the card): an NxH root
+    (widths 4, 8, 16, at least one hidden layer) whose port impedance is one
+    value or one per row.  A per-sample R_up, and every other root, leave
+    the root's cotangents to autograd (``parallel_bptt``)."""
+    return isinstance(emitter, _NeuralEmitter) and emitter.r_kind in ("scalar", "row")
 
 
 def generate_adjoint(circuit: Circuit, prog: CircuitProgram) -> AdjointProgram:
@@ -1813,6 +1830,13 @@ def generate_adjoint(circuit: Circuit, prog: CircuitProgram) -> AdjointProgram:
     obar_t, z_{t-1} and the carried lam = lam_t, g_vin_t = (dF/dv)^T (lam,
     obar) and lam_{t-1} = (dF/dz)^T (lam, obar), by S + 1 tangents of the
     traced step.
+
+    Where :func:`root_streams` holds, one more direction, the root's
+    reflected wave b itself (the "b column": the step is linear in b), gives
+    G_t = (dF/db)^T (lam_t, obar_t), the cotangent of b (and so -G that of
+    the MLP's output y = -b): pass 1 stores the b column's entries after the
+    others and writes the root's incident wave a, pass 2 contracts them with
+    lam_t before its update and writes G.
 
     The device runs it in two passes.  The tangents depend on the trajectory
     alone, so the **Jacobian step** (every (b, t) independent) writes the
@@ -1825,7 +1849,9 @@ def generate_adjoint(circuit: Circuit, prog: CircuitProgram) -> AdjointProgram:
     for the card's tests (``circuit_adjoint_onepass_launch``)."""
     emitter = prog.emitter
     order = prog.state_order
-    S, n_dir = len(order), len(order) + 1
+    streams = root_streams(emitter)
+    S = len(order)
+    n_dir = S + 1 + streams  # each state, v, and b where the root's streams are written
     tr = _Trace()
     (coeffs_s, params_s, static_s), root_slots, slot_names, counts = _symbols(
         tr, prog.layout, emitter)
@@ -1838,6 +1864,7 @@ def generate_adjoint(circuit: Circuit, prog: CircuitProgram) -> AdjointProgram:
     state = _nest([((node, field), Dual(Sym(tr, f"s{k}"), basis(k)))
                    for k, (node, field) in enumerate(order)])
     v = Dual(Sym(tr, "v"), basis(S))
+    root_a: List[Sym] = []  # the root's incident wave, for pass 1 to write
 
     def root_fn(a, r_up, ctl):
         if emitter.traced:
@@ -1847,7 +1874,11 @@ def generate_adjoint(circuit: Circuit, prog: CircuitProgram) -> AdjointProgram:
         b = emitter.emit(tr, a.p, r_up, root_slots, ctl, params_s)  # dropped: no tangent reads it
         tr.entries[n:] = [e for e in tr.entries[n:] if e[0] is not None]  # and its comment
         m = emitter.emit_slope(tr, a.p, r_up, root_slots, ctl, params_s)
-        return Dual(b, (_tmul(d, m) for d in a.d))
+        root_a.append(a.p)
+        d = [_tmul(x, m) for x in a.d]
+        if streams:  # a is read before b is made: its tangent along b is zero
+            d[S + 1] = one
+        return Dual(b, d)
 
     new_state, out = step(circuit, coeffs_s, state, _controls(static_s, prog.input_node, v),
                           root_fn)
@@ -1891,6 +1922,8 @@ def generate_adjoint(circuit: Circuit, prog: CircuitProgram) -> AdjointProgram:
     n_entries = len(stored)
     e4 = AdjointProgram.padded(n_entries)
     j_writes = [f"J[{m}] = {ref};" for m, ref in enumerate(stored)]
+    if streams:
+        j_writes.append(f"*ra = {root_a[0].ref};")
     j_lines, j_ops = tr.live(" ".join(j_writes))
     j_used = set(_WORD.findall(" ".join(j_lines + j_writes)))
     j_reads = [f"const float s{k} = z[{k}];" for k in range(S) if f"s{k}" in j_used]
@@ -1915,11 +1948,13 @@ def generate_adjoint(circuit: Circuit, prog: CircuitProgram) -> AdjointProgram:
     lam_new2 = [pull2(k) for k in range(S)]
     g_vin2 = pull2(S)
     r_writes = [f"lam[{k}] = {lam_new2[k].ref};" for k in range(S)]
+    if streams:  # G from lam_t, before the update
+        r_writes.append(f"*rg = {pull2(S + 1).ref};")
     r_lines, r_ops = tr2.live(" ".join(r_writes + [g_vin2.ref]))
     r_used = set(_WORD.findall(" ".join(r_lines + r_writes + [g_vin2.ref])))
     r_reads = [f"const float l{k} = lam[{k}];" for k in range(S) if f"l{k}" in r_used]
     r_body = "\n".join("  " + line for line in r_reads + r_lines + r_writes)
-    slab, stages = _scan_shape(n_entries, S)
+    slab, stages = _scan_shape(n_entries, S + 1 + streams)
 
     prelude = _prelude(circuit, emitter, prog.input_node, order, slot_names, counts,
                        emitter.n_keep, emitter.prologue(root_slots), "adjoint", ops)
@@ -1949,18 +1984,24 @@ __device__ __forceinline__ float circuit_adjoint_step(float v, float go, const f
 #define CIRCUIT_NE {n_entries}
 #define CIRCUIT_NE4 {e4}  // floats a sample in the scratch: CIRCUIT_NE padded to 4 (at least 4)
 #define CIRCUIT_GROUP {AdjointProgram.GROUP}  // streams a block of pass 2 walks
+// 1: pass 1 writes the root's incident wave a, pass 2 the cotangent G of
+// its reflected wave b (an NxH root, R_up one value or one per row)
+#define CIRCUIT_ROOT_STREAMS {int(streams)}
 
 // Pass 1 at sample t: the CIRCUIT_NE entries J[m] that the recursion step
 // reads (the tangents of the step and the output's tangents times go that
-// are not exact constants).  Operations: {j_ops}.
+// are not exact constants; with CIRCUIT_ROOT_STREAMS the b column's last),
+// and with CIRCUIT_ROOT_STREAMS the root's incident wave in *ra.
+// Operations: {j_ops}.
 __device__ __forceinline__ void circuit_jacobian_step(float v, float go, const float* z,
-                                                      float* J, const float* c,
+                                                      float* J, float* ra, const float* c,
                                                       const float* r, const float* q,
                                                       const float* w, const float* p) {{
   (void)v;
   (void)go;
   (void)z;
   (void)J;
+  (void)ra;
   (void)c;
   (void)r;
   (void)q;
@@ -1971,10 +2012,12 @@ __device__ __forceinline__ void circuit_jacobian_step(float v, float go, const f
 
 // Pass 2 at sample t: lam = lam_t on entry, lam_(t-1) on return; returns
 // g_vin_t.  circuit_adjoint_step's contraction on the stored entries, in its
-// order and rounding.  Operations: {r_ops}.
-__device__ __forceinline__ float circuit_recursion_step(const float* J, float* lam) {{
+// order and rounding; with CIRCUIT_ROOT_STREAMS also G_t (the b column
+// contracted with lam_t) in *rg.  Operations: {r_ops}.
+__device__ __forceinline__ float circuit_recursion_step(const float* J, float* lam, float* rg) {{
   (void)J;
   (void)lam;
+  (void)rg;
 {r_body}
   return {g_vin2.ref};
 }}
@@ -2024,9 +2067,10 @@ __host__ __device__ __forceinline__ size_t circuit_jac_index(int b, int t, int m
 // how fast the SMs that walk it pull the scratch.
 //
 // Scratch: CIRCUIT_NE4 = {e4} floats a sample (CIRCUIT_NE = {n_entries} entries
-// padded), ceil(B / g) g tc samples in all (g = CIRCUIT_GROUP; 134 MB for
-// the Tube Screamer at (1024, 2048)), laid out by circuit_jac_index; the
-// wrapper allocates it and cuts time into chunks under its cap.
+// padded), ceil(B / g) g tc samples in all (g = CIRCUIT_GROUP; 168 MB for
+// the Tube Screamer 2x16 at (1024, 2048), its 16 tangents and 4 of the b
+// column), laid out by circuit_jac_index; the wrapper allocates it and cuts
+// time into chunks under its cap.
 // Exact f32, uncontracted as the step's lines are: the two
 // passes give the one-pass step's bits.
 namespace {{
@@ -2042,10 +2086,13 @@ constexpr int kSlabFloats = kSlab * kGroup * kE4;  // one stage
 // in as (128, 32) tiles (whole lines), each thread runs the Jacobian step
 // of its stream for the 32 samples (its row prologue once) and writes the
 // entries as 16-byte words.  Lanes past B in the last group of kGroup
-// compute on zeros and are written, never read out.
+// compute on zeros and are written, never read out.  Where the program
+// writes the root's streams, each step's a takes its v's place in the
+// input tile, which then goes out to aseq (B, T) as whole lines.
 __global__ void __launch_bounds__({emitter.launch_bounds})
 circuit_jacobian_kernel(const float* __restrict__ vin, const float* __restrict__ gout,
-                        const float* __restrict__ zseq, float* __restrict__ jac, int B, int T,
+                        const float* __restrict__ zseq, float* __restrict__ jac,
+                        float* __restrict__ aseq, int B, int T,
                         int t0, int tc, const float* __restrict__ coef,
                         const float* __restrict__ rows, const float* __restrict__ times,
                         const float* __restrict__ warr, int n_warr) {{
@@ -2082,8 +2129,10 @@ circuit_jacobian_kernel(const float* __restrict__ vin, const float* __restrict__
     float J[kE4];
 #pragma unroll
     for (int m = CIRCUIT_NE; m < kE4; ++m) J[m] = 0.f;
-    circuit_jacobian_step(tiles[0][threadIdx.x][k], tiles[1][threadIdx.x][k], z, J, c, r, q, sw,
-                          p);
+    float ra = 0.f;
+    circuit_jacobian_step(tiles[0][threadIdx.x][k], tiles[1][threadIdx.x][k], z, J, &ra, c, r, q,
+                          sw, p);
+    if (CIRCUIT_ROOT_STREAMS) tiles[0][threadIdx.x][k] = ra;  // this thread's v, read
     if (padded) {{
       float4* dst = reinterpret_cast<float4*>(jac + circuit_jac_index(b, s0 + k, 0, tc));
 #pragma unroll
@@ -2092,6 +2141,7 @@ circuit_jacobian_kernel(const float* __restrict__ vin, const float* __restrict__
       }}
     }}
   }}
+  if (CIRCUIT_ROOT_STREAMS) tile_store(tiles[0], aseq, B, T, b0, t0 + s0, n);
 }}
 
 // Pass 2: one warp per group of kGroup streams (a block each, so that the
@@ -2106,14 +2156,16 @@ circuit_jacobian_kernel(const float* __restrict__ vin, const float* __restrict__
 // 16-byte words.  lam_t (before the update) and g_vin go out through
 // (kGroup, 32) tiles as whole lines (16-byte stores where T allows).
 // lam_in and lam_out may alias: each thread reads its own stream's lam
-// first and writes it last.
+// first and writes it last.  Where the program writes the root's streams,
+// G goes out through one more tile to gseq (B, T).
 __global__ void __launch_bounds__(32, 1)
 circuit_recursion_kernel(const float* __restrict__ jac, const float* lam_in, float* lam_out,
-                         float* __restrict__ lam_seq, float* __restrict__ gvin, int B, int T,
-                         int t0, int tc) {{
+                         float* __restrict__ lam_seq, float* __restrict__ gvin,
+                         float* __restrict__ gseq, int B, int T, int t0, int tc) {{
   extern __shared__ float4 smem4[];
   __shared__ unsigned long long full[kStages];  // one mbarrier a stage
   float* ring = reinterpret_cast<float*>(smem4);
+  // lam_t (CIRCUIT_NS tiles), g_vin, and G where the program writes it
   float (*otile)[kGroup][kTileCols + 1] =
       reinterpret_cast<float (*)[kGroup][kTileCols + 1]>(ring + kStages * kSlabFloats);
   const int lane = threadIdx.x;
@@ -2154,7 +2206,9 @@ circuit_recursion_kernel(const float* __restrict__ jac, const float* lam_in, flo
     }}
 #pragma unroll
     for (int s = 0; s < CIRCUIT_NS; ++s) otile[s][lane][col] = lam[s];  // lam_t
-    otile[CIRCUIT_NS][lane][col] = circuit_recursion_step(J, lam);
+    float rg = 0.f;
+    otile[CIRCUIT_NS][lane][col] = circuit_recursion_step(J, lam, &rg);
+    if (CIRCUIT_ROOT_STREAMS) otile[CIRCUIT_NS + 1][lane][col] = rg;
   }};
   const bool vec_out = T % 4 == 0;  // 16-byte stores of whole tiles
   for (int u = 0; u < kStages - 1; ++u) issue(u);
@@ -2179,9 +2233,9 @@ circuit_recursion_kernel(const float* __restrict__ jac, const float* lam_in, flo
           if (bb < B) {{
             const size_t at = static_cast<size_t>(bb) * T + t0 + tb + cc;
 #pragma unroll
-            for (int s = 0; s <= CIRCUIT_NS; ++s) {{
+            for (int s = 0; s <= CIRCUIT_NS + CIRCUIT_ROOT_STREAMS; ++s) {{
               float* dst = s < CIRCUIT_NS ? lam_seq + static_cast<size_t>(s) * B * T + at
-                                          : gvin + at;
+                                          : (s == CIRCUIT_NS ? gvin : gseq) + at;
               *reinterpret_cast<float4*>(dst) = make_float4(otile[s][rr][cc], otile[s][rr][cc + 1],
                                                             otile[s][rr][cc + 2],
                                                             otile[s][rr][cc + 3]);
@@ -2199,6 +2253,7 @@ circuit_recursion_kernel(const float* __restrict__ jac, const float* lam_in, flo
               lam_seq[static_cast<size_t>(s) * B * T + at] = otile[s][rr][cc];
             }}
             gvin[at] = otile[CIRCUIT_NS][rr][cc];
+            if (CIRCUIT_ROOT_STREAMS) gseq[at] = otile[CIRCUIT_NS + CIRCUIT_ROOT_STREAMS][rr][cc];
           }}
         }}
       }}
@@ -2288,9 +2343,10 @@ cudaError_t allow_smem(const void* kernel, size_t smem) {{
 extern "C" {{
 
 // Pass 1 over samples [t0, t0 + tc) of the (B, T) streams into jac
-// (circuit_jac_index with tc).
+// (circuit_jac_index with tc); with CIRCUIT_ROOT_STREAMS also the root's
+// incident wave into aseq (B, T) there (else aseq is not read).
 int circuit_jacobian_launch(const float* vin, const float* gout, const float* zseq, float* jac,
-                            int B, int T, int t0, int tc, const float* coef,
+                            float* aseq, int B, int T, int t0, int tc, const float* coef,
                             const float* rows, const float* times, const float* warr,
                             int n_warr, void* stream) {{
   const size_t smem = sizeof(float) * static_cast<size_t>((n_warr + 3) & ~3) +
@@ -2299,24 +2355,25 @@ int circuit_jacobian_launch(const float* vin, const float* gout, const float* zs
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((B + kTileRows - 1) / kTileRows, (tc + kTileCols - 1) / kTileCols);
   circuit_jacobian_kernel<<<grid, kTileRows, smem, static_cast<cudaStream_t>(stream)>>>(
-      vin, gout, zseq, jac, B, T, t0, tc, coef, rows, times, warr, n_warr);
+      vin, gout, zseq, jac, aseq, B, T, t0, tc, coef, rows, times, warr, n_warr);
   return static_cast<int>(cudaGetLastError());
 }}
 
 // Pass 2 over samples t0 + tc - 1 ... t0: lam_in (S, B) = lam at t0 + tc,
 // lam_out (S, B) = lam at t0 (may be lam_in); writes lam_seq (S, B, T) and
-// g_vin (B, T) there.
+// g_vin (B, T) there, and with CIRCUIT_ROOT_STREAMS G into gseq (B, T)
+// (else gseq is not read).
 int circuit_recursion_launch(const float* jac, const float* lam_in, float* lam_out,
-                             float* lam_seq, float* gvin, int B, int T, int t0, int tc,
-                             void* stream) {{
+                             float* lam_seq, float* gvin, float* gseq, int B, int T, int t0,
+                             int tc, void* stream) {{
   const size_t smem = sizeof(float) * (static_cast<size_t>(kStages) * kSlabFloats +
-                                       static_cast<size_t>(CIRCUIT_NS + 1) * kGroup *
-                                           (kTileCols + 1));
+                                       static_cast<size_t>(CIRCUIT_NS + 1 + CIRCUIT_ROOT_STREAMS) *
+                                           kGroup * (kTileCols + 1));
   const cudaError_t e = allow_smem(reinterpret_cast<const void*>(circuit_recursion_kernel), smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   circuit_recursion_kernel<<<(B + kGroup - 1) / kGroup, 32, smem,
                              static_cast<cudaStream_t>(stream)>>>(jac, lam_in, lam_out, lam_seq,
-                                                                  gvin, B, T, t0, tc);
+                                                                  gvin, gseq, B, T, t0, tc);
   return static_cast<int>(cudaGetLastError());
 }}
 
@@ -2369,29 +2426,32 @@ extern "C" void circuit_adjoint_host_run(const float* vin, const float* gout, co
 
 // The two passes on the host over samples [t0, t0 + tc) (CPU tests): pass 1
 // into jac (circuit_jac_index, ceil(B / g) g tc CIRCUIT_NE4 floats for
-// g = CIRCUIT_GROUP), then pass 2 from lam_in to lam_out, as the kernels do.
+// g = CIRCUIT_GROUP), then pass 2 from lam_in to lam_out, as the kernels do,
+// with the root's streams into aseq and gseq where the program writes them.
 extern "C" void circuit_jacobian_host_run(const float* vin, const float* gout,
-                                          const float* zseq, float* jac, int B, int T, int t0,
-                                          int tc, const float* c, const float* rows,
-                                          const float* times, const float* w) {{
+                                          const float* zseq, float* jac, float* aseq, int B,
+                                          int T, int t0, int tc, const float* c,
+                                          const float* rows, const float* times,
+                                          const float* w) {{
   for (long b = 0; b < B; ++b) {{
     float r[{rn}], p[{pn}];
     for (int j = 0; j < CIRCUIT_NR; ++j) r[j] = rows[j * B + b];
     circuit_prologue(c, r, w, p);
     for (int k = 0; k < tc; ++k) {{
       const long t = t0 + k;
-      float z[{zn}], q[{qn}], J[{e4}];
+      float z[{zn}], q[{qn}], J[{e4}], ra = 0.f;
       for (int s = 0; s < CIRCUIT_NS; ++s) z[s] = zseq[(s * B + b) * T + t];
       for (int j = 0; j < CIRCUIT_NQ; ++j) q[j] = times[(j * B + b) * T + t];
-      circuit_jacobian_step(vin[b * T + t], gout[b * T + t], z, J, c, r, q, w, p);
+      circuit_jacobian_step(vin[b * T + t], gout[b * T + t], z, J, &ra, c, r, q, w, p);
       for (int m = 0; m < CIRCUIT_NE; ++m) jac[circuit_jac_index(b, k, m, tc)] = J[m];
+      if (CIRCUIT_ROOT_STREAMS) aseq[b * T + t] = ra;
     }}
   }}
 }}
 
 extern "C" void circuit_recursion_host_run(const float* jac, const float* lam_in, float* lam_out,
-                                           float* lam_seq, float* gvin, int B, int T, int t0,
-                                           int tc) {{
+                                           float* lam_seq, float* gvin, float* gseq, int B,
+                                           int T, int t0, int tc) {{
   for (long b = 0; b < B; ++b) {{
     float lam[{zn}], J[{e4}];
     for (int s = 0; s < CIRCUIT_NS; ++s) lam[s] = lam_in[s * B + b];
@@ -2399,7 +2459,9 @@ extern "C" void circuit_recursion_host_run(const float* jac, const float* lam_in
       const long t = t0 + k;
       for (int m = 0; m < CIRCUIT_NE; ++m) J[m] = jac[circuit_jac_index(b, k, m, tc)];
       for (int s = 0; s < CIRCUIT_NS; ++s) lam_seq[(s * B + b) * T + t] = lam[s];
-      gvin[b * T + t] = circuit_recursion_step(J, lam);
+      float rg = 0.f;
+      gvin[b * T + t] = circuit_recursion_step(J, lam, &rg);
+      if (CIRCUIT_ROOT_STREAMS) gseq[b * T + t] = rg;
     }}
     for (int s = 0; s < CIRCUIT_NS; ++s) lam_out[s * B + b] = lam[s];
   }}
@@ -2407,7 +2469,7 @@ extern "C" void circuit_recursion_host_run(const float* jac, const float* lam_in
 """
     return AdjointProgram(source=step_source + kernel, host_source=step_source + host,
                           ops_per_sample=ops, jacobian_ops=j_ops, recursion_ops=r_ops,
-                          n_entries=n_entries, n_state=S)
+                          n_entries=n_entries, n_state=S, root_streams=streams)
 
 
 # ---------------------------------------------------------------------------

@@ -223,11 +223,13 @@ def _param_ctas(device_index: int, H: int, L: int) -> int:
     return ctas.value
 
 
-def launch_param_vjp(mlp_params: MLPParams, a_seq, log_r, G):
+def launch_param_vjp(mlp_params: MLPParams, a_seq, log_r, G, launch_span: str):
     """B4's pass 3 on CUDA tensors (arguments and result as
     :func:`mlp_param_vjp`, B, T > 0): ``clipper_param_launch``, the
     kernel's blocks each writing one partial of the cotangents into a scratch
-    this function allocates, then their sum in block order.  Counts
+    this function allocates, then their sum in block order, inside a span
+    named ``launch_span`` (``wdf.launch.B4.pass3`` for the clipper,
+    ``wdf.launch.B8.pass3`` for the generic engine's root).  Counts
     nothing."""
     H, L, weights = train_weights(mlp_params, a_seq.device)
     B, T = a_seq.shape
@@ -238,7 +240,7 @@ def launch_param_vjp(mlp_params: MLPParams, a_seq, log_r, G):
         a_seq, G, log_r = a_seq.contiguous(), G.contiguous(), log_r.contiguous()
         out = torch.empty(sum(x.numel() for x in leaves), device=a_seq.device)
         partials = torch.empty(ctas * out.numel(), device=a_seq.device)
-        with span("wdf.launch.B4.pass3"):
+        with span(launch_span):
             err = lib.clipper_param_launch(a_seq.data_ptr(), G.data_ptr(), log_r.data_ptr(),
                                            partials.data_ptr(), ctas, out.data_ptr(), B, T,
                                            weights.data_ptr(), H, L,
@@ -277,16 +279,25 @@ def mlp_param_vjp(mlp_params: MLPParams, activations: Sequence[str], a_seq, log_
         return mlp_param_vjp_plain(mlp_params, activations, a_seq, log_r, G)
     if a_seq.device.type != "cuda":
         raise ValueError(f"unsupported device {a_seq.device}")
+    return param_vjp_on_card(mlp_param_vjp, "wdf.launch.B4.pass3", mlp_params, activations, a_seq,
+                             log_r, G)
+
+
+mlp_param_vjp.launches = 0
+
+
+def param_vjp_on_card(counter, launch_span: str, mlp_params: MLPParams,
+                      activations: Sequence[str], a_seq, log_r, G):
+    """:func:`mlp_param_vjp` on the card, for each engine that runs pass 3:
+    checks the arguments, launches (:func:`launch_param_vjp`, in a span
+    named ``launch_span``) and counts one call in ``counter.launches``."""
     _check_param_io(activations, a_seq, log_r, G)
     if a_seq.numel() == 0:
         train_weights(mlp_params, a_seq.device)
         return [torch.zeros_like(x) for x in mlp_leaves(mlp_params)]
-    result = launch_param_vjp(mlp_params, a_seq, log_r, G)
-    mlp_param_vjp.launches += 1
+    result = launch_param_vjp(mlp_params, a_seq, log_r, G, launch_span)
+    counter.launches += 1
     return result
-
-
-mlp_param_vjp.launches = 0
 
 
 class _FusedClipperTrain(torch.autograd.Function):

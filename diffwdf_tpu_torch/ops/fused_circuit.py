@@ -60,6 +60,7 @@ class Prepared(NamedTuple):
     warr: Optional[torch.Tensor]   # root array, or None
     rows: torch.Tensor             # row slots (NR, B), empty for none
     times: torch.Tensor            # time slots (NQ, B, T), empty for none
+    r_up: Any = None               # the root's port impedance as adapted
 
 
 def _merge_controls(static_controls, row_controls):
@@ -106,8 +107,9 @@ def prepare(circuit, params, device, *, input_node: str = "Vin",
             prog = program(circuit, coeffs, params, static, input_node, neural_mlp, batch, time)
         with span("wdf.slots"):
             vec, rows, times = prog.arguments(circuit, coeffs, params, static, device)
-            warr = prog.emitter.array(coeffs[circuit.tree.name]["R"], params, device)
-    return Prepared(prog, vec, warr, rows, times)
+            r_up = coeffs[circuit.tree.name]["R"]
+            warr = prog.emitter.array(r_up, params, device)
+    return Prepared(prog, vec, warr, rows, times, r_up)
 
 
 def _state_stack(prog: CircuitProgram, state0, vin) -> torch.Tensor:
@@ -134,20 +136,23 @@ def _state_dict(prog: CircuitProgram, leaves) -> Dict[str, Dict[str, Any]]:
 
 def plain_step(circuit, prep: Prepared):
     """The kernel's step in PyTorch ops on the prepared slot values:
-    ``run(z, v, t) -> (new z, out)`` with z a list of S (B,) tensors in the
-    program's state order and t the sample index (for the per-sample
-    slots).  Differentiable in z and v (``ops.parallel_bptt``'s plain
-    adjoint pulls its VJP)."""
+    ``run(z, v, t, tap=None) -> (new z, out)`` with z a list of S (B,)
+    tensors in the program's state order and t the sample index (for the
+    per-sample slots).  Differentiable in z and v (``ops.parallel_bptt``'s
+    plain adjoint pulls its VJP).  ``tap(a, b) -> b``, where given, sees the
+    root's incident and reflected waves and returns the reflected wave the
+    step goes on with."""
     prog = prep.prog
     fixed = None if prep.times.numel() else prog.unflatten(prep.vec, prep.rows, prep.times)
 
-    def run(z, v, t):
+    def run(z, v, t, tap=None):
         coeffs_k, params_k, static_k, slots = (
             fixed if fixed is not None else prog.unflatten(prep.vec, prep.rows, prep.times, t))
         r_up = coeffs_k[circuit.tree.name]["R"]
 
         def root_fn(a, r, controls):
-            return prog.emitter.plain(a, r_up, slots, prep.warr, controls, params_k)
+            b = prog.emitter.plain(a, r_up, slots, prep.warr, controls, params_k)
+            return b if tap is None else tap(a, b)
 
         controls = {k: dict(x) for k, x in static_k.items()}
         controls.setdefault(prog.input_node, {})["v"] = v

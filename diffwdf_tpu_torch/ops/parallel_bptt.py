@@ -30,34 +30,46 @@ Writing one step as (z_t, o_t) = F(z_{t-1}, v_t, theta):
 
   through ``circuit.adapt`` and the batched step over the whole (B, T)
   trajectory (``_batched_step``), so component values (R, C), diode physics
-  and the neural root all receive exact cotangents.  It stays PyTorch ops.
+  and the neural root all receive exact cotangents.  It stays PyTorch ops,
+  but for an NxH root whose port impedance is one value or one per row
+  (``circuit_codegen.root_streams``): there the step is linear in the
+  root's reflected wave b = -MLP([a, log R_up]), so B8 also hands over the
+  root's incident wave a_t (pass 1) and G_t = (dF/db)^T (lam_t, obar_t)
+  (pass 2, the "b column" contracted with lam_t), and the root's leaves
+  are one batched VJP of the MLP with dL/dy = -G: on the card B4's pass 3
+  (``clipper_train.launch_param_vjp``, :func:`root_param_vjp`).  Only the
+  other leaves that need a gradient then go through autograd.
 
 Impedance-affecting drives may be batch-constant (``static_controls``), per
 row or per sample (``row_fields``: the measured pot of the training data);
 their values get zero cotangents.  Restrictions, as in the JAX package: one
-output probe, and no pot inside an R-type adaptor.
+output probe, and no pot inside an R-type adaptor.  A per-sample R_up keeps
+the root's leaves in the autograd pass.
 
 A CPU tensor runs the plain versions: B7's, and :func:`fused_backward_plain`,
 a reverse loop over t that pulls the VJP of one plain step by autograd at
 z_{t-1}: an oracle independent of the kernel's forward-mode pulls.  Calls
 of B8 are counted in ``fused_backward.launches``: one call is two kernel
-launches (pass 1 and pass 2) per time chunk, one chunk up to the scratch cap.
+launches (pass 1 and pass 2) per time chunk, one chunk up to the scratch cap;
+those of the root's pass 3 in ``root_param_vjp.launches`` (``B8.pass3``).
 Spans (``runtime.profiler``, while a profiler records): ``wdf.bptt`` around the
 op's backward, with B8's ``wdf.prepare`` (``fused_circuit.prepare``),
 ``wdf.launch.B8.pass1`` and ``wdf.launch.B8.pass2`` (each time chunk's two
-launches) and ``wdf.param_pass`` (:func:`parameter_cotangents`) inside.
+launches) and ``wdf.param_pass`` (:func:`parameter_cotangents`, with
+``wdf.launch.B8.pass3`` around the root's pass 3) inside.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..roots.neural import NeuralDiodeRoot
-from ..runtime.profiler import span
+from ..runtime.profiler import h2d, span
 from . import _build
-from .circuit_codegen import adjoint_program, state_order
+from . import clipper_train as ct
+from .circuit_codegen import adjoint_program, root_streams, state_order
 from .fused_circuit import (
     Controls,
     _check_io,
@@ -107,13 +119,25 @@ def _check_backward(vin, g_out, z_prev, lam_T, S: int, row_controls) -> None:
         raise ValueError(f"fused_backward: trajectories {tuple(vin.shape)}, cotangents ({B},)")
 
 
+class RootStreams(NamedTuple):
+    """What B8 hands the root's parameter pass: the root's incident wave a
+    and the cotangent G of its reflected wave b = -MLP([a, log R_up]) (so
+    -G is that of the MLP's output), (B, T) each, and log R_up per row (B,)."""
+
+    a_seq: torch.Tensor
+    G: torch.Tensor
+    log_r: torch.Tensor
+
+
 def fused_backward_plain(circuit, params, vin, g_out, z_prev, lam_T, *, input_node: str = "Vs",
                          static_controls: Controls = None, row_controls: Controls = None,
                          neural_mlp=None):
     """Plain PyTorch version of :func:`fused_backward`: for t = T-1 ... 0,
     ``torch.autograd.grad`` of one plain step (the kernel's slot values and
     root twin, ``fused_circuit.plain_step``) at (z_{t-1}, v_t) with the
-    cotangents (lam_t, obar_t).  Returns as :func:`fused_backward`."""
+    cotangents (lam_t, obar_t).  Returns as :func:`fused_backward`: where
+    the program has the root's streams, a_t as the step's root sees it and
+    G_t as the gradient of a zero added to the root's reflected wave."""
     prep = prepare(circuit, params, vin.device, input_node=input_node,
                    static_controls=static_controls, row_controls=row_controls,
                    neural_mlp=neural_mlp, shape=tuple(vin.shape))
@@ -124,20 +148,32 @@ def fused_backward_plain(circuit, params, vin, g_out, z_prev, lam_T, *, input_no
     lam = [l.detach() for l in lam_T]
     lam_step = [torch.empty_like(vin) for _ in range(S)]
     g_vin = torch.empty_like(vin)
+    root = (RootStreams(torch.empty_like(vin), torch.empty_like(vin), _log_r(prep, B))
+            if root_streams(prep.prog.emitter) else None)
     for t in range(T - 1, -1, -1):
         for k in range(S):
             lam_step[k][:, t] = lam[k]
+        probe = []  # the zero added to the root's reflected wave, whose gradient is G_t
+
+        def tap(a, b):
+            root.a_seq[:, t] = a.detach()
+            probe.append(torch.zeros_like(b, requires_grad=True))
+            return b + probe[0]
+
         with torch.enable_grad():
             z = [z_prev[k][:, t].detach().requires_grad_(True) for k in range(S)]
             v = vin[:, t].detach().requires_grad_(True)
-            new, out = run(z, v, t)
+            new, out = run(z, v, t, tap if root is not None else None)
             pairs = [(y, c) for y, c in zip(new + [out], lam + [g_out[:, t]]) if y.requires_grad]
-            grads = (torch.autograd.grad([y for y, _ in pairs], z + [v], [c for _, c in pairs],
-                                         allow_unused=True) if pairs else (None,) * (S + 1))
+            grads = (torch.autograd.grad([y for y, _ in pairs], z + [v] + probe,
+                                         [c for _, c in pairs], allow_unused=True)
+                     if pairs else (None,) * (S + 1 + len(probe)))
         zero = torch.zeros(B, dtype=vin.dtype, device=vin.device)
         lam = [g if g is not None else zero for g in grads[:S]]
         g_vin[:, t] = grads[S] if grads[S] is not None else zero
-    return lam_step, g_vin, lam
+        if root is not None:
+            root.G[:, t] = grads[S + 1] if grads[S + 1] is not None else zero
+    return lam_step, g_vin, lam, root
 
 
 def fused_backward(circuit, params, vin, g_out, z_prev, lam_T, *, input_node: str = "Vs",
@@ -151,13 +187,18 @@ def fused_backward(circuit, params, vin, g_out, z_prev, lam_T, *, input_node: st
     the final state's cotangents, S (B,) tensors.  params, the controls and
     ``neural_mlp`` as the forward was given them.  Returns (lam_step: S
     (B, T) tensors, lam_step[k][:, t] = lam_t, the cotangent of the state
-    step t wrote; g_vin (B, T); g_z0: S (B,) tensors).  CPU tensors run
-    :func:`fused_backward_plain`; CUDA tensors launch the kernel or raise.
+    step t wrote; g_vin (B, T); g_z0: S (B,) tensors; root: the root's
+    :class:`RootStreams` where the program has them
+    (``circuit_codegen.root_streams``) and B, T > 0 on the card, else
+    None).  CPU tensors run :func:`fused_backward_plain`, and hand over no
+    root streams: their root's leaves stay with autograd's pass.  CUDA
+    tensors launch the kernel or raise.
     """
     if vin.device.type == "cpu":
-        return fused_backward_plain(circuit, params, vin, g_out, z_prev, lam_T,
-                                    input_node=input_node, static_controls=static_controls,
-                                    row_controls=row_controls, neural_mlp=neural_mlp)
+        return (*fused_backward_plain(circuit, params, vin, g_out, z_prev, lam_T,
+                                      input_node=input_node, static_controls=static_controls,
+                                      row_controls=row_controls, neural_mlp=neural_mlp)[:3],
+                None)
     prep = prepare(circuit, params, vin.device, input_node=input_node,
                    static_controls=static_controls, row_controls=row_controls,
                    neural_mlp=neural_mlp, shape=tuple(vin.shape))
@@ -166,17 +207,31 @@ def fused_backward(circuit, params, vin, g_out, z_prev, lam_T, *, input_node: st
     B, T = vin.shape
     zseq = (torch.stack(list(z_prev)) if S else vin.new_empty((0, B, T))).contiguous()
     lam_t = (torch.stack(list(lam_T)) if S else vin.new_empty((0, B))).contiguous()
+    root = None
     if B == 0 or T == 0:
-        return list(torch.empty_like(zseq)), torch.empty_like(vin), list(lam_t.clone())
-    lam_seq, g_vin, g_z0 = launch_adjoint(circuit, prep, vin, g_out, zseq, lam_t)
-    return list(lam_seq), g_vin, list(g_z0)
+        lam_seq, g_vin, g_z0 = torch.empty_like(zseq), torch.empty_like(vin), lam_t.clone()
+    else:
+        if adjoint_program(circuit, prep.prog).root_streams:
+            root = RootStreams(torch.empty_like(vin), torch.empty_like(vin), _log_r(prep, B))
+        lam_seq, g_vin, g_z0 = launch_adjoint(circuit, prep, vin, g_out, zseq, lam_t,
+                                              streams=None if root is None else root[:2])
+    return list(lam_seq), g_vin, list(g_z0), root
 
 
-def launch_adjoint(circuit, prep, vin, g_out, zseq, lam_t):
+def _log_r(prep, B: int) -> torch.Tensor:
+    """log R_up per row (B,) of a program whose R_up is one value or one per
+    row: taken in double and rounded, as the kernels' root takes it."""
+    log_r = torch.log(torch.as_tensor(prep.r_up).detach().double()).float().reshape(-1)
+    return h2d(log_r.expand(B) if log_r.numel() == 1 else log_r, prep.vec.device).contiguous()
+
+
+def launch_adjoint(circuit, prep, vin, g_out, zseq, lam_t, streams=None):
     """Launch the generated adjoint of ``prep``'s program (see
     ``fused_circuit.prepare``) on one card: vin and g_out (B, T), zseq
     (S, B, T) and lam_t (S, B) f32, B and T > 0.  Returns (lam_seq (S, B, T),
-    g_vin (B, T), g_z0 (S, B)).
+    g_vin (B, T), g_z0 (S, B)).  ``streams``: for a program that writes the
+    root's streams, two (B, T) f32 tensors that pass 1 fills with the
+    root's incident wave a and pass 2 with G; else None.
 
     One call is two kernels per time chunk: pass 1
     (``circuit_jacobian_launch``, every (b, t) sample in parallel) writes the
@@ -193,6 +248,10 @@ def launch_adjoint(circuit, prep, vin, g_out, zseq, lam_t):
     S = zseq.shape[0]
     dummy = prep.vec  # a valid pointer where an argument is empty
     tc = adj.chunk(B, T)
+    if (streams is not None) != adj.root_streams:
+        raise ValueError(f"launch_adjoint: this circuit's adjoint writes "
+                         f"{'the' if adj.root_streams else 'no'} root streams")
+    a_ptr, g_ptr = (None, None) if streams is None else (x.data_ptr() for x in streams)
     with torch.cuda.device(vin.device):
         stream = torch.cuda.current_stream(vin.device).cuda_stream
         vin, g_out = vin.contiguous(), g_out.contiguous()
@@ -208,14 +267,14 @@ def launch_adjoint(circuit, prep, vin, g_out, zseq, lam_t):
             n = min(tc, T - t0)
             with span("wdf.launch.B8.pass1"):
                 err = lib.circuit_jacobian_launch(
-                    vin.data_ptr(), g_out.data_ptr(), z_ptr, jac.data_ptr(), B, T, t0, n,
+                    vin.data_ptr(), g_out.data_ptr(), z_ptr, jac.data_ptr(), a_ptr, B, T, t0, n,
                     prep.vec.data_ptr(), rows.data_ptr(), times.data_ptr(), w.data_ptr(),
                     0 if prep.warr is None else prep.warr.numel(), stream)
             _build.check(err, "fused_backward launch (pass 1)", lib.circuit_error_string)
             with span("wdf.launch.B8.pass2"):
                 err = lib.circuit_recursion_launch(
                     jac.data_ptr(), lam_in.data_ptr(), (g_z0 if S else dummy).data_ptr(),
-                    (lam_seq if S else dummy).data_ptr(), g_vin.data_ptr(), B, T, t0, n,
+                    (lam_seq if S else dummy).data_ptr(), g_vin.data_ptr(), g_ptr, B, T, t0, n,
                     stream)
             _build.check(err, "fused_backward launch (pass 2)", lib.circuit_error_string)
             lam_in = g_z0 if S else dummy
@@ -227,7 +286,8 @@ def launch_adjoint_onepass(circuit, prep, vin, g_out, zseq, lam_t):
     """The one-pass adjoint kernel (one thread per stream, the tangents and
     the contraction in one step): the reference that the card's tests and
     ``chip_smoke.py`` hold the two passes against; never on the training
-    path, and not counted.  Arguments and results as :func:`launch_adjoint`."""
+    path, and not counted.  Arguments and results as :func:`launch_adjoint`,
+    which it writes no root streams for."""
     lib = _build.generated_library(adjoint_program(circuit, prep.prog).source)
     B, T = vin.shape
     S = zseq.shape[0]
@@ -252,19 +312,66 @@ def launch_adjoint_onepass(circuit, prep, vin, g_out, zseq, lam_t):
 fused_backward.launches = 0
 
 
+def root_param_vjp(mlp, activations, a_seq, log_r, G) -> List[torch.Tensor]:
+    """The cotangents of an NxH root's MLP parameters from the root streams
+    B8 wrote on the card (:class:`RootStreams`): the VJP of
+    y = MLP([a, log R_up]) over every (b, t) with dL/dy = -G, in
+    ``clipper_train.mlp_leaves`` order, by B4's pass 3
+    (``clipper_train.launch_param_vjp``: fixed-order sums, the same bits on
+    every call) in a ``wdf.launch.B8.pass3`` span, counted in
+    ``root_param_vjp.launches``."""
+    return ct.param_vjp_on_card(root_param_vjp, "wdf.launch.B8.pass3", mlp, activations, a_seq,
+                                log_r, G)
+
+
+root_param_vjp.launches = 0
+
+
 @span("wdf.param_pass")
 def parameter_cotangents(circuit, params, vin, z_prev, g_out, lam_step, *,
                          input_node: str = "Vs", static_controls: Controls = None,
-                         row_controls: Controls = None) -> List[Optional[torch.Tensor]]:
+                         row_controls: Controls = None, root: Optional[RootStreams] = None,
+                         needs: Optional[List[bool]] = None) -> List[Optional[torch.Tensor]]:
     """The cotangents of every leaf of ``params`` (in ``_flatten`` order,
     None for a leaf the step does not read): autograd of
     sum_{b,t} <F(z_{t-1}, v_t, theta), (lam_t, obar_t)> through the
     adaptation and the batched step over the whole (B, T) trajectory, with
     lam_step and g_out from the adjoint.  Per-row pot values enter as (B, 1)
-    so their coefficients broadcast over time."""
+    so their coefficients broadcast over time.
+
+    Only the leaves that ``needs`` (a flag a leaf; None: every leaf) marks
+    are computed, every other held as a constant (its cotangent None).
+    With ``root``, the streams B8 wrote on the card for the circuit's NxH
+    root, the root's marked leaves come from :func:`root_param_vjp`
+    instead, and autograd runs only for the other marked leaves, if any."""
     leaves, rebuild = _flatten(params)
+    grads: List[Optional[torch.Tensor]] = [None] * len(leaves)
+    wanted = [i for i in range(len(leaves)) if needs is None or needs[i]]
+    if root is not None:
+        mlp = params[circuit.root.name]
+        at = {id(x): k for k, x in enumerate(ct.mlp_leaves(mlp))}
+        if any(id(leaves[i]) in at for i in wanted):
+            g_root = root_param_vjp(mlp, circuit.root.activations, root.a_seq, root.log_r,
+                                    root.G)
+            for i in wanted:
+                if id(leaves[i]) in at:
+                    grads[i] = g_root[at[id(leaves[i])]]
+        wanted = [i for i in wanted if id(leaves[i]) not in at]
+    if wanted:
+        for i, g in zip(wanted, _autograd_cotangents(circuit, vin, z_prev, g_out, lam_step,
+                                                     leaves, rebuild, wanted, input_node,
+                                                     static_controls, row_controls)):
+            grads[i] = g
+    return grads
+
+
+def _autograd_cotangents(circuit, vin, z_prev, g_out, lam_step, leaves, rebuild, wanted,
+                         input_node, static_controls, row_controls):
+    """Autograd of the scalar of :func:`parameter_cotangents` for the leaves
+    at the indices ``wanted``; every other leaf is held as a constant."""
+    wanted = set(wanted)
     with torch.enable_grad():
-        p_leaves = [x.detach().requires_grad_(True) for x in leaves]
+        p_leaves = [x.detach().requires_grad_(i in wanted) for i, x in enumerate(leaves)]
         p = rebuild(p_leaves)
         rc = {node: {field: (x[:, None] if x.dim() == 1 else x) for field, x in d.items()}
               for node, d in (row_controls or {}).items()}
@@ -274,7 +381,10 @@ def parameter_cotangents(circuit, params, vin, z_prev, g_out, lam_step, *,
         acc = (o * g_out).sum()
         for zk, lk in zip(z_new, lam_step):
             acc = acc + (zk * lk).sum()
-        return list(torch.autograd.grad(acc, p_leaves, allow_unused=True))
+        if not acc.requires_grad:  # no wanted leaf reaches the step
+            return [None] * len(wanted)
+        return list(torch.autograd.grad(acc, [x for i, x in enumerate(p_leaves) if i in wanted],
+                                         allow_unused=True))
 
 
 def _flatten(tree) -> Tuple[List[torch.Tensor], Callable]:
@@ -380,14 +490,14 @@ def make_fused_circuit_train_generic(
                 mlp = params[root_name]
             else:
                 k_params, mlp = params, None
-            lam_step, g_vin, g_z0 = fused_backward(
+            lam_step, g_vin, g_z0, root = fused_backward(
                 circuit, k_params, vin, g_out, list(seqs), lam_T, input_node=input_node,
                 static_controls=static_controls, row_controls=row_controls(row_vals) or None,
                 neural_mlp=mlp)
             g_params = parameter_cotangents(
-                circuit, ctx.rebuild(list(leaves)), vin, seqs, g_out, lam_step,
-                input_node=input_node, static_controls=static_controls,
-                row_controls=row_controls(row_vals))
+                circuit, params, vin, seqs, g_out, lam_step, input_node=input_node,
+                static_controls=static_controls, row_controls=row_controls(row_vals), root=root,
+                needs=list(ctx.needs_input_grad[4 + S + n_row:]))
             return (None, None, g_vin, None, *g_z0, *(torch.zeros_like(r) for r in row_vals),
                     *g_params)
 

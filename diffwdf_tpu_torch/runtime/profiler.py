@@ -310,6 +310,7 @@ def counters() -> Dict[str, int]:
         "B7": circuit.launches, "B7.lanes": circuit.lane_launches,
         "B7.pair": circuit.pair_launches,
         "B8": parallel_bptt.fused_backward.launches,
+        "B8.pass3": parallel_bptt.root_param_vjp.launches,
         "B9": deer_circuit.fused_deer_circuit.launches,
         "B9.neural": deer_circuit.fused_deer_neural.launches,
         "nvcc_builds": _build.build_generated.builds, "host_builds": _build.build_host.builds,

@@ -89,7 +89,7 @@ def _host(source):
     if hasattr(lib, "circuit_deer_host_run"):
         lib.circuit_deer_host_run.argtypes = [vp] * 5 + [i] + [vp] * 2
     if hasattr(lib, "circuit_jacobian_host_run"):
-        lib.circuit_jacobian_host_run.argtypes = [vp] * 4 + [i] * 4 + [vp] * 4
+        lib.circuit_jacobian_host_run.argtypes = [vp] * 5 + [i] * 4 + [vp] * 4
     return lib
 
 
@@ -133,7 +133,7 @@ def test_generated_slope_matches_jax_on_the_tie_grid(roots):
     zero = torch.zeros(n, 1)
     jac = torch.full((adj.scratch_floats(n, 1),), float("nan"))
     _host(adj.host_source).circuit_jacobian_host_run(
-        zero.data_ptr(), zero.data_ptr(), z.reshape(1, n, 1).data_ptr(), jac.data_ptr(), n, 1,
+        zero.data_ptr(), zero.data_ptr(), z.reshape(1, n, 1).data_ptr(), jac.data_ptr(), None, n, 1,
         0, 1, prep.vec.data_ptr(), prep.vec.data_ptr(), prep.vec.data_ptr(),
         prep.warr.data_ptr())
     m_pass1 = jac.reshape(-1, cg.AdjointProgram.padded(adj.n_entries))[:n, 0].numpy()
@@ -174,8 +174,8 @@ def test_plain_deer_and_adjoint_slopes_match_jax_at_the_ties(roots):
         new, _ = tfc.plain_step(ckt, prep)([fwAD.make_dual(z, torch.ones(n))], torch.zeros(n), 0)
         m_deer = fwAD.unpack_dual(new[0]).tangent.numpy()
     zero = torch.zeros(n, 1)
-    _, _, lam = pb.fused_backward_plain(ckt, params, zero, zero, [z.reshape(n, 1)],
-                                        [torch.ones(n)], input_node="Vs")
+    _, _, lam, _ = pb.fused_backward_plain(ckt, params, zero, zero, [z.reshape(n, 1)],
+                                           [torch.ones(n)], input_node="Vs")
     for m in (m_deer, lam[0].numpy()):
         np.testing.assert_allclose(m, m_jax, rtol=5e-6, atol=0)
 

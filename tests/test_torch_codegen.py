@@ -53,11 +53,13 @@ from diffwdf_tpu_torch.models import simple_circuits as tsc
 from diffwdf_tpu_torch.models import tube_screamer as tts
 from diffwdf_tpu_torch.ops import _build
 from diffwdf_tpu_torch.ops import circuit_codegen as cg
+from diffwdf_tpu_torch.ops import clipper_train as ct
 from diffwdf_tpu_torch.ops import fused_circuit as tfc
 from diffwdf_tpu_torch.ops import parallel_bptt as pb
 from diffwdf_tpu_torch.roots.diode import diode_1n4148_1u1d
 from diffwdf_tpu_torch.roots.distilled import distill_root
 from diffwdf_tpu_torch.roots.neural import NeuralDiodeRoot
+from diffwdf_tpu_torch.runtime.profiler import span
 
 FS = 96000.0
 B, T = 8, 256
@@ -90,8 +92,8 @@ def host_cxx(tmp_path_factory):
         if hasattr(lib, "circuit_adjoint_host_run"):
             lib.circuit_adjoint_host_run.argtypes = [vp] * 7 + [i] * 2 + [vp] * 4
         if hasattr(lib, "circuit_jacobian_host_run"):
-            lib.circuit_jacobian_host_run.argtypes = [vp] * 4 + [i] * 4 + [vp] * 4
-            lib.circuit_recursion_host_run.argtypes = [vp] * 5 + [i] * 4
+            lib.circuit_jacobian_host_run.argtypes = [vp] * 5 + [i] * 4 + [vp] * 4
+            lib.circuit_recursion_host_run.argtypes = [vp] * 6 + [i] * 4
         if hasattr(lib, "circuit_lanes_host_run"):
             lib.circuit_lanes_host_run.argtypes = [i] + [vp] * 5 + [i] * 2 + [vp] * 4
         return lib
@@ -335,23 +337,27 @@ def _two_pass_case(name):
     return _adjoint_case(name)
 
 
-def _host_two_pass(lib, adj, prep, vin, g_out, zseq, lam_t, tc):
+def _host_two_pass(lib, adj, prep, vin, g_out, zseq, lam_t, tc, streams=None):
     """(lam_seq, g_vin, g_z0) of the host-compiled pass 1 and pass 2 over
     time chunks of tc samples, last chunk first, in the kernels' scratch
-    layout, as launch_adjoint runs them."""
+    layout, as launch_adjoint runs them; ``streams`` (a, G), two (B, T)
+    tensors the passes fill with the root's streams where the program has
+    them (None: two of this function's own)."""
     b, t = vin.shape
     S = zseq.shape[0]
     lam_seq, g_vin, g_z0 = torch.empty((S, b, t)), torch.empty_like(vin), torch.empty((S, b))
+    streams = streams or (torch.empty_like(vin), torch.empty_like(vin))
+    a_ptr, g_ptr = (x.data_ptr() for x in streams)
     lam_in = lam_t
     for t0 in range(((t - 1) // tc) * tc, -1, -tc):
         n = min(tc, t - t0)
         jac = torch.full((adj.scratch_floats(b, n),), float("nan"))
         lib.circuit_jacobian_host_run(vin.data_ptr(), g_out.data_ptr(), zseq.data_ptr(),
-                                      jac.data_ptr(), b, t, t0, n, prep.vec.data_ptr(),
+                                      jac.data_ptr(), a_ptr, b, t, t0, n, prep.vec.data_ptr(),
                                       _ptr(prep.rows, prep.vec), _ptr(prep.times, prep.vec),
                                       _ptr(prep.warr, prep.vec))
         lib.circuit_recursion_host_run(jac.data_ptr(), lam_in.data_ptr(), g_z0.data_ptr(),
-                                       lam_seq.data_ptr(), g_vin.data_ptr(), b, t, t0, n)
+                                       lam_seq.data_ptr(), g_vin.data_ptr(), g_ptr, b, t, t0, n)
         lam_in = g_z0
     return lam_seq, g_vin, g_z0
 
@@ -378,7 +384,7 @@ def test_host_compiled_two_pass_adjoint_equals_one_pass(host_cxx, name):
     prep = tfc.prepare(ckt, params, "cpu", input_node=node, row_controls=rows, shape=(B, T))
     adj = cg.adjoint_program(ckt, prep.prog)
     S = len(seq)
-    assert adj.n_state == S and 0 < adj.n_entries <= (S + 1) ** 2
+    assert adj.n_state == S and 0 < adj.n_entries <= (S + 1) * (S + 1 + adj.root_streams)
     assert "circuit_jacobian_kernel" in adj.source and "circuit_recursion_kernel" in adj.source
     assert adj.jacobian_ops + adj.recursion_ops >= adj.ops_per_sample
     lib = host_cxx(name + "_two_pass", adj.host_source)
@@ -403,20 +409,202 @@ def test_host_compiled_two_pass_adjoint_equals_one_pass(host_cxx, name):
 
 
 def test_adjoint_scratch_chunks_under_the_cap():
-    """The scratch of (B, T) is E floats a sample over the stream groups of
-    8 of pass 2; past the cap, time runs in chunks of a multiple of 32
-    samples."""
+    """The scratch of (B, T) is E floats a sample (padded to 4) over the
+    stream groups of 8 of pass 2; past the cap, time runs in chunks of a
+    multiple of 32 samples."""
     ckt, params, node, _ = _case("ts_2x16")
     adj = cg.adjoint_program(ckt, tfc.prepare(ckt, params, "cpu", input_node=node).prog)
-    assert adj.n_entries == 16  # (S + 1)^2 for the Tube Screamer: no tangent is constant
-    assert 4 * adj.scratch_floats(1024, 2048) == 134_217_728  # 134 MB at the bench shape
+    # (S + 1)^2 = 16 for the Tube Screamer (no tangent is constant), then its
+    # NxH root's b column: dz/db of the three states and do/db obar
+    assert adj.root_streams and adj.n_entries == 16 + 3
+    assert 4 * adj.scratch_floats(1024, 2048) == 167_772_160  # 168 MB at (1024, 2048)
     assert adj.chunk(1024, 2048) == 2048 and adj.chunk(375, 2048) == 2048
     tc = adj.chunk(8192, 2048)
     assert tc % 32 == 0 and tc < 2048
     assert 4 * adj.scratch_floats(8192, tc) <= adj.SCRATCH_CAP_BYTES
     assert adj.GROUP == 8 and "#define CIRCUIT_GROUP 8" in adj.source
-    assert adj.scratch_floats(33, 10) == 16 * 40 * 10  # five groups of 8 streams
-    assert adj.scratch_floats(375, 1) == 16 * 376 and adj.scratch_floats(1, 3) == 16 * 8 * 3
+    assert adj.scratch_floats(33, 10) == 20 * 40 * 10  # five groups of 8 streams
+    assert adj.scratch_floats(375, 1) == 20 * 376 and adj.scratch_floats(1, 3) == 20 * 8 * 3
+
+
+def _route_case(name):
+    """_two_pass_case's cases and a Tube Screamer with a relu-mixed 2x8 root
+    (a general MLP root: no tangent emitter, so no generated adjoint)."""
+    if name == "ts_relu":
+        root = NeuralDiodeRoot(name="dp", n_layers=2, layer_size=8,
+                               activations=("tanh", "relu", "tanh", ""))
+        ckt = tts.make_tube_screamer(root, FS, drive=0.5)
+        return ckt, {**ckt.init_params("cpu"), **root.init_params("cpu")}, "Vin", 0.3, None
+    if name == "hpf_2x16":
+        ckt, params, node, amp = _case(name)
+        return ckt, params, node, amp, None
+    return _two_pass_case(name)
+
+
+def _host_fused_backward(host_cxx, name, writes=True):
+    """``parallel_bptt.fused_backward`` as the card runs it, on the host: the
+    program's two passes (time chunks of 96 samples) with the root's streams
+    where the program has them (never, with ``writes`` False: the route of
+    a program without them)."""
+
+    def fused_backward(circuit, params, vin, g_out, z_prev, lam_T, *, input_node,
+                       static_controls=None, row_controls=None, neural_mlp=None):
+        prep = tfc.prepare(circuit, params, "cpu", input_node=input_node,
+                           static_controls=static_controls, row_controls=row_controls,
+                           neural_mlp=neural_mlp, shape=tuple(vin.shape))
+        adj = cg.adjoint_program(circuit, prep.prog)
+        lib = host_cxx(f"{name}_route_{adj.root_streams}", adj.host_source)
+        streams = (torch.empty_like(vin), torch.empty_like(vin))
+        lam_seq, g_vin, g_z0 = _host_two_pass(lib, adj, prep, vin, g_out,
+                                              torch.stack(list(z_prev)).contiguous(),
+                                              torch.stack(list(lam_T)).contiguous(), 96, streams)
+        root = pb.RootStreams(*streams, pb._log_r(prep, B)) if writes and adj.root_streams \
+            else None
+        return list(lam_seq), g_vin, list(g_z0), root
+
+    return fused_backward
+
+
+def _host_param_launch(mlp, a_seq, log_r, G, launch_span):
+    """``clipper_train.launch_param_vjp`` on the host: the plain VJP of the
+    all-tanh NxH MLP, inside the span the launch opens."""
+    acts = ("tanh",) * (len(mlp["layers"]) - 1) + ("",)
+    with span(launch_span):
+        return ct.mlp_param_vjp_plain(mlp, acts, a_seq, log_r, G)
+
+
+def _head_bias_gap(got, G) -> float:
+    """|got - (-sum G)| of the head's bias, the sum taken in double, over
+    float32's epsilon times sum |G|: the head's bias sums -G over every
+    sample and can cancel to ~1e-6 of its terms, so it is held to the
+    rounding of the sum rather than to its own size."""
+    exact = -float(G.double().sum())
+    return abs(float(got) - exact) / (float(torch.finfo(torch.float32).eps)
+                                      * float(G.double().abs().sum()))
+
+
+#: (case, whether B8 writes the root's streams for the parameter pass)
+ROUTE_CASES = [("ts_2x16", True), ("ts_row", True), ("hpf_2x16", True), ("ts_2x8", True),
+               ("ts_2x16_sample", False), ("ts_relu", False), ("distilled", False)]
+
+
+@pytest.mark.parametrize("name,streams", ROUTE_CASES)
+def test_root_streams_route_matches_autograd(host_cxx, name, streams, monkeypatch):
+    """The parameter pass through B8's root streams: for an NxH root whose
+    R_up is one value (the Tube Screamer 2x16 and 2x8, the HPF 2x16) or one
+    per row (the TS 2x8 with its drive per row), the host build of the two
+    passes writes the root's incident wave a (2e-5) and G (the budget of
+    lam) as ``fused_backward_plain`` does, and the root's leaves from pass
+    3 (its host stand-in, ``mlp_param_vjp_plain``) on them hold the JAX
+    suite's 5e-4 per leaf (scaled as :func:`_gap` says; the head's bias
+    within 16 epsilon of sum |G| of the exact sum of -G) against today's
+    autograd pass over the same lam, the other leaves autograd's bits; only
+    the leaves that need a gradient are computed, and pass 3 runs only
+    where a root leaf is one of them.  Through the engine's op (B8 the host
+    build), the same.  A per-sample R_up, a general MLP root and the
+    distilled root have no streams and keep autograd's pass: the op's
+    cotangents the bits of autograd's."""
+    ckt, params, node, amp, rows = _route_case(name)
+    vin = _vin(len(name) + 6, amp)
+    _, _, seq = tfc.fused_circuit_process_plain(ckt, params, vin, _state(ckt), input_node=node,
+                                                row_controls=rows, return_state_seq=True)
+    rng = np.random.default_rng(23)
+    g_out = torch.from_numpy(rng.standard_normal((B, T)).astype(np.float32))
+    lam_T = [torch.from_numpy(rng.standard_normal(B).astype(np.float32)) for _ in seq]
+    prep = tfc.prepare(ckt, params, "cpu", input_node=node, row_controls=rows, shape=(B, T))
+    assert cg.root_streams(prep.prog.emitter) == streams
+    kw = dict(input_node=node, row_controls=rows)
+    monkeypatch.setattr(ct, "launch_param_vjp", _host_param_launch)
+    leaves, _ = pb._flatten(params)
+    in_root = [isinstance(ckt.root, NeuralDiodeRoot)
+               and any(x is y for y in ct.mlp_leaves(params["dp"])) for x in leaves]
+    if name != "ts_relu":  # a general MLP root has no generated adjoint
+        adj = cg.adjoint_program(ckt, prep.prog)
+        assert adj.root_streams == streams
+        assert f"#define CIRCUIT_ROOT_STREAMS {int(streams)}" in adj.source
+    if streams:
+        lib = host_cxx(name + "_streams", adj.host_source)
+        zseq, lam_t = torch.stack(seq).contiguous(), torch.stack(lam_T).contiguous()
+        a_seq, G = torch.full((B, T), float("nan")), torch.full((B, T), float("nan"))
+        lam_step, g_vin, g_z0 = _host_two_pass(lib, adj, prep, vin, g_out, zseq, lam_t, 96,
+                                               (a_seq, G))
+        ref = pb.fused_backward_plain(ckt, params, vin, g_out, seq, lam_T, **kw)[3]
+        np.testing.assert_allclose(a_seq.numpy(), ref.a_seq.numpy(), atol=2e-5, rtol=0)
+        assert _rel(G, ref.G) < (3e-4 if rows else 1e-4)
+        assert torch.equal(ref.log_r, pb._log_r(prep, B))
+        lam_step = list(lam_step)
+        want = pb.parameter_cotangents(ckt, params, vin, seq, g_out, lam_step, **kw)
+        root = pb.RootStreams(a_seq, G, pb._log_r(prep, B))
+        got = pb.parameter_cotangents(ckt, params, vin, seq, g_out, lam_step, root=root, **kw)
+        scale = _root_scale(want, in_root)
+        for x, w, g, r in zip(leaves, want, got, in_root):
+            if r:
+                assert _gap(g, w, scale) < 5e-4, (x.shape, _gap(g, w, scale))
+            else:
+                assert (g is None and w is None) or torch.equal(g, w)
+        head_bias = ct.mlp_leaves(params["dp"])[-1]
+        (bias_got,) = [g for x, g in zip(leaves, got) if x is head_bias]
+        assert _head_bias_gap(bias_got, G) < 16, _head_bias_gap(bias_got, G)
+        launches = pb.root_param_vjp.launches
+        only = pb.parameter_cotangents(ckt, params, vin, seq, g_out, lam_step, root=root,
+                                       needs=in_root, **kw)
+        assert all((o is None) != r for o, r in zip(only, in_root))
+        assert all(torch.equal(o, g) for o, g, r in zip(only, got, in_root) if r)
+        rest = pb.parameter_cotangents(ckt, params, vin, seq, g_out, lam_step, root=root,
+                                       needs=[not r for r in in_root], **kw)
+        assert pb.root_param_vjp.launches == launches + 1  # no pass 3 for no root leaf
+        assert all(o is None for o, r in zip(rest, in_root) if r)
+        assert all((o is None and g is None) or torch.equal(o, g)
+                   for o, g, r in zip(rest, got, in_root) if not r)
+    elif name != "ts_relu":
+        assert pb.fused_backward_plain(ckt, params, vin, g_out, seq, lam_T, **kw)[3] is None
+    if name == "ts_relu":  # the engine's forward takes NxH roots only
+        return
+    # the engine's op: every leaf, then only the root's, trained
+    row_fields = tuple((n, f) for n, d in (rows or {}).items() for f in d)
+    f = pb.make_fused_circuit_train_generic(ckt, input_node=node, row_fields=row_fields)
+    row_vals = [x for d in (rows or {}).values() for x in d.values()]
+    y = torch.from_numpy(rng.standard_normal((B, T)).astype(np.float32))
+
+    def grads(which):
+        p_leaves = [x.detach().clone().requires_grad_(w) for x, w in zip(leaves, which)]
+        p = pb._flatten(params)[1](p_leaves)
+        z0 = [torch.zeros(B) for _ in seq]
+        out, zf = f(p, vin, z0, row_vals) if row_fields else f(p, vin, z0)
+        loss = ((out - y) ** 2).sum() + sum((3.0 * z).sum() for z in zf)
+        loss.backward()
+        return [x.grad for x in p_leaves]
+
+    monkeypatch.setattr(pb, "fused_backward", _host_fused_backward(host_cxx, name, False))
+    want = grads([True] * len(leaves))  # the same lam, autograd's pass for every leaf
+    scale = _root_scale(want, in_root) if streams else None
+    monkeypatch.setattr(pb, "fused_backward", _host_fused_backward(host_cxx, name))
+    for which in ([True] * len(leaves), in_root):
+        if not any(which):
+            continue
+        got = grads(which)
+        for x, w, g, r, on in zip(leaves, want, got, in_root, which):
+            if not on or w is None:  # not asked for, or a leaf the step does not read
+                assert g is None
+            elif streams and r:
+                assert _gap(g, w, scale) < 5e-4, (x.shape, _gap(g, w, scale))
+            else:
+                assert torch.equal(g, w), x.shape
+
+
+def _root_scale(grads, in_root) -> float:
+    """The median over the root's leaves of each leaf's largest |cotangent|:
+    the floor of a leaf's scale in :func:`_gap`."""
+    return float(np.median([float(g.abs().max()) for g, r in zip(grads, in_root) if r]))
+
+
+def _gap(got, want, floor: float) -> float:
+    """max |got - want| over the larger of want's largest magnitude and
+    ``floor``: a one-element leaf that sums G over every sample (the head's
+    bias) can cancel to ~1e-6 of its terms, leaving rounding in the order
+    of the sum as its own size (the benchmark's grad_gap floors each leaf's
+    scale at the median leaf for the same reason)."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()), floor, 1e-12)
 
 
 # nxh_forward (one thread) against nxh_forward_lanes on K host threads:
@@ -772,7 +960,7 @@ def test_two_drives_give_one_source():
 
 def test_source_layout_and_operation_count():
     ckt, params, node, _ = _case("rc")
-    prog, vec, warr, rows, times = tfc.prepare(ckt, params, "cpu", input_node=node)
+    prog, vec, warr, rows, times = tfc.prepare(ckt, params, "cpu", input_node=node)[:5]
     assert prog.state_order == (("C1", "z"),) and warr is None
     assert rows.numel() == times.numel() == 0
     # coeffs C1.R, I1.R, R1.R, S1.R, S1.p1R; params C1.C, R1.R

@@ -21,7 +21,11 @@ clipper's MLP parameter cotangents) within 1e-4 of the largest magnitude
 of each leaf of autograd of the plain MLP at every family and B x T in
 {1, 7, 1,000} x {1, 129, 2,048}, the same bits on two calls, one count a
 call, the whole fused op's gradients within 2e-5 (scaled) of the same op
-on the CPU, an unsupported width or root raising; a short
+on the CPU, an unsupported width or root raising; the Tube Screamer 2x16's
+parameter pass on B4's pass 3 (B8 writing the root's a and G) at 1,024 and
+8,192 x 2,048 within 5e-4 per root leaf of the autograd pass over the same
+lam (scaled, the median leaf the floor), the same bits on two steps, one
+count of B8.pass3 a step; a short
 fused_generic run's loss history rtol 5e-4 of the same run through the
 plain versions (tests/test_parallel_bptt.py:579); the generated DEER
 kernel against its plain version and the exact recursion, Tube Screamer
@@ -932,6 +936,69 @@ def test_fused_generic_op_grads_match_scan_on_card(circuit_cuda):
         assert float((g - w).abs().max() / w.abs().max().clamp_min(1e-12)) < 5e-4
 
 
+def _root_step_grads(ckt, params, f, vin, y, z0):
+    """The root's leaves' cotangents (mlp_leaves order) of one fused_generic
+    step of the Tube Screamer with only the root trained, as the benchmark's
+    training cell runs it: the skip-free MSE of out against y."""
+    leaves = [x.detach().clone().requires_grad_(True) for x in ct.mlp_leaves(params["dp"])]
+    p = {**{k: v for k, v in params.items() if k != "dp"}, "dp": ct.mlp_tree(leaves)}
+    ((f(p, vin, z0)[0] - y) ** 2).mean().backward()
+    return [x.grad for x in leaves]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1024, 8192])
+def test_ts_root_pass3_matches_autograd_pass(circuit_cuda, b, monkeypatch):
+    """The Tube Screamer 2x16's parameter pass on the card (B8 writes the
+    root's a and G, B4's pass 3 takes them) against the autograd pass over
+    the same lam (an adjoint program without the root's streams), at
+    b x 2,048: every root leaf within queue C's 5e-4 (scaled: over the
+    larger of its largest magnitude and the median leaf's, since the head's
+    bias sums G over every sample and cancels to ~1e-6 of its terms), the
+    head's bias within 16 epsilon of sum |G| of the exact sum of -G over
+    the G that B8 wrote, the same bits on a second step, one count of
+    B8.pass3 a step and none of B4.pass3 (the clipper's)."""
+    import weakref
+
+    from diffwdf_tpu_torch.ops import circuit_codegen as cg
+    from diffwdf_tpu_torch.ops import parallel_bptt as pb
+
+    dev, _ = circuit_cuda
+    t = 2048
+    ckt, params, node, _, _ = _train_case("ts_2x16", dev, b, t)
+    vin, _ = _circuit_inputs(ckt, dev, b, t, 0.2, seed=b)
+    y = 0.6 * torch.tanh(4.0 * vin)
+    z0 = [torch.zeros(b, device=dev) for _ in range(3)]
+    f = pb.make_fused_circuit_train_generic(ckt, input_node=node)
+    pass_of_op, roots = pb.parameter_cotangents, []
+
+    def parameter_cotangents(*args, **kw):  # the root streams B8 handed over
+        roots.append(kw["root"])
+        return pass_of_op(*args, **kw)
+
+    monkeypatch.setattr(pb, "parameter_cotangents", parameter_cotangents)
+    b8, b4 = pb.root_param_vjp.launches, ct.mlp_param_vjp.launches
+    got = _root_step_grads(ckt, params, f, vin, y, z0)
+    again = _root_step_grads(ckt, params, f, vin, y, z0)
+    torch.cuda.synchronize()
+    assert pb.root_param_vjp.launches - b8 == 2 and ct.mlp_param_vjp.launches == b4
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    G = roots[0].G.double()
+    bias_gap = abs(float(got[-1]) + float(G.sum())) / (float(torch.finfo(torch.float32).eps)
+                                                       * float(G.abs().sum()))
+    assert bias_gap < 16, bias_gap
+    # an adjoint program without the root's streams: autograd's pass
+    monkeypatch.setattr(cg, "root_streams", lambda emitter: False)
+    monkeypatch.setattr(cg, "_adjoints", weakref.WeakKeyDictionary())
+    want = _root_step_grads(ckt, params, f, vin, y, z0)
+    torch.cuda.synchronize()
+    assert pb.root_param_vjp.launches - b8 == 2 and roots[-1] is None  # no pass 3
+    floor = float(np.median([float(w.abs().max()) for w in want]))
+    for g, w in zip(got, want):
+        gap = float((g - w).abs().max()) / max(float(w.abs().max()), floor)
+        assert gap < 5e-4, (tuple(w.shape), gap)
+
+
 # ---------------------------------------------------------------------------
 # The redesigned B7 and B8: the lane-cooperative forward of an NxH root and
 # the two-pass adjoint (pass 1 over every (b, t), pass 2 the recursion)
@@ -1038,7 +1105,8 @@ def test_two_pass_adjoint_matches_one_pass_kernel_and_plain(circuit_cuda, name, 
     """B8's two passes at the training shapes against the one-pass kernel
     (today's arithmetic: the same bits) and against the autograd VJP of the
     plain step (relative 1e-4, 3e-4 with pots); and cut into time chunks
-    under a small scratch cap, the same bits again."""
+    under a small scratch cap, the same bits again, the root's streams
+    included."""
     from diffwdf_tpu_torch.ops import circuit_codegen as cg
     from diffwdf_tpu_torch.ops import parallel_bptt as pb
 
@@ -1060,13 +1128,15 @@ def test_two_pass_adjoint_matches_one_pass_kernel_and_plain(circuit_cuda, name, 
     one = pb.launch_adjoint_onepass(ckt, prep, vin, g_out, zseq, lam_t)
     monkeypatch.setattr(cg.AdjointProgram, "SCRATCH_CAP_BYTES", 16 * 2 ** 20)
     assert cg.adjoint_program(ckt, prep.prog).chunk(b, t) < t
-    chunked = pb.launch_adjoint(ckt, prep, vin, g_out, zseq, lam_t)
+    streams = (torch.empty_like(vin), torch.empty_like(vin))
+    chunked = pb.launch_adjoint(ckt, prep, vin, g_out, zseq, lam_t, streams)
     want = pb.fused_backward_plain(ckt, tree, vin, g_out, seq, lam_T, **kw)
     torch.cuda.synchronize()
     assert pb.fused_backward.launches == 2
     for x, y, z in zip((torch.stack(got[0]), got[1], torch.stack(got[2])), one, chunked):
         assert torch.equal(x, y), float((x - y).abs().max())
         assert torch.equal(x, z), float((x - z).abs().max())
+    assert all(torch.equal(x, y) for x, y in zip(got[3][:2], streams))
     budget = 3e-4 if rows else 1e-4
 
     def rel(x, y):
@@ -1082,8 +1152,8 @@ def test_two_pass_adjoint_matches_one_pass_kernel_and_plain(circuit_cuda, name, 
 def test_fused_generic_training_matches_plain_versions_on_card(circuit_cuda, monkeypatch):
     """A short fused_generic run of the Tube Screamer with the pretrained 2x16
     on the card: its loss history through the new kernels matches the same
-    run through the plain versions of B7 and B8 within rtol 5e-4
-    (tests/test_parallel_bptt.py:579)."""
+    run through the plain versions of B7, B8 and the parameter pass within
+    rtol 5e-4 (tests/test_parallel_bptt.py:579)."""
     from diffwdf_tpu_torch.models import diode_clipper as tdc
     from diffwdf_tpu_torch.models.tube_screamer import make_tube_screamer
     from diffwdf_tpu_torch.ops import parallel_bptt as pb
@@ -1111,14 +1181,17 @@ def test_fused_generic_training_matches_plain_versions_on_card(circuit_cuda, mon
                             trainable_filter=lambda p: p["dp"])
     torch.cuda.synchronize()
     assert (fcirc.fused_circuit_process.launches, pb.fused_backward.launches) == (6, 3)
-    kernel_backward = pb.fused_backward
+    kernel_backward, pass3 = pb.fused_backward, pb.root_param_vjp.launches
     monkeypatch.setattr(pb, "fused_circuit_process_neural",
                         fcirc.fused_circuit_process_neural_plain)
-    monkeypatch.setattr(pb, "fused_backward", pb.fused_backward_plain)
+    # the plain B8, and no root streams: the parameter pass's autograd
+    monkeypatch.setattr(pb, "fused_backward",
+                        lambda *args, **kw: (*pb.fused_backward_plain(*args, **kw)[:3], None))
     _, plain = train_clipper(ckt, params, batches, batches, cfg,
                              trainable_filter=lambda p: p["dp"])
     # the plain run launched nothing more
     assert (fcirc.fused_circuit_process.launches, kernel_backward.launches) == (6, 3)
+    assert pb.root_param_vjp.launches == pass3
     assert hist["loss"][-1] < hist["loss"][0]
     for k in ("loss", "val_loss"):
         np.testing.assert_allclose(hist[k], plain[k], rtol=5e-4)

@@ -254,7 +254,7 @@ def test_unused_outputs_and_row_values_get_zero_cotangents():
         tckt, {k: x for k, x in tparams.items() if k != "dp"}, tparams["dp"],
         torch.from_numpy(vin), state0, input_node=node, row_controls={"R6": {"R": r.detach()}},
         return_state_seq=True)
-    _, g_vin, _ = pb.fused_backward(
+    _, g_vin, _, _ = pb.fused_backward(
         tckt, {k: x for k, x in tparams.items() if k != "dp"}, torch.from_numpy(vin),
         torch.ones(8, 24), seq, [torch.zeros(8) for _ in range(S)], input_node=node,
         row_controls={"R6": {"R": r.detach()}}, neural_mlp=tparams["dp"])

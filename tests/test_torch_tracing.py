@@ -234,3 +234,55 @@ def test_traced_run_reports_the_span_metrics(workload, tmp_path, fresh):
     after = _digest(root)
     assert all(after[p] == h for p, h in before.items())
     shutil.rmtree(root)
+
+
+def test_b8_pass3_span_nests_in_param_pass(fresh, monkeypatch):
+    """The Tube Screamer root's pass 3 (``parallel_bptt.root_param_vjp``):
+    its launch's span ``wdf.launch.B8.pass3`` opens inside
+    ``wdf.param_pass`` and ``B8.pass3`` counts one a call, ``B4.pass3`` (the
+    clipper's) none.  On the CPU the launch is a stand-in that opens the
+    span it is given around the plain VJP, as the kernel's wrapper does.
+    Pass 3 runs only where a root leaf needs its cotangent."""
+    from diffwdf_tpu_torch.ops import clipper_train as ct
+    from diffwdf_tpu_torch.ops import parallel_bptt as pb
+
+    mlp = {"layers": inputs.seeded_mlp([2, 4, 4, 4, 1], 14, "cpu")}
+    root, frag = NeuralDiodeRoot.from_mlp("dp", mlp, ACTS)
+    circuit = make_tube_screamer(root, 48000.0, drive=0.5)
+    params = {**circuit.init_params("cpu"), **frag}
+    g = torch.Generator().manual_seed(2)
+    B, T = 3, 16
+    vin, g_out = torch.randn(B, T, generator=g), torch.randn(B, T, generator=g)
+    z_prev = [torch.randn(B, T, generator=g) for _ in range(3)]
+    lam_step = [torch.randn(B, T, generator=g) for _ in range(3)]
+    streams = pb.RootStreams(torch.randn(B, T, generator=g), torch.randn(B, T, generator=g),
+                             torch.full((B,), 8.0))
+    names = []
+
+    def launch(mlp, a, log_r, G, launch_span):
+        names.append(launch_span)
+        with profiler.span(launch_span):
+            return ct.mlp_param_vjp_plain(mlp, ACTS, a, log_r, G)
+
+    monkeypatch.setattr(ct, "launch_param_vjp", launch)
+    assert "B8.pass3" in profiler.counters()
+    c0 = profiler.counters()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with profiler.span("wdf.bptt"):
+            grads = pb.parameter_cotangents(circuit, params, vin, z_prev, g_out, lam_step,
+                                            input_node="Vin", root=streams)
+    c1 = profiler.counters()
+    assert names == ["wdf.launch.B8.pass3"]
+    assert c1["B8.pass3"] - c0["B8.pass3"] == 1 and c1["B4.pass3"] == c0["B4.pass3"]
+    recs = profiler.spans()
+    by_id = {r.id: r for r in recs}
+    (launch_rec,) = [r for r in recs if r.name == "wdf.launch.B8.pass3"]
+    assert by_id[launch_rec.parent].name == "wdf.param_pass"
+    want = ct.mlp_param_vjp_plain(mlp, ACTS, streams.a_seq, streams.log_r, streams.G)
+    leaves, _ = pb._flatten(params)
+    at = {id(x): k for k, x in enumerate(ct.mlp_leaves(mlp))}
+    assert all(torch.equal(grads[i], want[at[id(x)]]) for i, x in enumerate(leaves) if id(x) in at)
+    needs = [id(x) not in at for x in leaves]
+    pb.parameter_cotangents(circuit, params, vin, z_prev, g_out, lam_step, input_node="Vin",
+                            root=streams, needs=needs)
+    assert profiler.counters()["B8.pass3"] == c1["B8.pass3"] and len(names) == 1
