@@ -47,6 +47,12 @@ def _scalar(value: float, device: Device) -> torch.Tensor:
     return h2d(torch.tensor(value, dtype=torch.float32), device)
 
 
+def _zero(device: Device) -> torch.Tensor:
+    """An f32 0-d zero made on ``device``: no host value, so no copy (on a
+    card, no wait for the work queued before it)."""
+    return torch.zeros((), dtype=torch.float32, device=device)
+
+
 class Symbolic:
     """Base of the symbolic scalars that trace a circuit's sample step into
     source code (``ops.circuit_codegen``).  They support the arithmetic the
@@ -197,7 +203,7 @@ class Capacitor(WDFNode):
         return {"C": _scalar(self.C, device)}
 
     def _own_state(self, device):
-        return {"z": _scalar(0.0, device)}
+        return {"z": _zero(device)}
 
     def _own_constraints(self):
         return {"C": (0.1e-12, 1.0)} if self.trainable else {}
@@ -230,7 +236,7 @@ class Inductor(WDFNode):
         return {"L": _scalar(self.L, device)}
 
     def _own_state(self, device):
-        return {"z": _scalar(0.0, device)}
+        return {"z": _zero(device)}
 
     def adapt(self, params, controls, coeffs, fs):
         L = params[self.name]["L"]

@@ -25,7 +25,9 @@ on the CPU, an unsupported width or root raising; the Tube Screamer 2x16's
 parameter pass on B4's pass 3 (B8 writing the root's a and G) at 1,024 and
 8,192 x 2,048 within 5e-4 per root leaf of the autograd pass over the same
 lam (scaled, the median leaf the floor), the same bits on two steps, one
-count of B8.pass3 a step; a short
+count of B8.pass3 a step; the Tube Screamer 2x16's fused_generic training
+step (init_state to Adam) at 64 x 256 under
+torch.cuda.set_sync_debug_mode("error"), no host value copied; a short
 fused_generic run's loss history rtol 5e-4 of the same run through the
 plain versions (tests/test_parallel_bptt.py:579); the generated DEER
 kernel against its plain version and the exact recursion, Tube Screamer
@@ -997,6 +999,41 @@ def test_ts_root_pass3_matches_autograd_pass(circuit_cuda, b, monkeypatch):
     for g, w in zip(got, want):
         gap = float((g - w).abs().max()) / max(float(w.abs().max()), floor)
         assert gap < 5e-4, (tuple(w.shape), gap)
+
+
+@pytest.mark.gpu
+def test_ts_train_step_never_waits_for_the_card(circuit_cuda):
+    """After two warm-up steps, three fused_generic training steps of the
+    Tube Screamer 2x16 with its root trained (init_state, B7's training
+    form, the loss, B8, the root's pass 3, Adam) at 64 x 256 under
+    ``torch.cuda.set_sync_debug_mode("error")``: no call waits for the
+    card, no host value is copied to it (``h2d_copies`` unmoved), and
+    pass 3 runs once a step."""
+    from diffwdf_tpu_torch.runtime import profiler
+    from diffwdf_tpu_torch.training.circuit_train import CircuitTrainConfig, make_train_step
+
+    dev, _ = circuit_cuda
+    b, t = 64, 256
+    ckt, params, node, _, _ = _train_case("ts_2x16", dev, b, t)
+    vin, _ = _circuit_inputs(ckt, dev, b, t, 0.2, seed=23)
+    batches = {"x": vin, "y": 0.6 * torch.tanh(4.0 * vin)}
+    cfg = CircuitTrainConfig(batch_size=t, engine="fused_generic", skip_samples=16)
+    make_optimizer, train_step, _ = make_train_step(ckt, cfg, lambda p: p["dp"])
+    opt = make_optimizer(params)
+    for _ in range(2):
+        train_step(params, opt, batches)
+    torch.cuda.synchronize()
+    c0 = profiler.counters()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = [train_step(params, opt, batches)["loss"] for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    c1 = profiler.counters()
+    assert (c1["h2d_copies"], c1["h2d_bytes"]) == (c0["h2d_copies"], c0["h2d_bytes"])
+    assert c1["B8.pass3"] - c0["B8.pass3"] == 3 and c1["B8"] - c0["B8"] == 3
+    assert all(np.isfinite(float(x)) for x in losses)
 
 
 # ---------------------------------------------------------------------------

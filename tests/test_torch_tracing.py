@@ -4,7 +4,8 @@ Off, a span touches nothing of ``torch.profiler``; on, each ``wdf.*``
 record holds the kineto range of its name, on the profiler's clock, and
 nests by parent and unit (a span on another thread joins the open unit);
 the program and library caches show as unmoved counters; ``h2d`` counts a
-copy of a host value and nothing else; and the benchmark's readers of the
+copy of a host value and nothing else, and ``init_state`` makes its zeros
+on the device with none; and the benchmark's readers of the
 spans (``wdfbench/spans.py``) give every new metric of a cell of each kind
 in a traced run of the small benchmark.
 """
@@ -20,6 +21,8 @@ from pathlib import Path
 import pytest
 import torch
 
+from diffwdf_tpu_torch.models.diode_clipper import make_diode_clipper
+from diffwdf_tpu_torch.models.simple_circuits import make_rl_highpass
 from diffwdf_tpu_torch.models.tube_screamer import make_tube_screamer
 from diffwdf_tpu_torch.ops import fused_circuit
 from diffwdf_tpu_torch.roots.neural import NeuralDiodeRoot
@@ -184,6 +187,41 @@ def test_h2d_counts_host_copies_only(fresh):
     assert profiler.h2d(z, "cpu", None).data_ptr() == z.data_ptr()
     assert profiler.counters() == c1
     assert profiler.spans() == []  # no profiler: no span
+
+
+def _circuit_for_state(name):
+    """The Tube Screamer (three capacitors), the LPF clipper (one) or the RL
+    high-pass (an inductor)."""
+    if name == "rl_highpass":
+        return make_rl_highpass(48000.0)
+    mlp = {"layers": inputs.seeded_mlp([2, 4, 4, 4, 1], 14, "cpu")}
+    root, _ = NeuralDiodeRoot.from_mlp("dp", mlp, ACTS)
+    if name == "tube_screamer":
+        return make_tube_screamer(root, 48000.0, drive=0.5)
+    return make_diode_clipper(root, 48000.0)
+
+
+@pytest.mark.parametrize("name", ["tube_screamer", "lpf_clipper", "rl_highpass"])
+def test_init_state_makes_no_host_copy(name, fresh):
+    """The zero states are made on the device: no copy of a host value (on a
+    card, none that waits for the queue), and every state the f32 0-d zero
+    that a host copy of 0.0 gave."""
+    circuit = _circuit_for_state(name)
+    c0 = profiler.counters()
+    meta = circuit.init_state("meta")
+    assert profiler.counters()["h2d_copies"] == c0["h2d_copies"]
+    assert profiler.counters()["h2d_bytes"] == c0["h2d_bytes"]
+    cpu = circuit.init_state("cpu")
+    leaves = [(n, f) for n, fields in cpu.items() for f in fields]
+    assert leaves and leaves == [(n, f) for n, fields in meta.items() for f in fields]
+    for n, f in leaves:
+        assert meta[n][f].device.type == "meta" and meta[n][f].dtype == torch.float32
+        assert meta[n][f].shape == ()
+        assert torch.equal(cpu[n][f], torch.tensor(0.0)), (n, f)
+        assert cpu[n][f].dtype == torch.float32 and cpu[n][f].shape == ()
+    assert cpu[leaves[0][0]][leaves[0][1]] is not circuit.init_state("cpu")[leaves[0][0]][
+        leaves[0][1]]  # a fresh zero each call, none kept
+    assert profiler.spans() == []
 
 
 def test_threads_lose_no_count_nor_record(fresh, monkeypatch):
