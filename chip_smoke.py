@@ -25,15 +25,14 @@ one line per phase:
   toolchain  the card (name, power limit), torch, CUDA and nvcc versions
   build      nvcc compile of the kernel library, timed as set-up, the
              registers and spills ptxas reports per kernel, and the SASS of
-             the serving kernels B1, B2 and the distilled clipper's B6
-             before and after their redesign (instructions, transcendental
+             the serving kernels B1 (its lane and one-thread forms), B2, B5
+             and the distilled clipper's B6 (instructions, transcendental
              units, branches, calls to the division's slow path, local
              memory)
   kernels    each serving kernel against its plain PyTorch version on the
              card at the served shape (8192 streams x 2048 samples), beside
              its budget; B1's lane form against its one-thread form, bit for
-             bit; B2 and its earlier form (the two omega solves one after
-             the other) at B = 1 too; no spill in the new kernels
+             bit; B2 at B = 1 too; no spill in the lane and paired kernels
   serve      serving as a user drives it: zoo roots 4 (neural 2x16,
              pretrained) and 0 (analytic, quality "best") in the LPF clipper
              answer four consecutive (8192, 2048) request blocks with the
@@ -41,16 +40,15 @@ one line per phase:
              rise, the output must be finite and equal one (8192, 8192) run
   reference  serving kernels against the circuit's sequential
              Circuit.process on a small input
-  timing     CUDA-event medians of each serving kernel, its earlier form
-             and its plain version at (8192, 2048), in turns; B1's lanes per
-             stream K (1, 8, 16) at B = 1, 2048 and 8192
+  timing     CUDA-event medians of each serving kernel and its plain
+             version at (8192, 2048), in turns; B1's lanes per stream K (1,
+             8, 16) at B = 1, 2048 and 8192
   kernels    the training forward and adjoint kernels against their plain
              versions at the training shape (1337 chunks x 2048 samples),
              pretrained 2x16, the train split's four source resistances;
              the forward's lane form (each K it can take) against its
-             one-thread form and the adjoint's two passes against its
-             one-pass form, bit for bit; ptxas registers and spills of the
-             lane form and the two passes (no spill allowed)
+             one-thread form, bit for bit; ptxas registers and spills of the
+             lane form and the adjoint's two passes (no spill allowed)
   grad       the fused training op's loss and gradients against the scan
              engine (autograd through Circuit.process) at (1024, 256): a
              seeded random-init 2x16 at the JAX suite's budgets, and the
@@ -63,22 +61,18 @@ one line per phase:
              a few epochs with validation; the loss must fall, the launch
              counters must rise, and the trained root, saved and reloaded as
              JSON, must serve a (8192, 2048) block through the serving kernel
-  timing     CUDA-event medians of the training kernels beside their
-             earlier forms (one-thread forward, one-pass adjoint), the
-             adjoint's two passes apart and its scratch, the forward's lanes
-             per stream (1, 8, 16) at the training and validation batches,
-             the plain versions, and the parts of one fused training step
-             (forward kernel, loss, adjoint kernel, parameter VJP, Adam) and
-             the whole step, with the earlier kernels and the new, in turns
+  timing     CUDA-event medians of the training kernels, the adjoint's two
+             passes apart and its scratch, the forward's lanes per stream
+             (1, 8, 16) at the training and validation batches, the plain
+             versions, and the parts of one fused training step (forward
+             kernel, loss, adjoint kernel, parameter VJP, Adam) and the
+             whole step
   kernels deer  the single-stream DEER kernel (a cluster of 16 CTAs)
              against its plain version and against the exact recursion (the
              analytic kernel at B=1) at T = 2048 and 16384, for the "toms"
              (8 sweeps, 3 omega iterations) and "approx" (4, 1)
              configurations, hard overdrive, and the residual certificate at
-             R = 180 Ohm; it and its comparison form at 8 CTAs
-             (ops/deer_forms.py) against the one-CTA kernel before the
-             redesign (its bits with no sweep); ptxas of all three and the
-             forms' SASS (no spill in the cluster kernels)
+             R = 180 Ohm; ptxas of the cluster kernel (no spill)
   stream     single-stream serving as a plugin drives it: one second of a
              seeded stereo strum at 96 kHz in 47 blocks of 2048 through
              make_clipper_processor(engine="deer") and (engine="scan"),
@@ -91,17 +85,14 @@ one line per phase:
              warmup([2048]) and the steady median, per engine
   timing deer  CUDA-event medians (10 calls back to back) and device
              times (launches queued back to back) of the DEER kernel at 16
-             CTAs and of its forms at 8 CTAs and one CTA, in turns, with
-             cudaOccupancyMaxActiveClusters, the device time with no sweep
-             and no relaxation, a relaxation pass and a sweep, and its plain
-             version;
-             the exact engine's kernels B1 and B2 at B=1 and their earlier
-             forms, in turns, with the SM clock and cycles per sample,
-             process_block wall ms and real-time factor per engine (the scan
-             engine's members with the earlier kernels too), and the device
-             work of one served block from a profiler trace (taken again
-             until it holds one kernel event per counted launch; the line
-             says whether it does)
+             CTAs, with cudaOccupancyMaxActiveClusters, the device time with
+             no sweep and no relaxation, a relaxation pass and a sweep, and
+             its plain version; the exact engine's kernels B1 and B2 at B=1
+             with the SM clock and cycles per sample, process_block wall ms
+             and real-time factor per engine, and the device work of one
+             served block from a profiler trace (taken again until it holds
+             one kernel event per counted launch; the line says whether it
+             does)
   build circuits  the generated kernels of seven circuits (Tube Screamer
              analytic "best" and "low" and pretrained 2x16, HPF clipper
              analytic and HPF-trained 2x16, LPF clipper, RC lowpass), the K
@@ -113,9 +104,9 @@ one line per phase:
              the SASS of the diode pair's one-thread and lane kernels
   kernels distilled  the 1N4148 root distilled at the clipper's port R (fit
              error), the distilled clipper kernel (one Chebyshev segment a
-             lane) against its plain version, against the analytic kernel
-             (ESR) and against its one-thread form (the same bits) at
-             (8192, 2048); ptxas of its every (degree, K) (no spill)
+             lane) against its plain version and against the analytic kernel
+             (ESR) at (8192, 2048); ptxas of its every (degree, K) (no
+             spill)
   kernels circuit  omega() against omega_select on the card over a grid
              (the generated forward's omega); every generated kernel
              against its plain version at (8192, 2048), the LPF clipper's
@@ -127,12 +118,11 @@ one line per phase:
              (8192, 2048) request blocks with the state carried; the launch
              counters must rise and the blocks equal one run; the drive pot
              from 0 to 1 moves the gain without an nvcc run
-  timing circuit  CUDA-event medians of the distilled and generated kernels
-             and their one-thread forms in turns, the wrapper calls, the
-             plain versions and the LPF clipper's own kernels on the same
-             streams; B7 at B = 1 (the plugin's TS "low", the HPF "toms")
-             and B6 at B = 1, device time, the lane form and the one-thread
-             form in turns, with the SM clock; the diode pair's lane form in blocks of 64 and
+  timing circuit  CUDA-event medians of the distilled and generated kernels,
+             the wrapper calls, the plain versions and the LPF clipper's own
+             kernels on the same streams; B7 at B = 1 (the plugin's TS
+             "low", the HPF "toms") and B6 at B = 1, device time, with the SM
+             clock; the diode pair's lane form in blocks of 64 and
              128 threads in turns; the lanes per stream K of the NxH
              roots' kernel (1, the one-thread kernel, 4, 8, 16; the sweep's
              build) for the TS 2x16 and the HPF 2x16 at B = 8192, 4096,
@@ -150,8 +140,8 @@ one line per phase:
              pretrained 2x16 (no pot, and a per-row drive pot R6), the HPF
              clipper (analytic) and the training clipper with a per-sample
              random-walk source R (random-init 2x16); the lane form against
-             the one-thread kernel and the adjoint's two passes against the
-             one-pass kernel (the same bits)
+             the one-thread kernel (the same bits); the Tube Screamer 2x16's
+             root streams (a, G) and its parameter pass on them
   grad generic  the fused_generic op's gradients against the scan engine
              (autograd through Circuit.process) at (1024, 256), leaf by leaf
   train generic  training as a user drives it (scripts/train_ts.py): 16 s and
@@ -164,30 +154,24 @@ one line per phase:
              toward the true 4.7 nF; launches counted
   timing generic  CUDA-event medians of one fused_generic step of the TS
              2x16 at (1024, 2048), part by part (forward with trajectory,
-             loss, adjoint, parameter pass, Adam) and whole, with the kernels
-             before their redesign (one-thread forward, one-pass adjoint) and
-             after, in turns; both kernels alone beside their bounds and
-             their earlier forms, the adjoint's two passes apart and at
-             (375, 2048), the training form's lanes per stream, the scratch
+             loss, adjoint, parameter pass, Adam) and whole; both kernels
+             alone beside their bounds, the adjoint's two passes apart and
+             at (375, 2048), the training form's lanes per stream, the
+             scratch
   build deer  the generated DEER kernels (B9) of eleven circuits (the Tube
              Screamer analytic best and low and 2x16, the HPF clipper
              analytic best and low and 2x16, the LPF clipper with the five
              1U-1D neural sizes) and their exact recursions (B7), one nvcc
-             each, all started together: seconds cold and cached; the
-             comparison forms' sources (the cluster kernel at 8 CTAs and the
-             one-CTA kernel), built apart; the cold nvcc seconds of one
-             source alone (the Tube Screamer and its 2x16: the served source,
-             the forms, both in one source as before they were split; B5's
-             two sources); ptxas registers and spills and the SASS of the
-             cluster kernel and its forms (no spill in a cluster kernel),
-             operations per sample
+             each, all started together: seconds cold and cached; the cold
+             nvcc seconds of one source alone (the Tube Screamer's and its
+             2x16's, B5's); ptxas registers and spills and the SASS of the
+             cluster kernel (no spill), operations per sample
   kernels deer circuit  each B9 against its plain version and the exact
              recursion (B7 at B=1) at T = 2048 and 16384, at the JAX suite's
-             budgets, with as many sweeps run, and at 16 and 8 CTAs against
-             the one-CTA kernel (its bits with no sweep); the adaptive HPF's
-             early exit at JAX's count; two chained 2x8-clipper blocks
-             against one solve, for each form; the residual flagging a
-             hard-overdrive block; a drive change with no nvcc run
+             budgets, with as many sweeps run; the adaptive HPF's early exit
+             at JAX's count; two chained 2x8-clipper blocks against one
+             solve; the residual flagging a hard-overdrive block; a drive
+             change with no nvcc run
   stream plugin  single-stream serving as a plugin drives it: the same strum
              through make_plugin_processor(engine="deer") and (engine="scan"),
              hot-swapping all 14 members with cutoff, drive and gain changes,
@@ -197,20 +181,17 @@ one line per phase:
              clipper processor's neural member, deer against scan; warmup
              builds every member's kernels first
   timing deer circuit  CUDA-event medians and device times of B9's
-             launch alone (arguments and outputs prepared once), at 16 CTAs
-             and as its forms (8 CTAs, one CTA) in turns, with
-             cudaOccupancyMaxActiveClusters (and for the TS bench and the
+             launch alone (arguments and outputs prepared once), at 16 CTAs,
+             with cudaOccupancyMaxActiveClusters (and for the TS bench and the
              fixed HPF the time of a relaxation pass and of a sweep), for
              the TS at T = 2048 and at the JAX
              bench's T = 16384 with 10 sweeps and 4 relaxations, the TS 2x16,
              the HPF at 48 fixed and adaptive sweeps and the 2x16 clipper,
              beside their bounds and plain versions, and
              process_block wall ms, real-time factor and a profile of one
-             block per group and engine (every block with the kernels
-             before their redesign too, in turns: the deer engine's one-CTA
-             kernels, the scan engine's B1, B2 and one-thread B7; the trace
-             checked as in timing deer); the B7 launches of the diode
-             pair's lane form on the plugin stream
+             block per group and engine (the trace checked as in timing
+             deer); the B7 launches of the diode pair's lane form on the
+             plugin stream
 
   pretrain   pretraining as a user drives it: the 2x16 1N4148 (1U-1D) root
              at the reference grid (20 x 1000 points, 625 steps of 32 an
@@ -323,7 +304,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import weakref
 from pathlib import Path
 from typing import Optional
 
@@ -349,7 +329,6 @@ from diffwdf_tpu_torch.ops import _build
 from diffwdf_tpu_torch.ops import circuit_codegen as cg
 from diffwdf_tpu_torch.ops import clipper_train as ct
 from diffwdf_tpu_torch.ops import deer_circuit as dc
-from diffwdf_tpu_torch.ops import deer_forms as df
 from diffwdf_tpu_torch.ops import fused_circuit as fcirc
 from diffwdf_tpu_torch.ops import fused_clipper as fc
 from diffwdf_tpu_torch.ops import parallel_bptt as pb
@@ -626,53 +605,8 @@ def _timed(fn, runs: int = REPS):
     return statistics.median(ms), min(ms), max(ms)
 
 
-def _kernel_in_turns(fn):
-    """(after, before): per-call CUDA-event ms of 10 back-to-back calls of fn
-    over REPS runs each, with the kernels after and before their redesign
-    (``_old_kernels``) in turns, after a warm-up of both."""
-    for old in (False, True):
-        with _old_kernels(old):
-            _cuda_ms(fn, 1, 2)
-    ms = {False: [], True: []}
-    for rep in range(REPS):
-        for old in ((False, True) if rep % 2 else (True, False)):
-            with _old_kernels(old):
-                ms[old] += _cuda_ms(fn, 1, 10)
-    return ms[False], ms[True]
-
-
-#: the DEER kernels' forms timed in turns: label -> form (the served cluster
-#: of 16 CTAs; ops/deer_forms.py's 8 CTAs and one-CTA kernel before the
-#: cluster redesign)
-DEER_FORMS = {"C16": pd.CLUSTER, "C8": df.C8, "one_cta": df.ONE_CTA}
-#: the DEER kernels' names in a profiler trace (B5's cluster and one-CTA
-#: kernels, B9's)
-DEER_KERNEL_NAMES = ("deer_clipper_cluster_kernel", "deer_clipper_kernel", "deer_cluster_kernel",
-                     "deer_kernel")
-
-
-def _b5_launch(form: int):
-    """B5's launch function at ``form`` (``parallel_time_deer.launch``'s
-    arguments): the served kernel at pd.CLUSTER, else the comparison form."""
-    return pd.launch if form == pd.CLUSTER else functools.partial(df.clipper_launch, form)
-
-
-def _b9_launcher(form: int):
-    """B9's launcher at ``form`` (``deer_circuit.launcher``'s arguments)."""
-    return dc.launcher if form == dc.CLUSTER else functools.partial(df.circuit_launcher, form)
-
-
-@contextlib.contextmanager
-def _deer_form(form: int):
-    """B5's and B9's wrappers launching ``form``: the comparison forms put
-    in the served launch functions' place (as ``_old_kernels`` does for the
-    other kernels)."""
-    saved = (pd.launch, dc.launcher)
-    pd.launch, dc.launcher = _b5_launch(form), _b9_launcher(form)
-    try:
-        yield
-    finally:
-        pd.launch, dc.launcher = saved
+#: the DEER kernels' names in a profiler trace (B5's cluster kernel, B9's)
+DEER_KERNEL_NAMES = ("deer_clipper_cluster_kernel", "deer_cluster_kernel")
 
 
 def _device_ms(fn, calls: int = 10) -> float:
@@ -742,43 +676,28 @@ def _sm_clock():
         samples += [float(v) for v in proc.communicate()[0].split() if v.isdigit()]
 
 
-def _wall_in_turns(serve, before: bool) -> dict:
+def _wall_ms(serve) -> list:
     """Host wall ms of WALL_REPS served blocks (the caller has served one
-    to warm up); with ``before``, each block is served with the kernels
-    after and before their redesign (``_old_kernels``) in turns, after a
-    warm-up block of the earlier ones.  {"after": [...], "before": [...]}."""
-    labels = ("after", "before") if before else ("after",)
-    if before:
-        with _old_kernels(True):
-            serve()
-    wall = {label: [] for label in labels}
-    for rep in range(WALL_REPS):
-        for label in (labels if rep % 2 else labels[::-1]):
-            with _old_kernels(label == "before"):
-                t0 = time.perf_counter()
-                serve()
-                wall[label].append((time.perf_counter() - t0) * 1e3)
+    to warm up)."""
+    wall = []
+    for _ in range(WALL_REPS):
+        t0 = time.perf_counter()
+        serve()
+        wall.append((time.perf_counter() - t0) * 1e3)
     return wall
 
 
 #: (pattern of the mangled name, label) of the serving kernels whose SASS
-#: the build phase summarises: B1, B2 and B6 before their redesign and after
-SASS_KERNELS = ((r"\d+analytic_kernelE", "analytic_kernel"),
-                (r"\d+analytic_pair_kernelILi3EE", "analytic_pair_kernel<3>"),
+#: the build phase summarises: B1 (its one-thread and lane forms), B2, B5
+#: and B6
+SASS_KERNELS = ((r"\d+analytic_pair_kernelILi3EE", "analytic_pair_kernel<3>"),
                 (r"\d+neural_kernelILi16EE", "neural_kernel<16>"),
                 (r"\d+neural_lanes_kernelILi16ELi16ELi2EE", "neural_lanes_kernel<16,16,2>"),
                 (r"\d+neural_lanes_kernelILi16ELi8ELi2EE", "neural_lanes_kernel<16,8,2>"),
                 (r"\d+deer_clipper_cluster_kernelILi16EE", "deer_clipper_cluster_kernel<16>"),
-                (r"\d+cheb_kernelILi24EE", "cheb_kernel<24>"),
                 (r"\d+cheb_lanes_kernelILi24ELi4EE", "cheb_lanes_kernel<24,4>"))
-#: B5's comparison forms' SASS (ops/deer_forms.py)
-DEER_CLIPPER_FORMS_SASS = ((r"\d+deer_clipper_kernelE", "deer_clipper_kernel"),
-                           (r"\d+deer_clipper_cluster_kernelILi8EE",
-                            "deer_clipper_cluster_kernel<8>"))
-#: the generated DEER kernels' SASS, summarised for each B9 source and its forms
-DEER_SASS_KERNELS = ((r"\d+deer_kernelE", "deer_kernel"),
-                     (r"\d+deer_cluster_kernelILi8EE", "deer_cluster_kernel<8>"),
-                     (r"\d+deer_cluster_kernelILi16EE", "deer_cluster_kernel<16>"))
+#: the generated DEER kernel's SASS, summarised for each B9 source
+DEER_SASS_KERNELS = ((r"\d+deer_cluster_kernelILi16EE", "deer_cluster_kernel<16>"),)
 #: the SASS opcodes counted: the transcendental unit, branches, convergence
 #: barriers, calls (the IEEE division's slow path), local memory (spills),
 #: global and shared loads, shuffles
@@ -836,23 +755,25 @@ def serve_path(dev, card: str, seed: int) -> list:
         ckt = make_diode_clipper(root, FS)
         cases.append(("analytic", f"best {diode.name}",
                       block_server(ckt, {**ckt.init_params(dev), **rp})))
+    mlp = circuits["neural"][1]["dp"]
+    # the served call's constants (block_server reads them from the params)
+    served_rc = (float(circuits["neural"][1]["Vs"]["R"]), float(circuits["neural"][1]["C"]["C"]))
     for name, label, serve in cases:
         got, got_z = serve(blocks[0], z0)
         want, want_z = serve(blocks[0], z0, plain=True)
-        with _old_kernels(True):
-            old, old_z = serve(blocks[0], z0)
         torch.cuda.synchronize()
         err = max(_max_err(got, want), _max_err(got_z, want_z))
-        old_err = max(_max_err(old, want), _max_err(old_z, want_z))
         max_err[name] = max(max_err.get(name, 0.0), err)
-        equal = torch.equal(got, old) and torch.equal(got_z, old_z)
+        bits = ""
+        if name == "neural":  # the lane form keeps the one-thread kernel's bits
+            one, one_z = fc.launch_neural(blocks[0], z0, mlp, *served_rc, fs=FS, lanes=1)
+            equal = torch.equal(got, one) and torch.equal(got_z, one_z)
+            bits = f" vs_one_thread_form bits_equal={equal}"
         print(f"phase kernels {name} {label} shape=({B}, {T}) max_abs_err={err:.3e} "
-              f"budget={BUDGET[name]:.0e} earlier_form_max_abs_err={old_err:.3e} "
-              f"vs_earlier_form max_abs={max(_max_err(got, old), _max_err(got_z, old_z)):.3e} "
-              f"bits_equal={equal}", flush=True)
+              f"budget={BUDGET[name]:.0e}{bits}", flush=True)
         _check(bool(torch.isfinite(got).all()) and err <= BUDGET[name],
                f"{name} kernel {label} within {BUDGET[name]} of its plain version")
-        if name == "neural":  # the lane form keeps the one-thread kernel's bits
+        if name == "neural":
             _check(equal, "B1's lane form gives its one-thread form's bits")
     # B2 at B = 1 (the scan engine's blocks), at the low and the best quality
     one = blocks[0][:1].contiguous()
@@ -919,20 +840,16 @@ def serve_path(dev, card: str, seed: int) -> list:
               f"max_abs_err={err:.3e} budget={BUDGET[name]:.0e}", flush=True)
         _check(err <= BUDGET[name], f"{name} kernel within budget of Circuit.process")
 
-    # --- timing: each kernel, its earlier form and its plain version --------
+    # --- timing: each kernel and its plain version ----------------------------
     times = {}
     for name, serve in servers.items():
         def kernel():
             serve(blocks[0], z0)
 
-        def earlier():
-            with _old_kernels(True):
-                serve(blocks[0], z0)
-
         def plain():
             serve(blocks[0], z0, plain=True)
 
-        runs = {"kernel": kernel, "earlier_kernel": earlier, "plain": plain}
+        runs = {"kernel": kernel, "plain": plain}
         for fn in runs.values():  # warm-up
             _cuda_ms(fn, 1, 2)
         ms = {label: [] for label in runs}
@@ -949,7 +866,6 @@ def serve_path(dev, card: str, seed: int) -> list:
                          for k, v in ms.items())
               + f" (kernels: 10 launches per run) card={card!r}", flush=True)
     # B1's lanes per stream, the pretrained 2x16 at T = 2048
-    mlp = circuits["neural"][1]["dp"]
     for rows in (1, 2048, B):
         vin = blocks[0][:rows].contiguous()
         sweep = {}
@@ -972,13 +888,12 @@ def serve_path(dev, card: str, seed: int) -> list:
              "max_abs_err": max_err[name], "ms": times[name]["kernel"],
              "plain_ms": times[name]["plain"],
              **dict(zip(("bound_ms", "bound_by"), _bound(ops[name], nbytes))),
-             "library_ms": None, "form": forms[name], "before_ms": times[name]["earlier_kernel"]}
+             "library_ms": None, "form": forms[name]}
             for name in ("neural", "analytic")]
 
 
 #: the serving kernels of csrc/fused_clipper.cu, as the profiler names them
-SERVE_KERNEL_NAMES = ("analytic_pair_kernel", "analytic_kernel", "neural_lanes_kernel",
-                      "neural_kernel")
+SERVE_KERNEL_NAMES = ("analytic_pair_kernel", "neural_lanes_kernel", "neural_kernel")
 #: the ptxas entries of the serving kernels redesigned for the H100
 SERVE_KERNELS = r"\d+((?:neural_lanes|analytic_pair)_kernel)"
 SERVE_NEW = ("neural_lanes_kernel", "analytic_pair_kernel")
@@ -1032,22 +947,17 @@ def train_path(dev, card: str, seed: int) -> list:
           f"g_z0={scaled[2]:.3e} budget=2e-05 (after dividing by scale)", flush=True)
     _check(all(bool(torch.isfinite(g).all()) for g in got) and max(scaled) <= 2e-5,
            "adjoint kernel within 2e-5 (scaled) of its plain version")
-    # the redesigned kernels (B3 on K lanes a stream, B4 in two passes)
-    # against their earlier forms, bit for bit: the wrappers' results above
-    # and B3 at each K it can take for H = 16
+    # B3 on K lanes a stream against its one-thread form, bit for bit: the
+    # wrapper's result above and B3 at each K it can take for H = 16
     old_fwd = fc.launch_train_fwd(*fwd_args, fs=TRAIN_FS, lanes=1)
     lanes_equal = {K: all(torch.equal(a, b) for a, b in zip(
         fc.launch_train_fwd(*fwd_args, fs=TRAIN_FS, lanes=K), old_fwd))
         for K in fc.nxh_lane_counts(16)}
     lanes_equal["wrapper"] = all(torch.equal(a, b) for a, b in zip(got_fwd, old_fwd))
-    adj_equal = all(torch.equal(a, b) for a, b in zip(
-        got, ct.launch_adjoint_onepass(*adj_args, fs=TRAIN_FS)))
     print(f"phase kernels train_fwd lanes vs one-thread kernel shape={shape} bits_equal "
           + " ".join(f"K={k}:{v}" for k, v in lanes_equal.items())
-          + f" (wrapper K={fc.nxh_lanes(16, TRAIN_CHUNKS)}); adjoint two passes vs one-pass "
-          f"kernel bits_equal={adj_equal}", flush=True)
-    _check(all(lanes_equal.values()) and adj_equal,
-           "B3's lane form and B4's two passes give their earlier forms' bits")
+          + f" (wrapper K={fc.nxh_lanes(16, TRAIN_CHUNKS)})", flush=True)
+    _check(all(lanes_equal.values()), "B3's lane form gives its one-thread form's bits")
     new_ptxas = _ptxas_kernels("", _build.library_path().with_suffix(".log"), CLIPPER_KERNELS)
     new_ptxas = {k: v for k, v in new_ptxas.items() if k.startswith(CLIPPER_NEW)}
     print("phase kernels ptxas clipper_train " + " | ".join(
@@ -1195,17 +1105,15 @@ def train_path(dev, card: str, seed: int) -> list:
         ("train_fwd", lambda: fc.fused_clipper_neural_train_fwd_plain(*fwd_args, fs=TRAIN_FS)),
         ("adjoint", lambda: ct.clipper_adjoint_plain(*adj_args, fs=TRAIN_FS)))}
     # the kernels alone, 10 calls back to back a run: the wrappers (B3 on K
-    # lanes, B4's two passes), their earlier forms, and B4's passes as
-    # launch-only calls on a scratch allocated once
+    # lanes, B4's two passes) and B4's passes as launch-only calls on a
+    # scratch allocated once
     pass1, pass2, scratch_bytes = _clipper_adjoint_passes(*adj_args[:5])
     kernel_ms = {}
     for label, fn in (
         ("B3", lambda: fc.fused_clipper_neural_train_fwd(*fwd_args, fs=TRAIN_FS)),
-        ("B3 one-thread", lambda: fc.launch_train_fwd(*fwd_args, fs=TRAIN_FS, lanes=1)),
         ("B4", lambda: ct.clipper_adjoint(*adj_args, fs=TRAIN_FS)),
         ("B4 pass 1", pass1),
         ("B4 pass 2", pass2),
-        ("B4 one-pass", lambda: ct.launch_adjoint_onepass(*adj_args, fs=TRAIN_FS)),
     ):
         _cuda_ms(fn, 1, 2)
         k = _cuda_ms(fn, REPS, 10)
@@ -1270,19 +1178,12 @@ def train_path(dev, card: str, seed: int) -> list:
             parts[name] = _timed(fn)[0]
         return parts, _timed(lambda: train_step(trained, opt, tb))
 
-    # the step before and after the redesign, in turns (before, after,
-    # before, after): "before" runs the earlier kernels through the same
-    # wrappers, the one-thread forward (lanes = 1) and the one-pass adjoint
-    runs = {"before": [], "after": []}
-    for label in ("before", "after", "before", "after"):
-        with _old_kernels(label == "before"):
-            runs[label].append(step_parts())
-    for label, (parts, step) in [(k, v[-1]) for k, v in runs.items()]:
-        print(f"phase timing train_step kernels={label} shape={shape} runs={REPS} "
-              f"step_ms={step[0]:.4f} [{step[1]:.4f}, {step[2]:.4f}] (first turn "
-              f"{runs[label][0][1][0]:.4f}) ({samples / step[0] / 1e3:.3f} Msamples/s) "
-              + " ".join(f"{k}_ms={v:.4f}" for k, v in parts.items())
-              + f" parts_sum_ms={sum(parts.values()):.4f} card={card!r}", flush=True)
+    parts, step = step_parts()
+    print(f"phase timing train_step shape={shape} runs={REPS} "
+          f"step_ms={step[0]:.4f} [{step[1]:.4f}, {step[2]:.4f}] "
+          f"({samples / step[0] / 1e3:.3f} Msamples/s) "
+          + " ".join(f"{k}_ms={v:.4f}" for k, v in parts.items())
+          + f" parts_sum_ms={sum(parts.values()):.4f} card={card!r}", flush=True)
 
     wrappers = {"train_fwd": "fused_clipper_neural_train_fwd", "adjoint": "clipper_adjoint"}
     ops = {"train_fwd": _neural_ops(16, 2) * samples, "adjoint": _adjoint_ops(16, 2) * samples}
@@ -1293,8 +1194,7 @@ def train_path(dev, card: str, seed: int) -> list:
               "adjoint": 16 * samples + 12 * TRAIN_CHUNKS + 2 * scratch_bytes}
     bounds = {name: _bound(ops[name], nbytes[name]) for name in ("train_fwd", "adjoint")}
     for name, label in (("train_fwd", "B3"), ("adjoint", "B4")):
-        before = kernel_ms[f"{label} one-thread" if label == "B3" else f"{label} one-pass"]
-        print(f"phase timing bound {label} kernel_ms={kernel_ms[label]:.4f} before_ms={before:.4f} "
+        print(f"phase timing bound {label} kernel_ms={kernel_ms[label]:.4f} "
               f"bound_ms={bounds[name][0]:.6f} ({bounds[name][1]}) "
               f"share={bounds[name][0] / kernel_ms[label]:.4f} plain_ms={plain_ms[name]:.4f} "
               f"launches_on_main_path={launches[name]} card={card!r}", flush=True)
@@ -1463,9 +1363,7 @@ def _profiled_blocks(serve, blocks: int = 10, tries: int = 3):
 
 def _deer_case(vin, r_src, fs, sweeps, iters, relax=2):
     """The DEER kernel on vin against its plain version and against the
-    exact recursion (the analytic kernel at B=1, same constants), and at
-    each cluster size against the one-CTA kernel: with no sweep its bits
-    (``bits``), with the sweeps within ``one_cta`` of it."""
+    exact recursion (the analytic kernel at B=1, same constants)."""
     d = diode_1n4148_1u1d
     args = (r_src, 2.2e-9, d.Is, d.Vt * d.nabla, d.N_up, d.N_down)
     kw = dict(fs=fs, sweeps=sweeps, relax_passes=relax, quality_iters=iters)
@@ -1473,21 +1371,12 @@ def _deer_case(vin, r_src, fs, sweeps, iters, relax=2):
     p_out, p_zf, p_res = pd.fused_deer_clipper_plain(vin, *args, **kw)
     e_out, e_zf = fc.fused_clipper_analytic(vin[None], torch.zeros(1, device=vin.device), *args,
                                             fs=fs, quality_iters=iters)
-    forms = {}
-    for c in DEER_FORMS.values():
-        with _deer_form(c):
-            forms[c] = (pd.fused_deer_clipper(vin, *args, **kw),
-                        pd.fused_deer_clipper(vin, *args, **{**kw, "sweeps": 0}))
     torch.cuda.synchronize()
     _check(bool(torch.isfinite(out).all()) and out.shape == vin.shape, "DEER output finite, shaped")
-    one, one_bare = forms[df.ONE_CTA]
     return {"plain": max(_max_err(out, p_out), _max_err(zf, p_zf)),
             "exact": max(_max_err(out, e_out[0]), _max_err(zf, e_zf[0])),
             "plain_exact": max(_max_err(p_out, e_out[0]), _max_err(p_zf, e_zf[0])),
-            "res": float(res), "plain_res": float(p_res),
-            "bits": all(all(torch.equal(x, y) for x, y in zip(forms[c][1], one_bare))
-                        for c in (pd.CLUSTER, df.C8)),
-            "one_cta": max(_max_err(forms[c][0][0], one[0]) for c in (pd.CLUSTER, df.C8))}
+            "res": float(res), "plain_res": float(p_res)}
 
 
 def stream_path(dev, card: str, seed: int) -> list:
@@ -1504,17 +1393,13 @@ def stream_path(dev, card: str, seed: int) -> list:
             plain_errs.append(e["plain"])
             converged = name == "toms" or T > 2048
             print(f"phase kernels deer {name} sweeps={sweeps} iters={iters} T={T} "
-                  f"vs_plain={e['plain']:.3e} budget=1e-06 vs_one_cta={e['one_cta']:.3e} "
-                  f"no_sweep_bits_of_one_cta={e['bits']} vs_exact={e['exact']:.3e} "
+                  f"vs_plain={e['plain']:.3e} budget=1e-06 vs_exact={e['exact']:.3e} "
                   + (f"budget={DEER_BUDGET[name]:.0e}" if converged else
                      f"plain_vs_exact={e['plain_exact']:.3e} (4 sweeps at L=2 leave the "
                      f"DEER algorithm unconverged: the kernel must reproduce the plain "
                      f"version's distance, within 1e-06)")
                   + f" residual={e['res']:.3e} plain_residual={e['plain_res']:.3e}", flush=True)
             _check(e["plain"] <= 1e-6, f"DEER kernel {name} T={T} within 1e-6 of its plain version")
-            _check(e["bits"] and e["one_cta"] <= 1e-6,
-                   f"DEER kernel {name} T={T}: the one-CTA kernel's bits with no sweep, within "
-                   "1e-6 of it with the sweeps, at 8 and 16 CTAs")
             _check(e["exact"] <= DEER_BUDGET[name] if converged
                    else abs(e["exact"] - e["plain_exact"]) <= 1e-6,
                    f"DEER kernel {name} T={T} against the exact recursion")
@@ -1538,19 +1423,14 @@ def stream_path(dev, card: str, seed: int) -> list:
     print(f"phase kernels deer r_source=180 T=2048 residual={e['res']:.3e} (must exceed 1e-02) "
           f"plain_residual={e['plain_res']:.3e} vs_exact={e['exact']:.3e}", flush=True)
     _check(e["res"] > 1e-2, "the residual certificate flags R = 180 Ohm")
-    forms_lib = _build.generated_path(df.CLIPPER_FORMS_SOURCE.read_text())
-    new_ptxas = {k: v for log in (_build.library_path(), forms_lib)
-                 for k, v in _ptxas_kernels("", log.with_suffix(".log"),
-                                            r"\d+(deer_clipper_(?:cluster_)?kernel)").items()
-                 if k.startswith("deer_clipper")}
+    cluster_ptxas = {k: v for k, v in _ptxas_kernels(
+        "", _build.library_path().with_suffix(".log"),
+        r"\d+(deer_clipper_cluster_kernel)").items() if k.startswith("deer_clipper")}
     print("phase kernels ptxas deer " + " | ".join(
         f"{k}: {r} registers, {ss}/{sl} bytes spilled (stores/loads)"
-        for k, (r, ss, sl) in new_ptxas.items()), flush=True)
-    for line in _sass_summary(forms_lib, DEER_CLIPPER_FORMS_SASS):
-        print(f"  sass {line} (comparison form)", flush=True)
-    cluster_ptxas = {k: v for k, v in new_ptxas.items() if "cluster" in k}
-    _check(len(cluster_ptxas) == 2 and all(ss == sl == 0 for _, ss, sl in cluster_ptxas.values()),
-           f"no spills in B5's cluster kernels (16 CTAs; the form at 8): {cluster_ptxas}")
+        for k, (r, ss, sl) in cluster_ptxas.items()), flush=True)
+    _check(len(cluster_ptxas) == 1 and all(ss == sl == 0 for _, ss, sl in cluster_ptxas.values()),
+           f"no spills in B5's cluster kernel (16 CTAs): {cluster_ptxas}")
 
     # --- stream: the main path, counted ----------------------------------------
     n = STREAM_BLOCKS * STREAM_BLOCK
@@ -1669,60 +1549,49 @@ def stream_path(dev, card: str, seed: int) -> list:
     mlp = scan.circuits["neural_2x16"][1]["dp"]
     z1 = torch.zeros(1, device=dev)
     times = {}
-    clusters = {df.C8: df.clipper_max_clusters(), pd.CLUSTER: pd.max_active_clusters()}
+    clusters = pd.max_active_clusters()
     for T in DEER_T:
         vin = 2.0 * torch.randn(T, generator=gen, device=dev)
 
-        def form(c):
-            def run():
-                with _deer_form(c):
-                    pd.fused_deer_clipper(vin, *args, fs=FS)
-            return run
+        def wrapper():
+            pd.fused_deer_clipper(vin, *args, fs=FS)
 
-        def launch(c, sweeps=8, relax=2):
+        def launch(sweeps=8, relax=2):
             """B5's launch alone, on outputs allocated once."""
             out, zf, res, s0 = (torch.empty_like(vin), *(torch.zeros((), device=dev)
                                                           for _ in range(3)))
             consts = pd._analytic_constants(*args[:2], FS, *args[2:])
-            fn = _b5_launch(c)
-            return lambda: fn(vin, s0, out, zf, res, T // 1024, consts, sweeps, relax, 3)
+            return lambda: pd.launch(vin, s0, out, zf, res, T // 1024, consts, sweeps, relax, 3)
 
-        forms = _forms_in_turns({label: form(c) for label, c in DEER_FORMS.items()},
-                                {label: launch(c) for label, c in DEER_FORMS.items()})
-        parts = _breakdown(lambda s, r: launch(pd.CLUSTER, s, r), DEER_CFG["toms"][0], 2)
+        label = f"C{pd.CLUSTER}"
+        forms = _forms_in_turns({label: wrapper}, {label: launch()})
+        parts = _breakdown(launch, DEER_CFG["toms"][0], 2)
         p = _timed(lambda: pd.fused_deer_clipper_plain(vin, *args, fs=FS))
-        times[T] = (forms[f"C{pd.CLUSTER}"][3], p[0])
+        times[T] = (forms[label][3], p[0])
         bound = _bound(_deer_ops(T, DEER_CFG["toms"][0], 2, DEER_CFG["toms"][1]), 8 * T + 12)
-        print(f"phase timing deer T={T} runs={REPS} in turns (10 wrapper calls per run; "
+        print(f"phase timing deer T={T} runs={REPS} (10 wrapper calls per run; "
               f"device: launches back to back) {_forms_line(forms)} plain_ms={p[0]:.4f} "
               f"[{p[1]:.4f}, {p[2]:.4f}] bound_ms={bound[0]:.7f} ({bound[1]}) "
-              f"max_active_clusters(8, 16)={clusters} card={card!r}", flush=True)
-        print(f"phase timing deer T={T} breakdown C{pd.CLUSTER} (device, toms) {parts} "
+              f"max_active_clusters={clusters} card={card!r}", flush=True)
+        print(f"phase timing deer T={T} breakdown {label} (device, toms) {parts} "
               f"card={card!r}", flush=True)
-        # the exact engine's kernels at B = 1, after and before their redesign,
-        # in turns, 10 launches a run, with the SM clock sampled meanwhile
+        # the exact engine's kernels at B = 1, in turns, 10 launches a run,
+        # with the SM clock sampled meanwhile
         exact = {"B2": lambda: fc.fused_clipper_analytic(vin[None], z1, *args, fs=FS),
                  "B1": lambda: fc.fused_clipper_neural(vin[None], z1, mlp, 47e3, 2.2e-9, fs=FS)}
-        ms = {(name, label): [] for name in exact for label in ("after", "before")}
-        for label in ("after", "before"):  # warm-up
-            with _old_kernels(label == "before"):
-                for fn in exact.values():
-                    _cuda_ms(fn, 1, 2)
+        ms = {name: [] for name in exact}
+        for fn in exact.values():  # warm-up
+            _cuda_ms(fn, 1, 2)
         with _sm_clock() as mhz:
-            for rep in range(REPS):
-                for label in (("after", "before") if rep % 2 else ("before", "after")):
-                    with _old_kernels(label == "before"):
-                        for name, fn in exact.items():
-                            ms[(name, label)] += _cuda_ms(fn, 1, 10)
+            for _ in range(REPS):
+                for name, fn in exact.items():
+                    ms[name] += _cuda_ms(fn, 1, 10)
         clock = statistics.median(mhz) if mhz else float("nan")
-        for name in exact:
-            line = " ".join(
-                f"{label}_ms={statistics.median(ms[(name, label)]):.4f} "
-                f"[{min(ms[(name, label)]):.4f}, {max(ms[(name, label)]):.4f}] "
-                f"({statistics.median(ms[(name, label)]) * clock * 1e3 / T:.0f} cycles/sample)"
-                for label in ("after", "before"))
+        for name, v in ms.items():
             print(f"phase timing deer exact_engine {name}"
-                  f"{' 2x16' if name == 'B1' else ' best'} B=1 T={T} runs={REPS} in turns {line} "
+                  f"{' 2x16' if name == 'B1' else ' best'} B=1 T={T} runs={REPS} "
+                  f"ms={statistics.median(v):.4f} [{min(v):.4f}, {max(v):.4f}] "
+                  f"({statistics.median(v) * clock * 1e3 / T:.0f} cycles/sample) "
                   f"(10 launches per run) sm_clock_mhz={clock:g} ({len(mhz)} samples) "
                   f"card={card!r}", flush=True)
     block_audio_ms = STREAM_BLOCK / FS * 1e3
@@ -1732,11 +1601,8 @@ def stream_path(dev, card: str, seed: int) -> list:
             proc.process_block(x0, "clipper", model=model, cutoff_hz=4000.0)
 
         serve()
-        wall = _wall_in_turns(serve, True)
-        ms = statistics.median(wall["after"])
-        before = (f" before_kernels_wall_ms={statistics.median(wall['before']):.4f} "
-                  f"[{min(wall['before']):.4f}, {max(wall['before']):.4f}] (in turns)"
-                  if "before" in wall else "")
+        wall = _wall_ms(serve)
+        ms = statistics.median(wall)
         prof, traced = _profiled_blocks(serve)
         dev_events = [ev for ev in prof.events()
                       if ev.device_type == torch.autograd.DeviceType.CUDA]
@@ -1744,8 +1610,8 @@ def stream_path(dev, card: str, seed: int) -> list:
         copies = [ev for ev in dev_events if "Memcpy" in ev.name or "Memset" in ev.name]
         dev_us = sum(ev.time_range.elapsed_us() for ev in dev_events) / 10
         print(f"phase timing stream engine={engine} model={model} block={STREAM_BLOCK} "
-              f"process_block_wall_ms={ms:.4f} [{min(wall['after']):.4f}, "
-              f"{max(wall['after']):.4f}] real_time_factor={block_audio_ms / ms:.2f}{before} "
+              f"process_block_wall_ms={ms:.4f} [{min(wall):.4f}, "
+              f"{max(wall):.4f}] real_time_factor={block_audio_ms / ms:.2f} "
               f"per block (profiled, 10 blocks): "
               f"serving_kernel_launches={len(ours) / 10:g} {traced} other_device_ops="
               f"{(len(dev_events) - len(ours) - len(copies)) / 10:g} copies={len(copies) / 10:g} "
@@ -1888,20 +1754,17 @@ def circuit_path(dev, card: str, seed: int) -> list:
     want, want_z = fc.fused_clipper_cheb_plain(cheb_blocks[0], z0, *cheb_args, fs=FS)
     analytic_args = (R_SRC, CAP, d.Is, d.Vt * d.nabla, d.N_up, d.N_down)
     y2, _ = fc.fused_clipper_analytic(cheb_blocks[0], z0, *analytic_args, fs=FS)
-    one, one_z = fc.launch_cheb_onethread(cheb_blocks[0], z0, *cheb_args, fs=FS)
     torch.cuda.synchronize()
     cheb_err = max(_max_err(got, want), _max_err(got_z, want_z))
     esr = float(((y2 - got) ** 2).sum() / (y2 ** 2).sum())
-    same = torch.equal(got, one) and torch.equal(got_z, one_z)
     print(f"phase kernels distilled root=1N4148 1U-1D best r_port={r_port:.3f} "
           f"degrees={tuple(len(c) - 1 for c in droot.coeffs)} fit_max_abs_err={fit_err:.3e} "
           f"budget=1e-04 shape=({B}, {T}) vs_plain={cheb_err:.3e} budget=1e-05 "
-          f"esr_vs_analytic_kernel={esr:.3e} budget=1e-07 lanes={fc.cheb_lanes(len(droot.coeffs))} "
-          f"equals_one_thread_kernel={same}", flush=True)
+          f"esr_vs_analytic_kernel={esr:.3e} budget=1e-07 "
+          f"lanes={fc.cheb_lanes(len(droot.coeffs))}", flush=True)
     _check(fit_err < 1e-4, "distilled root within 1e-4 of the analytic root")
     _check(bool(torch.isfinite(got).all()) and cheb_err <= 1e-5, "B6 within 1e-5 of plain")
     _check(esr < 1e-7, "distilled clipper ESR below 1e-7 against B2")
-    _check(same, "B6: the lane form has the one-thread kernel's bits")
     cheb_ptxas = {k: v for k, v in _ptxas_kernels(
         "", _build.library_path().with_suffix(".log"), r"\d+(cheb_lanes_kernel)").items()
         if k.startswith("cheb_lanes_kernel")}
@@ -2029,7 +1892,8 @@ def circuit_path(dev, card: str, seed: int) -> list:
                       lambda name=name, ckt=ckt: servers[name](first[name], zero_state(ckt),
                                                                plain=True)))
     for label, kernel, plain in cases:
-        after, before = _kernel_in_turns(kernel)
+        _cuda_ms(kernel, 1, 2)
+        k = _cuda_ms(kernel, REPS, 10)
         wrapper = ""
         if label.startswith("B7"):  # the user's call: adaptation, vector, launch
             name = label.split()[1]
@@ -2037,31 +1901,23 @@ def circuit_path(dev, card: str, seed: int) -> list:
             w_ms = statistics.median(_cuda_ms(lambda: servers[name](first[name], state), 3, 10))
             wrapper = f" wrapper_ms={w_ms:.4f} (10 calls per run)"
         p_ms = _cuda_ms(plain, 1)[0] if label in ("B6", "B7 ts", "B7 ts_2x16") else float("nan")
-        times[label] = (statistics.median(after), p_ms)
-        print(f"phase timing circuit {label} shape=({B}, {T}) runs={REPS} in turns "
-              f"kernel_ms={statistics.median(after):.4f} [{min(after):.4f}, {max(after):.4f}] "
-              f"before_ms={statistics.median(before):.4f} [{min(before):.4f}, {max(before):.4f}] "
-              f"(one thread a stream; 10 launches per run){wrapper} plain_ms={p_ms:.4f} "
+        times[label] = (statistics.median(k), p_ms)
+        print(f"phase timing circuit {label} shape=({B}, {T}) runs={REPS} "
+              f"kernel_ms={statistics.median(k):.4f} [{min(k):.4f}, {max(k):.4f}] "
+              f"(10 launches per run){wrapper} plain_ms={p_ms:.4f} "
               f"(one run) card={card!r}", flush=True)
     # B7 at B = 1, the kernel a single-stream scan block waits on: the
     # plugin's Tube Screamer (analytic "low") and the HPF clipper's "toms";
-    # and B6 at B = 1; device time, the lane form and the one-thread form in
-    # turns
+    # and B6 at B = 1; device time
     one_row, z1 = cheb_blocks[0][:1].contiguous(), z0[:1].contiguous()
     b1_cases = {"B7 ts_low": launch_only("ts_low", rows=1), "B7 hpf": launch_only("hpf", rows=1),
                 "B6": lambda: fc.fused_clipper_cheb(one_row, z1, *cheb_args, fs=FS)}
     for name, fn in b1_cases.items():
-        dev_ms = {False: [], True: []}
         with _sm_clock() as mhz:
-            for rep in range(REPS):
-                for old in ((False, True) if rep % 2 else (True, False)):
-                    with _old_kernels(old):
-                        dev_ms[old].append(_device_ms(fn))
+            dev_ms = statistics.median(_device_ms(fn) for _ in range(REPS))
         clock = statistics.median(mhz) if mhz else float("nan")
-        line = " ".join(f"{label}_ms={statistics.median(dev_ms[old]):.4f} "
-                        f"({statistics.median(dev_ms[old]) * clock * 1e3 / T:.0f} cycles/sample)"
-                        for label, old in (("lanes", False), ("one_thread", True)))
-        print(f"phase timing circuit {name} B=1 T={T} runs={REPS} in turns device {line} "
+        print(f"phase timing circuit {name} B=1 T={T} runs={REPS} device lanes_ms={dev_ms:.4f} "
+              f"({dev_ms * clock * 1e3 / T:.0f} cycles/sample) "
               f"sm_clock_mhz={clock:g} card={card!r}", flush=True)
     # the block shape of the diode pair's lane form at (8192, 2048): 64 and
     # 128 threads, in turns (the emitter keeps the faster as its lane_threads)
@@ -2276,53 +2132,8 @@ def _generated_ptxas(source: str, kernel: str = r"\d+(circuit_\w*?kernel)") -> s
                       for k, (r, ss, sl) in _ptxas_kernels(source, kernel=kernel).items())
 
 
-#: the generated DEER kernels in a ptxas log: the one-CTA deer_kernel and
-#: deer_cluster_kernel<C>
+#: the generated DEER kernel in a ptxas log: deer_cluster_kernel<C>
 DEER_PTXAS = r"\d+(deer_\w*?kernel)"
-
-
-#: the adjoint programs that ``_old_kernels`` runs (no root streams), kept
-#: apart from the main path's, which the same forward source keys
-_OLD_ADJOINTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-
-
-@contextlib.contextmanager
-def _old_kernels(active: bool):
-    """With ``active``, the wrappers run the kernels as they were before
-    their redesign: B7 one thread per stream (lanes = 1: the NxH roots' and
-    the diode pair's lane forms off; the one-thread step solves the pair
-    with omega_pair, whose bits are omega()'s, the kernels circuit phase
-    checks), B3 and B1 one thread per stream, B8 and B4 the one-pass kernel
-    (and the clipper's parameter pass, B4's pass 3, autograd of the MLP;
-    B8's programs have no root streams, from a cache of their own, so the
-    TS root's leaves go through autograd),
-    B2 the two omega solves one after the other, B6 one thread per stream
-    (``cheb_kernel<D>``), B5 and B9 the one-CTA kernels (with omega()'s
-    zero-residual skip, which their earlier builds did not take).  For the
-    before-and-after comparisons only."""
-    if not active:
-        yield
-        return
-    saved = (fcirc.lanes_for, pb.launch_adjoint, fc.nxh_lanes, ct.launch_adjoint,
-             fc.launch_analytic, fc.launch_cheb, ct.launch_param_vjp, cg.root_streams,
-             cg._adjoints)
-    fcirc.lanes_for = lambda prog, b: 1
-    ct.launch_param_vjp = lambda mlp, a, lr, g, launch_span: ct.mlp_param_vjp_plain(
-        mlp, ("tanh",) * (len(mlp["layers"]) - 1) + ("",), a, lr, g)
-    cg.root_streams = lambda emitter: False
-    cg._adjoints = _OLD_ADJOINTS
-    pb.launch_adjoint = lambda *args, streams=None: pb.launch_adjoint_onepass(*args)
-    fc.nxh_lanes = lambda h, b: 1
-    ct.launch_adjoint = ct.launch_adjoint_onepass
-    fc.launch_analytic = fc.launch_analytic_serial
-    fc.launch_cheb = fc.launch_cheb_onethread
-    try:
-        with _deer_form(df.ONE_CTA):
-            yield
-    finally:
-        (fcirc.lanes_for, pb.launch_adjoint, fc.nxh_lanes, ct.launch_adjoint,
-         fc.launch_analytic, fc.launch_cheb, ct.launch_param_vjp, cg.root_streams,
-         cg._adjoints) = saved
 
 
 def _scratch_bytes(adj, B: int, T: int) -> str:
@@ -2412,8 +2223,6 @@ def generic_train_path(dev, card: str, seed: int) -> list:
     # the K sweep's build of the training form (every K that divides H)
     ts_sweep = cg.sweep_program(cases["ts_2x16"][0], preps["ts_2x16"].prog)
     extra.append(ts_sweep.source)
-    with _old_kernels(True):  # the timing's "before": B8 without the root's streams
-        extra.append(cg.adjoint_program(cases["ts_2x16"][0], preps["ts_2x16"].prog).source)
     sources = ([p.prog.source for p in preps.values()] + [a.source for a in adjs.values()]
                + extra)
     builds = _build.build_generated.builds
@@ -2495,15 +2304,6 @@ def generic_train_path(dev, card: str, seed: int) -> list:
             _check(a_err <= 2e-5 and g_rel < GEN_BUDGET[name] and same_r,
                    f"B8 {name}: the root's a and G within budget of plain")
             roots[name] = root
-        # the two passes against the one-pass kernel (today's arithmetic)
-        one = pb.launch_adjoint_onepass(case[0], prep, vin, g_out, torch.stack(seq),
-                                        torch.stack(lam_T))
-        torch.cuda.synchronize()
-        two = (torch.stack(b_got[0]), b_got[1], torch.stack(b_got[2]))
-        diff = max(_max_err(a, w) for a, w in zip(two, one))
-        print(f"phase kernels generic {name} adjoint two passes vs one-pass kernel shape={shape} "
-              f"max_abs_diff={diff:.3e} bitwise={all(map(torch.equal, two, one))}", flush=True)
-        _check(all(map(torch.equal, two, one)), f"B8 {name}: the two passes give the one-pass bits")
     pass3 = _root_pass3(card, cases["ts_2x16"][3], roots["ts_2x16"])
 
     # --- grad generic: the fused_generic op against the scan engine ------------
@@ -2642,7 +2442,7 @@ def generic_train_path(dev, card: str, seed: int) -> list:
     root_ids = {id(t) for t in ct.mlp_leaves(mlp)}
     needs = [id(t) in root_ids for t in leaves]  # the step trains the root alone
 
-    def part_params():  # the root's pass 3 on B8's streams ("before": autograd's pass)
+    def part_params():  # the root's pass 3 on B8's streams
         state["grads"] = pb.parameter_cotangents(circuit, trained, x, state["fwd"][2],
                                                  state["g_out"], state["adj"][0],
                                                  input_node="Vin", root=state["adj"][3],
@@ -2662,21 +2462,13 @@ def generic_train_path(dev, card: str, seed: int) -> list:
             parts[name] = _timed(fn)[0]
         return parts, _timed(lambda: step_fn(trained, opt, batches))
 
-    # the step before and after the redesign, in turns (before, after,
-    # before, after): "before" runs today's kernels through the same
-    # wrappers, the one-thread forward (lanes = 1) and the one-pass adjoint
     samples = GEN_B * GEN_T
-    runs = {"before": [], "after": []}
-    for label in ("before", "after", "before", "after"):
-        with _old_kernels(label == "before"):
-            runs[label].append(step_parts())
-    for label, (parts, step) in [(k, v[-1]) for k, v in runs.items()]:
-        first = runs[label][0][1][0]
-        print(f"phase timing generic train_step kernels={label} circuit=tube_screamer 2x16 "
-              f"shape={shape} runs={REPS} step_ms={step[0]:.4f} [{step[1]:.4f}, {step[2]:.4f}] "
-              f"(first turn {first:.4f}) ({samples / step[0] / 1e3:.3f} Msamples/s) "
-              + " ".join(f"{k}_ms={v:.4f}" for k, v in parts.items())
-              + f" parts_sum_ms={sum(parts.values()):.4f} card={card!r}", flush=True)
+    parts, step = step_parts()
+    print(f"phase timing generic train_step circuit=tube_screamer 2x16 "
+          f"shape={shape} runs={REPS} step_ms={step[0]:.4f} [{step[1]:.4f}, {step[2]:.4f}] "
+          f"({samples / step[0] / 1e3:.3f} Msamples/s) "
+          + " ".join(f"{k}_ms={v:.4f}" for k, v in parts.items())
+          + f" parts_sum_ms={sum(parts.values()):.4f} card={card!r}", flush=True)
 
     # both kernels alone, on arguments prepared once
     ts_case = (circuit, trained, "Vin", mlp, None, None, 0.5)
@@ -2693,14 +2485,10 @@ def generic_train_path(dev, card: str, seed: int) -> list:
     kernel_ms = {}
     for label, fn in (
         ("B7", lambda: fcirc.launch(prep, x, z0, with_seq=True)),
-        ("B7 one-thread", lambda: fcirc.launch(prep, x, z0, with_seq=True, lanes=1)),
         ("B8", lambda: pb.launch_adjoint(circuit, prep, x, g_out, zseq, lam_t, streams)),
         ("B8 pass 1", pass1),
         ("B8 pass 2", pass2),
-        ("B8 one-pass", lambda: pb.launch_adjoint_onepass(circuit, prep, x, g_out, zseq, lam_t)),
         ("B8 375", lambda: pb.launch_adjoint(circuit, prep, x375, g375, z375, l375, s375)),
-        ("B8 375 one-pass", lambda: pb.launch_adjoint_onepass(circuit, prep, x375, g375, z375,
-                                                              l375)),
     ):
         _cuda_ms(fn, 1, 2)
         k = _cuda_ms(fn, REPS, 10)
@@ -2734,12 +2522,11 @@ def generic_train_path(dev, card: str, seed: int) -> list:
     for label, rows in (("B8", GEN_B), ("B8 375", rows375)):
         bounds[label] = _bound(adj.ops_per_sample * rows * GEN_T,
                                (3 + 2 * S + 2) * 4 * rows * GEN_T + 8 * S * rows)
-    for label, before in (("B7", "B7 one-thread"), ("B8", "B8 one-pass"),
-                          ("B8 375", "B8 375 one-pass")):
+    for label in ("B7", "B8", "B8 375"):
         plain = f"{plain_ms['ts_2x16'][0 if label == 'B7' else 1]:.1f}" if label != "B8 375" \
             else "not run"
         print(f"phase timing generic bound {label} kernel_ms={kernel_ms[label]:.4f} "
-              f"before_ms={kernel_ms[before]:.4f} bound_ms={bounds[label][0]:.6f} "
+              f"bound_ms={bounds[label][0]:.6f} "
               f"({bounds[label][1]}) share={bounds[label][0] / kernel_ms[label]:.4f} "
               f"plain_ms={plain} launches_on_main_path={launches[label.split()[0]]} "
               f"card={card!r}", flush=True)
@@ -2950,70 +2737,46 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
     _build.build_generated(sources)
     cached_s = time.perf_counter() - t0
     nvcc_runs = _build.build_generated.builds - builds
-    # the comparison forms (ops/deer_forms.py), which the served path never builds
-    t0 = time.perf_counter()
-    _build.build_generated([d.forms_source for d in deers.values()])
-    forms_s = time.perf_counter() - t0
     print(f"phase build deer sources={len(set(sources))} (B9 {len(deers)}, B7 {len(progs)}) "
-          f"nvcc_runs={nvcc_runs} cold_seconds={cold_s:.2f} cached_seconds={cached_s:.4f} "
-          f"forms_sources={len(deers)} forms_cold_seconds={forms_s:.2f}", flush=True)
+          f"nvcc_runs={nvcc_runs} cold_seconds={cold_s:.2f} cached_seconds={cached_s:.4f}",
+          flush=True)
     # one cold nvcc of a DEER source, each alone in its process, all started
-    # together: the served source (the cluster kernel at 16 CTAs), the forms,
-    # and both in one source as they were built before they were split
-    jobs = {f"{name}_{kind}": text for name in ("ts", "ts_2x16")
-            for kind, text in (("served", deers[name].source),
-                               ("forms", deers[name].forms_source),
-                               ("served_and_forms", cg.deer_source(
-                                   deers[name], cg.DEER_FORMS + (cg.DEER_CLUSTER,))))}
-    jobs.update({"b5_served": (_build.CSRC_DIR / "parallel_time_deer.cu").read_text(),
-                 "b5_forms": df.CLIPPER_FORMS_SOURCE.read_text()})
+    # together: B9's sources of the Tube Screamer and its 2x16, and B5's
+    jobs = {f"{name}_served": deers[name].source for name in ("ts", "ts_2x16")}
+    jobs["b5_served"] = (_build.CSRC_DIR / "parallel_time_deer.cu").read_text()
     seconds = _nvcc_seconds(jobs)
     print("phase build deer nvcc_seconds (cold, one source a process, "
           f"{len(jobs)} started together) " + " ".join(
               f"{label}={sec:.2f}" for label, sec in seconds.items()), flush=True)
     spilled = {}
     with concurrent.futures.ThreadPoolExecutor(8) as pool:  # one cuobjdump a library
-        sass = {src: pool.submit(_sass_summary, _build.generated_path(src), DEER_SASS_KERNELS)
-                for d in deers.values() for src in (d.source, d.forms_source)}
+        sass = {d.source: pool.submit(_sass_summary, _build.generated_path(d.source),
+                                      DEER_SASS_KERNELS) for d in deers.values()}
     for name, d in deers.items():
-        ptxas = {k: v for src in (d.source, d.forms_source)
-                 for k, v in _ptxas_kernels(src, kernel=DEER_PTXAS).items()}
+        ptxas = _ptxas_kernels(d.source, kernel=DEER_PTXAS)
         print(f"  ptxas deer {name} states={d.n_state} deer_step_ops={d.ops_per_sample} "
               f"forward_step_ops={d.step_ops} " + " | ".join(
                   f"{k}: {r} registers, {ss}/{sl} bytes spilled (stores/loads)"
                   for k, (r, ss, sl) in ptxas.items()), flush=True)
-        for src, what in ((d.source, ""), (d.forms_source, " (comparison form)")):
-            for line in sass[src].result():
-                print(f"  sass deer {name} {line}{what}", flush=True)
+        for line in sass[d.source].result():
+            print(f"  sass deer {name} {line}", flush=True)
         cluster_ptxas = {k: v for k, v in ptxas.items() if k.startswith("deer_cluster_kernel")}
-        _check(len(cluster_ptxas) == 2, f"B9 {name}: the cluster kernel and its form at 8 CTAs")
+        _check(len(cluster_ptxas) == 1, f"B9 {name}: the cluster kernel alone")
         spilled.update({f"{name}/{k}": v for k, v in cluster_ptxas.items() if v[1] or v[2]})
     _check(not spilled, f"no spills in B9's cluster kernels: {spilled}")
 
-    def launch_only(case, vin, form=dc.CLUSTER, **kw):
-        """B9's launch alone, on arguments and outputs prepared once, as
-        ``form`` (the served cluster kernel, or a comparison form)."""
+    def launch_only(case, vin, **kw):
+        """B9's launch alone, on arguments and outputs prepared once."""
         s0 = kw.pop("s0", None)
         ckt, params, node, neural, skw, _ = case
         skw = {**skw, **kw}
         mlp = params[ckt.root.name] if neural else None
         prep = fcirc.prepare(ckt, params, dev, input_node=node, neural_mlp=mlp)
         s0 = dc._state_vector(prep, ckt, None, vin) if s0 is None else s0
-        return _b9_launcher(form)(ckt, prep, vin, s0, vin.shape[0] // dc.NB,
-                                  skw.get("sweeps", 8), skw.get("relax_passes", 2),
-                                  skw.get("damping", 1.0), skw.get("adapt_tol", 0.0),
-                                  dc.fused_deer_neural if neural else dc.fused_deer_circuit)
-
-    def one_cta_check(case, vin):
-        """(the one-CTA kernel's bits with no sweep at 16 and 8 CTAs, the
-        largest output difference from it with the case's sweeps)."""
-        runs = {c: ([t.clone() for t in launch_only(case, vin, c)()],
-                    [t.clone() for t in launch_only(case, vin, c, sweeps=0)()])
-                for c in DEER_FORMS.values()}
-        one, one_bare = runs[df.ONE_CTA]
-        clusters = (dc.CLUSTER, df.C8)
-        bits = all(all(torch.equal(x, y) for x, y in zip(runs[c][1], one_bare)) for c in clusters)
-        return bits, max(_max_err(runs[c][0][0], one[0]) for c in clusters)
+        return dc.launcher(ckt, prep, vin, s0, vin.shape[0] // dc.NB,
+                           skw.get("sweeps", 8), skw.get("relax_passes", 2),
+                           skw.get("damping", 1.0), skw.get("adapt_tol", 0.0),
+                           dc.fused_deer_neural if neural else dc.fused_deer_circuit)
 
     # --- kernels deer circuit: B9 against plain and the exact recursion --------
     builds = _build.build_generated.builds
@@ -3032,7 +2795,6 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
             vs_plain = max(_max_err(out, p_out), _state_err(st, p_st))
             vs_exact = max(_max_err(out, e_out), _state_err(st, e_st))
             plain_exact = max(_max_err(p_out, e_out), _state_err(p_st, e_st))
-            bits, vs_one = one_cta_check(case, vin)
             res, p_res, n, p_n = (float(x) for x in (res, p_res, n, p_n))
             budget = DC_BUDGET[kind]
             converged = p_res < 1e-3
@@ -3040,17 +2802,14 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
             print(f"phase kernels deer circuit {name} T={T} sweeps_run={n:g} plain_sweeps_run="
                   f"{p_n:g} vs_plain={vs_plain:.3e} vs_exact={vs_exact:.3e} plain_vs_exact="
                   f"{plain_exact:.3e} budget={budget:g} residual={res:.3e} plain_residual="
-                  f"{p_res:.3e} converged={converged} vs_one_cta={vs_one:.3e} "
-                  f"no_sweep_bits_of_one_cta={bits}", flush=True)
+                  f"{p_res:.3e} converged={converged}", flush=True)
             _check(bool(torch.isfinite(out).all()) and out.shape == vin.shape,
                    f"B9 {name} T={T} output finite, shaped")
-            _check(bits, f"B9 {name} T={T}: the one-CTA kernel's bits with no sweep")
             _check(n == p_n, f"B9 {name} T={T} runs as many sweeps as its plain version")
             if converged:
-                _check(vs_plain <= budget and vs_exact <= budget and res < 1e-3
-                       and vs_one <= budget,
-                       f"B9 {name} T={T} within {budget:g} of plain, of the exact recursion "
-                       "and of the one-CTA kernel")
+                _check(vs_plain <= budget and vs_exact <= budget and res < 1e-3,
+                       f"B9 {name} T={T} within {budget:g} of plain and of the exact "
+                       "recursion")
             else:  # same algorithm: the same trajectory, flagged in both versions
                 unconverged.append(f"{name}/{T}")
                 _check(vs_plain <= DC_UNCONVERGED_BUDGET and res > 1e-3,
@@ -3071,21 +2830,18 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
           f"sweeps_run={n:g} plain_sweeps_run={p_n:g} (JAX kernel: 20) cap=48", flush=True)
     _check(n == p_n == 20, "the adaptive HPF exits early as its plain version and JAX's")
     # two chained blocks against one solve: the 2x8 clipper on the card
-    # test's input (numpy seed 115, 2 N(0, 1), then the same reversed), each
-    # form on the same input
+    # test's input (numpy seed 115, 2 N(0, 1), then the same reversed)
     half = torch.from_numpy((2.0 * np.random.default_rng(115).standard_normal(2048))
                             .astype(np.float32)).to(dev)
     x = torch.cat([half, half.flip(0)])
-    chained = {}
-    for label, form in DEER_FORMS.items():
-        full = launch_only(cases["clip_2x8"], x, form)()[0].clone()
-        a_out, a_zf = (t.clone() for t in launch_only(cases["clip_2x8"], x[:2048], form)()[:2])
-        b_out = launch_only(cases["clip_2x8"], x[2048:], form, s0=a_zf)()[0]
-        chained[label] = _max_err(torch.cat([a_out, b_out]), full)
-    print("phase kernels deer circuit clip_2x8 chained T=2x2048 two_blocks_vs_one_solve "
-          + " ".join(f"{label}={err:.3e}" for label, err in chained.items())
-          + " budget=2e-06 (the JAX suite's for chained DEER blocks)", flush=True)
-    _check(chained[f"C{dc.CLUSTER}"] <= 2e-6, "two chained B9 blocks equal one solve")
+    full = launch_only(cases["clip_2x8"], x)()[0].clone()
+    a_out, a_zf = (t.clone() for t in launch_only(cases["clip_2x8"], x[:2048])()[:2])
+    b_out = launch_only(cases["clip_2x8"], x[2048:], s0=a_zf)()[0]
+    chained = _max_err(torch.cat([a_out, b_out]), full)
+    print(f"phase kernels deer circuit clip_2x8 chained T=2x2048 two_blocks_vs_one_solve "
+          f"C{dc.CLUSTER}={chained:.3e} budget=2e-06 (the JAX suite's for chained DEER blocks)",
+          flush=True)
+    _check(chained <= 2e-6, "two chained B9 blocks equal one solve")
     # hard overdrive: the Tube Screamer on 4 N(0, 1), 8 sweeps
     vin = 4.0 * torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(2048)
                                  .astype(np.float32)).to(dev)
@@ -3235,11 +2991,6 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
           f"{_build.build_generated.builds - builds}", flush=True)
     _check(all(v > 0 for v in launches.values()), "every single-stream kernel launched")
     _check(_build.build_generated.builds == builds, "no served block ran nvcc after warmup")
-    # the comparison forms of B5 and of every DEER program the processors
-    # hold, built together: the timing below serves blocks on the one-CTA form
-    _build.build_generated([df.CLIPPER_FORMS_SOURCE.read_text()]
-                           + [d.forms_source for per in list(cg._deers.values())
-                              for d in per.values()])
 
     # --- timing deer circuit ----------------------------------------------------
     timing = {}
@@ -3253,13 +3004,11 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
             ("clip_2x16", "clip_2x16", _dc_input("clip", 2048, seed + 6, dev), {})]
     for label, name, vin, kw in rows:
         case = cases[name]
-        forms = _forms_in_turns({f: launch_only(case, vin, c, **kw)
-                                 for f, c in DEER_FORMS.items()})
+        forms = _forms_in_turns({f"C{dc.CLUSTER}": launch_only(case, vin, **kw)})
         ckt, params, node, neural = case[:4]
         prep = fcirc.prepare(ckt, params, dev, input_node=node,
                              neural_mlp=params[ckt.root.name] if neural else None)
-        clusters = {df.C8: df.circuit_max_clusters(ckt, prep),
-                    dc.CLUSTER: dc.max_active_clusters(ckt, prep)}
+        clusters = dc.max_active_clusters(ckt, prep)
         t0 = time.perf_counter()
         _, _, p_res, p_n = _dc_solve(case, vin, plain=True, **kw)
         torch.cuda.synchronize()
@@ -3274,14 +3023,14 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
         bound = _bound(ops, 8 * T + 8 * d.n_state + 8)
         dev_ms = forms[f"C{dc.CLUSTER}"][3]
         timing[label] = (dev_ms, p_ms, bound)
-        print(f"phase timing deer circuit {label} T={T} sweeps_run={n:g} runs={REPS} in turns "
+        print(f"phase timing deer circuit {label} T={T} sweeps_run={n:g} runs={REPS} "
               f"(10 launches per run; device: launches back to back) "
               f"{_forms_line(forms)} plain_ms={p_ms:.1f} (host clock, one run) residual="
               f"{res:.3e} ops={ops} bound_ms={bound[0]:.6f} ({bound[1]}) "
-              f"share={bound[0] / dev_ms:.5f} max_active_clusters(8, 16)={clusters} "
+              f"share={bound[0] / dev_ms:.5f} max_active_clusters={clusters} "
               f"card={card!r}", flush=True)
         if label in ("ts bench", "hpf fixed"):
-            parts = _breakdown(lambda sw, r: launch_only(case, vin, dc.CLUSTER, **{
+            parts = _breakdown(lambda sw, r: launch_only(case, vin, **{
                 **kw, "sweeps": sw, "relax_passes": r, "adapt_tol": 0.0}), int(n),
                 skw.get("relax_passes", 2))
             print(f"phase timing deer circuit {label} breakdown C{dc.CLUSTER} (device) {parts} "
@@ -3307,13 +3056,8 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
 
         serve()
         fallbacks = proc.fallbacks.get(member, 0)
-        # every block is served with the kernels before their redesign too
-        # (the scan engine's: B1, B2 or B7 one thread a stream)
-        wall = _wall_in_turns(serve, True)
-        ms = statistics.median(wall["after"])
-        before = (f" before_kernels_wall_ms={statistics.median(wall['before']):.4f} "
-                  f"[{min(wall['before']):.4f}, {max(wall['before']):.4f}] (in turns)"
-                  if "before" in wall else "")
+        wall = _wall_ms(serve)
+        ms = statistics.median(wall)
         fell = proc.fallbacks.get(member, 0) - fallbacks
         # where a block's time goes: the device's share, and the host's
         # largest self-time operations
@@ -3326,8 +3070,8 @@ def deer_circuit_path(dev, card: str, seed: int) -> list:
         host = sorted((ev for ev in prof.key_averages() if ev.self_cpu_time_total > 0),
                       key=lambda ev: -ev.self_cpu_time_total)[:3]
         print(f"phase timing stream {proc_name} engine={engine} {member} "
-              f"block={STREAM_BLOCK} process_block_wall_ms={ms:.4f} [{min(wall['after']):.4f}, "
-              f"{max(wall['after']):.4f}] real_time_factor={block_audio_ms / ms:.2f}{before} "
+              f"block={STREAM_BLOCK} process_block_wall_ms={ms:.4f} [{min(wall):.4f}, "
+              f"{max(wall):.4f}] real_time_factor={block_audio_ms / ms:.2f} "
               f"fallbacks={fell}/{WALL_REPS} residual={proc.last_residual[member]:.3e} per block (profiled, "
               f"10 blocks): device_ops={len(dev_events) / 10:g} device_us={dev_us:.1f} "
               f"serving_kernels_us={kernel_us:.1f} {traced} "

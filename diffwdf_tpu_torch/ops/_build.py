@@ -10,15 +10,12 @@ an unchanged one is loaded as it is.  Nothing is compiled when the module is
 imported.
 
 Generated sources (``ops.circuit_codegen``, a forward, an adjoint and a DEER
-solve per circuit structure) and the DEER kernels' comparison forms
-(``ops.deer_forms``: a generated circuit's ``forms_source`` and
-``csrc/forms/deer_clipper_forms.cu``, which ``library()`` leaves out) take
-another path: ``generated_library(source)`` writes
-the source into the same directory, compiles it alone into its own library
-with the same flags (the
-headers of ``csrc/`` on the include path) and keys it by a hash of the
-source, the headers and the flags, so a circuit that only changes values
-never builds again.
+solve per circuit structure) and ``csrc/forms/omega_forms.cu``, which
+``library()`` leaves out, take another path: ``generated_library(source)``
+writes the source into the same directory, compiles it alone into its own
+library with the same flags (the headers of ``csrc/`` on the include path)
+and keys it by a hash of the source, the headers and the flags, so a circuit
+that only changes values never builds again.
 
 A generated forward also builds for the host: ``host_library(source)``
 compiles a program's ``host_source`` (the step and ``circuit_host_run``, a
@@ -57,8 +54,6 @@ _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "fused_clipper_analytic_launch": (
         [_vp, _vp, _vp, _vp, _i, _i] + [_f] * 8 + [_i, _vp], ctypes.c_int),
-    "fused_clipper_analytic_serial_launch": (
-        [_vp, _vp, _vp, _vp, _i, _i] + [_f] * 8 + [_i, _vp], ctypes.c_int),
     "fused_clipper_neural_launch": (
         [_vp, _vp, _vp, _vp, _i, _i, _vp, _i, _i, _f, _i, _vp], ctypes.c_int),
     "fused_clipper_neural_onethread_launch": (
@@ -69,16 +64,12 @@ _SIGNATURES = {
         [_vp] * 7 + [_i, _i, _vp, _i, _i, _vp], ctypes.c_int),
     "clipper_tangent_launch": ([_vp] * 4 + [_i, _i, _vp, _i, _i, _vp], ctypes.c_int),
     "clipper_recursion_launch": ([_vp] * 6 + [_i, _i, _vp], ctypes.c_int),
-    "clipper_adjoint_onepass_launch": (
-        [_vp] * 8 + [_i, _i, _vp, _i, _i, _vp], ctypes.c_int),
     "clipper_param_ctas": ([_i, _i, _vp], ctypes.c_int),
     "clipper_param_launch": ([_vp] * 4 + [_i, _vp, _i, _i, _vp, _i, _i, _vp], ctypes.c_int),
     "deer_clipper_launch": (
         [_vp] * 6 + [_i] + [_f] * 8 + [_i] * 3 + [_vp], ctypes.c_int),
     "deer_clipper_max_clusters": ([], ctypes.c_int),
     "fused_clipper_cheb_launch": (
-        [_vp] * 4 + [_i, _i, _vp, _i, _i, _i, _f, _vp], ctypes.c_int),
-    "fused_clipper_cheb_onethread_launch": (
         [_vp] * 4 + [_i, _i, _vp, _i, _i, _i, _f, _vp], ctypes.c_int),
     "diffwdf_cuda_error_string": ([_i], ctypes.c_char_p),
 }
@@ -182,28 +173,16 @@ def check(err: int, what: str, error_string=None) -> None:
 # ---------------------------------------------------------------------------
 
 #: C signatures of the generated circuit kernel libraries (a forward source
-#: exports circuit_launch, an adjoint source its two passes and the one-pass
-#: reference, a DEER source circuit_deer_launch and its cluster occupancy
-#: query) and of the DEER kernels' comparison forms (a generated circuit's
-#: DeerProgram.forms_source, the clipper's csrc/forms/deer_clipper_forms.cu:
-#: the kernel at 8 CTAs and the one-CTA kernel before the cluster redesign),
-#: and csrc/forms/omega_forms.cu (omega() against omega_select)
-_DEER = [_vp] * 6 + [_i] + [_vp] * 2 + [_i] * 4 + [_f] * 2 + [_i, _vp]
-_DEER_CLIPPER = [_vp] * 6 + [_i] + [_f] * 8 + [_i] * 3 + [_vp]
+#: exports circuit_launch, an adjoint source its two passes, a DEER source
+#: circuit_deer_launch and its cluster occupancy query) and of
+#: csrc/forms/omega_forms.cu (omega() against omega_select)
 _GENERATED_SIGNATURES = {
     "circuit_launch": ([_vp] * 5 + [_i, _i] + [_vp] * 4 + [_i] * 3 + [_vp], ctypes.c_int),
     "circuit_jacobian_launch": ([_vp] * 5 + [_i] * 4 + [_vp] * 4 + [_i, _vp], ctypes.c_int),
     "circuit_recursion_launch": ([_vp] * 6 + [_i] * 4 + [_vp], ctypes.c_int),
-    "circuit_adjoint_onepass_launch": ([_vp] * 7 + [_i, _i] + [_vp] * 4 + [_i, _vp],
-                                       ctypes.c_int),
-    "circuit_deer_launch": (_DEER, ctypes.c_int),
+    "circuit_deer_launch": ([_vp] * 6 + [_i] + [_vp] * 2 + [_i] * 4 + [_f] * 2 + [_i, _vp],
+                            ctypes.c_int),
     "circuit_deer_max_clusters": ([_i], ctypes.c_int),
-    "circuit_deer_c8_launch": (_DEER, ctypes.c_int),
-    "circuit_deer_c8_max_clusters": ([_i], ctypes.c_int),
-    "circuit_deer_onecta_launch": (_DEER, ctypes.c_int),
-    "deer_clipper_c8_launch": (_DEER_CLIPPER, ctypes.c_int),
-    "deer_clipper_c8_max_clusters": ([], ctypes.c_int),
-    "deer_clipper_onecta_launch": (_DEER_CLIPPER, ctypes.c_int),
     "circuit_error_string": ([_i], ctypes.c_char_p),
     "omega_forms_launch": ([_vp] * 3 + [_i, _i, _vp], ctypes.c_int),
 }

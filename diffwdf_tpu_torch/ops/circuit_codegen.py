@@ -18,8 +18,7 @@ Three kernels per circuit structure:
   stream's recursion solved parallel in time by Newton sweeps over the
   whole trajectory, on a cluster of CTAs (``csrc/deer_cluster.cuh``), its
   step writing f and the S x S state Jacobian from S forward-mode tangents
-  (``generate_deer``); its comparison forms (``DeerProgram.forms_source``,
-  ``ops.deer_forms``) are a source of their own.
+  (``generate_deer``).
 
 The per-sample steps are generated by **tracing** the circuit's own pure
 step: the tree's ``reflected`` / ``incident`` methods (``core``) run once on
@@ -1262,8 +1261,8 @@ class AdjointProgram:
     """The generated adjoint kernel of one circuit structure (the layout is
     its forward program's)."""
 
-    source: str            # the whole .cu: steps, kernels, launch functions
-    host_source: str       # the steps and host loops (tests)
+    source: str            # the whole .cu: the passes' steps, kernels, launch functions
+    host_source: str       # the one-pass step, the passes' steps and host loops (tests)
     ops_per_sample: int    # counted from the emitted one-pass adjoint step
     jacobian_ops: int      # pass 1 a sample (the tangents), counted from its step
     recursion_ops: int     # pass 2 a sample (the contraction)
@@ -1843,10 +1842,9 @@ def generate_adjoint(circuit: Circuit, prog: CircuitProgram) -> AdjointProgram:
     tangents new[i].d[k] and the products out.d[k] obar_t that are not exact
     constants ("entries", E <= (S + 1)^2 floats a sample); the
     **recursion step** then contracts them with lam in ``pull``'s order and
-    rounding.  The one-pass ``circuit_adjoint_step`` (today's arithmetic,
-    tangents and contraction in one step) stays in the host source as the
-    reference of the two, and in the device source as a reference kernel
-    for the card's tests (``circuit_adjoint_onepass_launch``)."""
+    rounding.  The one-pass ``circuit_adjoint_step`` (tangents and
+    contraction in one step, whose operations ``ops_per_sample`` counts)
+    is in the host source alone, as the reference of the two."""
     emitter = prog.emitter
     order = prog.state_order
     streams = root_streams(emitter)
@@ -1958,12 +1956,12 @@ def generate_adjoint(circuit: Circuit, prog: CircuitProgram) -> AdjointProgram:
 
     prelude = _prelude(circuit, emitter, prog.input_node, order, slot_names, counts,
                        emitter.n_keep, emitter.prologue(root_slots), "adjoint", ops)
-    step_source = prelude + f"""
+    one_pass = f"""
 // One reverse step at sample t: v = v_t, go = the output's cotangent obar_t,
 // z[CIRCUIT_NS] = z_(t-1) the pre-step state, lam[CIRCUIT_NS] = lam_t on
 // entry and lam_(t-1) on return; the slots as the forward step's.  Returns
 // the input's cotangent g_vin_t.  Plain C, as the forward step.  The
-// reference of the two passes below (and the kernel of the one-pass form).
+// reference of the two passes below.
 __device__ __forceinline__ float circuit_adjoint_step(float v, float go, const float* z,
                                                       float* lam, const float* c,
                                                       const float* r, const float* q,
@@ -1980,7 +1978,8 @@ __device__ __forceinline__ float circuit_adjoint_step(float v, float go, const f
 {body}
   return {g_vin.ref};
 }}
-
+"""
+    passes = f"""
 #define CIRCUIT_NE {n_entries}
 #define CIRCUIT_NE4 {e4}  // floats a sample in the scratch: CIRCUIT_NE padded to 4 (at least 4)
 #define CIRCUIT_GROUP {AdjointProgram.GROUP}  // streams a block of pass 2 walks
@@ -2035,12 +2034,7 @@ __host__ __device__ __forceinline__ size_t circuit_jac_index(int b, int t, int m
 }}  // namespace
 """
     zn, cn, rn, qn, pn = (max(x, 1) for x in (S, nc, nr, nq, emitter.n_keep))
-    used_q = _used("q", body)
     q0 = 2 + S
-    q_loads = "".join(f"\n    tile_load(tiles[{q0 + i}], times + static_cast<size_t>({j}) * B * T, "
-                      f"B, T, b0, t0, tc);" for i, j in enumerate(used_q))
-    q_reads = "".join(f"\n      q[{j}] = tiles[{q0 + i}][threadIdx.x][k];"
-                      for i, j in enumerate(used_q))
     jq_used = _used("q", j_body)
     jq_loads = "".join(f"\n  tile_load(tiles[{q0 + i}], times + static_cast<size_t>({j}) * B * T, "
                        f"B, T, b0, t0 + s0, n);" for i, j in enumerate(jq_used))
@@ -2056,11 +2050,11 @@ __host__ __device__ __forceinline__ size_t circuit_jac_index(int b, int t, int m
 // to the first.  Replaces the Pallas TPU kernel
 // diffwdf_tpu/ops/parallel_bptt.py, _fused_backward_kernel.
 //
-// What bounded the one-pass form (one thread per stream walking all T
-// steps, the S + 1 tangents of the step and the contraction per step): one
-// stream's chain of ~2,450 dependent operations a sample (the NxH root's
-// slope), 8 blocks at B = 1,024 on 132 SMs.  But the tangents depend on the
-// trajectory alone, not on lam: only the contraction is a chain.  So pass 1
+// Why two passes: one thread per stream walking all T steps, the S + 1
+// tangents of the step and the contraction per step, is one stream's chain
+// of ~2,450 dependent operations a sample (the NxH root's slope), 8 blocks
+// at B = 1,024 on 132 SMs.  But the tangents depend on the trajectory
+// alone, not on lam: only the contraction is a chain.  So pass 1
 // gives every (b, t) sample its own thread and fills the card (bound by the
 // card's f32 issue rate: the tanh-heavy tangent of the MLP); pass 2 is the
 // chain, S^2 + S multiply-adds a step on CIRCUIT_NE stored floats, bound by
@@ -2072,7 +2066,8 @@ __host__ __device__ __forceinline__ size_t circuit_jac_index(int b, int t, int m
 // column), laid out by circuit_jac_index; the wrapper allocates it and cuts
 // time into chunks under its cap.
 // Exact f32, uncontracted as the step's lines are: the two
-// passes give the one-pass step's bits.
+// passes give the one-pass step's bits (circuit_adjoint_step of the host
+// source).
 namespace {{
 
 constexpr int kE4 = CIRCUIT_NE4;
@@ -2266,72 +2261,6 @@ circuit_recursion_kernel(const float* __restrict__ jac, const float* lam_in, flo
   }}
 }}
 
-// The one-pass form (today's arithmetic in one kernel; the card's tests and
-// chip_smoke.py hold the two passes against it, the wrapper never calls it):
-// one thread per stream walking t = T-1 ... 0, lam (S floats), the
-// coefficient and row slots in registers, the root array in shared memory;
-// the (B, T) streams through shared-memory tiles in reverse tile order: tile
-// 0 holds v and takes g_vin in place, tile 1 obar, tiles 2 .. 2+S-1 the
-// trajectory z_(t-1) and take lam_t in place (written before the update),
-// then the per-sample slots the step reads.  Exact f32.
-constexpr int kTiles = 2 + CIRCUIT_NS + {len(used_q)};
-
-__global__ void __launch_bounds__({emitter.launch_bounds})
-circuit_adjoint_kernel(const float* __restrict__ vin, const float* __restrict__ gout,
-                       const float* __restrict__ zseq, const float* __restrict__ lam_t,
-                       float* __restrict__ lam_seq, float* __restrict__ gvin,
-                       float* __restrict__ gz0, int B, int T, const float* __restrict__ coef,
-                       const float* __restrict__ rows, const float* __restrict__ times,
-                       const float* __restrict__ warr, int n_warr) {{
-  extern __shared__ float smem[];
-  for (int i = threadIdx.x; i < n_warr; i += blockDim.x) smem[i] = warr[i];
-  __syncthreads();
-  const float* sw = smem;
-  Tile* tiles = reinterpret_cast<Tile*>(smem + ((n_warr + 3) & ~3));
-  (void)times;
-  float c[{cn}];
-#pragma unroll
-  for (int i = 0; i < CIRCUIT_NC; ++i) c[i] = coef[i];
-  const int b0 = blockIdx.x * kTileRows;
-  const int b = b0 + threadIdx.x;
-  const bool live = b < B;
-  float r[{rn}];
-#pragma unroll
-  for (int j = 0; j < CIRCUIT_NR; ++j) r[j] = live ? rows[static_cast<size_t>(j) * B + b] : 0.f;
-  float p[{pn}];
-  circuit_prologue(c, r, sw, p);
-  float lam[{zn}];
-#pragma unroll
-  for (int s = 0; s < CIRCUIT_NS; ++s) lam[s] = live ? lam_t[static_cast<size_t>(s) * B + b] : 0.f;
-  for (int t0 = ((T - 1) / kTileCols) * kTileCols; t0 >= 0; t0 -= kTileCols) {{
-    const int tc = min(kTileCols, T - t0);  // the last tile may be partial
-    tile_load(tiles[0], vin, B, T, b0, t0, tc);
-    tile_load(tiles[1], gout, B, T, b0, t0, tc);
-    for (int s = 0; s < CIRCUIT_NS; ++s) {{
-      tile_load(tiles[2 + s], zseq + static_cast<size_t>(s) * B * T, B, T, b0, t0, tc);
-    }}{q_loads}
-    for (int k = tc - 1; k >= 0; --k) {{
-      float z[{zn}];
-#pragma unroll
-      for (int s = 0; s < CIRCUIT_NS; ++s) {{
-        z[s] = tiles[2 + s][threadIdx.x][k];
-        tiles[2 + s][threadIdx.x][k] = lam[s];  // lam_t, before the update
-      }}
-      float q[{qn}];{q_reads}
-      tiles[0][threadIdx.x][k] = circuit_adjoint_step(
-          tiles[0][threadIdx.x][k], tiles[1][threadIdx.x][k], z, lam, c, r, q, sw, p);
-    }}
-    tile_store(tiles[0], gvin, B, T, b0, t0, tc);
-    for (int s = 0; s < CIRCUIT_NS; ++s) {{
-      tile_store(tiles[2 + s], lam_seq + static_cast<size_t>(s) * B * T, B, T, b0, t0, tc);
-    }}
-  }}
-  if (live) {{
-#pragma unroll
-    for (int s = 0; s < CIRCUIT_NS; ++s) gz0[static_cast<size_t>(s) * B + b] = lam[s];
-  }}
-}}
-
 cudaError_t allow_smem(const void* kernel, size_t smem) {{
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -2374,22 +2303,6 @@ int circuit_recursion_launch(const float* jac, const float* lam_in, float* lam_o
   circuit_recursion_kernel<<<(B + kGroup - 1) / kGroup, 32, smem,
                              static_cast<cudaStream_t>(stream)>>>(jac, lam_in, lam_out, lam_seq,
                                                                   gvin, gseq, B, T, t0, tc);
-  return static_cast<int>(cudaGetLastError());
-}}
-
-// The one-pass form over all T (reference only).
-int circuit_adjoint_onepass_launch(const float* vin, const float* gout, const float* zseq,
-                                   const float* lam_t, float* lam_seq, float* gvin, float* gz0,
-                                   int B, int T, const float* coef, const float* rows,
-                                   const float* times, const float* warr, int n_warr,
-                                   void* stream) {{
-  const size_t smem = sizeof(float) * static_cast<size_t>((n_warr + 3) & ~3) +
-                      sizeof(Tile) * static_cast<size_t>(kTiles);
-  const cudaError_t e = allow_smem(reinterpret_cast<const void*>(circuit_adjoint_kernel), smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = (B + kTileRows - 1) / kTileRows;
-  circuit_adjoint_kernel<<<blocks, kTileRows, smem, static_cast<cudaStream_t>(stream)>>>(
-      vin, gout, zseq, lam_t, lam_seq, gvin, gz0, B, T, coef, rows, times, warr, n_warr);
   return static_cast<int>(cudaGetLastError());
 }}
 
@@ -2467,7 +2380,8 @@ extern "C" void circuit_recursion_host_run(const float* jac, const float* lam_in
   }}
 }}
 """
-    return AdjointProgram(source=step_source + kernel, host_source=step_source + host,
+    return AdjointProgram(source=prelude + passes + kernel,
+                          host_source=prelude + one_pass + passes + host,
                           ops_per_sample=ops, jacobian_ops=j_ops, recursion_ops=r_ops,
                           n_entries=n_entries, n_state=S, root_streams=streams)
 
@@ -2476,18 +2390,12 @@ extern "C" void circuit_recursion_host_run(const float* jac, const float* lam_in
 # The DEER program (single-stream parallel-in-time solve)
 # ---------------------------------------------------------------------------
 
-#: the DEER kernels' time partition (the JAX kernel's 8 x 128 blocks) and
-#: their CTA size: the cluster kernels' CTAs, and the one-CTA kernel before
-#: the redesign, whose threads own DEER_BLOCKS // DEER_THREADS consecutive
-#: blocks each
+#: the DEER kernel's time partition (the JAX kernel's 8 x 128 blocks) and
+#: the size of its CTAs
 DEER_BLOCKS, DEER_THREADS = 1024, 256
 #: CTAs of the cluster that serves a solve (DeerProgram.source): 16, a
 #: non-portable cluster size
 DEER_CLUSTER = 16
-#: the comparison forms (DeerProgram.forms_source, ops.deer_forms): the one-CTA
-#: kernel before the cluster redesign (DEER_ONE_CTA) and the cluster at 8 CTAs
-DEER_ONE_CTA = 1
-DEER_FORMS = (DEER_ONE_CTA, 8)
 
 @dataclasses.dataclass(frozen=True)
 class DeerProgram:
@@ -2495,7 +2403,6 @@ class DeerProgram:
     only; the layout is its forward program's)."""
 
     source: str            # the served .cu: the steps, the cluster kernel at DEER_CLUSTER CTAs
-    forms_source: str      # the comparison forms' .cu (DEER_FORMS), built only to compare
     step_source: str       # the forward and DEER steps and CircuitDeer, both sources' start
     host_source: str       # step_source and a host loop of the DEER step (tests)
     n_state: int
@@ -2504,235 +2411,12 @@ class DeerProgram:
 
     def scratch_floats(self, T: int) -> int:
         """Global scratch of one solve: the input, two trajectory buffers
-        (S each; the one-CTA kernel of the forms uses one) and the rows
+        (S each) and the rows
         (J_t, c_t) or their within-block prefixes (S^2 + S), T floats each."""
         S = self.n_state
         return (1 + 3 * S + S * S) * T
 
 
-#: the one-CTA kernel before the cluster redesign (DEER_ONE_CTA): its comment
-#: and its code, as it was built before the redesign
-_DEER_ONECTA_COMMENT = f"""// deer_kernel: the kernel before the cluster redesign, one CTA on one SM.
-//
-// Time is cut into {DEER_BLOCKS} contiguous blocks of L samples (the JAX
-// kernel's partition, which decides what a relaxation and a sweep compute);
-// each of the {DEER_THREADS} threads owns {DEER_BLOCKS // DEER_THREADS} consecutive blocks, so
-// that a thread may hold up to 255 registers (__launch_bounds__({DEER_THREADS}, 1)):
-// the Tube Screamer's steps need well over the 64 that 1024 threads would
-// leave.  The kernel runs
-//   - relax_passes nonlinear block relaxations: every block re-runs the
-//     recursion (circuit_step) from the previous iterate's block start;
-//   - Newton sweeps: each block composes its rows' affine maps (J_t, c_t =
-//     f - J_t z_(t-1), from circuit_deer_step at the current guess) into
-//     within-block prefixes, each thread composes its blocks' totals, the CTA
-//     scans the thread totals (deer_scan.cuh), and each block applies its
-//     prefixes to its start state; the iterate is clamped to
-//     +-100 (max|v| + 1), then damped, z <- z_old + d (z_new - z_old).  With
-//     tol >= 0 (adapt_tol) the loop stops once the largest update of the
-//     last sweep of a trip of `unroll` sweeps falls below tol;
-//   - an emit pass: the probe output at the converged trajectory, the
-//     residual max|f(z_(t-1)) - z_t| (a convergence certificate), the final
-//     state and the sweeps run.
-// The input, the trajectory and the prefixes live in global scratch (T
-// floats each, (1 + 2 S + S^2) T in all, resident in L2) laid out
-// [r][j][t] for row r of block j of thread t, so that a row is one coalesced
-// access across the CTA.  __syncthreads() separates every read of a
-// neighbouring block's last z from the pass that rewrites z.  The
-// coefficient slots and the root array sit in shared memory.
-//
-// What bounds it: one SM's instruction rate and each thread's chain of
-// (blocks per thread) x L dependent steps per pass; the bytes (the input in,
-// the output out) are a few microseconds' worth at most.
-"""
-_DEER_ONECTA_KERNEL = """__global__ void __launch_bounds__(kThreads, 1)
-deer_kernel(const float* __restrict__ vin, const float* __restrict__ z0, float* __restrict__ out,
-            float* __restrict__ zf, float* __restrict__ info, float* __restrict__ scratch, int L,
-            const float* __restrict__ coef, const float* __restrict__ warr, int n_warr,
-            int sweeps, int relax_passes, int unroll, float damping, float tol, int track) {
-  extern __shared__ float smem[];
-  __shared__ Map s_tot[32];
-  __shared__ float s_red[32];
-  const int t = threadIdx.x;
-  float* s_coef = smem;
-  float* s_w = smem + ((CIRCUIT_NC + 3) & ~3);
-  for (int i = t; i < CIRCUIT_NC; i += kThreads) s_coef[i] = coef[i];
-  for (int i = t; i < n_warr; i += kThreads) s_w[i] = warr[i];
-  __syncthreads();
-  const float* c = s_coef;
-  const float* w = s_w;
-  float r_none[1] = {0.f}, q_none[1] = {0.f}, p[kDeerKeep];
-  circuit_prologue(c, r_none, w, p);
-
-  constexpr int kPer = kBlocks / kThreads;  // consecutive time blocks per thread
-  const size_t T = static_cast<size_t>(L) * kBlocks;
-  // element (r, j) of this thread in a [r][j][t] array
-  auto at = [&](int r, int j) { return (static_cast<size_t>(r) * kPer + j) * kThreads + t; };
-  float* V = scratch;
-  float* Z = scratch + T;                  // Z + k T: state k of the trajectory guess
-  float* JP = scratch + (1 + S) * T;       // JP + (i S + k) T: within-block prefix J
-  float* CP = scratch + (1 + S + S * S) * T;  // CP + i T: within-block prefix c
-  float s0[S];
-#pragma unroll
-  for (int k = 0; k < S; ++k) s0[k] = z0[k];
-  // the guess at the sample before block j's first: block j-1's last, the
-  // previous thread's last block's for j = 0, the initial state for block 0
-  auto block_start = [&](int j, float* z) {
-    const size_t last = static_cast<size_t>(L - 1) * kPer + kPer - 1;  // (L - 1, kPer - 1)
-    const size_t i = j > 0 ? at(L - 1, j - 1) : last * kThreads + t - (t > 0);
-    if (j == 0 && t == 0) {
-#pragma unroll
-      for (int k = 0; k < S; ++k) z[k] = s0[k];
-    } else {
-#pragma unroll
-      for (int k = 0; k < S; ++k) z[k] = Z[k * T + i];
-    }
-  };
-
-  // stage the input, zero the guess; a loose divergence backstop: generic
-  // circuits (op-amp stages) carry states far beyond the input range
-  float vmax = 0.f;
-  for (int j = 0; j < kPer; ++j) {
-    const size_t b = static_cast<size_t>(t) * kPer + j;
-    for (int r = 0; r < L; ++r) {
-      const float x = vin[b * L + r];
-      V[at(r, j)] = x;
-#pragma unroll
-      for (int k = 0; k < S; ++k) Z[k * T + at(r, j)] = 0.f;
-      vmax = deer_nanmax(vmax, fabsf(x));
-    }
-  }
-  const float v_bound = __fmul_rn(100.f, __fadd_rn(deer_block_max(vmax, s_red), 1.f));
-
-  for (int pass = 0; pass < relax_passes; ++pass) {
-    float first[S];
-    block_start(0, first);  // the previous thread's block, read before any rewrite
-    __syncthreads();
-    // last block first: block j - 1's last row is still the old iterate
-#pragma unroll 1
-    for (int j = kPer - 1; j >= 0; --j) {
-      float z[S];
-      if (j > 0) {
-        block_start(j, z);
-      } else {
-#pragma unroll
-        for (int k = 0; k < S; ++k) z[k] = first[k];
-      }
-      for (int r = 0; r < L; ++r) {
-        circuit_step(V[at(r, j)], z, c, r_none, q_none, w, p);
-#pragma unroll
-        for (int k = 0; k < S; ++k) Z[k * T + at(r, j)] = z[k];
-      }
-    }
-    __syncthreads();  // the new iterate is visible to the neighbours
-  }
-
-  // one Newton sweep; returns the CTA's largest state update when asked
-  auto sweep = [&](bool reduce) {
-    Map total = deer_identity<S>();  // this thread's blocks, composed
-#pragma unroll 1
-    for (int j = 0; j < kPer; ++j) {
-      float prev[S];
-      block_start(j, prev);  // z is not rewritten before the scan's barriers
-      Map acc = deer_identity<S>();
-      for (int r = 0; r < L; ++r) {
-        const size_t i = at(r, j);
-        Map row;
-        float f[S];
-        circuit_deer_step(V[i], prev, f, row.J, c, w, p);
-#pragma unroll
-        for (int a = 0; a < S; ++a) {
-          float jz = __fmul_rn(row.J[a * S], prev[0]);
-#pragma unroll
-          for (int k = 1; k < S; ++k) jz = __fadd_rn(jz, __fmul_rn(row.J[a * S + k], prev[k]));
-          row.c[a] = __fsub_rn(f[a], jz);
-        }
-        acc = deer_compose(acc, row);
-#pragma unroll
-        for (int m = 0; m < S * S; ++m) JP[m * T + i] = acc.J[m];
-#pragma unroll
-        for (int a = 0; a < S; ++a) {
-          CP[a * T + i] = acc.c[a];
-          prev[a] = Z[a * T + i];  // row r + 1 linearises at the guess z_r
-        }
-      }
-      total = deer_compose(total, acc);
-    }
-    Map ex = deer_block_exclusive_scan(total, s_tot);  // the blocks before this thread's
-    float dmax = 0.f;
-#pragma unroll 1
-    for (int j = 0; j < kPer; ++j) {
-      float zs[S];
-      deer_apply(ex, s0, zs);  // block j's start state
-      for (int r = 0; r < L; ++r) {
-        const size_t i = at(r, j);
-#pragma unroll
-        for (int a = 0; a < S; ++a) {
-          float zn = __fmul_rn(JP[a * S * T + i], zs[0]);
-#pragma unroll
-          for (int k = 1; k < S; ++k) zn = __fadd_rn(zn, __fmul_rn(JP[(a * S + k) * T + i], zs[k]));
-          zn = __fadd_rn(zn, CP[a * T + i]);
-          zn = zn < -v_bound ? -v_bound : (zn > v_bound ? v_bound : zn);  // NaN stays
-          const float zo = Z[a * T + i];
-          if (damping != 1.f) zn = __fadd_rn(zo, __fmul_rn(damping, __fsub_rn(zn, zo)));
-          if (track) dmax = deer_nanmax(dmax, fabsf(__fsub_rn(zn, zo)));
-          Z[a * T + i] = zn;
-        }
-      }
-      Map block;  // block j's total: its last prefix
-#pragma unroll
-      for (int m = 0; m < S * S; ++m) block.J[m] = JP[m * T + at(L - 1, j)];
-#pragma unroll
-      for (int a = 0; a < S; ++a) block.c[a] = CP[a * T + at(L - 1, j)];
-      ex = deer_compose(ex, block);
-    }
-    __syncthreads();  // the new iterate is visible to the neighbours
-    return reduce ? deer_block_max(dmax, s_red) : 0.f;
-  };
-
-  // trips of `unroll` sweeps; with track the last sweep's largest update is
-  // the exit test, so the sweeps run are a multiple of unroll
-  const float limit = track ? tol : -1.f;
-  int done = 0;
-  float delta = INFINITY;
-  while (done < sweeps && delta >= limit) {
-    for (int q = 0; q < unroll; ++q) {
-      const float d = sweep(track && q == unroll - 1);
-      if (q == unroll - 1) delta = d;
-    }
-    done += unroll;
-  }
-  done = min(done, sweeps);
-
-  float res = 0.f;
-#pragma unroll 1
-  for (int j = 0; j < kPer; ++j) {
-    float prev[S];
-    block_start(j, prev);
-    for (int r = 0; r < L; ++r) {
-      const size_t i = at(r, j);
-      float z[S];
-#pragma unroll
-      for (int k = 0; k < S; ++k) z[k] = prev[k];
-      const float y = circuit_step(V[i], z, c, r_none, q_none, w, p);
-#pragma unroll
-      for (int k = 0; k < S; ++k) {
-        prev[k] = Z[k * T + i];
-        res = deer_nanmax(res, fabsf(__fsub_rn(z[k], prev[k])));
-      }
-      out[(static_cast<size_t>(t) * kPer + j) * L + r] = y;
-    }
-  }
-  res = deer_block_max(res, s_red);
-  if (t == kThreads - 1) {
-#pragma unroll
-    for (int k = 0; k < S; ++k) zf[k] = Z[k * T + at(L - 1, kPer - 1)];
-  }
-  if (t == 0) {
-    info[0] = res;
-    info[1] = static_cast<float>(done);
-  }
-}
-"""
 #: the cluster kernel on the generated step (deer_cluster.cuh)
 _DEER_CLUSTER_KERNEL = """template <int C>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -2821,8 +2505,7 @@ __device__ __forceinline__ float circuit_deer_step(float v, const float* z, floa
 
 // The circuit as deer_cluster.cuh's step: the coefficient slots c and the
 // root array w (shared memory), the prologue's per-thread p.  Its relax and
-// emit are the forward step of the one-CTA kernel's relaxation and emit
-// passes, its lin the DEER step, with the same arguments.
+// emit are the forward step, its lin the DEER step.
 struct CircuitDeer {{
   const float* c;
   const float* w;
@@ -2865,44 +2548,21 @@ extern "C" void circuit_deer_host_run(const float* z, const float* v, float* f, 
 }}
 """
     step_source = prog.step_source + deer_step
-    return DeerProgram(source=step_source + _deer_kernels((DEER_CLUSTER,), S),
-                       forms_source=step_source + _deer_kernels(DEER_FORMS, S),
-                       step_source=step_source, host_source=step_source + host, n_state=S,
-                       ops_per_sample=ops, step_ops=prog.ops_per_sample)
+    return DeerProgram(source=step_source + _deer_kernel(S), step_source=step_source,
+                       host_source=step_source + host, n_state=S, ops_per_sample=ops,
+                       step_ops=prog.ops_per_sample)
 
 
-def deer_source(deer: DeerProgram, kernels) -> str:
-    """A DEER source of ``deer``'s structure with the given kernels: cluster
-    sizes C and DEER_ONE_CTA.  ``deer.source`` is (DEER_CLUSTER,),
-    ``deer.forms_source`` DEER_FORMS; chip_smoke.py times the build of all
-    three in one source, as they were built before they were split."""
-    return deer.step_source + _deer_kernels(tuple(kernels), deer.n_state)
-
-
-def _deer_export(kernel: int) -> str:
-    """The C name prefix of a DEER kernel's launch functions."""
-    if kernel == DEER_ONE_CTA:
-        return "circuit_deer_onecta"
-    return "circuit_deer" if kernel == DEER_CLUSTER else f"circuit_deer_c{kernel}"
-
-
-def _deer_kernels(kernels: tuple, S: int) -> str:
-    """The kernels, launch functions and occupancy queries of a DEER source
-    (after its steps): deer_cluster_kernel<C> for each cluster size C of
-    ``kernels``, the one-CTA deer_kernel for DEER_ONE_CTA."""
-    clusters = [c for c in kernels if c != DEER_ONE_CTA]
-    cluster_text = f"""
-// deer_cluster_kernel<C>: one cluster of C CTAs of {DEER_THREADS} threads on
-// neighbouring SMs (C = {" or ".join(map(str, clusters))}; deer_cluster.cuh has the passes):
-// CTA k owns {DEER_BLOCKS} / C time blocks, the step and apply passes run over
-// its samples in parallel, one thread per block runs a relaxation and
-// composes its rows, the block totals are scanned in the CTA and then across
-// the cluster through distributed shared memory; two cluster barriers a
-// sweep.  Scratch (1 + 3 S + S^2) T floats.  __launch_bounds__({DEER_THREADS}, 1): the
-// Tube Screamer's DEER step needs well over 64 registers.
-""" if clusters else ""
-    onecta_text = f"""
-{_DEER_ONECTA_COMMENT}""" if DEER_ONE_CTA in kernels else ""
+def _deer_kernel(S: int) -> str:
+    """The kernel, launch function and occupancy query of a DEER source
+    (after its steps): deer_cluster_kernel<DEER_CLUSTER>."""
+    c = DEER_CLUSTER
+    name = "circuit_deer"
+    pad = "\n" + " " * len(f"int {name}_launch(")
+    args = pad.join(("const float* vin, const float* z0, float* out, float* zf, float* info,",
+                     "float* scratch, int L, const float* coef, const float* warr, int n_warr,",
+                     "int sweeps, int relax_passes, int unroll, float damping, float tol,",
+                     "int track, void* stream"))
     text = f"""
 #include "deer_scan.cuh"
 #include "deer_cluster.cuh"
@@ -2910,20 +2570,23 @@ def _deer_kernels(kernels: tuple, S: int) -> str:
 // Replaces the Pallas TPU kernel diffwdf_tpu/ops/deer_circuit.py,
 // fused_deer_circuit / fused_deer_neural: the whole single-stream DEER solve
 // of one block of T = 1024 L samples in one launch.
-{cluster_text}{onecta_text}namespace {{
+
+// deer_cluster_kernel<C>: one cluster of C CTAs of {DEER_THREADS} threads on
+// neighbouring SMs (C = {c}; deer_cluster.cuh has the passes):
+// CTA k owns {DEER_BLOCKS} / C time blocks, the step and apply passes run over
+// its samples in parallel, one thread per block runs a relaxation and
+// composes its rows, the block totals are scanned in the CTA and then across
+// the cluster through distributed shared memory; two cluster barriers a
+// sweep.  Scratch (1 + 3 S + S^2) T floats.  __launch_bounds__({DEER_THREADS}, 1): the
+// Tube Screamer's DEER step needs well over 64 registers.
+namespace {{
 
 constexpr int kBlocks = {DEER_BLOCKS};
 constexpr int kThreads = {DEER_THREADS};
 constexpr int S = CIRCUIT_NS;
 using Map = DeerAffine<S>;
-"""
-    if DEER_ONE_CTA in kernels:
-        text += f"""
-{_DEER_ONECTA_KERNEL}"""
-    if clusters:
-        text += f"""
-{_DEER_CLUSTER_KERNEL}"""
-    text += f"""
+
+{_DEER_CLUSTER_KERNEL}
 // dynamic shared memory of a kernel: the coefficient slots, the root array
 size_t deer_smem(int n_warr) {{
   return sizeof(float) * (static_cast<size_t>((CIRCUIT_NC + 3) & ~3) + n_warr);
@@ -2932,36 +2595,7 @@ size_t deer_smem(int n_warr) {{
 }}  // namespace
 
 extern "C" {{
-"""
-    for c in kernels:
-        name = _deer_export(c)
-        pad = "\n" + " " * len(f"int {name}_launch(")
-        args = pad.join(("const float* vin, const float* z0, float* out, float* zf, float* info,",
-                         "float* scratch, int L, const float* coef, const float* warr, int n_warr,",
-                         "int sweeps, int relax_passes, int unroll, float damping, float tol,",
-                         "int track, void* stream"))
-        if c == DEER_ONE_CTA:
-            text += f"""
-// One solve by the one-CTA kernel: the arguments of a cluster kernel's
-// launch; it uses {1 + 2 * S + S * S} T floats of the scratch.
-int {name}_launch({args}) {{
-  if (L < 1 || sweeps < 0 || relax_passes < 0 || unroll < 1 || n_warr < 0) {{
-    return static_cast<int>(cudaErrorInvalidValue);
-  }}
-  const size_t smem = deer_smem(n_warr);
-  if (smem > 48 * 1024) {{
-    const cudaError_t e = cudaFuncSetAttribute(
-        deer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }}
-  deer_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      vin, z0, out, zf, info, scratch, L, coef, warr, n_warr, sweeps, relax_passes, unroll,
-      damping, tol, track);
-  return static_cast<int>(cudaGetLastError());
-}}
-"""
-            continue
-        text += f"""
+
 // One solve on `stream` by a cluster of {c} CTAs: vin (T,), z0 (S,), out (T,),
 // zf (S,), info (2,) = (residual, sweeps run), scratch ({1 + 3 * S + S * S} T
 // floats); T = 1024 L.  A refused launch returns CUDA's error.

@@ -149,27 +149,6 @@ def launch_adjoint(a_seq, g_out, g_zf, r_rows, mlp_params: MLPParams, cap, *, fs
     return g_vin, G, g_z0
 
 
-def launch_adjoint_onepass(a_seq, g_out, g_zf, r_rows, mlp_params: MLPParams, cap, *,
-                           fs: float):
-    """The adjoint's earlier form, one kernel with one thread per stream (the
-    tangent and the recursion in one step): the reference that the card's
-    tests and ``chip_smoke.py`` hold the two passes to; never on the training
-    path, and counts nothing.  Arguments and results as :func:`launch_adjoint`."""
-    H, L, weights = train_weights(mlp_params, a_seq.device)
-    B, T = a_seq.shape
-    lib = _build.library()
-    with torch.cuda.device(a_seq.device):
-        p1r, log_r = row_constants(r_rows, cap, fs)
-        a_seq, g_out, g_zf = a_seq.contiguous(), g_out.contiguous(), g_zf.contiguous()
-        g_vin, G, g_z0 = torch.empty_like(a_seq), torch.empty_like(a_seq), torch.empty_like(g_zf)
-        err = lib.clipper_adjoint_onepass_launch(
-            a_seq.data_ptr(), g_out.data_ptr(), g_zf.data_ptr(), p1r.data_ptr(),
-            log_r.data_ptr(), g_vin.data_ptr(), G.data_ptr(), g_z0.data_ptr(), B, T,
-            weights.data_ptr(), H, L, torch.cuda.current_stream(a_seq.device).cuda_stream)
-    _build.check(err, "one-pass clipper adjoint launch")
-    return g_vin, G, g_z0
-
-
 def clipper_adjoint(a_seq, g_out, g_zf, r_rows, mlp_params: MLPParams, cap, *, fs: float):
     """Reverse-time adjoint of ``fused_clipper_neural_train_fwd``.
 

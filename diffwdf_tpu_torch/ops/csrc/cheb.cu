@@ -13,11 +13,10 @@
 // FMA and an add each; D = 24 for the default degrees 24/16/12).  No
 // transcendentals, and the state is used only by the recursion, so the whole
 // sample is one short chain and the card's parallelism has to come from the
-// streams.  Run one thread a stream (the kernel before this design,
-// cheb_kernel below), B = 8,192 fills 64 of the 132 SMs with four warps each,
-// and the chain also carries the segment select (a run-time loop over the
-// edges in shared memory) and the selected segment's coefficients, read
-// from shared memory at addresses that depend on the state.
+// streams.  Run one thread a stream, B = 8,192 fills 64 of the 132 SMs with
+// four warps each, and the chain also carries the segment select (a
+// run-time loop over the edges) and the selected segment's coefficients,
+// read at addresses that depend on the state.
 //
 // Design.  A group of K consecutive lanes serves one stream, one segment a
 // lane (cheb_lanes.cuh): each lane holds its segment's edge terms and
@@ -34,8 +33,8 @@
 // see it), so a B = 1 launch runs one group's chain.
 //
 // Bits.  The segment's h is cheb_segment<D> of cheb.cuh on the same f32
-// values in both kernels, and the select is cheb_root's, so the lane kernel
-// gives cheb_kernel's bits, which the card tests and chip_smoke.py check.
+// values as cheb_root<D>, and the select is cheb_root's, so the lane kernel
+// gives cheb_root<D>'s bits (tests/test_torch_cheb_lanes.py).
 // One kernel per (D, K) of CHEB_DEGREES x {4, 8}; at every D the
 // coefficients stay in registers (ptxas: no spill).
 //
@@ -86,36 +85,6 @@ cheb_lanes_kernel(const float* __restrict__ vin, const float* __restrict__ z0,
   if (b < B && rank == 0) zf[b] = z;
 }
 
-// The kernel before the lane design, under its own launch symbol (the
-// wrapper never calls it; chip_smoke.py times it as "before" and the card
-// tests hold the lane kernel to its bits): one thread per stream walking all
-// T samples, the root's parameters staged once into shared memory, the
-// selected segment's coefficients read from there (cheb_root).  (B, T) is
-// staged through shared memory in (128, 32) tiles (tile.cuh).
-template <int D>
-__global__ void __launch_bounds__(kTileRows)
-cheb_kernel(const float* __restrict__ vin, const float* __restrict__ z0,
-            float* __restrict__ out, float* __restrict__ zf, int B, int T,
-            const float* __restrict__ root, int n_root, int n_seg, float p1R) {
-  extern __shared__ float sroot[];
-  __shared__ Tile tile;
-  for (int i = threadIdx.x; i < n_root; i += blockDim.x) sroot[i] = root[i];
-
-  const int b0 = blockIdx.x * kTileRows;
-  const int b = b0 + threadIdx.x;
-  float z = b < B ? z0[b] : 0.f;
-  for (int t0 = 0; t0 < T; t0 += kTileCols) {
-    const int tc = min(kTileCols, T - t0);
-    tile_load(tile, vin, B, T, b0, t0, tc);  // its barrier also covers sroot
-    for (int k = 0; k < tc; ++k) {
-      tile[threadIdx.x][k] = cheb_clipper_step(
-          tile[threadIdx.x][k], p1R, z, [&](float a) { return cheb_root<D>(a, sroot, n_seg); });
-    }
-    tile_store(tile, out, B, T, b0, t0, tc);
-  }
-  if (b < B) zf[b] = z;
-}
-
 template <int D>
 cudaError_t launch_cheb_lanes(const float* vin, const float* z0, float* out, float* zf, int B,
                               int T, const float* root, int n_seg, float p1R,
@@ -129,17 +98,6 @@ cudaError_t launch_cheb_lanes(const float* vin, const float* z0, float* out, flo
     cheb_lanes_kernel<D, 8><<<(B + R - 1) / R, kThreads, 0, stream>>>(vin, z0, out, zf, B, T,
                                                                       root, n_seg, p1R);
   }
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_cheb(const float* vin, const float* z0, float* out, float* zf, int B, int T,
-                        const float* root, int n_root, int n_seg, float p1R,
-                        cudaStream_t stream) {
-  const size_t smem = sizeof(float) * static_cast<size_t>(n_root);
-  const int blocks = (B + kTileRows - 1) / kTileRows;
-  cheb_kernel<D><<<blocks, kTileRows, smem, stream>>>(vin, z0, out, zf, B, T, root, n_root,
-                                                      n_seg, p1R);
   return cudaGetLastError();
 }
 
@@ -172,16 +130,6 @@ int fused_clipper_cheb_launch(const float* vin, const float* z0, float* out, flo
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(by_degree(n_root, n_seg, degree, [&](auto d) {
     return launch_cheb_lanes<decltype(d)::value>(vin, z0, out, zf, B, T, root, n_seg, p1R, s);
-  }));
-}
-
-// B6's earlier form, one thread a stream (reference only).
-int fused_clipper_cheb_onethread_launch(const float* vin, const float* z0, float* out, float* zf,
-                                        int B, int T, const float* root, int n_root, int n_seg,
-                                        int degree, float p1R, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(by_degree(n_root, n_seg, degree, [&](auto d) {
-    return launch_cheb<decltype(d)::value>(vin, z0, out, zf, B, T, root, n_root, n_seg, p1R, s);
   }));
 }
 

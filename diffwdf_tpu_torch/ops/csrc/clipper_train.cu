@@ -32,10 +32,10 @@
 // pass 2's recursion.  The per-sample arithmetic is clipper_train.cuh's.
 //
 // Design.  Both recursions are sequential in time and independent across
-// streams.  Run as one thread per stream (the earlier forms, kept below),
-// each stream is one thread's chain of ~1,200 (forward) or ~2,400 (adjoint)
-// dependent operations a sample, nearly all of them the MLP's, and the
-// training batch of 1,337 streams fills 11 blocks of 128 threads on 132 SMs.
+// streams.  Run as one thread per stream, each stream is one thread's chain
+// of ~1,200 (forward) or ~2,400 (adjoint) dependent operations a sample,
+// nearly all of them the MLP's, and the training batch of 1,337 streams
+// fills 11 blocks of 128 threads on 132 SMs.
 //   - Forward: a group of K lanes of a warp serves one stream (nxh_lanes.cuh):
 //     every lane runs the tree on the same values, the MLP's neurons are
 //     split across the group, so a sample's chain falls to ~H (L + 1) FMAs
@@ -59,8 +59,10 @@
 // Numerics.  Exact f32 library calls only (tanhf, fmaf) and the trees'
 // roundings written out: no fast-math intrinsics.  The (B,) constants p and
 // log R are computed by the wrapper in double precision and rounded to f32,
-// the same values the plain PyTorch versions use.  Each kernel gives its
-// earlier form's bits (the card tests and chip_smoke.py check it).
+// the same values the plain PyTorch versions use.  The lane forward gives
+// the one-thread forward's bits (the card tests and chip_smoke.py check it);
+// pass 1 and pass 2 give a one-pass walk's bits (tests/test_torch_clipper_kernels.py
+// walks both on the host).
 //
 // Interface.  Plain C, loaded with ctypes; every launch goes on the stream
 // the caller passes and returns cudaGetLastError().
@@ -166,7 +168,7 @@ cudaError_t by_family(int H, int L, int K, F f) {
 }
 
 // The forward's earlier form (the wrapper never calls it; the card tests
-// and chip_smoke.py hold the lane form to its bits and time it as "before"):
+// and chip_smoke.py hold the lane form to its bits):
 // one thread per stream over all T, weights in shared memory (a broadcast),
 // the (B, T) streams read and written in place (a 128-byte line holds 32
 // steps of one stream and stays in L1 for them).
@@ -329,48 +331,6 @@ adjoint_recursion_kernel(const float2* __restrict__ scratch, const float* __rest
     __syncwarp();  // stage u % kStages and the tiles are free again
   }
   if (live) g_z0[b] = lam;
-}
-
-// The adjoint's earlier form (the wrapper never calls it; the card tests and
-// chip_smoke.py hold the two passes to its bits and time it as "before"):
-// one thread per stream walking t = T-1 .. 0 with lam in a register, the
-// tangent inline.  Its step keeps the plain expressions: written out as
-// adjoint_update, its loop compiled to a slower chain, and "before" would
-// no longer time the earlier kernel.
-template <int H>
-__global__ void __launch_bounds__(kThreads)
-adjoint_onepass_kernel(const float* __restrict__ a_seq, const float* __restrict__ g_out,
-                       const float* __restrict__ g_zf, const float* __restrict__ p1r,
-                       const float* __restrict__ log_r, float* __restrict__ g_vin,
-                       float* __restrict__ G, float* __restrict__ g_z0, int B, int T,
-                       const float* __restrict__ weights, int L) {
-  extern __shared__ float sw[];
-  stage_weights(sw, weights, n_train_weights<H>(L));
-
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  float c1[H];
-  nxh_first_bias<H>(sw + H, sw + 2 * H, log_r[b], c1);
-  const float p = p1r[b];
-
-  const size_t row = static_cast<size_t>(b) * T;
-  const float* as = a_seq + row;
-  const float* go = g_out + row;
-  float* gv = g_vin + row;
-  float* gs = G + row;
-  float lam = g_zf[b];  // lam_{t+1}, starting at lam_T
-  for (int t = T - 1; t >= 0; --t) {
-    // the step as this kernel was written before pass 2 existed; nvcc
-    // compiles it to adjoint_update's roundings (clipper_train.cuh)
-    const float m = adjoint_tangent<H>(as[t], sw, c1, L);
-    const float c = -(m * (1.f - p) + p);
-    const float g = go[t];
-    const float Gt = lam + 0.5f * g;
-    gs[t] = Gt;
-    gv[t] = p * (1.f - m) * Gt;
-    lam = c * lam + 0.5f * (1.f + c) * g;
-  }
-  g_z0[b] = lam;
 }
 
 // ---------------------------------------------------------------------------
@@ -626,20 +586,6 @@ int clipper_recursion_launch(const float* scratch, const float* g_zf, const floa
                              static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float2*>(scratch), g_zf, p1r, g_vin, G, g_z0, B, T);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The adjoint's earlier form, one pass (reference only).
-int clipper_adjoint_onepass_launch(const float* a_seq, const float* g_out, const float* g_zf,
-                                   const float* p1r, const float* log_r, float* g_vin,
-                                   float* G, float* g_z0, int B, int T, const float* weights,
-                                   int H, int L, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(by_width(H, [&](auto h) {
-    constexpr int W = decltype(h)::value;
-    return launch(adjoint_onepass_kernel<W>, (B + kThreads - 1) / kThreads,
-                  sizeof(float) * static_cast<size_t>(n_train_weights<W>(L)), s, a_seq, g_out,
-                  g_zf, p1r, log_r, g_vin, G, g_z0, B, T, weights, L);
-  }));
 }
 
 // B4 pass 3: the blocks pass 3 runs at most for (H, L), as many as this card

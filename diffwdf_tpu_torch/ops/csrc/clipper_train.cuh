@@ -1,7 +1,6 @@
 // Per-sample functions of the clipper's training kernels (clipper_train.cu):
 // the forward step, which the lane kernel and the one-thread kernel share;
-// the tangent, which pass 1 and the one-pass adjoint share; the reverse step
-// of pass 2, with the one-pass kernel's roundings; the scratch layout; pass
+// the tangent of pass 1; the reverse step of pass 2; the scratch layout; pass
 // 3's forward and backward of one sample and the jobs of its sums.  The
 // CPU tests compile them on the host (a stand-in cuda_runtime.h defines the
 // CUDA qualifiers away).
@@ -20,11 +19,9 @@
 // which a second kernel could not be held to.  The forward tree is written
 // as that kernel ran at H = 16: a = fma(-p, z - v, z), z' = fma(-p, z - v,
 // -y), used by the one-thread and the lane kernel alike.  The reverse step is
-// written as nvcc compiles the one-pass adjoint's plain expressions at every
-// H (its SASS): u = fma(m, 1 - p, p) = -c, G = fma(g, 1/2, lam),
-// lam = fma(g, (1 - u) / 2, -(u lam)); pass 2 runs it, the one-pass kernel
-// keeps its plain expressions, and the card tests hold the two to the same
-// bits.  The MLP and its tangent are nxh_mlp.cuh's (nxh_lanes.cuh's lane
+// written as nvcc compiled the plain expressions at every H (their SASS):
+// u = fma(m, 1 - p, p) = -c, G = fma(g, 1/2, lam),
+// lam = fma(g, (1 - u) / 2, -(u lam)).  The MLP and its tangent are nxh_mlp.cuh's (nxh_lanes.cuh's lane
 // form has nxh_forward's bits).
 //
 // Weight buffer (floats), built by ops/fused_clipper.py train_weights:
@@ -107,15 +104,14 @@ __device__ __forceinline__ float train_step_lanes(float v, float p, float& z, fl
   });
 }
 
-// m = dMLP/da at a (pass 1 and the one-pass adjoint).
+// m = dMLP/da at a (pass 1).
 template <int H, typename C1>
 __device__ __forceinline__ float adjoint_tangent(float a, const float* w, const C1& c1, int L) {
   return nxh_tangent<H>(a, w, c1, w + train_hidden<H>(), L, w + 3 * H);
 }
 
 // One reverse step at tangent m and output cotangent g: lam from lam_{t+1}
-// to lam_t, G = G_t; returns g_vin_t.  The roundings of the one-pass
-// kernel's step (above).
+// to lam_t, G = G_t; returns g_vin_t.
 __device__ __forceinline__ float adjoint_update(float m, float g, float p, float& lam, float& G) {
   const float u = fmaf(m, 1.f - p, p);
   G = fmaf(g, 0.5f, lam);

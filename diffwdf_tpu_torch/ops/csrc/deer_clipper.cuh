@@ -1,7 +1,5 @@
-// The LPF diode clipper's step map for its single-stream DEER solves, and
-// the cluster kernel on it: the served kernel (parallel_time_deer.cu, 16
-// CTAs) and the comparison forms (forms/deer_clipper_forms.cu: 8 CTAs, and
-// the one-CTA kernel before the cluster redesign) run the same expressions.
+// The LPF diode clipper's step map for its single-stream DEER solve, and
+// the cluster kernel on it (parallel_time_deer.cu, 16 CTAs).
 //
 // z_t = f(z_{t-1}, v_t): Vs(R) || C with the asymmetric diode pair of Werner
 // eqn 45 on top, and its analytic Jacobian, which shares the two omega

@@ -44,10 +44,11 @@
 // to every CTA of the cluster: the step pass, a relaxation and the emit pass
 // read the neighbouring CTA's last z.
 //
-// The relaxations and the emit pass run the same chains with the same
-// expressions as the one-CTA kernels, so with sweeps = 0 a solve has their
-// bits.  A sweep composes the block totals in another order than theirs (and
-// than the TPU's lane-then-sublane doublings), so results agree to rounding.
+// The relaxations and the emit pass run each block's chain with the step's
+// expressions, so with sweeps = 0 a solve has the bits of one thread walking
+// the blocks one after another.  A sweep composes the block totals in another
+// order than such a walk (and than the TPU's lane-then-sublane doublings), so
+// results agree to rounding.
 //
 // A Step gives, for its S states:
 //   float bound(float vmax)          the clamp bound from max|v|;

@@ -5,9 +5,7 @@
 // A Newton sweep of DEER linearises the step map around the current
 // trajectory, z_t = J_t z_{t-1} + c_t with J_t an S x S matrix, and solves
 // that recurrence exactly by composing the affine maps: in-thread over the
-// rows of a time block, then across the CTA for the block totals.  The S x S
-// generalisation of the scalar pair of parallel_time_deer.cu's one-CTA
-// kernel.
+// rows of a time block, then across the CTA for the block totals.
 //
 // Affine maps do not commute: deer_compose(a, b) applies a, then b.  Every
 // product and sum is a round-to-nearest intrinsic, which nvcc never contracts

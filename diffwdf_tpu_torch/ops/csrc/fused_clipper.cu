@@ -28,20 +28,16 @@
 //     Newton steps unrolled at compile time (omega_select, omega.cuh), so the
 //     lanes of a warp, whose streams fall into different regions, never
 //     diverge.  On one thread ptxas runs the two solves' division regions
-//     one after the other (its earlier, one-thread form ran slower than
-//     analytic_kernel), so a pair of lanes serves a stream: each lane solves
-//     one, one shuffle swaps them, the tree runs on both; the chain is one
-//     solve long.  A converged Newton step's zero residual
+//     one after the other, so a pair of lanes serves a stream: each lane
+//     solves one, one shuffle swaps them, the tree runs on both; the chain
+//     is one solve long.  A converged Newton step's zero residual
 //     skips its division, whose range check sent it down the slow path.
 // Both stage (B, T) through shared memory in (rows, 32) tiles (tile.cuh,
 // nxh_lanes.cuh), so every global load and store is a whole 128-byte line
 // and no sample waits on a global load.
 //
-// The kernels as they were before this design stay, under their own launch
-// symbols: analytic_kernel (the two solves one after the other, each behind
-// its region branches and a run-time Newton loop), the "before" timing and
-// the distance the tests report; neural_kernel<H> (one thread a stream),
-// which serves every (H, L) the lane kernel is not built for.
+// neural_kernel<H> (one thread a stream) serves every (H, L) the lane
+// kernel is not built for.
 //
 // Numerics.  Exact f32 library calls only (expf, logf, tanhf, IEEE
 // division): no fast-math intrinsics, whose error exceeds the parity budgets
@@ -108,41 +104,6 @@ analytic_pair_kernel(const float* __restrict__ vin, const float* __restrict__ z0
     rows_store<R>(tile, out, B, T, b0, t0, tc);
   }
   if (b < B && rank == 0) zf[b] = z;
-}
-
-// B2's earlier form (the wrapper never calls it; chip_smoke.py times it as
-// "before" and the card tests report its distance): one thread a stream,
-// vin read in place, the two omega() solves one after the other.
-__global__ void __launch_bounds__(kThreads)
-analytic_kernel(const float* __restrict__ vin, const float* __restrict__ z0,
-                float* __restrict__ out, float* __restrict__ zf, int B, int T,
-                AnalyticConsts c, int iters) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const float* v = vin + static_cast<size_t>(b) * T;
-  float* o = out + static_cast<size_t>(b) * T;
-  float z = z0[b];
-  for (int t = 0; t < T; ++t) {
-    const float b_temp = -c.p1R * (z - v[t]);
-    const float a = z + b_temp;
-    // asymmetric diode pair (eqn 45); the branch select uses a >= 0
-    const float lam = sign0(a);
-    const bool pos = a >= 0.f;
-    const float mu0 = pos ? c.n_dn : c.n_up;
-    const float mu1 = pos ? c.n_up : c.n_dn;
-    const float log0 = pos ? c.log_dn : c.log_up;
-    const float log1 = pos ? c.log_up : c.log_dn;
-    const float inv0 = pos ? c.inv_dn : c.inv_up;
-    const float inv1 = pos ? c.inv_up : c.inv_dn;
-    const float la = lam * a;
-    const float w0 = omega(log0 + la * inv0, iters);
-    const float w1 = omega(log1 - la * inv1, iters);
-    const float b_root = a - c.two_vt * lam * (mu0 * w0 - mu1 * w1);
-    const float z_new = b_root + b_temp;
-    o[t] = 0.5f * (z_new + z);
-    z = z_new;
-  }
-  zf[b] = z;
 }
 
 template <int ITERS>
@@ -230,10 +191,9 @@ cudaError_t by_family(int H, int L, int K, F f) {
 
 // One thread a stream over all T, weights in shared memory (a broadcast),
 // the (B, T) streams read and written in place (a 128-byte line holds 32
-// steps of one stream and stays in L1 for them), L a run-time loop.  B1's
-// earlier form: it serves the (H, L) the lane kernel is not built for, and
-// chip_smoke.py times it as "before".  Its step is serve_step, the lane
-// form's tree.
+// steps of one stream and stays in L1 for them), L a run-time loop.  It
+// serves the (H, L) the lane kernel is not built for.  Its step is
+// serve_step, the lane form's tree.
 template <int H>
 __global__ void __launch_bounds__(kThreads)
 neural_kernel(const float* __restrict__ vin, const float* __restrict__ z0,
@@ -283,18 +243,6 @@ int fused_clipper_analytic_launch(const float* vin, const float* z0, float* out,
     default:
       return static_cast<int>(launch_analytic_pair<-1>(vin, z0, out, zf, B, T, c, iters, s));
   }
-}
-
-// B2's earlier form, the two solves one after the other (reference only).
-int fused_clipper_analytic_serial_launch(const float* vin, const float* z0, float* out,
-                                         float* zf, int B, int T, float p1R, float log_up,
-                                         float log_dn, float inv_up, float inv_dn, float two_vt,
-                                         float n_up, float n_dn, int iters, void* stream) {
-  const AnalyticConsts c{p1R, log_up, log_dn, inv_up, inv_dn, two_vt, n_up, n_dn};
-  const int blocks = (B + kThreads - 1) / kThreads;
-  analytic_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      vin, z0, out, zf, B, T, c, iters);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // B1 on K lanes a stream, for the (H, L, K) of by_family.

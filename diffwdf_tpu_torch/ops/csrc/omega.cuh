@@ -1,10 +1,9 @@
 // Device code of the real-line Wright omega and the sign it is used with,
 // shared by the analytic diode-pair kernels.
 //
-// fused_clipper.cu (analytic_kernel, the batched clipper recursion) and
-// parallel_time_deer.cu (deer_clipper_kernel, the single-stream DEER solve)
-// evaluate the diode pair of Werner eqn 45 with these two functions, so the
-// sequential recursion and the parallel-in-time solve use one omega.
+// parallel_time_deer.cu (deer_clipper_cluster_kernel, the single-stream
+// DEER solve; deer_clipper.cuh) evaluates the diode pair of Werner eqn 45
+// with these two functions.
 //
 // omega_select and omega_pair (below) run the same math without the region
 // branches, one solve and the pair: fused_clipper.cu's analytic_pair_kernel,

@@ -23,18 +23,16 @@
 // composes its rows, the block totals are scanned in the CTA and then across
 // the cluster through distributed shared memory.  The scratch is 5 T floats:
 // the input, two trajectory buffers and the rows (J_t, c_t), in global memory
-// (320 KB at T = 16384, resident in L2).  The same kernel at 8 CTAs and the
-// one-CTA kernel before the redesign are built from forms/deer_clipper_forms.cu
-// for the comparisons only (ops/deer_forms.py).
+// (320 KB at T = 16384, resident in L2).
 //
 // Numerics.  Exact f32 library calls only (expf, logf, IEEE division): the
 // 1e-6 budget against the sequential recursion is tighter than the fast-math
 // intrinsics give.  The omega solve and sign(a) (0 at a == 0) are those of
 // the analytic clipper kernel (omega.cuh).  The relaxations and the emit
-// pass run the one-CTA kernel's expressions (with sweeps = 0 the same bits);
-// the scan composes in another order than it and than the TPU's
-// lane-then-sublane doublings, so results agree with the plain version to
-// rounding, not bit for bit.
+// pass run each block's chain in time order (with sweeps = 0 the bits of a
+// walk of the blocks one after another); the scan composes in another order
+// than the plain version and than the TPU's lane-then-sublane doublings, so
+// results agree with the plain version to rounding, not bit for bit.
 //
 // Interface.  Plain C, loaded with ctypes; each launch goes on the stream the
 // caller passes and returns its CUDA error.

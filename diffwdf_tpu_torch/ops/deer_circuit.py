@@ -27,9 +27,8 @@ residual max|f(z_{t-1}) - z_t| over all states and samples.
 ``ops.circuit_codegen.generate_deer`` generates for the circuit's structure
 (B9 in ROADMAP) on one cluster of ``CLUSTER`` CTAs (``csrc/deer_cluster.cuh``)
 or raise with CUDA's message, and count the launch in their own
-``.launches``.  The kernel's comparison forms (8 CTAs, and the one-CTA
-kernel before the redesign) are in ``ops.deer_forms``.  The plain version is
-the same algorithm in torch ops on the (L, 1024) layout, vectorised over the blocks:
+``.launches``.  The plain version is the same algorithm in torch ops on the
+(L, 1024) layout, vectorised over the blocks:
 the step is ``circuit_codegen.step`` with the root emitter's plain twin, and
 the S x S Jacobian comes from S forward-mode passes (``torch.autograd.
 forward_ad``; the diode root's omega carries its implicit ``jvp``).  The
@@ -228,16 +227,7 @@ def launcher(circuit, prep: Prepared, vin, s0, L: int, sweeps: int, relax_passes
     card's info pair without a host copy.  Each call overwrites the previous
     one's outputs (chip_smoke.py times the kernel through it)."""
     deer = deer_program(circuit, prep.prog)
-    return bind(_build.generated_library(deer.source), "circuit_deer_launch", deer, prep, vin,
-                s0, L, sweeps, relax_passes, damping, adapt_tol, entry)
-
-
-def bind(lib, name: str, deer, prep: Prepared, vin, s0, L: int, sweeps: int,
-         relax_passes: int, damping: float, adapt_tol: float, entry):
-    """:func:`launcher` on the launch function ``name`` of a loaded DEER
-    library ``lib`` (``ops.deer_forms`` binds the comparison forms' the
-    same way)."""
-    fn = getattr(lib, name)
+    lib = _build.generated_library(deer.source)
     T = vin.shape[0]
     with torch.cuda.device(vin.device):
         vin = vin.contiguous()
@@ -254,7 +244,7 @@ def bind(lib, name: str, deer, prep: Prepared, vin, s0, L: int, sweeps: int,
                 torch.cuda.current_stream(vin.device).cuda_stream)
 
     def launch():
-        err = fn(*args)
+        err = lib.circuit_deer_launch(*args)
         _build.check(err, "fused_deer_circuit launch", lib.circuit_error_string)
         entry.launches += 1
         return out, zf, info[0], info[1]

@@ -184,19 +184,6 @@ def fused_clipper_analytic_plain(vin, z0, r_source, cap, Is, Vt_eff, n_up, n_dow
     return out, z
 
 
-def _launch_analytic(symbol, vin, z0, r_source, cap, Is, Vt_eff, n_up, n_down, fs,
-                     quality_iters):
-    consts = _analytic_constants(r_source, cap, fs, Is, Vt_eff, n_up, n_down)
-    B, T = vin.shape
-    lib = _build.library()
-    with torch.cuda.device(vin.device):
-        vin, z0, out, zf, stream = _launch_args(vin, z0)
-        err = getattr(lib, symbol)(vin.data_ptr(), z0.data_ptr(), out.data_ptr(), zf.data_ptr(),
-                                   B, T, *consts, int(quality_iters), stream)
-    _build.check(err, symbol)
-    return out, zf
-
-
 def launch_analytic(vin, z0, r_source, cap, Is, Vt_eff, n_up, n_down, *, fs: float,
                     quality_iters: int = 3):
     """Launch the analytic kernel on CUDA tensors (arguments and results as
@@ -204,19 +191,16 @@ def launch_analytic(vin, z0, r_source, cap, Is, Vt_eff, n_up, n_down, *, fs: flo
     solves branch-free with their Newton steps unrolled, one on each lane of
     a pair of lanes a stream, built for quality_iters 1, 2 and 3 (a run-time
     loop for any other count).  Counts nothing."""
-    return _launch_analytic("fused_clipper_analytic_launch", vin, z0, r_source, cap, Is,
-                            Vt_eff, n_up, n_down, fs, quality_iters)
-
-
-def launch_analytic_serial(vin, z0, r_source, cap, Is, Vt_eff, n_up, n_down, *, fs: float,
-                           quality_iters: int = 3):
-    """The analytic kernel's earlier form (arguments as :func:`launch_analytic`):
-    the two omega solves one after the other, each behind its region
-    branches and a run-time Newton loop.  The wrapper never calls it; the
-    card tests and ``chip_smoke.py`` report its distance and time it as
-    "before".  Counts nothing."""
-    return _launch_analytic("fused_clipper_analytic_serial_launch", vin, z0, r_source, cap, Is,
-                            Vt_eff, n_up, n_down, fs, quality_iters)
+    consts = _analytic_constants(r_source, cap, fs, Is, Vt_eff, n_up, n_down)
+    B, T = vin.shape
+    lib = _build.library()
+    with torch.cuda.device(vin.device):
+        vin, z0, out, zf, stream = _launch_args(vin, z0)
+        err = lib.fused_clipper_analytic_launch(vin.data_ptr(), z0.data_ptr(), out.data_ptr(),
+                                                zf.data_ptr(), B, T, *consts,
+                                                int(quality_iters), stream)
+    _build.check(err, "fused_clipper_analytic_launch")
+    return out, zf
 
 
 def fused_clipper_analytic(vin, z0, r_source, cap, Is, Vt_eff, n_up, n_down,
@@ -576,35 +560,21 @@ def cheb_lanes(n_seg: int) -> int:
     return 4 if n_seg <= 4 else 8
 
 
-def _launch_cheb(symbol, vin, z0, root, r_source, cap, fs):
+def launch_cheb(vin, z0, root, r_source, cap, *, fs: float):
+    """Launch the distilled kernel on CUDA tensors (arguments and results as
+    :func:`fused_clipper_cheb`, B > 0): a group of :func:`cheb_lanes` lanes a
+    stream, one segment a lane.  Counts nothing."""
     root_params, degree = cheb_arguments(root, vin.device)
     p1R = _f32(_lpf_adaptor(r_source, cap, fs)[0])
     B, T = vin.shape
     lib = _build.library()
     with torch.cuda.device(vin.device):
         vin, z0, out, zf, stream = _launch_args(vin, z0)
-        err = getattr(lib, symbol)(
+        err = lib.fused_clipper_cheb_launch(
             vin.data_ptr(), z0.data_ptr(), out.data_ptr(), zf.data_ptr(), B, T,
             root_params.data_ptr(), root_params.numel(), len(root.coeffs), degree, p1R, stream)
-    _build.check(err, symbol)
+    _build.check(err, "fused_clipper_cheb_launch")
     return out, zf
-
-
-def launch_cheb(vin, z0, root, r_source, cap, *, fs: float):
-    """Launch the distilled kernel on CUDA tensors (arguments and results as
-    :func:`fused_clipper_cheb`, B > 0): a group of :func:`cheb_lanes` lanes a
-    stream, one segment a lane.  Counts nothing."""
-    return _launch_cheb("fused_clipper_cheb_launch", vin, z0, root, r_source, cap, fs)
-
-
-def launch_cheb_onethread(vin, z0, root, r_source, cap, *, fs: float):
-    """The distilled kernel's earlier form (arguments as :func:`launch_cheb`):
-    one thread a stream, the selected segment's coefficients read from
-    shared memory.  The wrapper never calls it; the card tests hold the lane
-    kernel to its bits and ``chip_smoke.py`` times it as "before".  Counts
-    nothing."""
-    return _launch_cheb("fused_clipper_cheb_onethread_launch", vin, z0, root, r_source, cap,
-                        fs)
 
 
 def fused_clipper_cheb(vin, z0, root, r_source, cap, *, fs: float):

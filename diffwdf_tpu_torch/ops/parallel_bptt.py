@@ -282,33 +282,6 @@ def launch_adjoint(circuit, prep, vin, g_out, zseq, lam_t, streams=None):
     return lam_seq, g_vin, g_z0
 
 
-def launch_adjoint_onepass(circuit, prep, vin, g_out, zseq, lam_t):
-    """The one-pass adjoint kernel (one thread per stream, the tangents and
-    the contraction in one step): the reference that the card's tests and
-    ``chip_smoke.py`` hold the two passes against; never on the training
-    path, and not counted.  Arguments and results as :func:`launch_adjoint`,
-    which it writes no root streams for."""
-    lib = _build.generated_library(adjoint_program(circuit, prep.prog).source)
-    B, T = vin.shape
-    S = zseq.shape[0]
-    dummy = prep.vec
-    with torch.cuda.device(vin.device):
-        vin, g_out = vin.contiguous(), g_out.contiguous()
-        lam_seq, g_vin = torch.empty_like(zseq), torch.empty_like(vin)
-        g_z0 = torch.empty_like(lam_t)
-        w = prep.warr if prep.warr is not None else dummy
-        err = lib.circuit_adjoint_onepass_launch(
-            vin.data_ptr(), g_out.data_ptr(), (zseq if S else dummy).data_ptr(),
-            (lam_t if S else dummy).data_ptr(), (lam_seq if S else dummy).data_ptr(),
-            g_vin.data_ptr(), (g_z0 if S else dummy).data_ptr(), B, T, prep.vec.data_ptr(),
-            (prep.rows if prep.rows.numel() else dummy).data_ptr(),
-            (prep.times if prep.times.numel() else dummy).data_ptr(), w.data_ptr(),
-            0 if prep.warr is None else prep.warr.numel(),
-            torch.cuda.current_stream(vin.device).cuda_stream)
-    _build.check(err, "one-pass adjoint launch", lib.circuit_error_string)
-    return lam_seq, g_vin, g_z0
-
-
 fused_backward.launches = 0
 
 

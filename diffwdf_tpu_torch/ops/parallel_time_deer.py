@@ -26,9 +26,7 @@ that the streaming processor uses to fall back to the exact recursion.
 given a CUDA tensor it launches ``deer_clipper_cluster_kernel`` from
 ``csrc/parallel_time_deer.cu`` on one cluster of ``CLUSTER`` CTAs
 (``csrc/deer_cluster.cuh``) or raises with CUDA's message, and counts the
-launch in ``fused_deer_clipper.launches``.  The kernel's comparison forms (8
-CTAs, and the one-CTA kernel before the redesign) are in ``ops.deer_forms``.
-The plain version is the same DEER algorithm in torch ops on the (L, 1024)
+launch in ``fused_deer_clipper.launches``.  The plain version is the same DEER algorithm in torch ops on the (L, 1024)
 layout, vectorised over the blocks:
 it is what the kernel is held against.  At 8 sweeps DEER agrees with the
 sequential recursion (``ops.fused_clipper.fused_clipper_analytic``) only to
@@ -205,17 +203,11 @@ def launch(vin, s0, out, zf, res, L: int, consts, sweeps: int, relax_passes: int
     falls back)."""
     lib = _build.library()
     scratch = torch.empty(scratch_floats(vin.shape[0]), dtype=torch.float32, device=vin.device)
-    err = lib.deer_clipper_launch(*launch_args(vin, s0, out, zf, res, scratch, L, consts, sweeps,
-                                               relax_passes, iters))
+    err = lib.deer_clipper_launch(vin.data_ptr(), s0.data_ptr(), out.data_ptr(), zf.data_ptr(),
+                                  res.data_ptr(), scratch.data_ptr(), L, *consts, sweeps,
+                                  relax_passes, iters,
+                                  torch.cuda.current_stream(vin.device).cuda_stream)
     _build.check(err, "fused_deer_clipper launch")
-
-
-def launch_args(vin, s0, out, zf, res, scratch, L: int, consts, sweeps: int, relax_passes: int,
-                iters: int) -> tuple:
-    """The C arguments of a launch, the current stream last."""
-    return (vin.data_ptr(), s0.data_ptr(), out.data_ptr(), zf.data_ptr(), res.data_ptr(),
-            scratch.data_ptr(), L, *consts, sweeps, relax_passes, iters,
-            torch.cuda.current_stream(vin.device).cuda_stream)
 
 
 def max_active_clusters() -> int:

@@ -5,17 +5,17 @@ training runs per sample: the forward step with the whole NxH root on one
 thread (``train_step``, the one-thread kernel) and on a group of K lanes
 (``train_step_lanes`` on the lane kernel's copy of the weights,
 ``lane_weight``: the lane kernel B3), the tangent of pass 1
-(``adjoint_tangent``), the reverse step of pass 2 (``adjoint_update``, the
-roundings of the one-pass kernel's step) and the scratch layout between the
-passes (``adjoint_scratch_index``).  The host C++ compiler builds them here with the
+(``adjoint_tangent``), the reverse step of pass 2 (``adjoint_update``) and
+the scratch layout between the passes (``adjoint_scratch_index``).  The host
+C++ compiler builds them here with the
 stand-in ``cuda_runtime.h`` of ``tests/test_torch_codegen.py`` (a group of K
 lanes is K host threads, ``__shfl_sync`` through a shared array), and a
 ctypes harness walks them as the kernels do.  For every NxH family the lane
 kernel is built for, the lane step at every K that divides H gives the
 one-thread step's bits on every lane; pass 1 into the scratch and pass 2
-walking it back give the bits of a one-pass walk with the same steps (the
-card tests hold pass 2 to the one-pass kernel itself); the one-thread forward is
-within the suite's 2e-5 of ``fused_clipper_neural_train_fwd_plain`` and the
+walking it back give the bits of a one-pass walk with the same steps; the
+one-thread forward is within the suite's 2e-5 of
+``fused_clipper_neural_train_fwd_plain`` and the
 one-pass adjoint within 2e-5 of scale of ``clipper_adjoint_plain``.  Pass 3
 (the MLP parameters' cotangents): one sample's forward and backward
 (``param_sample``) at every sample, summed by the kernel's jobs

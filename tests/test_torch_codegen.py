@@ -301,7 +301,10 @@ def test_host_compiled_adjoint_matches_plain(host_cxx, name):
                                    row_controls=rows)
     prep = tfc.prepare(ckt, params, "cpu", input_node=node, row_controls=rows, shape=(B, T))
     adj = cg.adjoint_program(ckt, prep.prog)
-    assert adj.ops_per_sample > 0 and "circuit_adjoint_kernel" in adj.source
+    assert adj.ops_per_sample > 0
+    assert "circuit_jacobian_kernel" in adj.source and "circuit_recursion_kernel" in adj.source
+    assert "circuit_adjoint_step(" in adj.host_source
+    assert "circuit_adjoint_step(" not in adj.source
     lib = host_cxx(name + "_adjoint", adj.host_source)
     S = len(seq)
     lam_seq, g_vin, g_z0 = torch.empty((S, B, T)), torch.empty_like(vin), torch.empty((S, B))

@@ -14,8 +14,8 @@ emit pass.  For the LPF clipper at (sweeps, omega iterations) (8, 3) and (4,
 1) and for the Tube Screamer, the damped adaptive HPF clipper and the 2x16
 neural clipper, at clusters of 8 and 16 CTAs:
 
-- with no sweep, the walk gives the bits of a host walk of the one-CTA
-  kernels' relaxation and emit passes;
+- with no sweep, the walk gives the bits of a host walk of the relaxation
+  and emit passes block after block on one thread (``onecta_walk``);
 - otherwise it is within the JAX suite's budgets of the JAX kernel
   (``fused_deer_clipper`` / ``fused_deer_circuit`` / ``fused_deer_neural``
   in interpret mode, as tests/test_torch_stream.py and
@@ -65,7 +65,8 @@ from diffwdf_tpu_torch.roots.diode import diode_1n4148_1u1d
 from test_torch_codegen import CUDA_RUNTIME_STANDIN, LANE_GROUP_HARNESS, LANE_SHUFFLE_STANDIN
 
 FS, R_SRC, CAP = 96000.0, 47.0e3, 2.2e-9
-#: the served cluster and its comparison form at 8 CTAs
+#: the served cluster, and 8 CTAs: the passes take the cluster size as a
+#: template argument
 CLUSTERS = (8, cg.DEER_CLUSTER)
 
 # __shfl_up_sync and __shfl_xor_sync between the threads of a host lane group
@@ -184,8 +185,9 @@ static void cluster_walk(const Step& st, const float* vin, const float* z0, floa
   info[1] = static_cast<float>(done);
 }
 
-// The one-CTA kernels' relaxation and emit passes, block by block, on
-// arrays of their own: the reference of a solve with no sweep.
+// The relaxation and emit passes block after block on one thread (as the
+// one-CTA kernel before the cluster design ran them), on arrays of their
+// own: the reference of a solve with no sweep.
 template <int S, class Step>
 static void onecta_walk(const Step& st, const float* vin, const float* z0, float* out, float* zf,
                         float* info, int L, int relax_passes) {
@@ -672,51 +674,61 @@ def test_tube_screamer_nan_sample_surfaces_in_residual(circuits):
 
 
 # ---------------------------------------------------------------------------
-# The served sources and the comparison forms
+# The served sources and the launch functions' signatures
 # ---------------------------------------------------------------------------
 
 
 def _exports(source: str) -> set:
-    """The C functions a source exports (its extern "C" block)."""
-    block = source[source.index('extern "C" {'):]
-    return set(re.findall(r"^(?:int|const char\*) (\w+)\(", block, re.M))
+    """The C functions a source exports (its extern "C" block, or each
+    declared extern "C" on its own)."""
+    found = set(re.findall(r'^extern "C" (?:int|const char\*) (\w+)\(', source, re.M))
+    if 'extern "C" {' in source:
+        block = source[source.index('extern "C" {'):]
+        found |= set(re.findall(r"^(?:int|const char\*) (\w+)\(", block, re.M))
+    return found
+
+
+def _assert_signatures(source: str, names, table: dict) -> None:
+    """Each of ``names`` has its ctypes signature in ``table``, with as many
+    argument types as its C definition in ``source`` has parameters."""
+    for name in names:
+        params = re.search(rf"\b{name}\(([^)]*)\)\s*\{{", source).group(1)
+        n = len([p for p in params.split(",") if p.strip() not in ("", "void")])
+        assert name in table and len(table[name][0]) == n, (name, n)
 
 
 @pytest.mark.parametrize("name", CIRCUITS)
 def test_served_deer_source_builds_the_cluster_kernel_alone(circuits, name):
-    """B9's served source instantiates the kernel at DEER_CLUSTER CTAs only;
-    its comparison forms (the one-CTA kernel, 8 CTAs) are a source of their
-    own; both in one source (the layout before the split, which chip_smoke.py
-    times) exports the union; each export has its ctypes signature."""
+    """B9's served source instantiates the kernel at DEER_CLUSTER CTAs alone
+    and exports its launch and cluster query, each with its ctypes
+    signature.  Every name of ``_build``'s two signature tables is exported
+    by a source that is built: the kernel library's, this circuit's
+    generated forward, adjoint and DEER sources, or csrc/forms/omega_forms.cu."""
     case, _, prep = circuits(name)
     deer = cg.deer_program(case[0], prep.prog)
-    served, forms = _exports(deer.source), _exports(deer.forms_source)
+    served = _exports(deer.source)
     assert served == {"circuit_deer_launch", "circuit_deer_max_clusters", "circuit_error_string"}
-    assert forms == {"circuit_deer_onecta_launch", "circuit_deer_c8_launch",
-                     "circuit_deer_c8_max_clusters", "circuit_error_string"}
     assert "deer_cluster_launch<16," in deer.source and "kernel<8>" not in deer.source
     assert "__global__ void __launch_bounds__(kThreads, 1)\ndeer_kernel(" not in deer.source
-    assert "deer_cluster_launch<8," in deer.forms_source and "kernel<16>" not in deer.forms_source
-    both = cg.deer_source(deer, cg.DEER_FORMS + (cg.DEER_CLUSTER,))
-    assert _exports(both) == served | forms
     assert deer.source.startswith(deer.step_source)
-    assert deer.forms_source.startswith(deer.step_source)
-    assert (served | forms) - {"circuit_error_string"} <= set(_build._GENERATED_SIGNATURES)
+    _assert_signatures(deer.source, served, _build._GENERATED_SIGNATURES)
+    built = [p.read_text() for p in _build._sources()] + [
+        prep.prog.source, cg.adjoint_program(case[0], prep.prog).source, deer.source,
+        (_build.CSRC_DIR / "forms" / "omega_forms.cu").read_text()]
+    exported = set().union(*map(_exports, built))
+    assert set(_build._SIGNATURES) | set(_build._GENERATED_SIGNATURES) <= exported, (
+        (set(_build._SIGNATURES) | set(_build._GENERATED_SIGNATURES)) - exported)
 
 
 def test_clipper_forms_source_is_left_out_of_the_kernel_library():
-    """B5: csrc/parallel_time_deer.cu (in the kernel library) launches the
-    16-CTA kernel alone; csrc/forms/deer_clipper_forms.cu holds the one-CTA
-    kernel and the 8-CTA form, outside the library's sources."""
-    from diffwdf_tpu_torch.ops import deer_forms as df
-
+    """B5: csrc/parallel_time_deer.cu, a source of the kernel library,
+    launches the 16-CTA kernel alone and exports only its launch and its
+    cluster query, each with its ctypes signature; csrc/forms/ holds no DEER
+    source, and the library builds nothing from it."""
     served = (_build.CSRC_DIR / "parallel_time_deer.cu").read_text()
-    forms = df.CLIPPER_FORMS_SOURCE.read_text()
     assert _exports(served) == {"deer_clipper_launch", "deer_clipper_max_clusters"}
-    assert _exports(served) <= set(_build._SIGNATURES)
+    _assert_signatures(served, _exports(served), _build._SIGNATURES)
     assert "kCluster = 16" in served and "deer_clipper_kernel<<<" not in served
-    assert _exports(forms) == {"deer_clipper_onecta_launch", "deer_clipper_c8_launch",
-                               "deer_clipper_c8_max_clusters"}
-    assert _exports(forms) <= set(_build._GENERATED_SIGNATURES)
-    assert df.CLIPPER_FORMS_SOURCE not in _build._sources()
+    assert [p.name for p in (_build.CSRC_DIR / "forms").glob("*.cu")] == ["omega_forms.cu"]
+    assert not any(p.parent.name == "forms" for p in _build._sources())
     assert pd.scratch_floats(2048) == 5 * 2048

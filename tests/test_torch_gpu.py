@@ -14,9 +14,10 @@ block 1e-6; the generated adjoint relative 1e-4 with no pot and 3e-4 with
 pots, and the generic training op's gradients against the scan engine
 relative 5e-4 per leaf (tests/test_parallel_bptt.py); the lane-cooperative
 forward of an NxH root 2e-5 against plain and the one-thread kernel's bits,
-every lane of a group the same bits; the two-pass adjoint the one-pass
-kernel's bits and the adjoint's budgets against plain (the generated ones
-and the clipper's, B3 and B4, for every family); B4's pass 3 (the
+every lane of a group the same bits; the two-pass adjoint the adjoint's
+budgets against plain (the generated ones and the clipper's, B3 and B4, for
+every family; the CPU tests hold the passes to a one-pass step's bits on the
+host); B4's pass 3 (the
 clipper's MLP parameter cotangents) within 1e-4 of the largest magnitude
 of each leaf of autograd of the plain MLP at every family and B x T in
 {1, 7, 1,000} x {1, 129, 2,048}, the same bits on two calls, one count a
@@ -36,16 +37,13 @@ the serving kernels' redesigned forms: B1's lane kernel the one-thread
 kernel's bits (every family, every K, at B = 1, 777 and 4,096), a family
 outside the lane set on the one-thread kernel (its counter), B2 with both
 omega solves paired at iters 1, 2, 3 and the run-time loop (4), at B = 1
-and a ragged B, within the analytic budget, as is its earlier form; the
-DEER kernels on a thread-block cluster (B5 and B9 at 8 and 16 CTAs, T =
-1,024 x 1, 2, 16 and 64): within their budgets of plain, the one-CTA
-kernels' bits with no sweep and within the budget of them with the sweeps,
-chained blocks (the suite's 2e-6 for chained DEER blocks), the 180-Ohm
+and a ragged B, within the analytic budget; the DEER kernels on a
+thread-block cluster of 16 CTAs (B5 and B9, T = 1,024 x 1, 2, 16 and 64):
+within their budgets of plain with the sweeps and with none, chained blocks (the suite's 2e-6 for chained DEER blocks), the 180-Ohm
 block still flagged, the adaptive HPF at JAX's 20 sweeps, and a refused
 launch raising with nothing run or counted in its place; the distilled
-clipper on one Chebyshev segment a lane (B6) the one-thread kernel's bits
-and 1e-5 of plain at every padded degree, K = 4 and 8, B = 1, 1,000 and
-8,192, NaN in the same places; the diode pair's lane form of B7 (its two
+clipper on one Chebyshev segment a lane (B6) within 1e-5 of plain at every
+padded degree, K = 4 and 8, B = 1, 1,000 and 8,192, NaN in the same places; the diode pair's lane form of B7 (its two
 omega solves on a pair of lanes) the one-thread kernel's bits on the TS,
 the HPF and the LPF clipper at B = 1, 3 and 8,192, with and without the
 trajectory, and 2e-5 of plain; omega_select and omega() the same bits on
@@ -55,8 +53,8 @@ steps of both fused engines against the single-process step, time-block
 serving against B7 over the whole signal) and one generated source built by
 two processes of two threads at once; the distilled root in B9 (1e-6 of
 plain and of B6, on a quiet and a loud input) and in B7's training form and
-B8 (the adjoint's budgets, the two passes the one-pass kernel's bits, whole
-and chunked, with a scalar and a per-row R), and B7's general MLP root (a
+B8 (the adjoint's budgets, chunked the whole call's bits, with a scalar and
+a per-row R), and B7's general MLP root (a
 relu-mixed 2x8, and sigmoid, softmax and linear layers of unequal widths)
 within 2e-5 of plain, at a ragged (B, T) and through the exact runner; B7's
 lane forms of the distilled root (one Chebyshev segment a lane) and of the
@@ -220,20 +218,15 @@ def test_neural_family_outside_lane_set_runs_one_thread_kernel(cuda):
 def test_analytic_pair_kernel_matches_plain(cuda, diode, iters, b):
     """B2 with both omega solves branch-free and unrolled, one on each lane of
     a pair (built for iters 1, 2, 3; 4 runs the run-time loop), is within
-    5e-6 of plain at B = 1 and a ragged B, as is its earlier form, whose
-    distance from the new kernel is printed."""
+    5e-6 of plain at B = 1 and a ragged B."""
     vin, z0 = _inputs(cuda, b, 300, seed=iters + b)
     args = (vin, z0, R_SRC, CAP, diode.Is, diode.Vt * diode.nabla, diode.N_up, diode.N_down)
     got = fc.fused_clipper_analytic(*args, fs=FS, quality_iters=iters)
-    old = fc.launch_analytic_serial(*args, fs=FS, quality_iters=iters)
     want = fc.fused_clipper_analytic_plain(*args, fs=FS, quality_iters=iters)
     torch.cuda.synchronize()
     assert fc.fused_clipper_analytic.launches == 1
-    for g, o, w in zip(got, old, want):
+    for g, w in zip(got, want):
         _close(g, w, 5e-6)
-        _close(o, w, 5e-6)
-    print(f"B2 paired vs serial kernel b={b} iters={iters} {diode.name}: max_abs="
-          f"{max(float((g - o).abs().max()) for g, o in zip(got, old)):.3e}")
 
 
 @pytest.mark.gpu
@@ -316,18 +309,20 @@ def test_train_fwd_lanes_match_one_thread_kernel(cuda, n_layers, width):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_layers,width", FAMILIES)
 def test_adjoint_two_passes_match_one_pass_kernel(cuda, n_layers, width):
-    """B4's two passes (the wrapper) give the one-pass kernel's bits for
-    g_vin, G and g_z0, at a ragged B (1000, T = 300: 16-byte stores of the
-    output tiles) and at B = 2,100 (T = 67: a partial slab and tile)."""
+    """B4's two passes (the wrapper) are within the adjoint's budget (2e-5,
+    scaled) of plain for g_vin, G and g_z0, at a ragged B (1000, T = 300:
+    16-byte stores of the output tiles) and at B = 2,100 (T = 67: a partial
+    slab and tile).  tests/test_torch_clipper_kernels.py holds the passes to
+    a one-pass walk's bits on the host."""
     for b, t in ((1000, 300), (2100, 67)):
         _, mlp, vin, z0, r_rows = _train_inputs(cuda, n_layers, width, b, t, seed=width + 6)
         _, _, a_seq = fc.launch_train_fwd(vin, z0, mlp, r_rows, TRAIN_CAP, fs=TRAIN_FS)
         g_out, g_zf = _inputs(cuda, b, t, seed=width + 7)
         args = (a_seq, g_out, g_zf, r_rows, mlp, TRAIN_CAP)
         got = ct.clipper_adjoint(*args, fs=TRAIN_FS)
-        want = ct.launch_adjoint_onepass(*args, fs=TRAIN_FS)
+        want = ct.clipper_adjoint_plain(*args, fs=TRAIN_FS)
         for g, w in zip(got, want):
-            assert torch.equal(g, w), b
+            _close_scaled(g, w)
     torch.cuda.synchronize()
     assert ct.clipper_adjoint.launches == 2
 
@@ -522,66 +517,53 @@ def test_deer_kernel_chains_blocks_and_flags_180_ohm(deer_cuda):
     assert pd.fused_deer_clipper.launches == 4
 
 
-def _deer_solve(pd, vin, form, sweeps=8, iters=3, r_src=R_SRC, z0=0.2, relax=2):
-    """One B5 launch as ``form``: the served kernel at pd.CLUSTER, else a
-    comparison form of ops/deer_forms.py (8 CTAs, or df.ONE_CTA)."""
-    from diffwdf_tpu_torch.ops import deer_forms as df
-
+def _deer_solve(pd, vin, sweeps=8, iters=3, r_src=R_SRC, z0=0.2, relax=2):
+    """One launch of B5's served kernel (``pd.launch``, not counted)."""
     out, zf, res = (torch.empty_like(vin), torch.empty((), device=vin.device),
                     torch.empty((), device=vin.device))
     consts = pd._analytic_constants(r_src, CAP, FS, *_deer_args(r_src)[2:])
     s0 = torch.full((), z0, device=vin.device)
-    args = (vin, s0, out, zf, res, vin.shape[0] // 1024, consts, sweeps, relax, iters)
-    if form == pd.CLUSTER:
-        pd.launch(*args)
-    else:
-        df.clipper_launch(form, *args)
+    pd.launch(vin, s0, out, zf, res, vin.shape[0] // 1024, consts, sweeps, relax, iters)
     return out, zf, res
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cluster", [8, 16])
 @pytest.mark.parametrize("blocks", [1, 2, 16, 64])
-def test_deer_cluster_kernel_matches_plain_and_one_cta_kernel(deer_cuda, blocks, cluster):
-    """B5 on a cluster (16 CTAs, served; 8, its comparison form) at T =
-    1024 blocks: 1e-6 of plain; with no sweep the one-CTA kernel's bits,
-    with 8 sweeps within 1e-6 of it (another scan order); one counted
-    launch through the wrapper."""
-    from diffwdf_tpu_torch.ops import deer_forms as df
-
+def test_deer_cluster_kernel_matches_plain_and_one_cta_kernel(deer_cuda, blocks):
+    """B5 on its cluster of 16 CTAs at T = 1024 blocks: 1e-6 of plain with 8
+    sweeps and with none (the relaxations and the emit pass alone; the CPU
+    tests hold that case to a one-thread walk's bits); one counted launch
+    through the wrapper, with the launch's bits."""
     dev, pd = deer_cuda
     T = 1024 * blocks
     vin = torch.from_numpy(np.random.default_rng(blocks).standard_normal(T)
                            .astype(np.float32) * 2).to(dev)
-    got = _deer_solve(pd, vin, cluster)
+    got = _deer_solve(pd, vin)
     want = pd.fused_deer_clipper_plain(vin, *_deer_args(), fs=FS, z0=0.2)
-    bare, bare_z, bare_r = _deer_solve(pd, vin, cluster, sweeps=0)
-    one, one_z, one_r = _deer_solve(pd, vin, df.ONE_CTA, sweeps=0)
-    before = _deer_solve(pd, vin, df.ONE_CTA)
+    bare = _deer_solve(pd, vin, sweeps=0)
+    bare_want = pd.fused_deer_clipper_plain(vin, *_deer_args(), fs=FS, z0=0.2, sweeps=0)
     torch.cuda.synchronize()
     _close(got[0], want[0], 1e-6)
     _close(got[1], want[1], 1e-6)
-    assert torch.equal(bare, one) and torch.equal(bare_z, one_z) and torch.equal(bare_r, one_r)
-    _close(got[0], before[0], 1e-6)
+    _close(bare[0], bare_want[0], 1e-6)
+    _close(bare[1], bare_want[1], 1e-6)
     out, _, _ = pd.fused_deer_clipper(vin, *_deer_args(), fs=FS, z0=0.2)
     torch.cuda.synchronize()
     assert pd.fused_deer_clipper.launches == 1
-    if cluster == pd.CLUSTER:
-        assert torch.equal(out, got[0])
+    assert torch.equal(out, got[0])
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cluster", [8, 16])
-def test_deer_cluster_kernel_chains_blocks_and_flags_180_ohm(deer_cuda, cluster):
+def test_deer_cluster_kernel_chains_blocks_and_flags_180_ohm(deer_cuda):
     """Two chained blocks equal one solve within the suite's 2e-6
     (tests/test_parallel_time_deer.py:89); R = 180 Ohm is still flagged."""
     dev, pd = deer_cuda
     vin = torch.from_numpy(np.random.default_rng(17).standard_normal(4096)
                            .astype(np.float32) * 2).to(dev)
-    full = _deer_solve(pd, vin, cluster)
-    a = _deer_solve(pd, vin[:2048], cluster)
-    b = _deer_solve(pd, vin[2048:], cluster, z0=float(a[1]))
-    _, _, res = _deer_solve(pd, vin[:2048], cluster, r_src=180.0)
+    full = _deer_solve(pd, vin)
+    a = _deer_solve(pd, vin[:2048])
+    b = _deer_solve(pd, vin[2048:], z0=float(a[1]))
+    _, _, res = _deer_solve(pd, vin[:2048], r_src=180.0)
     torch.cuda.synchronize()
     _close(torch.cat([a[0], b[0]]), full[0], 2e-6)
     assert float(res) > 1e-2
@@ -590,10 +572,7 @@ def test_deer_cluster_kernel_chains_blocks_and_flags_180_ohm(deer_cuda, cluster)
 @pytest.mark.gpu
 def test_deer_refused_cluster_launch_raises(deer_cuda):
     """A launch the library refuses raises with CUDA's message (arguments
-    it rejects), and a form that was never built is refused before any
-    launch; nothing runs in their place and nothing is counted."""
-    from diffwdf_tpu_torch.ops import deer_forms as df
-
+    it rejects); nothing runs in its place and nothing is counted."""
     dev, pd = deer_cuda
     vin = torch.zeros(2048, device=dev)
     out = torch.full_like(vin, 7.0)
@@ -603,12 +582,10 @@ def test_deer_refused_cluster_launch_raises(deer_cuda):
     with pytest.raises(RuntimeError, match="CUDA error"):
         pd.launch(*args, 0, consts, 8, 2, 3)
     with pytest.raises(RuntimeError, match="CUDA error"):
-        df.clipper_launch(df.C8, *args, 2, consts, -1, 2, 3)
-    with pytest.raises(ValueError, match="no DEER comparison form"):
-        df.clipper_launch(32, *args, 2, consts, 8, 2, 3)
+        pd.launch(*args, 2, consts, -1, 2, 3)
     torch.cuda.synchronize()
     assert bool((out == 7.0).all()) and pd.fused_deer_clipper.launches == 0
-    assert df.clipper_max_clusters() >= 1 and pd.max_active_clusters() >= 1
+    assert pd.max_active_clusters() >= 1
 
 
 @pytest.mark.gpu
@@ -1139,11 +1116,11 @@ def test_wrapper_picks_lanes_by_batch(circuit_cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,b", [("ts_2x16", 1024), ("ts_2x16", 375), ("ts_2x16_row", 375)])
 def test_two_pass_adjoint_matches_one_pass_kernel_and_plain(circuit_cuda, name, b, monkeypatch):
-    """B8's two passes at the training shapes against the one-pass kernel
-    (today's arithmetic: the same bits) and against the autograd VJP of the
-    plain step (relative 1e-4, 3e-4 with pots); and cut into time chunks
-    under a small scratch cap, the same bits again, the root's streams
-    included."""
+    """B8's two passes at the training shapes against the autograd VJP of
+    the plain step (relative 1e-4, 3e-4 with pots); and cut into time chunks
+    under a small scratch cap, the whole call's bits, the root's streams
+    included.  tests/test_torch_codegen.py holds the passes to the one-pass
+    step's bits on the host."""
     from diffwdf_tpu_torch.ops import circuit_codegen as cg
     from diffwdf_tpu_torch.ops import parallel_bptt as pb
 
@@ -1162,7 +1139,6 @@ def test_two_pass_adjoint_matches_one_pass_kernel_and_plain(circuit_cuda, name, 
     prep = fcirc.prepare(ckt, tree, dev, input_node=node, neural_mlp=mlp, row_controls=rows,
                          shape=(b, t))
     zseq, lam_t = torch.stack(seq).contiguous(), torch.stack(lam_T).contiguous()
-    one = pb.launch_adjoint_onepass(ckt, prep, vin, g_out, zseq, lam_t)
     monkeypatch.setattr(cg.AdjointProgram, "SCRATCH_CAP_BYTES", 16 * 2 ** 20)
     assert cg.adjoint_program(ckt, prep.prog).chunk(b, t) < t
     streams = (torch.empty_like(vin), torch.empty_like(vin))
@@ -1170,8 +1146,7 @@ def test_two_pass_adjoint_matches_one_pass_kernel_and_plain(circuit_cuda, name, 
     want = pb.fused_backward_plain(ckt, tree, vin, g_out, seq, lam_T, **kw)
     torch.cuda.synchronize()
     assert pb.fused_backward.launches == 2
-    for x, y, z in zip((torch.stack(got[0]), got[1], torch.stack(got[2])), one, chunked):
-        assert torch.equal(x, y), float((x - y).abs().max())
+    for x, z in zip((torch.stack(got[0]), got[1], torch.stack(got[2])), chunked):
         assert torch.equal(x, z), float((x - z).abs().max())
     assert all(torch.equal(x, y) for x, y in zip(got[3][:2], streams))
     budget = 3e-4 if rows else 1e-4
@@ -1313,29 +1288,24 @@ def test_deer_circuit_kernel_rejects_and_keeps_cpu_plain(circuit_cuda):
     assert out.device.type == "cpu" and dc.fused_deer_circuit.launches == 0
 
 
-def _one_launch(dc, fcirc, ckt, params, node, mlp, vin, kw, form, s0=None, entry=None):
-    """B9 through ``launcher`` as ``form`` (the served kernel at dc.CLUSTER,
-    else a comparison form of ops/deer_forms.py): (out, zf, residual,
-    sweeps run)."""
-    from diffwdf_tpu_torch.ops import deer_forms as df
-
+def _one_launch(dc, fcirc, ckt, params, node, mlp, vin, kw, s0=None, entry=None):
+    """B9 through ``launcher``: (out, zf, residual, sweeps run)."""
     prep = fcirc.prepare(ckt, params, vin.device, input_node=node, neural_mlp=mlp)
     s0 = dc._state_vector(prep, ckt, None, vin) if s0 is None else s0
     args = (ckt, prep, vin, s0, vin.shape[0] // 1024, kw.get("sweeps", 8),
             kw.get("relax_passes", 2), kw.get("damping", 1.0), kw.get("adapt_tol", 0.0),
             entry or dc.fused_deer_circuit)
-    return (dc.launcher(*args) if form == dc.CLUSTER else df.circuit_launcher(form, *args))()
+    return dc.launcher(*args)()
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cluster", [8, 16])
 @pytest.mark.parametrize("blocks", [1, 2, 16, 64])
-def test_deer_circuit_cluster_kernel_at_sizes(circuit_cuda, blocks, cluster):
-    """B9 on a cluster (16 CTAs, served; 8, its comparison form), the Tube
-    Screamer at T = 1024 blocks: within 1e-4 of plain (both converged), the
-    one-CTA kernel's bits with no sweep and within 1e-4 of it with 8."""
+def test_deer_circuit_cluster_kernel_at_sizes(circuit_cuda, blocks):
+    """B9 on its cluster of 16 CTAs, the Tube Screamer at T = 1024 blocks:
+    within 1e-4 of plain with 8 sweeps (both converged) and with none (the
+    relaxations and the emit pass alone; the CPU tests hold that case to a
+    one-thread walk's bits)."""
     from diffwdf_tpu_torch.ops import deer_circuit as dc
-    from diffwdf_tpu_torch.ops import deer_forms as df
 
     dev, fcirc = circuit_cuda
     ckt, params, node, kw, _ = _deer_case("ts", 0, dev)
@@ -1345,27 +1315,22 @@ def test_deer_circuit_cluster_kernel_at_sizes(circuit_cuda, blocks, cluster):
     vin = torch.from_numpy(x.astype(np.float32)).to(dev)
     dc.fused_deer_circuit.launches = 0
     out, zf, res, n = (t.clone() for t in _one_launch(dc, fcirc, ckt, params, node, None, vin,
-                                                      kw, cluster))
+                                                      kw))
     p_out, _, p_res = dc.fused_deer_circuit_plain(ckt, params, vin, input_node=node)
-    bare = [t.clone() for t in _one_launch(dc, fcirc, ckt, params, node, None, vin,
-                                           {"sweeps": 0}, cluster)]
-    one = [t.clone() for t in _one_launch(dc, fcirc, ckt, params, node, None, vin,
-                                          {"sweeps": 0}, df.ONE_CTA)]
-    before = _one_launch(dc, fcirc, ckt, params, node, None, vin, kw, df.ONE_CTA)
+    bare = _one_launch(dc, fcirc, ckt, params, node, None, vin, {"sweeps": 0})
+    p_bare, _, _ = dc.fused_deer_circuit_plain(ckt, params, vin, input_node=node, sweeps=0)
     torch.cuda.synchronize()
-    assert dc.fused_deer_circuit.launches == 4 and float(n) == 8
-    assert all(torch.equal(a, b) for a, b in zip(bare, one))
+    assert dc.fused_deer_circuit.launches == 2 and float(n) == 8
+    _close(bare[0], p_bare, 1e-4)
     if float(p_res) < 1e-3:
         assert float(res) < 1e-3
         _close(out, p_out, 1e-4)
-        _close(out, before[0], 1e-4)
     else:  # 8 sweeps leave a long block unconverged: flagged, as plain is
         assert float(res) > 1e-3
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cluster", [8, 16])
-def test_deer_circuit_cluster_kernel_adaptive_count_and_chain(circuit_cuda, cluster):
+def test_deer_circuit_cluster_kernel_adaptive_count_and_chain(circuit_cuda):
     """The HPF's adaptive exit at JAX's 20 sweeps (numpy seed 2, 0.5 N(0, 1));
     two chained 2x8-clipper blocks equal one solve within the suite's 2e-6
     for chained DEER blocks (tests/test_parallel_time_deer.py:89): each is
@@ -1377,15 +1342,14 @@ def test_deer_circuit_cluster_kernel_adaptive_count_and_chain(circuit_cuda, clus
     ckt, params, node, kw, _ = _deer_case("hpf", 0, dev)
     quiet = torch.from_numpy((0.5 * np.random.default_rng(2).standard_normal(2048))
                              .astype(np.float32)).to(dev)
-    _, _, _, n = _one_launch(dc, fcirc, ckt, params, node, None, quiet, kw, cluster)
+    _, _, _, n = _one_launch(dc, fcirc, ckt, params, node, None, quiet, kw)
     assert float(n) == 20
     ckt, params, node, kw, vin = _deer_case("clip_2x8", 3, dev)
     mlp = params[ckt.root.name]
     x = torch.cat([vin, vin.flip(0)])
-    full = [t.clone() for t in _one_launch(dc, fcirc, ckt, params, node, mlp, x, kw, cluster)]
-    a = [t.clone() for t in _one_launch(dc, fcirc, ckt, params, node, mlp, x[:2048], kw,
-                                        cluster)]
-    b = _one_launch(dc, fcirc, ckt, params, node, mlp, x[2048:], kw, cluster, s0=a[1],
+    full = [t.clone() for t in _one_launch(dc, fcirc, ckt, params, node, mlp, x, kw)]
+    a = [t.clone() for t in _one_launch(dc, fcirc, ckt, params, node, mlp, x[:2048], kw)]
+    b = _one_launch(dc, fcirc, ckt, params, node, mlp, x[2048:], kw, s0=a[1],
                     entry=dc.fused_deer_neural)
     torch.cuda.synchronize()
     _close(torch.cat([a[0], b[0]]), full[0], 2e-6)
@@ -1394,11 +1358,8 @@ def test_deer_circuit_cluster_kernel_adaptive_count_and_chain(circuit_cuda, clus
 @pytest.mark.gpu
 def test_deer_circuit_refused_cluster_launch_raises(circuit_cuda):
     """A root array too large for shared memory is refused with CUDA's
-    message, by the served kernel and by its comparison forms, and a form
-    that was never built is refused before any launch: nothing runs in
-    their place and nothing is counted."""
+    message: nothing runs in its place and nothing is counted."""
     from diffwdf_tpu_torch.ops import deer_circuit as dc
-    from diffwdf_tpu_torch.ops import deer_forms as df
 
     dev, fcirc = circuit_cuda
     ckt, params, node, kw, vin = _deer_case("ts", 0, dev)
@@ -1407,15 +1368,11 @@ def test_deer_circuit_refused_cluster_launch_raises(circuit_cuda):
     dc.fused_deer_circuit.launches = 0
     huge = prep._replace(warr=torch.zeros(70000, device=dev))
     args = (ckt, huge, vin, s0, 2, 8, 2, 1.0, 0.0, dc.fused_deer_circuit)
-    for launch in (dc.launcher(*args), df.circuit_launcher(df.C8, *args),
-                   df.circuit_launcher(df.ONE_CTA, *args)):
-        with pytest.raises(RuntimeError, match="CUDA error"):
-            launch()
-    with pytest.raises(ValueError, match="no DEER comparison form"):
-        df.circuit_launcher(32, ckt, prep, vin, s0, 2, 8, 2, 1.0, 0.0, dc.fused_deer_circuit)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        dc.launcher(*args)()
     torch.cuda.synchronize()
     assert dc.fused_deer_circuit.launches == 0
-    assert df.circuit_max_clusters(ckt, prep) >= 1 and dc.max_active_clusters(ckt, prep) >= 1
+    assert dc.max_active_clusters(ckt, prep) >= 1
 
 
 # ---------------------------------------------------------------------------
@@ -1450,21 +1407,19 @@ def cheb_roots():
 def test_cheb_lane_kernel_matches_one_thread_kernel_and_plain(circuit_cuda, cheb_roots, degree,
                                                                n_seg, b, t):
     """B6's lane kernel (``cheb_lanes_kernel<D, K>``, K = 4 up to four
-    segments, else 8) gives the one-thread ``cheb_kernel<D>``'s bits, and
-    lies within 1e-5 of the plain version (the suite's distilled budget),
-    at every padded degree; two blocks with carried state equal one run
-    within 1e-6."""
+    segments, else 8) lies within 1e-5 of the plain version (the suite's
+    distilled budget) at every padded degree; two blocks with carried state
+    equal one run within 1e-6.  tests/test_torch_cheb_lanes.py holds the
+    lane step to the one-thread ``cheb_root<D>``'s bits on the host."""
     dev, _ = circuit_cuda
     root = cheb_roots[(degree, n_seg)]
     assert fc.cheb_parameters(root)[1] == degree and fc.cheb_lanes(n_seg) == (4 if n_seg <= 4
                                                                              else 8)
     vin, z0 = _inputs(dev, b, t, seed=degree + n_seg + b)
     got, got_z = fc.fused_clipper_cheb(vin, z0, root, R_SRC, CAP, fs=FS)
-    one, one_z = fc.launch_cheb_onethread(vin, z0, root, R_SRC, CAP, fs=FS)
     want, want_z = fc.fused_clipper_cheb_plain(vin, z0, root, R_SRC, CAP, fs=FS)
     torch.cuda.synchronize()
     assert fc.fused_clipper_cheb.launches == 1
-    assert torch.equal(got, one) and torch.equal(got_z, one_z)
     _close(got, want, 1e-5)
     _close(got_z, want_z, 1e-5)
     h = t // 3
@@ -1477,8 +1432,9 @@ def test_cheb_lane_kernel_matches_one_thread_kernel_and_plain(circuit_cuda, cheb
 
 @pytest.mark.gpu
 def test_cheb_kernels_keep_nan_in_the_same_places(circuit_cuda, distilled_root):
-    """A NaN, an infinite and an out-of-range input: the lane kernel and the
-    one-thread kernel give the same bits, NaN in the same places."""
+    """A NaN, an infinite and an out-of-range input: the lane kernel has NaN
+    and non-finite values in the same places as the plain version, and the
+    streams of ordinary input within 1e-5 of it."""
     dev, _ = circuit_cuda
     vin, z0 = _inputs(dev, 64, 256, seed=4)
     vin[0, 10] = float("nan")
@@ -1486,11 +1442,14 @@ def test_cheb_kernels_keep_nan_in_the_same_places(circuit_cuda, distilled_root):
     vin[2, 30] = 1e30
     vin[3, 40] = -25.0
     got, got_z = fc.fused_clipper_cheb(vin, z0, distilled_root, R_SRC, CAP, fs=FS)
-    one, one_z = fc.launch_cheb_onethread(vin, z0, distilled_root, R_SRC, CAP, fs=FS)
+    want, want_z = fc.fused_clipper_cheb_plain(vin, z0, distilled_root, R_SRC, CAP, fs=FS)
     torch.cuda.synchronize()
-    assert bool(got.isnan().any()) and torch.equal(got.isnan(), one.isnan())
-    assert torch.equal(got.view(torch.int32), one.view(torch.int32))
-    assert torch.equal(got_z.view(torch.int32), one_z.view(torch.int32))
+    assert bool(got.isnan().any()) and torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.isfinite(), want.isfinite())
+    assert torch.equal(got_z.isnan(), want_z.isnan())
+    assert torch.equal(got_z.isfinite(), want_z.isfinite())
+    _close(got[3:], want[3:], 1e-5)
+    _close(got_z[3:], want_z[3:], 1e-5)
 
 
 # the analytic roots served through B7: the Tube Screamer ("best" and the
@@ -2012,8 +1971,8 @@ def test_adjoint_circuit_kernel_on_the_distilled_root(circuit_cuda, distilled_ro
                                                       monkeypatch):
     """B7's training form and B8 (pass 1 on cheb_root_tangent) on the
     distilled clipper against their plain versions (the adjoint 1e-4
-    relative, 3e-4 with a per-row R, tests/test_parallel_bptt.py:303,537),
-    the two passes the one-pass kernel's bits, whole and in time chunks."""
+    relative, 3e-4 with a per-row R, tests/test_parallel_bptt.py:303,537);
+    cut into time chunks, the two passes give the whole call's bits."""
     from diffwdf_tpu_torch.models.diode_clipper import make_diode_clipper
     from diffwdf_tpu_torch.ops import circuit_codegen as cg
     from diffwdf_tpu_torch.ops import parallel_bptt as pb
@@ -2041,7 +2000,6 @@ def test_adjoint_circuit_kernel_on_the_distilled_root(circuit_cuda, distilled_ro
     got = pb.fused_backward(ckt, params, vin, g_out, seq, lam_T, **kw)
     want = pb.fused_backward_plain(ckt, params, vin, g_out, seq, lam_T, **kw)
     prep = fcirc.prepare(ckt, params, dev, shape=(b, t), **kw)
-    one = pb.launch_adjoint_onepass(ckt, prep, vin, g_out, torch.stack(seq), torch.stack(lam_T))
     adj = cg.adjoint_program(ckt, prep.prog)
     monkeypatch.setattr(cg.AdjointProgram, "SCRATCH_CAP_BYTES", 4 * adj.scratch_floats(b, 32))
     assert adj.chunk(b, t) == 32
@@ -2055,9 +2013,8 @@ def test_adjoint_circuit_kernel_on_the_distilled_root(circuit_cuda, distilled_ro
 
     assert rel(got[1], want[1]) < budget
     assert rel(got[0][0], want[0][0]) < budget and rel(got[2][0], want[2][0]) < budget
-    for two in (got, chunked):
-        assert torch.equal(two[1], one[1]) and torch.equal(two[0][0], one[0][0])
-        assert torch.equal(two[2][0], one[2][0])
+    assert torch.equal(chunked[1], got[1]) and torch.equal(chunked[0][0], got[0][0])
+    assert torch.equal(chunked[2][0], got[2][0])
 
 
 @pytest.mark.gpu
