@@ -1235,9 +1235,10 @@ def _param_pass(dev, card: str, mlp, adj_args, G) -> dict:
     ptxas = _ptxas_kernels("", _build.library_path().with_suffix(".log"),
                            r"\d+(param_\w+?_kernel)")
     ptxas = {k: v for k, v in ptxas.items() if k.startswith("param_")}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print("phase kernels ptxas param_vjp " + " | ".join(
-        f"{k}: {r} registers, {ss}/{sl} bytes spilled" for k, (r, ss, sl) in ptxas.items()),
-        flush=True)
+        f"{k}: {r} registers, {ss}/{sl} bytes spilled" for k, (r, ss, sl) in ptxas.items())
+        + f" | 2x16: {ct._param_ctas(dev.index or 0, 16, 2) // sms} blocks an SM", flush=True)
     _check(len(ptxas) == 4 and all(ss == sl == 0 for _, ss, sl in ptxas.values()),
            f"no spills in pass 3 (3 widths + the sum): {ptxas}")
     times = {}

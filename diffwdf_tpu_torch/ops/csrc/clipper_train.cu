@@ -44,16 +44,21 @@
 //     every (b, t) sample its own thread (the tangent; bound by the card's
 //     f32 rate), pass 2 walks the scalar recursion, ~10 operations a sample,
 //     on the pairs (m_t, go_t) that pass 1 stored.
-//   - Parameters (pass 3): bound by operations, 3,521 a sample for 2x16
+//   - Parameters (pass 3): its bound is operations, 3,521 a sample for 2x16
 //     (the forward at a_t and its backward, wdfbench/work/clipper_2x16.json
-//     param_vjp); it reads 8 bytes a sample (a_t, G_t) and writes the 609
-//     cotangents.  Every sample gets its own thread for its forward and
-//     backward, in registers; the weight cotangents, sums of outer products
-//     over samples, are taken a tile of 128 samples at a time from shared
-//     memory as small products whose depth is the sample axis (4 x 4 blocks
-//     in registers).  Persistent blocks walk the tiles, so nothing per
-//     sample reaches device memory; each block writes one partial, and a
-//     second launch adds the partials in a fixed order (no atomics: the
+//     param_vjp), though shared memory's passes pace it on the card; it
+//     reads 8 bytes a sample (a_t, G_t) and writes the 609 cotangents.
+//     Every sample gets its own lane for its forward and backward, in
+//     registers, and each warp sums the outer products of the samples its
+//     own lanes ran: after a __syncwarp every lane adds its fixed share of
+//     the cotangents over the warp's 32 records in shared memory, into sums
+//     it keeps in registers for the whole walk: one 4 x 8 block of a hidden
+//     layer's entries (4 x 4 at H = 4) with its bias sums, and one 1 x 4 unit
+//     of the first layer or the head, each over the share of the tile's
+//     samples that (H, L) leaves it, so that no lane sums a zero row.  No
+//     block barrier until the walk ends, nothing per sample in device
+//     memory; the block adds its warps' sums in warp order into one partial,
+//     and a second launch adds the partials in a fixed order (no atomics: the
 //     same bits on every call).  Float32 FMAs on the CUDA cores, no TF32.
 //
 // Numerics.  Exact f32 library calls only (tanhf, fmaf) and the trees'
@@ -337,101 +342,65 @@ adjoint_recursion_kernel(const float2* __restrict__ scratch, const float* __rest
 // Pass 3 (B4): the MLP parameters' cotangents
 // ---------------------------------------------------------------------------
 
-constexpr int kParamThreads = 128;  // threads of a pass-3 block: the most samples of a tile
+constexpr int kParamThreads = 128;  // threads of a pass-3 block at most: 4 warps
 
-// A tile's rows in shared memory, as rows of 16-byte words, one word a
-// sample (S samples and one word of padding a row): word c of slot r's row
-// vector (r = 0 .. 2L + 1: param_sample's h and d) is row r Q + c (Q = H /
-// 4); rows 2 (L + 1) Q and one more hold the per-sample vectors [a, log R,
-// 1, 0] and [dy, 0, 0, 0].  A thread writes its sample's words down a
-// column (its neighbours' words are the next ones: no bank conflict); a job
-// walks its two factors' rows along the samples, and the padding puts the
-// rows that a warp's threads read at once on different banks.
-template <int H>
-struct TileRows {
-  float4* tile;
-  int S, s;
-  __device__ __forceinline__ void put(int slot, const float (&v)[H]) {
-#pragma unroll
-    for (int c = 0; c < H / 4; ++c) {
-      tile[(slot * (H / 4) + c) * (S + 1) + s] =
-          make_float4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
-    }
-  }
-  __device__ __forceinline__ void get(int slot, float (&v)[H]) const {
-#pragma unroll
-    for (int c = 0; c < H / 4; ++c) {
-      const float4 x = tile[(slot * (H / 4) + c) * (S + 1) + s];
-      v[4 * c] = x.x;
-      v[4 * c + 1] = x.y;
-      v[4 * c + 2] = x.z;
-      v[4 * c + 3] = x.w;
-    }
-  }
-};
-
-// Slices of a tile's samples that a job's sums are split over: as many as
-// leave every thread of a block a job.
-__host__ __device__ __forceinline__ int param_slices(int jobs) {
-  return jobs < kParamThreads ? kParamThreads / jobs : 1;
-}
-
-// Shared memory of a pass-3 block with tiles of S samples, in 16-byte
-// words: the weights (lane_weight's copy), the tile's 2 (L + 1) Q + 2 rows
-// (TileRows), and the running sums, 20 floats a job and slice.
-template <int H>
-size_t param_smem(int L, int S) {
-  const int jobs = n_param_jobs<H>(L);
-  return 16 * (static_cast<size_t>(n_lane_weights<H>(L) + 3) / 4 +
-               static_cast<size_t>(2 * (L + 1) * (H / 4) + 2) * (S + 1) +
-               5 * param_slices(jobs) * jobs);
-}
-
-// Pass 3: block x walks tiles x, x + gridDim.x, ... of S consecutive samples
-// of the flat (B, T) streams.  Each thread runs one sample of the tile
+// Pass 3: warp w of the grid's W walks the flat (B, T) samples 32 at a time,
+// tiles w, w + W, ..., one sample a lane.  Each lane runs its sample
 // (param_sample: the forward at a and the backward from dy = -G, ~3,500
-// operations for 2x16, all in registers) and leaves its h and d vectors in
-// the tile's rows; then each thread takes one job (param_job, a 4 x 4 block
-// of one layer's outer products) over one slice of the tile's samples, a
-// small product with the samples as its depth: 16 FMAs per two 16-byte
-// shared-memory reads, the sum kept in registers over the slice (at most S
-// samples) and added to the job and slice's running sum in shared memory
-// once a tile.  At the end the slices' sums are added in order and written
-// as the block's partial (n_param_leaves floats).  Nothing per sample goes
-// to device memory.
+// operations for 2x16, all in registers) and leaves it in its record in the
+// warp's own slice of shared memory; after a __syncwarp each lane adds the
+// outer products of its block and its unit (param_job), each over its share
+// of the tile's samples, to sums it holds in registers for the whole walk: a
+// tile's sum in sample order first, then added to the running sum.  No block
+// barrier in the walk and no sum in shared memory.  At the end, one barrier:
+// the block adds its warps' sums, and a job's shares, in a fixed order and
+// writes its one partial (n_param_leaves floats; group blockIdx.y writes the
+// leaves of its blocks).  Nothing per sample goes to device memory.  The
+// walk is bound by shared memory's bandwidth (a 16-byte load of 32 lanes that
+// read different words takes four passes), not by residency, so the launch
+// bounds leave the registers to the sums and the sample (3 blocks an SM).
 template <int H>
-__global__ void __launch_bounds__(kParamThreads)
+__global__ void __launch_bounds__(kParamThreads, 3)
 param_cotangent_kernel(const float* __restrict__ a_seq, const float* __restrict__ G,
                        const float* __restrict__ log_r, float* __restrict__ partials,
                        long long N, long long tiles, int T, const float* __restrict__ weights,
-                       int L, int S) {
-  constexpr int Q = H / 4;
+                       int L) {
+  using Block = ParamSums<ParamBlock<H>::M, ParamBlock<H>::N>;
+  constexpr int kBlock = Block::kEntries, kUnit = ParamUnitSums::kEntries;
   extern __shared__ float4 param_smem4[];
   const int n_w = n_lane_weights<H>(L);
   float* sw = reinterpret_cast<float*>(param_smem4);
   for (int i = threadIdx.x; i < n_w; i += blockDim.x) sw[i] = lane_weight<H>(weights, i);
-  float4* tile = param_smem4 + (n_w + 3) / 4;
-  const int vec_row = 2 * (L + 1) * Q;  // [a, log R, 1, 0]; the next row [dy, 0, 0, 0]
-  float* run = reinterpret_cast<float*>(tile + (vec_row + 2) * (S + 1));
-  const int jobs = n_param_jobs<H>(L);
-  const int slices = param_slices(jobs);
-  for (int i = threadIdx.x; i < 20 * slices * jobs; i += blockDim.x) run[i] = 0.f;
+  const int stride = param_record_floats<H>(L);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
+  float* slice = reinterpret_cast<float*>(param_smem4 + (n_w + 3) / 4) +
+                 warp * param_slice_floats<H>(L);
   __syncthreads();
-  // this thread's sample (b, t) of tile x, stepped on by gridDim.x S samples a
-  // tile (32-bit arithmetic: a 64-bit division is a call, and its saved
+  // the block's and the unit's factors in a record (their leaves are found
+  // again at the end, so that they take no registers in the walk)
+  const ParamJob bj0 = param_job<H>(L, blockIdx.y, lane, 0);
+  const ParamJob uj0 = param_job<H>(L, blockIdx.y, lane, 1);
+  const int bx = bj0.x, by = bj0.y, ux = uj0.x, uy = uj0.y;
+  // the lane's shares of a tile: the block's samples b0 .. b0 + per - 1 (per
+  // = 32 / S), the unit's u0 .. u0 + H - 1
+  const int per = 32 / param_plan<H>(L).S, b0 = lane / per * per, u0 = lane / H * H;
+  Block block = {};
+  ParamUnitSums unit = {};
+  // this lane's sample (b, t) of tile x, stepped on by W 32 samples a tile
+  // (32-bit arithmetic: a 64-bit division is a call, and its saved
   // registers spill)
-  const int step = gridDim.x * S, n_first = blockIdx.x * S + threadIdx.x;
+  const int gw = blockIdx.x * warps + warp, n_warps = gridDim.x * warps;
+  const int step = n_warps * 32, n_first = gw * 32 + lane;
   int b = n_first / T, t = n_first % T;
   const int db = step / T, dt = step % T;
-  for (long long x = blockIdx.x; x < tiles; x += gridDim.x) {
-    const long long n0 = x * S;
-    const int valid = static_cast<int>(min(static_cast<long long>(S), N - n0));
-    if (static_cast<int>(threadIdx.x) < valid) {
-      const float a = a_seq[n0 + threadIdx.x], lr = log_r[b], dy = -G[n0 + threadIdx.x];
-      TileRows<H> rows{tile, S, static_cast<int>(threadIdx.x)};
-      param_sample<H>(a, lr, dy, sw, L, rows);
-      tile[vec_row * (S + 1) + threadIdx.x] = make_float4(a, lr, 1.f, 0.f);
-      tile[(vec_row + 1) * (S + 1) + threadIdx.x] = make_float4(dy, 0.f, 0.f, 0.f);
+  for (long long x = gw; x < tiles; x += n_warps) {
+    const long long n0 = x * 32;
+    const int valid = static_cast<int>(min(32LL, N - n0));
+    if (lane < valid) {
+      const float a = a_seq[n0 + lane], lr = log_r[b], dy = -G[n0 + lane];
+      ParamRecord<H> rec{slice + lane * stride};
+      param_sample<H>(a, lr, dy, sw, L, rec);
+      reinterpret_cast<float4*>(rec.rec + (2 * L + 2) * H)[0] = make_float4(a, lr, 1.f, dy);
     }
     b += db;
     t += dt;
@@ -439,34 +408,42 @@ param_cotangent_kernel(const float* __restrict__ a_seq, const float* __restrict_
       t -= T;
       ++b;
     }
-    __syncthreads();
-    for (int q = threadIdx.x; q < slices * jobs; q += blockDim.x) {
-      const ParamJob job = param_job<H>(q % jobs, L);
-      const int p = q / jobs, lo = p * S / slices;
-      const int hi = min((p + 1) * S / slices, valid);
-      const float4* u = tile + (job.u < 0 ? vec_row : job.u * Q + job.ib) * (S + 1);
-      const float4* v = tile + (job.v < 0 ? vec_row + 1 : job.v * Q + job.kb) * (S + 1);
-      float r[20] = {};
-#pragma unroll 4
-      for (int s = lo; s < hi; ++s) param_accumulate(u[s], v[s], r);
-      float4* mine = reinterpret_cast<float4*>(run) + 5 * q;  // an odd stride of words
+    __syncwarp();  // the tile's records are written
+    param_accumulate(slice, stride, b0, min(b0 + per, valid), bx, by, block);
+    param_accumulate(slice, stride, u0, min(u0 + H, valid), ux, uy, unit);
+    __syncwarp();  // every lane has read them
+  }
+  // each warp leaves its sums in its slice, entry e of a lane at e 32 + lane
+  // (its block's, then its unit's); the first warp adds them in warp order,
+  // a job's shares in lane order within each warp, and writes the partial
+  float* sums = slice + param_slice_floats<H>(L) - 32 * (kBlock + kUnit);
 #pragma unroll
-      for (int c = 0; c < 5; ++c) {
-        const float4 m = mine[c];
-        mine[c] = make_float4(m.x + r[4 * c], m.y + r[4 * c + 1], m.z + r[4 * c + 2],
-                              m.w + r[4 * c + 3]);
+  for (int e = 0; e < kBlock; ++e) sums[e * 32 + lane] = param_entry(block, e);
+#pragma unroll
+  for (int e = 0; e < kUnit; ++e) sums[(kBlock + e) * 32 + lane] = param_entry(unit, e);
+  __syncthreads();
+  if (warp > 0) return;
+  float* out = partials + static_cast<size_t>(blockIdx.x) * n_param_leaves<H>(L);
+  auto add = [&](int e, int shares, int apart) {
+    float s = 0.f;
+    for (int w = 0; w < warps; ++w) {
+      for (int p = 0; p < shares; ++p) {
+        s += sums[w * param_slice_floats<H>(L) + e * 32 + lane + p * apart];
       }
     }
-    __syncthreads();
+    return s;
+  };
+  const ParamJob bj = param_job<H>(L, blockIdx.y, lane, 0);
+#pragma unroll
+  for (int e = 0; e < kBlock; ++e) {
+    const int leaf = param_leaf<H, ParamBlock<H>::M, ParamBlock<H>::N>(bj, e);
+    if (leaf >= 0) out[leaf] = add(e, 32 / per, per);
   }
-  const int n_leaves = n_param_leaves<H>(L);
-  for (int i = threadIdx.x; i < 20 * jobs; i += blockDim.x) {
-    const int j = i / 20, e = i % 20;
-    const int leaf = param_leaf<H>(j, L, e);
-    if (leaf < 0) continue;
-    float s = 0.f;
-    for (int p = 0; p < slices; ++p) s += run[20 * (p * jobs + j) + e];
-    partials[static_cast<size_t>(blockIdx.x) * n_leaves + leaf] = s;
+  const ParamJob uj = param_job<H>(L, blockIdx.y, lane, 1);
+#pragma unroll
+  for (int e = 0; e < kUnit; ++e) {
+    const int leaf = param_leaf<H, 1, 4>(uj, e);
+    if (leaf >= 0) out[leaf] = add(kBlock + e, param_unit_shares(H), H);
   }
 }
 
@@ -492,7 +469,8 @@ cudaError_t launch(Kernel kernel, int blocks, size_t smem, cudaStream_t stream, 
 }
 
 // Calls f(std::integral_constant<int, H>) for the widths the one-thread
-// kernels and pass 1 are compiled for; any other H is an invalid value.
+// kernels and the adjoint's three passes are compiled for; any other H is an
+// invalid value.
 template <typename F>
 cudaError_t by_width(int H, F f) {
   switch (H) {
@@ -503,19 +481,20 @@ cudaError_t by_width(int H, F f) {
   }
 }
 
-// Pass 3's tile at (H, L): the most samples S (up to kParamThreads) whose
-// shared memory (param_smem) fits a block of this card; lets the kernel
-// take it.
-template <int H>
-cudaError_t param_config(int L, int& S, size_t& smem) {
+// Pass 3's block at (H, L): the most warps (4, 2 or 1) whose shared memory,
+// the weights (lane_weight's copy) and a slice a warp (param_slice_floats),
+// fits a block of this card; lets the kernel take it.
+template <int W>
+cudaError_t param_config(int L, int& warps, size_t& smem) {
   int dev, most;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return e;
-  for (S = kParamThreads; S > 0; S /= 2) {
-    smem = param_smem<H>(L, S);
+  for (warps = kParamThreads / 32; warps > 0; warps /= 2) {
+    smem = 16 * static_cast<size_t>((n_lane_weights<W>(L) + 3) / 4) +
+           sizeof(float) * warps * static_cast<size_t>(param_slice_floats<W>(L));
     if (smem <= static_cast<size_t>(most)) {
-      return allow_smem(reinterpret_cast<const void*>(param_cotangent_kernel<H>), smem);
+      return allow_smem(reinterpret_cast<const void*>(param_cotangent_kernel<W>), smem);
     }
   }
   return cudaErrorInvalidValue;
@@ -591,14 +570,15 @@ int clipper_recursion_launch(const float* scratch, const float* g_zf, const floa
 // B4 pass 3: the blocks pass 3 runs at most for (H, L), as many as this card
 // holds resident at once; the caller's partials hold that many rows.
 int clipper_param_ctas(int H, int L, int* ctas) {
+  if (L < 1) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(by_width(H, [&](auto h) {
     constexpr int W = decltype(h)::value;
-    int S, per_sm = 0, dev, sms;
+    int warps, per_sm = 0, dev, sms;
     size_t smem;
-    cudaError_t e = param_config<W>(L, S, smem);
+    cudaError_t e = param_config<W>(L, warps, smem);
     if (e == cudaSuccess) {
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, param_cotangent_kernel<W>,
-                                                        kParamThreads, smem);
+                                                        32 * warps, smem);
     }
     if (e == cudaSuccess) e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -619,15 +599,17 @@ int clipper_param_launch(const float* a_seq, const float* G, const float* log_r,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(by_width(H, [&](auto h) {
     constexpr int W = decltype(h)::value;
-    int S;
+    int warps;
     size_t smem;
-    cudaError_t e = param_config<W>(L, S, smem);
+    cudaError_t e = param_config<W>(L, warps, smem);
     if (e != cudaSuccess) return e;
     const long long N = static_cast<long long>(B) * T;
-    const long long tiles = (N + S - 1) / S;
-    const int blocks = tiles < max_ctas ? static_cast<int>(tiles) : max_ctas;
-    param_cotangent_kernel<W><<<blocks, kParamThreads, smem, s>>>(a_seq, G, log_r, partials, N,
-                                                                  tiles, T, weights, L, S);
+    const long long tiles = (N + 31) / 32;
+    const long long want = (tiles + warps - 1) / warps;
+    const int blocks = want < max_ctas ? static_cast<int>(want) : max_ctas;
+    const dim3 grid(blocks, param_plan<W>(L).G);
+    param_cotangent_kernel<W><<<grid, 32 * warps, smem, s>>>(a_seq, G, log_r, partials, N, tiles,
+                                                             T, weights, L);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
     const int n = n_param_leaves<W>(L);

@@ -1,7 +1,8 @@
 // Per-sample functions of the clipper's training kernels (clipper_train.cu):
 // the forward step, which the lane kernel and the one-thread kernel share;
 // the tangent of pass 1; the reverse step of pass 2; the scratch layout; pass
-// 3's forward and backward of one sample and the jobs of its sums.  The
+// 3's forward and backward of one sample, its record, and how a warp's lanes
+// share its sums (the plan, each lane's jobs, their sums).  The
 // CPU tests compile them on the host (a stand-in cuda_runtime.h defines the
 // CUDA qualifiers away).
 //
@@ -146,9 +147,10 @@ __host__ __device__ __forceinline__ size_t adjoint_scratch_index(int b, int t, i
 //   hidden l     h_l (x) d_{l+1}            -> kernel_l; the sum of d_{l+1} -> bias_l,
 //   head         h_{L+1} dy                 -> the head's kernel; the sum of dy -> its bias.
 // param_sample runs one sample and hands its h and d vectors to `rows`
-// (slot l - 1 holds h_l, slot L + l holds d_l); the kernel sums the outer
-// products over a tile of samples in jobs of 4 x 4 entries (param_job),
-// each with the sum of its right factor beside it (the biases).
+// (slot l - 1 holds h_l, slot L + l holds d_l); the kernel keeps them in the
+// sample's record (ParamRecord) beside [a, log R, 1, dy], and the lanes of
+// the warp that ran the sample add its outer products to sums they hold in
+// registers (param_job: each lane its fixed share of the cotangents).
 
 // rows.put(slot, v) / rows.get(slot, v): one sample's H floats of a slot.
 // w: the lane kernel's copy of the weights (lane_weight: the hidden layers
@@ -211,57 +213,165 @@ __host__ __device__ constexpr int n_param_leaves(int L) {
   return 3 * H + L * (H * H + H) + H + 1;
 }
 
-// Jobs of a tile's sums, Q = H / 4 blocks of 4 entries a side: the first
-// layer's Q (left factor [a, log R, 1, 0], right d_1's block kb), each
-// hidden layer's Q^2 (h_l's block ib, d_{l+1}'s block kb), the head's Q
-// (h_{L+1}'s block ib, right [dy, 0, 0, 0]).  u, v: the factors' slots, -1
-// for the per-sample vectors.
-struct ParamJob {
-  int u, v, ib, kb;
+// One sample's record: slot r (param_sample's) at floats r H .. r H + H - 1,
+// r = 0 .. 2L + 1, then the word [a, log R, 1, dy].  Its length is an odd
+// number of 16-byte words, so that 8 lanes writing their records' same word
+// at once fall on 8 different bank groups.
+template <int H>
+__host__ __device__ constexpr int param_record_floats(int L) {
+  return (2 * L + 2) * H + 4;
+}
+
+template <int H>
+struct ParamRecord {
+  float* rec;
+  __device__ __forceinline__ void put(int slot, const float (&v)[H]) {
+#pragma unroll
+    for (int c = 0; c < H / 4; ++c) {
+      reinterpret_cast<float4*>(rec + slot * H)[c] =
+          float4{v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]};
+    }
+  }
+  __device__ __forceinline__ void get(int slot, float (&v)[H]) const {
+    nxh_load<H>(rec + slot * H, v);
+  }
+};
+
+// How the lanes of a warp share the cotangents at (H, L).  The hidden
+// layers' kernels split into blocks of M x N entries (M = 4 consecutive rows
+// i of h_l against N consecutive entries k of d_{l+1}: kernel_l's (i, k)),
+// each with the sum of its N entries of d_{l+1} beside it (bias_l, kept
+// where the block's rows start at 0); the rest into units: a scalar against
+// a 4-entry chunk, with the sum of the chunk beside it, the first layer's a
+// and log R against d_1 (kernel0's two rows; the sum of d_1 is bias0), the
+// head's dy against h_{L+1} (its kernel), and 1 against [a, log R, 1, dy]
+// (the sum of dy: the head's bias), 3 Q + 1 units (Q = H / 4) on 4 Q lanes.
+// A lane holds one block and one unit.  A block's S lanes (param_plan: the
+// largest power of 2 that leaves S times the blocks within 32) and a unit's
+// 32 / (4 Q) lanes share a tile's samples, each summing over its share of
+// them, so that each lane holds the same number of sums (no zero rows) and
+// loads as few words for them as its registers allow (shared memory's
+// bandwidth bounds the kernel).  Lanes past the last block or unit repeat a
+// sum that is not kept.  Where the blocks outnumber the lanes, G groups of
+// them (blockIdx.y) each take 32, every group running the samples again
+// (the units in group 0).
+template <int H>
+struct ParamBlock {
+  static constexpr int M = 4, N = H < 8 ? H : 8;
+};
+
+struct ParamPlan {
+  int S, G;  // lanes a block (and samples a share: 32 / S); groups
 };
 
 template <int H>
-__host__ __device__ constexpr int n_param_jobs(int L) {
-  return 2 * (H / 4) + L * (H / 4) * (H / 4);
+__host__ __device__ constexpr ParamPlan param_plan(int L) {
+  const int blocks = L * (H / ParamBlock<H>::M) * (H / ParamBlock<H>::N);
+  int S = 32;
+  while (S > 1 && blocks * S > 32) S /= 2;
+  return {S, (blocks + 31) / 32};
 }
 
+// Lanes sharing one unit at width H (a share is H samples of a tile).
+__host__ __device__ constexpr int param_unit_shares(int H) { return 32 / H; }
+
+// One job of a lane: its left factor at float x of a record (M floats for a
+// block, 1 for a unit), its right factor at float y (N floats, 4 for a
+// unit), and where its sums go among the n_param_leaves: product (i, k) at
+// leaf + i H + k (only >= 0: product (0, only) alone, at leaf), the right
+// factor's sum k at row + k; each -1 for nowhere.  Only the first lane of a
+// job's shares keeps its sums: the others' are added to them.
+struct ParamJob {
+  int x, y, leaf, row, only;
+};
+
+// The block (q == 0) or the unit (q == 1) of `lane` in group g at (H, L).
 template <int H>
-__host__ __device__ __forceinline__ ParamJob param_job(int j, int L) {
-  constexpr int Q = H / 4;
-  if (j < Q) return {-1, L + 1, 0, j};
-  j -= Q;
-  if (j < L * Q * Q) return {j / (Q * Q), L + 2 + j / (Q * Q), j % (Q * Q) / Q, j % Q};
-  return {L, -1, j - L * Q * Q, 0};
+__host__ __device__ __forceinline__ ParamJob param_job(int L, int g, int lane, int q) {
+  constexpr int Q = H / 4, M = ParamBlock<H>::M, N = ParamBlock<H>::N;
+  const int vec = (2 * L + 2) * H;  // [a, log R, 1, dy]
+  if (q == 0) {
+    const ParamPlan plan = param_plan<H>(L);
+    const int per = 32 / plan.S, j = g * per + lane % per, per_layer = H / M * (H / N);
+    const bool keeps = lane < per;
+    if (j >= L * per_layer) return {0, 0, -1, -1, -1};
+    const int l = j / per_layer, ib = j % per_layer / (H / N), kb = j % (H / N);
+    const int base = 3 * H + l * (H * H + H);
+    return {l * H + M * ib, (L + 2 + l) * H + N * kb, keeps ? base + M * ib * H + N * kb : -1,
+            keeps && ib == 0 ? base + H * H + N * kb : -1, -1};
+  }
+  const int u = lane % (4 * Q), head = 3 * H + L * (H * H + H);
+  const bool keeps = lane < 4 * Q;
+  if (g > 0 || u > 3 * Q) return {vec + 2, vec, -1, -1, -1};
+  if (u < 2 * Q) {
+    const int r = u / Q, c = u % Q;  // a or log R against d_1's chunk c
+    return {vec + r, (L + 1) * H + 4 * c, keeps ? r * H + 4 * c : -1,
+            keeps && r == 0 ? 2 * H + 4 * c : -1, -1};
+  }
+  if (u < 3 * Q) {
+    const int c = u - 2 * Q;  // dy against h_{L+1}'s chunk c
+    return {vec + 3, L * H + 4 * c, keeps ? head + 4 * c : -1, -1, -1};
+  }
+  return {vec + 2, vec, keeps ? head + H : -1, -1, 3};  // 1 against [a, log R, 1, dy]
 }
 
-// r[4 ii + kk] += u[ii] v[kk]; r[16 + kk] += v[kk].
-__device__ __forceinline__ void param_accumulate(const float4& u, const float4& v, float (&r)[20]) {
-  const float us[4] = {u.x, u.y, u.z, u.w}, vs[4] = {v.x, v.y, v.z, v.w};
+// A job's sums: M x N products, then the right factor's N sums: entries
+// e = 0 .. kEntries - 1 of param_entry in that order.
+template <int M, int N>
+struct ParamSums {
+  static constexpr int kEntries = M * N + N;
+  float p[M][N], row[N];
+};
+
+using ParamUnitSums = ParamSums<1, 4>;
+
+// A warp's slice of shared memory at (H, L), in floats: its 32 records, and
+// room for a lane's sums, entry e of every lane at e 32 + lane, at the end.
+template <int H>
+__host__ __device__ constexpr int param_slice_floats(int L) {
+  constexpr int kSums = ParamSums<ParamBlock<H>::M, ParamBlock<H>::N>::kEntries +
+                        ParamUnitSums::kEntries;
+  return 32 * (param_record_floats<H>(L) > kSums ? param_record_floats<H>(L) : kSums);
+}
+
+// Where entry e of job j's sums (M x N) goes among the leaves, or -1.
+template <int H, int M, int N>
+__host__ __device__ __forceinline__ int param_leaf(const ParamJob& j, int e) {
+  if (e >= M * N) return j.row < 0 ? -1 : j.row + e - M * N;
+  if (j.leaf < 0 || (j.only >= 0 && e != j.only)) return -1;
+  return j.only >= 0 ? j.leaf : j.leaf + e / N * H + e % N;
+}
+
+template <int M, int N>
+__host__ __device__ __forceinline__ float& param_entry(ParamSums<M, N>& r, int e) {
+  return e < M * N ? r.p[e / N][e % N] : r.row[e - M * N];
+}
+
+// Adds to r the sums over the samples [s0, s1) of the records from rec on
+// (`stride` floats apart), u the M floats at x and v the N at y of a record:
+// u[i] v[k] and v[k], in sample order.
+template <int M, int N>
+__device__ __forceinline__ void param_accumulate(const float* rec, int stride, int s0, int s1,
+                                                 int x, int y, ParamSums<M, N>& r) {
+  float t[M][N] = {}, tr[N] = {};
+#pragma unroll 2
+  for (int s = s0; s < s1; ++s) {
+    float u[M], v[N];
+    nxh_load<M>(rec + s * stride + x, u);
+    nxh_load<N>(rec + s * stride + y, v);
 #pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
+    for (int k = 0; k < N; ++k) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) r[4 * ii + kk] = fmaf(us[ii], vs[kk], r[4 * ii + kk]);
+      for (int i = 0; i < M; ++i) t[i][k] = fmaf(u[i], v[k], t[i][k]);
+      tr[k] += v[k];
+    }
   }
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) r[16 + kk] += vs[kk];
-}
-
-// Where entry e of job j's sums r goes among the n_param_leaves, or -1 for
-// none (the first layer's fourth row, the bias sums of any job but a hidden
-// layer's or the head's first left block, the head's zero columns).
-template <int H>
-__host__ __device__ __forceinline__ int param_leaf(int j, int L, int e) {
-  constexpr int Q = H / 4;
-  if (j < Q) return e < 12 ? e / 4 * H + 4 * j + e % 4 : -1;
-  j -= Q;
-  if (j < L * Q * Q) {
-    const int base = 3 * H + j / (Q * Q) * (H * H + H), ib = j % (Q * Q) / Q, kb = j % Q;
-    if (e < 16) return base + (4 * ib + e / 4) * H + 4 * kb + e % 4;
-    return ib == 0 ? base + H * H + 4 * kb + e - 16 : -1;
+  for (int k = 0; k < N; ++k) {
+#pragma unroll
+    for (int i = 0; i < M; ++i) r.p[i][k] += t[i][k];
+    r.row[k] += tr[k];
   }
-  const int base = 3 * H + L * (H * H + H), ib = j - L * Q * Q;
-  if (e < 16) return e % 4 == 0 ? base + 4 * ib + e / 4 : -1;
-  return ib == 0 && e == 16 ? base + H : -1;
 }
 
 }  // namespace

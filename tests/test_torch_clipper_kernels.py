@@ -18,9 +18,13 @@ one-thread forward is within the suite's 2e-5 of
 ``fused_clipper_neural_train_fwd_plain`` and the
 one-pass adjoint within 2e-5 of scale of ``clipper_adjoint_plain``.  Pass 3
 (the MLP parameters' cotangents): one sample's forward and backward
-(``param_sample``) at every sample, summed by the kernel's jobs
-(``param_job``, ``param_accumulate``, ``param_leaf``), within 2e-5 of scale
-of autograd of the plain MLP at H = 4, 8, 16 and L = 1, 2.
+(``param_sample``) at every sample into its record, summed a tile of 32
+samples at a time by every lane's block and unit, each over its share of the
+tile (``param_plan``, ``param_job``, ``param_accumulate``, ``param_leaf``), as
+one warp of the kernel sums them, within 2e-5 of scale of autograd of the
+plain MLP at H = 4, 8, 16 and L = 1, 2 and at four L outside the families
+(two of them in two groups); the jobs' entries on every leaf once, and each
+family's plan.
 """
 
 import ctypes
@@ -43,6 +47,7 @@ FS, CAP = 48000.0, 4.7e-9
 FAMILIES = [(1, 16), (2, 4), (2, 8), (2, 16), (4, 4), (4, 8)]
 
 HARNESS = """
+#include <algorithm>
 #include <vector>
 
 #include "clipper_train.cuh"
@@ -137,56 +142,82 @@ static void adjoint_one_pass(const float* a_seq, const float* g_out, const float
   }
 }
 
-// pass 3's per-sample rows on the host: slot r of sample s at (r S + s) H
-template <int H>
-struct HostRows {
-  float* buf;
-  int S, s;
-  void put(int slot, const float (&v)[H]) {
-    for (int j = 0; j < H; ++j) buf[(static_cast<long>(slot) * S + s) * H + j] = v[j];
-  }
-  void get(int slot, float (&v)[H]) const {
-    for (int j = 0; j < H; ++j) v[j] = buf[(static_cast<long>(slot) * S + s) * H + j];
-  }
-};
-
-// pass 3 on the host: param_sample at every sample into the rows, then each
-// job's sums over all samples in order (param_accumulate), each entry
-// written to its leaf (param_leaf)
+// pass 3 on the host as one warp of the kernel walks the samples: a tile's
+// 32 samples into their records (param_sample, ParamRecord, the word [a,
+// log R, 1, dy]), then each lane's block and unit (param_job) in every
+// group, each over the lane's share of the tile, summed into the lane's sums
+// (param_accumulate); at the end each entry of a keeping lane written to its
+// leaf (param_leaf), the sum of its shares' entries in lane order
 template <int H>
 static void param_cotangents(const float* a, const float* log_r, const float* G, int B, int T,
-                             const float* w, int L, float* out, float* rows) {
+                             const float* w, int L, float* out) {
+  constexpr int M = ParamBlock<H>::M, N = ParamBlock<H>::N;
   std::vector<float> copy(n_lane_weights<H>(L));  // the kernel's shared-memory copy
   for (int i = 0; i < n_lane_weights<H>(L); ++i) copy[i] = lane_weight<H>(w, i);
-  const int N = B * T;
-  for (int n = 0; n < N; ++n) {
-    HostRows<H> r{rows, N, n};
-    param_sample<H>(a[n], log_r[n / T], -G[n], copy.data(), L, r);
-  }
-  auto word = [&](int slot, int n, int c) {
-    const float* x = rows + (static_cast<long>(slot) * N + n) * H + 4 * c;
-    return float4{x[0], x[1], x[2], x[3]};
-  };
-  for (int j = 0; j < n_param_jobs<H>(L); ++j) {
-    const ParamJob job = param_job<H>(j, L);
-    float r[20] = {};
-    for (int n = 0; n < N; ++n) {
-      const float4 u = job.u < 0 ? float4{a[n], log_r[n / T], 1.f, 0.f} : word(job.u, n, job.ib);
-      const float4 v = job.v < 0 ? float4{-G[n], 0.f, 0.f, 0.f} : word(job.v, n, job.kb);
-      param_accumulate(u, v, r);
+  const ParamPlan plan = param_plan<H>(L);
+  const int stride = param_record_floats<H>(L), n = B * T, per = 32 / plan.S;
+  std::vector<float> recs(32 * stride);
+  std::vector<ParamSums<M, N>> blocks(plan.G * 32, ParamSums<M, N>{});
+  std::vector<ParamUnitSums> units(plan.G * 32, ParamUnitSums{});
+  for (int n0 = 0; n0 < n; n0 += 32) {
+    const int valid = std::min(32, n - n0);
+    for (int s = 0; s < valid; ++s) {
+      ParamRecord<H> rec{recs.data() + s * stride};
+      param_sample<H>(a[n0 + s], log_r[(n0 + s) / T], -G[n0 + s], copy.data(), L, rec);
+      *reinterpret_cast<float4*>(rec.rec + (2 * L + 2) * H) =
+          float4{a[n0 + s], log_r[(n0 + s) / T], 1.f, -G[n0 + s]};
     }
-    for (int e = 0; e < 20; ++e) {
-      const int leaf = param_leaf<H>(j, L, e);
-      if (leaf >= 0) out[leaf] = r[e];
+    for (int g = 0; g < plan.G; ++g) {
+      for (int lane = 0; lane < 32; ++lane) {
+        const ParamJob bj = param_job<H>(L, g, lane, 0), uj = param_job<H>(L, g, lane, 1);
+        const int b0 = lane / per * per, u0 = lane / H * H;
+        param_accumulate(recs.data(), stride, b0, std::min(b0 + per, valid), bj.x, bj.y,
+                         blocks[g * 32 + lane]);
+        param_accumulate(recs.data(), stride, u0, std::min(u0 + H, valid), uj.x, uj.y,
+                         units[g * 32 + lane]);
+      }
+    }
+  }
+  for (int g = 0; g < plan.G; ++g) {
+    for (int lane = 0; lane < 32; ++lane) {
+      const ParamJob bj = param_job<H>(L, g, lane, 0), uj = param_job<H>(L, g, lane, 1);
+      for (int e = 0; e < ParamSums<M, N>::kEntries; ++e) {
+        const int leaf = param_leaf<H, M, N>(bj, e);
+        if (leaf < 0) continue;
+        float sum = 0.f;
+        for (int p = 0; p < plan.S; ++p) sum += param_entry(blocks[g * 32 + lane + p * per], e);
+        out[leaf] = sum;
+      }
+      for (int e = 0; e < ParamUnitSums::kEntries; ++e) {
+        const int leaf = param_leaf<H, 1, 4>(uj, e);
+        if (leaf < 0) continue;
+        float sum = 0.f;
+        for (int p = 0; p < param_unit_shares(H); ++p) {
+          sum += param_entry(units[g * 32 + lane + p * H], e);
+        }
+        out[leaf] = sum;
+      }
     }
   }
 }
 
+// the leaf of every entry of every lane's block and unit in every group (-1
+// for none), the plan (S, G) into plan_out; returns the count of entries
 template <int H>
-static void param_leaves(int L, int* leaf) {
-  for (int j = 0; j < n_param_jobs<H>(L); ++j) {
-    for (int e = 0; e < 20; ++e) leaf[20 * j + e] = param_leaf<H>(j, L, e);
+static int param_leaves(int L, int* leaf, int* plan_out) {
+  constexpr int M = ParamBlock<H>::M, N = ParamBlock<H>::N;
+  const ParamPlan plan = param_plan<H>(L);
+  plan_out[0] = plan.S;
+  plan_out[1] = plan.G;
+  int n = 0;
+  for (int g = 0; g < plan.G; ++g) {
+    for (int lane = 0; lane < 32; ++lane) {
+      const ParamJob bj = param_job<H>(L, g, lane, 0), uj = param_job<H>(L, g, lane, 1);
+      for (int e = 0; e < ParamSums<M, N>::kEntries; ++e) leaf[n++] = param_leaf<H, M, N>(bj, e);
+      for (int e = 0; e < ParamUnitSums::kEntries; ++e) leaf[n++] = param_leaf<H, 1, 4>(uj, e);
+    }
   }
+  return n;
 }
 
 #define BY_WIDTH(call) \\
@@ -236,18 +267,19 @@ void host_adjoint_one_pass(int H, const float* a_seq, const float* g_out, const 
 }
 
 void host_param_cotangents(int H, const float* a, const float* log_r, const float* G, int B,
-                           int T, const float* w, int L, float* out, float* rows) {
-#define CALL(h) param_cotangents<h>(a, log_r, G, B, T, w, L, out, rows)
+                           int T, const float* w, int L, float* out) {
+#define CALL(h) param_cotangents<h>(a, log_r, G, B, T, w, L, out)
   BY_WIDTH(CALL)
 #undef CALL
 }
 
-// the leaf of every job's 20 entries (-1 for none), and the counts
-int host_param_leaves(int H, int L, int* leaf) {
+// the leaf of every entry of the plan's jobs (param_leaves), the plan (S, G)
+// into plan_out; returns the count of entries
+int host_param_leaves(int H, int L, int* leaf, int* plan_out) {
   switch (H) {
-    case 4: param_leaves<4>(L, leaf); return n_param_leaves<4>(L) * 1000 + n_param_jobs<4>(L);
-    case 8: param_leaves<8>(L, leaf); return n_param_leaves<8>(L) * 1000 + n_param_jobs<8>(L);
-    case 16: param_leaves<16>(L, leaf); return n_param_leaves<16>(L) * 1000 + n_param_jobs<16>(L);
+    case 4: return param_leaves<4>(L, leaf, plan_out);
+    case 8: return param_leaves<8>(L, leaf, plan_out);
+    case 16: return param_leaves<16>(L, leaf, plan_out);
   }
   return -1;
 }
@@ -276,8 +308,8 @@ def lib(tmp_path_factory):
     out.host_fwd_lanes.argtypes = [i, i, i] + [vp] * 7 + [i, i, vp]
     out.host_adjoint_two_pass.argtypes = [i] + [vp] * 9 + [i, i, vp, i]
     out.host_adjoint_one_pass.argtypes = [i] + [vp] * 8 + [i, i, vp, i]
-    out.host_param_cotangents.argtypes = [i] + [vp] * 3 + [i, i, vp, i, vp, vp]
-    out.host_param_leaves.argtypes = [i, i, vp]
+    out.host_param_cotangents.argtypes = [i] + [vp] * 3 + [i, i, vp, i, vp]
+    out.host_param_leaves.argtypes = [i, i, vp, vp]
     return out
 
 
@@ -372,35 +404,32 @@ def test_train_lanes_follow_the_lane_table():
     assert built == {(h, n, k) for h, n in fc.TRAIN_FAMILIES for k in fc.nxh_lane_counts(h)}
 
 
-@pytest.mark.parametrize("n_layers", [1, 2])
-@pytest.mark.parametrize("width", [4, 8, 16])
-def test_host_param_pass_matches_autograd(lib, n_layers, width):
-    """Pass 3's arithmetic on the host: param_sample (one sample's forward at
-    a and its backward from dy = -G) at every sample, its outer products
-    summed by the kernel's jobs (param_job, param_accumulate) and placed by
-    param_leaf, against torch.autograd of the plain MLP (mlp_param_vjp_plain)
-    on random roots and streams, every leaf within 2e-5 of its largest
-    magnitude (float32 sums over 3 x 67 samples in another order); the jobs'
-    entries fall on every leaf exactly once."""
+def _host_param_pass(lib, n_layers, width, seed):
+    """Pass 3 on the host (host_param_cotangents) against autograd of the
+    plain MLP (mlp_param_vjp_plain) on a random root and streams of 3 x 67
+    samples, every leaf within 2e-5 of its largest magnitude (float32 sums
+    over 3 x 67 samples in another order); the jobs' entries fall on every
+    leaf exactly once.  Returns the plan (S, G)."""
     b, t = 3, 67
     mlp = NeuralDiodeRoot(name="dp", n_layers=n_layers, layer_size=width).init_params(
-        "cpu", torch.Generator().manual_seed(31 * width + n_layers))["dp"]
+        "cpu", torch.Generator().manual_seed(seed))["dp"]
     H, L, w = fc.train_weights(mlp, torch.device("cpu"))
-    rng = np.random.default_rng(width + 10 * n_layers)
+    rng = np.random.default_rng(seed)
     a_seq = torch.from_numpy(rng.uniform(-3.0, 3.0, (b, t)).astype(np.float32))
     log_r = torch.from_numpy(rng.uniform(6.5, 8.5, b).astype(np.float32))
     G = torch.from_numpy(rng.standard_normal((b, t)).astype(np.float32))
-    leaves = ct.mlp_leaves(mlp)
-    n = sum(x.numel() for x in leaves)
-    jobs = 2 * (H // 4) + L * (H // 4) ** 2
-    leaf = torch.empty(20 * jobs, dtype=torch.int32)
-    assert lib.host_param_leaves(H, L, leaf.data_ptr()) == n * 1000 + jobs
-    placed = leaf[leaf >= 0]
+    n = sum(x.numel() for x in ct.mlp_leaves(mlp))
+    leaf = torch.empty(4 * 32 * 64, dtype=torch.int32)  # up to 4 groups of 64 entries a lane
+    plan = torch.empty(2, dtype=torch.int32)
+    entries = lib.host_param_leaves(H, L, leaf.data_ptr(), plan.data_ptr())
+    shares, groups = plan.tolist()
+    block = 4 * min(H, 8) + min(H, 8)  # 4 x N products and the N sums of d beside them
+    assert entries == groups * 32 * (block + 8)
+    placed = leaf[:entries][leaf[:entries] >= 0]
     assert sorted(placed.tolist()) == list(range(n))
     out = torch.full((n,), float("nan"))
-    rows = torch.empty(2 * (L + 1) * b * t * H)
     lib.host_param_cotangents(H, a_seq.data_ptr(), log_r.data_ptr(), G.data_ptr(), b, t,
-                              w.data_ptr(), L, out.data_ptr(), rows.data_ptr())
+                              w.data_ptr(), L, out.data_ptr())
     want = ct.mlp_param_vjp_plain(mlp, ("tanh",) * (L + 1) + ("linear",), a_seq, log_r, G)
     got = [x.view(y.shape) for x, y in zip(out.split([y.numel() for y in want]), want)]
     for k, (g, y) in enumerate(zip(got, want)):
@@ -408,3 +437,43 @@ def test_host_param_pass_matches_autograd(lib, n_layers, width):
         scale = float(y.abs().max())
         np.testing.assert_allclose((g / scale).numpy(), (y / scale).numpy(), atol=2e-5, rtol=0,
                                    err_msg=f"leaf {k}")
+    return shares, groups
+
+
+@pytest.mark.parametrize("n_layers", [1, 2])
+@pytest.mark.parametrize("width", [4, 8, 16])
+def test_host_param_pass_matches_autograd(lib, n_layers, width):
+    """Pass 3's arithmetic on the host: param_sample (one sample's forward at
+    a and its backward from dy = -G) at every sample into its record, the
+    outer products summed by every lane's block and unit (param_job, each over
+    its share of a tile of 32 samples, param_accumulate), the shares added
+    and placed by param_leaf, against torch.autograd of the plain MLP
+    (mlp_param_vjp_plain): every leaf within 2e-5 of its largest magnitude,
+    the jobs' entries on every leaf exactly once, in one group."""
+    assert _host_param_pass(lib, n_layers, width, 31 * width + n_layers)[1] == 1
+
+
+@pytest.mark.parametrize("n_layers,width,groups", [(3, 16, 1), (5, 16, 2), (3, 8, 1), (33, 4, 2)])
+def test_host_param_pass_outside_the_families(lib, n_layers, width, groups):
+    """Pass 3 takes every L at H = 4, 8, 16, not only the lane kernel's
+    families: where the blocks do not fill the lanes evenly some lanes repeat
+    a sum that is not kept (3x16, 3x8), and where they outnumber the lanes the
+    plan splits them into groups, each running the samples again (5x16,
+    33x4); the cotangents still match autograd within 2e-5 of scale."""
+    assert _host_param_pass(lib, n_layers, width, 7 * width + n_layers)[1] == groups
+
+
+def test_param_plan_balances_the_lanes(lib):
+    """At the lane kernel's families every lane of a warp holds one block of
+    the hidden layers' entries (4 x 8, 4 x 4 at H = 4) and no lane repeats
+    another's: the blocks times the lanes that share each (S, each over 32 /
+    S samples of a tile) make 32, in one group."""
+    leaf = torch.empty(4 * 32 * 64, dtype=torch.int32)
+    plan = torch.empty(2, dtype=torch.int32)
+    want = {(16, 1): 4, (16, 2): 2, (8, 2): 8, (8, 4): 4, (4, 2): 16, (4, 4): 8}
+    assert sorted(want) == sorted(fc.TRAIN_FAMILIES)
+    for (h, n_layers), shares in want.items():
+        lib.host_param_leaves(h, n_layers, leaf.data_ptr(), plan.data_ptr())
+        assert plan.tolist() == [shares, 1], (h, n_layers)
+        blocks = n_layers * (h // 4) * (h // min(h, 8))
+        assert blocks * shares == 32, (h, n_layers)

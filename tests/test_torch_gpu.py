@@ -20,9 +20,12 @@ every family; the CPU tests hold the passes to a one-pass step's bits on the
 host); B4's pass 3 (the
 clipper's MLP parameter cotangents) within 1e-4 of the largest magnitude
 of each leaf of autograd of the plain MLP at every family and B x T in
-{1, 7, 1,000} x {1, 129, 2,048}, the same bits on two calls, one count a
-call, the whole fused op's gradients within 2e-5 (scaled) of the same op
-on the CPU, an unsupported width or root raising; the Tube Screamer 2x16's
+{1, 7, 1,000} x {1, 129, 2,048} and on ragged walks (B = 1 at 45 and
+100,003 samples, 3 x 333) at every family and at 3x16, 5x16, 3x8 and 33x4
+(two groups of the plan for the last two), the same bits on two
+calls, one count a call, the whole fused op's gradients within 2e-5
+(scaled) of the same op on the CPU, an unsupported width or root raising;
+the Tube Screamer 2x16's
 parameter pass on B4's pass 3 (B8 writing the root's a and G) at 1,024 and
 8,192 x 2,048 within 5e-4 per root leaf of the autograd pass over the same
 lam (scaled, the median leaf the floor), the same bits on two steps, one
@@ -368,6 +371,39 @@ def test_param_pass_matches_plain(cuda, n_layers, width):
                 _close_scaled(g, w, 1e-4)
     assert ct.mlp_param_vjp.launches == calls
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_layers,width", FAMILIES + [(3, 16), (5, 16), (3, 8), (33, 4)])
+@pytest.mark.parametrize("b,t", [(1, 45), (1, 100003), (3, 333)])
+def test_param_pass_ragged_walks(cuda, n_layers, width, b, t):
+    """B4's pass 3 where the warps' walk is ragged: N not a multiple of 32
+    (B = 1 and fewer tiles than the grid's warps; one stream of 100,003
+    samples, some warps a tile more than others; three rows of 333), at
+    every family and at L outside them (3x16 and 3x8 in one group of the
+    plan, 5x16 and 33x4 in two): each leaf within 1e-4 of its largest
+    magnitude of autograd of the plain MLP in float64 (a sample missed or
+    taken twice moves a leaf by a whole term), the same bits on two calls,
+    one count of B4.pass3 a call.  G is shifted by 1 so that no leaf is a
+    sum that cancels: the head bias is the sum of -G, and at 3 x 333 the
+    unshifted G sums to 0.072 against 804 for its magnitudes, where float32
+    rounding in any order (autograd's too) is up to 2% of the sum."""
+    from diffwdf_tpu_torch.runtime import profiler
+
+    acts = ("tanh",) * (n_layers + 1) + ("",)
+    mlp, a_seq, log_r, G = _param_inputs(cuda, n_layers, width, b, t, seed=n_layers + b + t)
+    G = G + 1.0
+    before = profiler.counters()["B4.pass3"]
+    got = ct.mlp_param_vjp(mlp, acts, a_seq, log_r, G)
+    again = ct.mlp_param_vjp(mlp, acts, a_seq, log_r, G)
+    assert profiler.counters()["B4.pass3"] - before == 2
+    exact = {"layers": [{k: v.double() for k, v in layer.items()} for layer in mlp["layers"]]}
+    want = ct.mlp_param_vjp_plain(exact, acts, a_seq.double(), log_r.double(), G.double())
+    torch.cuda.synchronize()
+    for g, g2, w in zip(got, again, want):
+        assert torch.equal(g, g2)
+        assert bool(torch.isfinite(g).all())
+        _close_scaled(g.double(), w, 1e-4)
 
 @pytest.mark.gpu
 def test_fused_train_op_backward_matches_plain_op(cuda):
